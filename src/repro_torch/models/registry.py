@@ -1,0 +1,91 @@
+"""Uniform model API (dense family so far).
+
+The counterpart of ``repro/models/registry.py``.  ``params`` in the
+reference's calling convention is the port's ``nn.Module``:
+
+  api.init(seed, device=)                    -> model with seeded weights
+  api.load(state_dict, device=)              -> model with given weights
+  api.logits(params, batch)                  -> logits
+  api.init_cache(batch_size, seq_len, device=) -> cache dict
+  api.decode_step(params, cache, tok, pos)   -> (logits, cache)
+  api.prefill(params, cache, tokens)         -> (logits, cache)
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import dense
+from repro_torch.models.common import Param
+
+__all__ = ["ModelApi", "build_api"]
+
+
+def _leaves(tree):
+    if isinstance(tree, Param):
+        yield tree
+    else:
+        for sub in tree.values():
+            yield from _leaves(sub)
+
+
+@dataclasses.dataclass
+class ModelApi:
+    arch_id: str
+    cfg: Any
+    family: str
+    _module: Any
+
+    # -- params ---------------------------------------------------------
+    def schema(self):
+        return self._module.schema(self.cfg)
+
+    def param_count(self) -> int:
+        return int(sum(math.prod(p.shape) for p in _leaves(self.schema())))
+
+    def init(self, seed: int = 0, *, device=None) -> torch.nn.Module:
+        """Weights drawn from a ``torch.Generator`` seeded with ``seed`` on
+        ``device`` (default cuda)."""
+        device = resolve_device(device)
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        return self._module.DenseModel(self.cfg, device=device, generator=generator)
+
+    def load(self, state_dict: Dict[str, torch.Tensor], *, device=None) -> torch.nn.Module:
+        """A model holding ``state_dict`` (e.g. from :mod:`repro_torch.bridge`)."""
+        model = self._module.DenseModel(self.cfg, device=resolve_device(device))
+        model.load_state_dict(state_dict, strict=True)
+        return model
+
+    # -- forward --------------------------------------------------------
+    def logits(self, params, batch: Dict[str, Any]) -> torch.Tensor:
+        return params(batch["tokens"])
+
+    # -- serving --------------------------------------------------------
+    def init_cache(self, batch: int, seq_len: int, dtype=None, *, device=None):
+        # None defers to the config's compute dtype, which is what
+        # decode_step writes into the cache.
+        return self._module.init_cache(
+            self.cfg, batch, seq_len, dtype, device=resolve_device(device)
+        )
+
+    def decode_step(self, params, cache, tokens, pos):
+        return params.decode_step(cache, tokens, pos)
+
+    def supports_prefill(self) -> bool:
+        """True if the family has a fused full-sequence prefill (one forward
+        pass fills the KV cache); otherwise callers step the decode loop."""
+        return hasattr(self._module.DenseModel, "prefill")
+
+    def prefill(self, params, cache, tokens):
+        """Fused prompt ingestion: (logits (B, S, V), cache at pos=S)."""
+        return params.prefill(cache, tokens)
+
+
+def build_api(arch_id: str, cfg: Any) -> ModelApi:
+    if isinstance(cfg, dense.DenseConfig):
+        return ModelApi(arch_id, cfg, cfg.family, dense)
+    raise TypeError(f"config type {type(cfg).__name__} is not ported yet")
