@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check its kernel.
+"""Drive the PyTorch port's paths on one CUDA card and check its kernels.
 
 Run from the repository root with no arguments::
 
@@ -7,32 +7,53 @@ Run from the repository root with no arguments::
 
 Phases, each of which fails the run:
 
-1. device  — the card's name and power limit (``nvidia-smi``).
-2. build   — compile ``csrc/flash_attention.cu`` for sm_90a into
-             ``build/kernels/`` and print the build seconds and ptxas report.
-3. kernel  — the flash-attention kernel against its plain PyTorch version on
-             the card at the serving path's shapes (bf16 max abs error
-             <= 1e-2: one output rounding plus another sum order; f32
-             <= 1e-5), with the kernel's, the plain version's and
-             ``scaled_dot_product_attention``'s times (CUDA events) beside
-             the card's bound for the same work.
-4. model   — full-width olmo-1b in float32 with seeded random weights:
-             fused prefill of 128 tokens (through the kernel) against the
-             stepped decode loop (plain decode attention), logits and cache
-             K/V within 1e-3.
-5. serving — full-width olmo-1b in bf16 under ``ServingRuntime`` with the
-             OptPerf allocator over two nodes and ``RealServingEngine``:
-             16 seeded requests, all completed, none dropped, every token
-             inside the vocab, two undisturbed requests equal to a direct
-             greedy decode, and one kernel launch per layer per prefill.
+1. device        — the card's name and power limit (``nvidia-smi``).
+2. build         — compile every ``csrc/*.cu`` of the port for sm_90a into
+                   ``build/kernels/``, one ``nvcc`` per source, all started
+                   together; print the build seconds and ptxas report.
+3. kernel        — the flash-attention kernel against its plain PyTorch
+                   version on the card at the serving path's shapes (bf16
+                   max abs error <= 1e-2: one output rounding plus another
+                   sum order; f32 <= 1e-5), with the kernel's, the plain
+                   version's and ``scaled_dot_product_attention``'s times
+                   (CUDA events) beside the card's bound for the same work.
+4. kernel (wkv)  — the WKV kernel against its plain (chunked) version, all
+                   float32 with K=64, out and final state within
+                   1e-4 * max(1, max |plain|): float32 sums in another order
+                   through decay factors up to exp(chunk * 4.6 / 2).
+5. model         — full-width olmo-1b in float32 with seeded random weights:
+                   fused prefill of 128 tokens (through the kernel) against
+                   the stepped decode loop (plain decode attention), logits
+                   and cache K/V within 1e-3.
+6. serving       — full-width olmo-1b in bf16 under ``ServingRuntime`` with
+                   the OptPerf allocator over two nodes and
+                   ``RealServingEngine``: 16 seeded requests, all completed,
+                   none dropped, every token inside the vocab, two
+                   undisturbed requests equal to a direct greedy decode, and
+                   one kernel launch per layer per prefill.
+7. model (rwkv6) — full-width rwkv6-7b in float32 with seeded random
+                   weights: the forward over 128 tokens launches the WKV
+                   kernel once per layer and its logits equal the stepped
+                   decode loop's (plain recurrence) within 1e-3.
+8. serving (rwkv6) — full-width rwkv6-7b in bf16 under ``ServingRuntime``:
+                   8 seeded requests whose prompts step the decode loop, as
+                   the reference's engine does for a family with no fused
+                   prefill; all completed, none dropped, tokens inside the
+                   vocab, two undisturbed requests equal to a direct greedy
+                   decode; then the per-call times of a 1024-token forward
+                   and a decode step, and their device time and idle share
+                   under ``torch.profiler``.
 
-The last three lines of standard output are the card line from
-``nvidia-smi``, a JSON line describing the kernel, and
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
-repository beside it, the script exits non-zero and prints no result.
+The launch counts are set to 0 just before each model's path (phases 5-6
+for olmo-1b, 7-8 for rwkv6-7b) and read just after it.  The last three
+lines of standard output are the card line from ``nvidia-smi``, a JSON line
+describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
+CUDA card, or without the repository beside it, the script exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -49,6 +70,9 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # tensor-core bf16; f32 off the ten
 REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:85"
 SOURCE_REL = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MAIN_CASE = "olmo-1b S=512"            # the kernel line's shape: a typical prompt
+WKV_REPLACES = "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:86"
+WKV_SOURCE_REL = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu"
+WKV_MAIN_CASE = "rwkv6-7b T=1024"      # the forward's shape at 1024 tokens
 
 # name, B, S, H, KV, dtype, window (all causal self-attention, D = 128)
 KERNEL_CASES = [
@@ -60,6 +84,15 @@ KERNEL_CASES = [
     ("f32 S=T=300", 1, 300, 16, 16, "f32", None),
 ]
 TOL = {"bf16": 1e-2, "f32": 1e-5}
+# name, B, T, H, chunk (float32, K = 64)
+WKV_CASES = [
+    ("rwkv6-7b T=1024", 1, 1024, 64, 32),
+    ("T=128", 1, 128, 64, 32),
+    ("ragged T=300", 1, 300, 64, 32),
+    ("B=4 T=256", 4, 256, 64, 32),
+    ("chunk 64 T=1024", 1, 1024, 64, 64),
+]
+WKV_REL = 1e-4
 DEVICE = "cuda"
 
 
@@ -94,6 +127,29 @@ def host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def device_split(torch, fn, calls: int, wall_ms: float, kernel: str):
+    """Device milliseconds per call (kernel time under ``torch.profiler``),
+    the named kernel's part of it, and the device's idle share of
+    ``wall_ms``, the unprofiled host time per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = named = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            device += evt.self_device_time_total
+            if kernel in evt.key:
+                named += evt.self_device_time_total
+    device_ms, named_ms = device / 1e3 / calls, named / 1e3 / calls
+    if device_ms <= 0.0:
+        raise RuntimeError("the profiler recorded no device time")
+    return device_ms, named_ms, 1.0 - device_ms / wall_ms
+
+
 def attention_bound(b, s, h, kv, d, dtype, window):
     """Least time for one causal attention call: q, k, v read once and o
     written once over the memory rate, or the products over the valid
@@ -126,13 +182,17 @@ def phase_device():
 
 def phase_build():
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
-    res = build.build(ops.SOURCE)
-    log("build", f"{res.path.name}: {res.seconds:.2f} s")
-    for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("build", line.strip())
+    sources = [flash_ops.SOURCE, wkv_ops.SOURCE]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        results = list(pool.map(build.build, sources))
+    for res in results:
+        log("build", f"{res.path.name}: {res.seconds:.2f} s")
+        for line in res.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log("build", line.strip())
 
 
 def phase_kernel(torch):
@@ -184,6 +244,71 @@ def phase_kernel(torch):
     return rows
 
 
+def wkv_bound(b, t, h, k):
+    """Least time for one WKV call: r, k, v, log_w read once, out written
+    once, plus u and the final state (float32), over the memory rate; or
+    the sequential recurrence's 4 K^2 operations per token and head over
+    the float32 rate."""
+    nbytes = 4 * (5 * b * t * h * k + h * k + b * h * k * k)
+    flops = 4 * k * k * b * t * h
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def phase_kernel_wkv(torch):
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_chunked
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    k = 64
+    rows = {}
+    for name, b, t, h, chunk in WKV_CASES:
+        def rand(shape, scale):
+            return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+        r, kk, v = (rand((b, t, h, k), 0.5) for _ in range(3))
+        lw = -torch.exp(rand((b, t, h, k), 1.0))
+        u = rand((h, k), 0.2)
+        out, state = wkv(r, kk, v, lw, u, chunk=chunk)
+        torch.cuda.synchronize()
+        ref_out, ref_state = wkv_chunked(r, kk, v, lw, u, chunk=chunk)
+        errs = {}
+        for key, got, want in (("out", out, ref_out), ("state", state, ref_state)):
+            tol = WKV_REL * max(1.0, want.abs().max().item())
+            errs[key] = (got - want).abs().max().item()
+            if not errs[key] <= tol:
+                raise AssertionError(f"wkv {name}: {key} max abs err {errs[key]:.3e} > {tol:.3e}")
+        ms = cuda_ms(torch, lambda: wkv(r, kk, v, lw, u, chunk=chunk), 20)
+        plain_ms = cuda_ms(torch, lambda: wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3)
+        bound_ms, bound_by = wkv_bound(b, t, h, k)
+        err = max(errs.values())
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        log("kernel", f"wkv {name} B={b} H={h} K={k} chunk={chunk} f32: "
+            f"max_abs_err out={errs['out']:.3e} state={errs['state']:.3e} "
+            f"(tol {WKV_REL:.0e} x max(1, max|plain|) = {WKV_REL * max(1.0, ref_out.abs().max().item()):.3e}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"of_bound={bound_ms / ms:.4f}")
+        del r, kk, v, lw, out, state, ref_out, ref_state
+    return rows
+
+
+def reset_launches():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_wkv import wkv
+
+    flash_attention.launches = 0
+    wkv.launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_wkv import wkv
+
+    return {"flash_attention": flash_attention.launches, "rwkv6_wkv": wkv.launches}
+
+
 def phase_model(torch):
     from repro_torch.configs import olmo_1b
     from repro_torch.kernels.flash_attention import flash_attention
@@ -223,15 +348,8 @@ def phase_model(torch):
     del model, fused, stepped
 
 
-def phase_serving(torch):
-    from repro_torch.configs import get_api
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.serving import (
-        RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
-        generate_requests,
-    )
-
-    class Recording(RealServingEngine):
+def recording(base):
+    class Recording(base):
         """Keeps each request's token stream when it leaves a node."""
 
         def __init__(self, *args, **kw):
@@ -242,6 +360,56 @@ def phase_serving(torch):
             self.streams[ar.rid] = list(ar.tokens)
             super().release(ar)
 
+    return Recording
+
+
+def serving_summary(torch, name, rep, wall, counts):
+    summ = rep.summary
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log("serving", f"{name} sustained_req_s={summ['sustained_req_s']:.4f} "
+        f"token_throughput_s={summ['token_throughput_s']:.2f} "
+        f"token_latency_s p50={summ['token_latency']['p50']:.5f} "
+        f"p99={summ['token_latency']['p99']:.5f} "
+        f"ttft_s p50={summ['ttft']['p50']:.5f} p99={summ['ttft']['p99']:.5f} "
+        f"elapsed_s={summ['elapsed_s']:.4f} peak_mem_gb={peak_gb:.3f} wall_s={wall:.3f} "
+        f"allocations={rep.allocations} refits={rep.counters['refits']} launches={counts}")
+
+
+def check_streams(torch, api, model, engine, rt, wl, max_len):
+    """Every stream has its length and stays inside the vocab; two requests
+    served without a requeue equal a direct greedy decode."""
+    from repro_torch.serving import prefill_cache
+
+    vocab = api.cfg.vocab
+    for req in wl:
+        stream = engine.streams[req.rid]
+        if len(stream) != req.gen_len or not all(0 <= t < vocab for t in stream):
+            raise AssertionError(f"request {req.rid}: bad stream {stream}")
+    undisturbed = [r for r in rt.metrics.records() if r.requeues == 0][:2]
+    for rec in undisturbed:
+        req = next(r for r in wl if r.rid == rec.rid)
+        cache = api.init_cache(1, max_len, device=DEVICE)
+        prompt = torch.as_tensor(req.prompt_tokens(vocab)[None, :], device=DEVICE)
+        logits, cache = prefill_cache(api, model, cache, prompt)
+        toks = [int(logits[0, -1].argmax())]
+        for pos in range(req.prompt_len, req.prompt_len + req.gen_len - 1):
+            last = torch.tensor([[toks[-1]]], device=DEVICE)
+            logits, cache = api.decode_step(model, cache, last, pos)
+            toks.append(int(logits[0, -1].argmax()))
+        if toks != engine.streams[req.rid]:
+            raise AssertionError(f"request {req.rid}: served stream differs from direct decode")
+    return [r.rid for r in undisturbed]
+
+
+def phase_serving(torch):
+    from repro_torch.configs import get_api
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving import (
+        RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
+        generate_requests,
+    )
+
+    Recording = recording(RealServingEngine)
     api = get_api("olmo-1b")
     cfg = api.cfg
     model = api.init(0, device=DEVICE)
@@ -262,50 +430,26 @@ def phase_serving(torch):
     rt = ServingRuntime(engine, alloc, wl, nodes=[0, 1],
                         config=ServingConfig(total_slots=8, resolve_every=1.0))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     rep = rt.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    counts = read_launches()
+    launches = counts["flash_attention"]
 
     summ = rep.summary
     prefills = rep.counters["admitted"]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log("serving", f"olmo-1b bf16 full width, 2 nodes, 8 slots, max_len 2048: "
         f"completed={summ['completed']}/{summ['requests']} dropped={summ['dropped']} "
         f"requeues={summ['requeues']} prefills={prefills} kernel_launches={launches}")
-    log("serving", f"sustained_req_s={summ['sustained_req_s']:.4f} "
-        f"token_throughput_s={summ['token_throughput_s']:.2f} "
-        f"token_latency_s p50={summ['token_latency']['p50']:.5f} "
-        f"p99={summ['token_latency']['p99']:.5f} "
-        f"ttft_s p50={summ['ttft']['p50']:.5f} p99={summ['ttft']['p99']:.5f} "
-        f"elapsed_s={summ['elapsed_s']:.4f} peak_mem_gb={peak_gb:.3f} wall_s={wall:.3f} "
-        f"allocations={rep.allocations} refits={rep.counters['refits']}")
+    serving_summary(torch, "olmo-1b", rep, wall, counts)
     if summ["completed"] != 16 or summ["dropped"] != 0:
         raise AssertionError(f"served {summ['completed']}/16 with {summ['dropped']} dropped")
-    if launches != cfg.n_layers * prefills:
-        raise AssertionError(f"{launches} kernel launches != {cfg.n_layers} x {prefills} prefills")
-    for req in wl:
-        stream = engine.streams[req.rid]
-        if len(stream) != req.gen_len or not all(0 <= t < cfg.vocab for t in stream):
-            raise AssertionError(f"request {req.rid}: bad stream {stream}")
-
-    # Two requests served without a requeue must equal a direct greedy decode.
-    undisturbed = [r for r in rt.metrics.records() if r.requeues == 0][:2]
-    for rec in undisturbed:
-        req = next(r for r in wl if r.rid == rec.rid)
-        cache = api.init_cache(1, 2048, device=DEVICE)
-        prompt = torch.as_tensor(req.prompt_tokens(cfg.vocab)[None, :], device=DEVICE)
-        logits, cache = api.prefill(model, cache, prompt)
-        toks = [int(logits[0, -1].argmax())]
-        for pos in range(req.prompt_len, req.prompt_len + req.gen_len - 1):
-            last = torch.tensor([[toks[-1]]], device=DEVICE)
-            logits, cache = api.decode_step(model, cache, last, pos)
-            toks.append(int(logits[0, -1].argmax()))
-        if toks != engine.streams[req.rid]:
-            raise AssertionError(f"request {req.rid}: served stream differs from direct decode")
-    log("serving", f"requests {[r.rid for r in undisturbed]} equal a direct greedy decode")
+    if launches != cfg.n_layers * prefills or counts["rwkv6_wkv"]:
+        raise AssertionError(f"launches {counts} != {cfg.n_layers} x {prefills} prefills")
+    rids = check_streams(torch, api, model, engine, rt, wl, 2048)
+    log("serving", f"requests {rids} equal a direct greedy decode")
 
     # What one tick is made of: a prefill, a decode step, and the kernel's share.
     s = 256
@@ -319,7 +463,117 @@ def phase_serving(torch):
     log("serving", f"per call: prefill({s} tokens) {prefill_ms:.3f} ms, of which the kernel "
         f"{cfg.n_layers} x {kernel_ms:.4f} ms = {cfg.n_layers * kernel_ms / prefill_ms:.1%}; "
         f"decode_step at pos {s} {decode_ms:.3f} ms")
-    return launches
+    for name, fn, wall_ms in (("prefill", lambda: api.prefill(model, cache, prompt), prefill_ms),
+                              ("decode_step", lambda: api.decode_step(model, cache, last, s),
+                               decode_ms)):
+        dev, named, idle = device_split(torch, fn, 3, wall_ms, "flash_fwd_kernel")
+        log("serving", f"profile olmo-1b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
+            f"(idle share {idle:.4f}), flash kernel {named:.3f} ms")
+    return counts
+
+
+def phase_model_rwkv6(torch):
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(
+        rwkv6_7b.config(), param_dtype=torch.float32, compute_dtype=torch.float32)
+    api = build_api("rwkv6-7b", cfg)
+    model = api.init(0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    s = 128
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
+    before = read_launches()["rwkv6_wkv"]
+    full = api.logits(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    launched = read_launches()["rwkv6_wkv"] - before
+    if launched != cfg.n_layers:
+        raise AssertionError(f"the forward launched the WKV kernel {launched} times, "
+                             f"not once per layer ({cfg.n_layers})")
+    cache = api.init_cache(1, s, device=DEVICE)
+    rows = []
+    for p in range(s):
+        lg, cache = api.decode_step(model, cache, toks[:, p : p + 1], p)
+        rows.append(lg)
+    stepped = torch.cat(rows, dim=1)
+    torch.cuda.synchronize()
+    if not torch.isfinite(full).all() or full.shape != (1, s, cfg.vocab):
+        raise AssertionError(f"forward logits: shape {tuple(full.shape)} or non-finite values")
+    err = (full - stepped).abs().max().item()
+    log("model", f"full rwkv6-7b f32 ({api.param_count()} params), forward over {s} tokens "
+        f"({launched} WKV launches) vs stepped decode: logits max abs err {err:.3e} "
+        f"(limit 1e-3); logits scale {stepped.abs().max().item():.3f}")
+    if not err <= 1e-3:
+        raise AssertionError(f"forward vs stepped logits: {err:.3e} > 1e-3")
+    del model, cache, full, stepped, rows
+
+
+def phase_serving_rwkv6(torch, wkv_ms):
+    from repro_torch.configs import get_api
+    from repro_torch.serving import (
+        RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
+        generate_requests,
+    )
+
+    api = get_api("rwkv6-7b")
+    cfg = api.cfg
+    model = api.init(0, device=DEVICE)
+    max_len = 256
+    wl = generate_requests(
+        8, seed=0, rate=4.0, prompt_min=16, prompt_mean=48, prompt_max=128,
+        gen_min=8, gen_mean=16, gen_max=32,
+    )
+    engine = recording(RealServingEngine)(api, model, max_len=max_len, device=DEVICE)
+
+    # Warm-up outside the counted run: cuBLAS handles.
+    warm = api.init_cache(1, max_len, device=DEVICE)
+    api.decode_step(model, warm, torch.zeros((1, 1), dtype=torch.long, device=DEVICE), 0)
+    torch.cuda.synchronize()
+    del warm
+
+    alloc = ServingAllocator({0: (0.01, 0.01), 1: (0.01, 0.01)}, total_slots=4, mode="optperf")
+    rt = ServingRuntime(engine, alloc, wl, nodes=[0, 1],
+                        config=ServingConfig(total_slots=4, resolve_every=1.0))
+    torch.cuda.reset_peak_memory_stats()
+    before = read_launches()
+    t0 = time.perf_counter()
+    rep = rt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = read_launches()
+    served = {k: after[k] - before[k] for k in after}
+
+    summ = rep.summary
+    log("serving", f"rwkv6-7b bf16 full width, 2 nodes, 4 slots, max_len {max_len}: "
+        f"completed={summ['completed']}/{summ['requests']} dropped={summ['dropped']} "
+        f"requeues={summ['requeues']} prefills={rep.counters['admitted']} "
+        f"(prompts step the decode loop; launches in this run {served})")
+    serving_summary(torch, "rwkv6-7b", rep, wall, served)
+    if summ["completed"] != 8 or summ["dropped"] != 0:
+        raise AssertionError(f"served {summ['completed']}/8 with {summ['dropped']} dropped")
+    if any(served.values()):
+        raise AssertionError(f"stepped prompt ingestion launched kernels: {served}")
+    rids = check_streams(torch, api, model, engine, rt, wl, max_len)
+    log("serving", f"rwkv6-7b requests {rids} equal a direct greedy decode")
+    counts = read_launches()
+
+    # What a forward and a tick are made of, and the kernel's share.
+    s = 1024
+    toks = torch.zeros((1, s), dtype=torch.long, device=DEVICE)
+    logits_ms = host_ms(torch, lambda: api.logits(model, {"tokens": toks}), 3, warmup=1)
+    cache = api.init_cache(1, max_len, device=DEVICE)
+    last = torch.zeros((1, 1), dtype=torch.long, device=DEVICE)
+    decode_ms = host_ms(torch, lambda: api.decode_step(model, cache, last, 0), 10)
+    log("serving", f"per call: rwkv6-7b bf16 api.logits({s} tokens) {logits_ms:.3f} ms, of which "
+        f"the WKV kernel {cfg.n_layers} x {wkv_ms:.4f} ms = "
+        f"{cfg.n_layers * wkv_ms / logits_ms:.1%}; decode_step {decode_ms:.3f} ms")
+    for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
+                              ("decode_step", lambda: api.decode_step(model, cache, last, 0),
+                               decode_ms)):
+        dev, named, idle = device_split(torch, fn, 3, wall_ms, "wkv_fwd_kernel")
+        log("serving", f"profile rwkv6-7b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
+            f"(idle share {idle:.4f}), WKV kernel {named:.3f} ms")
+    return counts
 
 
 def main() -> int:
@@ -339,29 +593,48 @@ def main() -> int:
         phase_build()
         phase = "kernel"
         rows = phase_kernel(torch)
+        phase = "kernel (wkv)"
+        wkv_rows = phase_kernel_wkv(torch)
         phase = "model"
         phase_model(torch)
         phase = "serving"
-        launches = phase_serving(torch)
+        olmo_counts = phase_serving(torch)
+        torch.cuda.empty_cache()
+        phase = "model (rwkv6)"
+        reset_launches()
+        phase_model_rwkv6(torch)
+        torch.cuda.empty_cache()
+        phase = "serving (rwkv6)"
+        rwkv6_counts = phase_serving_rwkv6(torch, wkv_rows[WKV_MAIN_CASE]["ms"])
+        log("serving", f"rwkv6-7b path launches {rwkv6_counts}")
+        if rwkv6_counts != {"flash_attention": 0, "rwkv6_wkv": 32}:
+            raise AssertionError("the rwkv6-7b path must launch the WKV kernel once per "
+                                 f"layer of its forward and nothing else: {rwkv6_counts}")
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
         return 1
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    main_row = rows[MAIN_CASE]
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": SOURCE_REL,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]
+    kernels = []
+    for name, source, replaces, main_row, launches in (
+        ("flash_attention", SOURCE_REL, REPLACES, rows[MAIN_CASE],
+         olmo_counts["flash_attention"]),
+        ("rwkv6_wkv", WKV_SOURCE_REL, WKV_REPLACES, wkv_rows[WKV_MAIN_CASE],
+         rwkv6_counts["rwkv6_wkv"]),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": main_row["max_abs_err"],
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

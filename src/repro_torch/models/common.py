@@ -1,10 +1,10 @@
-"""Shared building blocks for the dense serving path (PyTorch).
+"""Shared building blocks of the ported model families (PyTorch).
 
 The counterpart of ``repro/models/common.py``, for the functions the dense
-model serves with.  Tensor layouts at every function are the reference's:
-activations ``(B, S, d)``, heads ``(B, S, H, D)``, caches stacked over
-layers ``(L, B, T, KV, D)``.  Norm and softmax statistics run in float32
-and results return in the input dtype, as in the reference.
+and rwkv6 models run with.  Tensor layouts at every function are the
+reference's: activations ``(B, S, d)``, heads ``(B, S, H, D)``, caches
+stacked over layers ``(L, B, T, KV, D)``.  Norm and softmax statistics run
+in float32 and results return in the input dtype, as in the reference.
 
 Full-sequence attention is not here: the port runs it through the Hopper
 flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`), whose
@@ -18,10 +18,12 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = [
     "Param",
     "init_param",
+    "new_parameter",
     "stacked",
     "rms_norm",
     "layer_norm",
@@ -55,7 +57,7 @@ def init_param(
 ) -> torch.Tensor:
     """One seeded leaf, with the reference's init laws (``common.py:52``).
     Draws in float32 on ``generator``'s device and casts, as the
-    reference casts after ``jax.random.normal``.  ``DenseModel`` draws
+    reference casts after ``jax.random.normal``.  Each model draws
     every leaf of its schema from one generator, the counterpart of the
     reference's ``init_from_schema``."""
     if p.init == "zeros":
@@ -71,6 +73,18 @@ def init_param(
         raise ValueError(f"unknown init {p.init!r}")
     x = torch.randn(p.shape, generator=generator, device=device, dtype=torch.float32)
     return (x * scale).to(dtype)
+
+
+def new_parameter(
+    p: Param, dtype: torch.dtype, device: torch.device, generator: Optional[torch.Generator]
+) -> nn.Parameter:
+    """A frozen parameter seeded from ``generator``, or left empty for a
+    state_dict to fill when ``generator`` is None."""
+    if generator is None:
+        t = torch.empty(p.shape, dtype=dtype, device=device)
+    else:
+        t = init_param(p, dtype, generator, device)
+    return nn.Parameter(t, requires_grad=False)
 
 
 def stacked(schema, n_layers: int):

@@ -34,6 +34,7 @@ __all__ = [
     "DenseModel",
     "layer_schema",
     "schema",
+    "MODEL",
     "cache_length",
     "init_cache",
 ]
@@ -111,12 +112,7 @@ def schema(cfg: DenseConfig) -> Dict[str, object]:
 
 
 def _param(p: Param, cfg: DenseConfig, device, generator) -> nn.Parameter:
-    """Seeded from ``generator``, or left empty for a state_dict to fill."""
-    if generator is None:
-        t = torch.empty(p.shape, dtype=cfg.param_dtype, device=device)
-    else:
-        t = common.init_param(p, cfg.param_dtype, generator, device)
-    return nn.Parameter(t, requires_grad=False)
+    return common.new_parameter(p, cfg.param_dtype, device, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +249,9 @@ class DenseModel(nn.Module):
             x = _layer(layer, x, positions, cfg, attend)
         cache["pos"] = pos + 1
         return self._logits(x), cache
+
+
+MODEL = DenseModel
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Uniform model API (dense family so far).
+"""Uniform model API over the ported families (dense, rwkv6).
 
-The counterpart of ``repro/models/registry.py``.  ``params`` in the
-reference's calling convention is the port's ``nn.Module``:
+The counterpart of ``repro/models/registry.py``.  Each family module names
+its ``nn.Module`` class as ``MODEL`` and provides ``schema`` and
+``init_cache``.  ``params`` in the reference's calling convention is the
+port's ``nn.Module``:
 
   api.init(seed, device=)                    -> model with seeded weights
   api.load(state_dict, device=)              -> model with given weights
@@ -19,7 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import dense
+from repro_torch.models import dense, rwkv6
 from repro_torch.models.common import Param
 
 __all__ = ["ModelApi", "build_api"]
@@ -52,11 +54,11 @@ class ModelApi:
         ``device`` (default cuda)."""
         device = resolve_device(device)
         generator = torch.Generator(device=device).manual_seed(int(seed))
-        return self._module.DenseModel(self.cfg, device=device, generator=generator)
+        return self._module.MODEL(self.cfg, device=device, generator=generator)
 
     def load(self, state_dict: Dict[str, torch.Tensor], *, device=None) -> torch.nn.Module:
         """A model holding ``state_dict`` (e.g. from :mod:`repro_torch.bridge`)."""
-        model = self._module.DenseModel(self.cfg, device=resolve_device(device))
+        model = self._module.MODEL(self.cfg, device=resolve_device(device))
         model.load_state_dict(state_dict, strict=True)
         return model
 
@@ -78,14 +80,23 @@ class ModelApi:
     def supports_prefill(self) -> bool:
         """True if the family has a fused full-sequence prefill (one forward
         pass fills the KV cache); otherwise callers step the decode loop."""
-        return hasattr(self._module.DenseModel, "prefill")
+        return hasattr(self._module.MODEL, "prefill")
 
     def prefill(self, params, cache, tokens):
         """Fused prompt ingestion: (logits (B, S, V), cache at pos=S)."""
+        if not self.supports_prefill():
+            raise NotImplementedError(
+                f"{self.arch_id} ({self.family}) has no fused prefill; "
+                "use the stepped decode_step loop"
+            )
         return params.prefill(cache, tokens)
 
 
+FAMILIES = {dense.DenseConfig: dense, rwkv6.RWKV6Config: rwkv6}
+
+
 def build_api(arch_id: str, cfg: Any) -> ModelApi:
-    if isinstance(cfg, dense.DenseConfig):
-        return ModelApi(arch_id, cfg, cfg.family, dense)
-    raise TypeError(f"config type {type(cfg).__name__} is not ported yet")
+    module = FAMILIES.get(type(cfg))
+    if module is None:
+        raise TypeError(f"config type {type(cfg).__name__} is not ported yet")
+    return ModelApi(arch_id, cfg, cfg.family, module)

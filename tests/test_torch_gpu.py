@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 Every test here needs a CUDA card and skips without one; on the card run
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import wkv, wkv_chunked  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -66,3 +67,72 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device, d, dtype):
     q = torch.zeros(1, 8, 2, d, device=cuda_device, dtype=dtype)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+# WKV: float32 through decay factors up to exp(chunk * 4.6 / 2) and sums in
+# another order; max abs err <= 1e-4 * max(1, max |plain|), out and state.
+WKV_REL = 1e-4
+WKV_CASES = [
+    # b, t, h, chunk
+    (1, 1024, 64, 32),   # rwkv6-7b forward
+    (1, 300, 64, 32),    # ragged last chunk
+    (4, 256, 8, 32),
+    (1, 200, 4, 64),
+    (2, 10, 4, 32),      # T < chunk
+    (1, 1, 2, 32),       # one token
+]
+
+
+def _wkv_inputs(b, t, h, device, k=64, seed=0):
+    rng = np.random.default_rng(seed)
+    r, kk, v = ((rng.standard_normal((b, t, h, k)) * 0.5).astype(np.float32) for _ in range(3))
+    lw = (-np.exp(rng.standard_normal((b, t, h, k)))).astype(np.float32)
+    u = (rng.standard_normal((h, k)) * 0.2).astype(np.float32)
+    return [torch.from_numpy(x).to(device) for x in (r, kk, v, lw, u)]
+
+
+def _wkv_close(got, want):
+    tol = WKV_REL * max(1.0, want.abs().max().item())
+    assert got.shape == want.shape and (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,t,h,chunk", WKV_CASES)
+def test_wkv_kernel_matches_plain_version(cuda_device, b, t, h, chunk):
+    args = _wkv_inputs(b, t, h, cuda_device)
+    before = wkv.launches
+    out, state = wkv(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1
+    want_out, want_state = wkv_chunked(*args, chunk=chunk)
+    _wkv_close(out, want_out)
+    _wkv_close(state, want_state)
+
+
+def test_wkv_kernel_reads_strided_inputs(cuda_device):
+    """r/k/v/log_w as views into a fused (B, T, 4, H, K) buffer."""
+    buf = torch.randn(2, 150, 4, 4, 64, device=cuda_device) * 0.5
+    r, k, v, lw = buf.unbind(dim=2)
+    lw = -lw.abs()
+    u = torch.randn(4, 64, device=cuda_device) * 0.2
+    out, state = wkv(r, k, v, lw, u, chunk=32)
+    want_out, want_state = wkv_chunked(r, k, v, lw, u, chunk=32)
+    _wkv_close(out, want_out)
+    _wkv_close(state, want_state)
+
+
+@pytest.mark.parametrize("k, dtype, chunk", [(32, torch.float32, 32), (64, torch.bfloat16, 32),
+                                             (64, torch.float32, 128)])
+def test_wkv_kernel_rejects_what_it_does_not_take(cuda_device, k, dtype, chunk):
+    x = torch.zeros(1, 200, 2, k, device=cuda_device, dtype=dtype)
+    u = torch.zeros(2, k, device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError):
+        wkv(x, x, x, x, u, chunk=chunk)
+
+
+def test_wkv_kernel_rejects_misaligned_rows(cuda_device):
+    """The kernel copies rows as 16-byte vectors: a view one float off its
+    allocation's start is refused, not read out of line."""
+    x = torch.zeros(1 * 20 * 2 * 64 + 1, device=cuda_device)[1:].view(1, 20, 2, 64)
+    u = torch.zeros(2, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        wkv(x, x, x, x, u)

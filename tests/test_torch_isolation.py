@@ -41,8 +41,9 @@ def test_port_modules_import_with_jax_and_reference_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
-        "import repro_torch.serving, repro_torch.models.dense\n"
-        "import repro_torch.kernels.flash_attention, repro_torch.bridge\n"
+        "import repro_torch.serving, repro_torch.models.dense, repro_torch.models.rwkv6\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6_wkv\n"
+        "import repro_torch.bridge\n"
         "import repro_torch.configs\n"
         "print('ok')\n"
     )
