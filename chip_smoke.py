@@ -43,13 +43,25 @@ Phases, each of which fails the run:
                    decode; then the per-call times of a 1024-token forward
                    and a decode step, and their device time and idle share
                    under ``torch.profiler``.
+9. kernel (ssm)  — the selective-scan kernel against its plain (step by
+                   step) version, float32 with N=16, y and final state
+                   within 1e-5 * max(1, max |plain|): float32 sums over the
+                   16 states in another order.
+10. model (hymba) — full-width hymba-1.5b in float32 with seeded random
+                   weights: the forward over 128 tokens (inside the window)
+                   launches the flash-attention kernel (head dim 64) and the
+                   selective-scan kernel once per layer each, and its logits
+                   equal the stepped decode loop's (plain torch) within 1e-3.
+11. serving (hymba) — full-width hymba-1.5b in bf16, as phase 8; then the
+                   per-call times of a 1024-token forward and a decode step,
+                   each kernel's share, device time and idle share.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
-for olmo-1b, 7-8 for rwkv6-7b) and read just after it.  The last three
-lines of standard output are the card line from ``nvidia-smi``, a JSON line
-describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
-CUDA card, or without the repository beside it, the script exits non-zero
-and prints no result.
+for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b) and read just after
+it.  The last three lines of standard output are the card line from
+``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
+"device": {...}}``.  Without a CUDA card, or without the repository beside
+it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -73,15 +85,22 @@ MAIN_CASE = "olmo-1b S=512"            # the kernel line's shape: a typical prom
 WKV_REPLACES = "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:86"
 WKV_SOURCE_REL = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu"
 WKV_MAIN_CASE = "rwkv6-7b T=1024"      # the forward's shape at 1024 tokens
+SSM_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:63"
+SSM_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+SSM_MAIN_CASE = "hymba-1.5b T=1024"    # the forward's shape at 1024 tokens
+HYMBA_FLASH_CASE = "hymba-1.5b global S=1024"
 
-# name, B, S, H, KV, dtype, window (all causal self-attention, D = 128)
+# name, B, S, H, KV, dtype, window, D (all causal self-attention)
 KERNEL_CASES = [
-    ("olmo-1b S=128", 1, 128, 16, 16, "bf16", None),
-    ("olmo-1b S=512", 1, 512, 16, 16, "bf16", None),
-    ("olmo-1b S=2048", 1, 2048, 16, 16, "bf16", None),
-    ("llama3-8b heads S=1024", 1, 1024, 32, 8, "bf16", None),
-    ("window=256 S=1024", 1, 1024, 16, 16, "bf16", 256),
-    ("f32 S=T=300", 1, 300, 16, 16, "f32", None),
+    ("olmo-1b S=128", 1, 128, 16, 16, "bf16", None, 128),
+    ("olmo-1b S=512", 1, 512, 16, 16, "bf16", None, 128),
+    ("olmo-1b S=2048", 1, 2048, 16, 16, "bf16", None, 128),
+    ("llama3-8b heads S=1024", 1, 1024, 32, 8, "bf16", None, 128),
+    ("window=256 S=1024", 1, 1024, 16, 16, "bf16", 256, 128),
+    ("f32 S=T=300", 1, 300, 16, 16, "f32", None, 128),
+    ("hymba-1.5b global S=1024", 1, 1024, 25, 5, "bf16", None, 64),
+    ("hymba-1.5b window=1024 S=2048", 1, 2048, 25, 5, "bf16", 1024, 64),
+    ("D=64 f32 S=T=300", 1, 300, 25, 5, "f32", None, 64),
 ]
 TOL = {"bf16": 1e-2, "f32": 1e-5}
 # name, B, T, H, chunk (float32, K = 64)
@@ -93,6 +112,17 @@ WKV_CASES = [
     ("chunk 64 T=1024", 1, 1024, 64, 64),
 ]
 WKV_REL = 1e-4
+# name, B, T, D, chunk, strong decay (float32, N = 16)
+SSM_CASES = [
+    ("hymba-1.5b T=1024", 1, 1024, 3200, 128, False),
+    ("T=128", 1, 128, 3200, 128, False),
+    ("ragged T=300", 1, 300, 3200, 128, False),
+    ("B=4 T=256", 4, 256, 3200, 128, False),
+    ("D=203 (last 8-channel tile ragged)", 1, 256, 203, 128, False),
+    ("strong decay T=1024", 1, 1024, 3200, 128, True),
+]
+SSM_REL = 1e-5
+SFU_EXP_S = 132 * 16 * 1.98e9          # H100 SXM: 16 exponentials per clock and SM at boost
 DEVICE = "cuda"
 
 
@@ -127,9 +157,9 @@ def host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_split(torch, fn, calls: int, wall_ms: float, kernel: str):
+def device_split(torch, fn, calls: int, wall_ms: float, kernels):
     """Device milliseconds per call (kernel time under ``torch.profiler``),
-    the named kernel's part of it, and the device's idle share of
+    each named kernel's part of it, and the device's idle share of
     ``wall_ms``, the unprofiled host time per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -138,15 +168,18 @@ def device_split(torch, fn, calls: int, wall_ms: float, kernel: str):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    device = named = 0.0
+    device = 0.0
+    named = dict.fromkeys(kernels, 0.0)
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
             device += evt.self_device_time_total
-            if kernel in evt.key:
-                named += evt.self_device_time_total
-    device_ms, named_ms = device / 1e3 / calls, named / 1e3 / calls
+            for kernel in kernels:
+                if kernel in evt.key:
+                    named[kernel] += evt.self_device_time_total
+    device_ms = device / 1e3 / calls
     if device_ms <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
+    named_ms = {kernel: t / 1e3 / calls for kernel, t in named.items()}
     return device_ms, named_ms, 1.0 - device_ms / wall_ms
 
 
@@ -184,8 +217,9 @@ def phase_build():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
-    sources = [flash_ops.SOURCE, wkv_ops.SOURCE]
+    sources = [flash_ops.SOURCE, wkv_ops.SOURCE, ssm_ops.SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         results = list(pool.map(build.build, sources))
     for res in results:
@@ -203,9 +237,7 @@ def phase_kernel(torch):
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = {}
-    for name, b, s, h, kv, dt, window in KERNEL_CASES:
-        d = 128
-
+    for name, b, s, h, kv, dt, window, d in KERNEL_CASES:
         def rand(shape):
             return torch.randn(shape, generator=gen, device=DEVICE).to(dtypes[dt])
 
@@ -294,19 +326,77 @@ def phase_kernel_wkv(torch):
     return rows
 
 
-def reset_launches():
+def ssm_bound(b, t, d, n):
+    """Least time for one selective-scan call: u and dt read once and y
+    written once, plus B, C, log_a and the final state (float32), over the
+    memory rate; or about seven float32 operations (the exponential counted
+    as one) per (token, channel, state) over the float32 rate.  Also the
+    exponentials alone at the SFU's rate, which the table has no row for."""
+    nbytes = 4 * (3 * b * t * d + 2 * b * t * n + d * n + b * d * n)
+    flops = 7 * b * t * d * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
+    sfu_ms = b * t * d * n / SFU_EXP_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", sfu_ms
+    return t_ops * 1e3, "operations", sfu_ms
+
+
+def phase_kernel_ssm(torch):
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    n = 16
+    rows = {}
+    for name, b, t, d, chunk, strong in SSM_CASES:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=DEVICE)
+
+        u = rand(b, t, d)
+        dt = torch.exp(rand(b, t, d) * 0.5) * (3.0 if strong else 0.3)
+        bt, ct = rand(b, t, n), rand(b, t, n)
+        log_a = rand(d, n) * (1.0 if strong else 0.5)
+        y, h = ssm_scan(u, dt, bt, ct, log_a, chunk=chunk)
+        torch.cuda.synchronize()
+        ref_y, ref_h = selective_scan_ref(u, dt, log_a, bt, ct)
+        errs = {}
+        for key, got, want in (("y", y, ref_y), ("state", h, ref_h)):
+            tol = SSM_REL * max(1.0, want.abs().max().item())
+            errs[key] = (got - want).abs().max().item()
+            if not errs[key] <= tol:
+                raise AssertionError(f"ssm {name}: {key} max abs err {errs[key]:.3e} > {tol:.3e}")
+        ms = cuda_ms(torch, lambda: ssm_scan(u, dt, bt, ct, log_a, chunk=chunk), 20)
+        plain_ms = cuda_ms(torch, lambda: selective_scan_ref(u, dt, log_a, bt, ct), 2, warmup=1)
+        bound_ms, bound_by, sfu_ms = ssm_bound(b, t, d, n)
+        err = max(errs.values())
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        log("kernel", f"ssm {name}: B={b} T={t} D={d} N={n} chunk={chunk} f32: "
+            f"max_abs_err y={errs['y']:.3e} state={errs['state']:.3e} "
+            f"(tol {SSM_REL:.0e} x max(1, max|plain|) = {SSM_REL * max(1.0, ref_y.abs().max().item()):.3e}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none bound_ms={bound_ms:.5f} "
+            f"({bound_by}) of_bound={bound_ms / ms:.4f} sfu_exp_ms={sfu_ms:.5f}")
+        del u, dt, bt, ct, log_a, y, h, ref_y, ref_h
+    return rows
+
+
+KERNEL_NAMES = ("flash_attention", "rwkv6_wkv", "ssm_scan")
+
+
+def _wrappers():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_wkv import wkv
+    from repro_torch.kernels.ssm_scan import ssm_scan
 
-    flash_attention.launches = 0
-    wkv.launches = 0
+    return dict(zip(KERNEL_NAMES, (flash_attention, wkv, ssm_scan)))
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rwkv6_wkv import wkv
-
-    return {"flash_attention": flash_attention.launches, "rwkv6_wkv": wkv.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_model(torch):
@@ -446,7 +536,7 @@ def phase_serving(torch):
     serving_summary(torch, "olmo-1b", rep, wall, counts)
     if summ["completed"] != 16 or summ["dropped"] != 0:
         raise AssertionError(f"served {summ['completed']}/16 with {summ['dropped']} dropped")
-    if launches != cfg.n_layers * prefills or counts["rwkv6_wkv"]:
+    if launches != cfg.n_layers * prefills or counts["rwkv6_wkv"] or counts["ssm_scan"]:
         raise AssertionError(f"launches {counts} != {cfg.n_layers} x {prefills} prefills")
     rids = check_streams(torch, api, model, engine, rt, wl, 2048)
     log("serving", f"requests {rids} equal a direct greedy decode")
@@ -466,9 +556,9 @@ def phase_serving(torch):
     for name, fn, wall_ms in (("prefill", lambda: api.prefill(model, cache, prompt), prefill_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, s),
                                decode_ms)):
-        dev, named, idle = device_split(torch, fn, 3, wall_ms, "flash_fwd_kernel")
+        dev, named, idle = device_split(torch, fn, 3, wall_ms, ("flash_fwd_kernel",))
         log("serving", f"profile olmo-1b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
-            f"(idle share {idle:.4f}), flash kernel {named:.3f} ms")
+            f"(idle share {idle:.4f}), flash kernel {named['flash_fwd_kernel']:.3f} ms")
     return counts
 
 
@@ -570,9 +660,118 @@ def phase_serving_rwkv6(torch, wkv_ms):
     for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, 0),
                                decode_ms)):
-        dev, named, idle = device_split(torch, fn, 3, wall_ms, "wkv_fwd_kernel")
+        dev, named, idle = device_split(torch, fn, 3, wall_ms, ("wkv_fwd_kernel",))
         log("serving", f"profile rwkv6-7b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
-            f"(idle share {idle:.4f}), WKV kernel {named:.3f} ms")
+            f"(idle share {idle:.4f}), WKV kernel {named['wkv_fwd_kernel']:.3f} ms")
+    return counts
+
+
+def phase_model_hymba(torch):
+    from repro_torch.configs import hymba_1_5b
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(
+        hymba_1_5b.config(), param_dtype=torch.float32, compute_dtype=torch.float32)
+    api = build_api("hymba-1.5b", cfg)
+    model = api.init(0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    s = 128  # inside the window: the reference's forward and decode agree only there
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
+    before = read_launches()
+    full = api.logits(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    after = read_launches()
+    launched = {k: after[k] - before[k] for k in after}
+    want = {"flash_attention": cfg.n_layers, "rwkv6_wkv": 0, "ssm_scan": cfg.n_layers}
+    if launched != want:
+        raise AssertionError(f"the forward launched {launched}, not {want}")
+    cache = api.init_cache(1, s, device=DEVICE)
+    rows = []
+    for p in range(s):
+        lg, cache = api.decode_step(model, cache, toks[:, p : p + 1], p)
+        rows.append(lg)
+    stepped = torch.cat(rows, dim=1)
+    torch.cuda.synchronize()
+    if not torch.isfinite(full).all() or full.shape != (1, s, cfg.vocab):
+        raise AssertionError(f"forward logits: shape {tuple(full.shape)} or non-finite values")
+    err = (full - stepped).abs().max().item()
+    log("model", f"full hymba-1.5b f32 ({api.param_count()} params), forward over {s} tokens "
+        f"(launches {launched}) vs stepped decode: logits max abs err {err:.3e} "
+        f"(limit 1e-3); logits scale {stepped.abs().max().item():.3f}")
+    if not err <= 1e-3:
+        raise AssertionError(f"forward vs stepped logits: {err:.3e} > 1e-3")
+    del model, cache, full, stepped, rows
+
+
+def phase_serving_hymba(torch, flash_ms, ssm_ms):
+    from repro_torch.configs import get_api
+    from repro_torch.serving import (
+        RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
+        generate_requests,
+    )
+
+    api = get_api("hymba-1.5b")
+    cfg = api.cfg
+    model = api.init(0, device=DEVICE)
+    max_len = 256
+    wl = generate_requests(
+        8, seed=0, rate=4.0, prompt_min=16, prompt_mean=48, prompt_max=128,
+        gen_min=8, gen_mean=16, gen_max=32,
+    )
+    engine = recording(RealServingEngine)(api, model, max_len=max_len, device=DEVICE)
+
+    # Warm-up outside the counted run: cuBLAS handles.
+    warm = api.init_cache(1, max_len, device=DEVICE)
+    api.decode_step(model, warm, torch.zeros((1, 1), dtype=torch.long, device=DEVICE), 0)
+    torch.cuda.synchronize()
+    del warm
+
+    alloc = ServingAllocator({0: (0.01, 0.01), 1: (0.01, 0.01)}, total_slots=4, mode="optperf")
+    rt = ServingRuntime(engine, alloc, wl, nodes=[0, 1],
+                        config=ServingConfig(total_slots=4, resolve_every=1.0))
+    torch.cuda.reset_peak_memory_stats()
+    before = read_launches()
+    t0 = time.perf_counter()
+    rep = rt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = read_launches()
+    served = {k: after[k] - before[k] for k in after}
+
+    summ = rep.summary
+    log("serving", f"hymba-1.5b bf16 full width, 2 nodes, 4 slots, max_len {max_len}: "
+        f"completed={summ['completed']}/{summ['requests']} dropped={summ['dropped']} "
+        f"requeues={summ['requeues']} prefills={rep.counters['admitted']} "
+        f"(prompts step the decode loop; launches in this run {served})")
+    serving_summary(torch, "hymba-1.5b", rep, wall, served)
+    if summ["completed"] != 8 or summ["dropped"] != 0:
+        raise AssertionError(f"served {summ['completed']}/8 with {summ['dropped']} dropped")
+    if any(served.values()):
+        raise AssertionError(f"stepped prompt ingestion launched kernels: {served}")
+    rids = check_streams(torch, api, model, engine, rt, wl, max_len)
+    log("serving", f"hymba-1.5b requests {rids} equal a direct greedy decode")
+    counts = read_launches()
+
+    # What a forward and a tick are made of, and each kernel's share.
+    s = 1024
+    toks = torch.zeros((1, s), dtype=torch.long, device=DEVICE)
+    logits_ms = host_ms(torch, lambda: api.logits(model, {"tokens": toks}), 3, warmup=1)
+    cache = api.init_cache(1, max_len, device=DEVICE)
+    last = torch.zeros((1, 1), dtype=torch.long, device=DEVICE)
+    decode_ms = host_ms(torch, lambda: api.decode_step(model, cache, last, 0), 10)
+    n = cfg.n_layers
+    log("serving", f"per call: hymba-1.5b bf16 api.logits({s} tokens) {logits_ms:.3f} ms, of "
+        f"which the flash kernel {n} x {flash_ms:.4f} ms = {n * flash_ms / logits_ms:.1%} and "
+        f"the selective-scan kernel {n} x {ssm_ms:.4f} ms = {n * ssm_ms / logits_ms:.1%}; "
+        f"decode_step {decode_ms:.3f} ms")
+    names = ("flash_fwd_kernel", "ssm_scan_fwd_kernel")
+    for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
+                              ("decode_step", lambda: api.decode_step(model, cache, last, 0),
+                               decode_ms)):
+        dev, named, idle = device_split(torch, fn, 3, wall_ms, names)
+        log("serving", f"profile hymba-1.5b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
+            f"(idle share {idle:.4f}), flash kernel {named['flash_fwd_kernel']:.3f} ms, "
+            f"selective-scan kernel {named['ssm_scan_fwd_kernel']:.3f} ms")
     return counts
 
 
@@ -607,9 +806,24 @@ def main() -> int:
         phase = "serving (rwkv6)"
         rwkv6_counts = phase_serving_rwkv6(torch, wkv_rows[WKV_MAIN_CASE]["ms"])
         log("serving", f"rwkv6-7b path launches {rwkv6_counts}")
-        if rwkv6_counts != {"flash_attention": 0, "rwkv6_wkv": 32}:
+        if rwkv6_counts != {"flash_attention": 0, "rwkv6_wkv": 32, "ssm_scan": 0}:
             raise AssertionError("the rwkv6-7b path must launch the WKV kernel once per "
                                  f"layer of its forward and nothing else: {rwkv6_counts}")
+        torch.cuda.empty_cache()
+        phase = "kernel (ssm)"
+        ssm_rows = phase_kernel_ssm(torch)
+        phase = "model (hymba)"
+        reset_launches()
+        phase_model_hymba(torch)
+        torch.cuda.empty_cache()
+        phase = "serving (hymba)"
+        hymba_counts = phase_serving_hymba(
+            torch, rows[HYMBA_FLASH_CASE]["ms"], ssm_rows[SSM_MAIN_CASE]["ms"])
+        log("serving", f"hymba-1.5b path launches {hymba_counts}")
+        if hymba_counts != {"flash_attention": 32, "rwkv6_wkv": 0, "ssm_scan": 32}:
+            raise AssertionError("the hymba-1.5b path must launch the flash-attention and "
+                                 "selective-scan kernels once per layer of its forward and "
+                                 f"nothing else: {hymba_counts}")
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -621,6 +835,8 @@ def main() -> int:
          olmo_counts["flash_attention"]),
         ("rwkv6_wkv", WKV_SOURCE_REL, WKV_REPLACES, wkv_rows[WKV_MAIN_CASE],
          rwkv6_counts["rwkv6_wkv"]),
+        ("ssm_scan", SSM_SOURCE_REL, SSM_REPLACES, ssm_rows[SSM_MAIN_CASE],
+         hymba_counts["ssm_scan"]),
     ):
         kernels.append({
             "name": name,

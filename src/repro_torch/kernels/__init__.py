@@ -5,7 +5,8 @@ C interface, built at first use by :mod:`repro_torch.kernels.build`),
 ``ops.py`` (the checked wrapper with its launch count) and ``ref.py`` (the
 plain PyTorch version, which CPU tensors take).
 
-Ported so far: flash attention (the reference's
-``repro/kernels/flash_attention``).  The WKV and selective-scan kernels
-come with the rwkv6 and hymba families.
+All three of the reference's kernels are ported: flash attention
+(``repro/kernels/flash_attention``, head dims 64 and 128), the RWKV6 WKV
+recurrence (``repro/kernels/rwkv6_wkv``) and the Mamba selective scan
+(``repro/kernels/ssm_scan``).
 """

@@ -20,10 +20,12 @@
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at S=T=512,
 // H=16, D=128 bf16 the q/k/v/o traffic is about 8.4 MB, about 2.5 us, and
 // the kernel is bound by bytes; at S=2048 causal it is about 17 GFLOP,
-// about 17 us, and bound by operations.
+// about 17 us, and bound by operations.  hymba-1.5b's head dim 64 (H=25,
+// KV=5) halves the bytes and operations per head.
 //
 // What this design does about that bound: nothing yet.  One block of 256
-// threads per (b, h, 64-row q tile); each 64-key K/V tile is staged in
+// threads per (b, h, 64-row q tile), templated on the head dim (64 or
+// 128); each 64-key K/V tile is staged in
 // shared memory as float32 and both products run as scalar FMAs on the CUDA
 // cores, far below the tensor-core rate.  wgmma, TMA and a pipelined tile
 // ring are later work.
@@ -35,12 +37,18 @@ namespace {
 
 constexpr int kBlockM = 64;            // q rows per block
 constexpr int kBlockN = 64;            // keys per kv tile
-constexpr int kHeadDim = 128;          // the only head dim taken
 constexpr int kThreads = 256;          // 16 x 16 thread grid
-constexpr int kPitch = kHeadDim + 1;   // padded row pitch: no bank conflicts
 constexpr int kPPitch = kBlockN + 1;   // pitch of the probability tile
-constexpr size_t kSmemBytes =
-    sizeof(float) * (2 * kBlockM * kPitch + kBlockN * kHeadDim);
+
+// Shared-memory layout for head dim D: q and K tiles at a padded row pitch
+// (no bank conflicts), the V tile unpadded; the P tile aliases the K tile.
+template <int D>
+struct Tile {
+  static constexpr int kPitch = D + 1;
+  static constexpr size_t kSmemBytes = sizeof(float) * (2 * kBlockM * kPitch + kBlockN * D);
+  static_assert(D % 16 == 0, "16 lanes share a row's head dims");
+  static_assert(kBlockM * kPPitch <= kBlockN * kPitch, "the P tile must fit in the K tile");
+};
 
 struct Params {
   const void* q;
@@ -72,10 +80,12 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 
 // Thread (tx, ty) of the 16 x 16 grid owns q rows ty + 16*i (i < 4) of the
 // tile: scores at keys tx + 16*j (j < 4) and outputs at dims tx + 16*j
-// (j < 8).  A row's 16 owners are 16 adjacent lanes of one warp, so row
+// (j < D/16).  A row's 16 owners are 16 adjacent lanes of one warp, so row
 // reductions are four xor-shuffles.
-template <typename T>
+template <typename T, int kHeadDim>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
+  constexpr int kPitch = Tile<kHeadDim>::kPitch;
+  constexpr int kOut = kHeadDim / 16;    // output dims per thread
   extern __shared__ float smem[];
   float* qs = smem;                      // (kBlockM, kPitch), pre-scaled q
   float* ks = qs + kBlockM * kPitch;     // (kBlockN, kPitch); then P tile
@@ -101,13 +111,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
     qs[r * kPitch + c] = m < p.S ? to_float(q[m * p.q_ss + c]) * p.scale : 0.f;
   }
 
-  float row_max[4], row_sum[4], acc[4][8];
+  float row_max[4], row_sum[4], acc[4][kOut];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     row_max[i] = -INFINITY;
     row_sum[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
   }
 
   const int n_valid = min(p.kv_len, p.T);
@@ -181,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
       row_sum[i] = row_sum[i] * alpha + sum;
       row_max[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < kOut; ++j) acc[i][j] *= alpha;
     }
 
     __syncthreads();  // every thread is done reading ks: reuse it for P
@@ -193,15 +203,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
 
 #pragma unroll 4
     for (int n = 0; n < kBlockN; ++n) {
-      float pv[4], vv[8];
+      float pv[4], vv[kOut];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kPPitch + n];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vv[j] = vs[n * kHeadDim + tx + 16 * j];
+      for (int j = 0; j < kOut; ++j) vv[j] = vs[n * kHeadDim + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < kOut; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
 
@@ -211,31 +221,40 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
     if (m >= p.S) continue;
     const float denom = fmaxf(row_sum[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kOut; ++j)
       o[m * p.o_ss + tx + 16 * j] = from_float<T>(acc[i][j] / denom);
   }
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t kSmemBytes = Tile<D>::kSmemBytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((p.S + kBlockM - 1) / kBlockM, p.H, B);
-  flash_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  flash_fwd_kernel<T, D><<<grid, kThreads, kSmemBytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_head_dim(const Params& p, int B, int D, cudaStream_t stream) {
+  if (D == 64) return launch<T, 64>(p, B, stream);
+  if (D == 128) return launch<T, 128>(p, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  Strides are
-// in elements; the head dim is contiguous.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); D = 64 or
+// 128.  Strides are in elements; the head dim is contiguous.  Returns a
+// cudaError_t.
 int flash_attention_forward(int dtype, const void* q, const void* k, const void* v, void* o,
                             int B, int S, int T, int H, int KV, int D,
                             long long q_sb, long long q_ss, long long q_sh,
@@ -244,14 +263,14 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
                             long long o_sb, long long o_ss, long long o_sh,
                             int causal, int window, int kv_len, float scale,
                             void* stream) {
-  if (D != kHeadDim || KV <= 0 || H % KV != 0 || B <= 0 || S <= 0 || T <= 0)
+  if ((D != 64 && D != 128) || KV <= 0 || H % KV != 0 || B <= 0 || S <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, S, T, H, KV,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            causal, window, kv_len, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(p, B, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, B, s);
+  if (dtype == 0) return (int)launch_head_dim<float>(p, B, D, s);
+  if (dtype == 1) return (int)launch_head_dim<__nv_bfloat16>(p, B, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,10 +21,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention", "SOURCE", "HEAD_DIM"]
+__all__ = ["flash_attention", "SOURCE", "HEAD_DIMS"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIM = 128
+HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -78,8 +78,8 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device.type}")
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
-    if d != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:

@@ -1,4 +1,4 @@
-"""Uniform model API over the ported families (dense, rwkv6).
+"""Uniform model API over the ported families (dense, rwkv6, hybrid).
 
 The counterpart of ``repro/models/registry.py``.  Each family module names
 its ``nn.Module`` class as ``MODEL`` and provides ``schema`` and
@@ -21,7 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import dense, rwkv6
+from repro_torch.models import dense, hymba, rwkv6
 from repro_torch.models.common import Param
 
 __all__ = ["ModelApi", "build_api"]
@@ -92,7 +92,7 @@ class ModelApi:
         return params.prefill(cache, tokens)
 
 
-FAMILIES = {dense.DenseConfig: dense, rwkv6.RWKV6Config: rwkv6}
+FAMILIES = {dense.DenseConfig: dense, rwkv6.RWKV6Config: rwkv6, hymba.HymbaConfig: hymba}
 
 
 def build_api(arch_id: str, cfg: Any) -> ModelApi:

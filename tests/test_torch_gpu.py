@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import wkv, wkv_chunked  # noqa: E402
+from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -62,7 +63,32 @@ def test_kernel_reads_strided_inputs(cuda_device):
     assert (got - want).abs().max().item() <= ATOL[torch.float32]
 
 
-@pytest.mark.parametrize("d, dtype", [(64, torch.float32), (128, torch.float16)])
+# hymba-1.5b's attention: head dim 64, H=25 over KV=5, window 1024 on most layers.
+D64_CASES = [
+    # b, s, h, kv, window
+    (1, 300, 25, 5, None),
+    (1, 300, 25, 5, 64),
+    (2, 130, 4, 2, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,window", D64_CASES)
+def test_kernel_matches_plain_version_at_head_dim_64(cuda_device, dtype, b, s, h, kv, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((b, s, h, 64), generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, s, kv, 64), generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("d, dtype", [(96, torch.float32), (128, torch.float16)])
 def test_kernel_rejects_what_it_does_not_take(cuda_device, d, dtype):
     q = torch.zeros(1, 8, 2, d, device=cuda_device, dtype=dtype)
     with pytest.raises(ValueError):
@@ -136,3 +162,79 @@ def test_wkv_kernel_rejects_misaligned_rows(cuda_device):
     u = torch.zeros(2, 64, device=cuda_device)
     with pytest.raises(ValueError):
         wkv(x, x, x, x, u)
+
+
+# Selective scan: float32 sums in another order over N = 16 lanes; y and
+# the final state within 1e-5 * max(1, max |plain|).
+SSM_REL = 1e-5
+SSM_CASES = [
+    # b, t, d, chunk
+    (1, 1024, 3200, 128),   # hymba-1.5b forward at 1024 tokens
+    (1, 300, 3200, 128),    # ragged last tile
+    (4, 256, 256, 64),
+    (1, 200, 203, 128),     # D does not fill the last 8-channel tile
+    (2, 10, 64, 128),       # T < chunk
+    (1, 1, 16, 128),        # one token
+]
+
+
+def _ssm_inputs(b, t, d, device, n=16, seed=0, strong=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    u = rand(b, t, d)
+    dt = torch.exp(rand(b, t, d) * 0.5) * (3.0 if strong else 0.3)
+    bt, ct = rand(b, t, n), rand(b, t, n)
+    log_a = rand(d, n) * (1.0 if strong else 0.5)
+    return u, dt, bt, ct, log_a
+
+
+def _ssm_close(got, want):
+    tol = SSM_REL * max(1.0, want.abs().max().item())
+    assert got.shape == want.shape and (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["moderate", "strong-decay"])
+@pytest.mark.parametrize("b,t,d,chunk", SSM_CASES)
+def test_ssm_kernel_matches_plain_version(cuda_device, b, t, d, chunk, strong):
+    u, dt, bt, ct, log_a = _ssm_inputs(b, t, d, cuda_device, strong=strong)
+    before = ssm_scan.launches
+    y, h = ssm_scan(u, dt, bt, ct, log_a, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = selective_scan_ref(u, dt, log_a, bt, ct)
+    _ssm_close(y, want_y)
+    _ssm_close(h, want_h)
+
+
+def test_ssm_kernel_reads_strided_inputs(cuda_device):
+    """u/dt as views into a (B, T, 2, D) buffer and B/C as the halves of one
+    (B, T, 2N) projection, as the model slices them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ud = torch.randn((2, 150, 2, 72), generator=gen, device=cuda_device)
+    u, dt = ud[:, :, 0], ud[:, :, 1].abs() * 0.3
+    bc = torch.randn((2, 150, 32), generator=gen, device=cuda_device)
+    bt, ct = bc[..., :16], bc[..., 16:]
+    log_a = torch.randn((72, 16), generator=gen, device=cuda_device) * 0.5
+    y, h = ssm_scan(u, dt, bt, ct, log_a, chunk=64)
+    want_y, want_h = selective_scan_ref(u, dt, log_a, bt, ct)
+    _ssm_close(y, want_y)
+    _ssm_close(h, want_h)
+
+
+@pytest.mark.parametrize("n, dtype, chunk, transpose", [
+    (8, torch.float32, 64, False),       # state size
+    (16, torch.bfloat16, 64, False),     # dtype
+    (16, torch.float32, 256, False),     # chunk above 128
+    (16, torch.float32, 64, True),       # channel dim not contiguous
+])
+def test_ssm_kernel_rejects_what_it_does_not_take(cuda_device, n, dtype, chunk, transpose):
+    u = torch.zeros(1, 300, 32, device=cuda_device, dtype=dtype)
+    if transpose:
+        u = torch.zeros(1, 32, 300, device=cuda_device, dtype=dtype).transpose(1, 2)
+    bt = torch.zeros(1, 300, n, device=cuda_device, dtype=dtype)
+    log_a = torch.zeros(32, n, device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError):
+        ssm_scan(u, u, bt, bt, log_a, chunk=chunk)

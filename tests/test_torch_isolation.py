@@ -42,7 +42,9 @@ def test_port_modules_import_with_jax_and_reference_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch.serving, repro_torch.models.dense, repro_torch.models.rwkv6\n"
+        "import repro_torch.models.hymba\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6_wkv\n"
+        "import repro_torch.kernels.ssm_scan\n"
         "import repro_torch.bridge\n"
         "import repro_torch.configs\n"
         "print('ok')\n"
