@@ -10,13 +10,21 @@ Phases, each of which fails the run:
 1. device        — the card's name and power limit (``nvidia-smi``).
 2. build         — compile every ``csrc/*.cu`` of the port for sm_90a into
                    ``build/kernels/``, one ``nvcc`` per source, all started
-                   together; print the build seconds and ptxas report.
+                   together; print the build seconds and ptxas report, and
+                   the flash library's tensor-core (HGMMA) and TMA-load
+                   (UTMALDG) instruction counts from ``cuobjdump -sass``
+                   (both must be non-zero; a missing cuobjdump is printed).
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
                    max abs error <= 1e-2: one output rounding plus another
                    sum order; f32 <= 1e-5), with the kernel's, the plain
                    version's and ``scaled_dot_product_attention``'s times
-                   (CUDA events) beside the card's bound for the same work.
+                   (CUDA events over back-to-back calls, which hold the
+                   host's time between launches where that is longer)
+                   beside the card's bound for the same work; also the
+                   kernel's and the library call's device time per call
+                   under ``torch.profiler`` (``device_ms``) and the host's
+                   time to issue one kernel call (``issue_ms``).
 4. kernel (wkv)  — the WKV kernel against its plain (chunked) version, all
                    float32 with K=64, out and final state within
                    1e-4 * max(1, max |plain|): float32 sums in another order
@@ -161,26 +169,45 @@ def device_split(torch, fn, calls: int, wall_ms: float, kernels):
     """Device milliseconds per call (kernel time under ``torch.profiler``),
     each named kernel's part of it, and the device's idle share of
     ``wall_ms``, the unprofiled host time per call."""
+    dev, named = profile_device(torch, fn, calls, kernels)
+    return dev, named, 1.0 - dev / wall_ms
+
+
+def device_ms(torch, fn, calls: int, warmup: int = 3) -> float:
+    """Milliseconds of device time per call: every kernel ``fn`` launches,
+    under ``torch.profiler``.  Unlike ``cuda_ms`` it leaves out the host's
+    time between launches, which bounds a short kernel's back-to-back rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return profile_device(torch, fn, calls, ())[0]
+
+
+def profile_device(torch, fn, calls: int, kernels, attempts: int = 3):
+    """Device milliseconds per call and each named kernel's part of it.
+    A profiled window that records no device time at all (its events were
+    lost; a launched kernel always takes some) is profiled again, up to
+    ``attempts`` windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    device = 0.0
-    named = dict.fromkeys(kernels, 0.0)
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            device += evt.self_device_time_total
-            for kernel in kernels:
-                if kernel in evt.key:
-                    named[kernel] += evt.self_device_time_total
-    device_ms = device / 1e3 / calls
-    if device_ms <= 0.0:
-        raise RuntimeError("the profiler recorded no device time")
-    named_ms = {kernel: t / 1e3 / calls for kernel, t in named.items()}
-    return device_ms, named_ms, 1.0 - device_ms / wall_ms
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        device = 0.0
+        named = dict.fromkeys(kernels, 0.0)
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+                device += evt.self_device_time_total
+                for kernel in kernels:
+                    if kernel in evt.key:
+                        named[kernel] += evt.self_device_time_total
+        if device > 0.0:
+            named_ms = {kernel: t / 1e3 / calls for kernel, t in named.items()}
+            return device / 1e3 / calls, named_ms
+    raise RuntimeError(f"the profiler recorded no device time in {attempts} windows")
 
 
 def attention_bound(b, s, h, kv, d, dtype, window):
@@ -225,54 +252,116 @@ def phase_build():
     for res in results:
         log("build", f"{res.path.name}: {res.seconds:.2f} s")
         for line in res.log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "wgmma", "Function properties")):
                 log("build", line.strip())
+    counts = sass_counts(build, results[0].path)
+    if counts is None:
+        log("build", "flash_attention.cu SASS: cuobjdump is missing, HGMMA not counted")
+    else:
+        log("build", "flash_attention.cu SASS: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+        if not counts["HGMMA"] or not counts["UTMALDG"]:
+            raise AssertionError(f"the bf16 flash kernel must run wgmma on TMA tiles: {counts}")
+
+
+def sass_counts(build, lib):
+    """Tensor-core (HGMMA), TMA-load (UTMALDG) and cp.async (LDGSTS)
+    instructions in a built library's SASS, or None without cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump")
+    beside = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if tool is None and os.path.exists(beside):
+        tool = beside
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = dict.fromkeys(("HGMMA", "UTMALDG", "LDGSTS"), 0)
+    for word in sass.split():
+        op = word.split(".")[0]
+        if op in counts:
+            counts[op] += 1
+    return counts
+
+
+def issue_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Host milliseconds to issue one call: the host clock over ``iters``
+    calls, read before the closing synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def flash_case(torch, flash_attention, attention_ref, case, gen):
+    """One ``KERNEL_CASES`` row for a flash-attention entry and its plain
+    version: the kernel's max abs error, its, the plain version's and
+    ``scaled_dot_product_attention``'s CUDA-event ms over back-to-back calls
+    (``ms``, ``plain_ms``, ``library_ms``), the kernel's and the library
+    call's device ms per call under ``torch.profiler`` (``device_ms``,
+    ``library_device_ms``), the host's ms to issue one kernel call
+    (``issue_ms``) and the card's bound."""
+    import torch.nn.functional as F
+
+    name, b, s, h, kv, dt, window, d = case
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=DEVICE).to(dtype)
+               for n in (h, kv, kv))
+
+    def kernel():
+        return flash_attention(q, k, v, causal=True, window=window)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if window is not None:
+        pos = torch.arange(s, device=DEVICE)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=h != kv)
+
+    bound_ms, bound_by = attention_bound(b, s, h, kv, d, dt, window)
+    return dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, kernel, 20),
+        plain_ms=cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window), 5),
+        library_ms=cuda_ms(torch, library, 20),
+        device_ms=device_ms(torch, kernel, 20),
+        library_device_ms=device_ms(torch, library, 20),
+        issue_ms=issue_ms(torch, kernel, 20),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
 
 
 def phase_kernel(torch):
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = {}
-    for name, b, s, h, kv, dt, window, d in KERNEL_CASES:
-        def rand(shape):
-            return torch.randn(shape, generator=gen, device=DEVICE).to(dtypes[dt])
-
-        q, k, v = rand((b, s, h, d)), rand((b, s, kv, d)), rand((b, s, kv, d))
-        out = flash_attention(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal=True, window=window)
-        err = (out.float() - ref.float()).abs().max().item()
+    for case in KERNEL_CASES:
+        name, b, s, h, kv, dt, window, d = case
+        row = rows[name] = flash_case(torch, flash_attention, attention_ref, case, gen)
+        err, ms = row["max_abs_err"], row["ms"]
         if not err <= TOL[dt]:
             raise AssertionError(f"{name}: max abs err {err:.3e} > {TOL[dt]:.0e}")
-
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if window is None:
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=h != kv)
-        else:
-            pos = torch.arange(s, device=DEVICE)
-            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
-
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window), 20)
-        plain_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window), 5)
-        library_ms = cuda_ms(torch, library, 20)
-        bound_ms, bound_by = attention_bound(b, s, h, kv, d, dt, window)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
         log("kernel", f"{name} B={b} H={h} KV={kv} D={d} {dt} window={window}: "
-            f"max_abs_err={err:.3e} (tol {TOL[dt]:.0e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
-            f"of_bound={bound_ms / ms:.4f}")
-        del q, k, v, out, ref
+            f"max_abs_err={err:.3e} (tol {TOL[dt]:.0e}) ms={ms:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+            f"of_bound={row['bound_ms'] / ms:.4f} device_ms={row['device_ms']:.4f} "
+            f"library_device_ms={row['library_device_ms']:.4f} issue_ms={row['issue_ms']:.4f}")
     return rows
 
 
@@ -312,16 +401,17 @@ def phase_kernel_wkv(torch):
             if not errs[key] <= tol:
                 raise AssertionError(f"wkv {name}: {key} max abs err {errs[key]:.3e} > {tol:.3e}")
         ms = cuda_ms(torch, lambda: wkv(r, kk, v, lw, u, chunk=chunk), 20)
+        dev_ms = device_ms(torch, lambda: wkv(r, kk, v, lw, u, chunk=chunk), 20)
         plain_ms = cuda_ms(torch, lambda: wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3)
         bound_ms, bound_by = wkv_bound(b, t, h, k)
         err = max(errs.values())
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by)
         log("kernel", f"wkv {name} B={b} H={h} K={k} chunk={chunk} f32: "
             f"max_abs_err out={errs['out']:.3e} state={errs['state']:.3e} "
             f"(tol {WKV_REL:.0e} x max(1, max|plain|) = {WKV_REL * max(1.0, ref_out.abs().max().item()):.3e}) "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
-            f"of_bound={bound_ms / ms:.4f}")
+            f"of_bound={bound_ms / ms:.4f} device_ms={dev_ms:.4f}")
         del r, kk, v, lw, out, state, ref_out, ref_state
     return rows
 
@@ -365,16 +455,18 @@ def phase_kernel_ssm(torch):
             if not errs[key] <= tol:
                 raise AssertionError(f"ssm {name}: {key} max abs err {errs[key]:.3e} > {tol:.3e}")
         ms = cuda_ms(torch, lambda: ssm_scan(u, dt, bt, ct, log_a, chunk=chunk), 20)
+        dev_ms = device_ms(torch, lambda: ssm_scan(u, dt, bt, ct, log_a, chunk=chunk), 20)
         plain_ms = cuda_ms(torch, lambda: selective_scan_ref(u, dt, log_a, bt, ct), 2, warmup=1)
         bound_ms, bound_by, sfu_ms = ssm_bound(b, t, d, n)
         err = max(errs.values())
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by)
         log("kernel", f"ssm {name}: B={b} T={t} D={d} N={n} chunk={chunk} f32: "
             f"max_abs_err y={errs['y']:.3e} state={errs['state']:.3e} "
             f"(tol {SSM_REL:.0e} x max(1, max|plain|) = {SSM_REL * max(1.0, ref_y.abs().max().item()):.3e}) "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none bound_ms={bound_ms:.5f} "
-            f"({bound_by}) of_bound={bound_ms / ms:.4f} sfu_exp_ms={sfu_ms:.5f}")
+            f"({bound_by}) of_bound={bound_ms / ms:.4f} sfu_exp_ms={sfu_ms:.5f} "
+            f"device_ms={dev_ms:.4f}")
         del u, dt, bt, ct, log_a, y, h, ref_y, ref_h
     return rows
 
@@ -850,6 +942,7 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "device_ms": main_row["device_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import resolve_device
+
 __all__ = [
     "Param",
     "init_param",
@@ -224,9 +226,11 @@ def make_kv_cache(
     kv_heads: int,
     head_dim: int,
     dtype: torch.dtype = torch.bfloat16,
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
 ) -> Dict[str, object]:
-    """Stacked-over-layers KV cache + host-int position."""
+    """Stacked-over-layers KV cache + host-int position, on ``device``
+    (default the first CUDA card; ``"cpu"`` must be asked for)."""
+    device = resolve_device(device)
     shape = (n_layers, batch, length, kv_heads, head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

@@ -37,14 +37,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", CASES)
-def test_kernel_matches_plain_version(cuda_device, dtype, b, s, t, h, kv, causal, window, kv_len):
-    rng = np.random.default_rng(0)
-    q = torch.from_numpy(rng.standard_normal((b, s, h, 128), dtype=np.float32))
-    k = torch.from_numpy(rng.standard_normal((b, t, kv, 128), dtype=np.float32))
-    v = torch.from_numpy(rng.standard_normal((b, t, kv, 128), dtype=np.float32))
-    q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
+def _check_against_plain(device, dtype, b, s, t, h, kv, d, causal, window, kv_len, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, t, kv, d), dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, t, kv, d), dtype=np.float32))
+    q, k, v = (x.to(device, dtype) for x in (q, k, v))
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
     torch.cuda.synchronize()
@@ -54,13 +52,55 @@ def test_kernel_matches_plain_version(cuda_device, dtype, b, s, t, h, kv, causal
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
-def test_kernel_reads_strided_inputs(cuda_device):
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", CASES)
+def test_kernel_matches_plain_version(cuda_device, dtype, d, b, s, t, h, kv, causal, window,
+                                      kv_len):
+    _check_against_plain(cuda_device, dtype, b, s, t, h, kv, d, causal, window, kv_len)
+
+
+# The bf16 kernel's edges: 64 q rows per block and tiles of 64 keys, at
+# both head dims.  kv_len 97 ends 33 keys into the second tile; the window
+# of 100 puts its lower edge 36 keys into a tile for every 64-row block.
+BF16_EDGE_CASES = [
+    # b, s, t, h, kv, d, causal, window, kv_len
+    (1, 2048, 2048, 16, 16, 128, True, None, None),   # olmo-1b S=2048
+    (1, 256, 256, 4, 4, 128, False, None, 97),        # kv_len ends inside a tile
+    (1, 256, 256, 4, 4, 64, True, None, 97),
+    (1, 20, 10, 4, 2, 64, False, None, None),         # T shorter than one tile
+    (2, 333, 333, 8, 2, 64, True, 100, None),         # window edge inside tiles
+]
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window,kv_len", BF16_EDGE_CASES)
+def test_bf16_kernel_at_tile_edges(cuda_device, b, s, t, h, kv, d, causal, window, kv_len):
+    _check_against_plain(cuda_device, torch.bfloat16, b, s, t, h, kv, d, causal, window, kv_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_reads_strided_inputs(cuda_device, dtype):
     """q/k/v as views into a fused (B, S, 3, H, D) buffer: read in place."""
-    qkv = torch.randn(1, 96, 3, 4, 128, device=cuda_device)
+    qkv = torch.randn(1, 96, 3, 4, 128, device=cuda_device).to(dtype)
     q, k, v = qkv.unbind(dim=2)
     got = flash_attention(q, k, v)
     want = attention_ref(q, k, v)
-    assert (got - want).abs().max().item() <= ATOL[torch.float32]
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("offset", ["base", "stride"])
+def test_bf16_kernel_rejects_misaligned_views(cuda_device, offset):
+    """TMA reads 16-byte aligned rows: a view it cannot read raises and is
+    never launched."""
+    if offset == "base":
+        x = torch.zeros(8 * 4 * 128 + 1, device=cuda_device, dtype=torch.bfloat16)
+        x = x[1:].view(1, 8, 4, 128)
+    else:
+        x = torch.zeros(1, 8, 4, 129, device=cuda_device, dtype=torch.bfloat16)[..., 1:]
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="cannot read"):
+        flash_attention(x, x, x)
+    assert flash_attention.launches == before
 
 
 # hymba-1.5b's attention: head dim 64, H=25 over KV=5, window 1024 on most layers.
