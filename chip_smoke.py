@@ -12,8 +12,9 @@ Phases, each of which fails the run:
                    ``build/kernels/``, one ``nvcc`` per source, all started
                    together; print the build seconds and ptxas report, and
                    the flash library's tensor-core (HGMMA) and TMA-load
-                   (UTMALDG) instruction counts from ``cuobjdump -sass``
-                   (both must be non-zero; a missing cuobjdump is printed).
+                   (UTMALDG) instruction counts and the WKV library's
+                   tensor-core (HMMA) count from ``cuobjdump -sass`` (each
+                   must be non-zero; a missing cuobjdump is printed).
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
                    max abs error <= 1e-2: one output rounding plus another
@@ -28,7 +29,10 @@ Phases, each of which fails the run:
 4. kernel (wkv)  — the WKV kernel against its plain (chunked) version, all
                    float32 with K=64, out and final state within
                    1e-4 * max(1, max |plain|): float32 sums in another order
-                   through decay factors up to exp(chunk * 4.6 / 2).
+                   through decay factors up to exp(chunk * 4.6 / 2); also
+                   the first pass's states entering each chunk against
+                   ``wkv_chunk_states``, so that a wrong pass is named.  One
+                   row puts every log-decay at the floor.
 5. model         — full-width olmo-1b in float32 with seeded random weights:
                    fused prefill of 128 tokens (through the kernel) against
                    the stepped decode loop (plain decode attention), logits
@@ -93,6 +97,7 @@ MAIN_CASE = "olmo-1b S=512"            # the kernel line's shape: a typical prom
 WKV_REPLACES = "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:86"
 WKV_SOURCE_REL = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu"
 WKV_MAIN_CASE = "rwkv6-7b T=1024"      # the forward's shape at 1024 tokens
+WKV_PROFILE_PREFIX = "wkv_"            # every CUDA kernel of the WKV passes
 SSM_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:63"
 SSM_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 SSM_MAIN_CASE = "hymba-1.5b T=1024"    # the forward's shape at 1024 tokens
@@ -111,13 +116,14 @@ KERNEL_CASES = [
     ("D=64 f32 S=T=300", 1, 300, 25, 5, "f32", None, 64),
 ]
 TOL = {"bf16": 1e-2, "f32": 1e-5}
-# name, B, T, H, chunk (float32, K = 64)
+# name, B, T, H, chunk, strong decay (float32, K = 64)
 WKV_CASES = [
-    ("rwkv6-7b T=1024", 1, 1024, 64, 32),
-    ("T=128", 1, 128, 64, 32),
-    ("ragged T=300", 1, 300, 64, 32),
-    ("B=4 T=256", 4, 256, 64, 32),
-    ("chunk 64 T=1024", 1, 1024, 64, 64),
+    ("rwkv6-7b T=1024", 1, 1024, 64, 32, False),
+    ("T=128", 1, 128, 64, 32, False),
+    ("ragged T=300", 1, 300, 64, 32, False),
+    ("B=4 T=256", 4, 256, 64, 32, False),
+    ("chunk 64 T=1024", 1, 1024, 64, 64, False),
+    ("strong decay T=1024", 1, 1024, 64, 32, True),
 ]
 WKV_REL = 1e-4
 # name, B, T, D, chunk, strong decay (float32, N = 16)
@@ -167,10 +173,11 @@ def host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 def device_split(torch, fn, calls: int, wall_ms: float, kernels):
     """Device milliseconds per call (kernel time under ``torch.profiler``),
-    each named kernel's part of it, and the device's idle share of
-    ``wall_ms``, the unprofiled host time per call."""
-    dev, named = profile_device(torch, fn, calls, kernels)
-    return dev, named, 1.0 - dev / wall_ms
+    each named kernel's part of it, the device's idle share of ``wall_ms``,
+    the unprofiled host time per call, and each named kernel's busy ms (see
+    ``profile_device``)."""
+    dev, named, busy = profile_device(torch, fn, calls, kernels)
+    return dev, named, 1.0 - dev / wall_ms, busy
 
 
 def device_ms(torch, fn, calls: int, warmup: int = 3) -> float:
@@ -183,9 +190,25 @@ def device_ms(torch, fn, calls: int, warmup: int = 3) -> float:
     return profile_device(torch, fn, calls, ())[0]
 
 
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals: the time at least one
+    of them runs."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def profile_device(torch, fn, calls: int, kernels, attempts: int = 3):
-    """Device milliseconds per call and each named kernel's part of it.
-    A profiled window that records no device time at all (its events were
+    """Device milliseconds per call (the sum of kernel times under
+    ``torch.profiler``), each named kernel's part of that sum (every kernel
+    whose name holds the given name), and each named kernel's busy
+    milliseconds per call: the union of those same kernels' intervals,
+    which counts once the time where they overlap (the WKV passes run side
+    by side) and equals their part of the sum where none overlap.  A
+    profiled window that records no device time at all (its events were
     lost; a launched kernel always takes some) is profiled again, up to
     ``attempts`` windows."""
     from torch.autograd import DeviceType
@@ -206,7 +229,13 @@ def profile_device(torch, fn, calls: int, kernels, attempts: int = 3):
                         named[kernel] += evt.self_device_time_total
         if device > 0.0:
             named_ms = {kernel: t / 1e3 / calls for kernel, t in named.items()}
-            return device / 1e3 / calls, named_ms
+            busy_ms = {kernel: busy_us((evt.time_range.start, evt.time_range.end)
+                                       for evt in prof.events()
+                                       if evt.device_type == DeviceType.CUDA
+                                       and evt.self_device_time_total > 0
+                                       and kernel in evt.name) / 1e3 / calls
+                       for kernel in kernels}
+            return device / 1e3 / calls, named_ms, busy_ms
     raise RuntimeError(f"the profiler recorded no device time in {attempts} windows")
 
 
@@ -254,18 +283,22 @@ def phase_build():
         for line in res.log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "wgmma", "Function properties")):
                 log("build", line.strip())
-    counts = sass_counts(build, results[0].path)
-    if counts is None:
-        log("build", "flash_attention.cu SASS: cuobjdump is missing, HGMMA not counted")
-    else:
-        log("build", "flash_attention.cu SASS: " + " ".join(f"{k}={v}" for k, v in counts.items()))
-        if not counts["HGMMA"] or not counts["UTMALDG"]:
-            raise AssertionError(f"the bf16 flash kernel must run wgmma on TMA tiles: {counts}")
+    for res, need, why in ((results[0], ("HGMMA", "UTMALDG"), "run wgmma on TMA tiles"),
+                           (results[1], ("HMMA",), "run its products on the tensor cores")):
+        source = res.path.name.split("-")[0] + ".cu"
+        counts = sass_counts(build, res.path)
+        if counts is None:
+            log("build", f"{source} SASS: cuobjdump is missing, {'/'.join(need)} not counted")
+            continue
+        log("build", f"{source} SASS: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+        if not all(counts[op] for op in need):
+            raise AssertionError(f"{source} must {why}: {counts}")
 
 
 def sass_counts(build, lib):
-    """Tensor-core (HGMMA), TMA-load (UTMALDG) and cp.async (LDGSTS)
-    instructions in a built library's SASS, or None without cuobjdump."""
+    """Tensor-core (HGMMA: wgmma; HMMA: mma.sync), TMA-load (UTMALDG) and
+    cp.async (LDGSTS) instructions in a built library's SASS, or None
+    without cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump")
@@ -276,7 +309,7 @@ def sass_counts(build, lib):
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts = dict.fromkeys(("HGMMA", "UTMALDG", "LDGSTS"), 0)
+    counts = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG", "LDGSTS"), 0)
     for word in sass.split():
         op = word.split(".")[0]
         if op in counts:
@@ -378,41 +411,78 @@ def wkv_bound(b, t, h, k):
     return t_ops * 1e3, "operations"
 
 
+def wkv_case(torch, mod, case, gen):
+    """One ``WKV_CASES`` row for a WKV package ``mod`` (its ``wkv`` and
+    plain ``wkv_chunked``): max abs errors of out and the final state and,
+    where the package has ``wkv_with_chunk_states``, of the first pass's
+    states entering each chunk against ``wkv_chunk_states``, each beside
+    its tolerance; the kernel's and the plain version's CUDA-event ms over
+    back-to-back calls (``ms``, ``plain_ms``), the kernel's device ms per
+    call under ``torch.profiler`` (``device_ms``: the sum of every kernel
+    the call launches; ``busy_ms``: the union of the WKV passes'
+    intervals, which counts their overlap once), the host's ms to issue one
+    call (``issue_ms``) and the card's bound."""
+    name, b, t, h, chunk, strong = case
+    k = 64
+
+    def rand(shape, scale):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    r, kk, v = (rand((b, t, h, k), 0.5) for _ in range(3))
+    if strong:  # every log-decay clamps to the floor: mid-point exponents +-chunk * 2.3
+        lw = mod.LOG_DECAY_MIN - rand((b, t, h, k), 1.0).abs()
+    else:
+        lw = -torch.exp(rand((b, t, h, k), 1.0))
+    u = rand((h, k), 0.2)
+    pairs = []
+    # A package from before the two-pass kernel (tools/kernel_compare.py
+    # times one beside this checkout) has no chunk states to check.
+    if hasattr(mod, "wkv_with_chunk_states"):
+        out, state, states = mod.wkv_with_chunk_states(r, kk, v, lw, u, chunk=chunk)
+        torch.cuda.synchronize()
+        pairs.append(("states", states, mod.wkv_chunk_states(kk, v, lw, chunk=chunk)[0]))
+    else:
+        out, state = mod.wkv(r, kk, v, lw, u, chunk=chunk)
+    ref_out, ref_state = mod.wkv_chunked(r, kk, v, lw, u, chunk=chunk)
+    pairs += [("out", out, ref_out), ("state", state, ref_state)]
+    errs = {key: (got - want).abs().max().item() for key, got, want in pairs}
+    tols = {key: WKV_REL * max(1.0, want.abs().max().item()) for key, _, want in pairs}
+    del pairs, out, state, ref_out, ref_state
+
+    def kernel():
+        return mod.wkv(r, kk, v, lw, u, chunk=chunk)
+
+    bound_ms, bound_by = wkv_bound(b, t, h, k)
+    ms = cuda_ms(torch, kernel, 20)
+    dev_ms, _, busy = profile_device(torch, kernel, 20, (WKV_PROFILE_PREFIX,))
+    return dict(
+        errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
+        plain_ms=cuda_ms(torch, lambda: mod.wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3),
+        library_ms=None, device_ms=dev_ms, busy_ms=busy[WKV_PROFILE_PREFIX],
+        issue_ms=issue_ms(torch, kernel, 20),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
 def phase_kernel_wkv(torch):
-    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_chunked
+    from repro_torch.kernels import rwkv6_wkv
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    k = 64
     rows = {}
-    for name, b, t, h, chunk in WKV_CASES:
-        def rand(shape, scale):
-            return torch.randn(shape, generator=gen, device=DEVICE) * scale
-
-        r, kk, v = (rand((b, t, h, k), 0.5) for _ in range(3))
-        lw = -torch.exp(rand((b, t, h, k), 1.0))
-        u = rand((h, k), 0.2)
-        out, state = wkv(r, kk, v, lw, u, chunk=chunk)
-        torch.cuda.synchronize()
-        ref_out, ref_state = wkv_chunked(r, kk, v, lw, u, chunk=chunk)
-        errs = {}
-        for key, got, want in (("out", out, ref_out), ("state", state, ref_state)):
-            tol = WKV_REL * max(1.0, want.abs().max().item())
-            errs[key] = (got - want).abs().max().item()
-            if not errs[key] <= tol:
-                raise AssertionError(f"wkv {name}: {key} max abs err {errs[key]:.3e} > {tol:.3e}")
-        ms = cuda_ms(torch, lambda: wkv(r, kk, v, lw, u, chunk=chunk), 20)
-        dev_ms = device_ms(torch, lambda: wkv(r, kk, v, lw, u, chunk=chunk), 20)
-        plain_ms = cuda_ms(torch, lambda: wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3)
-        bound_ms, bound_by = wkv_bound(b, t, h, k)
-        err = max(errs.values())
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                          device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log("kernel", f"wkv {name} B={b} H={h} K={k} chunk={chunk} f32: "
-            f"max_abs_err out={errs['out']:.3e} state={errs['state']:.3e} "
-            f"(tol {WKV_REL:.0e} x max(1, max|plain|) = {WKV_REL * max(1.0, ref_out.abs().max().item()):.3e}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
-            f"of_bound={bound_ms / ms:.4f} device_ms={dev_ms:.4f}")
-        del r, kk, v, lw, out, state, ref_out, ref_state
+    for case in WKV_CASES:
+        name, b, t, h, chunk, strong = case
+        row = rows[name] = wkv_case(torch, rwkv6_wkv, case, gen)
+        errs, tols, ms = row["errs"], row["tols"], row["ms"]
+        for key, err in errs.items():
+            if not err <= tols[key]:
+                raise AssertionError(f"wkv {name}: {key} max abs err {err:.3e} > {tols[key]:.3e}")
+        log("kernel", f"wkv {name} B={b} H={h} K=64 chunk={chunk} f32: max_abs_err "
+            + " ".join(f"{key}={err:.3e} (tol {tols[key]:.3e})" for key, err in errs.items())
+            + f" ms={ms:.4f} plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+            f"({row['bound_by']}) of_bound={row['bound_ms'] / ms:.4f} "
+            f"device_ms={row['device_ms']:.4f} busy_ms={row['busy_ms']:.4f} "
+            f"of_bound_busy={row['bound_ms'] / row['busy_ms']:.4f} "
+            f"issue_ms={row['issue_ms']:.4f}")
     return rows
 
 
@@ -648,7 +718,7 @@ def phase_serving(torch):
     for name, fn, wall_ms in (("prefill", lambda: api.prefill(model, cache, prompt), prefill_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, s),
                                decode_ms)):
-        dev, named, idle = device_split(torch, fn, 3, wall_ms, ("flash_fwd_kernel",))
+        dev, named, idle, _ = device_split(torch, fn, 3, wall_ms, ("flash_fwd_kernel",))
         log("serving", f"profile olmo-1b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
             f"(idle share {idle:.4f}), flash kernel {named['flash_fwd_kernel']:.3f} ms")
     return counts
@@ -752,9 +822,10 @@ def phase_serving_rwkv6(torch, wkv_ms):
     for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, 0),
                                decode_ms)):
-        dev, named, idle = device_split(torch, fn, 3, wall_ms, ("wkv_fwd_kernel",))
+        dev, named, idle, busy = device_split(torch, fn, 3, wall_ms, (WKV_PROFILE_PREFIX,))
         log("serving", f"profile rwkv6-7b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
-            f"(idle share {idle:.4f}), WKV kernel {named['wkv_fwd_kernel']:.3f} ms")
+            f"(idle share {idle:.4f}), WKV kernel (every pass) "
+            f"{named[WKV_PROFILE_PREFIX]:.3f} ms, busy {busy[WKV_PROFILE_PREFIX]:.3f} ms")
     return counts
 
 
@@ -860,7 +931,7 @@ def phase_serving_hymba(torch, flash_ms, ssm_ms):
     for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, 0),
                                decode_ms)):
-        dev, named, idle = device_split(torch, fn, 3, wall_ms, names)
+        dev, named, idle, _ = device_split(torch, fn, 3, wall_ms, names)
         log("serving", f"profile hymba-1.5b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
             f"(idle share {idle:.4f}), flash kernel {named['flash_fwd_kernel']:.3f} ms, "
             f"selective-scan kernel {named['ssm_scan_fwd_kernel']:.3f} ms")

@@ -18,7 +18,9 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["LOG_DECAY_MIN", "wkv_scan_ref", "wkv_chunked"]
+__all__ = [
+    "LOG_DECAY_MIN", "wkv_scan_ref", "wkv_chunked", "wkv_chunk_states", "wkv_chunk_output",
+]
 
 # Per-step log-decay floor (the reference's, with its stability note): it
 # bounds the factored chunk form's exponents to chunk * 4.6 / 2 after the
@@ -99,3 +101,64 @@ def wkv_chunked(
         outs.append(out)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, t + pad, h, kk)[:, :t]
     return out.to(r.dtype), s
+
+
+def _by_chunk(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(B, T, H, K) -> (B, H, n_chunks, c, K) float32, T zero-padded."""
+    b, t, h, kk = x.shape
+    pad = (-t) % c
+    x = x.float()
+    if pad:
+        x = torch.cat([x, x.new_zeros((b, pad, h, kk))], dim=1)
+    return x.reshape(b, (t + pad) // c, c, h, kk).permute(0, 3, 1, 2, 4)
+
+
+def wkv_chunk_states(
+    k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+    *, chunk: int = 64, s0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The states entering each chunk, the first pass of the kernel's
+    two-pass form: returns (S_c (B, H, n_chunks, K, K), final state
+    (B, H, K, K)), both float32, with chunks of ``min(chunk, T)`` as in
+    :func:`wkv_chunked`.  Every chunk's increment
+    ``(k .* exp(L_C - L))^T v`` and decay ``exp(L_C)`` is formed at once;
+    only S_{c+1} = exp(L_C) . S_c + increment runs chunk after chunk."""
+    c = min(chunk, k.shape[1])
+    kc, vc = _by_chunk(k, c), _by_chunk(v, c)
+    l_inc = torch.cumsum(_by_chunk(log_w, c).clamp(LOG_DECAY_MIN, 0.0), dim=3)
+    l_end = l_inc[..., -1:, :]
+    delta = torch.einsum("bhntd,bhntv->bhndv", kc * torch.exp(l_end - l_inc), vc)
+    decay = torch.exp(l_end[..., 0, :])[..., None]                # (B,H,nc,K,1)
+    s = _initial_state(k, s0)
+    states = []
+    for i in range(delta.shape[2]):
+        states.append(s)
+        s = decay[:, :, i] * s + delta[:, :, i]
+    return torch.stack(states, dim=2), s
+
+
+def wkv_chunk_output(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    states: torch.Tensor, *, chunk: int = 64,
+) -> torch.Tensor:
+    """The second pass: every chunk's output at once from its inputs and
+    the state entering it (``states`` as :func:`wkv_chunk_states` returns),
+      out_t = scores v + (r_t . u . k_t) v_t + (r_t .* exp(L_{t-1})) S_c
+    with the scores of :func:`wkv_chunked`.  Returns (B, T, H, K) in r's
+    dtype."""
+    b, t, h, kk = r.shape
+    c = min(chunk, t)
+    rc, kc, vc = _by_chunk(r, c), _by_chunk(k, c), _by_chunk(v, c)
+    lw = _by_chunk(log_w, c).clamp(LOG_DECAY_MIN, 0.0)
+    l_inc = torch.cumsum(lw, dim=3)
+    l_prev = l_inc - lw
+    l_mid = 0.5 * l_inc[..., -1:, :]
+    rr = rc * torch.exp(l_prev - l_mid)
+    kn = kc * torch.exp(l_mid - l_inc)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)
+    scores = torch.einsum("bhntd,bhnsd->bhnts", rr, kn).masked_fill(~mask, 0.0)
+    bonus = torch.einsum("bhntd,bhntd->bhnt", rc * u.float()[None, :, None, None, :], kc)
+    out = torch.einsum("bhnts,bhnsv->bhntv", scores, vc) + bonus[..., None] * vc
+    out = out + torch.einsum("bhntd,bhndv->bhntv", rc * torch.exp(l_prev), states.float())
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, -1, h, kk)[:, :t]
+    return out.to(r.dtype)

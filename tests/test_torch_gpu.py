@@ -10,7 +10,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
-from repro_torch.kernels.rwkv6_wkv import wkv, wkv_chunked  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import (  # noqa: E402
+    LOG_DECAY_MIN, wkv, wkv_chunk_states, wkv_chunked, wkv_with_chunk_states,
+)
 from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -149,10 +151,13 @@ WKV_CASES = [
 ]
 
 
-def _wkv_inputs(b, t, h, device, k=64, seed=0):
+def _wkv_inputs(b, t, h, device, k=64, seed=0, strong=False):
     rng = np.random.default_rng(seed)
     r, kk, v = ((rng.standard_normal((b, t, h, k)) * 0.5).astype(np.float32) for _ in range(3))
-    lw = (-np.exp(rng.standard_normal((b, t, h, k)))).astype(np.float32)
+    if strong:  # every log-decay clamps to the floor: mid-point exponents +-chunk * 2.3
+        lw = (LOG_DECAY_MIN - np.abs(rng.standard_normal((b, t, h, k)))).astype(np.float32)
+    else:
+        lw = (-np.exp(rng.standard_normal((b, t, h, k)))).astype(np.float32)
     u = (rng.standard_normal((h, k)) * 0.2).astype(np.float32)
     return [torch.from_numpy(x).to(device) for x in (r, kk, v, lw, u)]
 
@@ -169,6 +174,21 @@ def test_wkv_kernel_matches_plain_version(cuda_device, b, t, h, chunk):
     out, state = wkv(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert wkv.launches == before + 1
+    want_out, want_state = wkv_chunked(*args, chunk=chunk)
+    _wkv_close(out, want_out)
+    _wkv_close(state, want_state)
+
+
+@pytest.mark.parametrize("b,t,h,chunk,strong",
+                         [case + (False,) for case in WKV_CASES] + [(1, 1024, 64, 32, True)])
+def test_wkv_kernel_passes_match_plain_versions(cuda_device, b, t, h, chunk, strong):
+    """Each pass on its own: the first pass's states entering each chunk
+    against ``wkv_chunk_states``, then out and the final state; the last
+    row puts every log-decay at the floor (strong decay)."""
+    args = _wkv_inputs(b, t, h, cuda_device, seed=1, strong=strong)
+    out, state, states = wkv_with_chunk_states(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _wkv_close(states, wkv_chunk_states(*args[1:4], chunk=chunk)[0])
     want_out, want_state = wkv_chunked(*args, chunk=chunk)
     _wkv_close(out, want_out)
     _wkv_close(state, want_state)

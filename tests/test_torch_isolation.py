@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-``src/repro_torch/**/*.py`` and ``chip_smoke.py`` import neither ``jax``
-nor ``repro`` (as opposed to ``repro_torch``); the port's public modules
-import with both blocked; entry points without ``device="cpu"`` raise when
-there is no card.
+``src/repro_torch/**/*.py``, ``chip_smoke.py`` and ``tools/*.py`` import
+neither ``jax`` nor ``repro`` (as opposed to ``repro_torch``); the port's
+public modules import with both blocked; entry points without
+``device="cpu"`` raise when there is no card.
 """
 import ast
 import os
@@ -16,7 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "repro")
 
 

@@ -3,7 +3,11 @@
 The port's ``wkv`` on CPU tensors (its plain version, the chunked form) is
 held against the JAX Pallas kernel in interpret mode and against JAX's
 step-by-step ``wkv_scan_ref``; the port's ``wkv_scan_ref`` and
-``wkv_chunked`` with an initial state against their JAX counterparts.
+``wkv_chunked`` with an initial state against their JAX counterparts.  The
+plain version of the kernel's two passes, ``wkv_chunk_states`` (the state
+entering each chunk) and ``wkv_chunk_output`` (every chunk's output from
+it), is held against ``wkv_chunked``, the JAX scan oracle and, chunk by
+chunk, the final state of the Pallas kernel run on the tokens before it.
 Tolerance: max abs err <= 1e-5 * max(1, max |ref|), out and state — float32
 sums in another order, through decay factors up to exp(chunk * 4.6 / 2).
 The CUDA kernel itself is held against the plain version on the card by
@@ -19,7 +23,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.rwkv6_wkv import wkv as jax_wkv  # noqa: E402
 from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked  # noqa: E402
 from repro.models.rwkv6 import wkv_scan_ref as jax_wkv_scan_ref  # noqa: E402
-from repro_torch.kernels.rwkv6_wkv import LOG_DECAY_MIN, wkv, wkv_chunked, wkv_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import (  # noqa: E402
+    LOG_DECAY_MIN, wkv, wkv_chunk_output, wkv_chunk_states, wkv_chunked, wkv_scan_ref,
+)
+from repro_torch.kernels.rwkv6_wkv import ops  # noqa: E402
 
 pytestmark = pytest.mark.slow  # JAX-compiling; excluded from the fast lane
 
@@ -123,3 +130,95 @@ def test_wrapper_rejects_bad_calls(shapes, dtype, kwargs):
     r, k, v, lw, u = (torch.zeros(s, dtype=dtype) for s in shapes)
     with pytest.raises(ValueError):
         wkv(r, k, v, lw, u, **kwargs)
+
+
+@pytest.mark.parametrize("b,t,h,k,chunk", CASES, ids=CASE_IDS)
+def test_chunk_states_match_pallas_on_each_prefix(b, t, h, k, chunk):
+    """S_c, the state entering chunk c, is the final state of the Pallas
+    kernel run on the first c * C tokens (zero for c = 0); the state after
+    the last chunk is its final state on all T."""
+    r, kk, v, lw, u, _ = _inputs(b, t, h, k, seed=4)
+    c = min(chunk, t)
+    states, final = wkv_chunk_states(*map(torch.from_numpy, (kk, v, lw)), chunk=chunk)
+    n_chunks = -(-t // c)
+    assert states.shape == (b, h, n_chunks, k, k) and states.dtype == torch.float32
+    assert not states[:, :, 0].any()
+    for i in range(1, n_chunks):
+        prefix = (jnp.asarray(x[:, : i * c]) for x in (r, kk, v, lw))
+        _, want = jax_wkv(*prefix, jnp.asarray(u), chunk=c)
+        _close(states[:, :, i].numpy(), want)
+    _, want = jax_wkv(*map(jnp.asarray, (r, kk, v, lw, u)), chunk=chunk)
+    _close(final.numpy(), want)
+
+
+@pytest.mark.parametrize("b,t,h,k,chunk", CASES, ids=CASE_IDS)
+def test_chunk_output_matches_chunked_and_scan_oracle(b, t, h, k, chunk):
+    """The second pass's output, from the first pass's states, equals the
+    sequential chunked form and the JAX step-by-step oracle."""
+    r, kk, v, lw, u, _ = _inputs(b, t, h, k, seed=5)
+    targs = list(map(torch.from_numpy, (r, kk, v, lw, u)))
+    states, final = wkv_chunk_states(*targs[1:4], chunk=chunk)
+    out = wkv_chunk_output(*targs, states, chunk=chunk)
+    want_out, want_state = wkv_chunked(*targs, chunk=chunk)
+    _close(out.numpy(), want_out.numpy())
+    _close(final.numpy(), want_state.numpy())
+    lw_clamped = np.clip(lw, LOG_DECAY_MIN, 0.0)
+    want_out, want_state = jax_wkv_scan_ref(*map(jnp.asarray, (r, kk, v, lw_clamped, u)))
+    _close(out.numpy(), want_out)
+    _close(final.numpy(), want_state)
+
+
+def test_chunk_states_carry_an_initial_state():
+    r, kk, v, lw, u, s0 = _inputs(2, 70, 2, 32, seed=6)
+    targs = list(map(torch.from_numpy, (r, kk, v, lw, u)))
+    states, final = wkv_chunk_states(*targs[1:4], chunk=32, s0=torch.from_numpy(s0))
+    assert torch.equal(states[:, :, 0], torch.from_numpy(s0))
+    want_out, want_state = wkv_chunked(*targs, chunk=32, s0=torch.from_numpy(s0))
+    _close(wkv_chunk_output(*targs, states, chunk=32).numpy(), want_out.numpy())
+    _close(final.numpy(), want_state.numpy())
+
+
+def test_scores_form_overflows_at_chunk_64_under_strong_decay():
+    """Every log-decay at the floor: the mid-point exponents reach
+    +-chunk * 4.6 / 2, inside float32 at chunk 32 (73.6) and past it at
+    chunk 64 (147.2), where the reference's chunked form and Pallas kernel,
+    and the port's plain versions with them, give non-finite outputs.  The
+    states (formed as k * exp(L_C - L_t)) stay finite."""
+    r, kk, v, _, u, _ = _inputs(1, 128, 2, 64, seed=8)
+    lw = np.full_like(r, LOG_DECAY_MIN)
+    targs = list(map(torch.from_numpy, (r, kk, v, lw, u)))
+    for chunk, finite in ((32, True), (64, False)):
+        out, _ = wkv_chunked(*targs, chunk=chunk)
+        jax_out, _ = jax_wkv(*map(jnp.asarray, (r, kk, v, lw, u)), chunk=chunk)
+        states, final = wkv_chunk_states(*targs[1:4], chunk=chunk)
+        pass_out = wkv_chunk_output(*targs, states, chunk=chunk)
+        assert bool(torch.isfinite(out).all()) is finite
+        assert bool(np.isfinite(np.asarray(jax_out)).all()) is finite
+        assert bool(torch.isfinite(pass_out).all()) is finite
+        assert torch.isfinite(states).all() and torch.isfinite(final).all()
+    assert torch.isfinite(wkv_scan_ref(*targs)[0]).all()
+
+
+def test_entry_args_block_matches_the_c_struct():
+    """ops.py packs the C entry's arguments into one block; its size is the
+    one the source's static_assert holds ``EntryArgs`` to."""
+    import re
+
+    match = re.search(r"static_assert\(sizeof\(EntryArgs\) == (\d+)", ops.SOURCE.read_text())
+    assert match and ops._ENTRY_ARGS.size == int(match.group(1))
+
+
+@pytest.mark.parametrize(
+    "shape, strides, ptr_mod_16, bad",
+    [
+        ((1, 8, 2, 64), (1024, 128, 64, 1), 0, False),
+        ((1, 8, 2, 64), (1024, 128, 64, 1), 4, True),       # base off 16 bytes
+        ((1, 8, 2, 64), (1024, 128, 1, 2), 0, True),        # channel dim strided
+        ((2, 8, 2, 64), (1026, 128, 64, 1), 0, True),       # batch stride 1026
+        ((1, 8, 2, 64), (1026, 128, 64, 1), 0, False),      # ... of a size-1 dim
+        ((1, 8, 2, 64), (4096, 512, 66, 1), 0, True),       # head stride 66
+    ],
+    ids=["dense", "misaligned", "channel-strided", "batch-stride", "size-1-dim", "head-stride"],
+)
+def test_layout_rule(shape, strides, ptr_mod_16, bad):
+    assert (ops.layout_error(shape, strides, ptr_mod_16) is not None) is bad
