@@ -12,9 +12,11 @@ Phases, each of which fails the run:
                    ``build/kernels/``, one ``nvcc`` per source, all started
                    together; print the build seconds and ptxas report, and
                    the flash library's tensor-core (HGMMA) and TMA-load
-                   (UTMALDG) instruction counts and the WKV library's
-                   tensor-core (HMMA) count from ``cuobjdump -sass`` (each
-                   must be non-zero; a missing cuobjdump is printed).
+                   (UTMALDG) instruction counts, the WKV library's
+                   tensor-core (HMMA) count and the scan library's
+                   special-function (MUFU) and shuffle (SHFL) counts from
+                   ``cuobjdump -sass`` (the named ones must be non-zero; a
+                   missing cuobjdump is printed).
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
                    max abs error <= 1e-2: one output rounding plus another
@@ -58,7 +60,11 @@ Phases, each of which fails the run:
 9. kernel (ssm)  — the selective-scan kernel against its plain (step by
                    step) version, float32 with N=16, y and final state
                    within 1e-5 * max(1, max |plain|): float32 sums over the
-                   16 states in another order.
+                   16 states in another order, through segments carried
+                   with the reference's combine; rows cover a T with no
+                   whole last segment and a T below one segment.  Beside
+                   the times: busy ms, device ms with the L2 cache flushed
+                   before every call (``cold_ms``) and the SM clock.
 10. model (hymba) — full-width hymba-1.5b in float32 with seeded random
                    weights: the forward over 128 tokens (inside the window)
                    launches the flash-attention kernel (head dim 64) and the
@@ -101,6 +107,7 @@ WKV_PROFILE_PREFIX = "wkv_"            # every CUDA kernel of the WKV passes
 SSM_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:63"
 SSM_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 SSM_MAIN_CASE = "hymba-1.5b T=1024"    # the forward's shape at 1024 tokens
+SSM_PROFILE_PREFIX = "ssm_"            # every CUDA kernel of the selective scan
 HYMBA_FLASH_CASE = "hymba-1.5b global S=1024"
 
 # name, B, S, H, KV, dtype, window, D (all causal self-attention)
@@ -134,6 +141,8 @@ SSM_CASES = [
     ("B=4 T=256", 4, 256, 3200, 128, False),
     ("D=203 (last 8-channel tile ragged)", 1, 256, 203, 128, False),
     ("strong decay T=1024", 1, 1024, 3200, 128, True),
+    ("T=1021 (no whole last segment)", 1, 1021, 3200, 128, False),
+    ("T=5 (below one segment)", 1, 5, 3200, 128, True),
 ]
 SSM_REL = 1e-5
 SFU_EXP_S = 132 * 16 * 1.98e9          # H100 SXM: 16 exponentials per clock and SM at boost
@@ -171,12 +180,12 @@ def host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_split(torch, fn, calls: int, wall_ms: float, kernels):
+def device_split(torch, fn, calls: int, wall_ms: float, kernels, launches=None):
     """Device milliseconds per call (kernel time under ``torch.profiler``),
     each named kernel's part of it, the device's idle share of ``wall_ms``,
     the unprofiled host time per call, and each named kernel's busy ms (see
     ``profile_device``)."""
-    dev, named, busy = profile_device(torch, fn, calls, kernels)
+    dev, named, busy, _ = profile_device(torch, fn, calls, kernels, launches=launches)
     return dev, named, 1.0 - dev / wall_ms, busy
 
 
@@ -201,19 +210,22 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_device(torch, fn, calls: int, kernels, attempts: int = 3):
+def profile_device(torch, fn, calls: int, kernels, attempts: int = 3, launches=None):
     """Device milliseconds per call (the sum of kernel times under
     ``torch.profiler``), each named kernel's part of that sum (every kernel
-    whose name holds the given name), and each named kernel's busy
-    milliseconds per call: the union of those same kernels' intervals,
-    which counts once the time where they overlap (the WKV passes run side
-    by side) and equals their part of the sum where none overlap.  A
-    profiled window that records no device time at all (its events were
-    lost; a launched kernel always takes some) is profiled again, up to
-    ``attempts`` windows."""
+    whose name holds the given name), each named kernel's busy milliseconds
+    per call (the union of those same kernels' intervals, which counts once
+    the time where they overlap, as the WKV passes do, and equals their
+    part of the sum where none overlap), and each named kernel's count of
+    records.  The profiler can lose kernel records (on an H100, this
+    script's scan windows recorded 12-13 of 20 launches): where ``launches``
+    gives a named kernel's launches per call, its part and busy time are
+    taken per recorded launch times that count, not per call.  A window that records
+    no device time at all is profiled again, up to ``attempts`` windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    launches = launches or {}
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -221,21 +233,24 @@ def profile_device(torch, fn, calls: int, kernels, attempts: int = 3):
             torch.cuda.synchronize()
         device = 0.0
         named = dict.fromkeys(kernels, 0.0)
+        records = dict.fromkeys(kernels, 0)
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
                 device += evt.self_device_time_total
                 for kernel in kernels:
                     if kernel in evt.key:
                         named[kernel] += evt.self_device_time_total
-        if device > 0.0:
-            named_ms = {kernel: t / 1e3 / calls for kernel, t in named.items()}
+                        records[kernel] += evt.count
+        if device > 0.0 and all(records[k] for k in launches):
+            per = {k: records[k] / launches[k] if k in launches else calls for k in kernels}
+            named_ms = {kernel: t / 1e3 / per[kernel] for kernel, t in named.items()}
             busy_ms = {kernel: busy_us((evt.time_range.start, evt.time_range.end)
                                        for evt in prof.events()
                                        if evt.device_type == DeviceType.CUDA
                                        and evt.self_device_time_total > 0
-                                       and kernel in evt.name) / 1e3 / calls
+                                       and kernel in evt.name) / 1e3 / per[kernel]
                        for kernel in kernels}
-            return device / 1e3 / calls, named_ms, busy_ms
+            return device / 1e3 / calls, named_ms, busy_ms, records
     raise RuntimeError(f"the profiler recorded no device time in {attempts} windows")
 
 
@@ -284,7 +299,8 @@ def phase_build():
             if any(w in line for w in ("registers", "spill", "smem", "wgmma", "Function properties")):
                 log("build", line.strip())
     for res, need, why in ((results[0], ("HGMMA", "UTMALDG"), "run wgmma on TMA tiles"),
-                           (results[1], ("HMMA",), "run its products on the tensor cores")):
+                           (results[1], ("HMMA",), "run its products on the tensor cores"),
+                           (results[2], ("MUFU",), "compute its exponentials")):
         source = res.path.name.split("-")[0] + ".cu"
         counts = sass_counts(build, res.path)
         if counts is None:
@@ -296,9 +312,10 @@ def phase_build():
 
 
 def sass_counts(build, lib):
-    """Tensor-core (HGMMA: wgmma; HMMA: mma.sync), TMA-load (UTMALDG) and
-    cp.async (LDGSTS) instructions in a built library's SASS, or None
-    without cuobjdump."""
+    """Tensor-core (HGMMA: wgmma; HMMA: mma.sync), TMA-load (UTMALDG),
+    cp.async (LDGSTS), special-function (MUFU: exponentials) and cross-lane
+    (SHFL) instructions in a built library's SASS, or None without
+    cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump")
@@ -309,7 +326,7 @@ def sass_counts(build, lib):
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG", "LDGSTS"), 0)
+    counts = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "MUFU", "SHFL"), 0)
     for word in sass.split():
         op = word.split(".")[0]
         if op in counts:
@@ -454,7 +471,7 @@ def wkv_case(torch, mod, case, gen):
 
     bound_ms, bound_by = wkv_bound(b, t, h, k)
     ms = cuda_ms(torch, kernel, 20)
-    dev_ms, _, busy = profile_device(torch, kernel, 20, (WKV_PROFILE_PREFIX,))
+    dev_ms, _, busy, _ = profile_device(torch, kernel, 20, (WKV_PROFILE_PREFIX,))
     return dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
         plain_ms=cuda_ms(torch, lambda: mod.wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3),
@@ -501,43 +518,127 @@ def ssm_bound(b, t, d, n):
     return t_ops * 1e3, "operations", sfu_ms
 
 
+def sm_clock() -> str:
+    """The card's SM clock and active clock-event reasons, as ``nvidia-smi``
+    reads them now (its error text where the query fails)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return (proc.stdout.strip() or proc.stderr.strip()).splitlines()[0]
+
+
+def cold_device_ms(torch, fn, calls: int, kernel: str, flush_mb: int = 256):
+    """Device ms per call of the kernels named ``kernel`` (one launch per
+    call) when every call finds the L2 cache cold: a ``flush_mb`` scratch
+    tensor is written before each call, and only the named kernels' time is
+    counted; and how many of the ``calls`` launches the profiler recorded."""
+    flush = torch.empty(flush_mb * 2**18, dtype=torch.float32, device=DEVICE)
+
+    def cold():
+        flush.zero_()
+        fn()
+
+    for _ in range(2):
+        cold()
+    torch.cuda.synchronize()
+    _, named, _, records = profile_device(torch, cold, calls, (kernel,), launches={kernel: 1})
+    del flush
+    return named[kernel], records[kernel]
+
+
+def ssm_inputs(torch, case, gen):
+    """Seeded float32 inputs of one ``SSM_CASES`` row: dt > 0 as softplus
+    gives it, A = -exp(log_a) < 0; a strong-decay row draws dt |A| up to
+    about 50, so the state forgets within a step."""
+    name, b, t, d, chunk, strong = case
+    n = 16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    u = rand(b, t, d)
+    dt = torch.exp(rand(b, t, d) * 0.5) * (3.0 if strong else 0.3)
+    bt, ct = rand(b, t, n), rand(b, t, n)
+    log_a = rand(d, n) * (1.0 if strong else 0.5)
+    return u, dt, bt, ct, log_a
+
+
+def ssm_row(torch, mod, inputs, chunk):
+    """The selective-scan package ``mod`` (its ``ssm_scan`` and plain
+    ``selective_scan_ref``) on ``inputs`` (u, dt, b_t, c_t, log_a): max abs
+    errors of y and the final state, each beside its tolerance; the
+    kernel's and the plain version's CUDA-event ms over back-to-back calls
+    (``ms``, ``plain_ms``), the ``ssm_`` kernels' device ms per call under
+    ``torch.profiler`` (``device_ms``: their summed time; ``busy_ms``: the
+    union of their intervals), both per recorded launch, and how many of
+    the 20 launches the profiler recorded (``records``), the same with the
+    L2 cache flushed before every call (``cold_ms``, ``cold_records``), the
+    host's ms to issue one call (``issue_ms``), the card's bound and the SM
+    clock before and after the row."""
+    u, dt, bt, ct, log_a = inputs
+    b, t, d = u.shape
+    n = bt.shape[-1]
+    clock_before = sm_clock()
+    y, h = mod.ssm_scan(u, dt, bt, ct, log_a, chunk=chunk)
+    torch.cuda.synchronize()
+    ref_y, ref_h = mod.selective_scan_ref(u, dt, log_a, bt, ct)
+    pairs = (("y", y, ref_y), ("state", h, ref_h))
+    errs = {key: (got - want).abs().max().item() for key, got, want in pairs}
+    tols = {key: SSM_REL * max(1.0, want.abs().max().item()) for key, _, want in pairs}
+    del pairs, y, h, ref_y, ref_h
+
+    def kernel():
+        return mod.ssm_scan(u, dt, bt, ct, log_a, chunk=chunk)
+
+    bound_ms, bound_by, sfu_ms = ssm_bound(b, t, d, n)
+    ms = cuda_ms(torch, kernel, 20)
+    _, named, busy, records = profile_device(torch, kernel, 20, (SSM_PROFILE_PREFIX,),
+                                             launches={SSM_PROFILE_PREFIX: 1})
+    cold_ms, cold_records = cold_device_ms(torch, kernel, 20, SSM_PROFILE_PREFIX)
+    return dict(
+        errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
+        plain_ms=cuda_ms(torch, lambda: mod.selective_scan_ref(u, dt, log_a, bt, ct), 2,
+                         warmup=1),
+        library_ms=None, device_ms=named[SSM_PROFILE_PREFIX],
+        busy_ms=busy[SSM_PROFILE_PREFIX], records=records[SSM_PROFILE_PREFIX],
+        cold_ms=cold_ms, cold_records=cold_records,
+        issue_ms=issue_ms(torch, kernel, 20),
+        bound_ms=bound_ms, bound_by=bound_by, sfu_exp_ms=sfu_ms,
+        clock_before=clock_before, clock_after=sm_clock(),
+    )
+
+
+def ssm_case(torch, mod, case, gen):
+    """One ``SSM_CASES`` row for a selective-scan package ``mod``: see
+    ``ssm_row``."""
+    return ssm_row(torch, mod, ssm_inputs(torch, case, gen), case[4])
+
+
+def log_ssm_row(label, row):
+    errs, tols, ms = row["errs"], row["tols"], row["ms"]
+    for key, err in errs.items():
+        if not err <= tols[key]:
+            raise AssertionError(f"ssm {label}: {key} max abs err {err:.3e} > {tols[key]:.3e}")
+    log("kernel", f"ssm {label} f32: max_abs_err "
+        + " ".join(f"{key}={err:.3e} (tol {tols[key]:.3e})" for key, err in errs.items())
+        + f" ms={ms:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
+        f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) sfu_exp_ms={row['sfu_exp_ms']:.5f} "
+        f"device_ms={row['device_ms']:.4f} busy_ms={row['busy_ms']:.4f} "
+        f"of_bound_device={row['bound_ms'] / row['device_ms']:.4f} "
+        f"cold_ms={row['cold_ms']:.4f} records={row['records']}/20 cold_records="
+        f"{row['cold_records']}/20 issue_ms={row['issue_ms']:.4f} "
+        f"clock [{row['clock_before']}] -> [{row['clock_after']}]")
+
+
 def phase_kernel_ssm(torch):
-    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan
+    from repro_torch.kernels import ssm_scan
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    n = 16
     rows = {}
-    for name, b, t, d, chunk, strong in SSM_CASES:
-        def rand(*shape):
-            return torch.randn(shape, generator=gen, device=DEVICE)
-
-        u = rand(b, t, d)
-        dt = torch.exp(rand(b, t, d) * 0.5) * (3.0 if strong else 0.3)
-        bt, ct = rand(b, t, n), rand(b, t, n)
-        log_a = rand(d, n) * (1.0 if strong else 0.5)
-        y, h = ssm_scan(u, dt, bt, ct, log_a, chunk=chunk)
-        torch.cuda.synchronize()
-        ref_y, ref_h = selective_scan_ref(u, dt, log_a, bt, ct)
-        errs = {}
-        for key, got, want in (("y", y, ref_y), ("state", h, ref_h)):
-            tol = SSM_REL * max(1.0, want.abs().max().item())
-            errs[key] = (got - want).abs().max().item()
-            if not errs[key] <= tol:
-                raise AssertionError(f"ssm {name}: {key} max abs err {errs[key]:.3e} > {tol:.3e}")
-        ms = cuda_ms(torch, lambda: ssm_scan(u, dt, bt, ct, log_a, chunk=chunk), 20)
-        dev_ms = device_ms(torch, lambda: ssm_scan(u, dt, bt, ct, log_a, chunk=chunk), 20)
-        plain_ms = cuda_ms(torch, lambda: selective_scan_ref(u, dt, log_a, bt, ct), 2, warmup=1)
-        bound_ms, bound_by, sfu_ms = ssm_bound(b, t, d, n)
-        err = max(errs.values())
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                          device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log("kernel", f"ssm {name}: B={b} T={t} D={d} N={n} chunk={chunk} f32: "
-            f"max_abs_err y={errs['y']:.3e} state={errs['state']:.3e} "
-            f"(tol {SSM_REL:.0e} x max(1, max|plain|) = {SSM_REL * max(1.0, ref_y.abs().max().item()):.3e}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none bound_ms={bound_ms:.5f} "
-            f"({bound_by}) of_bound={bound_ms / ms:.4f} sfu_exp_ms={sfu_ms:.5f} "
-            f"device_ms={dev_ms:.4f}")
-        del u, dt, bt, ct, log_a, y, h, ref_y, ref_h
+    for case in SSM_CASES:
+        name, b, t, d, chunk, strong = case
+        rows[name] = ssm_case(torch, ssm_scan, case, gen)
+        log_ssm_row(f"{name}: B={b} T={t} D={d} N=16 chunk={chunk}", rows[name])
     return rows
 
 
@@ -927,14 +1028,16 @@ def phase_serving_hymba(torch, flash_ms, ssm_ms):
         f"which the flash kernel {n} x {flash_ms:.4f} ms = {n * flash_ms / logits_ms:.1%} and "
         f"the selective-scan kernel {n} x {ssm_ms:.4f} ms = {n * ssm_ms / logits_ms:.1%}; "
         f"decode_step {decode_ms:.3f} ms")
-    names = ("flash_fwd_kernel", "ssm_scan_fwd_kernel")
+    names = ("flash_fwd_kernel", SSM_PROFILE_PREFIX)
     for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, 0),
                                decode_ms)):
-        dev, named, idle, _ = device_split(torch, fn, 3, wall_ms, names)
+        launches = {SSM_PROFILE_PREFIX: cfg.n_layers} if name == "forward" else None
+        dev, named, idle, busy = device_split(torch, fn, 3, wall_ms, names, launches)
         log("serving", f"profile hymba-1.5b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
             f"(idle share {idle:.4f}), flash kernel {named['flash_fwd_kernel']:.3f} ms, "
-            f"selective-scan kernel {named['ssm_scan_fwd_kernel']:.3f} ms")
+            f"selective-scan kernels {named[SSM_PROFILE_PREFIX]:.3f} ms, "
+            f"busy {busy[SSM_PROFILE_PREFIX]:.3f} ms")
     return counts
 
 

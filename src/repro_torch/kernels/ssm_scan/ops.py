@@ -3,18 +3,21 @@
 
 The signature of ``repro/kernels/ssm_scan/ops.py::ssm_scan`` without
 ``d_block`` and ``interpret``.  CUDA tensors go to the hand-written Hopper
-kernel in ``csrc/ssm_scan.cu``, which reads u/dt/b_t/c_t in place through
-their strides, takes any D and any T, and masks the ragged edges itself;
+kernel in ``csrc/ssm_scan.cu`` (time split into segments whose carries
+follow ``ref.selective_scan_segments``), which reads u/dt/b_t/c_t in place
+through their strides, takes any D and any T, and masks the ragged edges
+itself;
 CPU tensors go to the plain version :func:`selective_scan_ref`.  A CUDA
 call that the kernel does not take raises: there is no fallback.
 
-``ssm_scan.launches`` counts kernel launches.
+``ssm_scan.launches`` counts calls that launch the kernel, one per call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+import struct
 from typing import Tuple
 
 import torch
@@ -28,14 +31,16 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 STATE_SIZE = 16
 MAX_CHUNK = 128
 
+# The C entry's argument block (``EntryArgs`` in the source): u, dt, b_t,
+# c_t, log_a, y and state pointers; the (batch, time) strides of u, dt,
+# b_t and c_t; the stream; B, T, D, N, chunk; one unused int.
+_ENTRY_ARGS = struct.Struct("=7Q8qQ6i")
+
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.load(SOURCE).ssm_scan_forward
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
-        + [ctypes.c_void_p]
-    )
+    fn.argtypes = [ctypes.c_char_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,7 +71,9 @@ def ssm_scan(
     u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
     log_a: torch.Tensor, *, chunk: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, T, D), final state (B, D, N)), both float32."""
+    """Returns (y (B, T, D), final state (B, D, N)), both float32.  ``chunk``
+    is the reference's time tile; the CUDA kernel takes chunks of at most
+    ``MAX_CHUNK`` and picks its own tiles, which do not change the result."""
     _check(u, dt, b_t, c_t, log_a, chunk)
     if u.device.type == "cpu":
         return selective_scan_ref(u, dt, log_a, b_t, c_t)
@@ -84,16 +91,19 @@ def ssm_scan(
     log_a = log_a.contiguous()
     y = torch.empty((bsz, t, d), dtype=torch.float32, device=u.device)
     h = torch.empty((bsz, d, n), dtype=torch.float32, device=u.device)
-    fn = _kernel()
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    with torch.cuda.device(u.device):
-        rc = fn(
-            u.data_ptr(), dt.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), log_a.data_ptr(),
-            y.data_ptr(), h.data_ptr(),
-            bsz, t, d, n, c,
-            *(u.stride()[:2]), *(dt.stride()[:2]), *(b_t.stride()[:2]), *(c_t.stride()[:2]),
-            stream,
-        )
+    dev = u.device
+    args = _ENTRY_ARGS.pack(
+        u.data_ptr(), dt.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), log_a.data_ptr(),
+        y.data_ptr(), h.data_ptr(),
+        *u.stride()[:2], *dt.stride()[:2], *b_t.stride()[:2], *c_t.stride()[:2],
+        torch._C._cuda_getCurrentRawStream(dev.index),
+        bsz, t, d, n, c, 0,
+    )
+    if dev.index == torch.cuda.current_device():
+        rc = _kernel()(args)
+    else:
+        with torch.cuda.device(dev):
+            rc = _kernel()(args)
     if rc != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {rc}")
     ssm_scan.launches += 1

@@ -235,6 +235,11 @@ SSM_CASES = [
     (1, 200, 203, 128),     # D does not fill the last 8-channel tile
     (2, 10, 64, 128),       # T < chunk
     (1, 1, 16, 128),        # one token
+    (1, 1021, 3200, 128),   # no whole last 8-step segment
+    (1, 5, 3200, 128),      # T below one segment
+    (1, 57, 3200, 128),     # one step past the first tile (7 segments of 8 at B=1)
+    (4, 256, 3200, 128),    # one segment per tile (97 channels a block)
+    (3, 13, 203, 64),       # B > 1, ragged T and D
 ]
 
 
@@ -278,6 +283,23 @@ def test_ssm_kernel_reads_strided_inputs(cuda_device):
     bc = torch.randn((2, 150, 32), generator=gen, device=cuda_device)
     bt, ct = bc[..., :16], bc[..., 16:]
     log_a = torch.randn((72, 16), generator=gen, device=cuda_device) * 0.5
+    y, h = ssm_scan(u, dt, bt, ct, log_a, chunk=64)
+    want_y, want_h = selective_scan_ref(u, dt, log_a, bt, ct)
+    _ssm_close(y, want_y)
+    _ssm_close(h, want_h)
+
+
+def test_ssm_kernel_reads_unaligned_inputs(cuda_device):
+    """Views one float off 16-byte boundaries take the 4-byte copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    t, d = 77, 50
+
+    def view(*shape):
+        flat = torch.randn(int(np.prod(shape)) + 1, generator=gen, device=cuda_device)
+        return flat[1:].view(*shape)
+
+    u, dt, bt, ct = view(2, t, d), view(2, t, d).abs() * 0.3, view(2, t, 16), view(2, t, 16)
+    log_a = torch.randn((d, 16), generator=gen, device=cuda_device) * 0.5
     y, h = ssm_scan(u, dt, bt, ct, log_a, chunk=64)
     want_y, want_h = selective_scan_ref(u, dt, log_a, bt, ct)
     _ssm_close(y, want_y)

@@ -7,7 +7,10 @@ mode and against JAX's ``selective_scan_ref`` and chunked
 against its JAX counterparts.  Tolerance: max abs err <= 1e-5 * max(1,
 max |ref|), y and final state — float32 sums in another order.  The CUDA
 kernel itself is held against the plain version on the card by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.  The plain version of
+the kernel's segment structure, ``selective_scan_segments``, is held here:
+the state entering segment s against the Pallas kernel's final state on the
+first s * L tokens, and the assembled y against the JAX scans.
 """
 import numpy as np
 import pytest
@@ -19,7 +22,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.ssm_scan import ssm_scan as jax_ssm_scan  # noqa: E402
 from repro.models.hymba import selective_scan as jax_selective_scan  # noqa: E402
 from repro.models.hymba import selective_scan_ref as jax_selective_scan_ref  # noqa: E402
-from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    SEGMENT_STEPS, selective_scan_ref, selective_scan_segments, ssm_scan,
+)
 
 pytestmark = pytest.mark.slow  # JAX-compiling; excluded from the fast lane
 
@@ -128,3 +133,62 @@ def test_wrapper_rejects_bad_calls(shapes, dtype, kwargs):
     u, dt, bt, ct, log_a = (torch.zeros(s, dtype=dtype) for s in shapes)
     with pytest.raises(ValueError):
         ssm_scan(u, dt, bt, ct, log_a, **kwargs)
+
+
+SEG_CASES = [
+    # b, t, d, seg
+    (1, 64, 32, SEGMENT_STEPS),    # whole segments
+    (2, 45, 24, SEGMENT_STEPS),    # ragged T, B > 1
+    (1, 5, 16, SEGMENT_STEPS),     # T below one segment
+    (1, 50, 40, 16),               # ragged T, longer segments
+]
+SEG_IDS = [f"b{b}-t{t}-d{d}-seg{L}" for b, t, d, L in SEG_CASES]
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["moderate", "strong-decay"])
+@pytest.mark.parametrize("b,t,d,seg", SEG_CASES, ids=SEG_IDS)
+def test_segment_states_match_pallas_on_each_prefix(b, t, d, seg, strong):
+    """The state entering segment s is the Pallas kernel's final state on
+    the first s * seg tokens (zero for s = 0)."""
+    u, dt, bt, ct, log_a, _ = _inputs(b, t, d, 16, seed=4, strong=strong)
+    _, _, states = selective_scan_segments(
+        *map(torch.from_numpy, (u, dt, log_a, bt, ct)), seg=seg)
+    assert states.shape == (b, -(-t // seg), d, 16)
+    assert not states[:, 0].any()
+    for s in range(1, states.shape[1]):
+        k = s * seg
+        _, want_h = jax_ssm_scan(*(jnp.asarray(x[:, :k]) for x in (u, dt, bt, ct)),
+                                 jnp.asarray(log_a), chunk=seg, d_block=d, interpret=True)
+        _close(states[:, s].numpy(), want_h)
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["moderate", "strong-decay"])
+@pytest.mark.parametrize("b,t,d,seg", SEG_CASES, ids=SEG_IDS)
+def test_segment_assembly_matches_jax_scans(b, t, d, seg, strong):
+    """y from segment-local scans plus the carried state, and the final
+    state, against JAX's ``selective_scan``, its ``selective_scan_ref`` and
+    the port's step-by-step oracle."""
+    u, dt, bt, ct, log_a, _ = _inputs(b, t, d, 16, seed=5, strong=strong)
+    targs = list(map(torch.from_numpy, (u, dt, log_a, bt, ct)))
+    y, h, _ = selective_scan_segments(*targs, seg=seg)
+    assert y.dtype == h.dtype == torch.float32 and y.shape == (b, t, d)
+    jargs = list(map(jnp.asarray, (u, dt, log_a, bt, ct)))
+    for want in (jax_selective_scan(*jargs, chunk=seg), jax_selective_scan_ref(*jargs),
+                 selective_scan_ref(*targs)):
+        _close(y.numpy(), want[0])
+        _close(h.numpy(), want[1])
+
+
+def test_entry_args_block_and_segment_match_the_cuda_source():
+    """ops.py packs the C entry's arguments into one block whose size the
+    source's static_assert holds ``EntryArgs`` to, and the plain segment
+    structure uses the kernel's segment length."""
+    import re
+
+    from repro_torch.kernels.ssm_scan import ops
+
+    src = ops.SOURCE.read_text()
+    size = re.search(r"static_assert\(sizeof\(EntryArgs\) == (\d+)", src)
+    seg = re.search(r"constexpr int kSeg = (\d+);", src)
+    assert size and ops._ENTRY_ARGS.size == int(size.group(1))
+    assert seg and SEGMENT_STEPS == int(seg.group(1))

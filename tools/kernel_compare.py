@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time one checkout's flash-attention or WKV kernel, and the model
-forwards that call it, on one CUDA card.
+"""Time one checkout's flash-attention, WKV or selective-scan kernel, and
+the model forwards that call it, on one CUDA card.
 
-    python3 tools/kernel_compare.py --kernel {flash,wkv} [--src DIR] [--label NAME]
+    python3 tools/kernel_compare.py --kernel {flash,wkv,ssm} [--src DIR] [--label NAME]
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is timed (default
 this checkout's); its kernels build into that checkout's ``build/kernels/``.
@@ -15,6 +15,13 @@ hymba-1.5b (bf16) runs a 1024-token forward.
 ``--kernel wkv``: each row of ``chip_smoke.WKV_CASES`` is timed by
 ``chip_smoke.wkv_case``, the WKV phase's own timing (errors included);
 then full-width rwkv6-7b (bf16) runs a 1024-token forward.
+
+``--kernel ssm``: each row of ``chip_smoke.SSM_CASES`` is timed by
+``chip_smoke.ssm_case``, the scan phase's own timing (errors, L2-cold
+device ms and the SM clock included); then full-width hymba-1.5b (bf16)
+runs a 1024-token forward, and the scan's inputs in its first layer
+(seeded random tokens) are timed by ``chip_smoke.ssm_row`` as one more row;
+before the forward, the scan's device time over D = 1056 k channels.
 
 Every row is one JSON object.  A forward's row holds its wall ms per call
 on the host clock, its device ms under ``torch.profiler``, the device's
@@ -39,6 +46,7 @@ import chip_smoke  # noqa: E402
 FORWARDS = {
     "flash": (("olmo-1b", 256, "flash_fwd_kernel"), ("hymba-1.5b", 1024, "flash_fwd_kernel")),
     "wkv": (("rwkv6-7b", 1024, chip_smoke.WKV_PROFILE_PREFIX),),
+    "ssm": (("hymba-1.5b", 1024, chip_smoke.SSM_PROFILE_PREFIX),),
 }
 
 
@@ -53,12 +61,64 @@ def kernel_rows(torch, kernel: str, label: str) -> None:
                 row = chip_smoke.flash_case(torch, flash_attention, attention_ref, case, gen)
                 print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
         return
+    if kernel == "ssm":
+        from repro_torch.kernels import ssm_scan
+
+        gen = torch.Generator(device=dev).manual_seed(4)
+        for case in chip_smoke.SSM_CASES:
+            row = chip_smoke.ssm_case(torch, ssm_scan, case, gen)
+            print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
+        ssm_fill_rows(torch, ssm_scan, label, gen)
+        return
     from repro_torch.kernels import rwkv6_wkv
 
     gen = torch.Generator(device=dev).manual_seed(2)
     for case in chip_smoke.WKV_CASES:
         row = chip_smoke.wkv_case(torch, rwkv6_wkv, case, gen)
         print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
+
+
+def ssm_fill_rows(torch, mod, label, gen) -> None:
+    """Device ms of the scan's ``ssm_`` kernels per call at T=1024 over D =
+    1056 k channels, k = 1..4 (132 k of v3's 8-channel blocks): how the
+    time grows with the blocks an SM runs."""
+    prefix = chip_smoke.SSM_PROFILE_PREFIX
+    for k in (1, 2, 3, 4):
+        inputs = chip_smoke.ssm_inputs(torch, ("fill", 1, 1024, 1056 * k, 128, False), gen)
+
+        def call():
+            mod.ssm_scan(*inputs, chunk=128)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        named = chip_smoke.profile_device(torch, call, 20, (prefix,), launches={prefix: 1})[1]
+        print(json.dumps({"label": label, "case": f"fill D={1056 * k}", "device_ms": named[prefix],
+                          "clock": chip_smoke.sm_clock()}), flush=True)
+
+
+def captured_scan_inputs(torch, api, model, s):
+    """The selective scan's arguments in the first layer of one forward over
+    ``s`` seeded random tokens: (u, dt, b_t, c_t, log_a) as the model passes
+    them, and the chunk."""
+    from repro_torch.models import hymba
+
+    gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(5)
+    toks = torch.randint(0, api.cfg.vocab, (1, s), generator=gen, device=chip_smoke.DEVICE)
+    calls = []
+    scan = hymba.ssm_scan
+
+    def capture(*args, chunk):
+        if not calls:
+            calls.append(([x.clone() for x in args], chunk))
+        return scan(*args, chunk=chunk)
+
+    hymba.ssm_scan = capture
+    try:
+        api.logits(model, {"tokens": toks})
+    finally:
+        hymba.ssm_scan = scan
+    return calls[0]
 
 
 def forward_rows(torch, kernel: str, label: str) -> None:
@@ -77,13 +137,24 @@ def forward_rows(torch, kernel: str, label: str) -> None:
         else:
             def fn():
                 return api.logits(model, {"tokens": toks})
+        clock = chip_smoke.sm_clock()
         wall_ms = chip_smoke.host_ms(torch, fn, 10)
+        launches = {profile_name: api.cfg.n_layers} if kernel == "ssm" else None
         device_ms, named, idle, busy = chip_smoke.device_split(torch, fn, 3, wall_ms,
-                                                              (profile_name,))
+                                                              (profile_name,), launches)
         print(json.dumps({"label": label, "model": name, "tokens": s, "wall_ms": wall_ms,
                           "device_ms": device_ms, "kernel_ms": named[profile_name],
-                          "kernel_busy_ms": busy[profile_name], "idle_share": idle}),
+                          "kernel_busy_ms": busy[profile_name], "idle_share": idle,
+                          "clock_before": clock, "clock_after": chip_smoke.sm_clock()}),
               flush=True)
+        if kernel == "ssm":
+            from repro_torch.kernels import ssm_scan
+
+            inputs, chunk = captured_scan_inputs(torch, api, model, s)
+            row = chip_smoke.ssm_row(torch, ssm_scan, inputs, chunk)
+            print(json.dumps({"label": label, "case": f"{name} layer 0 inputs T={s}", **row}),
+                  flush=True)
+            del inputs
         del model, fn
         torch.cuda.empty_cache()
 
