@@ -73,10 +73,32 @@ Phases, each of which fails the run:
 11. serving (hymba) — full-width hymba-1.5b in bf16, as phase 8; then the
                    per-call times of a 1024-token forward and a decode step,
                    each kernel's share, device time and idle share.
+12. kernel (flash bwd) — the flash-attention backward kernel (dQ, dK, dV
+                   from the forward's log-sum-exp) against autograd through
+                   the plain ``attention_ref`` on the card, at the training
+                   shape and at hymba's, llama3-8b's and a float32 shape:
+                   bf16 within 2e-2 * max(1, max |plain|), f32 within 1e-4 *
+                   max(1, max |plain|); with the kernel's, the plain
+                   backward's (``attention_backward_ref``) and SDPA's
+                   backward times beside the card's bound.
+13. training (olmo-1b) — ``HeteroTrainer`` over ``RealBackend`` and
+                   ``EpochLoop``: full-width olmo-1b in bf16 (remat on) on
+                   the simulated ``cluster_A`` (3 nodes) with
+                   ``CannikinController(3, [16, 32, 64], ref_batch=16)``,
+                   ``SyntheticLM(seq 512, seed 0)``, SGD at lr 0.01, 2 steps
+                   per epoch, 3 epochs (the third in the OptPerf phase).
+                   Every loss finite, no node excluded, launch counts as the
+                   path predicts, peak memory under 80 GB; each node step's
+                   wall and device ms; and one node's float32 gradient at
+                   full width (b=2, S=256) through the kernels against the
+                   same gradient with the plain attention passed through the
+                   layers' ``attend`` seam: global sq-norm within 1e-5
+                   relative, every leaf within 1e-4 * max(1, max |g|).
 
 The launch counts are set to 0 just before each model's path (phases 5-6
-for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b) and read just after
-it.  The last three lines of standard output are the card line from
+for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 for training) and
+read just after it.  Device ms of a named kernel are per launch the
+profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
 ``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
@@ -86,6 +108,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -104,11 +127,24 @@ WKV_REPLACES = "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:86"
 WKV_SOURCE_REL = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu"
 WKV_MAIN_CASE = "rwkv6-7b T=1024"      # the forward's shape at 1024 tokens
 WKV_PROFILE_PREFIX = "wkv_"            # every CUDA kernel of the WKV passes
+WKV_KERNELS = 2                        # wkv_states_kernel, wkv_out_kernel per call
 SSM_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:63"
 SSM_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 SSM_MAIN_CASE = "hymba-1.5b T=1024"    # the forward's shape at 1024 tokens
 SSM_PROFILE_PREFIX = "ssm_"            # every CUDA kernel of the selective scan
 HYMBA_FLASH_CASE = "hymba-1.5b global S=1024"
+FLASH_PROFILE_NAME = "flash_fwd_kernel"  # both forward instances
+BWD_PROFILE_NAME = "flash_bwd_"        # the backward's three kernels
+BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
+# name, B, S, H, KV, dtype, window, D (all causal self-attention)
+BWD_CASES = [
+    ("olmo-1b train S=512 B=8", 8, 512, 16, 16, "bf16", None, 128),
+    ("hymba-1.5b global S=1024", 1, 1024, 25, 5, "bf16", None, 64),
+    ("hymba-1.5b window=1024 S=2048", 1, 2048, 25, 5, "bf16", 1024, 64),
+    ("llama3-8b heads S=1024", 1, 1024, 32, 8, "bf16", None, 128),
+    ("f32 S=T=300", 1, 300, 16, 16, "f32", None, 128),
+]
+BWD_REL = {"bf16": 2e-2, "f32": 1e-4}
 
 # name, B, S, H, KV, dtype, window, D (all causal self-attention)
 KERNEL_CASES = [
@@ -183,10 +219,11 @@ def host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 def device_split(torch, fn, calls: int, wall_ms: float, kernels, launches=None):
     """Device milliseconds per call (kernel time under ``torch.profiler``),
     each named kernel's part of it, the device's idle share of ``wall_ms``,
-    the unprofiled host time per call, and each named kernel's busy ms (see
-    ``profile_device``)."""
-    dev, named, busy, _ = profile_device(torch, fn, calls, kernels, launches=launches)
-    return dev, named, 1.0 - dev / wall_ms, busy
+    the unprofiled host time per call, each named kernel's busy ms and its
+    count of records (see ``profile_device``).  The total is per call made:
+    a lost record lowers it, which the named kernels' records show."""
+    dev, named, busy, records = profile_device(torch, fn, calls, kernels, launches=launches)
+    return dev, named, 1.0 - dev / wall_ms, busy, records
 
 
 def device_ms(torch, fn, calls: int, warmup: int = 3) -> float:
@@ -352,9 +389,10 @@ def flash_case(torch, flash_attention, attention_ref, case, gen):
     """One ``KERNEL_CASES`` row for a flash-attention entry and its plain
     version: the kernel's max abs error, its, the plain version's and
     ``scaled_dot_product_attention``'s CUDA-event ms over back-to-back calls
-    (``ms``, ``plain_ms``, ``library_ms``), the kernel's and the library
-    call's device ms per call under ``torch.profiler`` (``device_ms``,
-    ``library_device_ms``), the host's ms to issue one kernel call
+    (``ms``, ``plain_ms``, ``library_ms``), the kernel's device ms per
+    recorded launch under ``torch.profiler`` (``device_ms``, with
+    ``records`` of the 20 launches) and the library call's per call
+    (``library_device_ms``), the host's ms to issue one kernel call
     (``issue_ms``) and the card's bound."""
     import torch.nn.functional as F
 
@@ -383,12 +421,15 @@ def flash_case(torch, flash_attention, attention_ref, case, gen):
             qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=h != kv)
 
     bound_ms, bound_by = attention_bound(b, s, h, kv, d, dt, window)
+    ms = cuda_ms(torch, kernel, 20)
+    _, named, _, records = profile_device(torch, kernel, 20, (FLASH_PROFILE_NAME,),
+                                          launches={FLASH_PROFILE_NAME: 1})
     return dict(
         max_abs_err=err,
-        ms=cuda_ms(torch, kernel, 20),
+        ms=ms,
         plain_ms=cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window), 5),
         library_ms=cuda_ms(torch, library, 20),
-        device_ms=device_ms(torch, kernel, 20),
+        device_ms=named[FLASH_PROFILE_NAME], records=records[FLASH_PROFILE_NAME],
         library_device_ms=device_ms(torch, library, 20),
         issue_ms=issue_ms(torch, kernel, 20),
         bound_ms=bound_ms, bound_by=bound_by,
@@ -411,6 +452,7 @@ def phase_kernel(torch):
             f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
             f"of_bound={row['bound_ms'] / ms:.4f} device_ms={row['device_ms']:.4f} "
+            f"records={row['records']}/20 "
             f"library_device_ms={row['library_device_ms']:.4f} issue_ms={row['issue_ms']:.4f}")
     return rows
 
@@ -435,10 +477,10 @@ def wkv_case(torch, mod, case, gen):
     states entering each chunk against ``wkv_chunk_states``, each beside
     its tolerance; the kernel's and the plain version's CUDA-event ms over
     back-to-back calls (``ms``, ``plain_ms``), the kernel's device ms per
-    call under ``torch.profiler`` (``device_ms``: the sum of every kernel
-    the call launches; ``busy_ms``: the union of the WKV passes'
-    intervals, which counts their overlap once), the host's ms to issue one
-    call (``issue_ms``) and the card's bound."""
+    call under ``torch.profiler`` (``device_ms``: the WKV passes' summed
+    time; ``busy_ms``: the union of their intervals, which counts their
+    overlap once; both per recorded launch, ``records`` of the 40), the
+    host's ms to issue one call (``issue_ms``) and the card's bound."""
     name, b, t, h, chunk, strong = case
     k = 64
 
@@ -471,11 +513,13 @@ def wkv_case(torch, mod, case, gen):
 
     bound_ms, bound_by = wkv_bound(b, t, h, k)
     ms = cuda_ms(torch, kernel, 20)
-    dev_ms, _, busy, _ = profile_device(torch, kernel, 20, (WKV_PROFILE_PREFIX,))
+    _, named, busy, records = profile_device(torch, kernel, 20, (WKV_PROFILE_PREFIX,),
+                                             launches={WKV_PROFILE_PREFIX: WKV_KERNELS})
     return dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
         plain_ms=cuda_ms(torch, lambda: mod.wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3),
-        library_ms=None, device_ms=dev_ms, busy_ms=busy[WKV_PROFILE_PREFIX],
+        library_ms=None, device_ms=named[WKV_PROFILE_PREFIX], busy_ms=busy[WKV_PROFILE_PREFIX],
+        records=records[WKV_PROFILE_PREFIX],
         issue_ms=issue_ms(torch, kernel, 20),
         bound_ms=bound_ms, bound_by=bound_by,
     )
@@ -498,6 +542,7 @@ def phase_kernel_wkv(torch):
             + f" ms={ms:.4f} plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) of_bound={row['bound_ms'] / ms:.4f} "
             f"device_ms={row['device_ms']:.4f} busy_ms={row['busy_ms']:.4f} "
+            f"records={row['records']}/{20 * WKV_KERNELS} "
             f"of_bound_busy={row['bound_ms'] / row['busy_ms']:.4f} "
             f"issue_ms={row['issue_ms']:.4f}")
     return rows
@@ -642,15 +687,15 @@ def phase_kernel_ssm(torch):
     return rows
 
 
-KERNEL_NAMES = ("flash_attention", "rwkv6_wkv", "ssm_scan")
+KERNEL_NAMES = ("flash_attention", "rwkv6_wkv", "ssm_scan", "flash_attention_backward")
 
 
 def _wrappers():
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
     from repro_torch.kernels.rwkv6_wkv import wkv
     from repro_torch.kernels.ssm_scan import ssm_scan
 
-    return dict(zip(KERNEL_NAMES, (flash_attention, wkv, ssm_scan)))
+    return dict(zip(KERNEL_NAMES, (flash_attention, wkv, ssm_scan, flash_attention_backward)))
 
 
 def reset_launches():
@@ -799,7 +844,8 @@ def phase_serving(torch):
     serving_summary(torch, "olmo-1b", rep, wall, counts)
     if summ["completed"] != 16 or summ["dropped"] != 0:
         raise AssertionError(f"served {summ['completed']}/16 with {summ['dropped']} dropped")
-    if launches != cfg.n_layers * prefills or counts["rwkv6_wkv"] or counts["ssm_scan"]:
+    if (launches != cfg.n_layers * prefills or counts["rwkv6_wkv"] or counts["ssm_scan"]
+            or counts["flash_attention_backward"]):
         raise AssertionError(f"launches {counts} != {cfg.n_layers} x {prefills} prefills")
     rids = check_streams(torch, api, model, engine, rt, wl, 2048)
     log("serving", f"requests {rids} equal a direct greedy decode")
@@ -819,9 +865,12 @@ def phase_serving(torch):
     for name, fn, wall_ms in (("prefill", lambda: api.prefill(model, cache, prompt), prefill_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, s),
                                decode_ms)):
-        dev, named, idle, _ = device_split(torch, fn, 3, wall_ms, ("flash_fwd_kernel",))
+        launches = {FLASH_PROFILE_NAME: cfg.n_layers} if name == "prefill" else None
+        dev, named, idle, _, records = device_split(torch, fn, 3, wall_ms, (FLASH_PROFILE_NAME,),
+                                                    launches)
         log("serving", f"profile olmo-1b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
-            f"(idle share {idle:.4f}), flash kernel {named['flash_fwd_kernel']:.3f} ms")
+            f"(idle share {idle:.4f}), flash kernel {named[FLASH_PROFILE_NAME]:.3f} ms "
+            f"(records {records[FLASH_PROFILE_NAME]}/{3 * cfg.n_layers if launches else 0})")
     return counts
 
 
@@ -923,10 +972,14 @@ def phase_serving_rwkv6(torch, wkv_ms):
     for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, 0),
                                decode_ms)):
-        dev, named, idle, busy = device_split(torch, fn, 3, wall_ms, (WKV_PROFILE_PREFIX,))
+        per = WKV_KERNELS * cfg.n_layers if name == "forward" else 0
+        dev, named, idle, busy, records = device_split(
+            torch, fn, 3, wall_ms, (WKV_PROFILE_PREFIX,),
+            {WKV_PROFILE_PREFIX: per} if per else None)
         log("serving", f"profile rwkv6-7b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
             f"(idle share {idle:.4f}), WKV kernel (every pass) "
-            f"{named[WKV_PROFILE_PREFIX]:.3f} ms, busy {busy[WKV_PROFILE_PREFIX]:.3f} ms")
+            f"{named[WKV_PROFILE_PREFIX]:.3f} ms, busy {busy[WKV_PROFILE_PREFIX]:.3f} ms "
+            f"(records {records[WKV_PROFILE_PREFIX]}/{3 * per})")
     return counts
 
 
@@ -946,7 +999,8 @@ def phase_model_hymba(torch):
     torch.cuda.synchronize()
     after = read_launches()
     launched = {k: after[k] - before[k] for k in after}
-    want = {"flash_attention": cfg.n_layers, "rwkv6_wkv": 0, "ssm_scan": cfg.n_layers}
+    want = {"flash_attention": cfg.n_layers, "rwkv6_wkv": 0, "ssm_scan": cfg.n_layers,
+            "flash_attention_backward": 0}
     if launched != want:
         raise AssertionError(f"the forward launched {launched}, not {want}")
     cache = api.init_cache(1, s, device=DEVICE)
@@ -1028,16 +1082,232 @@ def phase_serving_hymba(torch, flash_ms, ssm_ms):
         f"which the flash kernel {n} x {flash_ms:.4f} ms = {n * flash_ms / logits_ms:.1%} and "
         f"the selective-scan kernel {n} x {ssm_ms:.4f} ms = {n * ssm_ms / logits_ms:.1%}; "
         f"decode_step {decode_ms:.3f} ms")
-    names = ("flash_fwd_kernel", SSM_PROFILE_PREFIX)
+    names = (FLASH_PROFILE_NAME, SSM_PROFILE_PREFIX)
     for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
                               ("decode_step", lambda: api.decode_step(model, cache, last, 0),
                                decode_ms)):
-        launches = {SSM_PROFILE_PREFIX: cfg.n_layers} if name == "forward" else None
-        dev, named, idle, busy = device_split(torch, fn, 3, wall_ms, names, launches)
+        launches = ({SSM_PROFILE_PREFIX: cfg.n_layers, FLASH_PROFILE_NAME: cfg.n_layers}
+                    if name == "forward" else None)
+        dev, named, idle, busy, records = device_split(torch, fn, 3, wall_ms, names, launches)
+        want = 3 * cfg.n_layers if launches else 0
         log("serving", f"profile hymba-1.5b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
-            f"(idle share {idle:.4f}), flash kernel {named['flash_fwd_kernel']:.3f} ms, "
+            f"(idle share {idle:.4f}), flash kernel {named[FLASH_PROFILE_NAME]:.3f} ms, "
             f"selective-scan kernels {named[SSM_PROFILE_PREFIX]:.3f} ms, "
-            f"busy {busy[SSM_PROFILE_PREFIX]:.3f} ms")
+            f"busy {busy[SSM_PROFILE_PREFIX]:.3f} ms (records flash "
+            f"{records[FLASH_PROFILE_NAME]}/{want}, scan {records[SSM_PROFILE_PREFIX]}/{want})")
+    return counts
+
+
+def attention_bwd_bound(b, s, h, kv, d, dtype, window):
+    """Least time for one attention backward: q, k, v, o, dO and the lse
+    read once, dq, dk, dv written once, over the memory rate; or its five
+    products over the valid (query, key) pairs (S and dP recomputed, dV,
+    dK, dQ: 2.5x the forward's two) over the peak rate for the dtype."""
+    elem = 2 if dtype == "bf16" else 4
+    nbytes = elem * d * b * s * (3 * h + 2 * kv) + 4 * b * h * s + elem * d * b * (h * s + 2 * kv * s)
+    w = s if window is None else min(window, s)
+    pairs = sum(min(q + 1, w) for q in range(s))
+    flops = 10 * d * b * h * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def flash_bwd_case(torch, case, gen):
+    """One ``BWD_CASES`` row: the backward kernel's dq, dk, dv against
+    autograd through ``attention_ref`` (max abs errors, each beside its
+    tolerance); the kernel's, the plain backward's
+    (``attention_backward_ref``: the same inputs, the same formulas) and
+    SDPA's backward's CUDA-event ms over back-to-back calls; the kernel's
+    device ms per recorded call (its three kernels) and the card's bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_ref, attention_ref, flash_attention_backward, ops)
+
+    name, b, s, h, kv, dt, window, d = case
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device=DEVICE).to(dtype)
+                   for n in (h, kv, kv, h))
+    scale = 1.0 / d ** 0.5
+    out, lse = ops._forward(q, k, v, True, window, scale, None, with_lse=True)
+
+    def kernel():
+        return flash_attention_backward(q, k, v, out, lse, do, causal=True, window=window)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*leaves, causal=True, window=window), leaves, do)
+    errs = {key: (g.float() - w.float()).abs().max().item()
+            for key, g, w in zip(("dq", "dk", "dv"), got, want)}
+    tols = {key: BWD_REL[dt] * max(1.0, w.float().abs().max().item())
+            for key, w in zip(("dq", "dk", "dv"), want)}
+    del got, want, leaves
+
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_() for x in (q, k, v))
+    mask = None
+    if window is not None:
+        pos = torch.arange(s, device=DEVICE)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    lib_out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=h != kv)
+    lib_do = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+
+    bound_ms, bound_by = attention_bwd_bound(b, s, h, kv, d, dt, window)
+    ms = cuda_ms(torch, kernel, 10)
+    _, named, _, records = profile_device(torch, kernel, 10, (BWD_PROFILE_NAME,),
+                                          launches={BWD_PROFILE_NAME: 3})
+    row = dict(
+        errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
+        plain_ms=cuda_ms(torch, lambda: attention_backward_ref(
+            q, k, v, out, lse, do, causal=True, window=window), 2, warmup=1),
+        library_ms=cuda_ms(torch, library, 10),
+        device_ms=named[BWD_PROFILE_NAME], records=records[BWD_PROFILE_NAME],
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+    del lib_out
+    return row
+
+
+def phase_kernel_bwd(torch):
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    rows = {}
+    for case in BWD_CASES:
+        name, b, s, h, kv, dt, window, d = case
+        row = rows[name] = flash_bwd_case(torch, case, gen)
+        for key, err in row["errs"].items():
+            if not err <= row["tols"][key]:
+                raise AssertionError(f"flash bwd {name}: {key} max abs err {err:.3e} > "
+                                     f"{row['tols'][key]:.3e}")
+        log("kernel", f"flash bwd {name} B={b} H={h} KV={kv} D={d} {dt} window={window}: "
+            "max_abs_err " + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
+                                      for key, err in row["errs"].items())
+            + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+            f"({row['bound_by']}) device_ms={row['device_ms']:.4f} "
+            f"records={row['records']}/30 of_bound_device={row['bound_ms'] / row['device_ms']:.4f}")
+    return rows
+
+
+def node_grad_check(torch):
+    """One node's float32 gradient at full width (b=2, S=256): through the
+    flash kernels against the plain attention passed through the layers'
+    ``attend`` seam."""
+    import functools
+
+    from repro_torch.configs import olmo_1b
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models import common
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(
+        olmo_1b.config(), param_dtype=torch.float32, compute_dtype=torch.float32)
+    model = build_api("olmo-1b", cfg).init(0, device=DEVICE).requires_grad_(True)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (2, 257), generator=gen, device=DEVICE)
+    grads = {}
+    for name, attend in (("kernel", None),
+                         ("plain", functools.partial(attention_ref, causal=True))):
+        logits = model.train_forward(tokens[:, :-1], attend=attend)
+        loss, w_sum = common.weighted_cross_entropy(logits, tokens[:, 1:])
+        grads[name] = torch.autograd.grad(loss / w_sum, list(model.parameters()))
+        del logits, loss
+    sq = {k: sum(float((g.double() ** 2).sum()) for g in v) for k, v in grads.items()}
+    rel_sq = abs(sq["kernel"] - sq["plain"]) / sq["plain"]
+    worst = max(((g - w).abs().max().item() / max(1.0, w.abs().max().item()), n)
+                for (n, _), g, w in zip(model.named_parameters(), grads["kernel"],
+                                        grads["plain"]))
+    log("training", f"full olmo-1b f32 node gradient (b=2, S=256), kernels vs plain "
+        f"attention: global sq-norm {sq['kernel']:.6e} vs {sq['plain']:.6e} (rel {rel_sq:.3e}, "
+        f"limit 1e-5); worst leaf {worst[1]} err {worst[0]:.3e} x max(1, max|g|) (limit 1e-4)")
+    if not rel_sq <= 1e-5 or not worst[0] <= 1e-4:
+        raise AssertionError(f"node gradient: sq-norm rel {rel_sq:.3e}, leaf {worst}")
+    del model, grads
+
+
+def phase_training(torch):
+    """Full-width olmo-1b trained by HeteroTrainer on the simulated cluster_A."""
+    from repro_torch.configs import get_api
+    from repro_torch.core.controller import CannikinController
+    from repro_torch.core.simulator import SimulatedCluster, cluster_A
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.optimizers import constant_schedule, sgd
+    from repro_torch.train.hetero import HeteroTrainer
+
+    api = get_api("olmo-1b")
+    cfg = api.cfg
+    profiles, comm = cluster_A()
+    sim = SimulatedCluster(profiles, comm, noise=0.01, seed=0)
+    policy = CannikinController(sim.n, batch_candidates=[16, 32, 64], ref_batch=16)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=512, seed=0)
+    steps = 2
+    trainer = HeteroTrainer(api, sgd(constant_schedule(0.01)), sim, policy, data,
+                            steps_per_epoch=steps, seed=0, device=DEVICE)
+    backend = trainer.backend
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    walls = []
+    for _ in range(3):
+        te = time.perf_counter()
+        rec = trainer.run_epoch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - te)
+        res = trainer.loop.last_result
+        log("training", f"epoch {rec.epoch} phase={rec.phase} total_batch={rec.total_batch} "
+            f"batches={list(rec.batches)} lr_scale={rec.lr_scale:.6f} "
+            f"predicted_batch_s={rec.predicted_batch_time} sim_epoch_s={rec.sim_seconds:.6f} "
+            f"sim_clock_s={trainer.sim_time:.6f} losses={[round(x, 6) for x in res.losses]} "
+            f"mean_loss={rec.mean_loss:.6f} b_noise={rec.b_noise:.6e} "
+            f"sq_i={[[f'{x:.6e}' for x in o.local_sqnorms] for o in res.grad_observations]} "
+            f"sq_g={[f'{o.global_sqnorm:.6e}' for o in res.grad_observations]} "
+            f"anomalies={list(res.grad_anomalies)} wall_s={walls[-1]:.3f}")
+        if not all(math.isfinite(x) for x in res.losses) or any(res.grad_anomalies):
+            raise AssertionError(f"epoch {rec.epoch}: losses {res.losses}, anomalies "
+                                 f"{res.grad_anomalies}")
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n, layers = sim.n, cfg.n_layers
+    per_node = 2 if cfg.remat else 1  # remat runs each layer's forward again
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["flash_attention"] = 3 * steps * (n * per_node * layers + layers)
+    want["flash_attention_backward"] = 3 * steps * n * layers
+    log("training", f"olmo-1b bf16 full width, cluster_A ({n} nodes), 3 epochs x {steps} steps "
+        f"in {time.perf_counter() - t0:.2f} s; launches {counts} (expected {want}); "
+        f"peak_mem_gb={peak / 1e9:.3f}; transfers {backend.transfers.snapshot()}")
+    if counts != want:
+        raise AssertionError(f"training launches {counts} != {want}")
+    if trainer.history[-1].phase != "optperf":
+        raise AssertionError("the controller did not reach its OptPerf phase")
+    if not peak < 80e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+
+    # Each node's step of the last plan: its forward and backward alone.
+    batches = list(trainer.history[-1].batches)
+    b_max = max(8, -(-max(batches) // 8) * 8)
+    raw = data.batch(0, b_max)
+    tok = torch.as_tensor(raw["tokens"], device=DEVICE)
+    lab = torch.as_tensor(raw["labels"], device=DEVICE)
+    for i, b in enumerate(batches):
+        msk = (torch.arange(b_max, device=DEVICE) < b).float()
+        wall_ms = host_ms(torch, lambda: backend.node_grads(tok, lab, msk), 2, warmup=1)
+        dev, named, idle, _, records = device_split(
+            torch, lambda: backend.node_grads(tok, lab, msk), 1, wall_ms,
+            (FLASH_PROFILE_NAME, BWD_PROFILE_NAME),
+            {FLASH_PROFILE_NAME: per_node * layers, BWD_PROFILE_NAME: 3 * layers})
+        log("training", f"node {i} step (b={b} of padded {b_max}, S=512): wall {wall_ms:.2f} ms, "
+            f"device {dev:.2f} ms (idle share {idle:.4f}); flash forward "
+            f"{named[FLASH_PROFILE_NAME]:.2f} ms (records {records[FLASH_PROFILE_NAME]}/"
+            f"{per_node * layers}), flash backward {named[BWD_PROFILE_NAME]:.2f} ms (records "
+            f"{records[BWD_PROFILE_NAME]}/{3 * layers})")
+    del trainer, backend, tok, lab
+    torch.cuda.empty_cache()
+    node_grad_check(torch)
     return counts
 
 
@@ -1072,7 +1342,8 @@ def main() -> int:
         phase = "serving (rwkv6)"
         rwkv6_counts = phase_serving_rwkv6(torch, wkv_rows[WKV_MAIN_CASE]["ms"])
         log("serving", f"rwkv6-7b path launches {rwkv6_counts}")
-        if rwkv6_counts != {"flash_attention": 0, "rwkv6_wkv": 32, "ssm_scan": 0}:
+        if rwkv6_counts != {"flash_attention": 0, "rwkv6_wkv": 32, "ssm_scan": 0,
+                            "flash_attention_backward": 0}:
             raise AssertionError("the rwkv6-7b path must launch the WKV kernel once per "
                                  f"layer of its forward and nothing else: {rwkv6_counts}")
         torch.cuda.empty_cache()
@@ -1086,10 +1357,17 @@ def main() -> int:
         hymba_counts = phase_serving_hymba(
             torch, rows[HYMBA_FLASH_CASE]["ms"], ssm_rows[SSM_MAIN_CASE]["ms"])
         log("serving", f"hymba-1.5b path launches {hymba_counts}")
-        if hymba_counts != {"flash_attention": 32, "rwkv6_wkv": 0, "ssm_scan": 32}:
+        if hymba_counts != {"flash_attention": 32, "rwkv6_wkv": 0, "ssm_scan": 32,
+                            "flash_attention_backward": 0}:
             raise AssertionError("the hymba-1.5b path must launch the flash-attention and "
                                  "selective-scan kernels once per layer of its forward and "
                                  f"nothing else: {hymba_counts}")
+        torch.cuda.empty_cache()
+        phase = "kernel (flash bwd)"
+        bwd_rows = phase_kernel_bwd(torch)
+        torch.cuda.empty_cache()
+        phase = "training (olmo-1b)"
+        train_counts = phase_training(torch)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -1103,6 +1381,8 @@ def main() -> int:
          rwkv6_counts["rwkv6_wkv"]),
         ("ssm_scan", SSM_SOURCE_REL, SSM_REPLACES, ssm_rows[SSM_MAIN_CASE],
          hymba_counts["ssm_scan"]),
+        ("flash_attention_backward", SOURCE_REL, REPLACES, bwd_rows[BWD_MAIN_CASE],
+         train_counts["flash_attention_backward"]),
     ):
         kernels.append({
             "name": name,

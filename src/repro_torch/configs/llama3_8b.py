@@ -34,4 +34,5 @@ def reduced() -> DenseConfig:
         head_dim=32,
         rope_theta=500000.0,
         decode_window=64,
+        remat=False,
     )

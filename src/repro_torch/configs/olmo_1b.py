@@ -36,6 +36,7 @@ def reduced() -> DenseConfig:
         head_dim=32,
         norm="nonparam_ln",
         decode_window=64,
+        remat=False,
         # float32, as in the reference: the reduced config is the
         # numerics-equivalence vehicle.
         param_dtype=torch.float32,

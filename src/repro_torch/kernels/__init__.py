@@ -6,7 +6,8 @@ C interface, built at first use by :mod:`repro_torch.kernels.build`),
 plain PyTorch version, which CPU tensors take).
 
 All three of the reference's kernels are ported: flash attention
-(``repro/kernels/flash_attention``, head dims 64 and 128), the RWKV6 WKV
-recurrence (``repro/kernels/rwkv6_wkv``) and the Mamba selective scan
+(``repro/kernels/flash_attention``, head dims 64 and 128, with a CUDA
+backward under autograd for training), the RWKV6 WKV recurrence
+(``repro/kernels/rwkv6_wkv``) and the Mamba selective scan
 (``repro/kernels/ssm_scan``).
 """

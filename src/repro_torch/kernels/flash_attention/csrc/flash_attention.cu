@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash attention for Hopper (sm_90a), plain C interface for ctypes: the
+// forward (below) and, for training, its backward (at the end of the file).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention_kernel
@@ -95,6 +96,7 @@ struct Params {
   int window;  // <= 0: no window
   int kv_len;  // keys at index >= kv_len are masked
   float scale;
+  float* lse;  // (B, H, S) log-sum-exp of each row's scaled scores, or null
 };
 
 // ===========================================================================
@@ -260,6 +262,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
     const float denom = fmaxf(row_sum[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kOut; ++j) o[m * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
+    // -inf for a row with no valid key (row_max -inf, row_sum 0).
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.H + h) * p.S + m] = row_max[i] + logf(row_sum[i]);
   }
 }
 
@@ -701,6 +706,9 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(out + row * p.o_ss + 8 * j + r.col0) =
             __floats2bfloat162_rn(o[4 * j + 2 * ii] / denom, o[4 * j + 2 * ii + 1] / denom);
+      // m_run is in log2 units; -inf for a row with no valid key.
+      if (p.lse != nullptr && r.col0 == 0)
+        p.lse[((long long)b * p.H + h) * p.S + row] = m_run[ii] * 0.6931471805599453f + logf(l);
     }
   }
 }
@@ -779,29 +787,396 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace sm90
 
+// ===========================================================================
+// Backward (both dtypes): dQ, dK, dV from the forward's log-sum-exp
+// ===========================================================================
+//
+// The reference has no Pallas backward: it differentiates plain jnp
+// attention.  The port's training path runs the forward kernel, so its
+// gradient is a kernel too (FlashAttention-2's backward, simple form):
+//   * a pre-pass writes delta = rowsum(dO * O) per (b, h, row);
+//   * flash_bwd_dkdv_kernel: one block per (key tile of 64, kv head, b)
+//     walks every q head of the GQA group and every q tile the mask lets
+//     see the tile, recomputing P = exp(scale q.k - lse) and dS = P (dO V^T -
+//     delta), and keeps dV = sum P^T dO and dK = scale sum dS^T Q in
+//     registers: the group's sum needs no atomics;
+//   * flash_bwd_dq_kernel: one block per (q tile of 64, head, b) walks the
+//     key tiles the forward walks and keeps dQ = scale sum dS K in registers.
+//     A separate dQ kernel recomputes S and dO V^T once more, and in
+//     exchange nothing is accumulated across blocks (no atomics, no f32
+//     scratch, the same result every run).
+// The mask predicate is the forward's; tiles it leaves dead are never
+// loaded.  Every product is a scalar float32 FMA on the CUDA cores (bf16
+// inputs are widened as they are staged in shared memory), so the kernel
+// is far from the tensor cores' bound: wgmma and TMA are later work.
+// Bound on an H100 SXM: the work is about 2.5x the forward's products
+// (S, dP, dV, dK and dQ, plus S and dP again for dQ here), operations-bound
+// at the training shapes.
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;  // (B, H, S), from the forward
+  float* delta;      // (B, H, S), written by the pre-pass
+  void* dq;
+  void* dk;
+  void* dv;
+  int S, T, H, KV;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  int causal;
+  int window;
+  int kv_len;
+  float scale;
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow_to(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void narrow_to(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
+
+// One warp per (b, row, h): delta = sum_d dO * O, in float32.
+template <typename T, int D>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(BwdParams p, int B) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)B * p.S * p.H) return;
+  const int h = row % p.H;
+  const int m = (row / p.H) % p.S;
+  const int b = row / ((long long)p.H * p.S);
+  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + m * p.o_ss + h * p.o_sh;
+  const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + m * p.do_ss + h * p.do_sh;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32) acc = fmaf(widen(g[d]), widen(o[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[((long long)b * p.H + h) * p.S + m] = acc;
+}
+
+// Shared memory of both backward kernels: four 64 x D float32 tiles at a
+// padded pitch, the 64 x 64 P / dS tile, and the q tile's lse and delta.
+template <int D>
+struct BwdTile {
+  static constexpr int kPitch = D + 1;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (4 * kBlockM * kPitch + kBlockM * kPPitch + 2 * kBlockM);
+};
+
+// Rows [m0, m0+64) and cols [0, D) of a (L, heads, D) slice into a float32
+// tile; rows past `rows` are zero.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* src, long long row_stride, int m0,
+                                      int rows) {
+  constexpr int kPitch = D + 1;
+  for (int idx = threadIdx.x; idx < kBlockM * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D;
+    const int m = m0 + r;
+    dst[r * kPitch + c] = m < rows ? widen(src[m * row_stride + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ bool visible(const BwdParams& p, int n_valid, int m, int n) {
+  bool ok = m < p.S && n < n_valid;
+  if (p.causal) ok = ok && n <= m;
+  if (p.window > 0) ok = ok && n > m - p.window;
+  return ok;
+}
+
+// Thread (tx, ty) of the 16 x 16 grid: the scores of q rows ty + 16 i and
+// keys tx + 16 j (i, j < 4) become P (returned in s) and dS (in dp).
+template <int D>
+__device__ __forceinline__ void scores_and_ds(const BwdParams& p, const float* qs, const float* dos,
+                                              const float* ks, const float* vs, const float* lse_s,
+                                              const float* delta_s, int m0, int n0, int n_valid,
+                                              float (&s)[4][4], float (&dp)[4][4]) {
+  constexpr int kPitch = D + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[4], g[4], bk[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = qs[(ty + 16 * i) * kPitch + d];
+      g[i] = dos[(ty + 16 * i) * kPitch + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bk[j] = ks[(tx + 16 * j) * kPitch + d];
+      bv[j] = vs[(tx + 16 * j) * kPitch + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+        dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = ty + 16 * i;
+      const bool ok = visible(p, n_valid, m0 + r, n0 + tx + 16 * j);
+      const float pr = ok ? expf(s[i][j] * p.scale - lse_s[r]) : 0.f;
+      s[i][j] = pr;
+      dp[i][j] = pr * (dp[i][j] - delta_s[r]);
+    }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p) {
+  constexpr int kPitch = D + 1;
+  constexpr int kOut = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kBlockN * kPitch;
+  float* qs = vs + kBlockN * kPitch;
+  float* dos = qs + kBlockM * kPitch;
+  float* ps = dos + kBlockM * kPitch;  // (kBlockM, kPPitch): P, then dS
+  float* lse_s = ps + kBlockM * kPPitch;
+  float* delta_s = lse_s + kBlockM;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kBlockN;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = p.H / p.KV;
+  const int n_valid = min(p.kv_len, p.T);
+
+  stage<T, D>(ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, n0, p.T);
+  stage<T, D>(vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, n0, p.T);
+
+  float dk[4][kOut], dv[4][kOut];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  // The q rows that see a key of this tile.
+  int m_begin = 0, m_end = n0 < n_valid ? p.S : 0;
+  if (p.causal) m_begin = n0;                                            // rows >= first key
+  if (p.window > 0) m_end = min(m_end, n0 + kBlockN - 1 + p.window);    // rows < last key + window
+  m_begin = (m_begin / kBlockM) * kBlockM;
+
+  for (int hq = kvh * group; hq < (kvh + 1) * group; ++hq) {
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
+    const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh;
+    const long long stat = ((long long)b * p.H + hq) * p.S;
+    for (int m0 = m_begin; m0 < m_end; m0 += kBlockM) {
+      __syncthreads();  // the previous q tile's reads are done
+      stage<T, D>(qs, q, p.q_ss, m0, p.S);
+      stage<T, D>(dos, g, p.do_ss, m0, p.S);
+      if (threadIdx.x < kBlockM) {
+        const int m = m0 + threadIdx.x;
+        lse_s[threadIdx.x] = m < p.S ? p.lse[stat + m] : 0.f;
+        delta_s[threadIdx.x] = m < p.S ? p.delta[stat + m] : 0.f;
+      }
+      __syncthreads();
+      float s[4][4], ds[4][4];
+      scores_and_ds<D>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = s[i][j];
+      __syncthreads();
+      // dV[n][d] += sum_m P[m][n] dO[m][d]: this thread's keys ty + 16 i, dims tx + 16 j.
+#pragma unroll 4
+      for (int m = 0; m < kBlockM; ++m) {
+        float pv[4], gv[kOut];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = ps[m * kPPitch + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < kOut; ++j) gv[j] = dos[m * kPitch + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kOut; ++j) dv[i][j] = fmaf(pv[i], gv[j], dv[i][j]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = ds[i][j];
+      __syncthreads();
+      // dK[n][d] += sum_m dS[m][n] Q[m][d] (times scale at the store).
+#pragma unroll 4
+      for (int m = 0; m < kBlockM; ++m) {
+        float dsv[4], qv[kOut];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dsv[i] = ps[m * kPPitch + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < kOut; ++j) qv[j] = qs[m * kPitch + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kOut; ++j) dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
+      }
+    }
+  }
+
+  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty + 16 * i;
+    if (n >= p.T) continue;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      narrow_to(dkp + n * p.dk_ss + tx + 16 * j, dk[i][j] * p.scale);
+      narrow_to(dvp + n * p.dv_ss + tx + 16 * j, dv[i][j]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) {
+  constexpr int kPitch = D + 1;
+  constexpr int kOut = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kBlockN * kPitch;
+  float* qs = vs + kBlockN * kPitch;
+  float* dos = qs + kBlockM * kPitch;
+  float* ps = dos + kBlockM * kPitch;  // (kBlockM, kPPitch): dS
+  float* lse_s = ps + kBlockM * kPPitch;
+  float* delta_s = lse_s + kBlockM;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int m0 = blockIdx.x * kBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int n_valid = min(p.kv_len, p.T);
+
+  stage<T, D>(qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, m0, p.S);
+  stage<T, D>(dos, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, m0, p.S);
+  if (threadIdx.x < kBlockM) {
+    const long long stat = ((long long)b * p.H + h) * p.S;
+    const int m = m0 + threadIdx.x;
+    lse_s[threadIdx.x] = m < p.S ? p.lse[stat + m] : 0.f;
+    delta_s[threadIdx.x] = m < p.S ? p.delta[stat + m] : 0.f;
+  }
+
+  // The key tiles the forward walks for this q tile.
+  int kv_end = n_valid;
+  if (p.causal) kv_end = min(kv_end, m0 + kBlockM);
+  int kv_start = 0;
+  if (p.window > 0) kv_start = max(0, m0 - p.window + 1);
+  kv_start = (kv_start / kBlockN) * kBlockN;
+
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float dq[4][kOut];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) dq[i][j] = 0.f;
+
+  for (int n0 = kv_start; n0 < kv_end; n0 += kBlockN) {
+    __syncthreads();  // the previous tile's reads are done
+    stage<T, D>(ks, k, p.k_ss, n0, p.T);
+    stage<T, D>(vs, v, p.v_ss, n0, p.T);
+    __syncthreads();
+    float s[4][4], ds[4][4];
+    scores_and_ds<D>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = ds[i][j];
+    __syncthreads();
+    // dQ[m][d] += sum_n dS[m][n] K[n][d]: this thread's rows ty + 16 i, dims tx + 16 j.
+#pragma unroll 4
+    for (int n = 0; n < kBlockN; ++n) {
+      float dsv[4], kv[kOut];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = ps[(ty + 16 * i) * kPPitch + n];
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) kv[j] = ks[n * kPitch + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kOut; ++j) dq[i][j] = fmaf(dsv[i], kv[j], dq[i][j]);
+    }
+  }
+
+  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) narrow_to(dqp + m * p.dq_ss + tx + 16 * j, dq[i][j] * p.scale);
+  }
+}
+
+template <typename T, int D>
+int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  constexpr size_t kSmemBytes = BwdTile<D>::kSmemBytes;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const long long rows = (long long)B * p.S * p.H;
+  flash_bwd_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, B);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_kv((p.T + kBlockN - 1) / kBlockN, p.KV, B);
+  flash_bwd_dkdv_kernel<T, D><<<grid_kv, kThreads, kSmemBytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_q((p.S + kBlockM - 1) / kBlockM, p.H, B);
+  flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, kSmemBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // The entry point's arguments in one block, packed by ops.py as
-// struct.Struct("=4Q12qQ10ifi"): no padding, 184 bytes.  One pointer
+// struct.Struct("=5Q12qQ10ifi"): no padding, 192 bytes.  One pointer
 // argument keeps the host's cost of a ctypes call small.
 //   dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); D = 64 or
 //   128.  Strides are in elements, (batch, sequence, head) for q, k, v and
 //   o in that order; the head dim is contiguous.  bfloat16 takes q/k/v at
 //   16-byte aligned addresses with 16-byte multiple strides (TMA's rule).
+//   lse: a (B, H, S) float32 buffer for each row's log-sum-exp, or null
+//   (serving passes null and nothing extra is written).
 struct EntryArgs {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;
   long long strides[12];
   void* stream;
   int dtype, B, S, T, H, KV, D, causal, window, kv_len;
   float scale;
-  int unused;
+  int pad;
 };
-static_assert(sizeof(EntryArgs) == 184, "EntryArgs must match ops.py's packing");
+static_assert(sizeof(EntryArgs) == 192, "EntryArgs must match ops.py's packing");
 
 // Returns a cudaError_t, or kTensorMapRejected (-1) when a bfloat16 q, k or
 // v breaks TMA's rule; nothing is launched then.
@@ -813,10 +1188,56 @@ int flash_attention_forward(const EntryArgs* a) {
   const long long* st = a->strides;
   Params p{a->q, a->k, a->v, a->o, a->S, a->T, a->H, a->KV,
            st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-           a->causal, a->window, a->kv_len, a->scale};
+           a->causal, a->window, a->kv_len, a->scale, a->lse};
   cudaStream_t s = static_cast<cudaStream_t>(a->stream);
   if (a->dtype == 0) return (int)(D == 64 ? launch_f32<64>(p, B, s) : launch_f32<128>(p, B, s));
   if (a->dtype == 1) return D == 64 ? sm90::launch<64>(p, B, s) : sm90::launch<128>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's arguments, packed by ops.py as struct.Struct("=10Q24qQ10ifi"):
+// 328 bytes.  Pointers q, k, v, o, dO (the forward's inputs and output and
+// the output's gradient), lse (from the forward), delta (a (B, H, S) float32
+// scratch), dq, dk, dv (outputs in q's dtype); strides in elements,
+// (batch, sequence, head) for q, k, v, o, dO, dq, dk, dv in that order.
+struct BwdEntryArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  long long strides[24];
+  void* stream;
+  int dtype, B, S, T, H, KV, D, causal, window, kv_len;
+  float scale;
+  int pad;
+};
+static_assert(sizeof(BwdEntryArgs) == 328, "BwdEntryArgs must match ops.py's packing");
+
+// Launches the delta pre-pass, the dK/dV kernel and the dQ kernel on the
+// stream; returns the first cudaError_t that is not cudaSuccess.
+int flash_attention_backward(const BwdEntryArgs* a) {
+  const int B = a->B, D = a->D;
+  if ((D != 64 && D != 128) || a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 ||
+      a->T <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long* st = a->strides;
+  BwdParams p{a->q, a->k, a->v, a->o, a->dout, a->lse, a->delta, a->dq, a->dk, a->dv,
+              a->S, a->T, a->H, a->KV,
+              st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+              st[12], st[13], st[14], st[15], st[16], st[17], st[18], st[19], st[20], st[21],
+              st[22], st[23], a->causal, a->window, a->kv_len, a->scale};
+  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+  if (a->dtype == 0)
+    return D == 64 ? launch_bwd<float, 64>(p, B, s) : launch_bwd<float, 128>(p, B, s);
+  if (a->dtype == 1)
+    return D == 64 ? launch_bwd<__nv_bfloat16, 64>(p, B, s)
+                   : launch_bwd<__nv_bfloat16, 128>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -37,6 +37,7 @@ __all__ = [
     "ACTIVATIONS",
     "make_kv_cache",
     "cache_update",
+    "weighted_cross_entropy",
 ]
 
 # ---------------------------------------------------------------------------
@@ -212,6 +213,28 @@ ACTIVATIONS: Dict[str, Callable] = {
     "relu2": relu2,
     "silu": F.silu,
 }
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def weighted_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-level CE.  ``weights`` (same shape as labels) realizes Eq. (9)
+    weighted gradient aggregation: pass per-sample weights broadcast over the
+    sequence dim; pads get 0.  Returns (scalar weighted-SUM loss, total
+    weight) — divide outside if a mean is wanted.
+    """
+    logits_f = logits.float()
+    logz = torch.logsumexp(logits_f, dim=-1)
+    gold = torch.gather(logits_f, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if weights is None:
+        weights = torch.ones_like(nll)
+    return (nll * weights).sum(), weights.sum()
 
 
 # ---------------------------------------------------------------------------

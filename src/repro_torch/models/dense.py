@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer family (PyTorch), the serving subset.
+"""Dense decoder-only transformer family (PyTorch).
 
 The counterpart of ``repro/models/dense.py`` for the archs ported so far:
   * olmo-1b    — MHA, SwiGLU, *non-parametric* LayerNorm
@@ -9,11 +9,16 @@ Weights keep the reference's per-layer layouts (``wq (d, h, dh)``,
 its parameter tree, with the stacked layer dim unrolled into
 ``layers.<i>``: :mod:`repro_torch.bridge` maps one onto the other.
 
-Full-sequence attention (``forward``/``prefill``) goes through the Hopper
-flash-attention kernel on CUDA tensors and through its plain version on CPU
-tensors; single-token decode attention is plain torch, as it is plain jnp in
-the reference.  ``prefill`` and ``decode_step`` write K/V into the
-preallocated cache in place and return the same cache dict.
+Full-sequence attention (``forward``/``prefill``/``train_forward``) goes
+through the Hopper flash-attention kernel on CUDA tensors and through its
+plain version on CPU tensors; single-token decode attention is plain torch,
+as it is plain jnp in the reference.  ``prefill`` and ``decode_step`` write
+K/V into the preallocated cache in place and return the same cache dict.
+
+``train_forward`` is the one forward that carries gradients (the loss's);
+the others run under ``no_grad``.  With ``cfg.remat`` (the reference's
+switch, default True) each layer is recomputed in the backward pass
+(``torch.utils.checkpoint``), flash forward included.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
@@ -60,6 +66,7 @@ class DenseConfig:
     tie_embeddings: bool = False
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True               # recompute each layer in the backward pass
 
     @property
     def family(self) -> str:
@@ -178,6 +185,23 @@ class DenseModel(nn.Module):
         attend = functools.partial(flash_attention, causal=True, window=self.cfg.window)
         for layer in self.layers:
             x = _layer(layer, x, positions, self.cfg, attend)
+        return self._logits(x)
+
+    def train_forward(self, tokens, *, attend: Optional[Attend] = None) -> torch.Tensor:
+        """tokens (B, S) int -> logits (B, S, vocab) float32, carrying
+        gradients to the parameters that require them.  ``attend`` replaces
+        the flash-attention call (a seam for holding the kernel against a
+        plain attention); with ``cfg.remat`` every layer is recomputed in
+        the backward pass, as the reference's ``jax.checkpoint`` does."""
+        x = self._embed(tokens)
+        positions = torch.arange(x.shape[1], device=self.device)
+        if attend is None:
+            attend = functools.partial(flash_attention, causal=True, window=self.cfg.window)
+        for layer in self.layers:
+            if self.cfg.remat:
+                x = checkpoint(_layer, layer, x, positions, self.cfg, attend, use_reentrant=False)
+            else:
+                x = _layer(layer, x, positions, self.cfg, attend)
         return self._logits(x)
 
     @torch.no_grad()

@@ -8,6 +8,7 @@ port's ``nn.Module``:
   api.init(seed, device=)                    -> model with seeded weights
   api.load(state_dict, device=)              -> model with given weights
   api.logits(params, batch)                  -> logits
+  api.loss(params, batch, denom=None)        -> (scalar loss, aux dict)
   api.init_cache(batch_size, seq_len, device=) -> cache dict
   api.decode_step(params, cache, tok, pos)   -> (logits, cache)
   api.prefill(params, cache, tokens)         -> (logits, cache)
@@ -16,15 +17,31 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import dense, hymba, rwkv6
+from repro_torch.models import common, dense, hymba, rwkv6
 from repro_torch.models.common import Param
 
 __all__ = ["ModelApi", "build_api"]
+
+
+def _token_loss(logits, labels, weights, denom=None):
+    """Per-token CE.  ``denom`` overrides the normalizer — used by gradient
+    accumulation so microbatch gradients sum to the exact global-batch
+    gradient even with non-uniform per-sample weights (Eq. 9)."""
+    if weights is not None:
+        w = torch.broadcast_to(weights[:, None], labels.shape).float()
+    else:
+        w = None
+    loss_sum, w_sum = common.weighted_cross_entropy(logits, labels, w)
+    if denom is None:
+        denom = torch.clamp(
+            w_sum if weights is not None else torch.tensor(float(labels.numel())), min=1e-9
+        )
+    return loss_sum / denom
 
 
 def _leaves(tree):
@@ -65,6 +82,24 @@ class ModelApi:
     # -- forward --------------------------------------------------------
     def logits(self, params, batch: Dict[str, Any]) -> torch.Tensor:
         return params(batch["tokens"])
+
+    def loss(self, params, batch: Dict[str, Any], *, denom=None) -> Tuple[torch.Tensor, Dict]:
+        """Token-level CE over ``batch["tokens"]``/``["labels"]``, carrying
+        gradients, with the optional per-sample ``weights`` (B,) — the
+        Eq. (9) hook: pads weigh 0 and the mean runs over the weighted
+        tokens.  Families without a grad-carrying forward raise (their
+        training is ROADMAP §1.8)."""
+        train_forward = getattr(params, "train_forward", None)
+        if train_forward is None:
+            raise NotImplementedError(f"{self.arch_id} ({self.family}) does not train yet")
+        tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        labels = torch.as_tensor(batch["labels"], device=params.device)
+        weights = batch.get("weights")
+        if weights is not None:
+            weights = torch.as_tensor(weights, device=params.device)
+        logits = train_forward(tokens)
+        loss = _token_loss(logits, labels, weights, denom)
+        return loss, {"ce_loss": loss}
 
     # -- serving --------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, dtype=None, *, device=None):

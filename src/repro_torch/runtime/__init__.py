@@ -1,1 +1,2 @@
-"""Runtime pieces the port needs so far: the cluster-churn events."""
+"""Runtime pieces the port needs so far: the cluster-churn events, the
+execution backends and epoch loop (``backend``), and transfer counting."""

@@ -320,3 +320,92 @@ def test_ssm_kernel_rejects_what_it_does_not_take(cuda_device, n, dtype, chunk, 
     log_a = torch.zeros(32, n, device=cuda_device, dtype=dtype)
     with pytest.raises(ValueError):
         ssm_scan(u, u, bt, bt, log_a, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward and the training forward
+# ---------------------------------------------------------------------------
+
+# Relative to max(1, max |plain|): float32 differs by sum order; bfloat16
+# gradients carry the forward's bf16 output (delta) and one output rounding.
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_inputs(device, dtype, b, s, t, h, kv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d)]
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+            for shape in shapes]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", CASES)
+def test_backward_kernel_matches_autograd_through_plain(cuda_device, dtype, d, b, s, t, h, kv,
+                                                        causal, window, kv_len):
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    q, k, v, do = _bwd_inputs(cuda_device, dtype, b, s, t, h, kv, d)
+    mask = dict(causal=causal, window=window, kv_len=kv_len)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    flash_attention(*leaves, **mask).backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    attention_ref(*plain, **mask).backward(do)
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, plain):
+        assert got.grad.dtype == dtype and got.grad.shape == want.grad.shape
+        err = (got.grad.float() - want.grad.float()).abs().max().item()
+        tol = BWD_REL[dtype] * max(1.0, want.grad.float().abs().max().item())
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_lse_matches_plain_and_leaves_output_unchanged(cuda_device, dtype, d):
+    from repro_torch.kernels.flash_attention import attention_lse_ref, ops
+
+    q, k, v, _ = _bwd_inputs(cuda_device, dtype, 2, 200, 200, 8, 2, d)
+    scale = 1.0 / d ** 0.5
+    for window, kv_len in ((None, None), (64, None), (None, 150)):
+        out, lse = ops._forward(q, k, v, True, window, scale, kv_len, with_lse=True)
+        plain_out, none = ops._forward(q, k, v, True, window, scale, kv_len, with_lse=False)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(out, plain_out)
+        want = attention_lse_ref(q, k, causal=True, window=window, kv_len=kv_len)
+        assert (lse - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_training_forward_gradient_matches_plain_attention(cuda_device):
+    """A small float32 dense model at head dim 64, remat on: the gradient of
+    its loss through the CUDA kernels equals the one with the plain
+    attention passed through the layers' ``attend`` seam."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import olmo_1b
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.models import common
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(olmo_1b.reduced(), head_dim=64, d_model=256, remat=True)
+    model = build_api("olmo-1b", cfg).init(0, device=cuda_device).requires_grad_(True)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 96)), device=cuda_device)
+    grads = {}
+    for name, attend in (("kernel", None),
+                         ("plain", functools.partial(attention_ref, causal=True))):
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        logits = model.train_forward(tokens[:, :-1], attend=attend)
+        loss, _ = common.weighted_cross_entropy(logits, tokens[:, 1:])
+        grads[name] = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        launched = (flash_attention.launches - before[0],
+                    flash_attention_backward.launches - before[1])
+        # remat: each layer's forward runs again in the backward pass.
+        assert launched == ((2 * cfg.n_layers, cfg.n_layers) if name == "kernel" else (0, 0))
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol

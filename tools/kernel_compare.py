@@ -140,7 +140,7 @@ def forward_rows(torch, kernel: str, label: str) -> None:
         clock = chip_smoke.sm_clock()
         wall_ms = chip_smoke.host_ms(torch, fn, 10)
         launches = {profile_name: api.cfg.n_layers} if kernel == "ssm" else None
-        device_ms, named, idle, busy = chip_smoke.device_split(torch, fn, 3, wall_ms,
+        device_ms, named, idle, busy, _ = chip_smoke.device_split(torch, fn, 3, wall_ms,
                                                               (profile_name,), launches)
         print(json.dumps({"label": label, "model": name, "tokens": s, "wall_ms": wall_ms,
                           "device_ms": device_ms, "kernel_ms": named[profile_name],
