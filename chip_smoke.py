@@ -16,7 +16,11 @@ Phases, each of which fails the run:
                    tensor-core (HMMA) count and the scan library's
                    special-function (MUFU) and shuffle (SHFL) counts from
                    ``cuobjdump -sass`` (the named ones must be non-zero; a
-                   missing cuobjdump is printed).
+                   missing cuobjdump is printed); and, since the library's
+                   count holds the forward's, the HGMMA and UTMALDG counts
+                   of each bf16 backward kernel's own SASS (both head dims;
+                   each must be non-zero) beside its ptxas registers and
+                   spill bytes.
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
                    max abs error <= 1e-2: one output rounding plus another
@@ -78,9 +82,11 @@ Phases, each of which fails the run:
                    the plain ``attention_ref`` on the card, at the training
                    shape and at hymba's, llama3-8b's and a float32 shape:
                    bf16 within 2e-2 * max(1, max |plain|), f32 within 1e-4 *
-                   max(1, max |plain|); with the kernel's, the plain
-                   backward's (``attention_backward_ref``) and SDPA's
-                   backward times beside the card's bound.
+                   max(1, max |plain|), and a bf16 row's dq, dk, dv the same
+                   bits on two calls (no atomics); with the kernel's, the
+                   plain backward's (``attention_backward_ref``) and SDPA's
+                   backward times (CUDA events, and SDPA's device ms under
+                   ``torch.profiler``) beside the card's bound.
 13. training (olmo-1b) — ``HeteroTrainer`` over ``RealBackend`` and
                    ``EpochLoop``: full-width olmo-1b in bf16 (remat on) on
                    the simulated ``cluster_A`` (3 nodes) with
@@ -135,6 +141,7 @@ SSM_PROFILE_PREFIX = "ssm_"            # every CUDA kernel of the selective scan
 HYMBA_FLASH_CASE = "hymba-1.5b global S=1024"
 FLASH_PROFILE_NAME = "flash_fwd_kernel"  # both forward instances
 BWD_PROFILE_NAME = "flash_bwd_"        # the backward's three kernels
+BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  # bf16
 BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
 # name, B, S, H, KV, dtype, window, D (all causal self-attention)
 BWD_CASES = [
@@ -335,24 +342,73 @@ def phase_build():
         for line in res.log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "wgmma", "Function properties")):
                 log("build", line.strip())
+    for fn, regs, stores, loads in ptxas_summary(results[0].log, BWD_SM90_KERNELS):
+        log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
     for res, need, why in ((results[0], ("HGMMA", "UTMALDG"), "run wgmma on TMA tiles"),
                            (results[1], ("HMMA",), "run its products on the tensor cores"),
                            (results[2], ("MUFU",), "compute its exponentials")):
         source = res.path.name.split("-")[0] + ".cu"
-        counts = sass_counts(build, res.path)
-        if counts is None:
+        by_fn = sass_counts(build, res.path)
+        if by_fn is None:
             log("build", f"{source} SASS: cuobjdump is missing, {'/'.join(need)} not counted")
             continue
+        counts = sum_counts(by_fn.values())
         log("build", f"{source} SASS: " + " ".join(f"{k}={v}" for k, v in counts.items()))
         if not all(counts[op] for op in need):
             raise AssertionError(f"{source} must {why}: {counts}")
+        if res is not results[0]:
+            continue
+        # The library-wide count holds the forward's wgmma and TMA loads:
+        # the bf16 backward kernels must show their own.
+        for kernel in BWD_SM90_KERNELS:
+            own = {fn: c for fn, c in by_fn.items() if kernel in fn}
+            if len(own) != 2:  # head dims 64 and 128
+                raise AssertionError(f"{kernel}: expected two instances in the SASS, got {list(own)}")
+            for fn, c in sorted(own.items()):
+                log("build", f"{source} SASS {kernel}<{'128' if 'ILi128E' in fn else '64'}>: "
+                    + " ".join(f"{k}={c[k]}" for k in ("HGMMA", "UTMALDG")))
+                if not (c["HGMMA"] and c["UTMALDG"]):
+                    raise AssertionError(f"{fn} must run wgmma on TMA tiles: {c}")
+
+
+def ptxas_summary(log_text, names):
+    """(function, registers, spill-store bytes, spill-load bytes) from ptxas's
+    ``-v`` report for each entry function whose name holds one of ``names``."""
+    import re
+
+    rows, current, spills = [], None, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current and any(n in current for n in names):
+            rows.append((current, int(m.group(1)), *(spills or (None, None))))
+            spills = None
+    return rows
+
+
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "MUFU", "SHFL")
+
+
+def sum_counts(counts):
+    total = dict.fromkeys(SASS_OPS, 0)
+    for c in counts:
+        for op in SASS_OPS:
+            total[op] += c[op]
+    return total
 
 
 def sass_counts(build, lib):
     """Tensor-core (HGMMA: wgmma; HMMA: mma.sync), TMA-load (UTMALDG),
     cp.async (LDGSTS), special-function (MUFU: exponentials) and cross-lane
-    (SHFL) instructions in a built library's SASS, or None without
-    cuobjdump."""
+    (SHFL) instructions in each function of a built library's SASS (by its
+    mangled name), or None without cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump")
@@ -363,12 +419,19 @@ def sass_counts(build, lib):
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "MUFU", "SHFL"), 0)
-    for word in sass.split():
-        op = word.split(".")[0]
-        if op in counts:
-            counts[op] += 1
-    return counts
+    by_fn, counts = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            counts = by_fn.setdefault(line.split("Function :", 1)[1].strip(),
+                                      dict.fromkeys(SASS_OPS, 0))
+            continue
+        if counts is None:
+            continue
+        for word in line.split():
+            op = word.split(".")[0]
+            if op in counts:
+                counts[op] += 1
+    return by_fn
 
 
 def issue_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -1117,10 +1180,11 @@ def attention_bwd_bound(b, s, h, kv, d, dtype, window):
 def flash_bwd_case(torch, case, gen):
     """One ``BWD_CASES`` row: the backward kernel's dq, dk, dv against
     autograd through ``attention_ref`` (max abs errors, each beside its
-    tolerance); the kernel's, the plain backward's
-    (``attention_backward_ref``: the same inputs, the same formulas) and
-    SDPA's backward's CUDA-event ms over back-to-back calls; the kernel's
-    device ms per recorded call (its three kernels) and the card's bound."""
+    tolerance) and whether two calls give the same bits; the kernel's, the
+    plain backward's (``attention_backward_ref``: the same inputs, the same
+    formulas) and SDPA's backward's CUDA-event ms over back-to-back calls;
+    the kernel's device ms per recorded call (its three kernels), SDPA's
+    backward's device ms per call and the card's bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         attention_backward_ref, attention_ref, flash_attention_backward, ops)
@@ -1136,7 +1200,10 @@ def flash_bwd_case(torch, case, gen):
         return flash_attention_backward(q, k, v, out, lse, do, causal=True, window=window)
 
     got = kernel()
+    again = kernel()
     torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*leaves, causal=True, window=window), leaves, do)
     errs = {key: (g.float() - w.float()).abs().max().item()
@@ -1162,11 +1229,12 @@ def flash_bwd_case(torch, case, gen):
     _, named, _, records = profile_device(torch, kernel, 10, (BWD_PROFILE_NAME,),
                                           launches={BWD_PROFILE_NAME: 3})
     row = dict(
-        errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
+        errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise, ms=ms,
         plain_ms=cuda_ms(torch, lambda: attention_backward_ref(
             q, k, v, out, lse, do, causal=True, window=window), 2, warmup=1),
         library_ms=cuda_ms(torch, library, 10),
         device_ms=named[BWD_PROFILE_NAME], records=records[BWD_PROFILE_NAME],
+        library_device_ms=device_ms(torch, library, 10),
         bound_ms=bound_ms, bound_by=bound_by,
     )
     del lib_out
@@ -1183,13 +1251,17 @@ def phase_kernel_bwd(torch):
             if not err <= row["tols"][key]:
                 raise AssertionError(f"flash bwd {name}: {key} max abs err {err:.3e} > "
                                      f"{row['tols'][key]:.3e}")
+        if dt == "bf16" and not row["bitwise_repeat"]:
+            raise AssertionError(f"flash bwd {name}: two calls gave different bits")
         log("kernel", f"flash bwd {name} B={b} H={h} KV={kv} D={d} {dt} window={window}: "
             "max_abs_err " + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
                                       for key, err in row["errs"].items())
             + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+            f"library_ms={row['library_ms']:.4f} "
+            f"library_device_ms={row['library_device_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) device_ms={row['device_ms']:.4f} "
-            f"records={row['records']}/30 of_bound_device={row['bound_ms'] / row['device_ms']:.4f}")
+            f"records={row['records']}/30 of_bound_device={row['bound_ms'] / row['device_ms']:.4f} "
+            f"bitwise_repeat={row['bitwise_repeat']}")
     return rows
 
 
@@ -1227,6 +1299,35 @@ def node_grad_check(torch):
     if not rel_sq <= 1e-5 or not worst[0] <= 1e-4:
         raise AssertionError(f"node gradient: sq-norm rel {rel_sq:.3e}, leaf {worst}")
     del model, grads
+
+
+def node_step_row(torch, backend, data, b, b_max):
+    """One node's step (its forward and backward, ``backend.node_grads``) on
+    a padded (b_max, S) slice of ``data`` with b samples weighted: wall ms
+    on the host clock, device ms and idle share under ``torch.profiler``,
+    and the flash forward's and backward's parts per recorded launch with
+    their records."""
+    raw = data.batch(0, b_max)
+    tok = torch.as_tensor(raw["tokens"], device=DEVICE)
+    lab = torch.as_tensor(raw["labels"], device=DEVICE)
+    msk = (torch.arange(b_max, device=DEVICE) < b).float()
+    cfg = backend.api.cfg
+    launches = {FLASH_PROFILE_NAME: (2 if cfg.remat else 1) * cfg.n_layers,
+                BWD_PROFILE_NAME: 3 * cfg.n_layers}
+
+    def step():
+        return backend.node_grads(tok, lab, msk)
+
+    wall_ms = host_ms(torch, step, 2, warmup=1)
+    dev, named, idle, _, records = device_split(
+        torch, step, 1, wall_ms, (FLASH_PROFILE_NAME, BWD_PROFILE_NAME), launches)
+    return dict(wall_ms=wall_ms, device_ms=dev, idle_share=idle,
+                flash_fwd_ms=named[FLASH_PROFILE_NAME],
+                flash_fwd_records=records[FLASH_PROFILE_NAME],
+                flash_fwd_launches=launches[FLASH_PROFILE_NAME],
+                flash_bwd_ms=named[BWD_PROFILE_NAME],
+                flash_bwd_records=records[BWD_PROFILE_NAME],
+                flash_bwd_launches=launches[BWD_PROFILE_NAME])
 
 
 def phase_training(torch):
@@ -1290,22 +1391,15 @@ def phase_training(torch):
     # Each node's step of the last plan: its forward and backward alone.
     batches = list(trainer.history[-1].batches)
     b_max = max(8, -(-max(batches) // 8) * 8)
-    raw = data.batch(0, b_max)
-    tok = torch.as_tensor(raw["tokens"], device=DEVICE)
-    lab = torch.as_tensor(raw["labels"], device=DEVICE)
     for i, b in enumerate(batches):
-        msk = (torch.arange(b_max, device=DEVICE) < b).float()
-        wall_ms = host_ms(torch, lambda: backend.node_grads(tok, lab, msk), 2, warmup=1)
-        dev, named, idle, _, records = device_split(
-            torch, lambda: backend.node_grads(tok, lab, msk), 1, wall_ms,
-            (FLASH_PROFILE_NAME, BWD_PROFILE_NAME),
-            {FLASH_PROFILE_NAME: per_node * layers, BWD_PROFILE_NAME: 3 * layers})
-        log("training", f"node {i} step (b={b} of padded {b_max}, S=512): wall {wall_ms:.2f} ms, "
-            f"device {dev:.2f} ms (idle share {idle:.4f}); flash forward "
-            f"{named[FLASH_PROFILE_NAME]:.2f} ms (records {records[FLASH_PROFILE_NAME]}/"
-            f"{per_node * layers}), flash backward {named[BWD_PROFILE_NAME]:.2f} ms (records "
-            f"{records[BWD_PROFILE_NAME]}/{3 * layers})")
-    del trainer, backend, tok, lab
+        row = node_step_row(torch, backend, data, b, b_max)
+        log("training", f"node {i} step (b={b} of padded {b_max}, S=512): wall "
+            f"{row['wall_ms']:.2f} ms, device {row['device_ms']:.2f} ms (idle share "
+            f"{row['idle_share']:.4f}); flash forward {row['flash_fwd_ms']:.2f} ms (records "
+            f"{row['flash_fwd_records']}/{row['flash_fwd_launches']}), flash backward "
+            f"{row['flash_bwd_ms']:.2f} ms (records {row['flash_bwd_records']}/"
+            f"{row['flash_bwd_launches']})")
+    del trainer, backend
     torch.cuda.empty_cache()
     node_grad_check(torch)
     return counts

@@ -806,12 +806,69 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 //     exchange nothing is accumulated across blocks (no atomics, no f32
 //     scratch, the same result every run).
 // The mask predicate is the forward's; tiles it leaves dead are never
-// loaded.  Every product is a scalar float32 FMA on the CUDA cores (bf16
-// inputs are widened as they are staged in shared memory), so the kernel
-// is far from the tensor cores' bound: wgmma and TMA are later work.
-// Bound on an H100 SXM: the work is about 2.5x the forward's products
-// (S, dP, dV, dK and dQ, plus S and dP again for dQ here), operations-bound
-// at the training shapes.
+// loaded.  The pre-pass is flash_bwd_delta_kernel (float32) or
+// sm90::flash_bwd_delta_kernel_sm90 (bfloat16: 16-byte loads, rows strided
+// over a grid of at most 16 blocks an SM).
+//
+// Bound on an H100 SXM: q, k, v, o, dO and the lse read once and dq, dk, dv
+// written once are about 0.040 ms at olmo-1b's training shape (B=8, S=512,
+// 16x128 heads, bf16, causal), the five products over the causal pairs
+// 0.022 ms at the bf16 tensor-core rate: bound by bytes.  The two-kernel
+// split runs seven products (S and dP once more for dQ), 0.030 ms at that
+// rate, still below the byte bound.
+//
+// float32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): the scalar v1 body,
+// every product a float32 FMA on the CUDA cores from padded shared-memory
+// tiles, one 256-thread block per SM at D=128.  It is the 1e-4 parity path,
+// as the float32 forward is, and carries no training traffic.
+//
+// bfloat16 (sm90::flash_bwd_dkdv_kernel_sm90, sm90::flash_bwd_dq_kernel_sm90):
+// every product on the tensor cores, what the design does about the bound.
+//   * dK/dV per (64-key tile, kv head, b): the K and V tiles are loaded once
+//     by TMA; the Q and dO tiles of every q tile that sees the key tile, over
+//     every q head of the GQA group, stream through a three-stage ring
+//     filled by one producer warp (each stage carries its 64 lse, in log2
+//     units, and delta values, written by the producer warp's lanes).  The
+//     work is in the transposed layout (rows are keys, columns q rows) and
+//     split over two consumer warpgroups that run side by side: warpgroup 0
+//     computes S^T = K Q^T, P^T = exp2(S^T scale log2e - lse log2e) and dV
+//     += P^T dO; warpgroup 1 computes dP^T = V dO^T, dS^T = P^T (dP^T -
+//     delta) and dK += dS^T Q.  P^T reaches warpgroup 1 through shared
+//     memory in warpgroup 0's fragment layout (thread t of both warpgroups
+//     holds the same elements), on a barrier per stage.  S^T and dP^T read
+//     both operands K-major from shared memory; P^T and dS^T enter the last
+//     products from registers (the accumulator layout is the A-fragment
+//     layout), Q and dO as MN-major B operands (the transpose bit, as V in
+//     the forward's P V).
+//   * Why the split: ptxas gave a block of two consumer warpgroups at most
+//     168 registers a thread (with a producer warp or a producer warpgroup;
+//     setmaxnreg did not raise what it allocates), and spilled and
+//     serialized the wgmma there.  One warpgroup holding both dK and dV (128
+//     accumulator registers at D=128) alone in a block takes 247, so its
+//     block runs alone on its SM and its exponentials and products follow
+//     one another (0.13 ms at olmo-1b's training shape on an H100, most of
+//     it that chain, not the loads).  Split, each warpgroup holds one 64 x D
+//     accumulator (136 registers) and the two chains overlap (0.10 ms).
+//     Issuing the next tile's S^T with this tile's last product, as the
+//     forward does, made it slower (0.11 ms).
+//   * dQ per (64-row q tile, head, b), two blocks to an SM (162 registers):
+//     Q and dO are loaded once, K and V stream through a two-stage ring over
+//     the key tiles the forward walks: S = Q K^T, dP = dO V^T, dS in
+//     registers, dQ += dS K (K as an MN-major B).  dQ in its own kernel costs S and dP
+//     once more, and in exchange nothing is summed across blocks: no
+//     atomics, the same bits every run.
+//   * P and dS enter the tensor cores as one bf16 term each, and dS is
+//     formed from the rounded P.  The gradients are held to 2e-2 x max(1,
+//     max|plain|), and the emulation in tests/test_torch_flash_bwd_rounding.py
+//     puts this rounding at a fifth of that at olmo-1b's head shape; the
+//     forward needs P in two terms only for its 1e-2 absolute tolerance.
+//   * Tiles are masked element by element only where they cross the
+//     diagonal, the window's edge, kv_len or S; dead tiles are never loaded.
+//     Blocks are launched longest causal chain first; log2(e) is folded into
+//     the scale and the lse, and exponentials are ex2.approx.
+//   What it does not do yet: split a GQA group over blocks (hymba-1.5b's
+//   dK/dV grid is 80 blocks for 132 SMs), run persistent blocks that load
+//   the next tile's K/V under the current one, or store through TMA.
 
 struct BwdParams {
   const void* q;
@@ -840,9 +897,7 @@ struct BwdParams {
 };
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void narrow_to(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void narrow_to(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
 
 // One warp per (b, row, h): delta = sum_d dO * O, in float32.
 template <typename T, int D>
@@ -1124,6 +1179,478 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) 
   }
 }
 
+namespace sm90 {
+
+constexpr int kDkdvStages = 3;  // Q/dO tile pairs in flight (dK/dV)
+constexpr int kDqStages = 2;    // K/V tile pairs in flight (dQ)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dK/dV: two consumer warpgroups (warps 0-7) and one producer warp.  Shared
+// memory (1024-byte aligned base):
+//   K, V      the block's 64 keys, D/64 swizzled chunks x 64 rows x 128 B each
+//   ring      kDkdvStages x (Q tile, dO tile) of 64 q rows
+//   P         kDkdvStages x P^T as warpgroup 0's bf16 fragments, 16 x 128 words
+//   stats     kDkdvStages x (64 lse in log2 units, 64 delta)
+//   barriers  K/V, full[stage], free[stage], P ready[stage]
+template <int D>
+struct DkdvCfg {
+  static constexpr int kThreads = 288;
+  static constexpr int kProducerWarp = 8;
+  static constexpr uint32_t kTile = 64 * D * 2;
+  static constexpr uint32_t kOffRing = 2 * kTile;
+  static constexpr uint32_t kStageBytes = 2 * kTile;
+  static constexpr uint32_t kOffP = kOffRing + kDkdvStages * kStageBytes;
+  static constexpr uint32_t kOffStats = kOffP + kDkdvStages * 16 * 128 * 4;
+  static constexpr uint32_t kOffBar = kOffStats + kDkdvStages * 2 * 64 * sizeof(float);
+  static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 3 * kDkdvStages) + 1024;
+  static_assert(D % 64 == 0, "tiles are whole swizzle chunks");
+  static_assert(kSmemBytes <= 232448, "one block must fit an SM's shared memory");
+};
+
+// dQ: one consumer warpgroup (warps 0-3) and one producer warp, two blocks
+// to an SM.  Shared memory: Q and dO of the block's 64 rows, then
+// kDqStages x (K tile, V tile), then barriers Q/dO, full[stage], free[stage].
+template <int D>
+struct DqCfg {
+  static constexpr int kThreads = 160;
+  static constexpr int kProducerWarp = 4;
+  static constexpr uint32_t kTile = 64 * D * 2;
+  static constexpr uint32_t kOffRing = 2 * kTile;
+  static constexpr uint32_t kStageBytes = 2 * kTile;
+  static constexpr uint32_t kOffBar = kOffRing + kDqStages * kStageBytes;
+  static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 2 * kDqStages) + 1024;
+  static_assert(2 * kSmemBytes <= 232448, "two blocks must fit an SM's shared memory");
+};
+
+// 2^x on the special-function unit; -inf gives 0.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// An m64n64 accumulator as the A fragments of the next wgmma, one bf16
+// term: consecutive pairs, as to_fragments packs them.
+__device__ __forceinline__ void to_bf16_fragments(const float (&x)[32], uint32_t (&f)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = bf16x2_bits(__floats2bfloat162_rn(x[2 * i], x[2 * i + 1]));
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t bits) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+}
+
+// d (64 x D) += A (64 x 64, registers, one bf16 term) B (64 x D, smem,
+// MN-major: a 64-row tile read along its rows), issued and committed, not
+// waited.  A's columns 16*kk .. 16*kk + 15 are fragments [4*kk, 4*kk + 4).
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&d)[D / 2], const uint32_t (&a)[16],
+                                         uint32_t b_base) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    wgmma_rs_tb<D>(d, f, desc_sw128(b_base + kk * 16 * kRowBytes, 64 * kRowBytes, 1024));
+  }
+  wgmma_commit();
+}
+
+// Some (q row, key) pair of the 64 x 64 tile at (m0, n0) is masked.
+__device__ __forceinline__ bool crosses_edge(const BwdParams& p, int n_valid, int m0, int n0) {
+  return n0 + 64 > n_valid || m0 + 64 > p.S || (p.causal && n0 + 63 > m0) ||
+         (p.window > 0 && n0 <= m0 + 63 - p.window);
+}
+
+// Block (blockIdx.x = kv head + KV*b, blockIdx.y = 64-key tile, the
+// longest causal chain first): two consumer warpgroups share the block's 64
+// keys and split each q tile's work.  Warpgroup 0 computes S^T = K Q^T and
+// P^T, hands P^T to warpgroup 1 through shared memory (its own fragment
+// layout, one barrier per stage) and accumulates dV += P^T dO; warpgroup 1
+// computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) and accumulates dK +=
+// dS^T Q.  Each holds one 64 x D accumulator, so both fit 168 registers.
+// The producer warp comes last.
+template <int D>
+__global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
+    flash_bwd_dkdv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo, const BwdParams p) {
+  using C = DkdvCfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* aligned = smem_raw + (base - smem_u32(smem_raw));
+  float* stats = reinterpret_cast<float*>(aligned + C::kOffStats);
+  uint32_t* pbuf = reinterpret_cast<uint32_t*>(aligned + C::kOffP);
+  const uint32_t bar_kv = base + C::kOffBar;
+  const uint32_t bar_full = bar_kv + 8;                    // + 8 * stage
+  const uint32_t bar_free = bar_full + 8 * kDkdvStages;
+  const uint32_t bar_p = bar_free + 8 * kDkdvStages;       // P^T of the stage is in pbuf
+
+  const int kvh = blockIdx.x % p.KV;
+  const int b = blockIdx.x / p.KV;
+  const int n0 = blockIdx.y * 64;
+  const int group = p.H / p.KV;
+  const int n_valid = min(p.kv_len, p.T);
+  // The q tiles that see a key of this block: rows >= its first key
+  // (causal), rows < its last key + window.
+  int m_begin = 0, m_end = n0 < n_valid ? p.S : 0;
+  if (p.causal) m_begin = n0;
+  if (p.window > 0) m_end = min(m_end, n0 + 63 + p.window);
+  const int q_tiles = m_end > m_begin ? (m_end - m_begin + 63) / 64 : 0;
+  const int n_iters = group * q_tiles;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kDkdvStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);                     // the producer warp's lanes
+      mbar_init(bar_free + 8 * s, 256);                    // both warpgroups
+      mbar_init(bar_p + 8 * s, 128);                       // warpgroup 0
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == C::kProducerWarp) {
+    // Producer: K and V once, then Q, dO, lse and delta of iteration i
+    // into stage i % kDkdvStages.
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * C::kTile);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(base + c * 64 * kRowBytes, &tk, bar_kv, 64 * c, kvh, n0, b);
+        tma_load_4d(base + C::kTile + c * 64 * kRowBytes, &tv, bar_kv, 64 * c, kvh, n0, b);
+      }
+    }
+    for (int i = 0; i < n_iters; ++i) {
+      const int s = i % kDkdvStages;
+      const int hq = kvh * group + i / q_tiles;
+      const int m0 = m_begin + (i % q_tiles) * 64;
+      if (i >= kDkdvStages) mbar_wait(bar_free + 8 * s, (i / kDkdvStages - 1) & 1);
+      const long long stat = ((long long)b * p.H + hq) * p.S;
+      float* st = stats + s * 128;
+      for (int r = lane; r < 64; r += 32) {
+        const int m = m0 + r;
+        st[r] = m < p.S ? p.lse[stat + m] * kLog2e : 0.f;
+        st[64 + r] = m < p.S ? p.delta[stat + m] : 0.f;
+      }
+      if (lane == 0) {
+        const uint32_t dst = base + C::kOffRing + s * C::kStageBytes;
+        mbar_expect_tx(bar_full + 8 * s, C::kStageBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(dst + c * 64 * kRowBytes, &tq, bar_full + 8 * s, 64 * c, hq, m0, b);
+          tma_load_4d(dst + C::kTile + c * 64 * kRowBytes, &tdo, bar_full + 8 * s, 64 * c, hq,
+                      m0, b);
+        }
+      } else {
+        mbar_arrive(bar_full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  const int key0 = n0 + 16 * (warp % 4) + lane / 4;        // this thread's keys: key0, key0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = p.scale * kLog2e;
+  // Every q tile the block walks sees one of its keys (m_begin and m_end
+  // are the diagonal's and the window's edges).
+  float acc[D / 2];                                        // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float x[32];                                             // S^T (0) or dP^T (1)
+#pragma unroll
+  for (int e = 0; e < 32; ++e) x[e] = 0.f;
+  uint32_t frag[16];                                       // P^T (0) or dS^T (1), bf16
+  mbar_wait(bar_kv, 0);
+
+  for (int i = 0; i < n_iters; ++i) {
+    const int s = i % kDkdvStages;
+    const int m0 = m_begin + (i % q_tiles) * 64;
+    const uint32_t q_base = base + C::kOffRing + s * C::kStageBytes;  // dO at + kTile
+    uint32_t* pslot = pbuf + s * 16 * 128 + t;             // fragment f at pslot[128 f]
+    const bool masked = crosses_edge(p, n_valid, m0, n0);
+    mbar_wait(bar_full + 8 * s, (i / kDkdvStages) & 1);
+    wgmma_fence();
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): operands are picked by
+    // warpgroup, so no branch separates a wgmma from its wait.
+    issue_qk<D>(x, base + wg * C::kTile, q_base + wg * C::kTile);
+    wgmma_wait<0>();
+    fence_regs(x);
+    if (wg == 0) {
+      // P^T: rows are keys key0 + 8r, columns q rows m0 + 8j + col0 + c.
+      const float* lse2 = stats + s * 128;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + col0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            float pr = ex2_approx(fmaf(x[e], scale_log2, -(c ? l.y : l.x)));
+            if (masked && !visible(p, n_valid, m0 + 8 * j + col0 + c, key0 + 8 * r)) pr = 0.f;
+            x[e] = pr;
+          }
+      }
+      to_bf16_fragments(x, frag);
+#pragma unroll
+      for (int f = 0; f < 16; ++f) pslot[128 * f] = frag[f];
+      mbar_arrive(bar_p + 8 * s);
+    } else {
+      // dS^T = P^T (dP^T - delta), from warpgroup 0's rounded P^T.
+      const float* delta = stats + s * 128 + 64;
+      mbar_wait(bar_p + 8 * s, (i / kDkdvStages) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 pp = bf16x2_to_float2(pslot[128 * (2 * j + r)]);
+          x[4 * j + 2 * r] = pp.x * (x[4 * j + 2 * r] - dl.x);
+          x[4 * j + 2 * r + 1] = pp.y * (x[4 * j + 2 * r + 1] - dl.y);
+        }
+      }
+      to_bf16_fragments(x, frag);
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1).
+    wgmma_fence();
+    issue_rs<D>(acc, frag, q_base + (1 - wg) * C::kTile);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(bar_free + 8 * s);
+  }
+
+  // Warpgroup 0 stores dV, warpgroup 1 dK (scaled).
+  const float out_scale = wg == 0 ? 1.f : p.scale;
+  __nv_bfloat16* dst = wg == 0
+      ? static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh
+      : static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  const long long row_stride = wg == 0 ? p.dv_ss : p.dk_ss;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = key0 + 8 * r;
+    if (n >= p.T) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int e = 4 * j + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * row_stride + 8 * j + col0) =
+          __floats2bfloat162_rn(acc[e] * out_scale, acc[e + 1] * out_scale);
+    }
+  }
+}
+
+// Block (blockIdx.x = h + H*b, blockIdx.y = 64-row q tile from the last):
+// one consumer warpgroup owns the rows, the producer warp comes last.
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
+    flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo, const BwdParams p) {
+  using C = DqCfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + C::kOffBar;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_free = bar_full + 8 * kDqStages;
+
+  const int h = blockIdx.x % p.H;
+  const int b = blockIdx.x / p.H;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int kvh = h / (p.H / p.KV);
+  const int n_valid = min(p.kv_len, p.T);
+  int kv_end = n_valid;
+  if (p.causal) kv_end = min(kv_end, m0 + 64);             // keys <= last q row
+  int kv_start = 0;
+  if (p.window > 0) kv_start = max(0, m0 - p.window + 1) / 64 * 64;  // keys > first row - window
+  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + 63) / 64 : 0;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == C::kProducerWarp) {
+    // Producer: Q and dO once, then K and V of key tile i into stage
+    // i % kDqStages.
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, 2 * C::kTile);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(base + c * 64 * kRowBytes, &tq, bar_q, 64 * c, h, m0, b);
+        tma_load_4d(base + C::kTile + c * 64 * kRowBytes, &tdo, bar_q, 64 * c, h, m0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kDqStages;
+        const int n0 = kv_start + i * 64;
+        const uint32_t dst = base + C::kOffRing + s * C::kStageBytes;
+        if (i >= kDqStages) mbar_wait(bar_free + 8 * s, (i / kDqStages - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * s, C::kStageBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(dst + c * 64 * kRowBytes, &tk, bar_full + 8 * s, 64 * c, kvh, n0, b);
+          tma_load_4d(dst + C::kTile + c * 64 * kRowBytes, &tv, bar_full + 8 * s, 64 * c, kvh,
+                      n0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int row0 = m0 + 16 * warp + lane / 4;              // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = p.scale * kLog2e;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = row0 + 8 * r;
+    const long long stat = ((long long)b * p.H + h) * p.S + m;
+    lse2[r] = m < p.S ? p.lse[stat] * kLog2e : 0.f;
+    delta[r] = m < p.S ? p.delta[stat] : 0.f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+  float sc[32], dp[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+  uint32_t dsf[16];
+  mbar_wait(bar_q, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kDqStages;
+    const int n0 = kv_start + i * 64;
+    const uint32_t k_stage = base + C::kOffRing + s * C::kStageBytes;
+    mbar_wait(bar_full + 8 * s, (i / kDqStages) & 1);
+    wgmma_fence();
+    issue_qk<D>(sc, base, k_stage);                        // S = Q K^T
+    issue_qk<D>(dp, base + C::kTile, k_stage + C::kTile);  // dP = dO V^T
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    // dS = P (dP - delta), P rounded to bf16 as the dK/dV kernel rounds it:
+    // rows are q rows row0 + 8r, columns keys n0 + 8j + col0 + c.
+    const bool masked = crosses_edge(p, n_valid, m0, n0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * r + c;
+          float pr = ex2_approx(fmaf(sc[e], scale_log2, -lse2[r]));
+          if (masked && !visible(p, n_valid, row0 + 8 * r, n0 + 8 * j + col0 + c)) pr = 0.f;
+          pr = __bfloat162float(__float2bfloat16_rn(pr));
+          dp[e] = pr * (dp[e] - delta[r]);
+        }
+    to_bf16_fragments(dp, dsf);
+    wgmma_fence();
+    issue_rs<D>(dq, dsf, k_stage);                         // dQ += dS K
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(bar_free + 8 * s);
+  }
+
+  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = row0 + 8 * r;
+    if (m >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + m * p.dq_ss + 8 * j + col0) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+  }
+}
+
+// delta = rowsum(dO * O) in float32 for each (b, row, h): D/8 lanes per
+// row, each reading 8 adjacent elements of both with one 16-byte load (the
+// rows are 16-byte aligned: TMA's rule holds for dO and, as the wrapper
+// sees to, for O); the grid strides over the rows.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel_sm90(BwdParams p, long long rows) {
+  constexpr int kLanes = D / 8;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % kLanes;
+  const long long stride = (long long)gridDim.x * (256 / kLanes);
+  // first: the warp's first row, the same for its lanes, so the shuffles
+  // below run with every lane.
+  for (long long first = ((long long)blockIdx.x * 256 + threadIdx.x - lane) / kLanes; first < rows;
+       first += stride) {
+    const long long row = first + lane / kLanes;
+    const int h = row % p.H;
+    const int m = (row / p.H) % p.S;
+    const int b = row / ((long long)p.H * p.S);
+    float acc = 0.f;
+    if (row < rows) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(
+          static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + m * p.o_ss + h * p.o_sh + 8 * sub);
+      const uint4 gv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) +
+                                                       b * p.do_sb + m * p.do_ss + h * p.do_sh +
+                                                       8 * sub);
+      const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 a = bf16x2_to_float2(ow[w]), g = bf16x2_to_float2(gw[w]);
+        acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
+      }
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (sub == 0 && row < rows) p.delta[((long long)b * p.H + h) * p.S + m] = acc;
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, uint32_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The delta pre-pass, then the dK/dV and dQ kernels.  Returns a
+// cudaError_t, or kTensorMapRejected when q, k, v or dO breaks TMA's rule.
+template <int D>
+int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(encode, &tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
+      !make_map(encode, &tk, p.k, B, p.T, p.KV, D, p.k_sb, p.k_ss, p.k_sh, 64) ||
+      !make_map(encode, &tv, p.v, B, p.T, p.KV, D, p.v_sb, p.v_ss, p.v_sh, 64) ||
+      !make_map(encode, &tdo, p.dout, B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, 64))
+    return kTensorMapRejected;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = allow_smem(flash_bwd_dkdv_kernel_sm90<D>, DkdvCfg<D>::kSmemBytes);
+    if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel_sm90<D>, DqCfg<D>::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const long long rows = (long long)B * p.S * p.H;
+  const long long blocks = (rows * (D / 8) + 255) / 256;  // at most 16 to an SM, striding
+  flash_bwd_delta_kernel_sm90<D><<<(unsigned)(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(
+      p, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_kv(p.KV * B, (p.T + 63) / 64);
+  flash_bwd_dkdv_kernel_sm90<D><<<grid_kv, DkdvCfg<D>::kThreads, DkdvCfg<D>::kSmemBytes, stream>>>(
+      tq, tk, tv, tdo, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_q(p.H * B, (p.S + 63) / 64);
+  flash_bwd_dq_kernel_sm90<D><<<grid_q, DqCfg<D>::kThreads, DqCfg<D>::kSmemBytes, stream>>>(
+      tq, tk, tv, tdo, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+
 template <typename T, int D>
 int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
   constexpr size_t kSmemBytes = BwdTile<D>::kSmemBytes;
@@ -1220,7 +1747,10 @@ struct BwdEntryArgs {
 static_assert(sizeof(BwdEntryArgs) == 328, "BwdEntryArgs must match ops.py's packing");
 
 // Launches the delta pre-pass, the dK/dV kernel and the dQ kernel on the
-// stream; returns the first cudaError_t that is not cudaSuccess.
+// stream; returns the first cudaError_t that is not cudaSuccess, or
+// kTensorMapRejected (-1) when a bfloat16 q, k, v or dO breaks TMA's rule
+// (bfloat16 takes them at 16-byte aligned addresses with 16-byte multiple
+// strides); nothing is launched then.
 int flash_attention_backward(const BwdEntryArgs* a) {
   const int B = a->B, D = a->D;
   if ((D != 64 && D != 128) || a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 ||
@@ -1235,9 +1765,7 @@ int flash_attention_backward(const BwdEntryArgs* a) {
   cudaStream_t s = static_cast<cudaStream_t>(a->stream);
   if (a->dtype == 0)
     return D == 64 ? launch_bwd<float, 64>(p, B, s) : launch_bwd<float, 128>(p, B, s);
-  if (a->dtype == 1)
-    return D == 64 ? launch_bwd<__nv_bfloat16, 64>(p, B, s)
-                   : launch_bwd<__nv_bfloat16, 128>(p, B, s);
+  if (a->dtype == 1) return D == 64 ? sm90::launch_bwd<64>(p, B, s) : sm90::launch_bwd<128>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

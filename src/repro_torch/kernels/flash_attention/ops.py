@@ -106,6 +106,17 @@ def _cuda_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
 
+def _layout_error(x: torch.Tensor) -> Optional[str]:
+    return tma_layout_error(x.shape, x.stride(), x.dtype, x.data_ptr() % 16)
+
+
+def _raise_tma_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    why = [f"{name}: {err}" for name, x in (("q", q), ("k", k), ("v", v))
+           if (err := _layout_error(x))]
+    raise ValueError(f"the bf16 kernel cannot read {'; '.join(why) or 'q, k or v'}: "
+                     "TMA refused the tensor map")
+
+
 def _scale(d: int, softmax_scale: Optional[float]) -> float:
     return float(softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d))
 
@@ -128,10 +139,7 @@ def _forward(q, k, v, causal, window, scale, kv_len, with_lse: bool):
     )
     rc = _call("flash_attention_forward", dev, args)
     if rc == _TENSOR_MAP_REJECTED:
-        why = [f"{name}: {err}" for name, x in (("q", q), ("k", k), ("v", v))
-               if (err := tma_layout_error(x.shape, x.stride(), x.dtype, x.data_ptr() % 16))]
-        raise ValueError(f"the bf16 kernel cannot read {'; '.join(why) or 'q, k or v'}: "
-                         "TMA refused the tensor map")
+        _raise_tma_refusal(q, k, v)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     flash_attention.launches += 1
@@ -210,7 +218,10 @@ def flash_attention_backward(
     float32 and the output's gradient ``dout``.  dk and dv sum over each
     GQA group's q heads.  CUDA tensors launch the backward kernel (a delta
     pre-pass, then the dK/dV and dQ kernels; one count in ``launches``);
-    CPU tensors take :func:`attention_backward_ref`."""
+    CPU tensors take :func:`attention_backward_ref`.  In bf16, q, k, v and
+    dO are read through TMA tensor maps: a q, k or v that breaks the rule
+    raises, as in the forward; a ``dout`` or ``out`` that breaks it is
+    copied first."""
     _check(q, k, v, kv_len, window)
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -226,8 +237,12 @@ def flash_attention_backward(
     _cuda_checks(q, k, v)
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("out and dout must have q's dtype, lse float32")
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if dout.stride(-1) != 1 or (bf16 and _layout_error(dout)):
+        # dO is the one operand autograd shapes: a copy, not a fallback.
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    if bf16 and _layout_error(out):
+        out = out.clone(memory_format=torch.contiguous_format)  # the pre-pass reads 16-byte rows
     if out.stride(-1) != 1 or not lse.is_contiguous():
         raise ValueError("out's head dim and lse must be contiguous")
     dev = q.device
@@ -245,6 +260,8 @@ def flash_attention_backward(
         _scale(d, softmax_scale), 0,
     )
     rc = _call("flash_attention_backward", dev, args)
+    if rc == _TENSOR_MAP_REJECTED:
+        _raise_tma_refusal(q, k, v)
     if rc != 0:
         raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {rc}")
     flash_attention_backward.launches += 1

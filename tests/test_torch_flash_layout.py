@@ -1,11 +1,13 @@
-"""The bf16 flash kernel reads q/k/v through TMA tensor maps; the main paths
-must hand it tensors that TMA can read.
+"""The bf16 flash kernels read q/k/v (and, in the backward, dO) through TMA
+tensor maps; the main paths must hand them tensors that TMA can read.
 
 On the CPU the port's wrapper takes the plain version, so the layout rule
 (``tma_layout_error``) is checked here on the q/k/v that reduced olmo-1b
-(forward and fused prefill) and 4-layer hymba-1.5b (a windowed and a global
-layer) produce in bf16 at head dim 64.  A layout change on a main path then
-fails here before it raises on the card.  Imports torch only.
+(forward, fused prefill and the training forward) and 4-layer hymba-1.5b (a
+windowed and a global layer) produce in bf16 at head dim 64, and on the dO
+that autograd hands the training path's attention.  A layout change on a
+main path then fails here before it raises (q, k, v) or copies (dO) on the
+card.  Imports torch only.
 """
 import dataclasses
 
@@ -59,6 +61,32 @@ def test_dense_forward_and_prefill_layouts_are_tma_readable(monkeypatch):
     _assert_readable(seen, 2 * api.cfg.n_layers)
 
 
+def test_dense_training_layouts_and_output_gradient_are_tma_readable(monkeypatch):
+    """The training forward (remat on: each layer's forward runs again in
+    the backward pass) and the dO of every layer's attention output,
+    recorded by a tensor hook."""
+    api = _bf16_api("olmo-1b", remat=True)
+    model = api.init(0, device="cpu").requires_grad_(True)
+    seen, grads = [], []
+
+    def recording(q, k, v, **kw):
+        seen.append((q, k, v))
+        out = attention_ref(q, k, v, **kw)
+        if out.requires_grad:
+            out.register_hook(grads.append)
+        return out
+
+    monkeypatch.setattr(dense, "flash_attention", recording)
+    tokens = torch.randint(0, api.cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(0))
+    model.train_forward(tokens).float().square().mean().backward()
+    _assert_readable(seen, 2 * api.cfg.n_layers)
+    assert len(grads) == api.cfg.n_layers
+    for do, (q, _, _) in zip(grads, seen):
+        assert do.dtype == torch.bfloat16 and do.shape == q.shape
+        err = tma_layout_error(do.shape, do.stride(), do.dtype, do.data_ptr() % 16)
+        assert err is None, f"dO strides {do.stride()}: {err}"
+
+
 def test_hymba_forward_layouts_are_tma_readable(monkeypatch):
     api = _bf16_api("hymba-1.5b", n_layers=4)
     model = api.init(0, device="cpu")
@@ -95,3 +123,13 @@ def test_entry_args_block_matches_the_c_struct():
 
     match = re.search(r"static_assert\(sizeof\(EntryArgs\) == (\d+)", ops.SOURCE.read_text())
     assert match and ops._ENTRY_ARGS.size == int(match.group(1))
+
+
+def test_backward_entry_args_block_matches_the_c_struct():
+    """The same for the backward's ``BwdEntryArgs``."""
+    import re
+
+    from repro_torch.kernels.flash_attention import ops
+
+    match = re.search(r"static_assert\(sizeof\(BwdEntryArgs\) == (\d+)", ops.SOURCE.read_text())
+    assert match and ops._BWD_ARGS.size == int(match.group(1))

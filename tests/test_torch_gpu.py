@@ -338,14 +338,10 @@ def _bwd_inputs(device, dtype, b, s, t, h, kv, d, seed=0):
             for shape in shapes]
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", CASES)
-def test_backward_kernel_matches_autograd_through_plain(cuda_device, dtype, d, b, s, t, h, kv,
-                                                        causal, window, kv_len):
+def _check_backward(device, dtype, d, b, s, t, h, kv, causal, window, kv_len):
     from repro_torch.kernels.flash_attention import flash_attention_backward
 
-    q, k, v, do = _bwd_inputs(cuda_device, dtype, b, s, t, h, kv, d)
+    q, k, v, do = _bwd_inputs(device, dtype, b, s, t, h, kv, d)
     mask = dict(causal=causal, window=window, kv_len=kv_len)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     before = (flash_attention.launches, flash_attention_backward.launches)
@@ -360,6 +356,80 @@ def test_backward_kernel_matches_autograd_through_plain(cuda_device, dtype, d, b
         err = (got.grad.float() - want.grad.float()).abs().max().item()
         tol = BWD_REL[dtype] * max(1.0, want.grad.float().abs().max().item())
         assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", CASES)
+def test_backward_kernel_matches_autograd_through_plain(cuda_device, dtype, d, b, s, t, h, kv,
+                                                        causal, window, kv_len):
+    _check_backward(cuda_device, dtype, d, b, s, t, h, kv, causal, window, kv_len)
+
+
+# The bf16 backward's edges: dK/dV blocks of 128 keys (two warpgroups of
+# 64), dQ blocks of 128 q rows, 64-row streamed tiles.
+BWD_BF16_EDGE_CASES = [
+    # b, s, t, h, kv, d, causal, window, kv_len
+    (1, 200, 200, 4, 4, 128, True, None, None),   # S, T not multiples of 64
+    (1, 130, 130, 4, 4, 128, True, None, None),   # 2 rows in the last block's tile
+    (1, 50, 40, 4, 4, 128, False, None, None),    # a block's second warpgroup past T and S
+    (1, 96, 250, 4, 4, 64, False, None, 233),     # kv_len inside the last tile
+    (2, 333, 333, 8, 2, 64, True, 100, None),     # window edge inside tiles
+    (1, 300, 300, 10, 2, 64, True, None, None),   # GQA 5:1 at D=64
+]
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window,kv_len", BWD_BF16_EDGE_CASES)
+def test_bf16_backward_at_tile_edges(cuda_device, b, s, t, h, kv, d, causal, window, kv_len):
+    _check_backward(cuda_device, torch.bfloat16, d, b, s, t, h, kv, causal, window, kv_len)
+
+
+def _bf16_backward(device, do, d=128, b=2, s=333, h=8, kv=2, window=None):
+    from repro_torch.kernels.flash_attention import flash_attention_backward, ops
+
+    q, k, v, _ = _bwd_inputs(device, torch.bfloat16, b, s, s, h, kv, d)
+    out, lse = ops._forward(q, k, v, True, window, 1.0 / d ** 0.5, None, with_lse=True)
+    return flash_attention_backward(q, k, v, out, lse, do, causal=True, window=window)
+
+
+@pytest.mark.parametrize("d, window", [(128, None), (64, 100)])
+def test_bf16_backward_gives_the_same_bits_on_two_calls(cuda_device, d, window):
+    """No atomics: dK/dV sum a GQA group inside one block, dQ has its own kernel."""
+    do = _bwd_inputs(cuda_device, torch.bfloat16, 2, 333, 333, 8, 2, d, seed=1)[3]
+    first = _bf16_backward(cuda_device, do, d=d, window=window)
+    second = _bf16_backward(cuda_device, do, d=d, window=window)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("pad", [8, 1])
+def test_bf16_backward_reads_a_non_contiguous_dout(cuda_device, pad):
+    """dO as a view whose rows are (128 + pad) elements apart: TMA reads pad
+    8 in place, and pad 1 (258-byte rows) is copied first; both give the
+    bits of a contiguous dO."""
+    dense = _bwd_inputs(cuda_device, torch.bfloat16, 2, 333, 333, 8, 2, 128, seed=1)[3]
+    buf = torch.zeros((2, 333, 8, 128 + pad), device=cuda_device, dtype=torch.bfloat16)
+    view = buf[..., :128]
+    view.copy_(dense)
+    assert not view.is_contiguous()
+    for name, x, y in zip(("dq", "dk", "dv"), _bf16_backward(cuda_device, view),
+                          _bf16_backward(cuda_device, dense)):
+        assert torch.equal(x, y), name
+
+
+def test_bf16_backward_rejects_a_misaligned_q(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention_backward, ops
+
+    q, k, v, do = _bwd_inputs(cuda_device, torch.bfloat16, 1, 64, 64, 4, 4, 128)
+    out, lse = ops._forward(q, k, v, True, None, 1.0 / 128 ** 0.5, None, with_lse=True)
+    buf = torch.zeros(q.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    before = flash_attention_backward.launches
+    with pytest.raises(ValueError, match="cannot read q"):
+        flash_attention_backward(shifted, k, v, out, lse, do)
+    assert flash_attention_backward.launches == before
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -409,3 +479,4 @@ def test_training_forward_gradient_matches_plain_attention(cuda_device):
     for got, want in zip(grads["kernel"], grads["plain"]):
         tol = 1e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= tol
+

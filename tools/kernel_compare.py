@@ -2,7 +2,7 @@
 """Time one checkout's flash-attention, WKV or selective-scan kernel, and
 the model forwards that call it, on one CUDA card.
 
-    python3 tools/kernel_compare.py --kernel {flash,wkv,ssm} [--src DIR] [--label NAME]
+    python3 tools/kernel_compare.py --kernel {flash,flash_bwd,wkv,ssm} [--src DIR] [--label NAME]
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is timed (default
 this checkout's); its kernels build into that checkout's ``build/kernels/``.
@@ -11,6 +11,12 @@ this checkout's); its kernels build into that checkout's ``build/kernels/``.
 ``chip_smoke.flash_case``, the kernel phase's own timing; then full-width
 olmo-1b (bf16, seeded random weights) prefills 256 tokens and full-width
 hymba-1.5b (bf16) runs a 1024-token forward.
+
+``--kernel flash_bwd``: each row of ``chip_smoke.BWD_CASES`` is timed by
+``chip_smoke.flash_bwd_case``, the backward phase's own timing (errors and
+the bitwise repeat included); then one node step of full-width olmo-1b
+(bf16, remat on, seeded random weights) at b=34 of padded b=40, S=512,
+by ``chip_smoke.node_step_row``, the training phase's own timing.
 
 ``--kernel wkv``: each row of ``chip_smoke.WKV_CASES`` is timed by
 ``chip_smoke.wkv_case``, the WKV phase's own timing (errors included);
@@ -45,6 +51,7 @@ import chip_smoke  # noqa: E402
 # kernel -> (model, tokens, the profiler's name for the kernel's CUDA kernels)
 FORWARDS = {
     "flash": (("olmo-1b", 256, "flash_fwd_kernel"), ("hymba-1.5b", 1024, "flash_fwd_kernel")),
+    "flash_bwd": (),
     "wkv": (("rwkv6-7b", 1024, chip_smoke.WKV_PROFILE_PREFIX),),
     "ssm": (("hymba-1.5b", 1024, chip_smoke.SSM_PROFILE_PREFIX),),
 }
@@ -61,6 +68,13 @@ def kernel_rows(torch, kernel: str, label: str) -> None:
                 row = chip_smoke.flash_case(torch, flash_attention, attention_ref, case, gen)
                 print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
         return
+    if kernel == "flash_bwd":
+        gen = torch.Generator(device=dev).manual_seed(6)
+        for case in chip_smoke.BWD_CASES:
+            row = chip_smoke.flash_bwd_case(torch, case, gen)
+            print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
+        node_step(torch, label)
+        return
     if kernel == "ssm":
         from repro_torch.kernels import ssm_scan
 
@@ -76,6 +90,25 @@ def kernel_rows(torch, kernel: str, label: str) -> None:
     for case in chip_smoke.WKV_CASES:
         row = chip_smoke.wkv_case(torch, rwkv6_wkv, case, gen)
         print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
+
+
+def node_step(torch, label, b=34, b_max=40) -> None:
+    """One olmo-1b node step as phase 13 times its first node at the
+    OptPerf plan ([34, 21, 9], padded to 40)."""
+    from repro_torch.configs import get_api
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.optimizers import constant_schedule, sgd
+    from repro_torch.runtime.backend import RealBackend
+
+    api = get_api("olmo-1b")
+    data = SyntheticLM(vocab=api.cfg.vocab, seq_len=512, seed=0)
+    backend = RealBackend(api, sgd(constant_schedule(0.01)), data, seed=0,
+                          device=chip_smoke.DEVICE)
+    row = chip_smoke.node_step_row(torch, backend, data, b, b_max)
+    print(json.dumps({"label": label, "case": f"olmo-1b node step b={b} of {b_max} S=512",
+                      **row, "clock": chip_smoke.sm_clock()}), flush=True)
+    del backend
+    torch.cuda.empty_cache()
 
 
 def ssm_fill_rows(torch, mod, label, gen) -> None:
