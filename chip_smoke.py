@@ -92,18 +92,31 @@ Phases, each of which fails the run:
                    the simulated ``cluster_A`` (3 nodes) with
                    ``CannikinController(3, [16, 32, 64], ref_batch=16)``,
                    ``SyntheticLM(seq 512, seed 0)``, SGD at lr 0.01, 2 steps
-                   per epoch, 3 epochs (the third in the OptPerf phase).
-                   Every loss finite, no node excluded, launch counts as the
-                   path predicts, peak memory under 80 GB; each node step's
-                   wall and device ms; and one node's float32 gradient at
-                   full width (b=2, S=256) through the kernels against the
-                   same gradient with the plain attention passed through the
-                   layers' ``attend`` seam: global sq-norm within 1e-5
-                   relative, every leaf within 1e-4 * max(1, max |g|).
+                   per epoch, 5 epochs (two bootstrap, three OptPerf), the
+                   two-program path.  Every loss finite, no node excluded,
+                   launch counts as the path predicts, 8 x steps + 2
+                   transfers per epoch, peak memory under 80 GB; each node
+                   step's wall and device ms; and one node's float32
+                   gradient at full width (b=2, S=256) through the kernels
+                   against the same gradient with the plain attention passed
+                   through the layers' ``attend`` seam: global sq-norm within
+                   1e-5 relative, every leaf within 1e-4 * max(1, max |g|).
+14. fused training (olmo-1b) — phase 13's run with ``EpochLoop(fused=True)``:
+                   epoch 2 plans on the host and runs fused, epochs 3-4
+                   plan from certified on-device proposals.  Plans equal
+                   phase 13's, ``lr_scale`` within 1e-6 relative, losses
+                   within 1e-4 relative, at least 2 fused plans, no
+                   certification failure, the worst certification error
+                   within 1e-5, 12 h2d and 13 d2h transfers per fused epoch,
+                   phase 13's flash launch counts; the device part of each
+                   fused epoch runs under
+                   ``torch.cuda.set_sync_debug_mode("error")``.  Then the
+                   sweep stage alone: device ms, kernel launches and records
+                   per call, and the host's issue ms.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
-for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 for training) and
-read just after it.  Device ms of a named kernel are per launch the
+for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
+training) and read just after it.  Device ms of a named kernel are per launch the
 profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
 ``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -1330,8 +1343,18 @@ def node_step_row(torch, backend, data, b, b_max):
                 flash_bwd_launches=launches[BWD_PROFILE_NAME])
 
 
-def phase_training(torch):
-    """Full-width olmo-1b trained by HeteroTrainer on the simulated cluster_A."""
+TRAIN_EPOCHS = 5      # two bootstrap epochs, then three OptPerf epochs
+TRAIN_STEPS = 2       # steps per epoch
+LOSS_REL = 1e-4       # fused vs two-program losses (see phase_fused_training)
+
+
+def training_run(torch, fused: bool):
+    """Full-width olmo-1b (bf16, remat) under ``HeteroTrainer`` on the
+    simulated cluster_A for ``TRAIN_EPOCHS`` epochs, through the fused
+    epoch when ``fused``.  Returns the trainer, one row per epoch (plan,
+    losses, noise scales, wall seconds, transfers), each staged
+    (context, proposal), the launch counts of the run and its peak
+    memory."""
     from repro_torch.configs import get_api
     from repro_torch.core.controller import CannikinController
     from repro_torch.core.simulator import SimulatedCluster, cluster_A
@@ -1340,56 +1363,98 @@ def phase_training(torch):
     from repro_torch.train.hetero import HeteroTrainer
 
     api = get_api("olmo-1b")
-    cfg = api.cfg
     profiles, comm = cluster_A()
     sim = SimulatedCluster(profiles, comm, noise=0.01, seed=0)
-    policy = CannikinController(sim.n, batch_candidates=[16, 32, 64], ref_batch=16)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=512, seed=0)
-    steps = 2
+    policy = CannikinController(sim.n, batch_candidates=[16, 32, 64], ref_batch=16,
+                                device=DEVICE)
+    data = SyntheticLM(vocab=api.cfg.vocab, seq_len=512, seed=0)
     trainer = HeteroTrainer(api, sgd(constant_schedule(0.01)), sim, policy, data,
-                            steps_per_epoch=steps, seed=0, device=DEVICE)
+                            steps_per_epoch=TRAIN_STEPS, seed=0, device=DEVICE)
+    trainer.loop.fused = fused
+    proposals, contexts = [], []
+    stage = policy.stage_fused_proposal
+
+    def record(ctx, proposal):
+        proposals.append(proposal)
+        contexts.append(ctx)
+        stage(ctx, proposal)
+
+    policy.stage_fused_proposal = record
     backend = trainer.backend
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.perf_counter()
-    walls = []
-    for _ in range(3):
+    rows = []
+    for _ in range(TRAIN_EPOCHS):
+        before = backend.transfers.snapshot()
+        staged = len(proposals)
         te = time.perf_counter()
         rec = trainer.run_epoch()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - te)
+        wall = time.perf_counter() - te
+        after = backend.transfers.snapshot()
         res = trainer.loop.last_result
-        log("training", f"epoch {rec.epoch} phase={rec.phase} total_batch={rec.total_batch} "
-            f"batches={list(rec.batches)} lr_scale={rec.lr_scale:.6f} "
-            f"predicted_batch_s={rec.predicted_batch_time} sim_epoch_s={rec.sim_seconds:.6f} "
-            f"sim_clock_s={trainer.sim_time:.6f} losses={[round(x, 6) for x in res.losses]} "
-            f"mean_loss={rec.mean_loss:.6f} b_noise={rec.b_noise:.6e} "
-            f"sq_i={[[f'{x:.6e}' for x in o.local_sqnorms] for o in res.grad_observations]} "
-            f"sq_g={[f'{o.global_sqnorm:.6e}' for o in res.grad_observations]} "
-            f"anomalies={list(res.grad_anomalies)} wall_s={walls[-1]:.3f}")
-        if not all(math.isfinite(x) for x in res.losses) or any(res.grad_anomalies):
-            raise AssertionError(f"epoch {rec.epoch}: losses {res.losses}, anomalies "
-                                 f"{res.grad_anomalies}")
-    counts = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    n, layers = sim.n, cfg.n_layers
+        plan = trainer.loop.history[-1].plan
+        rows.append(dict(
+            epoch=rec.epoch, phase=rec.phase, policy=plan.batch_policy, total=rec.total_batch,
+            batches=list(rec.batches), lr_scale=rec.lr_scale, losses=list(res.losses),
+            b_noise_host=rec.b_noise,
+            b_noise_device=proposals[-1].b_noise if len(proposals) > staged else None,
+            wall_s=wall, sim_s=rec.sim_seconds, anomalies=list(res.grad_anomalies),
+            h2d=after["h2d"] - before["h2d"], d2h=after["d2h"] - before["d2h"],
+            sq_i=[list(o.local_sqnorms) for o in res.grad_observations],
+            sq_g=[o.global_sqnorm for o in res.grad_observations]))
+        r = rows[-1]
+        log("training", f"{'fused' if fused else 'two-program'} epoch {r['epoch']} "
+            f"phase={r['phase']} policy={r['policy']} total_batch={r['total']} "
+            f"batches={r['batches']} lr_scale={r['lr_scale']:.6f} "
+            f"losses={[round(x, 6) for x in r['losses']]} b_noise host={r['b_noise_host']:.6e} "
+            f"device={r['b_noise_device']} sim_epoch_s={r['sim_s']:.6f} "
+            f"sq_i={[[f'{x:.6e}' for x in q] for q in r['sq_i']]} "
+            f"sq_g={[f'{x:.6e}' for x in r['sq_g']]} anomalies={r['anomalies']} "
+            f"wall_s={wall:.3f} transfers h2d={r['h2d']} d2h={r['d2h']}")
+        if not all(math.isfinite(x) for x in r["losses"]) or any(r["anomalies"]):
+            raise AssertionError(f"epoch {r['epoch']}: losses {r['losses']}, anomalies "
+                                 f"{r['anomalies']}")
+    return (trainer, rows, list(zip(contexts, proposals)), read_launches(),
+            torch.cuda.max_memory_allocated())
+
+
+def expected_training_launches(cfg, n):
+    """Flash launches of a training run: per step, each node's forward
+    (twice per layer with remat) and the whole-batch loss forward; one
+    backward per node and layer."""
     per_node = 2 if cfg.remat else 1  # remat runs each layer's forward again
     want = {name: 0 for name in KERNEL_NAMES}
-    want["flash_attention"] = 3 * steps * (n * per_node * layers + layers)
-    want["flash_attention_backward"] = 3 * steps * n * layers
-    log("training", f"olmo-1b bf16 full width, cluster_A ({n} nodes), 3 epochs x {steps} steps "
-        f"in {time.perf_counter() - t0:.2f} s; launches {counts} (expected {want}); "
-        f"peak_mem_gb={peak / 1e9:.3f}; transfers {backend.transfers.snapshot()}")
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    want["flash_attention"] = steps * (n * per_node * cfg.n_layers + cfg.n_layers)
+    want["flash_attention_backward"] = steps * n * cfg.n_layers
+    return want
+
+
+def phase_training(torch):
+    """Full-width olmo-1b trained by HeteroTrainer on the simulated
+    cluster_A, through the two-program path."""
+    t0 = time.perf_counter()
+    trainer, rows, _, counts, peak = training_run(torch, fused=False)
+    backend, data = trainer.backend, trainer.data
+    cfg, n = backend.api.cfg, trainer.cluster.n
+    want = expected_training_launches(cfg, n)
+    log("training", f"olmo-1b bf16 full width, cluster_A ({n} nodes), {TRAIN_EPOCHS} epochs x "
+        f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s; launches {counts} (expected "
+        f"{want}); peak_mem_gb={peak / 1e9:.3f}; transfers {backend.transfers.snapshot()}")
     if counts != want:
         raise AssertionError(f"training launches {counts} != {want}")
-    if trainer.history[-1].phase != "optperf":
+    if [r["phase"] for r in rows] != ["bootstrap"] * 2 + ["optperf"] * (TRAIN_EPOCHS - 2):
         raise AssertionError("the controller did not reach its OptPerf phase")
     if not peak < 80e9:
         raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+    for r in rows:
+        if (r["h2d"], r["d2h"]) != (4 * TRAIN_STEPS + 2, 4 * TRAIN_STEPS):
+            raise AssertionError(f"two-program epoch {r['epoch']} transfers {r}")
 
     # Each node's step of the last plan: its forward and backward alone.
-    batches = list(trainer.history[-1].batches)
+    batches = rows[-1]["batches"]
     b_max = max(8, -(-max(batches) // 8) * 8)
     for i, b in enumerate(batches):
         row = node_step_row(torch, backend, data, b, b_max)
@@ -1402,6 +1467,118 @@ def phase_training(torch):
     del trainer, backend
     torch.cuda.empty_cache()
     node_grad_check(torch)
+    return counts, rows
+
+
+def sweep_profile(torch, ctx, b_noise):
+    """The fused epoch's sweep stage (``fused_goodput_sweep``) alone on the
+    card at the run's context: device ms per call (kernel time under
+    ``torch.profiler`` per recorded kernel times the launches, and the
+    recorded sum), its kernel records and kernel launches per call (the
+    host's launch calls the profiler saw), and the host's ms to issue it
+    and to finish it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.backend import fused_goodput_sweep
+
+    dt, dev = ctx.coeffs.alphas.dtype, ctx.coeffs.alphas.device
+    lo0 = torch.full((), ctx.lo0, dtype=dt, device=dev)
+    b0 = torch.full((), ctx.ref_batch, dtype=dt, device=dev)
+    bn = torch.full((), b_noise, dtype=torch.float32, device=dev)
+
+    def sweep():
+        return fused_goodput_sweep(ctx.coeffs, ctx.candidates, lo0, b0, bn)
+
+    wall_ms = host_ms(torch, sweep, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sweep()
+        torch.cuda.synchronize()
+    device_us, records, launches = 0.0, 0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            device_us += evt.self_device_time_total
+            records += evt.count
+        elif evt.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += evt.count
+    if not records or not launches:
+        raise RuntimeError(f"sweep profile: {records} kernel records, {launches} launches")
+    per_launch = device_us / 1e3 / records
+    return dict(device_ms=per_launch * launches / calls, recorded_ms=device_us / 1e3 / calls,
+                records=records / calls, launches=launches / calls, wall_ms=wall_ms,
+                issue_ms=issue_ms)
+
+
+def phase_fused_training(torch, two_program):
+    """Phase 13's run through the fused epoch (``EpochLoop(fused=True)``):
+    the same plans, losses within ``LOSS_REL`` (both paths run one step
+    body on the same data with the same kernels and, with b_noise infinite
+    at random weights, the same lr_scale; only a kernel's summation order
+    may differ, and that moves a bf16 update by far less), certified
+    proposals, 12 h2d and 13 d2h per fused epoch, and the flash launches of
+    phase 13."""
+    from repro_torch.core.controller import FUSED_CERT_TOL
+
+    t0 = time.perf_counter()
+    trainer, rows, staged, counts, peak = training_run(torch, fused=True)
+    backend, policy = trainer.backend, trainer.policy
+    n = trainer.cluster.n
+    want = expected_training_launches(backend.api.cfg, n)
+    s = policy.stats
+    log("training", f"fused: {TRAIN_EPOCHS} epochs in {time.perf_counter() - t0:.2f} s; "
+        f"launches {counts} (expected {want}); peak_mem_gb={peak / 1e9:.3f}; fused_plans="
+        f"{s.fused_plans} fused_certifications={s.fused_certifications} fused_cert_failures="
+        f"{s.fused_cert_failures} fused_max_rel_err={s.fused_max_rel_err:.3e} (limit "
+        f"{FUSED_CERT_TOL}); fused epochs built once per n: {sorted(backend._fused_cache)}")
+    for _, p in staged:
+        log("training", f"proposal best_index={p.best_index} total={p.total_batch} "
+            f"batches={[round(x, 4) for x in p.batches]} t_stars={list(p.t_stars)} "
+            f"goodputs={list(p.goodputs)} b_noise={p.b_noise} sweep_iters={p.sweep_iters}")
+    worst = 0.0
+    for a, b in zip(two_program, rows):
+        rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"]))
+        worst = max(worst, rel)
+        log("training", f"epoch {a['epoch']}: wall s two-program {a['wall_s']:.3f} fused "
+            f"{b['wall_s']:.3f} (ratio {b['wall_s'] / a['wall_s']:.4f}); loss rel diff "
+            f"{rel:.3e}; lr_scale {a['lr_scale']!r} vs {b['lr_scale']!r}")
+        if (a["total"], a["batches"]) != (b["total"], b["batches"]):
+            raise AssertionError(f"epoch {a['epoch']}: plans differ: {a} vs {b}")
+        if not abs(b["lr_scale"] - a["lr_scale"]) <= 1e-6 * abs(a["lr_scale"]):
+            raise AssertionError(f"epoch {a['epoch']}: lr_scale differs: {a} vs {b}")
+        if not rel <= LOSS_REL:
+            raise AssertionError(f"epoch {a['epoch']}: losses differ by {rel:.3e}")
+    fused_rows = rows[2:]
+    adaptive = [(a["wall_s"], b["wall_s"]) for a, b in zip(two_program[2:], fused_rows)]
+    log("training", f"per adaptive epoch wall s: two-program "
+        f"{[round(a, 4) for a, _ in adaptive]}, fused {[round(b, 4) for _, b in adaptive]}; "
+        f"worst loss rel diff {worst:.3e} (limit {LOSS_REL})")
+    if [r["policy"] for r in fused_rows] != (
+            ["cannikin-gns"] + ["cannikin-gns+fused"] * (TRAIN_EPOCHS - 3)):
+        raise AssertionError(f"fused plans: {[r['policy'] for r in rows]}")
+    for r in fused_rows:
+        if (r["h2d"], r["d2h"]) != (12, 13):
+            raise AssertionError(f"fused epoch {r['epoch']} transfers h2d={r['h2d']} "
+                                 f"d2h={r['d2h']}, expected 12 and 13")
+    if not (s.fused_plans >= 2 and s.fused_cert_failures == 0
+            and s.fused_max_rel_err <= FUSED_CERT_TOL):
+        raise AssertionError(f"fused certification: {s}")
+    if counts != want:
+        raise AssertionError(f"fused training launches {counts} != {want}")
+    ctx, last = staged[-1]
+    prof = sweep_profile(torch, ctx, last.b_noise)
+    log("training", f"sweep (C={len(ctx.candidates_np)}, n={n}, float32): device "
+        f"{prof['device_ms']:.4f} ms per call ({prof['recorded_ms']:.4f} ms in "
+        f"{prof['records']:.0f} kernel records) over {prof['launches']:.0f} kernel launches; "
+        f"host issue {prof['issue_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms")
+    del trainer, backend
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1461,7 +1638,10 @@ def main() -> int:
         bwd_rows = phase_kernel_bwd(torch)
         torch.cuda.empty_cache()
         phase = "training (olmo-1b)"
-        train_counts = phase_training(torch)
+        train_counts, train_rows = phase_training(torch)
+        torch.cuda.empty_cache()
+        phase = "fused training (olmo-1b)"
+        phase_fused_training(torch, train_rows)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)

@@ -18,25 +18,29 @@ The controller is runtime-agnostic: it consumes measurements (from the
 simulator or from wall-clock timing of real steps) and produces the next
 epoch's partition + learning-rate scale.
 
-The port carries the reference's two-program path (plan on the host,
-execute, observe).  The fused on-device planning of the reference
-(``fused_context``/``stage_fused_proposal`` and the ``optperf_jax``
-coefficient export) waits for the fused epoch (ROADMAP §1.5):
-:meth:`CannikinController.fused_context` returns None, as the reference's
-does when ``optperf_jax`` is missing.
+The port carries both of the reference's program shapes: the two-program
+path (plan on the host, execute, observe) and the fused path, where the
+backend's epoch runs the goodput sweep on the device
+(:mod:`repro_torch.core.optperf_torch`) and the controller certifies each
+proposal against the float64 host oracle before it plans from it
+(``fused_context``/``stage_fused_proposal``).  Unlike the reference, which
+drops to the two-program path when JAX is missing, there is nothing to drop
+from: torch is always there.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.batch_policy import (
     BatchBounds,
     BatchSizePolicy,
     PolicyTelemetry,
+    lr_scale_for,
     make_batch_policy,
 )
 from repro_torch.core.gns import GNSState, estimate_gns, gns_update, gns_weights
@@ -44,12 +48,16 @@ from repro_torch.core.goodput import (
     BatchSizeSelector,
     adascale_gain,
     sqrt_lr_scale,
+    statistical_efficiency,
 )
 from repro_torch.core.optperf import (
     OptPerfSolution,
+    _problem_from_model,
     round_batches,
     solve_optperf,
+    solve_optperf_batch,
 )
+from repro_torch.core import optperf_torch
 from repro_torch.core.perf_model import (
     ClusterPerfModel,
     CommModel,
@@ -64,7 +72,16 @@ __all__ = [
     "CannikinController",
     "EpochPlan",
     "ControllerStats",
+    "FusedSweepContext",
+    "FusedProposal",
+    "FUSED_CERT_TOL",
 ]
+
+# Relative tolerance for certifying an on-device (float32) fused-epoch plan
+# against the host float64 two-program oracle — same bar the device sweep
+# engine's own certification uses.
+FUSED_CERT_TOL = 1e-5
+
 
 @dataclasses.dataclass(frozen=True)
 class EpochPlan:
@@ -78,8 +95,42 @@ class EpochPlan:
     phase: str                             # "bootstrap" | "optperf"
     solution: Optional[OptPerfSolution] = None
     # Provenance: which BatchSizePolicy proposed this total batch (None for
-    # bootstrap plans — no policy is consulted before a model exists).
+    # bootstrap plans — no policy is consulted before a model exists;
+    # "<policy>+fused" when the plan consumed an on-device fused proposal).
     batch_policy: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedSweepContext:
+    """Everything a fused backend epoch needs to run the goodput sweep on
+    device: the refit model's prefetched device coefficients, the candidate
+    grid (device + host views), the water-fill lower bracket, and the
+    reference batch for Eq. (6) efficiency.  ``model`` pins the exact host
+    model the certification oracle must re-solve against."""
+
+    model: ClusterPerfModel
+    coeffs: Any                 # optperf_torch.DeviceCoeffs
+    candidates: Any             # (C,) device tensor, coeffs dtype
+    candidates_np: np.ndarray   # (C,) float64 host view
+    lo0: float
+    ref_batch: float
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedProposal:
+    """What the fused device program proposed for the next epoch: the
+    goodput-argmax candidate, its water-filled partition, and the full
+    sweep telemetry the host certification checks against the float64
+    oracle."""
+
+    best_index: int
+    total_batch: float
+    batches: np.ndarray         # (n,) real-valued water-fill partition
+    t_star: float               # winner's cluster time
+    t_stars: np.ndarray         # (C,) per-candidate cluster times
+    goodputs: np.ndarray        # (C,) device goodput landscape
+    b_noise: float              # epoch-final on-device GNS estimate
+    sweep_iters: int
 
 
 @dataclasses.dataclass
@@ -93,6 +144,15 @@ class ControllerStats:
     # (cold = first sweep, membership change, or coefficient-regime change).
     warm_sweeps: int = 0
     cold_sweeps: int = 0
+    # Fused-mode observability: plans consumed from on-device proposals,
+    # host-float64 certifications run (off the critical path), certification
+    # failures (any failure permanently falls back to the two-program path),
+    # and the worst relative deviation a certification ever measured.
+    fused_plans: int = 0
+    fused_certifications: int = 0
+    fused_cert_failures: int = 0
+    fused_max_rel_err: float = 0.0
+
     def overhead_fraction(self, training_seconds: float) -> float:
         if training_seconds <= 0:
             return 0.0
@@ -110,13 +170,12 @@ class CannikinController:
       adaptive: if False, keeps total batch fixed at ``ref_batch`` (the
         fixed-batch evaluation mode of §5.2.2) but still optimizes the split.
       sweep_engine: "batched" (default) runs the candidate goodput sweep as
-        one vectorized ``solve_optperf_batch`` pass; "jax" (the reference's
-        on-device sweep) raises until it is ported (ROADMAP §1.5); "scalar"
-        keeps the per-candidate
-        Algorithm-1 loop (cross-check oracle).  Plans are identical in every
-        case — the winner is always re-solved scalar.  The array engines
-        warm-start each epoch's brackets from the previous epoch's t_star
-        vector (see BatchSizeSelector).
+        one vectorized ``solve_optperf_batch`` pass; "jax" runs the same
+        sweep on ``device`` (the on-device sweep); "scalar" keeps the
+        per-candidate Algorithm-1 loop (cross-check oracle).  Plans are
+        identical in every case — the winner is always re-solved scalar.
+        The array engines warm-start each epoch's brackets from the
+        previous epoch's t_star vector (see BatchSizeSelector).
       warm_drift_limit: maximum relative coefficient drift under which the
         previous epoch's brackets are still trusted as warm seeds; larger
         drift (a regime change) falls back to cold brackets.
@@ -129,6 +188,9 @@ class CannikinController:
         always forces ``fixed`` (the §5.2.2 evaluation mode wins).
       policy_kwargs: extra keyword arguments for the named policy's
         constructor (e.g. ``{"factor": 2.0, "delay": 4}`` for geodamp).
+      device: where the on-device sweep runs (``sweep_engine="jax"``) and
+        where :meth:`fused_context` exports the coefficients when its
+        caller names no device: the card unless ``"cpu"`` is asked for.
     """
 
     name = "cannikin"
@@ -149,6 +211,7 @@ class CannikinController:
         max_local: Optional[int] = None,
         batch_policy: Union[str, BatchSizePolicy, None] = None,
         policy_kwargs: Optional[Dict] = None,
+        device: Any = None,
     ) -> None:
         self.n = n_nodes
         self.ref_batch = int(ref_batch)
@@ -166,7 +229,9 @@ class CannikinController:
             solver=solver,
             engine=sweep_engine,
             warm_drift_limit=warm_drift_limit,
+            device=device,
         )
+        self.device = device
         self.gns = GNSState()
         self.gns_decay = gns_decay
         self.stats = ControllerStats()
@@ -174,6 +239,9 @@ class CannikinController:
         self._last_plan: Optional[EpochPlan] = None
         self._model: Optional[ClusterPerfModel] = None
         self._last_loss = float("nan")
+        self._fused_ctx: Optional[FusedSweepContext] = None
+        self._fused_pending: Optional[Tuple[FusedSweepContext, FusedProposal]] = None
+        self._fused_disabled = False
         if batch_policy is None or isinstance(batch_policy, str):
             if not adaptive:
                 chosen = "fixed"
@@ -285,7 +353,32 @@ class CannikinController:
         self._model = ClusterPerfModel(
             nodes=nodes, comm=CommModel(t_o=t_o, t_u=t_u, gamma=gamma)
         )
+        self._prefetch_device_coeffs(self._model)
         return self._model
+
+    def _prefetch_device_coeffs(self, model: ClusterPerfModel) -> None:
+        """Fuse the device-coefficient export with the per-epoch OLS refit.
+
+        Under ``sweep_engine="jax"`` the freshly refit model's coefficient
+        arrays are shipped to the sweep's device *here*, at refit time,
+        instead of lazily inside the next sweep — so the on-device re-solve
+        never blocks on a host export (the refit already paid the
+        transfer), and a stale pre-refit export can never be what the sweep
+        reads (the cache is keyed on the frozen model instance)."""
+        if self.selector.engine != "jax":
+            return
+        optperf_torch.device_coeffs(model, device=self.device)
+
+    def _evict_device_export(self) -> None:
+        """Drop the *current* model's cached device-coefficient export.
+
+        Membership changes (`add_nodes`/`remove_nodes`) orphan `self._model`;
+        its prefetched coefficient stack must be evicted — not merely
+        dereferenced — so a stale export can never be reused (and never
+        stays pinned in device memory) after the cluster changed shape."""
+        if self._model is None:
+            return
+        optperf_torch.evict_device_coeffs(self._model)
 
     def set_comm_split(self, t_o: float, t_u: float, gamma: float) -> None:
         """Override the comm model with directly measured values (used when the
@@ -297,6 +390,7 @@ class CannikinController:
         self._model = ClusterPerfModel(
             nodes=nodes, comm=CommModel(t_o=t_o, t_u=t_u, gamma=gamma)
         )
+        self._prefetch_device_coeffs(self._model)
 
     # ------------------------------------------------------------------
     # planning
@@ -327,7 +421,7 @@ class CannikinController:
             idx += 1
         return [int(x) for x in b]
 
-    def plan_epoch(self) -> EpochPlan:
+    def plan_epoch(self, *, prefer_fused: bool = False) -> EpochPlan:
         """Produce the next epoch's configuration.
 
         The total-batch decision is delegated to ``self.policy`` (the
@@ -338,6 +432,12 @@ class CannikinController:
         batch and LR scale.  Splitting the total across nodes stays the
         controller's job: OptPerf solve (reusing the policy's solution if
         it already ran the sweep), Eq.-(9) rounding, local-bound clamping.
+
+        ``prefer_fused=True`` consumes a staged on-device fused proposal
+        (see :meth:`stage_fused_proposal`) instead of asking the policy —
+        identical plan structure, zero host solve on the critical path.
+        With nothing staged (first fused epoch, bootstrap, certification
+        fallback) the normal path runs.
         """
         t0 = time.perf_counter()
         epoch = self._epoch
@@ -366,27 +466,33 @@ class CannikinController:
                 # epochs' measurements instead of killing the job.
                 model = None
         if model is None:
+            # Any staged fused proposal was built by a model that no longer
+            # exists for planning purposes; drop it rather than serve it
+            # after a bootstrap interlude.
+            self._fused_pending = None
             plan = self._bootstrap_plan(epoch)
             self._finish_plan(plan, t0)
             return plan
-        proposal = self.policy.propose(model, self.batch_bounds)
-        best_b = int(proposal.total_batch)
-        sol = proposal.solution
-        if sol is None:
-            sol = solve_optperf(model, best_b, method=self.solver)
-        batches = self._apply_bounds(
-            round_batches(list(sol.batches), best_b), best_b
-        )
-        plan = EpochPlan(
-            epoch=epoch,
-            total_batch=best_b,
-            batches=tuple(batches),
-            lr_scale=float(proposal.lr_scale),
-            predicted_batch_time=sol.opt_perf,
-            phase="optperf",
-            solution=sol,
-            batch_policy=self.policy.name,
-        )
+        plan = self._fused_plan(epoch) if prefer_fused else None
+        if plan is None:
+            proposal = self.policy.propose(model, self.batch_bounds)
+            best_b = int(proposal.total_batch)
+            sol = proposal.solution
+            if sol is None:
+                sol = solve_optperf(model, best_b, method=self.solver)
+            batches = self._apply_bounds(
+                round_batches(list(sol.batches), best_b), best_b
+            )
+            plan = EpochPlan(
+                epoch=epoch,
+                total_batch=best_b,
+                batches=tuple(batches),
+                lr_scale=float(proposal.lr_scale),
+                predicted_batch_time=sol.opt_perf,
+                phase="optperf",
+                solution=sol,
+                batch_policy=self.policy.name,
+            )
         self._finish_plan(plan, t0)
         return plan
 
@@ -399,14 +505,143 @@ class CannikinController:
         self._last_plan = plan
 
     # ------------------------------------------------------------------
-    # fused on-device planning (ROADMAP §1.5)
+    # fused on-device planning (the sweep beside the train steps)
     # ------------------------------------------------------------------
 
-    def fused_context(self) -> None:
-        """Always None: the fused epoch's on-device sweep is not ported, so
-        callers take the two-program path, as the reference's callers do
-        when ``optperf_jax`` is missing."""
-        return None
+    def fused_context(self, device: Any = None) -> Optional[FusedSweepContext]:
+        """The sweep inputs for a fused backend epoch on ``device`` (the
+        controller's own device when None), or None whenever fused mode
+        cannot run (bootstrap, non-adaptive, a policy other than
+        cannikin-gns, or a past certification failure) — callers then take
+        the two-program path unchanged.  The coefficient export and the
+        candidate grid live on ``device``; a context built for another
+        device is rebuilt, never copied."""
+        if not self.adaptive or self._fused_disabled:
+            return None
+        if getattr(self.policy, "name", "") != "cannikin-gns":
+            return None
+        model = self._model
+        if model is None:
+            return None
+        coeffs = optperf_torch.device_coeffs(
+            model, device=self.device if device is None else device
+        )
+        ctx = self._fused_ctx
+        if ctx is not None and ctx.model is model and ctx.coeffs is coeffs:
+            return ctx
+        _, lo0 = _problem_from_model(model)
+        cand_np = np.asarray(self.selector.candidates, np.float64)
+        ctx = FusedSweepContext(
+            model=model,
+            coeffs=coeffs,
+            candidates=torch.as_tensor(
+                cand_np, dtype=coeffs.alphas.dtype, device=coeffs.alphas.device
+            ),
+            candidates_np=cand_np,
+            lo0=float(lo0),
+            ref_batch=float(self.ref_batch),
+        )
+        self._fused_ctx = ctx
+        return ctx
+
+    def stage_fused_proposal(
+        self, ctx: FusedSweepContext, proposal: FusedProposal
+    ) -> None:
+        """Certify an on-device proposal against the host float64 oracle
+        and stage it for the next ``plan_epoch(prefer_fused=True)``.
+
+        Runs *after* the epoch that produced the proposal — never between
+        plan and execute, which is the whole point of fused mode.  A
+        certification failure permanently disables fused planning (the
+        two-program fallback is bit-compatible, so this is safe, and a
+        float32 disagreement is systemic rather than transient)."""
+        if self._fused_disabled:
+            return
+        self._certify_fused(ctx, proposal)
+        if not self._fused_disabled:
+            self._fused_pending = (ctx, proposal)
+
+    def _certify_fused(self, ctx: FusedSweepContext, prop: FusedProposal) -> None:
+        """Host float64 re-solve of the exact sweep the device ran: same
+        model, same candidates, same (device-estimated) noise scale."""
+        t0 = time.perf_counter()
+        cands = ctx.candidates_np
+        sols = solve_optperf_batch(ctx.model, [float(b) for b in cands])
+        opt_perfs = np.asarray(sols.opt_perfs, np.float64)
+        eff = statistical_efficiency(prop.b_noise, cands, ctx.ref_batch)
+        goodputs = cands / opt_perfs * eff
+        host_best = int(np.argmax(goodputs))
+        rel = float(
+            np.max(
+                np.abs(np.asarray(prop.t_stars) - opt_perfs)
+                / np.maximum(opt_perfs, 1e-12)
+            )
+        )
+        ok = rel <= FUSED_CERT_TOL
+        if ok and host_best != prop.best_index:
+            # A genuine goodput near-tie may flip the argmax in float32;
+            # only a materially better host winner is a failure.
+            gap = abs(goodputs[host_best] - goodputs[prop.best_index])
+            ok = gap <= FUSED_CERT_TOL * max(goodputs[host_best], 1e-12)
+        if ok:
+            host_batches = np.asarray(sols.batches[prop.best_index], np.float64)
+            total = float(cands[prop.best_index])
+            rel_b = float(
+                np.max(np.abs(np.asarray(prop.batches) - host_batches))
+                / max(total, 1e-12)
+            )
+            ok = rel_b <= FUSED_CERT_TOL
+            rel = max(rel, rel_b)
+        self.stats.fused_certifications += 1
+        self.stats.fused_max_rel_err = max(self.stats.fused_max_rel_err, rel)
+        if not ok:
+            self.stats.fused_cert_failures += 1
+            self._fused_disabled = True
+            self._fused_pending = None
+        self.stats.overhead_seconds += time.perf_counter() - t0
+
+    def _fused_plan(self, epoch: int) -> Optional[EpochPlan]:
+        """Turn the staged (certified) device proposal into an EpochPlan:
+        integer rounding, local-bound clamping, and the policy's LR rule
+        evaluated at the device-estimated noise scale."""
+        pending, self._fused_pending = self._fused_pending, None
+        if pending is None:
+            return None
+        ctx, prop = pending
+        total = int(round(prop.total_batch))
+        batches = self._apply_bounds(
+            round_batches([float(b) for b in prop.batches], total), total
+        )
+        lr = lr_scale_for(
+            self.lr_rule,
+            batch=total,
+            ref_batch=self.ref_batch,
+            b_noise=prop.b_noise,
+        )
+        states = tuple(
+            "compute" if c else "comm"
+            for c in ctx.model.compute_bottleneck_mask(
+                np.asarray(prop.batches, np.float64)
+            )
+        )
+        sol = OptPerfSolution(
+            total_batch=float(prop.total_batch),
+            opt_perf=float(prop.t_star),
+            batches=tuple(float(b) for b in prop.batches),
+            bottleneck=states,
+            method="waterfill/fused-device",
+        )
+        self.stats.fused_plans += 1
+        return EpochPlan(
+            epoch=epoch,
+            total_batch=total,
+            batches=tuple(batches),
+            lr_scale=float(lr),
+            predicted_batch_time=float(prop.t_star),
+            phase="optperf",
+            solution=sol,
+            batch_policy=f"{self.policy.name}+fused",
+        )
 
     def _bootstrap_plan(self, epoch: int) -> EpochPlan:
         total = self.ref_batch
@@ -460,6 +695,8 @@ class CannikinController:
             raise ValueError("cannot remove every node")
         self.fitters = {new: self.fitters[old] for new, old in enumerate(keep)}
         self.n = len(keep)
+        self._evict_device_export()
+        self._drop_fused_state()
         self._model = None
         # Cluster membership changed: cached solutions AND the warm-start
         # bracket state are both stale.
@@ -475,9 +712,18 @@ class CannikinController:
         for i in range(self.n, self.n + count):
             self.fitters[i] = OnlineNodeFitter()
         self.n += count
+        self._evict_device_export()
+        self._drop_fused_state()
         self._model = None
         self.selector.invalidate()
         self._invalidate_policy()
+
+    def _drop_fused_state(self) -> None:
+        """Membership changed: the staged proposal and cached context refer
+        to a cluster that no longer exists.  ``_fused_disabled`` survives —
+        a float32 certification failure is systemic, not shape-specific."""
+        self._fused_pending = None
+        self._fused_ctx = None
 
     def _invalidate_policy(self) -> None:
         """Tell the policy its cached cluster view is stale (cannikin-gns

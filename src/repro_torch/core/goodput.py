@@ -19,7 +19,8 @@ the square-root scaling rule used by Adam-family workloads (Table 4).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -30,6 +31,7 @@ from repro_torch.core.optperf import (
     solve_optperf_algorithm1_batch,
     solve_optperf_batch,
 )
+from repro_torch.core.optperf_torch import solve_optperf_batch_jax
 from repro_torch.core.perf_model import ClusterPerfModel
 
 __all__ = [
@@ -76,18 +78,16 @@ def goodput(
     return thr * eff, sol
 
 
-def _array_sweep_solver(engine: str):
-    """The array-engine entry point for a full sweep: the NumPy batched
-    engine.  ``engine == "jax"`` (the reference's on-device sweep,
-    ``optperf_jax``) raises: the device sweep is not ported yet (ROADMAP
-    §1.5), and the port never falls back to another engine in its place.
-    Shared gating for :func:`goodput_curve` and :class:`BatchSizeSelector`.
+def _array_sweep_solver(engine: str, device: Any = None):
+    """The array-engine entry point for a full sweep: the on-device sweep
+    (:func:`repro_torch.core.optperf_torch.solve_optperf_batch_jax`) on
+    ``device`` (the card unless ``"cpu"`` is asked for) for ``engine ==
+    "jax"``, else the NumPy batched engine.  There is no fallback: a device
+    sweep that cannot run raises.  Shared gating for :func:`goodput_curve`
+    and :class:`BatchSizeSelector`.
     """
     if engine == "jax":
-        raise NotImplementedError(
-            "the on-device goodput sweep (engine 'jax') is not ported yet "
-            "(ROADMAP §1.5); use engine 'batched'"
-        )
+        return functools.partial(solve_optperf_batch_jax, device=device)
     return solve_optperf_batch
 
 
@@ -122,6 +122,7 @@ def goodput_curve(
     *,
     engine: str = "batched",
     warm_start: Optional[np.ndarray] = None,
+    device: Any = None,
 ) -> GoodputCurve:
     """Vectorized goodput(B) for every candidate total batch size.
 
@@ -130,14 +131,14 @@ def goodput_curve(
     sweep; cost is independent of the candidate count up to the O(C*n) array
     arithmetic inside each of the ~50 bisection steps — or a handful with a
     ``warm_start`` (the previous epoch's ``curve.solutions.t_stars``).
-    ``engine="jax"`` (the reference's on-device sweep) raises until it is
-    ported (ROADMAP §1.5).
+    ``engine="jax"`` runs the sweep on ``device`` (the on-device sweep;
+    the card unless ``device="cpu"``).
     """
     cands = np.array(candidates, dtype=np.float64)  # copy: no aliasing
     cands.flags.writeable = False
     if engine not in ("batched", "jax"):
         raise ValueError(f"unknown goodput_curve engine {engine!r}")
-    sols = _array_sweep_solver(engine)(model, cands, warm_start=warm_start)
+    sols = _array_sweep_solver(engine, device)(model, cands, warm_start=warm_start)
     thr = cands / sols.opt_perfs
     eff = statistical_efficiency(b_noise, cands, ref_batch)
     return GoodputCurve(
@@ -177,8 +178,9 @@ class BatchSizeSelector:
 
     ``engine`` selects how a full sweep is executed: ``"batched"`` (default)
     solves every candidate in one :func:`solve_optperf_batch` array pass;
-    ``"jax"`` (the reference's on-device sweep) raises until it is ported
-    (ROADMAP §1.5); ``"scalar"`` is the original per-candidate
+    ``"jax"`` runs the same sweep on ``device`` (the on-device sweep,
+    :mod:`repro_torch.core.optperf_torch`; the card unless ``device="cpu"``);
+    ``"scalar"`` is the original per-candidate
     loop with §4.5 boundary-hint chaining, kept as the cross-check oracle.
     Either way the winning candidate is re-solved with the scalar
     ``solver``, so the emitted plan is identical across engines.
@@ -197,6 +199,7 @@ class BatchSizeSelector:
     solver: str = "algorithm1"
     engine: str = "batched"
     warm_drift_limit: float = 0.25
+    device: Any = None
     # epoch -> cache
     _optperf_cache: Dict[int, OptPerfSolution] = dataclasses.field(default_factory=dict)
     _state_cache: Dict[int, Tuple[str, ...]] = dataclasses.field(default_factory=dict)
@@ -212,7 +215,6 @@ class BatchSizeSelector:
     def __post_init__(self) -> None:
         if self.engine not in ("batched", "scalar", "jax"):
             raise ValueError(f"unknown sweep engine {self.engine!r}")
-        _array_sweep_solver(self.engine)  # "jax" raises here, not mid-run
 
     # -- warm-start state ----------------------------------------------
 
@@ -254,7 +256,7 @@ class BatchSizeSelector:
         ordered = sorted(self.candidates)
         if self.engine in ("batched", "jax"):
             warm = self._warm_start_for(model)
-            solver = _array_sweep_solver(self.engine)
+            solver = _array_sweep_solver(self.engine, self.device)
             batch_sol = solver(
                 model, np.asarray(ordered, dtype=np.float64), warm_start=warm
             )

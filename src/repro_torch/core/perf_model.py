@@ -279,8 +279,8 @@ class StackedClusterModel:
     # -- derived-view caches -------------------------------------------
     #
     # Two expensive exports are memoized per stack instance: the solver's
-    # `_Problem` array view (repro_torch.core.optperf) and the jax engine's
-    # device-array export (repro.core.optperf_jax `device_coeffs`).  Both
+    # `_Problem` array view (repro_torch.core.optperf) and the device
+    # sweep's tensor export (repro_torch.core.optperf_torch).  Both
     # key off this instance, so a stack whose coefficient arrays are
     # refreshed IN PLACE (the scheduler's per-epoch OLS refit path) must
     # call :meth:`invalidate_device_cache` — otherwise the solvers keep
@@ -288,14 +288,15 @@ class StackedClusterModel:
     # brackets for a cluster that no longer exists.
 
     def device_cache(self) -> Dict[str, object]:
-        """Per-instance slot for the jax engine's cached device exports
-        (keyed by dtype name; populated by ``optperf_jax.stacked_device_coeffs``
-        so this module never imports jax)."""
+        """Per-instance slot for the device sweep's cached exports (keyed by
+        dtype and device; populated by
+        ``optperf_torch.stacked_device_coeffs`` so this module never imports
+        torch)."""
         return self.__dict__.setdefault("_device_coeffs", {})
 
     def invalidate_device_cache(self) -> None:
         """Drop every derived view cached on this stack: the memoized
-        `_Problem` solver view, the jax device-coefficient export, and the
+        `_Problem` solver view, the device-coefficient export, and the
         validation memo.  Required after any in-place coefficient refresh
         (OLS refit)."""
         self.__dict__.pop("_device_coeffs", None)

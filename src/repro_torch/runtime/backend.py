@@ -11,27 +11,50 @@ The counterpart of ``repro/runtime/backend.py``'s two-program path:
 * :class:`RealBackend` — the gradient engine: per-node gradients over the
   padded ``(n, b_max)`` layout, the anomaly guard, the Eq. (9) aggregate,
   one optimizer update, a Theorem-4.1 GNS tracker, and a simulated cluster
-  clock (statistics are real, per-node timing is simulated).
+  clock (statistics are real, per-node timing is simulated).  Two program
+  shapes: :meth:`RealBackend.execute` reads each step's telemetry back
+  (the two-program path), :meth:`RealBackend.execute_fused` ships the
+  epoch's batches once, runs every step, a float32 GNS EMA and the goodput
+  sweep on the device with no host read in between, and pulls one
+  telemetry bundle (the fused epoch).  ``checkpoint``/``restore`` write and
+  read the backend's snapshot through :mod:`repro_torch.train.checkpoint`.
 * :func:`run_backend_epoch` / :class:`EpochLoop` — the policy loop.
 
 Where the reference takes ``jax.vmap(jax.grad)`` over the node axis, the
 port loops over the n nodes: one forward and backward per node on its
 padded ``(b_max, S)`` slice with its mask as per-sample weights.  The math
 is the same, and each layer's attention is one explicit kernel launch per
-node.  The fused epoch (``execute_fused``, ROADMAP §1.5), the node-sharded
-step (§1.6) and checkpoint files (§1.7) are not ported yet.
+node.  The node-sharded step (ROADMAP §1.6) is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple, runtime_checkable
+import math
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    List,
+    Optional,
+    Protocol,
+    Sequence,
+    Tuple,
+    runtime_checkable,
+)
 
 import numpy as np
 import torch
 
 from repro_torch.core.aggregation import ANOMALY_OUTLIER_FACTOR, guard_weights, ratios
-from repro_torch.core.controller import CannikinController, EpochPlan
-from repro_torch.core.gns import GNSState, estimate_gns, gns_update
+from repro_torch.core import optperf_torch
+from repro_torch.core.controller import (
+    CannikinController,
+    EpochPlan,
+    FusedProposal,
+    FusedSweepContext,
+)
+from repro_torch.core.gns import GNSState, estimate_gns, gns_update, local_estimates
 from repro_torch.core.scheduler import JobSpec
 from repro_torch.core.simulator import NodeProfile, SimulatedCluster, StepMeasurement
 from repro_torch.data.pipeline import HeteroBatchPartitioner
@@ -50,6 +73,7 @@ __all__ = [
     "make_backend",
     "run_backend_epoch",
     "EpochLoop",
+    "fused_goodput_sweep",
 ]
 
 
@@ -233,6 +257,43 @@ def _clone_state(state):
     ))
 
 
+@contextlib.contextmanager
+def _host_syncs_raise(device: torch.device):
+    """On a card, make any host synchronization inside the block raise
+    (``torch.cuda.set_sync_debug_mode("error")``); the caller's mode is
+    restored after."""
+    if device.type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def fused_goodput_sweep(dc, cand, lo0, b0, b_noise):
+    """The fused epoch's last stage, on the device: the OptPerf sweep over
+    the candidates ``cand``, each candidate's realized OptPerf (the max
+    node time of its partition: a clamped node's fixed floor can sit above
+    the bisected water level at small totals), Eq. (6) goodput at the noise
+    scale ``b_noise`` and reference batch ``b0``, and the argmax.  Returns
+    ``(opt_perfs, goodputs, best, best_partition, sweep_iters)`` as device
+    tensors, with no host read."""
+    t_stars, sweep_iters = optperf_torch.solve_optperf_sweep_device(dc, cand, lo0)
+    parts = optperf_torch.device_partition(dc, t_stars[:, None], cand)
+    opt_perfs = optperf_torch.device_node_times(dc, parts).amax(dim=-1)
+    bn = torch.clamp_min(b_noise, 0.0)
+    eff = torch.where(torch.isfinite(b_noise), (bn + b0) / (bn + cand), 1.0)
+    goodputs = (cand / opt_perfs) * eff
+    best = torch.argmax(goodputs)
+    return (
+        opt_perfs, goodputs, best, parts.index_select(0, best.reshape(1))[0],
+        torch.full((), sweep_iters, dtype=torch.int32, device=cand.device),
+    )
+
+
 class RealBackend:
     """The real-gradient engine.
 
@@ -292,6 +353,7 @@ class RealBackend:
         self.steps_done = 0
         self.anomalous_steps = 0       # steps with >= 1 excluded node (lifetime)
         self.transfers = TransferCounter()
+        self._fused_cache: Dict[Tuple[int, int], Callable] = {}
         self._job: Optional[str] = None
         self._node_ids: Tuple[int, ...] = ()
 
@@ -370,27 +432,13 @@ class RealBackend:
         self.transfers.count_h2d(2)  # r + poison, shipped once per epoch
 
         node_ids = self._node_ids if len(self._node_ids) == n else tuple(range(n))
-        if self.injector is not None:
-            poison_np = self.injector.poison_factors(node_ids)
-        else:
-            poison_np = np.ones(n, np.float32)
-        poison = torch.as_tensor(np.asarray(poison_np, np.float32), device=dev)
+        poison = torch.as_tensor(self._poison(node_ids), device=dev)
         anomaly_counts = np.zeros(n, np.int64)
 
         losses: List[float] = []
         grad_obs: List[GradObservation] = []
         for _ in range(steps):
-            raw = self.data.batch(self.steps_done, int(b_arr.sum()))
-            self.steps_done += 1
-            padded, _ = HeteroBatchPartitioner.padded(raw, batches)
-            seq = padded["tokens"].shape[-1]
-            tok = np.zeros((n, b_max, seq), np.int32)
-            lab = np.zeros((n, b_max, seq), np.int32)
-            msk = np.zeros((n, b_max), np.float32)
-            w = padded["tokens"].shape[1]
-            tok[:, :w], lab[:, :w] = padded["tokens"], padded["labels"]
-            for i, b in enumerate(batches):
-                msk[i, :b] = 1.0
+            tok, lab, msk = self._next_padded(batches, b_max)
             # 4 h2d per step (tok/lab/msk + lr scalar), 4 d2h pulls below —
             # the per-step host round-trips the fused path collapses.
             self.transfers.count_h2d(4)
@@ -419,6 +467,33 @@ class RealBackend:
                 # them to the Theorem-4.1 tracker would corrupt b_noise.
                 self._track_gns(obs)
 
+        return self._finish_epoch(batches, steps, node_ids, losses, grad_obs, anomaly_counts)
+
+    def _next_padded(self, batches: List[int], b_max: int):
+        """The next step's global batch in the padded layout: tokens and
+        labels (n, b_max, S) int32, masks (n, b_max) float32."""
+        n = len(batches)
+        raw = self.data.batch(self.steps_done, int(sum(batches)))
+        self.steps_done += 1
+        padded, _ = HeteroBatchPartitioner.padded(raw, batches)
+        seq = padded["tokens"].shape[-1]
+        tok = np.zeros((n, b_max, seq), np.int32)
+        lab = np.zeros((n, b_max, seq), np.int32)
+        msk = np.zeros((n, b_max), np.float32)
+        w = padded["tokens"].shape[1]
+        tok[:, :w], lab[:, :w] = padded["tokens"], padded["labels"]
+        for i, b in enumerate(batches):
+            msk[i, :b] = 1.0
+        return tok, lab, msk
+
+    def _poison(self, node_ids: Sequence[int]) -> np.ndarray:
+        if self.injector is not None:
+            return np.asarray(self.injector.poison_factors(node_ids), np.float32)
+        return np.ones(len(node_ids), np.float32)
+
+    def _finish_epoch(self, batches, steps, node_ids, losses, grad_obs, anomaly_counts):
+        """Advance the simulated cluster clock over the epoch (timing faults
+        through the injector's ``perturb``) and bundle the telemetry."""
         epoch_seconds, measurements = self.cluster.run_epoch(batches, steps)
         measurements = list(measurements)
         if self.injector is not None:
@@ -434,6 +509,159 @@ class RealBackend:
             b_noise=self.gns.b_noise,
             grad_anomalies=tuple(int(c) for c in anomaly_counts),
         )
+
+    # -- fused on-device epoch -------------------------------------------
+
+    def _fused_epoch_fn(self, n: int) -> Callable:
+        """The device part of one fused adaptive epoch for ``n`` nodes,
+        built once per ``n`` (the reference's ``_fused_epoch_fn``, whose
+        jitted program is cached on the same key): every train step (the
+        two-program path's ``_step``), a float32 Theorem-4.1 GNS EMA, and
+        the OptPerf goodput sweep, Eq. (6) argmax and water-fill partition
+        on the final state.  It only issues device work: no value is read
+        back to the host until the caller pulls the telemetry."""
+        key = (n, 0)
+        fn = self._fused_cache.get(key)
+        if fn is not None:
+            return fn
+        step, decay = self._step, float(self.gns_decay)
+
+        def epoch_fn(toks, labs, msks, r, lr_scale, poison, b_vec, gns0, dc, cand, lo0, b0):
+            total = b_vec.sum()
+            eg, es, cnt = gns0
+            losses, sq_is, sq_gs, valids = [], [], [], []
+            for s in range(toks.shape[0]):
+                loss, sq_i, sq_g, valid = step(toks[s], labs[s], msks[s], r, lr_scale, poison)
+                if n >= 2:
+                    g_i, s_i = local_estimates(sq_i, sq_g, b_vec, total)
+                    # Theorem 4.1 minimum-variance weights in closed form (as
+                    # gns.estimate_gns); the EMA skips guarded or degenerate
+                    # steps, as the host tracker does.
+                    w = (total - b_vec) / ((n - 1) * total)
+                    g_est = (w * g_i).sum()
+                    s_est = (w * s_i).sum()
+                    ok = valid.all() & torch.isfinite(g_est) & torch.isfinite(s_est)
+                    eg = torch.where(ok, decay * eg + (1.0 - decay) * g_est, eg)
+                    es = torch.where(ok, decay * es + (1.0 - decay) * s_est, es)
+                    cnt = torch.where(ok, cnt + 1, cnt)
+                losses.append(loss)
+                sq_is.append(sq_i)
+                sq_gs.append(sq_g)
+                valids.append(valid)
+            pos = eg > 0.0
+            b_noise = torch.where(
+                (cnt > 0) & pos,
+                torch.clamp_min(es / torch.where(pos, eg, torch.ones_like(eg)), 0.0),
+                torch.full_like(eg, math.inf),
+            )
+            return (
+                torch.stack(losses), torch.stack(sq_is), torch.stack(sq_gs),
+                torch.stack(valids), eg, es, cnt, b_noise,
+            ) + fused_goodput_sweep(dc, cand, lo0, b0, b_noise)
+
+        self._fused_cache[key] = epoch_fn
+        return epoch_fn
+
+    def execute_fused(
+        self,
+        batches: Sequence[int],
+        steps: int,
+        *,
+        lr_scale: float = 1.0,
+        ctx: FusedSweepContext,
+    ) -> Tuple[ExecutionResult, FusedProposal]:
+        """Run one adaptive epoch as a fused device program and return the
+        on-device batch proposal for the *next* epoch with the usual
+        :class:`ExecutionResult` (the reference's ``execute_fused``).
+
+        The host touches the device twice: one shipment of the whole
+        epoch's ``(steps, n, b_max, S)`` tokens and labels, ``(steps, n,
+        b_max)`` masks and the epoch's scalars, then one pull of the
+        13-leaf telemetry.  In between run the same ``_step`` as
+        :meth:`execute` (``steps`` times), a float32 GNS EMA, and the
+        goodput sweep over ``ctx.candidates`` at the epoch-final noise
+        scale; on a card this runs under
+        ``torch.cuda.set_sync_debug_mode("error")``, so a host sync there
+        raises.  The caller certifies the proposal afterwards
+        (:meth:`CannikinController.stage_fused_proposal`).
+        """
+        if self.cluster is None:
+            raise RuntimeError("RealBackend not configured with a cluster")
+        dev = self.device
+        if ctx.coeffs.alphas.device != dev or ctx.candidates.device != dev:
+            raise ValueError(
+                f"fused sweep context on {ctx.coeffs.alphas.device}, backend on {dev}: "
+                "build it with fused_context(device=backend.device)"
+            )
+        batches = [int(b) for b in batches]
+        b_max = _quantize(max(batches))
+        n = len(batches)
+        node_ids = self._node_ids if len(self._node_ids) == n else tuple(range(n))
+
+        # Stage the whole epoch on the host, ship it once.
+        staged = [self._next_padded(batches, b_max) for _ in range(steps)]
+        toks, labs, msks = (np.stack(parts) for parts in zip(*staged))
+        dt = ctx.coeffs.alphas.dtype
+
+        def put(x, dtype=None):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        args = (
+            put(toks), put(labs), put(msks),
+            put(ratios(batches), torch.float32),
+            float(lr_scale),  # a launch argument, as in execute
+            put(self._poison(node_ids)),
+            put(batches, torch.float32),
+            (put(self.gns.ema_g, torch.float32), put(self.gns.ema_s, torch.float32),
+             put(self.gns.count, torch.int32)),
+            ctx.coeffs,
+            ctx.candidates,
+            put(ctx.lo0, dt),
+            put(ctx.ref_batch, dt),
+        )
+        # 3 stacked arrays + r/lr/poison/b_vec + 3 GNS carry scalars +
+        # lo0/b0 — every host value entering the epoch, as the reference
+        # counts them.
+        self.transfers.count_h2d(12)
+
+        with _host_syncs_raise(dev):
+            telemetry = self._fused_epoch_fn(n)(*args)
+        pulled = [t.cpu().numpy() for t in telemetry]
+        self.transfers.count_d2h(len(telemetry))
+        (
+            losses_a, sq_is, sq_gs, valids, eg, es, cnt, b_noise_dev,
+            opt_perfs, goodputs, best, best_batches, sweep_iters,
+        ) = pulled
+
+        self.gns = GNSState(ema_g=float(eg), ema_s=float(es), count=int(cnt))
+        valids = np.asarray(valids, bool)
+        anomaly_counts = (~valids).sum(axis=0)
+        self.anomalous_steps += int((~valids.all(axis=1)).sum())
+        grad_obs = [
+            GradObservation(
+                local_sqnorms=tuple(float(x) for x in sq_is[s]),
+                global_sqnorm=float(sq_gs[s]),
+                batches=tuple(batches),
+                valid=tuple(bool(v) for v in valids[s]),
+            )
+            for s in range(steps)
+        ]
+        result = self._finish_epoch(
+            batches, steps, node_ids, [float(x) for x in losses_a], grad_obs, anomaly_counts
+        )
+        best_i = int(best)
+        cand_np = np.asarray(ctx.candidates_np, np.float64)
+        proposal = FusedProposal(
+            best_index=best_i,
+            total_batch=float(cand_np[best_i]),
+            batches=np.asarray(best_batches, np.float64),
+            t_star=float(opt_perfs[best_i]),
+            t_stars=np.asarray(opt_perfs, np.float64),
+            goodputs=np.asarray(goodputs, np.float64),
+            b_noise=float(b_noise_dev),
+            sweep_iters=int(sweep_iters),
+        )
+        return result, proposal
 
     def _track_gns(self, obs: GradObservation) -> None:
         """Theorem-4.1 tracker (same guarded update the controller uses),
@@ -477,10 +705,16 @@ class RealBackend:
         self.sim_time = float(c["sim_time"])
 
     def checkpoint(self, path: str) -> None:
-        raise NotImplementedError("checkpoint files wait for train/checkpoint.py (ROADMAP §1.7)")
+        """Write :meth:`snapshot` to ``path`` (atomic, checksummed)."""
+        from repro_torch.train import checkpoint as ckpt  # lazy: avoids an import cycle
+
+        ckpt.save(path, self.snapshot())
 
     def restore(self, path: str) -> None:
-        raise NotImplementedError("checkpoint files wait for train/checkpoint.py (ROADMAP §1.7)")
+        """Load the snapshot a :meth:`checkpoint` call wrote to ``path``."""
+        from repro_torch.train import checkpoint as ckpt  # lazy: avoids an import cycle
+
+        self.load_snapshot(ckpt.restore(path, self.snapshot()))
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +790,7 @@ def run_backend_epoch(
     epoch_index: int = 0,
     last_measurement: Optional[StepMeasurement] = None,
     fixed_total: Optional[int] = None,
+    fused: bool = False,
 ) -> Tuple[EpochRecord, ExecutionResult]:
     """One plan → execute → observe cycle over any backend.
 
@@ -563,9 +798,17 @@ def run_backend_epoch(
     measurement + gradient telemetry) or a baseline partition policy
     (``partition(total, epoch, last_measurement)``).  Returns the unified
     :class:`EpochRecord` plus the raw :class:`ExecutionResult`.
+
+    ``fused=True`` (a CannikinController and a backend with
+    ``execute_fused``) runs the epoch as one fused device program: the plan
+    consumes the proposal the *previous* fused epoch staged, and this
+    epoch's program stages the next one.  Whenever the controller supplies
+    no fused context (bootstrap, a policy other than cannikin-gns, a
+    certification failure) the cycle is the two-program path.  The context
+    is built on the backend's device.
     """
     if isinstance(policy, CannikinController):
-        plan = policy.plan_epoch()
+        plan = policy.plan_epoch(prefer_fused=fused)
         epoch = plan.epoch
         batches = list(plan.batches)
         total = plan.total_batch
@@ -578,9 +821,23 @@ def run_backend_epoch(
         total = getattr(policy, "total_batch", None) or fixed_total or 64
         batches = policy.partition(total, epoch, last_measurement)
         lr_scale, predicted, phase = 1.0, None, policy.name
-    result = backend.execute(batches, steps, lr_scale=lr_scale)
+    fused_ctx = None
+    if (
+        fused
+        and isinstance(policy, CannikinController)
+        and hasattr(backend, "execute_fused")
+    ):
+        fused_ctx = policy.fused_context(device=backend.device)
+    if fused_ctx is not None:
+        result, proposal = backend.execute_fused(
+            batches, steps, lr_scale=lr_scale, ctx=fused_ctx
+        )
+    else:
+        result, proposal = backend.execute(batches, steps, lr_scale=lr_scale), None
     if isinstance(policy, CannikinController):
         policy.observe_execution(result)
+        if proposal is not None:
+            policy.stage_fused_proposal(fused_ctx, proposal)
         b_noise = policy.gns.b_noise
     else:
         b_noise = result.b_noise
@@ -604,7 +861,9 @@ def run_backend_epoch(
 class EpochLoop:
     """The standalone policy loop: drive one (policy, backend) pair epoch by
     epoch, accumulating :class:`EpochRecord` history; ``last_result`` is the
-    latest epoch's :class:`ExecutionResult` (per-step gradient telemetry)."""
+    latest epoch's :class:`ExecutionResult` (per-step gradient telemetry).
+    ``fused`` runs each adaptive epoch through :func:`run_backend_epoch`'s
+    fused path."""
 
     def __init__(
         self,
@@ -613,11 +872,13 @@ class EpochLoop:
         *,
         steps_per_epoch: int = 8,
         fixed_total: Optional[int] = None,
+        fused: bool = False,
     ) -> None:
         self.policy = policy
         self.backend = backend
         self.steps_per_epoch = steps_per_epoch
         self.fixed_total = fixed_total
+        self.fused = fused
         self.epoch = 0
         self.history: List[EpochRecord] = []
         self.last_result: Optional[ExecutionResult] = None
@@ -635,6 +896,7 @@ class EpochLoop:
             epoch_index=self.epoch,
             last_measurement=self._last_measurement,
             fixed_total=self.fixed_total,
+            fused=self.fused,
         )
         self.epoch += 1
         self.last_result = result

@@ -1,20 +1,19 @@
 """Host<->device transfer accounting for the runtime hot path.
 
-The fused-epoch perf gate (benchmarks/bench_overhead.py) is stated in
-host<->device transfers per adaptive epoch, so the counting has to live at
-the seams where `RealBackend` actually ships or fetches arrays — not be
-inferred from jit internals.  Methodology (also in benchmarks/README.md):
+The fused epoch's gain is stated in host<->device transfers per adaptive
+epoch, so the counting lives at the seams where `RealBackend` ships or
+fetches values, with the reference's methodology:
 
-* every `jnp.asarray` / `jax.device_put` of host data the backend performs
-  counts as one h2d transfer (scalars included: a shipped scalar is still
-  a host->device round trip in the dispatch path);
-* every `float(...)` / `np.asarray(...)` / `jax.device_get` pull of a
-  device value counts as one d2h transfer per fetched leaf — these are the
-  synchronization points the fused path exists to eliminate.
+* every host value entering a step or an epoch counts as one h2d transfer:
+  each `torch.as_tensor(..., device=)` of host data, and each host scalar
+  the step takes as a launch argument (the lr scale), as the reference
+  counts its shipped scalars;
+* every `float(...)` / `.cpu()` pull of a device value counts as one d2h
+  transfer per fetched leaf — these are the synchronization points the
+  fused path exists to eliminate.
 
 The count is deliberately conservative for the two-program baseline: the
-separate OptPerf sweep jit's own transfers are *not* counted, so the
-fused/two-program ratio reported by the bench is a lower bound.
+separate OptPerf sweep's own transfers are *not* counted.
 """
 from __future__ import annotations
 

@@ -480,3 +480,157 @@ def test_training_forward_gradient_matches_plain_attention(cuda_device):
         tol = 1e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= tol
 
+
+
+def _sweep_cluster(rng, n):
+    from repro_torch.core.perf_model import ClusterPerfModel, CommModel, NodePerfModel
+
+    nodes = tuple(
+        NodePerfModel(q=float(rng.uniform(1e-4, 8e-3)), s=float(rng.uniform(0.0, 0.02)),
+                      k=float(rng.uniform(1e-4, 8e-3)), m=float(rng.uniform(0.0, 0.02)))
+        for _ in range(n))
+    comm = CommModel(t_o=float(10.0 ** rng.uniform(-4, -1)), t_u=float(rng.uniform(0.0, 0.02)),
+                     gamma=float(rng.uniform(0.02, 0.6)))
+    return ClusterPerfModel(nodes=nodes, comm=comm)
+
+
+@pytest.mark.parametrize("n", [2, 3, 16, 64, 256])
+def test_device_sweep_matches_cpu_port_and_oracle(cuda_device, n):
+    """The float32 sweep on the card against the same sweep on the CPU and
+    the NumPy float64 oracle, cold and warm: t_stars and opt_perfs within
+    1e-5 relative (float32 sums over the nodes in another order)."""
+    from repro_torch.core.optperf import solve_optperf_batch
+    from repro_torch.core.optperf_torch import solve_optperf_batch_jax
+
+    for seed in range(4):
+        rng = np.random.default_rng(1000 * n + seed)
+        model = _sweep_cluster(rng, n)
+        cands = np.unique(np.round(rng.uniform(8, 8192, size=5)))
+        oracle = solve_optperf_batch(model, cands)
+        for warm in (None, oracle.t_stars * (1.0 + 1e-4)):
+            gpu = solve_optperf_batch_jax(model, cands, warm_start=warm, device=cuda_device)
+            cpu = solve_optperf_batch_jax(model, cands, warm_start=warm, device="cpu")
+            for other in (cpu, oracle):
+                for field in ("t_stars", "opt_perfs"):
+                    got, want = getattr(gpu, field), getattr(other, field)
+                    assert np.max(np.abs(got - want) / want) <= 1e-5
+            np.testing.assert_allclose(gpu.batches.sum(axis=1), cands, rtol=1e-12)
+
+
+def test_device_sweep_issues_no_host_sync(cuda_device):
+    """The cold sweep, partition and node times as the fused epoch calls
+    them, under ``set_sync_debug_mode("error")``: a host sync raises."""
+    from repro_torch.core import optperf_torch
+    from repro_torch.core.optperf import _problem_from_model, solve_optperf_batch
+
+    model = _sweep_cluster(np.random.default_rng(3), 3)
+    dc = optperf_torch.device_coeffs(model, device=cuda_device)
+    cands_np = np.array([16.0, 32.0, 64.0])
+    cand = torch.as_tensor(cands_np, dtype=torch.float32, device=cuda_device)
+    lo0 = torch.as_tensor(float(_problem_from_model(model)[1]), dtype=torch.float32,
+                          device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t_stars, iters = optperf_torch.solve_optperf_sweep_device(dc, cand, lo0)
+        parts = optperf_torch.device_partition(dc, t_stars[:, None], cand)
+        opt_perfs = optperf_torch.device_node_times(dc, parts).amax(dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = solve_optperf_batch(model, cands_np)
+    got = opt_perfs.cpu().numpy().astype(np.float64)
+    assert iters == 64
+    assert np.max(np.abs(got - want.opt_perfs) / want.opt_perfs) <= 1e-5
+    with pytest.raises(ValueError):  # a CPU value is never copied into the sweep
+        optperf_torch.solve_optperf_sweep_device(dc, torch.as_tensor(cands_np), lo0)
+
+
+def test_fused_epoch_runs_without_host_sync(cuda_device):
+    """A reduced dense model at head dim 64 (float32, remat on) trains on
+    the card through ``EpochLoop(fused=True)``: every fused epoch runs its
+    steps, GNS EMA and sweep under ``set_sync_debug_mode("error")``
+    (``execute_fused`` sets it), ships 12 values and pulls 13, and plans as
+    the two-program loop on the same seeds."""
+    import dataclasses
+
+    from repro_torch.configs import olmo_1b
+    from repro_torch.core.controller import FUSED_CERT_TOL, CannikinController
+    from repro_torch.core.simulator import SimulatedCluster, cluster_A
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.models.registry import build_api
+    from repro_torch.optim.optimizers import constant_schedule, sgd
+    from repro_torch.runtime.backend import EpochLoop, RealBackend
+
+    cfg = dataclasses.replace(olmo_1b.reduced(), head_dim=64, d_model=256, remat=True)
+    api = build_api("olmo-1b", cfg)
+
+    def run(fused):
+        profiles, comm = cluster_A()
+        sim = SimulatedCluster(profiles, comm, noise=0.01, seed=0)
+        backend = RealBackend(api, sgd(constant_schedule(0.3)),
+                              SyntheticLM(vocab=cfg.vocab, seq_len=64, seed=0),
+                              cluster=sim, seed=0, device=cuda_device)
+        ctrl = CannikinController(sim.n, batch_candidates=[12, 24, 36], ref_batch=12,
+                                  device=cuda_device)
+        loop = EpochLoop(ctrl, backend, steps_per_epoch=2, fused=fused)
+        transfers = []
+        for _ in range(5):
+            before = backend.transfers.snapshot()
+            loop.run_epoch()
+            after = backend.transfers.snapshot()
+            transfers.append((after["h2d"] - before["h2d"], after["d2h"] - before["d2h"]))
+        return ctrl, loop, transfers
+
+    launches = flash_attention_backward.launches
+    ctrl_two, loop_two, _ = run(False)
+    ctrl, loop, transfers = run(True)
+    assert flash_attention_backward.launches > launches
+    assert [r.plan.batch_policy for r in loop.history][2:] == [
+        "cannikin-gns", "cannikin-gns+fused", "cannikin-gns+fused"]
+    assert transfers[2:] == [(12, 13)] * 3
+    for a, b in zip(loop_two.history, loop.history):
+        assert (a.total_batch, a.batches) == (b.total_batch, b.batches)
+        assert b.lr_scale == pytest.approx(a.lr_scale, rel=1e-6)
+        assert np.isfinite(b.mean_loss)
+    s = ctrl.stats
+    assert s.fused_plans == 2 and s.fused_cert_failures == 0
+    assert s.fused_max_rel_err <= FUSED_CERT_TOL
+
+
+def test_fused_epoch_raises_on_a_host_sync(cuda_device):
+    """``execute_fused`` runs its device part under
+    ``set_sync_debug_mode("error")``: a step that reads a value back raises
+    there, and the caller's mode is restored."""
+    import dataclasses
+
+    from repro_torch.configs import olmo_1b
+    from repro_torch.core.controller import CannikinController
+    from repro_torch.core.simulator import SimulatedCluster, cluster_A
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.registry import build_api
+    from repro_torch.optim.optimizers import constant_schedule, sgd
+    from repro_torch.runtime.backend import EpochLoop, RealBackend
+
+    cfg = dataclasses.replace(olmo_1b.reduced(), head_dim=64, d_model=256, remat=True)
+    profiles, comm = cluster_A()
+    sim = SimulatedCluster(profiles, comm, noise=0.01, seed=0)
+    backend = RealBackend(build_api("olmo-1b", cfg), sgd(constant_schedule(0.3)),
+                          SyntheticLM(vocab=cfg.vocab, seq_len=64, seed=0), cluster=sim,
+                          device=cuda_device)
+    ctrl = CannikinController(sim.n, batch_candidates=[12, 24], ref_batch=12,
+                              device=cuda_device)
+    loop = EpochLoop(ctrl, backend, steps_per_epoch=1, fused=True)
+    loop.run(2)                                   # bootstrap: the two-program path
+    step = backend._step
+
+    def syncing_step(*args):
+        out = step(*args)
+        float(out[0])                             # a host read of the loss
+        return out
+
+    backend._step = syncing_step
+    backend._fused_cache.clear()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        loop.run_epoch()
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -50,6 +50,7 @@ def test_port_modules_import_with_jax_and_reference_blocked():
         "import repro_torch.configs\n"
         "import repro_torch.train, repro_torch.runtime.backend, repro_torch.optim\n"
         "import repro_torch.core.controller, repro_torch.core.baselines\n"
+        "import repro_torch.core.optperf_torch, repro_torch.train.checkpoint\n"
         "import repro_torch.core.scheduler, repro_torch.data\n"
         "print('ok')\n"
     )

@@ -175,15 +175,20 @@ def test_baseline_policies_train_alike(policy_cls):
     assert ptr.history[-1].batches != ptr.history[0].batches or policy_cls == "EvenPartition"
 
 
-def test_snapshot_round_trip_replays_bitwise():
+def test_snapshot_round_trip_replays_bitwise(tmp_path):
+    """In memory and through a checkpoint file: the epoch after a restore
+    gives the same losses, bit for bit."""
     _, ptr = _pair()
     backend = ptr.backend
     state = backend.snapshot()
+    path = str(tmp_path / "backend.ckpt.npz")
+    backend.checkpoint(path)
     first = backend.execute([4] * 16, 2).losses
     backend.load_snapshot(state)
     assert backend.execute([4] * 16, 2).losses == first
-    with pytest.raises(NotImplementedError, match="1.7"):
-        backend.checkpoint("unused")
+    backend.restore(path)
+    assert backend.execute([4] * 16, 2).losses == first
+    assert backend.steps_done == 2
 
 
 def test_sim_backend_and_factory_match_reference():

@@ -5,8 +5,8 @@
 verbatim, so on the seeded inputs of the reference's own tests
 (``test_simulator.py``, ``test_goodput.py``, ``test_batch_policy.py``,
 ``test_controller.py`` and ``test_optperf_batch.py``'s plan parity) they
-must give equal results, not close ones.  The fused on-device sweep
-(engine "jax") is not ported and raises.
+must give equal results, not close ones.  Engine "jax" (the on-device
+sweep) plans as the reference's does, on the CPU when asked.
 """
 import dataclasses
 import importlib
@@ -14,7 +14,7 @@ import importlib
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from repro.core import baselines as jb  # noqa: E402
@@ -27,6 +27,7 @@ from repro_torch.core import baselines as pb  # noqa: E402
 from repro_torch.core import batch_policy as pbp  # noqa: E402
 from repro_torch.core import controller as pc  # noqa: E402
 from repro_torch.core import goodput as pg  # noqa: E402
+from repro_torch.core import optperf as po  # noqa: E402
 from repro_torch.core import scheduler as ps  # noqa: E402
 from repro_torch.core import simulator as psim  # noqa: E402
 from repro_torch.data import pipeline as pp  # noqa: E402
@@ -99,13 +100,52 @@ def test_goodput_curve_and_selector_equal():
 
 
 def test_jax_sweep_engine_raises():
-    with pytest.raises(NotImplementedError, match="1.5"):
-        pg.BatchSizeSelector(candidates=(64, 128), ref_batch=64, engine="jax")
-    with pytest.raises(NotImplementedError):
-        pc.CannikinController(3, batch_candidates=[64], ref_batch=64, sweep_engine="jax")
+    """Engine "jax" is the on-device sweep: it runs on the card unless
+    ``device="cpu"`` is asked for, so without a card it raises; nothing
+    falls back to the NumPy engine in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the device sweep runs there")
     _, psc = _sims("cluster_A", 0.0, 0)
-    with pytest.raises(NotImplementedError):
-        pg.goodput_curve(psc.true_model(), [64, 128], 100.0, 64, engine="jax")
+    model = psc.true_model()
+    sel = pg.BatchSizeSelector(candidates=(64, 128), ref_batch=64, engine="jax")
+    with pytest.raises((RuntimeError, AssertionError)):
+        sel.select(model, 100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        pg.goodput_curve(model, [64, 128], 100.0, 64, engine="jax")
+    assert sel.full_sweeps == 1 and not sel._optperf_cache
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_jax_sweep_engine_plans_like_batched(seed):
+    """``test_controller_plans_equal``'s scenario with ``sweep_engine="jax"``
+    in both packages (the port's sweep on the CPU): plans equal the
+    reference's, and equal the port's own NumPy engine's."""
+    out = {}
+    for key, sim_mod, ctl_mod, kw in (("ref", jsim, jc, {}),
+                                      ("port", psim, pc, {"device": "cpu"}),
+                                      ("batched", psim, pc, None)):
+        profiles, comm = sim_mod.cluster_B()
+        sim = sim_mod.SimulatedCluster(profiles, comm, noise=0.01, seed=seed)
+        engine = {} if kw is None else {"sweep_engine": "jax", **kw}
+        ctrl = ctl_mod.CannikinController(
+            sim.n, batch_candidates=[128, 256, 512, 1024, 2048, 4096], ref_batch=128, **engine)
+        plans = []
+        for _ in range(6):
+            plan = ctrl.plan_epoch()
+            _, ms = sim.run_epoch(list(plan.batches), steps=5)
+            ctrl.observe_epoch(ms)
+            ctrl.observe_gradients([4.0] * sim.n, 3.0, list(plan.batches))
+            plans.append(_plan(plan))
+        out[key] = (plans, ctrl.stats.full_sweeps, ctrl.stats.cold_sweeps,
+                    ctrl.stats.warm_sweeps)
+    assert out["port"] == out["ref"] == out["batched"]
+    _, psc = _sims("cluster_A", 0.0, 0)
+    jsc, _ = _sims("cluster_A", 0.0, 0)
+    pcurve = pg.goodput_curve(psc.true_model(), [64, 128, 256], 100.0, 64, engine="jax",
+                              device="cpu")
+    jcurve = jg.goodput_curve(jsc.true_model(), [64, 128, 256], 100.0, 64, engine="jax")
+    np.testing.assert_allclose(pcurve.goodputs, jcurve.goodputs, rtol=1e-5)
+    assert pcurve.solutions.method == jcurve.solutions.method == "waterfill/jax"
 
 
 @pytest.mark.parametrize("name", ["cannikin-gns", "fixed", "adadamp", "padadamp", "geodamp"])
@@ -183,7 +223,35 @@ def test_controller_bounds_and_elastic_membership_equal():
             plans.append(_plan(plan))
         out[ctl_mod] = plans
     assert out[jc] == out[pc]
-    assert pc.CannikinController(3, batch_candidates=[64], ref_batch=64).fused_context() is None
+
+
+def test_fused_context_after_the_model_is_fitted():
+    """No fused context during bootstrap; once the model is fitted, one on
+    the asked device with the candidate grid and the water-fill lower
+    bracket of the refit model; none again after the membership changes."""
+    profiles, comm = psim.cluster_A()
+    sim = psim.SimulatedCluster(profiles, comm, noise=0.005, seed=0)
+    ctrl = pc.CannikinController(sim.n, batch_candidates=[64, 128, 256], ref_batch=64)
+    for epoch in range(3):
+        plan = ctrl.plan_epoch()  # run_backend_epoch asks after planning
+        assert plan.phase == ("bootstrap" if epoch < 2 else "optperf")
+        ctx = ctrl.fused_context(device="cpu")
+        assert (ctx is None) == (epoch < 2)
+        _, ms = sim.run_epoch(list(plan.batches), steps=3)
+        ctrl.observe_epoch(ms)
+        ctrl.observe_gradients([5.0, 6.0, 7.0], 2.0, list(plan.batches))
+    model = ctrl.cluster_model()
+    ctx = ctrl.fused_context(device="cpu")
+    assert ctx is not None and ctx.model is model and ctx.ref_batch == 64.0
+    assert ctx.coeffs.alphas.device.type == "cpu" and ctx.coeffs.alphas.dtype == torch.float32
+    np.testing.assert_array_equal(ctx.candidates_np, [64.0, 128.0, 256.0])
+    np.testing.assert_array_equal(ctx.candidates.numpy(), [64.0, 128.0, 256.0])
+    assert ctx.lo0 == float(po._problem_from_model(model)[1])
+    assert ctrl.fused_context(device="cpu") is ctx
+    ctrl.remove_nodes([1])
+    assert ctrl.fused_context(device="cpu") is None
+    fixed = pc.CannikinController(sim.n, batch_candidates=[64], ref_batch=64, adaptive=False)
+    assert fixed.fused_context(device="cpu") is None
 
 
 def test_baselines_equal():
