@@ -114,9 +114,33 @@ Phases, each of which fails the run:
                    sweep stage alone: device ms, kernel launches and records
                    per call, and the host's issue ms.
 
+15. runtime (olmo-1b) — the Cannikin cluster runtime with full-width
+                   olmo-1b bf16 jobs (seq 512, SGD at lr 0.01).  First the
+                   scheduler's ``"jax"`` engine on the card against the host
+                   ``"batched"`` engine on ``random_jobs(3, 12, seed=0)`` and
+                   ``random_jobs(8, 32, seed=1)``: equal assignments,
+                   aggregate goodput within 1e-5 relative, no block handed
+                   to the scalar oracle; wall, device ms and launches per
+                   ``allocate``.  Then ``compare_policies`` (the CLI's
+                   ``--mode trace --backend real`` path) on
+                   ``synthetic_trace(2, 4, seed=0, total_batch=16)`` with
+                   the ``"jax"`` engine on the card, 2 epochs of 2 steps per
+                   event and ``FaultPlan.chaos_real(4, seed=0)``: every loss
+                   finite, the poisoned node excluded on every step of its
+                   window while a job holds it and nowhere else, exactly one
+                   solver timeout and one engine degradation (none in the
+                   fault-free twin), no invariant violation, the twin's
+                   allocations equal to a host-engine replay, flash launches
+                   as the path predicts, peak memory under 80 GB; each
+                   reconcile's and job-epoch's seconds.  Then one
+                   full-width job preempted through a checkpoint file and
+                   resumed: losses, params, momentum and GNS state the same
+                   bits as an unpreempted run; the file's bytes and the
+                   seconds to write, verify and restore it.
+
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
-training) and read just after it.  Device ms of a named kernel are per launch the
+training, 15's trace) and read just after it.  Device ms of a named kernel are per launch the
 profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
 ``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -126,6 +150,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1582,6 +1607,369 @@ def phase_fused_training(torch, two_program):
     return counts
 
 
+RUNTIME_NODES = 4       # phase 15's trace cluster
+RUNTIME_STEPS = 2       # steps per job-epoch
+RUNTIME_EPE = 2         # epochs after each reconciled event
+RUNTIME_REL = 1e-5      # device vs host engine aggregate goodput (float32 sweep)
+
+
+def runtime_config():
+    """Full-width olmo-1b bf16 jobs for phase 15: seq 512, SGD at lr 0.01
+    (phase 13's rate; the reference's 0.3 is a reduced-model rate, and a
+    diverging bf16 loss would count as an anomaly beside the poison)."""
+    from repro_torch.runtime import RealBackendConfig
+
+    return RealBackendConfig(arch="olmo-1b", reduced=False, seq_len=512, lr=0.01,
+                             device=DEVICE)
+
+
+def engine_profile(torch, fn, calls: int = 1):
+    """Device ms and kernel launches per call of ``fn`` under
+    ``torch.profiler`` (0 and 0 for a host-only call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            device_us += evt.self_device_time_total
+        elif evt.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += evt.count
+    return device_us / 1e3 / calls, launches / calls
+
+
+def runtime_engines(torch):
+    """The scheduler's device engine against the host engine: the same
+    allocations, aggregate goodput within ``RUNTIME_REL``, no block handed
+    to the scalar oracle; wall, device ms and launches per cold
+    ``allocate``."""
+    from repro_torch.core.scheduler import Scheduler, allocate, random_jobs
+
+    for n_jobs, n_nodes, seed in ((3, 12, 0), (8, 32, 1)):
+        jobs = random_jobs(n_jobs, n_nodes, seed)
+        allocs, rows = {}, {}
+        for engine, device in (("jax", DEVICE), ("batched", None)):
+            s = Scheduler(n_nodes, engine=engine, device=device)
+            for job in jobs:
+                allocs[engine] = s.add_job(job)
+            if s.fallback_blocks:
+                raise AssertionError(f"{engine}: {s.fallback_blocks} blocks fell back to the "
+                                     "scalar oracle")
+
+            def cold(engine=engine, device=device):
+                return allocate(jobs, n_nodes, engine=engine, device=device)
+
+            if cold().assignment != allocs[engine].assignment:
+                raise AssertionError(f"{engine}: cold allocate differs from the Scheduler's")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                cold()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+            dev_ms, launches = engine_profile(torch, cold)
+            rows[engine] = (wall, dev_ms, launches, s.warm_rounds, s.cold_rounds,
+                            s.solved_rows, s.cached_rows)
+        a, b = allocs["jax"], allocs["batched"]
+        rel = abs(a.aggregate_goodput - b.aggregate_goodput) / abs(b.aggregate_goodput)
+        for engine, (wall, dev_ms, launches, warm, cold_r, solved, cached) in rows.items():
+            log("runtime", f"scheduler {n_jobs} jobs x {n_nodes} nodes engine={engine}: "
+                f"allocate wall {wall:.3f} ms, device {dev_ms:.4f} ms over {launches:.0f} "
+                f"kernel launches per call; incremental warm_rounds={warm} cold_rounds="
+                f"{cold_r} solved_rows={solved} cached_rows={cached}")
+        log("runtime", f"scheduler {n_jobs} jobs x {n_nodes} nodes: assignments equal="
+            f"{a.assignment == b.assignment}, aggregate goodput device "
+            f"{a.aggregate_goodput!r} host {b.aggregate_goodput!r} (rel {rel:.3e}, limit "
+            f"{RUNTIME_REL})")
+        if a.assignment != b.assignment or not rel <= RUNTIME_REL:
+            raise AssertionError(f"device engine {a} != host engine {b}")
+
+
+class _JobLog:
+    """Every job-epoch a runtime's real backends run: the fault clock, the
+    held node ids, the plan, the losses, the excluded-step counts and the
+    wall seconds."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rows = []
+
+    def wrap(self, backend, job):
+        execute = backend.execute
+
+        def run(batches, steps, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = execute(batches, steps, **kw)
+            self.torch.cuda.synchronize()
+            self.rows.append(dict(
+                job=job, faulted=backend.injector is not None,
+                epoch=backend.injector.epoch if backend.injector is not None else None,
+                nodes=tuple(backend._node_ids), batches=list(batches),
+                losses=list(res.losses), anomalies=tuple(res.grad_anomalies),
+                wall_s=time.perf_counter() - t0))
+            return res
+
+        backend.execute = run
+        return backend
+
+
+def _logged_config(job_log):
+    """``runtime_config()`` whose backends log each job-epoch."""
+    from repro_torch.runtime import RealBackendConfig
+
+    class Logged(RealBackendConfig):
+        def build(self, *, noise=0.0, seed=0, injector=None):
+            backend = super().build(noise=noise, seed=seed, injector=injector)
+            return job_log.wrap(backend, f"seed{seed}")
+
+    return Logged(**dataclasses.asdict(runtime_config()))
+
+
+def _timed_reconciles(times):
+    """A ``ClusterRuntime`` whose ``step`` logs (reconcile seconds, policy
+    solve seconds); the reconcile includes building and binding backends."""
+    from repro_torch.runtime.runtime import ClusterRuntime
+
+    class Timed(ClusterRuntime):
+        def _apply(self, event):
+            t0 = time.perf_counter()
+            out = super()._apply(event)
+            self._solve_s = time.perf_counter() - t0
+            return out
+
+        def step(self):
+            t0 = time.perf_counter()
+            rec = super().step()
+            times.append((time.perf_counter() - t0, self._solve_s))
+            return rec
+
+    return Timed
+
+
+def runtime_trace(torch):
+    """``compare_policies`` (the CLI's ``--mode trace --backend real``
+    path) on ``synthetic_trace(2, 4, seed=0)`` with full-width olmo-1b jobs,
+    the ``"jax"`` engine on the card and ``FaultPlan.chaos_real``."""
+    import repro_torch.runtime.trace as trace_mod
+    from repro_torch.runtime import FaultPlan, compare_policies, replay, synthetic_trace
+
+    n = RUNTIME_NODES
+    trace, _ = synthetic_trace(2, n, seed=0, backend="real", total_batch=16)
+    plan = FaultPlan.chaos_real(n, seed=0)
+    job_log, times = _JobLog(torch), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    plain_cls = trace_mod.ClusterRuntime
+    trace_mod.ClusterRuntime = _timed_reconciles(times)
+    try:
+        rep = compare_policies(
+            trace, n, policies=("cannikin",), engine="jax", epochs_per_event=RUNTIME_EPE,
+            steps=RUNTIME_STEPS, noise=0.01, seed=0, real_backend=_logged_config(job_log),
+            faults=plan, invariants=True, device=DEVICE)["cannikin"]
+    finally:
+        trace_mod.ClusterRuntime = plain_cls
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = read_launches(), torch.cuda.max_memory_allocated()
+    twin = rep.baseline
+    for label, r, off in (("twin", twin, 0), ("faulted", rep, len(twin.records))):
+        for k, rec in enumerate(r.records):
+            rs, ss = times[off + k]
+            log("runtime", f"{label} reconcile {rec.label} at t={rec.time}: allocation "
+                f"{dict(rec.allocation.assignment)} aggregate goodput "
+                f"{rec.aggregate_goodput!r}; reconcile {rs:.4f} s (policy solve {ss:.4f} s)")
+    for row in job_log.rows:
+        log("runtime", f"{'faulted' if row['faulted'] else 'twin'} {row['job']} epoch "
+            f"{row['epoch']} nodes={row['nodes']} batches={row['batches']} losses="
+            f"{[round(x, 6) for x in row['losses']]} excluded={row['anomalies']} wall_s="
+            f"{row['wall_s']:.3f}")
+    tele = rep.runtime.fault_telemetry()
+    log("runtime", f"fault_telemetry {json.dumps(tele, sort_keys=True, default=str)}")
+    log("runtime", f"counters faulted {rep.runtime.counters()} twin {twin.runtime.counters()}; "
+        f"goodput_retention {rep.goodput_retention!r}; job epochs {rep.epochs}")
+
+    # The poisoned node is excluded on every step of its window, whenever a
+    # running job holds it, and nowhere else.
+    poison = plan.poisons[0]
+    window = range(poison.at_epoch, poison.at_epoch + poison.duration)
+    held = 0
+    for row in job_log.rows:
+        if not all(math.isfinite(x) for x in row["losses"]):
+            raise AssertionError(f"non-finite loss: {row}")
+        for nid, count in zip(row["nodes"], row["anomalies"]):
+            hit = row["faulted"] and nid == poison.node and row["epoch"] in window
+            held += hit
+            if count != (RUNTIME_STEPS if hit else 0):
+                raise AssertionError(f"node {nid} excluded {count} steps: {row}")
+    if not held:
+        raise AssertionError("no running job held the poisoned node in its window")
+    c, tc = rep.runtime.counters(), twin.runtime.counters()
+    if (c.get("solver_timeouts"), c.get("engine_degradations")) != (1, 1):
+        raise AssertionError(f"faulted run: {c}")
+    if "engine_degradations" in tc or "solver_timeouts" in tc:
+        raise AssertionError(f"fault-free twin degraded: {tc}")
+    if twin.runtime.policy.scheduler.engine != "jax" or twin.runtime.policy.scheduler.fallback_blocks:
+        raise AssertionError("the twin's device engine fell back")
+    if rep.runtime.invariant_violations or tele["invariants"]["violations"]:
+        raise AssertionError(f"invariant violations: {rep.runtime.invariant_violations}")
+    host_trace, _ = synthetic_trace(2, n, seed=0, backend="sim", total_batch=16)
+    host = replay(host_trace, n, policy="cannikin", engine="batched", seed=0)
+    got = [dict(r.allocation.assignment) for r in twin.records]
+    want = [dict(r.allocation.assignment) for r in host.records]
+    log("runtime", f"twin allocations {got}; host engine {want}")
+    if got != want:
+        raise AssertionError("the twin's device-engine allocations differ from the host's")
+
+    from repro_torch.configs import get_api
+
+    cfg = get_api("olmo-1b").cfg
+    per_node = 2 if cfg.remat else 1  # remat runs each layer's forward again
+    want_counts = {name: 0 for name in KERNEL_NAMES}
+    for row in job_log.rows:  # each node's forward and backward, the loss forward
+        k = len(row["batches"])
+        want_counts["flash_attention"] += RUNTIME_STEPS * (k * per_node + 1) * cfg.n_layers
+        want_counts["flash_attention_backward"] += RUNTIME_STEPS * k * cfg.n_layers
+    log("runtime", f"trace wall {wall:.2f} s, {len(job_log.rows)} job-epochs; launches "
+        f"{counts} (expected {want_counts}); peak_mem_gb={peak / 1e9:.3f}")
+    if counts != want_counts:
+        raise AssertionError(f"runtime launches {counts} != {want_counts}")
+    if not peak < 80e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+    del rep, twin, host
+    return counts
+
+
+def _drive_full_width(torch, preempt: bool, ckpt_dir):
+    """The reference test's ``_drive`` at full width: one real job on a
+    3-node ``ClusterRuntime``, 2 x 2 epochs; with ``preempt``, preempt
+    (one checkpoint generation), zero the live params and GNS state,
+    resubmit, then 2 x 2 more.  Returns the handle and the seconds to
+    write, verify and restore."""
+    from repro_torch.core.gns import GNSState
+    from repro_torch.core.perf_model import CommModel
+    from repro_torch.core.scheduler import JobSpec
+    from repro_torch.core.simulator import GPU_CATALOG
+    from repro_torch.runtime import ClusterRuntime, JobState
+    from repro_torch.train.checkpoint import verify_checkpoint
+
+    rt = ClusterRuntime(3, policy="cannikin", seed=0, real_backend=runtime_config(),
+                        checkpoint_dir=ckpt_dir if preempt else None)
+    spec = JobSpec(
+        name="rj",
+        node_models=tuple(GPU_CATALOG[n].model() for n in ("a100", "v100", "rtx6000")),
+        comm=CommModel(t_o=0.04, t_u=0.008, gamma=0.15),
+        total_batch=16, b_noise=500.0, ref_batch=16, backend="real")
+    handle = rt.submit(spec, at=0.0)
+    rt.run()
+    rt.advance(epochs=2, steps=RUNTIME_STEPS)
+    secs = {}
+    if preempt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.preempt(spec.name, at=1.0)
+        rt.run()
+        secs["write_s"] = time.perf_counter() - t0
+        if handle.state != JobState.PREEMPTED or not handle.checkpoint_path:
+            raise AssertionError(f"preemption wrote no checkpoint: {handle}")
+        secs["bytes"] = os.path.getsize(handle.checkpoint_path)
+        t0 = time.perf_counter()
+        if not verify_checkpoint(handle.checkpoint_path):
+            raise AssertionError("the checkpoint does not verify")
+        secs["verify_s"] = time.perf_counter() - t0
+        with torch.no_grad():
+            for p in handle.backend.named.values():
+                p.zero_()
+        handle.backend.gns = GNSState()
+        handle.backend.steps_done = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.submit(spec, at=2.0)
+        rt.run()
+        torch.cuda.synchronize()
+        secs["restore_s"] = time.perf_counter() - t0
+        if handle.state != JobState.RUNNING or handle.restores != 1:
+            raise AssertionError(f"resume did not restore: {handle}")
+    rt.advance(epochs=2, steps=RUNTIME_STEPS)
+    return handle, secs
+
+
+def runtime_preempt(torch):
+    """Preempt and resume a full-width job through its checkpoint file:
+    losses, params, optimizer state and GNS state bitwise equal to an
+    unpreempted run with the same seed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_api
+
+    cfg = get_api("olmo-1b").cfg
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain, _ = _drive_full_width(torch, False, None)
+        n_params = sum(p.numel() for p in plain.backend.named.values())
+        need = 2 * 4 * n_params  # params and SGD momentum, float32 on disk
+        free = shutil.disk_usage(ckpt_dir).free
+        log("runtime", f"checkpoint dir free {free / 1e9:.1f} GB; one generation needs about "
+            f"{need / 1e9:.1f} GB ({n_params} params of {cfg.name})")
+        if free < 1.2 * need:
+            raise RuntimeError(f"{free / 1e9:.1f} GB free for a {need / 1e9:.1f} GB checkpoint")
+        resumed, secs = _drive_full_width(torch, True, ckpt_dir)
+        peak = torch.cuda.max_memory_allocated()
+        same_losses = [r.mean_loss for r in plain.records] == [r.mean_loss for r in resumed.records]
+        same_params = all(torch.equal(p, resumed.backend.named[k])
+                          for k, p in plain.backend.named.items())
+        same_mom = all(torch.equal(a, b) for a, b in zip(
+            plain.backend.opt_state.momentum.values(),
+            resumed.backend.opt_state.momentum.values()))
+        same_gns = plain.backend.gns == resumed.backend.gns
+        log("runtime", f"preempt/resume at full width: plans {[r.batches for r in resumed.records]}"
+            f", losses {[r.mean_loss for r in resumed.records]}; bitwise losses={same_losses} "
+            f"params={same_params} momentum={same_mom} gns={same_gns}; checkpoint "
+            f"{secs['bytes']} bytes, write {secs['write_s']:.2f} s (snapshot + save), verify "
+            f"{secs['verify_s']:.2f} s, restore {secs['restore_s']:.2f} s (read + verify + "
+            f"load); peak_mem_gb={peak / 1e9:.3f}")
+        if not (same_losses and same_params and same_mom and same_gns
+                and [r.batches for r in plain.records] == [r.batches for r in resumed.records]
+                and resumed.preemptions == 1 and plain.epochs_run == resumed.epochs_run == 4):
+            raise AssertionError("the preempted run differs from the unpreempted one")
+        if not peak < 80e9:
+            raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_runtime(torch):
+    """Phase 15: the scheduler's device engine, a chaos trace of full-width
+    jobs through ``compare_policies``, and a full-width preempt/resume."""
+    t0 = time.perf_counter()
+    runtime_engines(torch)
+    t1 = time.perf_counter()
+    counts = runtime_trace(torch)
+    # The replays' runtimes and the logged backends sit in reference cycles
+    # (the invariant checker holds its runtime, a wrapped ``execute`` its
+    # backend): collect them before the next models are built.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    runtime_preempt(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    log("runtime", f"phase 15 in {t3 - t0:.1f} s: engines {t1 - t0:.1f} s, trace "
+        f"{t2 - t1:.1f} s, preempt/resume {t3 - t2:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1642,6 +2030,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "fused training (olmo-1b)"
         phase_fused_training(torch, train_rows)
+        torch.cuda.empty_cache()
+        phase = "runtime (olmo-1b)"
+        runtime_counts = phase_runtime(torch)
+        log("runtime", f"olmo-1b runtime path launches {runtime_counts}")
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)

@@ -724,16 +724,24 @@ class RealBackend:
 
 @dataclasses.dataclass
 class RealBackendConfig:
-    """Recipe for a :class:`RealBackend` per job whose :class:`JobSpec` names
-    ``backend="real"``: the reduced ``arch`` (float32, head dim 32, so on
-    the CPU only: the CUDA flash kernel takes head dims 64 and 128),
-    ``SyntheticLM`` data and constant-LR SGD."""
+    """Recipe the runtime uses to build a :class:`RealBackend` for each job
+    whose :class:`JobSpec` names ``backend="real"``: ``arch``,
+    ``SyntheticLM`` data and constant-LR SGD, on ``device`` (the card when
+    None).
+
+    ``reduced=True`` (the reference's recipe) builds the reduced config:
+    float32 with head dim 32, which trains on the CPU only, since the CUDA
+    flash kernel takes head dims 64 and 128.  ``reduced=False`` builds the
+    published config in its own dtype (bf16 for olmo-1b), which is what a
+    job on the card needs.  The reference's ``sharded`` field waits for the
+    node-sharded step."""
 
     arch: str = "olmo-1b"
     seq_len: int = 32
     lr: float = 0.3
     gns_decay: float = 0.9
     device: Optional[str] = None
+    reduced: bool = True
 
     def build(
         self, *, noise: float = 0.0, seed: int = 0, injector: Any = None
@@ -742,7 +750,7 @@ class RealBackendConfig:
         from repro_torch.data.pipeline import SyntheticLM
         from repro_torch.optim.optimizers import constant_schedule, sgd
 
-        api = get_api(self.arch, reduced=True)
+        api = get_api(self.arch, reduced=self.reduced)
         data = SyntheticLM(vocab=api.cfg.vocab, seq_len=self.seq_len, seed=seed)
         return RealBackend(
             api,

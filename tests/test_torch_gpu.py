@@ -634,3 +634,22 @@ def test_fused_epoch_raises_on_a_host_sync(cuda_device):
     with pytest.raises(RuntimeError, match="synchroniz"):
         loop.run_epoch()
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("n_jobs,n_nodes,seed", [(3, 12, 0), (8, 32, 1)])
+def test_scheduler_device_engine_matches_host_engine(cuda_device, n_jobs, n_nodes, seed):
+    """``Scheduler(engine="jax")`` solving on the card against the host
+    NumPy engine: the same node assignments, aggregate goodput within 1e-5
+    relative (float32 sweep, float64 certification), and no block handed to
+    the scalar oracle by a failing device solve."""
+    from repro_torch.core.scheduler import Scheduler, random_jobs
+
+    allocs = {}
+    for engine, device in (("jax", cuda_device), ("batched", None)):
+        s = Scheduler(n_nodes, engine=engine, device=device)
+        for job in random_jobs(n_jobs, n_nodes, seed):
+            allocs[engine] = s.add_job(job)
+        assert s.fallback_blocks == 0
+    assert allocs["jax"].assignment == allocs["batched"].assignment
+    assert allocs["jax"].aggregate_goodput == pytest.approx(
+        allocs["batched"].aggregate_goodput, rel=1e-5)

@@ -52,6 +52,11 @@ def test_port_modules_import_with_jax_and_reference_blocked():
         "import repro_torch.core.controller, repro_torch.core.baselines\n"
         "import repro_torch.core.optperf_torch, repro_torch.train.checkpoint\n"
         "import repro_torch.core.scheduler, repro_torch.data\n"
+        "import repro_torch.runtime, repro_torch.runtime.runtime, repro_torch.runtime.trace\n"
+        "import repro_torch.runtime.policy, repro_torch.runtime.faults\n"
+        "import repro_torch.runtime.health, repro_torch.runtime.watchdog\n"
+        "import repro_torch.runtime.invariants, repro_torch.runtime.events\n"
+        "import repro_torch.launch, repro_torch.launch.train\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -77,3 +82,32 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError):
         RealServingEngine(api, model, max_len=16)
     assert RealServingEngine(api, model, max_len=16, device="cpu").device.type == "cpu"
+
+
+def test_cluster_runtime_real_job_raises_without_a_card():
+    """A real job's backend trains on its ``RealBackendConfig.device``,
+    the card by default: admitting one without a card raises, and with
+    ``device="cpu"`` the job runs."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-card path")
+    import dataclasses
+
+    from repro_torch.core.scheduler import random_jobs
+    from repro_torch.runtime import ClusterRuntime, RealBackendConfig
+
+    spec = dataclasses.replace(random_jobs(1, 3, seed=0)[0], backend="real", total_batch=6)
+    rt = ClusterRuntime(3, real_backend=RealBackendConfig(seq_len=8))
+    rt.submit(spec)
+    with pytest.raises(RuntimeError):
+        rt.run()
+    rt = ClusterRuntime(3, real_backend=RealBackendConfig(seq_len=8, device="cpu"))
+    rt.submit(spec)
+    rt.run()
+    assert rt.handles[spec.name].backend.device.type == "cpu"
+    # The device engine without a card: the policy's counted degradation
+    # chain takes the host engine, never a silent one.
+    rt = ClusterRuntime(3, engine="jax")
+    rt.submit(dataclasses.replace(spec, backend="sim"))
+    rt.run()
+    assert rt.counters()["engine_degradations"] == 1
+    assert rt.policy.scheduler.engine == "batched"

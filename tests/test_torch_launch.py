@@ -1,0 +1,106 @@
+"""The training CLI: ``repro_torch.launch.train`` vs ``repro.launch.train``
+on the same argv, in process, on the CPU.
+
+The simulator modes print the same bytes and write the same ``--out``
+JSON.  ``--mode hetero --backend real --device cpu`` (reduced olmo-1b,
+float32) starts from the reference's ``PRNGKey(seed)`` weights, bridged,
+and must plan the same phases, totals and splits on the same simulated
+clock, with losses within 1e-4 relative (float32 sums in another order
+over 8 SGD steps).
+"""
+import json
+import re
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import repro.launch.train as ref_train  # noqa: E402
+import repro_torch.launch.train as port_train  # noqa: E402
+import repro_torch.runtime as port_runtime  # noqa: E402
+from repro.configs import get_api as jax_get_api  # noqa: E402
+from repro_torch.bridge import state_dict_from_tree  # noqa: E402
+
+REL = 1e-4
+
+
+def _run(mod, argv, capsys, monkeypatch):
+    if mod is ref_train:
+        monkeypatch.setattr(sys, "argv", ["train"] + argv)
+        rc = mod.main()
+    else:
+        rc = mod.main(argv)
+    assert rc == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "trace", "--backend", "sim", "--faults", "chaos", "--invariants"],
+    ["--mode", "trace", "--backend", "sim", "--batch-policy", "all", "--trace-jobs", "2",
+     "--trace-nodes", "8"],
+    ["--mode", "hetero", "--backend", "sim", "--cluster", "B"],
+    ["--mode", "hetero", "--backend", "sim", "--cluster", "C", "--policy", "lb-bsp",
+     "--epochs", "4"],
+], ids=["trace-chaos", "trace-batch-policies", "hetero-B", "hetero-C-lbbsp"])
+def test_sim_modes_print_the_same(argv, tmp_path, capsys, monkeypatch):
+    outs, files = [], []
+    for mod in (ref_train, port_train):
+        path = tmp_path / f"{mod.__name__}.json"
+        outs.append(_run(mod, argv + ["--out", str(path)], capsys, monkeypatch))
+        files.append(json.loads(path.read_text()))
+    assert outs[0] == outs[1]
+    assert files[0] == files[1]
+    assert outs[1].count("\n") >= 4
+    if "--invariants" in argv:
+        assert "invariant_violations=0" in outs[1]
+
+
+class BridgedRealBackend(port_runtime.RealBackend):
+    """The port's backend from the reference's initial olmo-1b weights."""
+
+    def __init__(self, api, *args, seed=0, **kw):
+        super().__init__(api, *args, seed=seed, **kw)
+        tree = jax.tree_util.tree_map(
+            np.asarray, jax_get_api("olmo-1b", reduced=True).init(jax.random.PRNGKey(seed)))
+        self.params.load_state_dict(state_dict_from_tree(tree))
+
+
+LINE = re.compile(r"epoch +(\d+) \[(\w+) *\] B= *(\d+) split=(\[[\d, ]*\]) loss=\S+ "
+                  r"batch_time=(\S+) pred=(\S+) sim_total=(\S+)")
+
+
+def test_hetero_real_cpu_matches_reference(tmp_path, capsys, monkeypatch):
+    argv = ["--mode", "hetero", "--backend", "real", "--cluster", "A", "--epochs", "4",
+            "--steps-per-epoch", "2", "--seq-len", "16", "--ref-batch", "32"]
+    ref_out = _run(ref_train, argv + ["--out", str(tmp_path / "ref.json")], capsys,
+                   monkeypatch)
+    monkeypatch.setattr(port_runtime, "RealBackend", BridgedRealBackend)
+    port_out = _run(port_train, argv + ["--device", "cpu", "--out",
+                                        str(tmp_path / "port.json")], capsys, monkeypatch)
+    got = [LINE.match(x).groups() for x in port_out.splitlines()[1:]]
+    want = [LINE.match(x).groups() for x in ref_out.splitlines()[1:]]
+    assert got == want and len(got) == 4
+    assert [g[1] for g in got] == ["bootstrap", "bootstrap", "optperf", "optperf"]
+    assert port_out.splitlines()[0] == ref_out.splitlines()[0]
+    got_rows = json.loads((tmp_path / "port.json").read_text())
+    want_rows = json.loads((tmp_path / "ref.json").read_text())
+    for g, w in zip(got_rows, want_rows):
+        for key in ("epoch", "total_batch", "batches", "sim_seconds", "phase",
+                    "predicted_batch_time", "measured_batch_time"):
+            assert g[key] == w[key], key
+        for key in ("mean_loss", "b_noise", "lr_scale"):
+            np.testing.assert_allclose(float(g[key]), float(w[key]), rtol=REL, atol=0)
+        assert np.isfinite(g["mean_loss"])
+
+
+def test_spmd_mode_and_missing_card_are_errors(capsys):
+    with pytest.raises(SystemExit) as err:
+        port_train.main(["--mode", "spmd"])
+    assert err.value.code == 2
+    assert "node-sharded train step" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            port_train.main(["--mode", "hetero", "--backend", "real", "--epochs", "1"])
