@@ -137,10 +137,35 @@ Phases, each of which fails the run:
                    resumed: losses, params, momentum and GNS state the same
                    bits as an unpreempted run; the file's bytes and the
                    seconds to write, verify and restore it.
+16. sharded training (olmo-1b) — ``RealBackend(sharded=True)``: phase
+                   13's configuration through ``EpochLoop``, the node axis
+                   split over a NCCL world of one (no default process
+                   group).  Against the unsharded backend on the same plans
+                   and seeds, 2 epochs of 2 steps: parameters, momentum,
+                   every |g_i|^2 and |g|^2 the same bits, losses within
+                   ``SHARDED_LOSS_REL``, 96 flash forwards per step against
+                   112 (no whole-batch loss forward) and 48 backwards; then
+                   one whole train step of each at phase 14's first adaptive
+                   plan: wall and device ms, the flash and NCCL kernels'
+                   device ms.  Then one fused adaptive epoch on the sharded
+                   backend: phase 14's plans and first proposal, certified
+                   within 1e-5, 12 h2d and 13 d2h, no host sync.  Then the
+                   CLI as a user runs it, ``python -m
+                   repro_torch.launch.train --mode spmd --full-width`` (3
+                   steps of AdamW at lr 0.01, seq 512, batch 16 in 2
+                   microbatches): exit 0, three finite losses, each step's
+                   ms.  Where the machine has 2 cards or more, the same
+                   comparison in float32 over a NCCL world of
+                   ``node_shard_count(3, cards)`` processes with the
+                   reference's tolerances; on one card a line says it was
+                   not run.  Peak memory of the in-process parts under 80
+                   GB.  ``python3 chip_smoke.py --only sharded`` runs
+                   phases 1, 2 and 16 alone; ``--only split`` phases 1, 2
+                   and 16's multi-card part.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
-training, 15's trace) and read just after it.  Device ms of a named kernel are per launch the
+training, 15's trace, each run of 16) and read just after it.  Device ms of a named kernel are per launch the
 profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
 ``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -1604,7 +1629,7 @@ def phase_fused_training(torch, two_program):
         f"host issue {prof['issue_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms")
     del trainer, backend
     torch.cuda.empty_cache()
-    return counts
+    return counts, rows, [p for _, p in staged]
 
 
 RUNTIME_NODES = 4       # phase 15's trace cluster
@@ -1970,6 +1995,349 @@ def phase_runtime(torch):
     return counts
 
 
+SHARDED_EPOCHS = 2        # phase 16's two-program comparison: both bootstrap epochs
+SHARDED_FUSED_EPOCHS = 3  # two bootstrap epochs, then one fused adaptive epoch
+# Sharded vs unsharded losses, bf16 on the card: the sharded step composes
+# the loss from each node's forward (M = b_max * S rows per GEMM), the
+# unsharded one runs a whole-batch forward (M = n * b_max * S), which cuBLAS
+# may tile otherwise; bf16 logits carry 2^-8 relative rounding (the CPU,
+# whose rows are independent of M, reads 1.4e-7 in bf16).
+SHARDED_LOSS_REL = 1e-3
+SPMD_CLI = ["--mode", "spmd", "--arch", "olmo-1b", "--full-width", "--steps", "3",
+            "--seq-len", "512", "--ref-batch", "16", "--microbatches", "2", "--lr", "0.01"]
+NCCL_PROFILE_NAME = "nccl"  # every NCCL kernel
+
+
+def sharded_loop(torch, sharded: bool, epochs: int, *, fused: bool = False, cfg=None):
+    """Phase 13's configuration (cluster_A, ``CannikinController(3, [16, 32,
+    64], ref_batch=16)``, ``SyntheticLM(seq 512, seed 0)``, SGD at lr 0.01,
+    2 steps per epoch) through ``EpochLoop`` over ``RealBackend(sharded=
+    sharded)``, for ``epochs`` epochs.  Returns the backend, the loop, the
+    staged proposals, one row per epoch and the launch counts."""
+    from repro_torch.configs import get_api
+    from repro_torch.core.controller import CannikinController
+    from repro_torch.core.simulator import SimulatedCluster, cluster_A
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.registry import build_api
+    from repro_torch.optim.optimizers import constant_schedule, sgd
+    from repro_torch.runtime.backend import EpochLoop, RealBackend
+
+    api = get_api("olmo-1b") if cfg is None else build_api("olmo-1b", cfg)
+    profiles, comm = cluster_A()
+    sim = SimulatedCluster(profiles, comm, noise=0.01, seed=0)
+    policy = CannikinController(sim.n, batch_candidates=[16, 32, 64], ref_batch=16,
+                                device=DEVICE)
+    backend = RealBackend(api, sgd(constant_schedule(0.01)),
+                          SyntheticLM(vocab=api.cfg.vocab, seq_len=512, seed=0), cluster=sim,
+                          seed=0, gns_decay=policy.gns_decay, device=DEVICE, sharded=sharded)
+    loop = EpochLoop(policy, backend, steps_per_epoch=TRAIN_STEPS, fused=fused)
+    proposals = []
+    stage = policy.stage_fused_proposal
+
+    def record(ctx, proposal):
+        proposals.append(proposal)
+        stage(ctx, proposal)
+
+    policy.stage_fused_proposal = record
+    torch.cuda.synchronize()
+    reset_launches()
+    rows = []
+    for _ in range(epochs):
+        before = backend.transfers.snapshot()
+        t0 = time.perf_counter()
+        rec = loop.run_epoch()
+        torch.cuda.synchronize()
+        res, after = loop.last_result, backend.transfers.snapshot()
+        rows.append(dict(
+            epoch=rec.epoch, total=rec.total_batch, batches=list(rec.batches),
+            policy=rec.plan.batch_policy, lr_scale=rec.lr_scale, losses=list(res.losses),
+            sq_i=[list(o.local_sqnorms) for o in res.grad_observations],
+            sq_g=[o.global_sqnorm for o in res.grad_observations],
+            anomalies=list(res.grad_anomalies), wall_s=time.perf_counter() - t0,
+            h2d=after["h2d"] - before["h2d"], d2h=after["d2h"] - before["d2h"]))
+    return backend, loop, proposals, rows, read_launches()
+
+
+def expected_sharded_launches(cfg, n, steps, sharded):
+    """Flash launches per ``steps`` steps: each node's forward (twice per
+    layer with remat) and, unsharded, the whole-batch loss forward; one
+    backward per node and layer."""
+    per_node = 2 if cfg.remat else 1
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["flash_attention"] = steps * (n * per_node + (0 if sharded else 1)) * cfg.n_layers
+    want["flash_attention_backward"] = steps * n * cfg.n_layers
+    return want
+
+
+def same_replica(torch, a, b):
+    """Parameters and momentum of two backends: the same bits."""
+    return (all(torch.equal(p, b.named[k]) for k, p in a.named.items()),
+            all(torch.equal(m, b.opt_state.momentum[k])
+                for k, m in a.opt_state.momentum.items()))
+
+
+def train_step_row(torch, backend, batches, sharded):
+    """One whole train step of ``backend`` (every node's forward and
+    backward, the guard, the aggregate, the update; sharded, its
+    collectives) on a padded batch of the plan ``batches``: wall ms on the
+    host clock, device ms and idle share under ``torch.profiler``, the flash
+    kernels' and the NCCL kernels' device ms per step with their records."""
+    from repro_torch.core.aggregation import ratios
+    from repro_torch.runtime.backend import _quantize
+
+    n, b_max = len(batches), _quantize(max(batches))
+    tok, lab, msk = backend._next_padded(list(batches), b_max)
+    step, place = backend._step_for(n)
+    args = (place(tok), place(lab), place(msk),
+            torch.as_tensor(ratios(batches), dtype=torch.float32, device=DEVICE), 1.0,
+            torch.ones(n, dtype=torch.float32, device=DEVICE))
+    cfg = backend.api.cfg
+    want = expected_sharded_launches(cfg, n, 1, sharded)
+    launches = {FLASH_PROFILE_NAME: want["flash_attention"],
+                BWD_PROFILE_NAME: 3 * want["flash_attention_backward"]}
+
+    def run():
+        return step(*args)
+
+    wall_ms = host_ms(torch, run, 2, warmup=1)
+    dev, named, idle, _, records = device_split(
+        torch, run, 1, wall_ms, (FLASH_PROFILE_NAME, BWD_PROFILE_NAME, NCCL_PROFILE_NAME),
+        launches)
+    return dict(wall_ms=wall_ms, device_ms=dev, idle_share=idle, named=named, records=records,
+                launches=launches, collectives=len(backend.named) + 1 if sharded else 0)
+
+
+def sharded_vs_unsharded(torch, adaptive_batches):
+    """Part 1: the two-program path, sharded over a NCCL world of one
+    against unsharded, on the same plans and seeds: the same parameter,
+    momentum, |g_i|^2 and |g|^2 bits, losses within ``SHARDED_LOSS_REL``,
+    96 flash forwards per step against 112; then one whole step of each
+    at the adaptive plan ``adaptive_batches`` under the profiler."""
+    plain, _, _, plain_rows, plain_counts = sharded_loop(torch, False, SHARDED_EPOCHS)
+    sharded, _, _, rows, counts = sharded_loop(torch, True, SHARDED_EPOCHS)
+    cfg, n, mesh = sharded.api.cfg, len(rows[0]["batches"]), sharded._mesh
+    steps = SHARDED_EPOCHS * TRAIN_STEPS
+    same_params, same_mom = same_replica(torch, plain, sharded)
+    worst = 0.0
+    for a, b in zip(plain_rows, rows):
+        rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
+        worst = max(worst, rel)
+        log("sharded", f"epoch {b['epoch']} batches={b['batches']} losses sharded "
+            f"{b['losses']} unsharded {a['losses']} (rel {rel:.3e}); sq_i same bits="
+            f"{a['sq_i'] == b['sq_i']} sq_g same bits={a['sq_g'] == b['sq_g']}; wall s sharded "
+            f"{b['wall_s']:.3f} unsharded {a['wall_s']:.3f}; transfers h2d={b['h2d']} "
+            f"d2h={b['d2h']}")
+        if (a["total"], a["batches"]) != (b["total"], b["batches"]):
+            raise AssertionError(f"epoch {a['epoch']}: plans differ: {a} vs {b}")
+        if a["sq_i"] != b["sq_i"] or a["sq_g"] != b["sq_g"] or any(b["anomalies"]):
+            raise AssertionError(f"epoch {a['epoch']}: gradient telemetry differs: {a} vs {b}")
+        if (a["h2d"], a["d2h"]) != (b["h2d"], b["d2h"]):
+            raise AssertionError(f"epoch {a['epoch']}: transfers differ: {a} vs {b}")
+    want = expected_sharded_launches(cfg, n, steps, True)
+    want_plain = expected_sharded_launches(cfg, n, steps, False)
+    log("sharded", f"NCCL world of one: mesh shards={mesh.shards} world={mesh.world} group="
+        f"{type(mesh.group).__name__}; params same bits={same_params} momentum same bits="
+        f"{same_mom}; worst loss rel {worst:.3e} (limit {SHARDED_LOSS_REL}); launches sharded "
+        f"{counts} (expected {want}), unsharded {plain_counts} (expected {want_plain}); per "
+        f"step {counts['flash_attention'] // steps} vs {plain_counts['flash_attention'] // steps}"
+        " flash forwards")
+    if not (same_params and same_mom):
+        raise AssertionError("the sharded step's replica differs from the unsharded one's")
+    if not worst <= SHARDED_LOSS_REL:
+        raise AssertionError(f"sharded losses differ by {worst:.3e}")
+    if counts != want or plain_counts != want_plain:
+        raise AssertionError(f"launches: sharded {counts}, unsharded {plain_counts}")
+    for name, backend, sh in (("unsharded", plain, False), ("sharded", sharded, True)):
+        row = train_step_row(torch, backend, adaptive_batches, sh)
+        log("sharded", f"{name} train step (batches {adaptive_batches}, S=512): wall "
+            f"{row['wall_ms']:.2f} ms, device {row['device_ms']:.2f} ms (idle share "
+            f"{row['idle_share']:.4f}); flash forward {row['named'][FLASH_PROFILE_NAME]:.2f} ms "
+            f"(records {row['records'][FLASH_PROFILE_NAME]}/{row['launches'][FLASH_PROFILE_NAME]})"
+            f", flash backward {row['named'][BWD_PROFILE_NAME]:.2f} ms (records "
+            f"{row['records'][BWD_PROFILE_NAME]}/{row['launches'][BWD_PROFILE_NAME]}); NCCL "
+            f"kernels {row['named'][NCCL_PROFILE_NAME]:.4f} ms in "
+            f"{row['records'][NCCL_PROFILE_NAME]} records over {row['collectives']} all-reduces")
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def sharded_fused(torch, fused_rows, fused_proposals):
+    """Part 2: one adaptive epoch through ``EpochLoop(fused=True)`` on the
+    sharded backend (the fused epoch runs under
+    ``set_sync_debug_mode("error")``): plans equal phase 14's, the proposal
+    phase 14's first, certified within ``FUSED_CERT_TOL``."""
+    from repro_torch.core.controller import FUSED_CERT_TOL
+
+    backend, loop, proposals, rows, counts = sharded_loop(
+        torch, True, SHARDED_FUSED_EPOCHS, fused=True)
+    s = loop.policy.stats
+    want = expected_sharded_launches(backend.api.cfg, len(rows[0]["batches"]),
+                                     SHARDED_FUSED_EPOCHS * TRAIN_STEPS, True)
+    for a, b in zip(fused_rows, rows):
+        log("sharded", f"fused run epoch {b['epoch']} policy={b['policy']} total={b['total']} "
+            f"batches={b['batches']} (phase 14: {a['total']} {a['batches']}) losses "
+            f"{b['losses']} wall_s={b['wall_s']:.3f} transfers h2d={b['h2d']} d2h={b['d2h']}")
+        if (a["total"], a["batches"], a["policy"]) != (b["total"], b["batches"], b["policy"]):
+            raise AssertionError(f"epoch {a['epoch']}: plans differ from phase 14's")
+    p, q = proposals[0], fused_proposals[0]
+    log("sharded", f"fused: proposal best_index={p.best_index} total={p.total_batch} batches="
+        f"{[round(float(x), 4) for x in p.batches]} (phase 14: {q.best_index} {q.total_batch}); "
+        f"fused_plans={s.fused_plans} fused_certifications={s.fused_certifications} "
+        f"fused_cert_failures={s.fused_cert_failures} fused_max_rel_err="
+        f"{s.fused_max_rel_err:.3e} (limit {FUSED_CERT_TOL}); launches {counts} (expected "
+        f"{want}); fused epochs built for {sorted(backend._fused_cache)}")
+    if [r["policy"] for r in rows] != [None, None, "cannikin-gns"]:
+        raise AssertionError(f"fused policies {[r['policy'] for r in rows]}")
+    if (rows[-1]["h2d"], rows[-1]["d2h"]) != (12, 13):
+        raise AssertionError(f"fused epoch transfers {rows[-1]}")
+    if (p.best_index, p.total_batch) != (q.best_index, q.total_batch) or not (
+            max(abs(x - y) for x, y in zip(p.batches, q.batches)) <= 1e-5 * q.total_batch):
+        raise AssertionError(f"proposal {p} differs from phase 14's {q}")
+    if not (s.fused_certifications >= 1 and s.fused_cert_failures == 0
+            and s.fused_max_rel_err <= FUSED_CERT_TOL):
+        raise AssertionError(f"fused certification: {s}")
+    if counts != want or sorted(backend._fused_cache) != [(len(rows[0]["batches"]), 1)]:
+        raise AssertionError(f"fused launches {counts} or cache {sorted(backend._fused_cache)}")
+    del backend, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spmd_cli(torch):
+    """Part 3: ``python -m repro_torch.launch.train --mode spmd --full-width``
+    on the card, as a user runs it: exit 0 and three finite losses."""
+    import re
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + SPMD_CLI,
+                          env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = [re.match(r"step +(\d+) loss=(\S+) \((\d+)ms\)", x) for x in proc.stdout.splitlines()]
+    losses = [float(m.group(2)) for m in lines if m]
+    step_ms = [int(m.group(3)) for m in lines if m]
+    log("sharded", f"CLI {' '.join(SPMD_CLI)}: exit {proc.returncode} in {secs:.1f} s, losses "
+        f"{losses}, per-step ms {step_ms}")
+    if proc.returncode != 0 or len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"--mode spmd failed: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+
+
+def sharded_rank(rank, world, init_file, out_path):
+    """One rank of part 4's NCCL world: phase 13's configuration in float32
+    (so that the reference's tolerances mean something: bf16 parameters
+    would move by whole bf16 steps where the float32 sums differ in the last
+    bit), sharded over the world's ranks; rank 0 first runs the unsharded
+    twin and compares."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import olmo_1b
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(olmo_1b.config(), param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    result = None
+    if rank == 0:
+        plain, _, _, plain_rows, _ = sharded_loop(torch, False, SHARDED_EPOCHS, cfg=cfg)
+        want_params = {k: v.detach().cpu() for k, v in plain.named.items()}
+        del plain
+        torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        backend, _, _, rows, counts = sharded_loop(torch, True, SHARDED_EPOCHS, cfg=cfg)
+        if rank == 0:
+            loss_rel = max(abs(x - y) / abs(y) for a, b in zip(rows, plain_rows)
+                           for x, y in zip(b["losses"], a["losses"]))
+            param_excess = max(float(((v.detach().cpu() - want_params[k]).abs()
+                                      - (1e-6 + 1e-5 * want_params[k].abs())).max())
+                               for k, v in backend.named.items())
+            sq_rel = max(abs(x - y) / abs(y) for a, b in zip(rows, plain_rows)
+                         for x, y in zip(sum(b["sq_i"], []) + b["sq_g"],
+                                         sum(a["sq_i"], []) + a["sq_g"]))
+            result = dict(loss_rel=loss_rel, param_excess=param_excess, sq_rel=sq_rel,
+                          plans_equal=[r["batches"] for r in rows] == [
+                              r["batches"] for r in plain_rows],
+                          mesh=(backend._mesh.shards, backend._mesh.world), counts=counts,
+                          walls=[r["wall_s"] for r in rows],
+                          plain_walls=[r["wall_s"] for r in plain_rows])
+            with open(out_path, "w") as f:
+                json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def split_node_axis(torch):
+    """Part 4: where the machine has 2 cards or more, phase 13's
+    configuration (float32) over a NCCL world of ``node_shard_count(3,
+    cards)`` processes against the unsharded step, with the reference's
+    tolerances: losses rtol 1e-6, parameters rtol 1e-5 / atol 1e-6."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import node_shard_count
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("sharded", f"split node axis: not run on this machine ({cards} card; NCCL takes one "
+            "rank per card)")
+        return
+    world = node_shard_count(3, cards)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(world, os.path.join(tmp, "store"), out_path),
+                 nprocs=world, join=True)
+        with open(out_path) as f:
+            res = json.load(f)
+    log("sharded", f"split node axis over {world} cards (NCCL, float32): mesh {res['mesh']}, "
+        f"plans equal={res['plans_equal']}, loss rel {res['loss_rel']:.3e} (limit 1e-6), "
+        f"params excess over rtol 1e-5 / atol 1e-6 {res['param_excess']:.3e} (limit 0), "
+        f"sq-norm rel {res['sq_rel']:.3e}; launches {res['counts']}; epoch wall s sharded "
+        f"{[round(x, 3) for x in res['walls']]} unsharded "
+        f"{[round(x, 3) for x in res['plain_walls']]}; {time.perf_counter() - t0:.1f} s")
+    if not (res["plans_equal"] and res["mesh"] == [world, world] and res["loss_rel"] <= 1e-6
+            and res["param_excess"] <= 0.0):
+        raise AssertionError(f"split node axis: {res}")
+
+
+def phase_sharded(torch, fused_rows=None, fused_proposals=None):
+    """Phase 16: the node-sharded step (see the module docstring), held
+    against phase 14's unsharded fused run (run here for
+    ``SHARDED_FUSED_EPOCHS`` epochs when not given)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if fused_rows is None:
+        backend, _, fused_proposals, fused_rows, _ = sharded_loop(
+            torch, False, SHARDED_FUSED_EPOCHS, fused=True)
+        del backend
+        gc.collect()
+        torch.cuda.empty_cache()
+    fused_rows = fused_rows[:SHARDED_FUSED_EPOCHS]
+    sharded_vs_unsharded(torch, fused_rows[-1]["batches"])
+    t1 = time.perf_counter()
+    sharded_fused(torch, fused_rows, fused_proposals)
+    peak = torch.cuda.max_memory_allocated()
+    t2 = time.perf_counter()
+    spmd_cli(torch)
+    t3 = time.perf_counter()
+    split_node_axis(torch)
+    t4 = time.perf_counter()
+    log("sharded", f"phase 16 in {t4 - t0:.1f} s: two-program {t1 - t0:.1f} s, fused "
+        f"{t2 - t1:.1f} s, CLI {t3 - t2:.1f} s, split node axis {t4 - t3:.1f} s; "
+        f"peak_mem_gb={peak / 1e9:.3f} (two-program and fused parts)")
+    if not peak < 80e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+
+
 def main() -> int:
     import torch
 
@@ -1980,25 +2348,41 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase = "device"
+    starts = []  # (phase, start seconds) in order
+
+    def enter(name):
+        starts.append((name, time.perf_counter()))
+        return name
+
+    phase = enter("device")
     try:
         card = phase_device()
-        phase = "build"
+        phase = enter("build")
         phase_build()
-        phase = "kernel"
+        if sys.argv[1:] in (["--only", "sharded"], ["--only", "split"]):
+            phase = enter("sharded training (olmo-1b)")
+            if sys.argv[2] == "split":
+                split_node_axis(torch)
+            else:
+                phase_sharded(torch)
+            log("done", f"{' '.join(sys.argv[1:])} passed in "
+                f"{time.perf_counter() - t_start:.1f} s")
+            print(card)
+            return 0
+        phase = enter("kernel")
         rows = phase_kernel(torch)
-        phase = "kernel (wkv)"
+        phase = enter("kernel (wkv)")
         wkv_rows = phase_kernel_wkv(torch)
-        phase = "model"
+        phase = enter("model")
         phase_model(torch)
-        phase = "serving"
+        phase = enter("serving")
         olmo_counts = phase_serving(torch)
         torch.cuda.empty_cache()
-        phase = "model (rwkv6)"
+        phase = enter("model (rwkv6)")
         reset_launches()
         phase_model_rwkv6(torch)
         torch.cuda.empty_cache()
-        phase = "serving (rwkv6)"
+        phase = enter("serving (rwkv6)")
         rwkv6_counts = phase_serving_rwkv6(torch, wkv_rows[WKV_MAIN_CASE]["ms"])
         log("serving", f"rwkv6-7b path launches {rwkv6_counts}")
         if rwkv6_counts != {"flash_attention": 0, "rwkv6_wkv": 32, "ssm_scan": 0,
@@ -2006,13 +2390,13 @@ def main() -> int:
             raise AssertionError("the rwkv6-7b path must launch the WKV kernel once per "
                                  f"layer of its forward and nothing else: {rwkv6_counts}")
         torch.cuda.empty_cache()
-        phase = "kernel (ssm)"
+        phase = enter("kernel (ssm)")
         ssm_rows = phase_kernel_ssm(torch)
-        phase = "model (hymba)"
+        phase = enter("model (hymba)")
         reset_launches()
         phase_model_hymba(torch)
         torch.cuda.empty_cache()
-        phase = "serving (hymba)"
+        phase = enter("serving (hymba)")
         hymba_counts = phase_serving_hymba(
             torch, rows[HYMBA_FLASH_CASE]["ms"], ssm_rows[SSM_MAIN_CASE]["ms"])
         log("serving", f"hymba-1.5b path launches {hymba_counts}")
@@ -2022,23 +2406,30 @@ def main() -> int:
                                  "selective-scan kernels once per layer of its forward and "
                                  f"nothing else: {hymba_counts}")
         torch.cuda.empty_cache()
-        phase = "kernel (flash bwd)"
+        phase = enter("kernel (flash bwd)")
         bwd_rows = phase_kernel_bwd(torch)
         torch.cuda.empty_cache()
-        phase = "training (olmo-1b)"
+        phase = enter("training (olmo-1b)")
         train_counts, train_rows = phase_training(torch)
         torch.cuda.empty_cache()
-        phase = "fused training (olmo-1b)"
-        phase_fused_training(torch, train_rows)
+        phase = enter("fused training (olmo-1b)")
+        _, fused_rows, fused_proposals = phase_fused_training(torch, train_rows)
         torch.cuda.empty_cache()
-        phase = "runtime (olmo-1b)"
+        phase = enter("runtime (olmo-1b)")
         runtime_counts = phase_runtime(torch)
         log("runtime", f"olmo-1b runtime path launches {runtime_counts}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = enter("sharded training (olmo-1b)")
+        phase_sharded(torch, fused_rows, fused_proposals)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
         return 1
-    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    t_end = time.perf_counter()
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-16); seconds per "
+        "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
+            starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
     for name, source, replaces, main_row, launches in (
         ("flash_attention", SOURCE_REL, REPLACES, rows[MAIN_CASE],

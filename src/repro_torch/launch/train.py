@@ -9,9 +9,6 @@ defaults, and two of the port's own, which the card needs:
   (``RealBackendConfig(reduced=False)``) instead of the reduced float32
   one, whose head dim 32 the card's flash kernel does not take.
 
-``--mode spmd`` needs the node-sharded train step and the node mesh, which
-the port does not have yet; it exits with an error saying so.
-
 Three modes, each supporting ``--backend {real,sim}`` where it applies:
 
 * ``hetero`` (default) — the paper's end-to-end scenario driven through
@@ -23,8 +20,9 @@ Three modes, each supporting ``--backend {real,sim}`` where it applies:
   The chosen policy (cannikin / even / lb-bsp / adaptdl) controls the
   batch partition and, for the adaptive policies, the total batch size.
 
-* ``spmd`` — the reference's single-process sharded training; not ported
-  yet (see above).
+* ``spmd`` — single-process training of a reduced config (the published
+  one with ``--full-width``) through ``train/step.py::build_train_step``
+  (AdamW, ``--microbatches`` gradient accumulation), one line per step.
 
 * ``trace`` — multi-job cluster churn through the
   ``repro_torch.runtime.ClusterRuntime`` front door: a seeded synthetic trace
@@ -39,6 +37,9 @@ Three modes, each supporting ``--backend {real,sim}`` where it applies:
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --policy cannikin \
       --cluster B --epochs 12 --steps-per-epoch 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode spmd --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode spmd --full-width --steps 3 \
+      --seq-len 512 --ref-batch 16 --microbatches 2
   PYTHONPATH=src python -m repro_torch.launch.train --mode trace --trace-jobs 3 \
       --trace-nodes 12 --epochs-per-event 2 --arrival poisson
   PYTHONPATH=src python -m repro_torch.launch.train --mode trace --backend real \
@@ -50,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 import warnings
 from typing import Optional, Sequence
 
@@ -150,6 +152,38 @@ def run_hetero(args) -> int:
                 [EpochResult.from_record(r).__dict__ for r in loop.history],
                 f, indent=1, default=str,
             )
+    return 0
+
+
+def run_spmd(args) -> int:
+    """``--mode spmd``: the reference's ``run_spmd`` (AdamW at ``--lr``,
+    ``SyntheticLM`` batches of ``--ref-batch``), on ``--device``."""
+    import torch
+
+    from repro_torch.configs import get_api
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.train.step import build_train_step
+
+    api = get_api(args.arch, reduced=not args.full_width)
+    if not api.supports_training():
+        raise SystemExit(
+            f"--mode spmd: {args.arch} ({api.family}) has no training path yet "
+            "(ROADMAP §1.8a: rwkv6 and hymba training)"
+        )
+    params = api.init(args.seed, device=args.device).requires_grad_(True)
+    opt = adamw(constant_schedule(args.lr))
+    step = build_train_step(api, opt, microbatches=args.microbatches)
+    opt_state = opt.init(dict(params.named_parameters()))
+    data = SyntheticLM(vocab=api.cfg.vocab, seq_len=args.seq_len, seed=args.seed)
+    for i in range(args.steps):
+        raw = data.batch(i, args.ref_batch)
+        batch = {k: torch.as_tensor(v, device=params.device) for k, v in raw.items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        print(f"step {i:4d} loss={loss:.4f} "
+              f"({(time.perf_counter()-t0)*1e3:.0f}ms)", flush=True)
     return 0
 
 
@@ -293,14 +327,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 f"--batch-policy {args.batch_policy!r} is not registered "
                 f"(choose from {sorted(BATCH_POLICIES)} or 'all')"
             )
-    if args.mode == "spmd":
-        ap.error(
-            "--mode spmd needs the node-sharded train step "
-            "(train/step.py::build_train_step) and the node mesh, which the "
-            "PyTorch port does not have yet; use --mode hetero or --mode trace"
-        )
     if args.mode == "hetero":
         return run_hetero(args)
+    if args.mode == "spmd":
+        return run_spmd(args)
     return run_trace(args)
 
 

@@ -80,6 +80,10 @@ class ModelApi:
         return model
 
     # -- forward --------------------------------------------------------
+    def supports_training(self) -> bool:
+        """True if the family has a grad-carrying forward (``loss``)."""
+        return hasattr(self._module.MODEL, "train_forward")
+
     def logits(self, params, batch: Dict[str, Any]) -> torch.Tensor:
         return params(batch["tokens"])
 

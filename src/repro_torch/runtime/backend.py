@@ -24,7 +24,17 @@ Where the reference takes ``jax.vmap(jax.grad)`` over the node axis, the
 port loops over the n nodes: one forward and backward per node on its
 padded ``(b_max, S)`` slice with its mask as per-sample weights.  The math
 is the same, and each layer's attention is one explicit kernel launch per
-node.  The node-sharded step (ROADMAP §1.6) is not ported yet.
+node.
+
+``RealBackend(sharded=True)`` is the reference's ``shard_map`` step: the
+node axis is split over the ranks of a ``torch.distributed`` group
+(:mod:`repro_torch.launch.mesh`; NCCL on cards, gloo on the CPU, a world
+of one without a default group).  Each rank backprops its n/d nodes, one
+all-reduce gathers every |g_i|^2 so that each rank runs the same global
+guard, and another sums the ranks' float32 Eq. (9) partials; every rank
+then applies the same update to its replica of the parameters.  Every
+rank draws the same global batch from the same stream and takes the same
+host decisions.
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ from repro_torch.core.gns import GNSState, estimate_gns, gns_update, local_estim
 from repro_torch.core.scheduler import JobSpec
 from repro_torch.core.simulator import NodeProfile, SimulatedCluster, StepMeasurement
 from repro_torch.data.pipeline import HeteroBatchPartitioner
+from repro_torch.launch.mesh import NodeMesh, make_node_mesh
 from repro_torch.optim.optimizers import global_norm
 from repro_torch.runtime.transfers import TransferCounter
 
@@ -249,10 +260,12 @@ def _quantize(b: int, q: int = 8) -> int:
     return max(q, ((b + q - 1) // q) * q)
 
 
-def _clone_state(state):
-    """A copy of an optimizer state tuple: its tensor dicts cloned."""
+def _clone_state(state, device=None):
+    """A copy of an optimizer state tuple: its tensor dicts cloned (onto
+    ``device`` when given)."""
     return type(state)(*(
-        {k: v.clone() for k, v in field.items()} if isinstance(field, dict) else field
+        {k: v.to(device, copy=True) if device is not None else v.clone()
+         for k, v in field.items()} if isinstance(field, dict) else field
         for field in state
     ))
 
@@ -315,6 +328,10 @@ class RealBackend:
     outlier is left out of the aggregate (the others renormalized), the GNS
     tracker skips the step, and ``ExecutionResult.grad_anomalies`` counts
     it.  Per-node gradients are held until the guard has every |g_i|^2.
+
+    ``sharded=True`` splits the node axis over the ranks of the default
+    process group (a world of one without one): see the module docstring.
+    Each rank builds its own backend with the same arguments.
     """
 
     kind = "real"
@@ -332,6 +349,7 @@ class RealBackend:
         injector: Any = None,
         outlier_factor: Optional[float] = None,
         device: Any = None,
+        sharded: bool = False,
     ) -> None:
         self.api = api
         self.optimizer = optimizer
@@ -353,7 +371,10 @@ class RealBackend:
         self.steps_done = 0
         self.anomalous_steps = 0       # steps with >= 1 excluded node (lifetime)
         self.transfers = TransferCounter()
+        self.sharded = bool(sharded)
         self._fused_cache: Dict[Tuple[int, int], Callable] = {}
+        self._meshes: Dict[int, NodeMesh] = {}   # node count -> NodeMesh
+        self._mesh: Optional[NodeMesh] = None    # the latest node set's mesh
         self._job: Optional[str] = None
         self._node_ids: Tuple[int, ...] = ()
 
@@ -367,17 +388,47 @@ class RealBackend:
         )
         self._job = spec.name
         self._node_ids = tuple(int(n) for n in node_ids)
+        if self.sharded and self._node_ids:
+            self._mesh_for(len(self._node_ids))
+
+    def _mesh_for(self, n: int) -> NodeMesh:
+        """The node mesh of an n-node sharded step (its shard count is the
+        largest divisor of n that fits the group's ranks), built once per
+        n over the one group of the process; the latest is ``_mesh``."""
+        mesh = self._meshes.get(n)
+        if mesh is None:
+            mesh = self._meshes[n] = make_node_mesh(n, device=self.device)
+        self._mesh = mesh
+        return mesh
+
+    def _node_placer(self, n: int, *, stacked: bool = False) -> Callable:
+        """Host ``(n, ...)`` arrays (``(steps, n, ...)`` when ``stacked``)
+        -> this rank's node rows on its device: the explicit h2d seam of
+        sharded execution.  Every rank holds the whole global batch; none
+        is scattered."""
+        lo, hi = self._mesh_for(n).node_range()
+        dev = self.device
+
+        def place(arr: np.ndarray) -> torch.Tensor:
+            part = arr[:, lo:hi] if stacked else arr[lo:hi]
+            return torch.as_tensor(np.ascontiguousarray(part), device=dev)
+
+        return place
 
     # -- gradient engine -------------------------------------------------
 
-    def node_grads(self, tokens, labels, mask) -> List[torch.Tensor]:
-        """One node's gradient (one tensor per parameter, in ``named``
-        order) of its mean loss over the padded slice ``tokens``/``labels``
-        (b_max, S) with per-sample weights ``mask`` (b_max,)."""
+    def node_loss_and_grads(self, tokens, labels, mask) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """One node's mean loss over the padded slice ``tokens``/``labels``
+        (b_max, S) with per-sample weights ``mask`` (b_max,), and its
+        gradient (one tensor per parameter, in ``named`` order)."""
         loss, _ = self.api.loss(
             self.params, {"tokens": tokens, "labels": labels, "weights": mask}
         )
-        return list(torch.autograd.grad(loss, list(self.named.values())))
+        return loss.detach(), list(torch.autograd.grad(loss, list(self.named.values())))
+
+    def node_grads(self, tokens, labels, mask) -> List[torch.Tensor]:
+        """One node's gradient (:meth:`node_loss_and_grads`)."""
+        return self.node_loss_and_grads(tokens, labels, mask)[1]
 
     def _step(self, tok, lab, msk, r, lr_scale, poison):
         """One train step, line for line the reference's
@@ -418,6 +469,71 @@ class RealBackend:
         _, self.opt_state = self.optimizer.update(agg, self.opt_state, self.named, lr_scale)
         return loss, sq_i, sq_g, valid
 
+    def _sharded_step(self, tok, lab, msk, r, lr_scale, poison):
+        """One train step with the node axis split over the mesh, line for
+        line the reference's ``_build_sharded_step_body``: ``tok``/``lab``
+        (n/d, b_max, S) and ``msk`` (n/d, b_max) are this rank's nodes,
+        ``r``/``poison`` (n,) every node's.  The local gradients (x poison)
+        and |g_i|^2; one all-reduce of an (n + 2,) float32 vector into which
+        each rank writes its own nodes' |g_i|^2 (x + 0 is exact) and its
+        partial loss numerator and denominator; the global guard on the
+        reduced vector, the same on every rank; the rank's weighted float32
+        partial of each leaf, summed over the group, cast to the parameter
+        dtype after the sum; |g|^2, the global loss from the per-node means
+        weighted by their token sums, the update.  At a world of one the
+        local sum runs in :meth:`_step`'s order, so the aggregate is the
+        same bits."""
+        n = r.shape[0]
+        mesh = self._mesh_for(n)
+        lo, hi = mesh.node_range()
+        dev = self.device
+        stats = torch.zeros(n + 2, dtype=torch.float32, device=dev)
+        grads = []
+        if hi > lo:
+            losses = []
+            for j, i in enumerate(range(lo, hi)):
+                loss_i, g = self.node_loss_and_grads(tok[j], lab[j], msk[j])
+                for leaf in g:
+                    leaf.mul_(poison[i].to(leaf.dtype))
+                grads.append(g)
+                losses.append(loss_i)
+            stats[lo:hi] = torch.stack([global_norm(g) ** 2 for g in grads])
+            # Node i's token-weight sum is mask_i.sum() * S (the loss
+            # broadcasts the per-sample mask over the sequence); loss_i x
+            # w_sum_i is its loss summand, 0 for an all-padding node.
+            w_sum = msk.sum(dim=1) * float(tok.shape[-1])
+            stats[n] = (torch.stack(losses).float() * w_sum).sum()
+            stats[n + 1] = w_sum.sum()
+        mesh.all_reduce_(stats)
+        sq_i = stats[:n]
+        w, valid = guard_weights(sq_i, r, outlier_factor=self.outlier_factor)
+        w = w.float()
+        agg = {}
+        for j, (name, p) in enumerate(self.named.items()):
+            acc = None
+            for k, i in enumerate(range(lo, hi)):
+                g, grads[k][j] = grads[k][j], None  # free each node's leaf once summed
+                term = w[i] * torch.where(valid[i], g, torch.zeros((), dtype=g.dtype,
+                                                                   device=g.device)).float()
+                acc = term if acc is None else acc + term
+            if acc is None:  # a rank past the last shard joins with zeros
+                acc = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            agg[name] = mesh.all_reduce_(acc).to(p.dtype)
+        del grads
+        sq_g = global_norm(agg) ** 2
+        loss = stats[n] / torch.clamp(stats[n + 1], min=1e-9)
+        _, self.opt_state = self.optimizer.update(agg, self.opt_state, self.named, lr_scale)
+        return loss, sq_i, sq_g, valid
+
+    def _step_for(self, n: int, *, stacked: bool = False) -> Tuple[Callable, Callable]:
+        """(step, place): the train step for n nodes and the function that
+        ships a host ``(n, ...)`` array (``(steps, n, ...)`` when
+        ``stacked``) to the device for it."""
+        if self.sharded and n > 0:
+            return self._sharded_step, self._node_placer(n, stacked=stacked)
+        dev = self.device
+        return self._step, lambda arr: torch.as_tensor(arr, device=dev)
+
     def execute(
         self, batches: Sequence[int], steps: int, *, lr_scale: float = 1.0
     ) -> ExecutionResult:
@@ -434,6 +550,7 @@ class RealBackend:
         node_ids = self._node_ids if len(self._node_ids) == n else tuple(range(n))
         poison = torch.as_tensor(self._poison(node_ids), device=dev)
         anomaly_counts = np.zeros(n, np.int64)
+        step, place = self._step_for(n)
 
         losses: List[float] = []
         grad_obs: List[GradObservation] = []
@@ -443,10 +560,10 @@ class RealBackend:
             # the per-step host round-trips the fused path collapses.
             self.transfers.count_h2d(4)
             self.transfers.count_d2h(4)
-            loss, sq_i, sq_g, valid = self._step(
-                torch.as_tensor(tok, device=dev),
-                torch.as_tensor(lab, device=dev),
-                torch.as_tensor(msk, device=dev),
+            loss, sq_i, sq_g, valid = step(
+                place(tok),
+                place(lab),
+                place(msk),
                 r,
                 float(lr_scale),
                 poison,
@@ -514,17 +631,19 @@ class RealBackend:
 
     def _fused_epoch_fn(self, n: int) -> Callable:
         """The device part of one fused adaptive epoch for ``n`` nodes,
-        built once per ``n`` (the reference's ``_fused_epoch_fn``, whose
-        jitted program is cached on the same key): every train step (the
-        two-program path's ``_step``), a float32 Theorem-4.1 GNS EMA, and
-        the OptPerf goodput sweep, Eq. (6) argmax and water-fill partition
-        on the final state.  It only issues device work: no value is read
-        back to the host until the caller pulls the telemetry."""
-        key = (n, 0)
+        built once per ``n`` and shard count (the reference's
+        ``_fused_epoch_fn``, whose jitted program is cached on the same
+        key): every train step (the two-program path's ``_step`` or
+        ``_sharded_step``), a float32 Theorem-4.1 GNS EMA, and the OptPerf
+        goodput sweep, Eq. (6) argmax and water-fill partition on the final
+        state.  It only issues device work: no value is read back to the
+        host until the caller pulls the telemetry."""
+        sharded = self.sharded and n > 0
+        key = (n, self._mesh_for(n).shards if sharded else 0)
         fn = self._fused_cache.get(key)
         if fn is not None:
             return fn
-        step, decay = self._step, float(self.gns_decay)
+        step, decay = self._step_for(n)[0], float(self.gns_decay)
 
         def epoch_fn(toks, labs, msks, r, lr_scale, poison, b_vec, gns0, dc, cand, lo0, b0):
             total = b_vec.sum()
@@ -606,8 +725,9 @@ class RealBackend:
         def put(x, dtype=None):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
+        place = self._step_for(n, stacked=True)[1]
         args = (
-            put(toks), put(labs), put(msks),
+            place(toks), place(labs), place(msks),
             put(ratios(batches), torch.float32),
             float(lr_scale),  # a launch argument, as in execute
             put(self._poison(node_ids)),
@@ -676,10 +796,18 @@ class RealBackend:
 
     def snapshot(self) -> Dict[str, Any]:
         """Everything that must survive preemption, copied: parameters,
-        optimizer state, GNS state, stream counters."""
+        optimizer state, GNS state, stream counters.
+
+        Sharded, the parameters and optimizer state are copied to the host
+        (CPU tensors: numpy has no bfloat16), as the reference gathers
+        them, so the snapshot and the checkpoint files made from it are
+        the unsharded layout, byte for byte, and restore onto any later
+        mesh."""
+        host = torch.device("cpu") if self.sharded else None
         return {
-            "params": {k: v.detach().clone() for k, v in self.named.items()},
-            "opt_state": _clone_state(self.opt_state),
+            "params": {k: v.detach().to(host, copy=True) if host is not None
+                       else v.detach().clone() for k, v in self.named.items()},
+            "opt_state": _clone_state(self.opt_state, host),
             "gns": {
                 "ema_g": np.float64(self.gns.ema_g),
                 "ema_s": np.float64(self.gns.ema_s),
@@ -695,7 +823,7 @@ class RealBackend:
         with torch.no_grad():
             for name, value in state["params"].items():
                 self.named[name].copy_(value)
-        self.opt_state = _clone_state(state["opt_state"])
+        self.opt_state = _clone_state(state["opt_state"], self.device)
         g = state["gns"]
         self.gns = GNSState(
             ema_g=float(g["ema_g"]), ema_s=float(g["ema_s"]), count=int(g["count"])
@@ -705,13 +833,20 @@ class RealBackend:
         self.sim_time = float(c["sim_time"])
 
     def checkpoint(self, path: str) -> None:
-        """Write :meth:`snapshot` to ``path`` (atomic, checksummed)."""
+        """Write :meth:`snapshot` to ``path`` (atomic, checksummed).
+        Sharded over more than one rank, rank 0 writes the file and every
+        rank waits at a barrier until it is there."""
         from repro_torch.train import checkpoint as ckpt  # lazy: avoids an import cycle
 
-        ckpt.save(path, self.snapshot())
+        mesh = (self._mesh or self._mesh_for(1)) if self.sharded else None
+        if mesh is None or mesh.rank == 0:
+            ckpt.save(path, self.snapshot())
+        if mesh is not None and mesh.world > 1:
+            mesh.barrier()
 
     def restore(self, path: str) -> None:
-        """Load the snapshot a :meth:`checkpoint` call wrote to ``path``."""
+        """Load the snapshot a :meth:`checkpoint` call wrote to ``path``
+        (every rank reads the file)."""
         from repro_torch.train import checkpoint as ckpt  # lazy: avoids an import cycle
 
         self.load_snapshot(ckpt.restore(path, self.snapshot()))
@@ -733,8 +868,9 @@ class RealBackendConfig:
     float32 with head dim 32, which trains on the CPU only, since the CUDA
     flash kernel takes head dims 64 and 128.  ``reduced=False`` builds the
     published config in its own dtype (bf16 for olmo-1b), which is what a
-    job on the card needs.  The reference's ``sharded`` field waits for the
-    node-sharded step."""
+    job on the card needs.  ``sharded=True`` splits each step's node axis
+    over the default process group's ranks (a world of one without
+    one)."""
 
     arch: str = "olmo-1b"
     seq_len: int = 32
@@ -742,6 +878,7 @@ class RealBackendConfig:
     gns_decay: float = 0.9
     device: Optional[str] = None
     reduced: bool = True
+    sharded: bool = False
 
     def build(
         self, *, noise: float = 0.0, seed: int = 0, injector: Any = None
@@ -761,6 +898,7 @@ class RealBackendConfig:
             gns_decay=self.gns_decay,
             injector=injector,
             device=self.device,
+            sharded=self.sharded,
         )
 
 

@@ -86,13 +86,26 @@ class HeteroTrainer:
         )
         self.history: List[EpochResult] = []
 
+    # -- state passthrough (the reference's surface) ----------------------
+
     @property
     def params(self):
         return self.backend.params
 
+    @params.setter
+    def params(self, value) -> None:
+        """Train ``value`` (a model of the same architecture) from here on:
+        the backend takes it and its named parameters."""
+        self.backend.params = value.requires_grad_(True)
+        self.backend.named = dict(value.named_parameters())
+
     @property
     def opt_state(self):
         return self.backend.opt_state
+
+    @opt_state.setter
+    def opt_state(self, value) -> None:
+        self.backend.opt_state = value
 
     @property
     def sim_time(self) -> float:
@@ -103,8 +116,16 @@ class HeteroTrainer:
         self.history.append(result)
         return result
 
+    def policy_total_batch(self) -> int:
+        """Baselines run fixed total batch (the policy object's ref batch if
+        present, else the data default)."""
+        return getattr(self.policy, "total_batch", None) or getattr(
+            self, "_fixed_total", 64
+        )
+
     def set_fixed_total(self, total: int) -> None:
         """Baselines run a fixed total batch."""
+        self._fixed_total = total
         self.loop.fixed_total = total
 
     def run(self, epochs: int, *, target_loss: Optional[float] = None) -> List[EpochResult]:

@@ -636,6 +636,64 @@ def test_fused_epoch_raises_on_a_host_sync(cuda_device):
     assert torch.cuda.get_sync_debug_mode() == 0
 
 
+def test_sharded_backend_over_a_nccl_world_of_one(cuda_device):
+    """``RealBackend(sharded=True)`` with no default process group runs over
+    a NCCL world of one: against the unsharded backend on the same seeds,
+    the same parameter, momentum, |g_i|^2 and |g|^2 bits through two
+    bootstrap epochs and a fused adaptive one (no host sync there), and
+    one flash forward per layer fewer per step (no whole-batch loss
+    forward)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import olmo_1b
+    from repro_torch.core.controller import CannikinController
+    from repro_torch.core.simulator import SimulatedCluster, cluster_A
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.registry import build_api
+    from repro_torch.optim.optimizers import constant_schedule, sgd
+    from repro_torch.runtime.backend import EpochLoop, RealBackend
+
+    assert not dist.is_initialized()
+    cfg = dataclasses.replace(olmo_1b.reduced(), head_dim=64, d_model=256, remat=True)
+    api = build_api("olmo-1b", cfg)
+
+    def run(sharded):
+        profiles, comm = cluster_A()
+        sim = SimulatedCluster(profiles, comm, noise=0.01, seed=0)
+        backend = RealBackend(api, sgd(constant_schedule(0.3)),
+                              SyntheticLM(vocab=cfg.vocab, seq_len=64, seed=0),
+                              cluster=sim, seed=0, device=cuda_device, sharded=sharded)
+        ctrl = CannikinController(sim.n, batch_candidates=[12, 24, 36], ref_batch=12,
+                                  device=cuda_device)
+        loop = EpochLoop(ctrl, backend, steps_per_epoch=2, fused=True)
+        before = flash_attention.launches
+        loop.run(3)
+        torch.cuda.synchronize()
+        obs = [o for r in (loop.last_result,) for o in r.grad_observations]
+        return backend, loop, flash_attention.launches - before, obs
+
+    plain, plain_loop, plain_fwd, plain_obs = run(False)
+    sharded, loop, fwd, obs = run(True)
+    mesh = sharded._mesh
+    assert (mesh.shards, mesh.world, mesh.nodes) == (1, 1, (0, 1, 2))
+    assert isinstance(mesh.group, dist.ProcessGroupNCCL)
+    assert [r.plan.batch_policy for r in loop.history] == [None, None, "cannikin-gns"]
+    assert [r.batches for r in loop.history] == [r.batches for r in plain_loop.history]
+    assert [(o.local_sqnorms, o.global_sqnorm) for o in obs] == [
+        (o.local_sqnorms, o.global_sqnorm) for o in plain_obs]
+    for k, p in plain.named.items():
+        assert torch.equal(p, sharded.named[k]), k
+        assert torch.equal(plain.opt_state.momentum[k], sharded.opt_state.momentum[k]), k
+    per_node = 2 * cfg.n_layers  # remat
+    steps = 3 * 2
+    assert plain_fwd == steps * (3 * per_node + cfg.n_layers)
+    assert fwd == steps * 3 * per_node
+    for a, b in zip(plain_loop.history, loop.history):
+        assert b.mean_loss == pytest.approx(a.mean_loss, rel=1e-5)
+
+
 @pytest.mark.parametrize("n_jobs,n_nodes,seed", [(3, 12, 0), (8, 32, 1)])
 def test_scheduler_device_engine_matches_host_engine(cuda_device, n_jobs, n_nodes, seed):
     """``Scheduler(engine="jax")`` solving on the card against the host

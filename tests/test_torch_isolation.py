@@ -56,7 +56,8 @@ def test_port_modules_import_with_jax_and_reference_blocked():
         "import repro_torch.runtime.policy, repro_torch.runtime.faults\n"
         "import repro_torch.runtime.health, repro_torch.runtime.watchdog\n"
         "import repro_torch.runtime.invariants, repro_torch.runtime.events\n"
-        "import repro_torch.launch, repro_torch.launch.train\n"
+        "import repro_torch.launch, repro_torch.launch.train, repro_torch.launch.mesh\n"
+        "import repro_torch.sharding, repro_torch.sharding.rules, repro_torch.train.step\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

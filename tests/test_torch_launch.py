@@ -96,11 +96,67 @@ def test_hetero_real_cpu_matches_reference(tmp_path, capsys, monkeypatch):
         assert np.isfinite(g["mean_loss"])
 
 
-def test_spmd_mode_and_missing_card_are_errors(capsys):
-    with pytest.raises(SystemExit) as err:
-        port_train.main(["--mode", "spmd"])
-    assert err.value.code == 2
-    assert "node-sharded train step" in capsys.readouterr().err
+SPMD_LINE = re.compile(r"step +(\d+) loss=(\S+) \((\d+)ms\)")
+
+
+def test_spmd_mode_and_missing_card_are_errors(capsys, monkeypatch):
+    """``--mode spmd --device cpu`` prints the reference's per-step losses
+    within 1e-5 relative, from the reference's weights, bridged.  At lr
+    0.001: at the default 0.3, AdamW's first update moves every weight by
+    about 0.3, the loss climbs from 6.8 to 15.8 in 3 steps, and float32
+    roundoff grows about 100x per step (the reference's own ``--microbatches
+    1`` and ``2`` differ by 3.5e-4 at step 2).  Without a card the default
+    device raises, as a real hetero backend does; an arch with no training
+    path exits naming ROADMAP §1.8a."""
+    import repro.train.step as ref_step
+    import repro_torch.models.registry as port_registry
+    import repro_torch.train.step as port_step
+
+    losses = {"ref": [], "port": []}
+    jit = jax.jit
+
+    def recorded(mod, key, build, compile_):
+        def builder(*args, **kw):
+            step = compile_(build(*args, **kw))
+
+            def run(*xs):
+                out = step(*xs)
+                losses[key].append(float(out[2]["loss"]))
+                return out
+            return run
+        monkeypatch.setattr(mod, "build_train_step", builder)
+
+    recorded(ref_step, "ref", ref_step.build_train_step, jit)
+    recorded(port_step, "port", port_step.build_train_step, lambda f: f)
+    init = port_registry.ModelApi.init
+
+    def bridged_init(self, seed=0, *, device=None):
+        model = init(self, seed, device=device)
+        tree = jax.tree_util.tree_map(
+            np.asarray, jax_get_api(self.arch_id, reduced=True).init(jax.random.PRNGKey(seed)))
+        model.load_state_dict(state_dict_from_tree(tree))
+        return model
+
+    monkeypatch.setattr(port_registry.ModelApi, "init", bridged_init)
+    argv = ["--mode", "spmd", "--steps", "3", "--lr", "0.001", "--microbatches", "2"]
+    with monkeypatch.context() as m:
+        m.setattr(jax, "jit", lambda f, **kw: f)  # the recording wrapper jits the step
+        ref_out = _run(ref_train, argv, capsys, monkeypatch)
+    port_out = _run(port_train, argv + ["--device", "cpu"], capsys, monkeypatch)
+    got = [SPMD_LINE.match(x).groups() for x in port_out.splitlines()]
+    want = [SPMD_LINE.match(x).groups() for x in ref_out.splitlines()]
+    assert [g[0] for g in got] == [w[0] for w in want] == ["0", "1", "2"]
+    assert len(losses["port"]) == len(losses["ref"]) == 3
+    assert all(np.isfinite(losses["port"]))
+    np.testing.assert_allclose(losses["port"], losses["ref"], rtol=1e-5, atol=0)
+    np.testing.assert_allclose([float(g[1]) for g in got], [float(w[1]) for w in want],
+                               rtol=0, atol=1e-4)
+    monkeypatch.undo()
+
+    with pytest.raises(SystemExit, match="1.8a"):
+        port_train.main(["--mode", "spmd", "--arch", "rwkv6-7b", "--device", "cpu"])
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            port_train.main(["--mode", "spmd", "--steps", "1"])
         with pytest.raises(RuntimeError):
             port_train.main(["--mode", "hetero", "--backend", "real", "--epochs", "1"])
