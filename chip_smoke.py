@@ -162,10 +162,40 @@ Phases, each of which fails the run:
                    GB.  ``python3 chip_smoke.py --only sharded`` runs
                    phases 1, 2 and 16 alone; ``--only split`` phases 1, 2
                    and 16's multi-card part.
+17. kernel (wkv and ssm bwd) — the WKV and selective-scan backward kernels
+                   against their plain backwards (``wkv_backward_ref``,
+                   ``ssm_scan_backward_ref``) in float32 at one node's
+                   training slice (B=40, T=512; WKV H=64, the scan D=3200)
+                   and at a ragged T, a strong decay and a nonzero
+                   final-state gradient: each output within 1e-4 * max(1,
+                   max |plain|), two calls the same bits; ms, plain ms,
+                   device ms and the bound.
+18. training (rwkv6) — rwkv6-7b in bf16, its depth cut to
+                   ``RWKV6_TRAIN_LAYERS`` of 32 at published widths, on
+                   phase 13's recipe through ``EpochLoop``: five
+                   two-program epochs, then three fused ones (the last a
+                   fused adaptive epoch whose proposal is certified within
+                   1e-5); losses finite, no node excluded, launches as the
+                   path predicts (``expected_training_launches``), peak
+                   memory under 80 GB, each node step's wall and device ms
+                   and its backward kernels' part, and one node's float32
+                   gradient (b=2, S=256) through the kernels against the
+                   plain versions passed through the model's ``scan`` seam
+                   (sq-norm within 1e-5 relative, leaves within 1e-4 *
+                   max(1, max |g|)).  Its uncut CLI does not fit one card;
+                   a line says so.
+19. training (hymba) — the same for full-width hymba-1.5b (``attend`` and
+                   ``scan`` seams; the gradient check at
+                   ``HYMBA_GRAD_LAYERS`` layers), then ``python -m
+                   repro_torch.launch.train --mode spmd --arch hymba-1.5b
+                   --full-width``: exit 0, three finite losses.
+                   ``python3 chip_smoke.py --only train-ssm`` runs phases
+                   1, 2 and 17-19 alone.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
-training, 15's trace, each run of 16) and read just after it.  Device ms of a named kernel are per launch the
+training, 15's trace, each run of 16, each training run of 18 and 19) and
+read just after it.  Device ms of a named kernel are per launch the
 profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
 ``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -252,6 +282,30 @@ SSM_CASES = [
 ]
 SSM_REL = 1e-5
 SFU_EXP_S = 132 * 16 * 1.98e9          # H100 SXM: 16 exponentials per clock and SM at boost
+WKV_BWD_SOURCE_REL = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv_backward.cu"
+SSM_BWD_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_backward.cu"
+WKV_BWD_PROFILE = "wkv_bwd_"           # the WKV backward's three kernels
+SSM_BWD_PROFILE = "ssm_bwd_"           # the scan backward's three kernels
+BWD_KERNELS_PER_CALL = 3
+# Phase 17: name, B, T, H (or D), chunk, strong decay, final-state gradient
+# (float32; WKV K = 64, the scan N = 16).  The first row of each is one
+# node's training slice (b_max 40 at S 512).
+WKV_BWD_CASES = [
+    ("rwkv6-7b train B=40 T=512", 40, 512, 64, 32, False, False),
+    ("ragged T=300", 2, 300, 64, 32, False, True),
+    ("strong decay T=512", 4, 512, 64, 32, True, False),
+    ("final-state grad B=8 T=512", 8, 512, 64, 32, False, True),
+]
+SSM_BWD_CASES = [
+    ("hymba-1.5b train B=40 T=512", 40, 512, 3200, 128, False, False),
+    ("ragged T=301 D=203", 2, 301, 203, 128, False, True),
+    ("strong decay T=512", 4, 512, 3200, 128, True, False),
+    ("final-state grad B=8 T=512", 8, 512, 3200, 128, False, True),
+]
+WKV_BWD_MAIN_CASE = WKV_BWD_CASES[0][0]
+SSM_BWD_MAIN_CASE = SSM_BWD_CASES[0][0]
+KERNEL_BWD_REL = 1e-4  # float32 sums in another order, per output x max(1, max |plain|)
+RWKV6_TRAIN_LAYERS = 12  # phase 18's depth cut (of 32): see PERF.md section 4
 DEVICE = "cuda"
 
 
@@ -397,7 +451,8 @@ def phase_build():
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
-    sources = [flash_ops.SOURCE, wkv_ops.SOURCE, ssm_ops.SOURCE]
+    sources = [flash_ops.SOURCE, wkv_ops.SOURCE, ssm_ops.SOURCE, wkv_ops.BACKWARD_SOURCE,
+               ssm_ops.BACKWARD_SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         results = list(pool.map(build.build, sources))
     for res in results:
@@ -407,6 +462,9 @@ def phase_build():
                 log("build", line.strip())
     for fn, regs, stores, loads in ptxas_summary(results[0].log, BWD_SM90_KERNELS):
         log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
+    for res in results[3:]:
+        for fn, regs, stores, loads in ptxas_summary(res.log, ("_bwd_",)):
+            log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
     for res, need, why in ((results[0], ("HGMMA", "UTMALDG"), "run wgmma on TMA tiles"),
                            (results[1], ("HMMA",), "run its products on the tensor cores"),
                            (results[2], ("MUFU",), "compute its exponentials")):
@@ -813,15 +871,27 @@ def phase_kernel_ssm(torch):
     return rows
 
 
-KERNEL_NAMES = ("flash_attention", "rwkv6_wkv", "ssm_scan", "flash_attention_backward")
+KERNEL_NAMES = ("flash_attention", "rwkv6_wkv", "ssm_scan", "flash_attention_backward",
+                "rwkv6_wkv_backward", "ssm_scan_backward")
+# Each forward kernel's backward, and the forward kernels of each family's path.
+BACKWARD_OF = {"flash_attention": "flash_attention_backward",
+               "rwkv6_wkv": "rwkv6_wkv_backward", "ssm_scan": "ssm_scan_backward"}
+PATH_KERNELS = {"dense": ("flash_attention",), "ssm": ("rwkv6_wkv",),
+                "hybrid": ("flash_attention", "ssm_scan")}
 
 
 def _wrappers():
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
-    from repro_torch.kernels.rwkv6_wkv import wkv
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_backward
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_backward
 
-    return dict(zip(KERNEL_NAMES, (flash_attention, wkv, ssm_scan, flash_attention_backward)))
+    return dict(zip(KERNEL_NAMES, (flash_attention, wkv, ssm_scan, flash_attention_backward,
+                                   wkv_backward, ssm_scan_backward)))
+
+
+def no_launches(**counts):
+    """Every kernel's count at 0, but for ``counts``."""
+    return {**dict.fromkeys(KERNEL_NAMES, 0), **counts}
 
 
 def reset_launches():
@@ -1125,8 +1195,7 @@ def phase_model_hymba(torch):
     torch.cuda.synchronize()
     after = read_launches()
     launched = {k: after[k] - before[k] for k in after}
-    want = {"flash_attention": cfg.n_layers, "rwkv6_wkv": 0, "ssm_scan": cfg.n_layers,
-            "flash_attention_backward": 0}
+    want = no_launches(flash_attention=cfg.n_layers, ssm_scan=cfg.n_layers)
     if launched != want:
         raise AssertionError(f"the forward launched {launched}, not {want}")
     cache = api.init_cache(1, s, device=DEVICE)
@@ -1328,26 +1397,41 @@ def phase_kernel_bwd(torch):
     return rows
 
 
-def node_grad_check(torch):
-    """One node's float32 gradient at full width (b=2, S=256): through the
-    flash kernels against the plain attention passed through the layers'
-    ``attend`` seam."""
+def plain_seams(family):
+    """The plain versions a family's ``train_forward`` takes in place of
+    its kernels' entries (its ``attend`` and ``scan`` seams)."""
     import functools
 
-    from repro_torch.configs import olmo_1b
     from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.rwkv6_wkv import wkv_chunked
+    from repro_torch.kernels.ssm_scan import selective_scan_ref
+
+    if family == "dense":
+        return {"attend": functools.partial(attention_ref, causal=True)}
+    if family == "ssm":
+        return {"scan": wkv_chunked}
+    return {"attend": attention_ref,
+            "scan": lambda u, dt, b_t, c_t, log_a, chunk: selective_scan_ref(
+                u, dt, log_a, b_t, c_t)}
+
+
+def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
+    """One node's float32 gradient at full width (b=2, S=256; ``n_layers``
+    deep when given): through the kernels against the plain versions passed
+    through the model's seams (``plain_seams``)."""
+    from repro_torch.configs import get_api
     from repro_torch.models import common
     from repro_torch.models.registry import build_api
 
     cfg = dataclasses.replace(
-        olmo_1b.config(), param_dtype=torch.float32, compute_dtype=torch.float32)
-    model = build_api("olmo-1b", cfg).init(0, device=DEVICE).requires_grad_(True)
+        get_api(arch).cfg, param_dtype=torch.float32, compute_dtype=torch.float32,
+        **({} if n_layers is None else {"n_layers": n_layers}))
+    model = build_api(arch, cfg).init(0, device=DEVICE).requires_grad_(True)
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     tokens = torch.randint(0, cfg.vocab, (2, 257), generator=gen, device=DEVICE)
     grads = {}
-    for name, attend in (("kernel", None),
-                         ("plain", functools.partial(attention_ref, causal=True))):
-        logits = model.train_forward(tokens[:, :-1], attend=attend)
+    for name, seams in (("kernel", {}), ("plain", plain_seams(cfg.family))):
+        logits = model.train_forward(tokens[:, :-1], **seams)
         loss, w_sum = common.weighted_cross_entropy(logits, tokens[:, 1:])
         grads[name] = torch.autograd.grad(loss / w_sum, list(model.parameters()))
         del logits, loss
@@ -1356,34 +1440,43 @@ def node_grad_check(torch):
     worst = max(((g - w).abs().max().item() / max(1.0, w.abs().max().item()), n)
                 for (n, _), g, w in zip(model.named_parameters(), grads["kernel"],
                                         grads["plain"]))
-    log("training", f"full olmo-1b f32 node gradient (b=2, S=256), kernels vs plain "
-        f"attention: global sq-norm {sq['kernel']:.6e} vs {sq['plain']:.6e} (rel {rel_sq:.3e}, "
+    log(phase, f"full {arch} f32 node gradient (b=2, S=256, {cfg.n_layers} layers), kernels "
+        f"vs plain {'/'.join(plain_seams(cfg.family))}: global sq-norm {sq['kernel']:.6e} vs "
+        f"{sq['plain']:.6e} (rel {rel_sq:.3e}, "
         f"limit 1e-5); worst leaf {worst[1]} err {worst[0]:.3e} x max(1, max|g|) (limit 1e-4)")
     if not rel_sq <= 1e-5 or not worst[0] <= 1e-4:
         raise AssertionError(f"node gradient: sq-norm rel {rel_sq:.3e}, leaf {worst}")
     del model, grads
 
 
-def node_step_row(torch, backend, data, b, b_max):
+def node_step_profile(torch, backend, data, b, b_max, launches):
     """One node's step (its forward and backward, ``backend.node_grads``) on
     a padded (b_max, S) slice of ``data`` with b samples weighted: wall ms
-    on the host clock, device ms and idle share under ``torch.profiler``,
-    and the flash forward's and backward's parts per recorded launch with
-    their records."""
+    on the host clock, then device ms, idle share, and the parts and
+    records of the kernels named in ``launches`` (name -> kernel records
+    per step) under ``torch.profiler``, per recorded launch."""
     raw = data.batch(0, b_max)
     tok = torch.as_tensor(raw["tokens"], device=DEVICE)
     lab = torch.as_tensor(raw["labels"], device=DEVICE)
     msk = (torch.arange(b_max, device=DEVICE) < b).float()
-    cfg = backend.api.cfg
-    launches = {FLASH_PROFILE_NAME: (2 if cfg.remat else 1) * cfg.n_layers,
-                BWD_PROFILE_NAME: 3 * cfg.n_layers}
 
     def step():
         return backend.node_grads(tok, lab, msk)
 
     wall_ms = host_ms(torch, step, 2, warmup=1)
-    dev, named, idle, _, records = device_split(
-        torch, step, 1, wall_ms, (FLASH_PROFILE_NAME, BWD_PROFILE_NAME), launches)
+    dev, named, idle, _, records = device_split(torch, step, 1, wall_ms, tuple(launches),
+                                                launches)
+    return wall_ms, dev, idle, named, records
+
+
+def node_step_row(torch, backend, data, b, b_max):
+    """One olmo-1b node step (``node_step_profile``) with the flash
+    forward's and backward's parts per recorded launch and their records."""
+    cfg = backend.api.cfg
+    launches = {FLASH_PROFILE_NAME: (2 if cfg.remat else 1) * cfg.n_layers,
+                BWD_PROFILE_NAME: 3 * cfg.n_layers}
+    wall_ms, dev, idle, named, records = node_step_profile(torch, backend, data, b, b_max,
+                                                           launches)
     return dict(wall_ms=wall_ms, device_ms=dev, idle_share=idle,
                 flash_fwd_ms=named[FLASH_PROFILE_NAME],
                 flash_fwd_records=records[FLASH_PROFILE_NAME],
@@ -1470,15 +1563,16 @@ def training_run(torch, fused: bool):
             torch.cuda.max_memory_allocated())
 
 
-def expected_training_launches(cfg, n):
-    """Flash launches of a training run: per step, each node's forward
-    (twice per layer with remat) and the whole-batch loss forward; one
-    backward per node and layer."""
+def expected_training_launches(cfg, n, steps=TRAIN_EPOCHS * TRAIN_STEPS):
+    """Kernel launches of ``steps`` unsharded training steps: per step and
+    forward kernel of the family's path, each node's forward (twice per
+    layer with remat) and the whole-batch loss forward; one backward per
+    node and layer."""
     per_node = 2 if cfg.remat else 1  # remat runs each layer's forward again
-    want = {name: 0 for name in KERNEL_NAMES}
-    steps = TRAIN_EPOCHS * TRAIN_STEPS
-    want["flash_attention"] = steps * (n * per_node * cfg.n_layers + cfg.n_layers)
-    want["flash_attention_backward"] = steps * n * cfg.n_layers
+    want = no_launches()
+    for name in PATH_KERNELS[cfg.family]:
+        want[name] = steps * (n * per_node * cfg.n_layers + cfg.n_layers)
+        want[BACKWARD_OF[name]] = steps * n * cfg.n_layers
     return want
 
 
@@ -1857,7 +1951,7 @@ def runtime_trace(torch):
 
     cfg = get_api("olmo-1b").cfg
     per_node = 2 if cfg.remat else 1  # remat runs each layer's forward again
-    want_counts = {name: 0 for name in KERNEL_NAMES}
+    want_counts = no_launches()
     for row in job_log.rows:  # each node's forward and backward, the loss forward
         k = len(row["batches"])
         want_counts["flash_attention"] += RUNTIME_STEPS * (k * per_node + 1) * cfg.n_layers
@@ -2008,12 +2102,14 @@ SPMD_CLI = ["--mode", "spmd", "--arch", "olmo-1b", "--full-width", "--steps", "3
 NCCL_PROFILE_NAME = "nccl"  # every NCCL kernel
 
 
-def sharded_loop(torch, sharded: bool, epochs: int, *, fused: bool = False, cfg=None):
+def sharded_loop(torch, sharded: bool, epochs: int, *, fused: bool = False, cfg=None,
+                 arch="olmo-1b"):
     """Phase 13's configuration (cluster_A, ``CannikinController(3, [16, 32,
     64], ref_batch=16)``, ``SyntheticLM(seq 512, seed 0)``, SGD at lr 0.01,
     2 steps per epoch) through ``EpochLoop`` over ``RealBackend(sharded=
-    sharded)``, for ``epochs`` epochs.  Returns the backend, the loop, the
-    staged proposals, one row per epoch and the launch counts."""
+    sharded)``, for ``epochs`` epochs, with ``arch`` (at ``cfg`` when
+    given).  Returns the backend, the loop, the staged proposals, one row
+    per epoch and the launch counts."""
     from repro_torch.configs import get_api
     from repro_torch.core.controller import CannikinController
     from repro_torch.core.simulator import SimulatedCluster, cluster_A
@@ -2022,7 +2118,7 @@ def sharded_loop(torch, sharded: bool, epochs: int, *, fused: bool = False, cfg=
     from repro_torch.optim.optimizers import constant_schedule, sgd
     from repro_torch.runtime.backend import EpochLoop, RealBackend
 
-    api = get_api("olmo-1b") if cfg is None else build_api("olmo-1b", cfg)
+    api = get_api(arch) if cfg is None else build_api(arch, cfg)
     profiles, comm = cluster_A()
     sim = SimulatedCluster(profiles, comm, noise=0.01, seed=0)
     policy = CannikinController(sim.n, batch_candidates=[16, 32, 64], ref_batch=16,
@@ -2049,7 +2145,7 @@ def sharded_loop(torch, sharded: bool, epochs: int, *, fused: bool = False, cfg=
         torch.cuda.synchronize()
         res, after = loop.last_result, backend.transfers.snapshot()
         rows.append(dict(
-            epoch=rec.epoch, total=rec.total_batch, batches=list(rec.batches),
+            epoch=rec.epoch, phase=rec.phase, total=rec.total_batch, batches=list(rec.batches),
             policy=rec.plan.batch_policy, lr_scale=rec.lr_scale, losses=list(res.losses),
             sq_i=[list(o.local_sqnorms) for o in res.grad_observations],
             sq_g=[o.global_sqnorm for o in res.grad_observations],
@@ -2063,7 +2159,7 @@ def expected_sharded_launches(cfg, n, steps, sharded):
     layer with remat) and, unsharded, the whole-batch loss forward; one
     backward per node and layer."""
     per_node = 2 if cfg.remat else 1
-    want = {name: 0 for name in KERNEL_NAMES}
+    want = no_launches()
     want["flash_attention"] = steps * (n * per_node + (0 if sharded else 1)) * cfg.n_layers
     want["flash_attention_backward"] = steps * n * cfg.n_layers
     return want
@@ -2205,20 +2301,21 @@ def sharded_fused(torch, fused_rows, fused_proposals):
     torch.cuda.empty_cache()
 
 
-def spmd_cli(torch):
+def spmd_cli(torch, argv=SPMD_CLI, phase="sharded"):
     """Part 3: ``python -m repro_torch.launch.train --mode spmd --full-width``
-    on the card, as a user runs it: exit 0 and three finite losses."""
+    (``argv``) on the card, as a user runs it: exit 0 and three finite
+    losses."""
     import re
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + SPMD_CLI,
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + argv,
                           env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
     secs = time.perf_counter() - t0
     lines = [re.match(r"step +(\d+) loss=(\S+) \((\d+)ms\)", x) for x in proc.stdout.splitlines()]
     losses = [float(m.group(2)) for m in lines if m]
     step_ms = [int(m.group(3)) for m in lines if m]
-    log("sharded", f"CLI {' '.join(SPMD_CLI)}: exit {proc.returncode} in {secs:.1f} s, losses "
+    log(phase, f"CLI {' '.join(argv)}: exit {proc.returncode} in {secs:.1f} s, losses "
         f"{losses}, per-step ms {step_ms}")
     if proc.returncode != 0 or len(losses) != 3 or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"--mode spmd failed: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
@@ -2338,6 +2435,274 @@ def phase_sharded(torch, fused_rows=None, fused_proposals=None):
         raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
 
 
+def event_timed(torch, fn):
+    """(fn(), its CUDA-event milliseconds) for one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def wkv_bwd_bound(b, t, h, k, with_ds):
+    """Least time for one WKV backward: r, k, v, log_w and dout read once,
+    dr, dk, dv and dlog_w written once, plus u, du, the final state and its
+    gradient (float32), over the memory rate; or the recurrence form's 12 K^2
+    operations per token and head (two state updates and four products with
+    a K x K state) over the float32 rate."""
+    nbytes = 4 * (9 * b * t * h * k + 2 * h * k + (2 if with_ds else 1) * b * h * k * k)
+    flops = 12 * k * k * b * t * h
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def ssm_bwd_bound(b, t, d, n, with_dh):
+    """Least time for one selective-scan backward: u, dt and dy read once,
+    du and ddt written once, B, C, dB, dC, log_a, dlog_a and the final
+    state's gradient (float32), over the memory rate; or about 16 operations
+    per (token, channel, state) (the state recomputed, the carried gradient,
+    four products, the decay) over the float32 rate."""
+    nbytes = 4 * (5 * b * t * d + 4 * b * t * n + 2 * d * n + (b * d * n if with_dh else 0))
+    flops = 16 * b * t * d * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def bwd_row(torch, kernel, plain, keys, profile, bound):
+    """A backward kernel's row: max abs error of each output against the
+    plain backward on the same inputs, each beside its tolerance
+    (``KERNEL_BWD_REL`` x max(1, max |plain|)), whether two calls give the
+    same bits, the kernel's CUDA-event ms over back-to-back calls, the plain
+    backward's for one call, the kernel's device ms per recorded call under
+    ``torch.profiler`` with its records, and the bound."""
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want, plain_ms = event_timed(torch, plain)
+    errs = {key: (g - w).abs().max().item() for key, g, w in zip(keys, got, want)}
+    tols = {key: KERNEL_BWD_REL * max(1.0, w.abs().max().item()) for key, w in zip(keys, want)}
+    del got, want
+    ms = cuda_ms(torch, kernel, 5, warmup=1)
+    _, named, _, records = profile_device(torch, kernel, 5, (profile,),
+                                          launches={profile: BWD_KERNELS_PER_CALL})
+    bound_ms, bound_by = bound
+    return dict(errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise,
+                ms=ms, plain_ms=plain_ms, library_ms=None, device_ms=named[profile],
+                records=records[profile], bound_ms=bound_ms, bound_by=bound_by)
+
+
+def wkv_bwd_case(torch, case, gen):
+    """One ``WKV_BWD_CASES`` row (see ``bwd_row``): the forward kernel gives
+    the final state; a strong-decay row draws every log-decay in [-4.6,
+    -3.45], inside the clamp, so each carries a gradient."""
+    from repro_torch.kernels import rwkv6_wkv as mod
+
+    name, b, t, h, chunk, strong, with_ds = case
+    k = 64
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    r, kk, v = (rand((b, t, h, k), 0.5) for _ in range(3))
+    if strong:
+        lw = mod.LOG_DECAY_MIN * (1.0 - 0.25 * torch.rand((b, t, h, k), generator=gen,
+                                                          device=DEVICE))
+    else:
+        lw = -torch.exp(rand((b, t, h, k)))
+    u = rand((h, k), 0.2)
+    dout = rand((b, t, h, k))
+    ds = rand((b, h, k, k)) if with_ds else None
+    _, state = mod.wkv(r, kk, v, lw, u, chunk=chunk)
+    return bwd_row(
+        torch, lambda: mod.wkv_backward(r, kk, v, lw, u, state, dout, ds, chunk=chunk),
+        lambda: mod.wkv_backward_ref(r, kk, v, lw, u, dout, ds),
+        ("dr", "dk", "dv", "dlog_w", "du"), WKV_BWD_PROFILE, wkv_bwd_bound(b, t, h, k, with_ds))
+
+
+def ssm_bwd_case(torch, case, gen):
+    """One ``SSM_BWD_CASES`` row (see ``bwd_row``) on ``ssm_inputs``, B and
+    C read as views of one (B, T, 2N) tensor, as the model passes them."""
+    from repro_torch.kernels import ssm_scan as mod
+
+    name, b, t, d, chunk, strong, with_dh = case
+    n = 16
+    u, dt, _, _, log_a = ssm_inputs(torch, (name, b, t, d, chunk, strong), gen)
+    bc = torch.randn((b, t, 2 * n), generator=gen, device=DEVICE)
+    bt, ct = bc[..., :n], bc[..., n:]
+    dy = torch.randn((b, t, d), generator=gen, device=DEVICE)
+    dh = torch.randn((b, d, n), generator=gen, device=DEVICE) if with_dh else None
+    return bwd_row(
+        torch, lambda: mod.ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=chunk),
+        lambda: mod.ssm_scan_backward_ref(u, dt, bt, ct, log_a, dy, dh),
+        ("du", "ddt", "db", "dc", "dlog_a"), SSM_BWD_PROFILE, ssm_bwd_bound(b, t, d, n, with_dh))
+
+
+def phase_kernel_backwards(torch):
+    """Phase 17: each backward kernel against its plain backward."""
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    rows = {}
+    for label, cases, case_fn in (("wkv", WKV_BWD_CASES, wkv_bwd_case),
+                                  ("ssm", SSM_BWD_CASES, ssm_bwd_case)):
+        for case in cases:
+            name, b, t, width, chunk, strong, with_grad = case
+            row = rows[(label, name)] = case_fn(torch, case, gen)
+            for key, err in row["errs"].items():
+                if not err <= row["tols"][key]:
+                    raise AssertionError(f"{label} bwd {name}: {key} max abs err {err:.3e} > "
+                                         f"{row['tols'][key]:.3e}")
+            if not row["bitwise_repeat"]:
+                raise AssertionError(f"{label} bwd {name}: two calls gave different bits")
+            log("kernel", f"{label} bwd {name}: B={b} T={t} {'H' if label == 'wkv' else 'D'}="
+                f"{width} chunk={chunk} final-state grad={with_grad} f32: max_abs_err "
+                + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
+                           for key, err in row["errs"].items())
+                + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
+                f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+                f"device_ms={row['device_ms']:.4f} records={row['records']}/"
+                f"{5 * BWD_KERNELS_PER_CALL} of_bound_device="
+                f"{row['bound_ms'] / row['device_ms']:.4f} bitwise_repeat={row['bitwise_repeat']}")
+    return rows
+
+
+# Layers of hymba-1.5b's float32 node-gradient check.  At all 32 layers the
+# float32 gradient of the function is itself fixed only to about 4.5e-5
+# (|dg| / |g| between the plain path and the same path with SDPA's math
+# attention, or with attention and scan in float64, on an H100), and the
+# global sq-norm of two right float32 implementations differs by 2e-6 to
+# 1.8e-5, over the 1e-5 limit; at 16 layers it is 2e-6 (PERF.md section 6).
+HYMBA_GRAD_LAYERS = 16
+# name, arch, n_layers (None: all), the node-gradient check's layers, the
+# CLI's arguments (None: it does not fit)
+SSM_TRAINING = {
+    "rwkv6": ("rwkv6-7b", RWKV6_TRAIN_LAYERS, RWKV6_TRAIN_LAYERS, None),
+    "hymba": ("hymba-1.5b", None, HYMBA_GRAD_LAYERS,
+              ["--mode", "spmd", "--arch", "hymba-1.5b", "--full-width", "--steps", "3",
+               "--seq-len", "512", "--ref-batch", "16", "--microbatches", "2", "--lr", "0.01"]),
+}
+
+
+def phase_train_ssm(torch, which):
+    """Phases 18 and 19: rwkv6-7b (depth cut to ``RWKV6_TRAIN_LAYERS``) or
+    full-width hymba-1.5b in bf16 on phase 13's recipe through ``EpochLoop``
+    (``sharded_loop``, unsharded): five epochs on the two-program path, then
+    three on the fused path (two bootstrap, one fused adaptive epoch, its
+    proposal certified); every loss finite, no node excluded, launches as the
+    path predicts, peak memory under 80 GB; each node step of the last plan;
+    one node's float32 gradient through the kernels against the plain
+    versions (at the check's depth in ``SSM_TRAINING``); the CLI where it
+    fits."""
+    from repro_torch.configs import get_api
+    from repro_torch.core.controller import FUSED_CERT_TOL
+
+    label = f"training ({which})"
+    arch, n_layers, grad_layers, cli = SSM_TRAINING[which]
+    cfg = get_api(arch).cfg
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    fwd = PATH_KERNELS[cfg.family]
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend, loop, _, rows, counts = sharded_loop(torch, False, TRAIN_EPOCHS, cfg=cfg, arch=arch)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(rows[0]["batches"])
+    want = expected_training_launches(cfg, n)
+    for r in rows:
+        log(label, f"two-program epoch {r['epoch']} phase={r['phase']} total_batch={r['total']} "
+            f"batches={r['batches']} losses={[round(x, 6) for x in r['losses']]} "
+            f"anomalies={r['anomalies']} wall_s={r['wall_s']:.3f} transfers h2d={r['h2d']} "
+            f"d2h={r['d2h']}")
+        if not all(math.isfinite(x) for x in r["losses"]) or any(r["anomalies"]):
+            raise AssertionError(f"{arch} epoch {r['epoch']}: {r}")
+    log(label, f"{arch} bf16 ({cfg.n_layers} layers, published widths), cluster_A ({n} nodes), "
+        f"{TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s; "
+        f"launches {counts} (expected {want}); peak_mem_gb={peak / 1e9:.3f}")
+    if counts != want:
+        raise AssertionError(f"{arch} training launches {counts} != {want}")
+    if [r["phase"] for r in rows] != ["bootstrap"] * 2 + ["optperf"] * (TRAIN_EPOCHS - 2):
+        raise AssertionError("the controller did not reach its OptPerf phase")
+    if not peak < 80e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+
+    # Each node's step of the last plan: its forward and backward alone.
+    per_node = 2 if cfg.remat else 1
+    profile = {BWD_PROFILE_NAME if k == "flash_attention" else
+               {"rwkv6_wkv": WKV_BWD_PROFILE, "ssm_scan": SSM_BWD_PROFILE}[k]:
+               BWD_KERNELS_PER_CALL * cfg.n_layers for k in fwd}
+    batches = rows[-1]["batches"]
+    b_max = max(8, -(-max(batches) // 8) * 8)
+    for i, b in enumerate(batches):
+        wall_ms, dev, idle, named, records = node_step_profile(
+            torch, backend, backend.data, b, b_max, profile)
+        log(label, f"node {i} step (b={b} of padded {b_max}, S=512): wall {wall_ms:.2f} ms, "
+            f"device {dev:.2f} ms (idle share {idle:.4f}); backward kernels "
+            + ", ".join(f"{k}* {named[k]:.3f} ms (records {records[k]}/{profile[k]})"
+                        for k in profile)
+            + f"; forward launches per step {per_node * cfg.n_layers} of each of {list(fwd)}")
+    del backend, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    backend, loop, proposals, frows, fcounts = sharded_loop(
+        torch, False, SHARDED_FUSED_EPOCHS, fused=True, cfg=cfg, arch=arch)
+    s = loop.policy.stats
+    fwant = expected_training_launches(cfg, n, SHARDED_FUSED_EPOCHS * TRAIN_STEPS)
+    worst = 0.0
+    for a, b in zip(rows, frows):
+        rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"]))
+        worst = max(worst, rel)
+        log(label, f"fused epoch {b['epoch']} policy={b['policy']} total_batch={b['total']} "
+            f"batches={b['batches']} losses={[round(x, 6) for x in b['losses']]} (loss rel diff "
+            f"{rel:.3e}) wall_s={b['wall_s']:.3f} (two-program {a['wall_s']:.3f}) transfers "
+            f"h2d={b['h2d']} d2h={b['d2h']}")
+        if (a["total"], a["batches"]) != (b["total"], b["batches"]) or not rel <= LOSS_REL:
+            raise AssertionError(f"epoch {a['epoch']}: fused {b} vs two-program {a}")
+    p = proposals[0]
+    log(label, f"fused: {SHARDED_FUSED_EPOCHS} epochs in {time.perf_counter() - t1:.2f} s; "
+        f"proposal best_index={p.best_index} total={p.total_batch} fused_plans={s.fused_plans} "
+        f"fused_certifications={s.fused_certifications} fused_cert_failures="
+        f"{s.fused_cert_failures} fused_max_rel_err={s.fused_max_rel_err:.3e} (limit "
+        f"{FUSED_CERT_TOL}); launches {fcounts} (expected {fwant})")
+    if [r["policy"] for r in frows] != [None, None, "cannikin-gns"]:
+        raise AssertionError(f"fused policies {[r['policy'] for r in frows]}")
+    if (frows[-1]["h2d"], frows[-1]["d2h"]) != (12, 13):
+        raise AssertionError(f"fused epoch transfers {frows[-1]}")
+    if not (s.fused_certifications >= 1 and s.fused_cert_failures == 0
+            and s.fused_max_rel_err <= FUSED_CERT_TOL):
+        raise AssertionError(f"fused certification: {s}")
+    if fcounts != fwant:
+        raise AssertionError(f"fused launches {fcounts} != {fwant}")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del backend, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()
+    node_grad_check(torch, arch, grad_layers, phase=label)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    if cli is None:
+        log(label, f"CLI --mode spmd --arch {arch} --full-width: not run, it does not fit one "
+            "80 GB card: AdamW's two float32 moments of its 7.53 B parameters alone are 60 GB")
+    else:
+        spmd_cli(torch, cli, phase=label)
+    log(label, f"phase in {time.perf_counter() - t0:.1f} s: two-program {t1 - t0:.1f} s, fused "
+        f"{t2 - t1:.1f} s, node gradient {t3 - t2:.1f} s, CLI {time.perf_counter() - t3:.1f} s; "
+        f"peak_mem_gb={peak / 1e9:.3f} (the two training runs)")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2369,6 +2734,18 @@ def main() -> int:
                 f"{time.perf_counter() - t_start:.1f} s")
             print(card)
             return 0
+        if sys.argv[1:] == ["--only", "train-ssm"]:
+            phase = enter("kernel (wkv and ssm bwd)")
+            phase_kernel_backwards(torch)
+            for which in ("rwkv6", "hymba"):
+                phase = enter(f"training ({which})")
+                phase_train_ssm(torch, which)
+            log("done", f"--only train-ssm passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
         phase = enter("kernel")
         rows = phase_kernel(torch)
         phase = enter("kernel (wkv)")
@@ -2385,8 +2762,7 @@ def main() -> int:
         phase = enter("serving (rwkv6)")
         rwkv6_counts = phase_serving_rwkv6(torch, wkv_rows[WKV_MAIN_CASE]["ms"])
         log("serving", f"rwkv6-7b path launches {rwkv6_counts}")
-        if rwkv6_counts != {"flash_attention": 0, "rwkv6_wkv": 32, "ssm_scan": 0,
-                            "flash_attention_backward": 0}:
+        if rwkv6_counts != no_launches(rwkv6_wkv=32):
             raise AssertionError("the rwkv6-7b path must launch the WKV kernel once per "
                                  f"layer of its forward and nothing else: {rwkv6_counts}")
         torch.cuda.empty_cache()
@@ -2400,8 +2776,7 @@ def main() -> int:
         hymba_counts = phase_serving_hymba(
             torch, rows[HYMBA_FLASH_CASE]["ms"], ssm_rows[SSM_MAIN_CASE]["ms"])
         log("serving", f"hymba-1.5b path launches {hymba_counts}")
-        if hymba_counts != {"flash_attention": 32, "rwkv6_wkv": 0, "ssm_scan": 32,
-                            "flash_attention_backward": 0}:
+        if hymba_counts != no_launches(flash_attention=32, ssm_scan=32):
             raise AssertionError("the hymba-1.5b path must launch the flash-attention and "
                                  "selective-scan kernels once per layer of its forward and "
                                  f"nothing else: {hymba_counts}")
@@ -2422,12 +2797,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = enter("sharded training (olmo-1b)")
         phase_sharded(torch, fused_rows, fused_proposals)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = enter("kernel (wkv and ssm bwd)")
+        ssm_bwd_rows = phase_kernel_backwards(torch)
+        torch.cuda.empty_cache()
+        phase = enter("training (rwkv6)")
+        rwkv6_train_counts = phase_train_ssm(torch, "rwkv6")
+        phase = enter("training (hymba)")
+        hymba_train_counts = phase_train_ssm(torch, "hymba")
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-16); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-19); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -2440,6 +2824,10 @@ def main() -> int:
          hymba_counts["ssm_scan"]),
         ("flash_attention_backward", SOURCE_REL, REPLACES, bwd_rows[BWD_MAIN_CASE],
          train_counts["flash_attention_backward"]),
+        ("rwkv6_wkv_backward", WKV_BWD_SOURCE_REL, WKV_REPLACES,
+         ssm_bwd_rows[("wkv", WKV_BWD_MAIN_CASE)], rwkv6_train_counts["rwkv6_wkv_backward"]),
+        ("ssm_scan_backward", SSM_BWD_SOURCE_REL, SSM_REPLACES,
+         ssm_bwd_rows[("ssm", SSM_BWD_MAIN_CASE)], hymba_train_counts["ssm_scan_backward"]),
     ):
         kernels.append({
             "name": name,

@@ -45,4 +45,5 @@ def reduced() -> HymbaConfig:
         conv_kernel=4,
         window=16,
         ssm_chunk=8,
+        remat=False,
     )

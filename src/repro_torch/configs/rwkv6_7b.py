@@ -32,4 +32,5 @@ def reduced() -> RWKV6Config:
         head_size=32,
         decay_lora=16,
         wkv_chunk=16,
+        remat=False,
     )

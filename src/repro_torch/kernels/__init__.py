@@ -9,5 +9,6 @@ All three of the reference's kernels are ported: flash attention
 (``repro/kernels/flash_attention``, head dims 64 and 128, with a CUDA
 backward under autograd for training), the RWKV6 WKV recurrence
 (``repro/kernels/rwkv6_wkv``) and the Mamba selective scan
-(``repro/kernels/ssm_scan``).
+(``repro/kernels/ssm_scan``).  The last two also ship a CUDA backward
+(``csrc/<name>_backward.cu``) under autograd.
 """

@@ -9,7 +9,13 @@ call that the kernel does not take raises: there is no fallback.  The C
 entry refuses a head size, chunk or layout it cannot take, and
 :func:`layout_error` (the same rule, in Python) then says why.
 
-``wkv.launches`` counts calls that launch the kernel's passes.
+A CUDA call whose inputs require grad (with grad mode on) runs the same
+forward under :class:`_WKV`, whose backward launches the hand-written
+kernel in ``csrc/wkv_backward.cu`` through :func:`wkv_backward`; CPU
+tensors differentiate through the plain version.
+
+``wkv.launches`` counts calls that launch the kernel's passes, and
+``wkv_backward.launches`` calls that launch the backward kernel.
 """
 from __future__ import annotations
 
@@ -22,11 +28,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_backward_ref, wkv_chunked
 
-__all__ = ["wkv", "wkv_with_chunk_states", "layout_error", "SOURCE", "HEAD_SIZE", "MAX_CHUNK"]
+__all__ = [
+    "wkv", "wkv_with_chunk_states", "wkv_backward", "layout_error", "SOURCE", "BACKWARD_SOURCE",
+    "HEAD_SIZE", "MAX_CHUNK",
+]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "wkv.cu"
+BACKWARD_SOURCE = SOURCE.with_name("wkv_backward.cu")
 HEAD_SIZE = 64
 MAX_CHUNK = 64
 _REJECTED = -1  # the C entry's code for a head size, chunk or layout it does not take
@@ -36,14 +46,32 @@ _REJECTED = -1  # the C entry's code for a head size, chunk or layout it does no
 # channel) strides of r, k, v, log_w and out; the stream; B, T, H, K,
 # chunk; one unused int.
 _ENTRY_ARGS = struct.Struct("=8Q20qQ6i")
+# The backward entry's block (``EntryArgs`` in wkv_backward.cu): r, k, v,
+# log_w, dout, u, final state, its gradient (0: none), dr, dk, dv, dlog_w,
+# du and scratch pointers; the (batch, time, head, channel) strides of r,
+# k, v, log_w and dout; the stream; B, T, H, K, chunk; one unused int.
+_BACKWARD_ARGS = struct.Struct("=14Q20qQ6i")
+
+
+def _entry(source: pathlib.Path, name: str):
+    fn = getattr(build.load(source), name)
+    fn.argtypes = [ctypes.c_char_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = build.load(SOURCE).wkv_forward
-    fn.argtypes = [ctypes.c_char_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _entry(SOURCE, "wkv_forward")
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_kernel():
+    return _entry(BACKWARD_SOURCE, "wkv_backward")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def layout_error(shape: Sequence[int], strides: Sequence[int], ptr_mod_16: int) -> Optional[str]:
@@ -108,7 +136,7 @@ def _launch(r, k, v, log_w, u, chunk):
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
         out.data_ptr(), state.data_ptr(), scratch.data_ptr(),
         *r.stride(), *k.stride(), *v.stride(), *log_w.stride(), *out.stride(),
-        torch._C._cuda_getCurrentRawStream(dev.index),
+        _stream(dev),
         b, t, h, kk, int(chunk), 0,
     )
     with torch.cuda.device(dev):
@@ -132,8 +160,86 @@ def wkv(
         return wkv_chunked(r, k, v, log_w, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv runs on cuda or cpu, not {r.device.type}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, log_w, u)):
+        return _WKV.apply(r, k, v, log_w, u, chunk)
     out, state, _ = _launch(r, k, v, log_w, u, chunk)
     return out, state
+
+
+class _WKV(torch.autograd.Function):
+    """The CUDA forward and the CUDA backward: what a CUDA call that
+    carries gradients runs.  The forward saves its inputs and its final
+    state (the backward's log-decay term needs S_T); a final-state gradient
+    of None is taken as zero."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, chunk):
+        out, state, _ = _launch(r, k, v, log_w, u, chunk)
+        ctx.save_for_backward(r, k, v, log_w, u, state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, d_out, d_state):
+        r, k, v, log_w, u, state = ctx.saved_tensors
+        if d_out is None:
+            d_out = torch.zeros_like(r)
+        grads = wkv_backward(r, k, v, log_w, u, state, d_out, d_state, chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def _launch_backward(r, k, v, log_w, u, state, d_out, d_state, chunk):
+    """The backward kernel on ``r``'s device: (dr, dk, dv, dlog_w, du)."""
+    b, t, h, kk = r.shape
+    dev = r.device
+    if d_out.stride(-1) != 1 or layout_error(d_out.shape, d_out.stride(), d_out.data_ptr() % 16):
+        d_out = d_out.contiguous()
+    u, state = u.contiguous(), state.contiguous()
+    if d_state is not None:
+        d_state = d_state.float().contiguous()
+    grads = [torch.empty((b, t, h, kk), dtype=torch.float32, device=dev) for _ in range(4)]
+    du = torch.empty((h, kk), dtype=torch.float32, device=dev)
+    partial = torch.empty((b, h, kk), dtype=torch.float32, device=dev)
+    inputs = (r, k, v, log_w, d_out)
+    args = _BACKWARD_ARGS.pack(
+        *(x.data_ptr() for x in inputs), u.data_ptr(), state.data_ptr(),
+        0 if d_state is None else d_state.data_ptr(),
+        *(g.data_ptr() for g in grads), du.data_ptr(), partial.data_ptr(),
+        *(st for x in inputs for st in x.stride()),
+        _stream(dev),
+        b, t, h, kk, int(chunk), 0,
+    )
+    with torch.cuda.device(dev):
+        rc = _backward_kernel()(args)
+    if rc == _REJECTED:
+        raise _rejected(r, k, v, log_w, min(chunk, t))
+    if rc != 0:
+        raise RuntimeError(f"wkv backward kernel launch failed: cudaError {rc}")
+    wkv_backward.launches += 1
+    return (*grads, du)
+
+
+def wkv_backward(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    state: torch.Tensor, d_out: torch.Tensor, d_state: Optional[torch.Tensor] = None,
+    *, chunk: int = 64,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv` (from a zero initial state) given the
+    output's gradient ``d_out`` (B, T, H, K) and the final state's
+    ``d_state`` (B, H, K, K; None is zero): (dr, dk, dv, dlog_w (B, T, H,
+    K), du (H, K)), float32.  ``state`` is the forward's final state.  CUDA
+    tensors go to the kernel in ``csrc/wkv_backward.cu`` (the forward's
+    limits: K = 64, chunk <= 64, 16-byte rows), CPU tensors to
+    :func:`wkv_backward_ref`."""
+    _check(r, k, v, log_w, u, chunk)
+    if d_out.shape != r.shape:
+        raise ValueError(f"d_out {tuple(d_out.shape)} != r {tuple(r.shape)}")
+    if r.device.type == "cpu":
+        return wkv_backward_ref(r, k, v, log_w, u, d_out, d_state)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv_backward runs on cuda or cpu, not {r.device.type}")
+    return _launch_backward(r, k, v, log_w, u, state, d_out.float(), d_state, chunk)
 
 
 def wkv_with_chunk_states(
@@ -154,3 +260,4 @@ def wkv_with_chunk_states(
 
 
 wkv.launches = 0
+wkv_backward.launches = 0

@@ -20,12 +20,17 @@ import torch
 
 __all__ = [
     "LOG_DECAY_MIN", "wkv_scan_ref", "wkv_chunked", "wkv_chunk_states", "wkv_chunk_output",
+    "wkv_backward_ref",
 ]
 
 # Per-step log-decay floor (the reference's, with its stability note): it
 # bounds the factored chunk form's exponents to chunk * 4.6 / 2 after the
 # mid-point normalisation, 73.6 at chunk 32, inside float32.
 LOG_DECAY_MIN = -4.6
+# Steps whose states the plain backward keeps at once: it stores the state
+# entering every block of this many steps and recomputes a block's states
+# when it walks that block in reverse.
+BACKWARD_BLOCK = 64
 
 
 def _initial_state(r: torch.Tensor, s0: Optional[torch.Tensor]) -> torch.Tensor:
@@ -162,3 +167,60 @@ def wkv_chunk_output(
     out = out + torch.einsum("bhntd,bhndv->bhntv", rc * torch.exp(l_prev), states.float())
     out = out.permute(0, 2, 3, 1, 4).reshape(b, -1, h, kk)[:, :t]
     return out.to(r.dtype)
+
+
+def wkv_backward_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    d_out: torch.Tensor, d_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`wkv_chunked` (from a zero initial state) as an
+    explicit reverse recurrence: the backward kernel's oracle.  With
+    ``w_t = exp(clamp(log_w_t))`` and ``G_t = dL/dS_t``, starting from
+    ``d_state`` (zero when None)::
+
+        dr_t[i]    = sum_j dout_t[j] (u[i] k_t[i] v_t[j] + S_{t-1}[i, j])
+        dk_t[i]    = r_t[i] u[i] (v_t . dout_t) + sum_j G_t[i, j] v_t[j]
+        dv_t[j]    = (sum_i r_t[i] u[i] k_t[i]) dout_t[j] + sum_i G_t[i, j] k_t[i]
+        dlog_w_t   = w_t[i] sum_j G_t[i, j] S_{t-1}[i, j]   (0 outside the clamp)
+        du[i]      = sum_{b, t} r_t[i] k_t[i] (v_t . dout_t)
+        G_{t-1}    = diag(w_t) G_t + r_t^T dout_t
+
+    Returns (dr, dk, dv, dlog_w (B, T, H, K), du (H, K)), float32.  The
+    states S_{t-1} are recomputed block by block (``BACKWARD_BLOCK``
+    steps), so memory stays at a few dozen (B, H, K, K) states."""
+    b, t, h, kk = r.shape
+    r, k, v, dout = r.float(), k.float(), v.float(), d_out.float()
+    lw = log_w.float()
+    inside = ((lw >= LOG_DECAY_MIN) & (lw <= 0.0)).float()
+    w = torch.exp(lw.clamp(LOG_DECAY_MIN, 0.0))
+    uf = u.float()
+
+    def advance(s, i):
+        return w[:, i, :, :, None] * s + k[:, i, :, :, None] * v[:, i, :, None, :]
+
+    s = _initial_state(r, None)
+    entering = []
+    for t0 in range(0, t, BACKWARD_BLOCK):
+        entering.append(s)
+        for i in range(t0, min(t0 + BACKWARD_BLOCK, t)):
+            s = advance(s, i)
+    g = _initial_state(r, d_state)
+    dr, dk, dv, dlw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for blk in reversed(range(len(entering))):
+        t0 = blk * BACKWARD_BLOCK
+        prev = [entering[blk]]                     # prev[i - t0] = S_{i-1}
+        for i in range(t0, min(t0 + BACKWARD_BLOCK, t) - 1):
+            prev.append(advance(prev[-1], i))
+        for i in reversed(range(t0, min(t0 + BACKWARD_BLOCK, t))):
+            s_prev = prev.pop()
+            r_i, k_i, v_i, do_i = r[:, i], k[:, i], v[:, i], dout[:, i]
+            vd = (v_i * do_i).sum(-1, keepdim=True)             # (B, H, 1)
+            ruk = (r_i * uf * k_i).sum(-1, keepdim=True)
+            dr[:, i] = uf * k_i * vd + torch.einsum("bhij,bhj->bhi", s_prev, do_i)
+            dk[:, i] = r_i * uf * vd + torch.einsum("bhij,bhj->bhi", g, v_i)
+            dv[:, i] = ruk * do_i + torch.einsum("bhij,bhi->bhj", g, k_i)
+            dlw[:, i] = w[:, i] * (g * s_prev).sum(-1) * inside[:, i]
+            du += (r_i * k_i * vd).sum(0)
+            g = w[:, i, :, :, None] * g + r_i[..., :, None] * do_i[..., None, :]
+    return dr, dk, dv, dlw, du

@@ -19,9 +19,13 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["selective_scan_ref", "selective_scan_segments", "SEGMENT_STEPS"]
+__all__ = [
+    "selective_scan_ref", "selective_scan_segments", "ssm_scan_backward_ref", "SEGMENT_STEPS",
+]
 
 SEGMENT_STEPS = 8  # steps per segment in the CUDA kernel (kSeg in csrc/ssm_scan.cu)
+# Steps whose states the plain backward keeps at once (see ssm_scan_backward_ref).
+BACKWARD_BLOCK = 64
 
 
 def selective_scan_ref(
@@ -89,3 +93,61 @@ def selective_scan_segments(
         ys.append(y_local[j] + torch.einsum("bsdn,bsn->bsd", g, c_s[:, :, j]))
     y = torch.stack(ys, dim=2).reshape(bsz, n_seg * seg, di)[:, :t]
     return y, final, torch.stack(h_in, dim=1)
+
+
+def ssm_scan_backward_ref(
+    u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+    log_a: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`selective_scan_ref` (from h = 0) as an explicit
+    reverse recurrence: the backward kernel's oracle.  With ``a_t =
+    exp(dt_t A)``, ``A = -exp(log_a)``, ``x_t = dt_t u_t`` and ``Gh_t =
+    dL/dh_t = dy_t (x) C_t + a_{t+1} Gh_{t+1}`` (``dh`` at the end, zero when
+    None)::
+
+        dC_t  = sum_d dy_t[d] h_t[d, :]
+        dB_t  = sum_d Gh_t[d, :] x_t[d]
+        du_t  = dt_t sum_n Gh_t B_t
+        ddt_t = u_t sum_n Gh_t B_t + sum_n Gh_t h_{t-1} a_t A
+        dlog_a = A sum_{b, t} Gh_t h_{t-1} a_t dt_t
+
+    Returns (du, ddt (B, T, D), db_t, dc_t (B, T, N), dlog_a (D, N)),
+    float32.  States are recomputed block by block (``BACKWARD_BLOCK``
+    steps)."""
+    bsz, t, di = u.shape
+    u, dt, bt, ct, dy = u.float(), dt.float(), b_t.float(), c_t.float(), dy.float()
+    a = -torch.exp(log_a.float())
+
+    def advance(h, i):
+        decay = torch.exp(dt[:, i, :, None] * a)
+        return decay * h + (dt[:, i] * u[:, i])[..., None] * bt[:, i, None, :]
+
+    h = torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32, device=u.device)
+    entering = []
+    for t0 in range(0, t, BACKWARD_BLOCK):
+        entering.append(h)
+        for i in range(t0, min(t0 + BACKWARD_BLOCK, t)):
+            h = advance(h, i)
+    g = torch.zeros_like(h) if dh is None else dh.float()   # a_{t+1} Gh_{t+1}
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    db, dc = torch.empty_like(bt), torch.empty_like(ct)
+    da = torch.zeros_like(a)
+    for blk in reversed(range(len(entering))):
+        t0 = blk * BACKWARD_BLOCK
+        states = [entering[blk]]                   # states[i - t0] = h_{i-1}
+        for i in range(t0, min(t0 + BACKWARD_BLOCK, t)):
+            states.append(advance(states[-1], i))
+        for i in reversed(range(t0, min(t0 + BACKWARD_BLOCK, t))):
+            h_i, h_prev = states[i - t0 + 1], states[i - t0]
+            gh = dy[:, i, :, None] * ct[:, i, None, :] + g
+            decay = torch.exp(dt[:, i, :, None] * a)
+            dc[:, i] = torch.einsum("bd,bdn->bn", dy[:, i], h_i)
+            db[:, i] = torch.einsum("bdn,bd->bn", gh, dt[:, i] * u[:, i])
+            gb = torch.einsum("bdn,bn->bd", gh, bt[:, i])
+            q = gh * h_prev * decay
+            du[:, i] = dt[:, i] * gb
+            ddt[:, i] = u[:, i] * gb + (q * a).sum(-1)
+            da += (q * dt[:, i, :, None]).sum(0)
+            g = decay * gh
+            states.pop()
+    return du, ddt, db, dc, a * da

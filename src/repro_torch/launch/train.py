@@ -160,17 +160,17 @@ def run_spmd(args) -> int:
     ``SyntheticLM`` batches of ``--ref-batch``), on ``--device``."""
     import torch
 
-    from repro_torch.configs import get_api
+    from repro_torch.configs import ARCHS, get_api
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.train.step import build_train_step
 
-    api = get_api(args.arch, reduced=not args.full_width)
-    if not api.supports_training():
+    if args.arch not in ARCHS:
         raise SystemExit(
-            f"--mode spmd: {args.arch} ({api.family}) has no training path yet "
-            "(ROADMAP §1.8a: rwkv6 and hymba training)"
+            f"--mode spmd: {args.arch} is not ported yet (ROADMAP §1.8b: the moe, deepseek "
+            f"and whisper families and the other dense configs); ported: {sorted(ARCHS)}"
         )
+    api = get_api(args.arch, reduced=not args.full_width)
     params = api.init(args.seed, device=args.device).requires_grad_(True)
     opt = adamw(constant_schedule(args.lr))
     step = build_train_step(api, opt, microbatches=args.microbatches)

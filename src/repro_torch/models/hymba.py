@@ -25,16 +25,21 @@ entries for every layer (global layers included, as in the reference),
 the SSM state and the conv tail — O(1) per token — through plain torch
 (:func:`selective_scan_ref`, ``common.decode_attention``), and updates the
 cache in place.  There is no fused prefill: prompts step the decode loop,
-as in the reference.
+as in the reference.  ``train_forward`` is the full-sequence forward
+carrying gradients (both kernels' backwards on the card), each layer
+recomputed in the backward pass with ``cfg.remat`` as the reference's
+``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
@@ -50,6 +55,13 @@ __all__ = [
     "schema",
     "init_cache",
 ]
+
+# The full-sequence forward's two kernel entries: attention (q, k, v, *,
+# causal, window) -> out, as :func:`flash_attention` (or the plain
+# ``attention_ref``), and the scan (u, dt, b_t, c_t, log_a, *, chunk) ->
+# (y, final state), as :func:`ssm_scan`.
+Attend = Callable[..., torch.Tensor]
+Scan = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +84,7 @@ class HymbaConfig:
     ssm_chunk: int = 64
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True                 # recompute each layer in the backward pass
 
     @property
     def family(self) -> str:
@@ -205,6 +218,23 @@ class HymbaModel(nn.Module):
     def forward(self, tokens) -> torch.Tensor:
         """tokens (B, S) int -> logits (B, S, vocab) float32; one
         flash-attention and one selective-scan launch per layer on the card."""
+        return self._run(tokens, remat=False)
+
+    def train_forward(
+        self, tokens, *, attend: Optional[Attend] = None, scan: Optional[Scan] = None,
+    ) -> torch.Tensor:
+        """tokens (B, S) int -> logits (B, S, vocab) float32, carrying
+        gradients to the parameters that require them.  ``attend`` and
+        ``scan`` replace the flash-attention and selective-scan calls (seams
+        for holding the kernels against their plain versions); with
+        ``cfg.remat`` every layer is recomputed in the backward pass."""
+        return self._run(tokens, remat=self.cfg.remat, attend=attend, scan=scan)
+
+    def _run(self, tokens, *, remat: bool, attend: Optional[Attend] = None,
+             scan: Optional[Scan] = None) -> torch.Tensor:
+        """The full-sequence forward: the meta-token prefix, every layer
+        (through ``torch.utils.checkpoint`` with ``remat``), the prefix
+        sliced off before the head."""
         cfg = self.cfg
         x = self._embed(tokens)
         if cfg.n_meta_tokens:
@@ -213,11 +243,10 @@ class HymbaModel(nn.Module):
         positions = torch.arange(x.shape[1], device=self.device)
         global_layers = cfg.global_layers()
         for i, layer in enumerate(self.layers):
-            h = common.rms_norm(x, layer.in_norm)
-            attn_out = _attn_branch(layer.attn, h, positions, cfg, is_global=i in global_layers)
-            ssm_out, _, _ = _ssm_branch(layer.ssm, h, cfg)
-            x = x + _fuse(layer, attn_out, ssm_out)
-            x = x + _mlp(layer.mlp, common.rms_norm(x, layer.mlp_norm))
+            body = functools.partial(
+                _layer, positions=positions, cfg=cfg, is_global=i in global_layers,
+                attend=attend or flash_attention, scan=scan or ssm_scan)
+            x = checkpoint(body, layer, x, use_reentrant=False) if remat else body(layer, x)
         if cfg.n_meta_tokens:
             x = x[:, cfg.n_meta_tokens:]
         return self._logits(x)
@@ -279,10 +308,10 @@ def _out_proj(ap: nn.ParameterDict, attn: torch.Tensor) -> torch.Tensor:
 
 def _attn_branch(
     ap: nn.ParameterDict, x: torch.Tensor, positions: torch.Tensor, cfg: HymbaConfig,
-    *, is_global: bool,
+    *, is_global: bool, attend: Attend = flash_attention,
 ) -> torch.Tensor:
     q, k, v = _qkv(ap, x, positions, cfg)
-    attn = flash_attention(q, k, v, causal=True, window=None if is_global else cfg.window)
+    attn = attend(q, k, v, causal=True, window=None if is_global else cfg.window)
     return _out_proj(ap, attn)
 
 
@@ -307,10 +336,11 @@ def _ssm_branch(
     *,
     h0: Optional[torch.Tensor] = None,
     conv_tail: Optional[torch.Tensor] = None,
+    scan: Scan = ssm_scan,
 ):
     """Mamba heads.  Without ``h0`` (the full-sequence forward) the scan
-    goes to the kernel in float32; with it (decode) the plain recurrence
-    carries the state.  Returns (out, final state, conv tail)."""
+    goes to the kernel (``scan``) in float32; with it (decode) the plain
+    recurrence carries the state.  Returns (out, final state, conv tail)."""
     di, n = cfg.inner, cfg.ssm_state
     xz = x @ sp["w_in"]
     u, z = xz[..., :di], xz[..., di:]
@@ -320,7 +350,7 @@ def _ssm_branch(
     bc = u @ sp["w_bc"]
     b_t, c_t = bc[..., :n], bc[..., n:]
     if h0 is None:
-        y, h = ssm_scan(
+        y, h = scan(
             u.float(), dt.float(), b_t.float(), c_t.float(), sp["log_a"].float(),
             chunk=cfg.ssm_chunk,
         )
@@ -339,6 +369,20 @@ def _fuse(lp: HymbaLayer, attn_out: torch.Tensor, ssm_out: torch.Tensor) -> torc
 
 def _mlp(mp: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
     return common.swiglu(x @ mp["w_gate"], x @ mp["w_up"]) @ mp["w_down"]
+
+
+def _layer(
+    lp: HymbaLayer, x: torch.Tensor, *, positions: torch.Tensor, cfg: HymbaConfig,
+    is_global: bool, attend: Attend, scan: Scan,
+) -> torch.Tensor:
+    """One layer of the full-sequence forward: both branches on the normed
+    input, their fusion, then the MLP (the unit that ``train_forward``
+    recomputes)."""
+    h = common.rms_norm(x, lp.in_norm)
+    attn_out = _attn_branch(lp.attn, h, positions, cfg, is_global=is_global, attend=attend)
+    ssm_out, _, _ = _ssm_branch(lp.ssm, h, cfg, scan=scan)
+    x = x + _fuse(lp, attn_out, ssm_out)
+    return x + _mlp(lp.mlp, common.rms_norm(x, lp.mlp_norm))
 
 
 # ---------------------------------------------------------------------------

@@ -91,8 +91,8 @@ class ModelApi:
         """Token-level CE over ``batch["tokens"]``/``["labels"]``, carrying
         gradients, with the optional per-sample ``weights`` (B,) — the
         Eq. (9) hook: pads weigh 0 and the mean runs over the weighted
-        tokens.  Families without a grad-carrying forward raise (their
-        training is ROADMAP §1.8)."""
+        tokens.  Every ported family (dense, rwkv6, hybrid) has a
+        grad-carrying forward; a model without one raises."""
         train_forward = getattr(params, "train_forward", None)
         if train_forward is None:
             raise NotImplementedError(f"{self.arch_id} ({self.family}) does not train yet")

@@ -15,7 +15,10 @@ its stacked layer dim into ``layers.<i>.time.*`` / ``layers.<i>.chan.*``.
 The full-sequence forward runs the WKV recurrence through
 :func:`repro_torch.kernels.rwkv6_wkv.wkv` (the Hopper kernel on CUDA
 tensors, the chunked plain version on CPU tensors), as the reference does
-with ``use_kernel``.  Decode carries (state S, shift registers) per layer —
+with ``use_kernel``.  ``train_forward`` is the same forward carrying
+gradients (the kernel's backward on the card), each layer recomputed in
+the backward pass with ``cfg.remat`` as the reference's ``jax.checkpoint``
+does.  Decode carries (state S, shift registers) per layer —
 O(1) per token — through the step-by-step :func:`wkv_scan_ref`; it
 updates the cache in place and returns the same dict.  There is no fused
 prefill: prompts step the decode loop, as in the reference.
@@ -23,11 +26,13 @@ prefill: prompts step the decode loop, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.rwkv6_wkv import LOG_DECAY_MIN, wkv, wkv_chunked, wkv_scan_ref
@@ -46,6 +51,10 @@ __all__ = [
     "LOG_DECAY_MIN",
 ]
 
+# The WKV entry of the full-sequence forward: (r, k, v, log_w, u, *, chunk)
+# -> (out, final state), as :func:`wkv` (or the plain :func:`wkv_chunked`).
+Scan = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
 
 @dataclasses.dataclass(frozen=True)
 class RWKV6Config:
@@ -59,6 +68,7 @@ class RWKV6Config:
     wkv_chunk: int = 32
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True               # recompute each layer in the backward pass
 
     @property
     def family(self) -> str:
@@ -175,6 +185,21 @@ class RWKV6Model(nn.Module):
             x, _ = _layer(layer, x, self.cfg)
         return self._logits(x)
 
+    def train_forward(self, tokens, *, scan: Optional[Scan] = None) -> torch.Tensor:
+        """tokens (B, T) int -> logits (B, T, vocab) float32, carrying
+        gradients to the parameters that require them.  ``scan`` replaces
+        the WKV call (a seam for holding the kernel against the plain
+        :func:`wkv_chunked`); with ``cfg.remat`` every layer is recomputed
+        in the backward pass."""
+        x = self._embed(tokens)
+        body = functools.partial(_train_layer, cfg=self.cfg, scan=scan or wkv)
+        for layer in self.layers:
+            if self.cfg.remat:
+                x = checkpoint(body, layer, x, use_reentrant=False)
+            else:
+                x = body(layer, x)
+        return self._logits(x)
+
     @torch.no_grad()
     def decode_step(
         self, cache: Dict[str, object], tokens, pos: int
@@ -230,6 +255,7 @@ def _time_mix(
     *,
     shift_prev: Optional[torch.Tensor] = None,
     state: Optional[torch.Tensor] = None,
+    scan: Scan = wkv,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, t, d = x.shape
     xs = _shift(x, shift_prev)
@@ -244,7 +270,7 @@ def _time_mix(
     log_w = _decay(tp, mix(tp["mu_w"]).float())
     u = tp["u"].float()
     if t > 1 and state is None:
-        out, s_new = wkv(r.float(), k.float(), v.float(), log_w, u, chunk=cfg.wkv_chunk)
+        out, s_new = scan(r.float(), k.float(), v.float(), log_w, u, chunk=cfg.wkv_chunk)
         out = out.to(cfg.compute_dtype)
     else:
         out, s_new = wkv_scan_ref(r, k, v, log_w, u, s0=state)
@@ -274,17 +300,24 @@ def _layer(
     state: Optional[torch.Tensor] = None,
     t_shift: Optional[torch.Tensor] = None,
     c_shift: Optional[torch.Tensor] = None,
+    scan: Scan = wkv,
 ):
     """One layer; returns (x, (final WKV state, last normed input of each
     mixer)) — the last two are the next step's shift registers."""
     h = common.rms_norm(x, lp.time_norm)
-    t_out, s_new = _time_mix(lp.time, h, cfg, shift_prev=t_shift, state=state)
+    t_out, s_new = _time_mix(lp.time, h, cfg, shift_prev=t_shift, state=state, scan=scan)
     new_t_shift = h[:, -1]
     x = x + t_out
     h = common.rms_norm(x, lp.chan_norm)
     new_c_shift = h[:, -1]
     x = x + _chan_mix(lp.chan, h, shift_prev=c_shift)
     return x, (s_new, new_t_shift, new_c_shift)
+
+
+def _train_layer(lp: RWKV6Layer, x: torch.Tensor, *, cfg: RWKV6Config, scan: Scan):
+    """:func:`_layer` from a zero state, returning x alone (the unit that
+    ``train_forward`` recomputes)."""
+    return _layer(lp, x, cfg, scan=scan)[0]
 
 
 # ---------------------------------------------------------------------------

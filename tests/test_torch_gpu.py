@@ -11,9 +11,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import (  # noqa: E402
-    LOG_DECAY_MIN, wkv, wkv_chunk_states, wkv_chunked, wkv_with_chunk_states,
+    LOG_DECAY_MIN, wkv, wkv_backward, wkv_backward_ref, wkv_chunk_states, wkv_chunked,
+    wkv_with_chunk_states,
 )
-from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    selective_scan_ref, ssm_scan, ssm_scan_backward, ssm_scan_backward_ref,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -711,3 +714,98 @@ def test_scheduler_device_engine_matches_host_engine(cuda_device, n_jobs, n_node
     assert allocs["jax"].assignment == allocs["batched"].assignment
     assert allocs["jax"].aggregate_goodput == pytest.approx(
         allocs["batched"].aggregate_goodput, rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the WKV and selective-scan backwards
+# ---------------------------------------------------------------------------
+
+# float32 sums in another order: each gradient within 1e-4 * max(1, max |plain|).
+BWD_KERNEL_REL = 1e-4
+
+
+def _bwd_close(got, want):
+    for g, w in zip(got, want):
+        tol = BWD_KERNEL_REL * max(1.0, w.abs().max().item())
+        assert g.shape == w.shape and (g - w).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,t,h,chunk,with_ds", [
+    (1, 70, 2, 32, True),      # small, ragged T
+    (8, 512, 64, 32, False),   # a training slice of rwkv6-7b (one node at b=8)
+])
+def test_wkv_backward_kernel_matches_plain_backward(cuda_device, b, t, h, chunk, with_ds):
+    r, k, v, lw, u = _wkv_inputs(b, t, h, cuda_device, seed=2)
+    d_out = torch.randn_like(r)
+    d_state = torch.randn(b, h, 64, 64, device=cuda_device) if with_ds else None
+    _, state = wkv(r, k, v, lw, u, chunk=chunk)
+    before = wkv_backward.launches
+    got = wkv_backward(r, k, v, lw, u, state, d_out, d_state, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv_backward.launches == before + 1
+    _bwd_close(got, wkv_backward_ref(r, k, v, lw, u, d_out, d_state))
+
+
+def test_wkv_backward_kernel_under_autograd_gives_the_same_bits_twice(cuda_device):
+    """``wkv`` on leaves that require grad launches the forward and the
+    backward kernel; no atomics, so two backward passes agree bitwise, and
+    they match the plain backward."""
+    leaves = [x.requires_grad_() for x in _wkv_inputs(2, 200, 4, cuda_device, seed=3)]
+    d_out = torch.randn_like(leaves[0])
+    grads = []
+    for _ in range(2):
+        before = wkv_backward.launches
+        out, _ = wkv(*leaves, chunk=32)
+        grads.append(torch.autograd.grad(out, leaves, d_out))
+        assert wkv_backward.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    plain = [x.detach() for x in leaves]
+    _bwd_close(grads[0], wkv_backward_ref(*plain, d_out))
+
+
+@pytest.mark.parametrize("k, chunk", [(32, 32), (64, 128)])
+def test_wkv_backward_kernel_rejects_what_it_does_not_take(cuda_device, k, chunk):
+    x = torch.zeros(1, 200, 2, k, device=cuda_device)
+    u = torch.zeros(2, k, device=cuda_device)
+    state = torch.zeros(1, 2, k, k, device=cuda_device)
+    with pytest.raises(ValueError):
+        wkv_backward(x, x, x, x, u, state, x, chunk=chunk)
+
+
+@pytest.mark.parametrize("b,t,d,strong,with_dh", [
+    (2, 301, 203, False, True),    # small, ragged T and D
+    (8, 512, 3200, False, False),  # a training slice of hymba-1.5b (one node at b=8)
+    (1, 100, 3200, True, True),    # strong decay
+])
+def test_ssm_backward_kernel_matches_plain_backward(cuda_device, b, t, d, strong, with_dh):
+    u, dt, bt, ct, log_a = _ssm_inputs(b, t, d, cuda_device, seed=5, strong=strong)
+    dy = torch.randn_like(u)
+    dh = torch.randn(b, d, 16, device=cuda_device) if with_dh else None
+    before = ssm_scan_backward.launches
+    got = ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=128)
+    torch.cuda.synchronize()
+    assert ssm_scan_backward.launches == before + 1
+    _bwd_close(got, ssm_scan_backward_ref(u, dt, bt, ct, log_a, dy, dh))
+
+
+def test_ssm_backward_kernel_under_autograd_gives_the_same_bits_twice(cuda_device):
+    leaves = [x.requires_grad_() for x in _ssm_inputs(2, 257, 500, cuda_device, seed=6)]
+    dy = torch.randn_like(leaves[0])
+    grads = []
+    for _ in range(2):
+        before = ssm_scan_backward.launches
+        y, _ = ssm_scan(*leaves, chunk=128)
+        grads.append(torch.autograd.grad(y, leaves, dy))
+        assert ssm_scan_backward.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    plain = [x.detach() for x in leaves]
+    _bwd_close(grads[0], ssm_scan_backward_ref(*plain, dy))
+
+
+@pytest.mark.parametrize("n, chunk", [(8, 64), (16, 256)])
+def test_ssm_backward_kernel_rejects_what_it_does_not_take(cuda_device, n, chunk):
+    u = torch.zeros(1, 300, 32, device=cuda_device)
+    bt = torch.zeros(1, 300, n, device=cuda_device)
+    log_a = torch.zeros(32, n, device=cuda_device)
+    with pytest.raises(ValueError):
+        ssm_scan_backward(u, u, bt, bt, log_a, u, chunk=chunk)
