@@ -169,7 +169,9 @@ Phases, each of which fails the run:
                    and at a ragged T, a strong decay and a nonzero
                    final-state gradient: each output within 1e-4 * max(1,
                    max |plain|), two calls the same bits; ms, plain ms,
-                   device ms and the bound.
+                   device ms and the bound.  The scan backward starts
+                   from the forward's tile states, as the training path
+                   does.
 18. training (rwkv6) — rwkv6-7b in bf16, its depth cut to
                    ``RWKV6_TRAIN_LAYERS`` of 32 at published widths, on
                    phase 13's recipe through ``EpochLoop``: five
@@ -218,7 +220,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_S = 3.35e12                  # H100 SXM device memory rate
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # tensor-core bf16; f32 off the tensor cores
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # f32 off the tensor cores
 REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:85"
 SOURCE_REL = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MAIN_CASE = "olmo-1b S=512"            # the kernel line's shape: a typical prompt
@@ -285,8 +287,11 @@ SFU_EXP_S = 132 * 16 * 1.98e9          # H100 SXM: 16 exponentials per clock and
 WKV_BWD_SOURCE_REL = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv_backward.cu"
 SSM_BWD_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_backward.cu"
 WKV_BWD_PROFILE = "wkv_bwd_"           # the WKV backward's three kernels
-SSM_BWD_PROFILE = "ssm_bwd_"           # the scan backward's three kernels
-BWD_KERNELS_PER_CALL = 3
+SSM_BWD_PROFILE = "ssm_bwd_"           # the scan backward's two kernels
+# CUDA kernels per backward call, by profiler prefix: the flash backward's
+# three; wkv_bwd_state_kernel, wkv_bwd_grad_kernel, wkv_bwd_du_kernel;
+# ssm_bwd_kernel, ssm_bwd_reduce_kernel.
+BWD_KERNELS_PER_CALL = {BWD_PROFILE_NAME: 3, WKV_BWD_PROFILE: 3, SSM_BWD_PROFILE: 2}
 # Phase 17: name, B, T, H (or D), chunk, strong decay, final-state gradient
 # (float32; WKV K = 64, the scan N = 16).  The first row of each is one
 # node's training slice (b_max 40 at S 512).
@@ -371,7 +376,8 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_device(torch, fn, calls: int, kernels, attempts: int = 3, launches=None):
+def profile_device(torch, fn, calls: int, kernels, attempts: int = 5, launches=None,
+                   sole: bool = False):
     """Device milliseconds per call (the sum of kernel times under
     ``torch.profiler``), each named kernel's part of that sum (every kernel
     whose name holds the given name), each named kernel's busy milliseconds
@@ -381,13 +387,19 @@ def profile_device(torch, fn, calls: int, kernels, attempts: int = 3, launches=N
     records.  The profiler can lose kernel records (on an H100, this
     script's scan windows recorded 12-13 of 20 launches): where ``launches``
     gives a named kernel's launches per call, its part and busy time are
-    taken per recorded launch times that count, not per call.  A window that records
-    no device time at all is profiled again, up to ``attempts`` windows."""
+    taken per recorded launch times that count, not per call.  A window that
+    records no device time, or no record of a kernel in ``launches``, is
+    reported on stderr and profiled again, up to ``attempts`` windows.  If
+    every window lost them, the same calls are timed with CUDA events
+    instead: that time per call is the device ms, and each named kernel's
+    part and busy ms where the call launches only the named kernels
+    (``sole``), else NaN; every count of records is then 0, and a line on
+    stdout says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     launches = launches or {}
-    for _ in range(attempts):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -395,8 +407,10 @@ def profile_device(torch, fn, calls: int, kernels, attempts: int = 3, launches=N
         device = 0.0
         named = dict.fromkeys(kernels, 0.0)
         records = dict.fromkeys(kernels, 0)
+        cuda_events = 0
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+                cuda_events += evt.count
                 device += evt.self_device_time_total
                 for kernel in kernels:
                     if kernel in evt.key:
@@ -412,7 +426,17 @@ def profile_device(torch, fn, calls: int, kernels, attempts: int = 3, launches=N
                                        and kernel in evt.name) / 1e3 / per[kernel]
                        for kernel in kernels}
             return device / 1e3 / calls, named_ms, busy_ms, records
-    raise RuntimeError(f"the profiler recorded no device time in {attempts} windows")
+        print(f"chip_smoke: profile window {attempt + 1} of {attempts} over {calls} calls: "
+              f"{cuda_events} device records, {device:.1f} us, named records {records} "
+              f"(launches per call {launches})", file=sys.stderr, flush=True)
+    total = cuda_ms(torch, fn, calls, warmup=0)
+    part = total if sole else float("nan")
+    log("profile", f"the profiler recorded no device time (or no record of {list(launches)}) "
+        f"in {attempts} windows: device ms {total:.4f} per call from CUDA events over "
+        f"{calls} calls; named kernels {list(kernels)} "
+        + ("are the whole call" if sole else "not measured"))
+    return (total, dict.fromkeys(kernels, part), dict.fromkeys(kernels, part),
+            dict.fromkeys(kernels, 0))
 
 
 def attention_bound(b, s, h, kv, d, dtype, window):
@@ -607,7 +631,7 @@ def flash_case(torch, flash_attention, attention_ref, case, gen):
     bound_ms, bound_by = attention_bound(b, s, h, kv, d, dt, window)
     ms = cuda_ms(torch, kernel, 20)
     _, named, _, records = profile_device(torch, kernel, 20, (FLASH_PROFILE_NAME,),
-                                          launches={FLASH_PROFILE_NAME: 1})
+                                          launches={FLASH_PROFILE_NAME: 1}, sole=True)
     return dict(
         max_abs_err=err,
         ms=ms,
@@ -698,7 +722,8 @@ def wkv_case(torch, mod, case, gen):
     bound_ms, bound_by = wkv_bound(b, t, h, k)
     ms = cuda_ms(torch, kernel, 20)
     _, named, busy, records = profile_device(torch, kernel, 20, (WKV_PROFILE_PREFIX,),
-                                             launches={WKV_PROFILE_PREFIX: WKV_KERNELS})
+                                             launches={WKV_PROFILE_PREFIX: WKV_KERNELS},
+                                             sole=True)
     return dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
         plain_ms=cuda_ms(torch, lambda: mod.wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3),
@@ -822,7 +847,7 @@ def ssm_row(torch, mod, inputs, chunk):
     bound_ms, bound_by, sfu_ms = ssm_bound(b, t, d, n)
     ms = cuda_ms(torch, kernel, 20)
     _, named, busy, records = profile_device(torch, kernel, 20, (SSM_PROFILE_PREFIX,),
-                                             launches={SSM_PROFILE_PREFIX: 1})
+                                             launches={SSM_PROFILE_PREFIX: 1}, sole=True)
     cold_ms, cold_records = cold_device_ms(torch, kernel, 20, SSM_PROFILE_PREFIX)
     return dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
@@ -1359,7 +1384,7 @@ def flash_bwd_case(torch, case, gen):
     bound_ms, bound_by = attention_bwd_bound(b, s, h, kv, d, dt, window)
     ms = cuda_ms(torch, kernel, 10)
     _, named, _, records = profile_device(torch, kernel, 10, (BWD_PROFILE_NAME,),
-                                          launches={BWD_PROFILE_NAME: 3})
+                                          launches={BWD_PROFILE_NAME: 3}, sole=True)
     row = dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise, ms=ms,
         plain_ms=cuda_ms(torch, lambda: attention_backward_ref(
@@ -1469,21 +1494,39 @@ def node_step_profile(torch, backend, data, b, b_max, launches):
     return wall_ms, dev, idle, named, records
 
 
+# Profiler names of a forward kernel (one record per call: for WKV its first
+# pass) and of its backward's kernels (``BWD_KERNELS_PER_CALL`` a call).
+STEP_PROFILES = {
+    "flash_attention": (FLASH_PROFILE_NAME, BWD_PROFILE_NAME),
+    "rwkv6_wkv": ("wkv_states_kernel", WKV_BWD_PROFILE),
+    "ssm_scan": ("ssm_scan_kernel", SSM_BWD_PROFILE),
+}
+
+
 def node_step_row(torch, backend, data, b, b_max):
-    """One olmo-1b node step (``node_step_profile``) with the flash
-    forward's and backward's parts per recorded launch and their records."""
+    """One node step (``node_step_profile``) with each of the family's
+    kernels' parts, forward and backward, per recorded launch and their
+    records and launches per step (``kernels``); for olmo-1b also under
+    the flash keys the training phase prints."""
     cfg = backend.api.cfg
-    launches = {FLASH_PROFILE_NAME: (2 if cfg.remat else 1) * cfg.n_layers,
-                BWD_PROFILE_NAME: 3 * cfg.n_layers}
+    launches = {}
+    for kernel in PATH_KERNELS[cfg.family]:
+        fwd, bwd = STEP_PROFILES[kernel]
+        launches[fwd] = (2 if cfg.remat else 1) * cfg.n_layers
+        launches[bwd] = BWD_KERNELS_PER_CALL[bwd] * cfg.n_layers
     wall_ms, dev, idle, named, records = node_step_profile(torch, backend, data, b, b_max,
                                                            launches)
-    return dict(wall_ms=wall_ms, device_ms=dev, idle_share=idle,
-                flash_fwd_ms=named[FLASH_PROFILE_NAME],
-                flash_fwd_records=records[FLASH_PROFILE_NAME],
-                flash_fwd_launches=launches[FLASH_PROFILE_NAME],
-                flash_bwd_ms=named[BWD_PROFILE_NAME],
-                flash_bwd_records=records[BWD_PROFILE_NAME],
-                flash_bwd_launches=launches[BWD_PROFILE_NAME])
+    row = dict(wall_ms=wall_ms, device_ms=dev, idle_share=idle,
+               kernels={k: dict(ms=named[k], records=records[k], launches=n)
+                        for k, n in launches.items()})
+    if FLASH_PROFILE_NAME in launches:
+        row.update(flash_fwd_ms=named[FLASH_PROFILE_NAME],
+                   flash_fwd_records=records[FLASH_PROFILE_NAME],
+                   flash_fwd_launches=launches[FLASH_PROFILE_NAME],
+                   flash_bwd_ms=named[BWD_PROFILE_NAME],
+                   flash_bwd_records=records[BWD_PROFILE_NAME],
+                   flash_bwd_launches=launches[BWD_PROFILE_NAME])
+    return row
 
 
 TRAIN_EPOCHS = 5      # two bootstrap epochs, then three OptPerf epochs
@@ -2447,18 +2490,24 @@ def event_timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
+WKV_BWD_CHUNK = 32  # the backward kernel's chunk (kChunk in wkv_backward.cu)
+
+
 def wkv_bwd_bound(b, t, h, k, with_ds):
     """Least time for one WKV backward: r, k, v, log_w and dout read once,
     dr, dk, dv and dlog_w written once, plus u, du, the final state and its
-    gradient (float32), over the memory rate; or the recurrence form's 12 K^2
-    operations per token and head (two state updates and four products with
-    a K x K state) over the float32 rate."""
+    gradient (float32), over the memory rate; or the chunked form's 5 K^2 +
+    6 C K multiply-adds per token and head over the dense TF32 rate, the
+    least operations of the forms the kernels run.  Also returns the
+    recurrence form's bound (12 K^2 operations per token and head over the
+    float32 rate off the tensor cores), the first backward's."""
     nbytes = 4 * (9 * b * t * h * k + 2 * h * k + (2 if with_ds else 1) * b * h * k * k)
-    flops = 12 * k * k * b * t * h
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
+    flops = 2 * (5 * k * k + 6 * WKV_BWD_CHUNK * k) * b * t * h
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["tf32"]
+    recurrence_ms = 12 * k * k * b * t * h / PEAK_FLOPS["f32"] * 1e3
     if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
+        return t_bytes * 1e3, "bytes", recurrence_ms
+    return t_ops * 1e3, "operations", recurrence_ms
 
 
 def ssm_bwd_bound(b, t, d, n, with_dh):
@@ -2471,8 +2520,8 @@ def ssm_bwd_bound(b, t, d, n, with_dh):
     flops = 16 * b * t * d * n
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
     if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
+        return t_bytes * 1e3, "bytes", None
+    return t_ops * 1e3, "operations", None
 
 
 def bwd_row(torch, kernel, plain, keys, profile, bound):
@@ -2493,11 +2542,13 @@ def bwd_row(torch, kernel, plain, keys, profile, bound):
     del got, want
     ms = cuda_ms(torch, kernel, 5, warmup=1)
     _, named, _, records = profile_device(torch, kernel, 5, (profile,),
-                                          launches={profile: BWD_KERNELS_PER_CALL})
-    bound_ms, bound_by = bound
+                                          launches={profile: BWD_KERNELS_PER_CALL[profile]},
+                                          sole=True)
+    bound_ms, bound_by, recurrence_ms = bound
     return dict(errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise,
                 ms=ms, plain_ms=plain_ms, library_ms=None, device_ms=named[profile],
-                records=records[profile], bound_ms=bound_ms, bound_by=bound_by)
+                records=records[profile], bound_ms=bound_ms, bound_by=bound_by,
+                recurrence_bound_ms=recurrence_ms)
 
 
 def wkv_bwd_case(torch, case, gen):
@@ -2530,7 +2581,9 @@ def wkv_bwd_case(torch, case, gen):
 
 def ssm_bwd_case(torch, case, gen):
     """One ``SSM_BWD_CASES`` row (see ``bwd_row``) on ``ssm_inputs``, B and
-    C read as views of one (B, T, 2N) tensor, as the model passes them."""
+    C read as views of one (B, T, 2N) tensor, as the model passes them: the
+    backward from the forward's tile states, as the training path runs it
+    (a checkout before the second design has none)."""
     from repro_torch.kernels import ssm_scan as mod
 
     name, b, t, d, chunk, strong, with_dh = case
@@ -2540,8 +2593,11 @@ def ssm_bwd_case(torch, case, gen):
     bt, ct = bc[..., :n], bc[..., n:]
     dy = torch.randn((b, t, d), generator=gen, device=DEVICE)
     dh = torch.randn((b, d, n), generator=gen, device=DEVICE) if with_dh else None
+    kw = {}
+    if hasattr(mod, "ssm_scan_tile_states"):
+        kw["tiles"] = mod.ssm_scan_tile_states(u, dt, bt, ct, log_a, chunk=chunk)[2]
     return bwd_row(
-        torch, lambda: mod.ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=chunk),
+        torch, lambda: mod.ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=chunk, **kw),
         lambda: mod.ssm_scan_backward_ref(u, dt, bt, ct, log_a, dy, dh),
         ("du", "ddt", "db", "dc", "dlog_a"), SSM_BWD_PROFILE, ssm_bwd_bound(b, t, d, n, with_dh))
 
@@ -2550,8 +2606,9 @@ def phase_kernel_backwards(torch):
     """Phase 17: each backward kernel against its plain backward."""
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     rows = {}
-    for label, cases, case_fn in (("wkv", WKV_BWD_CASES, wkv_bwd_case),
-                                  ("ssm", SSM_BWD_CASES, ssm_bwd_case)):
+    for label, cases, case_fn, profile in (
+            ("wkv", WKV_BWD_CASES, wkv_bwd_case, WKV_BWD_PROFILE),
+            ("ssm", SSM_BWD_CASES, ssm_bwd_case, SSM_BWD_PROFILE)):
         for case in cases:
             name, b, t, width, chunk, strong, with_grad = case
             row = rows[(label, name)] = case_fn(torch, case, gen)
@@ -2566,9 +2623,11 @@ def phase_kernel_backwards(torch):
                 + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
                            for key, err in row["errs"].items())
                 + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
-                f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
-                f"device_ms={row['device_ms']:.4f} records={row['records']}/"
-                f"{5 * BWD_KERNELS_PER_CALL} of_bound_device="
+                f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}"
+                + (f"; recurrence form {row['recurrence_bound_ms']:.5f}"
+                   if row["recurrence_bound_ms"] else "")
+                + f") device_ms={row['device_ms']:.4f} records={row['records']}/"
+                f"{5 * BWD_KERNELS_PER_CALL[profile]} of_bound_device="
                 f"{row['bound_ms'] / row['device_ms']:.4f} bitwise_repeat={row['bitwise_repeat']}")
     return rows
 
@@ -2635,9 +2694,8 @@ def phase_train_ssm(torch, which):
 
     # Each node's step of the last plan: its forward and backward alone.
     per_node = 2 if cfg.remat else 1
-    profile = {BWD_PROFILE_NAME if k == "flash_attention" else
-               {"rwkv6_wkv": WKV_BWD_PROFILE, "ssm_scan": SSM_BWD_PROFILE}[k]:
-               BWD_KERNELS_PER_CALL * cfg.n_layers for k in fwd}
+    profile = {STEP_PROFILES[k][1]: BWD_KERNELS_PER_CALL[STEP_PROFILES[k][1]] * cfg.n_layers
+               for k in fwd}
     batches = rows[-1]["batches"]
     b_max = max(8, -(-max(batches) // 8) * 8)
     for i, b in enumerate(batches):

@@ -11,8 +11,10 @@ entry refuses a head size, chunk or layout it cannot take, and
 
 A CUDA call whose inputs require grad (with grad mode on) runs the same
 forward under :class:`_WKV`, whose backward launches the hand-written
-kernel in ``csrc/wkv_backward.cu`` through :func:`wkv_backward`; CPU
-tensors differentiate through the plain version.
+kernel in ``csrc/wkv_backward.cu`` (chunk-parallel products on the tensor
+cores, as ``ref.wkv_backward_chunked`` decomposes them) through
+:func:`wkv_backward`; CPU tensors differentiate through the plain
+version.
 
 ``wkv.launches`` counts calls that launch the kernel's passes, and
 ``wkv_backward.launches`` calls that launch the backward kernel.

@@ -10,7 +10,8 @@ Tensors are in model layout: r/k/v/log_w ``(B, T, H, K)``, u ``(H, K)``
 (broadcast over the batch), state ``(B, H, K, K)`` in float32.  These are
 the counterparts of ``repro/models/rwkv6.py::wkv_scan_ref`` and
 ``::wkv_chunked``; they live here so that the kernel's wrapper does not
-import the model.
+import the model.  :func:`wkv_backward_chunked` is the plain version of the
+backward kernel's chunked form.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 
 __all__ = [
     "LOG_DECAY_MIN", "wkv_scan_ref", "wkv_chunked", "wkv_chunk_states", "wkv_chunk_output",
-    "wkv_backward_ref",
+    "wkv_backward_ref", "wkv_backward_chunked", "BACKWARD_CHUNK",
 ]
 
 # Per-step log-decay floor (the reference's, with its stability note): it
@@ -31,6 +32,9 @@ LOG_DECAY_MIN = -4.6
 # entering every block of this many steps and recomputes a block's states
 # when it walks that block in reverse.
 BACKWARD_BLOCK = 64
+# Steps per chunk of the backward kernel (kChunk in csrc/wkv_backward.cu),
+# whatever the forward's chunk: its mid-point exponents stay within +-73.6.
+BACKWARD_CHUNK = 32
 
 
 def _initial_state(r: torch.Tensor, s0: Optional[torch.Tensor]) -> torch.Tensor:
@@ -224,3 +228,90 @@ def wkv_backward_ref(
             du += (r_i * k_i * vd).sum(0)
             g = w[:, i, :, :, None] * g + r_i[..., :, None] * do_i[..., None, :]
     return dr, dk, dv, dlw, du
+
+
+def wkv_backward_chunked(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    d_out: torch.Tensor, d_state: Optional[torch.Tensor] = None, *, chunk: int = BACKWARD_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`wkv_chunked` as the backward kernel decomposes
+    it: the outputs of :func:`wkv_backward_ref`, float32.
+
+    T is cut into chunks of ``chunk`` steps (zero-padded).  Within a chunk,
+    with L the inclusive cumulative clamped log-decay, L_p = L - lw, L_C
+    its last row, L_m = L_C / 2, kn = k exp(L_m - L), rr = r exp(L_p - L_m),
+    VD[t, s] = dout_t . v_s and A[t, s] = rr_t . kn_s (both kept for s < t):
+
+      sweep 1, chunks forward, S_c the state entering chunk c:
+        dr_state = exp(L_p) (dout S_c^T) + exp(L_p - L_m) (VD kn)
+      sweep 2, chunks backward, G_c the gradient of the state leaving c
+      (``d_state`` after the last chunk), G_{c-1} = exp(L_C) G_c + rq^T dout
+      with rq = r exp(L_p):
+        dk_state = exp(L_C - L) (v G_c^T) + exp(L_m - L) (VD^T rr)
+        dv       = (r . u . k) dout + (k exp(L_C - L)) G_c + A^T dout
+        dr       = dr_state + u k (v . dout),  dk = dk_state + r u (v . dout)
+        dlog_w_t = F + sum_{t' > t} r_t' dr_state_t' - sum_{t' >= t} k_t' dk_state_t'
+
+    with F = sum_j d_state[:, j] S_T[:, j]: the cumulative form of
+    w_t sum_j G_t S_{t-1} (zero outside the clamp), summed in float64 as
+    the kernel does."""
+    b, t, h, kk = r.shape
+    c = chunk
+    rc, kc, vc, dc = (_by_chunk(x, c) for x in (r, k, v, d_out))   # (B, H, nc, C, K)
+    raw = _by_chunk(log_w, c)
+    inside = ((raw >= LOG_DECAY_MIN) & (raw <= 0.0)).double()
+    lw = raw.clamp(LOG_DECAY_MIN, 0.0)
+    l_inc = torch.cumsum(lw, dim=3)
+    l_prev = l_inc - lw
+    l_end = l_inc[..., -1:, :]
+    l_mid = 0.5 * l_end
+    kn = kc * torch.exp(l_mid - l_inc)
+    rr = rc * torch.exp(l_prev - l_mid)
+    lower = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)
+    vd_m = torch.einsum("bhntj,bhnsj->bhnts", dc, vc).masked_fill(~lower, 0.0)
+    a_m = torch.einsum("bhnti,bhnsi->bhnts", rr, kn).masked_fill(~lower, 0.0)
+
+    # Sweep 1: the states entering each chunk and dr's state term.
+    states, final = wkv_chunk_states(k, v, log_w, chunk=c)
+    dr_state = (torch.exp(l_prev) * torch.einsum("bhntj,bhnij->bhnti", dc, states)
+                + torch.exp(l_prev - l_mid) * torch.einsum("bhnts,bhnsi->bhnti", vd_m, kn))
+
+    # Sweep 2: the gradients of the states leaving each chunk, backward.
+    g = _initial_state(r, d_state)
+    kdec = kc * torch.exp(l_end - l_inc)
+    rq = rc * torch.exp(l_prev)
+    dk_state, dv_state = torch.empty_like(kc), torch.empty_like(vc)
+    for i in reversed(range(kc.shape[2])):
+        dk_state[:, :, i] = (
+            torch.exp(l_end[:, :, i] - l_inc[:, :, i])
+            * torch.einsum("bhtj,bhij->bhti", vc[:, :, i], g)
+            + torch.exp(l_mid[:, :, i] - l_inc[:, :, i])
+            * torch.einsum("bhst,bhsi->bhti", vd_m[:, :, i], rr[:, :, i]))
+        dv_state[:, :, i] = (torch.einsum("bhti,bhij->bhtj", kdec[:, :, i], g)
+                             + torch.einsum("bhst,bhsj->bhtj", a_m[:, :, i], dc[:, :, i]))
+        g = (torch.exp(l_end[:, :, i, 0])[..., None] * g
+             + torch.einsum("bhti,bhtj->bhij", rq[:, :, i], dc[:, :, i]))
+
+    vd = (vc * dc).sum(-1, keepdim=True)
+    ruk = (rc * u.float()[None, :, None, None, :] * kc).sum(-1, keepdim=True)
+    uf = u.float()[None, :, None, None, :]
+    dr = dr_state + uf * kc * vd
+    dk = dk_state + rc * uf * vd
+    dv = dv_state + ruk * dc
+    du = (rc * kc * vd).sum((0, 2, 3))
+
+    def steps(x):  # (B, H, nc, C, K) -> (B, H, nc * C, K)
+        return x.reshape(b, h, -1, kk)
+
+    alpha = steps(rc.double() * dr_state.double())
+    beta = steps(kc.double() * dk_state.double())
+    f = (0.0 if d_state is None else (d_state.double() * final.double()).sum(-1))
+    after = alpha.flip(2).cumsum(2).flip(2) - alpha       # sum over t' > t
+    from_t = beta.flip(2).cumsum(2).flip(2)               # sum over t' >= t
+    dlw = (steps(inside) * ((f[:, :, None, :] if d_state is not None else 0.0)
+                            + after - from_t)).float()
+
+    def out(x):  # (B, H, T', K) -> (B, T, H, K)
+        return x.permute(0, 2, 1, 3)[:, :t].contiguous()
+
+    return out(steps(dr)), out(steps(dk)), out(steps(dv)), out(dlw), du

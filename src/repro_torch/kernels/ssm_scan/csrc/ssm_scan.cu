@@ -49,6 +49,10 @@
 //     kept finite) and it leaves h unchanged.
 //   * The decay is exp2(dt * A log2(e)) on the SFU (ex2.approx), log2(e)
 //     folded into A once per thread.
+//   * Optionally (a call that carries gradients) the state entering every
+//     kBwdTile = 64 steps goes to a (B, T / 64, D, N) tensor, which the
+//     backward in ssm_scan_backward.cu starts its tiles from: the thread
+//     whose segment starts such a tile stores the state g it carried in.
 //
 // Cost per state update, as compiled (the TMA instance's SASS at the main
 // case): about 1,080 warp instructions per thread and 64-update tile plus
@@ -76,6 +80,7 @@ constexpr int kMaxThreads = kLanes * kMaxGroups;
 constexpr int kMaxSegs = 16;       // segments per tile: tiles of at most 128 steps
 constexpr int kStages = 3;         // tiles in the ring
 constexpr int kMaxChunk = 128;     // the largest chunk the entry takes
+constexpr int kBwdTile = 64;       // steps per tile of the backward (kTile there)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -86,6 +91,7 @@ struct Params {
   const float* log_a;  // (D, N) contiguous
   float* y;            // (B, T, D) contiguous
   float* h;            // (B, D, N) contiguous
+  float* tiles;        // (B, ceil(T / kBwdTile), D, N) contiguous, or null
   long long u_sb, u_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st;  // 4-byte path only
   int T, D;
   int cb, sb;          // channels per block, segments per tile
@@ -373,6 +379,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         g[4 * v + 3] = fmaf(pa.w, g[4 * v + 3], hb.w);
       }
     }
+    if (p.tiles && valid && (k * rows + s * kSeg) % kBwdTile == 0 && k * rows + s * kSeg < p.T) {
+      float4* out = reinterpret_cast<float4*>(
+          p.tiles + (((long long)bidx * ((p.T + kBwdTile - 1) / kBwdTile) +
+                      (k * rows + s * kSeg) / kBwdTile) * p.D + d) * kN) + kVec * lane;
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        out[v] = make_float4(g[4 * v], g[4 * v + 1], g[4 * v + 2], g[4 * v + 3]);
+    }
     if (active && s == sb - 1) {  // the state leaving the tile
       float4* cout = carry + ((k + 1) & 1) * kVec * kLanes * cb + slot;
 #pragma unroll
@@ -505,11 +519,12 @@ struct EntryArgs {
   const void* log_a;      // (D, N) contiguous
   void* y;                // (B, T, D) contiguous
   void* h;                // (B, D, N) contiguous
+  void* tiles;            // (B, ceil(T / 64), D, N) contiguous, or null
   long long strides[8];   // (batch, time) of u, dt, b, c, in elements
   void* stream;
   int B, T, D, N, chunk, unused;
 };
-static_assert(sizeof(EntryArgs) == 152, "EntryArgs must match ops.py's packing");
+static_assert(sizeof(EntryArgs) == 160, "EntryArgs must match ops.py's packing");
 
 // Launches the scan; returns the first non-zero cudaError_t (0 on success).
 int ssm_scan_forward(const EntryArgs* a) {
@@ -538,7 +553,7 @@ int ssm_scan_forward(const EntryArgs* a) {
   const Params p{static_cast<const float*>(a->in[0]), static_cast<const float*>(a->in[1]),
                  static_cast<const float*>(a->in[2]), static_cast<const float*>(a->in[3]),
                  static_cast<const float*>(a->log_a), static_cast<float*>(a->y),
-                 static_cast<float*>(a->h),
+                 static_cast<float*>(a->h), static_cast<float*>(a->tiles),
                  st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                  a->T, a->D, cb, sb};
   const dim3 grid((a->D + cb - 1) / cb, a->B);

@@ -11,9 +11,12 @@ CPU tensors go to the plain version :func:`selective_scan_ref`.  A CUDA
 call that the kernel does not take raises: there is no fallback.
 
 A CUDA call whose inputs require grad (with grad mode on) runs the same
-forward under :class:`_SSMScan`, whose backward launches the hand-written
-kernel in ``csrc/ssm_scan_backward.cu`` through :func:`ssm_scan_backward`;
-CPU tensors differentiate through the plain version.
+forward under :class:`_SSMScan`, which also keeps the state entering every
+``BACKWARD_TILE`` steps; its backward launches the hand-written kernel in
+``csrc/ssm_scan_backward.cu`` (segments side by side, as
+``ref.ssm_scan_backward_segments`` decomposes it) through
+:func:`ssm_scan_backward`, starting from those states; CPU tensors
+differentiate through the plain version.
 
 ``ssm_scan.launches`` counts calls that launch the kernel, one per call,
 and ``ssm_scan_backward.launches`` calls that launch the backward kernel.
@@ -32,23 +35,28 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_backward_ref
 
 __all__ = [
-    "ssm_scan", "ssm_scan_backward", "SOURCE", "BACKWARD_SOURCE", "STATE_SIZE", "MAX_CHUNK",
+    "ssm_scan", "ssm_scan_backward", "ssm_scan_tile_states", "SOURCE", "BACKWARD_SOURCE",
+    "STATE_SIZE", "MAX_CHUNK", "BACKWARD_TILE",
 ]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 BACKWARD_SOURCE = SOURCE.with_name("ssm_scan_backward.cu")
 STATE_SIZE = 16
 MAX_CHUNK = 128
+# Steps per tile of the backward kernel (kTile in ssm_scan_backward.cu,
+# kBwdTile in ssm_scan.cu): it starts each tile from the state entering it.
+BACKWARD_TILE = 64
 
 # The C entry's argument block (``EntryArgs`` in the source): u, dt, b_t,
-# c_t, log_a, y and state pointers; the (batch, time) strides of u, dt,
-# b_t and c_t; the stream; B, T, D, N, chunk; one unused int.
-_ENTRY_ARGS = struct.Struct("=7Q8qQ6i")
+# c_t, log_a, y, state and tile-state (0: none) pointers; the (batch, time)
+# strides of u, dt, b_t and c_t; the stream; B, T, D, N, chunk; one unused
+# int.
+_ENTRY_ARGS = struct.Struct("=8Q8qQ6i")
 # The backward entry's block (``EntryArgs`` in ssm_scan_backward.cu): u, dt,
-# b_t, c_t, dy, log_a and dh (0: none) pointers; du, ddt, db_t, dc_t,
-# dlog_a and scratch pointers; the (batch, time) strides of u, dt, b_t, c_t
-# and dy; the stream; B, T, D, N, chunk; one unused int.
-_BACKWARD_ARGS = struct.Struct("=13Q10qQ6i")
+# b_t, c_t, dy, log_a, dh (0: none) and tile-state (0: none) pointers; du,
+# ddt, db_t, dc_t, dlog_a and scratch pointers; the (batch, time) strides
+# of u, dt, b_t, c_t and dy; the stream; B, T, D, N, chunk; one unused int.
+_BACKWARD_ARGS = struct.Struct("=14Q10qQ6i")
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,8 +134,15 @@ def _cuda_checks(u, dt, b_t, c_t, chunk) -> None:
         raise ValueError("the last dim of u, dt, b_t and c_t must be contiguous")
 
 
-def _launch(u, dt, b_t, c_t, log_a, chunk):
-    """The forward kernel on ``u``'s device: (y, final state)."""
+def _tile_shape(u, n):
+    bsz, t, d = u.shape
+    return bsz, -(-t // BACKWARD_TILE), d, n
+
+
+def _launch(u, dt, b_t, c_t, log_a, chunk, tiles=None):
+    """The forward kernel on ``u``'s device: (y, final state); with
+    ``tiles`` it also writes the state entering every ``BACKWARD_TILE``
+    steps there."""
     bsz, t, d = u.shape
     n = b_t.shape[2]
     c = min(chunk, t)
@@ -137,7 +152,7 @@ def _launch(u, dt, b_t, c_t, log_a, chunk):
     dev = u.device
     args = _ENTRY_ARGS.pack(
         u.data_ptr(), dt.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), h.data_ptr(),
+        y.data_ptr(), h.data_ptr(), 0 if tiles is None else tiles.data_ptr(),
         *u.stride()[:2], *dt.stride()[:2], *b_t.stride()[:2], *c_t.stride()[:2],
         _stream(dev),
         bsz, t, d, n, c, 0,
@@ -155,28 +170,48 @@ def _launch(u, dt, b_t, c_t, log_a, chunk):
 
 class _SSMScan(torch.autograd.Function):
     """The CUDA forward and the CUDA backward: what a CUDA call that
-    carries gradients runs.  A final-state gradient of None is taken as
-    zero."""
+    carries gradients runs.  The forward keeps the state entering every
+    ``BACKWARD_TILE`` steps (B x ceil(T / 64) x D x N float32, which the
+    backward would otherwise form in a pass of its own); a final-state
+    gradient of None is taken as zero."""
 
     @staticmethod
     def forward(ctx, u, dt, b_t, c_t, log_a, chunk):
-        y, h = _launch(u, dt, b_t, c_t, log_a, chunk)
-        ctx.save_for_backward(u, dt, b_t, c_t, log_a)
+        tiles = torch.empty(_tile_shape(u, b_t.shape[2]), dtype=torch.float32, device=u.device)
+        y, h = _launch(u, dt, b_t, c_t, log_a, chunk, tiles)
+        ctx.save_for_backward(u, dt, b_t, c_t, log_a, tiles)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
-        u, dt, b_t, c_t, log_a = ctx.saved_tensors
+        u, dt, b_t, c_t, log_a, tiles = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(u)
         du, ddt, db, dc, dlog_a = ssm_scan_backward(
-            u, dt, b_t, c_t, log_a, dy, dh, chunk=ctx.chunk)
+            u, dt, b_t, c_t, log_a, dy, dh, chunk=ctx.chunk, tiles=tiles)
         return du, ddt, db, dc, dlog_a, None
 
 
-def _launch_backward(u, dt, b_t, c_t, log_a, dy, dh, chunk):
+def ssm_scan_tile_states(
+    u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+    log_a: torch.Tensor, *, chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`ssm_scan` on the card as a call that carries gradients runs
+    it: (y, final state, the state entering every ``BACKWARD_TILE`` steps
+    (B, ceil(T / 64), D, N)), for :func:`ssm_scan_backward`'s ``tiles``.
+    CUDA tensors only."""
+    _check(u, dt, b_t, c_t, log_a, chunk)
+    if u.device.type != "cuda":
+        raise ValueError(f"ssm_scan_tile_states runs on cuda only, not {u.device.type}")
+    _cuda_checks(u, dt, b_t, c_t, chunk)
+    tiles = torch.empty(_tile_shape(u, b_t.shape[2]), dtype=torch.float32, device=u.device)
+    y, h = _launch(u, dt, b_t, c_t, log_a, chunk, tiles)
+    return y, h, tiles
+
+
+def _launch_backward(u, dt, b_t, c_t, log_a, dy, dh, chunk, tiles):
     """The backward kernel on ``u``'s device: (du, ddt, db_t, dc_t, dlog_a)."""
     bsz, t, d = u.shape
     n = b_t.shape[2]
@@ -190,10 +225,16 @@ def _launch_backward(u, dt, b_t, c_t, log_a, dy, dh, chunk):
     outs = [torch.empty((bsz, t, d), dtype=torch.float32, device=dev) for _ in range(2)]
     outs += [torch.empty((bsz, t, n), dtype=torch.float32, device=dev) for _ in range(2)]
     outs.append(torch.empty((d, n), dtype=torch.float32, device=dev))
+    if tiles is None:
+        _, _, tiles = ssm_scan_tile_states(u, dt, b_t, c_t, log_a, chunk=chunk)
+    elif tiles.shape != _tile_shape(u, n) or tiles.dtype != torch.float32 or not (
+            tiles.is_contiguous() and tiles.device == dev):
+        raise ValueError(f"tiles must be float32 {_tile_shape(u, n)}, contiguous on {dev}")
     scratch = torch.empty(scratch_floats(bsz, t, d), dtype=torch.float32, device=dev)
     inputs = (u, dt, b_t, c_t, dy)
     args = _BACKWARD_ARGS.pack(
         *(x.data_ptr() for x in inputs), log_a.data_ptr(), 0 if dh is None else dh.data_ptr(),
+        tiles.data_ptr(),
         *(o.data_ptr() for o in outs), scratch.data_ptr(),
         *(st for x in inputs for st in x.stride()[:2]),
         _stream(dev),
@@ -210,14 +251,17 @@ def _launch_backward(u, dt, b_t, c_t, log_a, dy, dh, chunk):
 def ssm_scan_backward(
     u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
     log_a: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
-    *, chunk: int = 64,
+    *, chunk: int = 64, tiles: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The gradient of :func:`ssm_scan` (from h = 0) given the output's
     gradient ``dy`` (B, T, D) and the final state's ``dh`` (B, D, N; None
     is zero): (du, ddt (B, T, D), db_t, dc_t (B, T, N), dlog_a (D, N)),
     float32.  CUDA tensors go to the kernel in ``csrc/ssm_scan_backward.cu``
     (the forward's limits: N = 16, chunk <= 128, float32, last dims
-    contiguous), CPU tensors to :func:`ssm_scan_backward_ref`."""
+    contiguous), which starts from ``tiles`` (the forward's states entering
+    every ``BACKWARD_TILE`` steps, :func:`ssm_scan_tile_states`; when None
+    the forward kernel forms them first); CPU tensors go to
+    :func:`ssm_scan_backward_ref`."""
     _check(u, dt, b_t, c_t, log_a, chunk)
     if dy.shape != u.shape:
         raise ValueError(f"dy {tuple(dy.shape)} != u {tuple(u.shape)}")
@@ -226,7 +270,7 @@ def ssm_scan_backward(
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_backward runs on cuda or cpu, not {u.device.type}")
     _cuda_checks(u, dt, b_t, c_t, chunk)
-    return _launch_backward(u, dt, b_t, c_t, log_a, dy.float(), dh, chunk)
+    return _launch_backward(u, dt, b_t, c_t, log_a, dy.float(), dh, chunk, tiles)
 
 
 ssm_scan.launches = 0

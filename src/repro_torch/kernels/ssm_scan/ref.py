@@ -11,7 +11,8 @@ Tensors are in the reference's layout: u/dt ``(B, T, D)``, b_t/c_t
 counterpart of ``repro/models/hymba.py::selective_scan_ref``; it lives here
 so that the kernel's wrapper does not import the model.
 :func:`selective_scan_segments` is the plain version of the CUDA kernel's
-segment structure.
+segment structure, :func:`ssm_scan_backward_segments` that of the backward
+kernel's.
 """
 from __future__ import annotations
 
@@ -20,10 +21,13 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = [
-    "selective_scan_ref", "selective_scan_segments", "ssm_scan_backward_ref", "SEGMENT_STEPS",
+    "selective_scan_ref", "selective_scan_segments", "ssm_scan_backward_ref",
+    "ssm_scan_backward_segments", "SEGMENT_STEPS", "BACKWARD_SEGMENT_STEPS",
 ]
 
 SEGMENT_STEPS = 8  # steps per segment in the CUDA kernel (kSeg in csrc/ssm_scan.cu)
+# Steps per segment in the backward kernel (kSeg in csrc/ssm_scan_backward.cu).
+BACKWARD_SEGMENT_STEPS = 8
 # Steps whose states the plain backward keeps at once (see ssm_scan_backward_ref).
 BACKWARD_BLOCK = 64
 
@@ -151,3 +155,71 @@ def ssm_scan_backward_ref(
             g = decay * gh
             states.pop()
     return du, ddt, db, dc, a * da
+
+
+def ssm_scan_backward_segments(
+    u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+    log_a: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
+    *, seg: int = BACKWARD_SEGMENT_STEPS,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`selective_scan_ref` as the backward kernel
+    decomposes it, in float32; the outputs of :func:`ssm_scan_backward_ref`.
+
+    T is cut into segments of ``seg`` steps (the last one zero-padded: dt =
+    0 leaves h and the carried gradient as they are).  Both recurrences are
+    linear with the same decays, so every segment is first run from zero:
+    its decays e_j, its local end state, its decay product P (the running
+    product of the e_j, not exp(A sum dt)) and its local left-exit gradient
+    gl = sum_j (e_0 ... e_j) dy_j C_j.  The state entering each segment is
+    carried forward, h_in[s+1] = P[s] h_in[s] + h[s]; the gradient arriving
+    at each segment's right end backward, g_in[s-1] = P[s] g_in[s] + gl[s],
+    from the final state's gradient.  Each segment then runs its true states
+    forward from h_in through the kept decays, and walks back from g_in
+    forming every output of :func:`ssm_scan_backward_ref`."""
+    bsz, t, di = u.shape
+    n = b_t.shape[-1]
+    n_seg = -(-t // seg)
+    pad = n_seg * seg - t
+
+    def split(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+        return x.reshape(bsz, n_seg, seg, x.shape[-1])
+
+    u_s, dt_s, b_s, c_s, dy_s = split(u), split(dt), split(b_t), split(c_t), split(dy)
+    x_s = dt_s * u_s
+    a = -torch.exp(log_a.float())
+    zero = torch.zeros((bsz, n_seg, di, n), dtype=torch.float32, device=u.device)
+    decays = [torch.exp(dt_s[:, :, j, :, None] * a) for j in range(seg)]
+    h, prod, gl = zero, torch.ones_like(zero), zero
+    for j in range(seg):  # every segment from zero at once
+        h = decays[j] * h + x_s[:, :, j, :, None] * b_s[:, :, j, None, :]
+        prod = prod * decays[j]
+        gl = gl + prod * dy_s[:, :, j, :, None] * c_s[:, :, j, None, :]
+    h_in = [zero[:, 0]]
+    for s in range(n_seg - 1):  # the states' carry, forward
+        h_in.append(prod[:, s] * h_in[s] + h[:, s])
+    g_in = [zero[:, 0] if dh is None else dh.float()]
+    for s in range(n_seg - 1, 0, -1):  # the gradient's carry, backward
+        g_in.append(prod[:, s] * g_in[-1] + gl[:, s])
+    h_in, g_in = torch.stack(h_in, dim=1), torch.stack(g_in[::-1], dim=1)
+    states = [h_in]  # states[j] = h at the segment's step j - 1
+    for j in range(seg):
+        states.append(decays[j] * states[-1] + x_s[:, :, j, :, None] * b_s[:, :, j, None, :])
+    g = g_in
+    du, ddt, db, dc = ([None] * seg for _ in range(4))
+    da = torch.zeros_like(a)
+    for j in reversed(range(seg)):
+        gh = dy_s[:, :, j, :, None] * c_s[:, :, j, None, :] + g
+        sb = (gh * b_s[:, :, j, None, :]).sum(-1)
+        ghe = gh * decays[j] * states[j]
+        du[j] = dt_s[:, :, j] * sb
+        ddt[j] = u_s[:, :, j] * sb + (ghe * a).sum(-1)
+        db[j] = torch.einsum("bsdn,bsd->bsn", gh, x_s[:, :, j])
+        dc[j] = torch.einsum("bsd,bsdn->bsn", dy_s[:, :, j], states[j + 1])
+        da += (ghe * dt_s[:, :, j, :, None]).sum((0, 1))
+        g = decays[j] * gh
+
+    def join(parts):
+        return torch.stack(parts, dim=2).reshape(bsz, n_seg * seg, -1)[:, :t]
+
+    return join(du), join(ddt), join(db), join(dc), a * da

@@ -15,7 +15,7 @@ from repro_torch.kernels.rwkv6_wkv import (  # noqa: E402
     wkv_with_chunk_states,
 )
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
-    selective_scan_ref, ssm_scan, ssm_scan_backward, ssm_scan_backward_ref,
+    selective_scan_ref, ssm_scan, ssm_scan_backward, ssm_scan_backward_ref, ssm_scan_tile_states,
 )
 
 pytestmark = pytest.mark.gpu
@@ -809,3 +809,50 @@ def test_ssm_backward_kernel_rejects_what_it_does_not_take(cuda_device, n, chunk
     log_a = torch.zeros(32, n, device=cuda_device)
     with pytest.raises(ValueError):
         ssm_scan_backward(u, u, bt, bt, log_a, u, chunk=chunk)
+
+
+# The backwards' second designs at their edges: the scan's 8-step segments,
+# 64-step tiles, 8-channel sub-blocks and 128-channel blocks (with the
+# forward's tile states given and formed by the wrapper), the WKV
+# backward's 32-step chunks at
+# the forward's chunks 32 and 64; each against the plain backward and
+# repeated bit for bit.
+@pytest.mark.parametrize("b,t,d,strong,with_dh", [
+    (2, 64, 128, False, True),     # one tile, one block exactly
+    (1, 65, 136, False, False),    # one step past a tile; D past a block
+    (2, 128, 131, True, True),     # two tiles; D not a multiple of a sub-block
+    (1, 7, 9, False, True),        # below one segment; D past one sub-block
+    (3, 200, 264, False, False),   # ragged tiles, three blocks
+])
+def test_ssm_backward_kernel_at_segment_and_tile_edges(cuda_device, b, t, d, strong, with_dh):
+    u, dt, bt, ct, log_a = _ssm_inputs(b, t, d, cuda_device, seed=7, strong=strong)
+    dy = torch.randn_like(u)
+    dh = torch.randn(b, d, 16, device=cuda_device) if with_dh else None
+    want = ssm_scan_backward_ref(u, dt, bt, ct, log_a, dy, dh)
+    _, _, tiles = ssm_scan_tile_states(u, dt, bt, ct, log_a, chunk=128)
+    for kw in ({"tiles": tiles}, {}):
+        got = ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=128, **kw)
+        again = ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=128, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        _bwd_close(got, want)
+
+
+@pytest.mark.parametrize("b,t,h,chunk,with_ds", [
+    (2, 32, 4, 32, True),      # one chunk exactly
+    (1, 33, 4, 32, False),     # one step past a chunk
+    (2, 63, 4, 64, True),      # the forward's chunk 64: two chunks here, ragged
+    (1, 64, 4, 64, False),
+    (2, 65, 4, 64, True),
+    (1, 100, 4, 32, False),
+])
+def test_wkv_backward_kernel_at_chunk_edges(cuda_device, b, t, h, chunk, with_ds):
+    r, k, v, lw, u = _wkv_inputs(b, t, h, cuda_device, seed=8)
+    d_out = torch.randn_like(r)
+    d_state = torch.randn(b, h, 64, 64, device=cuda_device) if with_ds else None
+    _, state = wkv(r, k, v, lw, u, chunk=chunk)
+    got = wkv_backward(r, k, v, lw, u, state, d_out, d_state, chunk=chunk)
+    again = wkv_backward(r, k, v, lw, u, state, d_out, d_state, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _bwd_close(got, wkv_backward_ref(r, k, v, lw, u, d_out, d_state))

@@ -192,3 +192,113 @@ def test_entry_args_block_and_segment_match_the_cuda_source():
     seg = re.search(r"constexpr int kSeg = (\d+);", src)
     assert size and ops._ENTRY_ARGS.size == int(size.group(1))
     assert seg and SEGMENT_STEPS == int(seg.group(1))
+
+
+# ---------------------------------------------------------------------------
+# The plain form of the backward kernel's segment design
+# (``ssm_scan_backward_segments``) against ``jax.grad`` of the reference's
+# ``selective_scan`` and against ``ssm_scan_backward_ref``.  Tolerance: max
+# abs err <= 1e-4 * max(1, max |g|) per output, the backward oracles' own
+# (float32 sums in another order).
+# ---------------------------------------------------------------------------
+from test_torch_train_hymba import (  # noqa: E402,F401  (its checks and fixtures)
+    _close as _grad_close, scan_inputs, scan_jax_grads,
+)
+
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    BACKWARD_SEGMENT_STEPS, ssm_scan_backward_ref, ssm_scan_backward_segments,
+)
+from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+
+@pytest.fixture(scope="module")
+def strong_scan():
+    """Strong decays (dt |A| up to ~50), T = 45 (five segments of 8 and a
+    ragged 5), N = 16, a final-state gradient: the inputs and ``jax.grad``
+    of the reference's ``selective_scan`` (chunk 16)."""
+    u, dt, bt, ct, log_a, _ = _inputs(2, 45, 5, 16, seed=17, strong=True)
+    rng = np.random.default_rng(18)
+    dy = rng.standard_normal(u.shape).astype(np.float32)
+    dh = rng.standard_normal((2, 5, 16)).astype(np.float32)
+
+    def f(u, dt, b_t, c_t, log_a):
+        y, h = jax_selective_scan(u, dt, log_a, b_t, c_t, chunk=16)
+        return jnp.sum(y * dy) + jnp.sum(h * dh)
+
+    want = [np.asarray(g) for g in jax.jit(jax.grad(f, argnums=tuple(range(5))))(
+        u, dt, bt, ct, log_a)]
+    return (u, dt, bt, ct, log_a), dy, dh, want
+
+
+@pytest.mark.parametrize("final", ["zero", "nonzero"])
+def test_backward_segments_match_jax_grad_and_the_plain_backward(scan_inputs, scan_jax_grads,
+                                                                  final):
+    """Moderate decays, T = 37 (ragged against segments of 8), N = 4."""
+    args, dy, dh = scan_inputs
+    targs = [torch.from_numpy(x) for x in args]
+    dh_t = torch.from_numpy(dh) if final == "nonzero" else None
+    got = ssm_scan_backward_segments(*targs, torch.from_numpy(dy), dh_t)
+    _grad_close([g.numpy() for g in got], scan_jax_grads[final])
+    _grad_close([g.numpy() for g in got],
+                [w.numpy() for w in ssm_scan_backward_ref(*targs, torch.from_numpy(dy), dh_t)])
+
+
+@pytest.mark.parametrize("seg", [BACKWARD_SEGMENT_STEPS, 5])
+def test_backward_segments_under_strong_decay(strong_scan, seg):
+    """Strong decay, ragged T and a final-state gradient, at the kernel's
+    segment length and at one that divides nothing: the decomposition does
+    not change the function."""
+    args, dy, dh, want = strong_scan
+    targs = [torch.from_numpy(x) for x in args]
+    dy_t, dh_t = torch.from_numpy(dy), torch.from_numpy(dh)
+    got = ssm_scan_backward_segments(*targs, dy_t, dh_t, seg=seg)
+    _grad_close([g.numpy() for g in got], want)
+    _grad_close([g.numpy() for g in got],
+                [w.numpy() for w in ssm_scan_backward_ref(*targs, dy_t, dh_t)])
+
+
+def _constants(src):
+    """The ``constexpr int`` constants of a CUDA source, evaluated in order."""
+    import re
+
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return env
+
+
+def test_backward_entry_and_constants_match_the_cuda_sources():
+    """ops.py packs the backward entry's arguments into one block whose size
+    the source's static_assert holds ``EntryArgs`` to; the plain form's
+    segment length and the tile of the forward's kept states are the
+    kernels'."""
+    import re
+
+    bwd = ssm_ops.BACKWARD_SOURCE.read_text()
+    size = re.search(r"static_assert\(sizeof\(EntryArgs\) == (\d+)", bwd)
+    assert size and ssm_ops._BACKWARD_ARGS.size == int(size.group(1))
+    consts = _constants(bwd)
+    assert consts["kSeg"] == BACKWARD_SEGMENT_STEPS
+    forward = _constants(ssm_ops.SOURCE.read_text())
+    assert consts["kTile"] == ssm_ops.BACKWARD_TILE == forward["kBwdTile"]
+
+
+@pytest.mark.parametrize("b,t,d", [(40, 512, 3200), (2, 301, 203), (1, 5, 16), (3, 64, 129)])
+def test_backward_scratch_formula_matches_its_layout(b, t, d):
+    """``ssm_scan_backward_scratch`` (read from the source and evaluated)
+    sizes the layout the entry cuts the buffer into: the blocks' dB/dC
+    partials (B, T, blocks, 2N) and dlog_a's batch rows (B, D, N)."""
+    import re
+
+    src = ssm_ops.BACKWARD_SOURCE.read_text()
+    env = _constants(src)
+    body = re.search(r"long long ssm_scan_backward_scratch\(([^)]*)\) \{(.*?)\n\}", src, re.S)
+    scope = dict(env, B=b, T=t, D=d)
+    for stmt in body.group(2).split(";"):
+        stmt = " ".join(stmt.replace("(long long)", "").replace("const long long ", "").split())
+        if not stmt:
+            continue
+        stmt = re.sub(r"\((\w+) \? (.+?) : (.+)\)$", r"(\2 if \1 else \3)", stmt)
+        exec(stmt.replace("/", "//").replace("return ", "result = "), {}, scope)
+    n, blocks = env["kN"], -(-d // env["kBlockChannels"])
+    layout = b * t * blocks * 2 * n + b * d * n
+    assert scope["result"] == layout

@@ -222,3 +222,82 @@ def test_entry_args_block_matches_the_c_struct():
 )
 def test_layout_rule(shape, strides, ptr_mod_16, bad):
     assert (ops.layout_error(shape, strides, ptr_mod_16) is not None) is bad
+
+
+# ---------------------------------------------------------------------------
+# The plain form of the backward kernel's chunked design
+# (``wkv_backward_chunked``) against ``jax.grad`` of the reference's
+# ``wkv_chunked`` and against ``wkv_backward_ref``.  Tolerance: max abs err
+# <= 1e-4 * max(1, max |g|) per output, the backward oracles' own (float32
+# sums in another order; dlog_w's cumulative form sums over all of T).
+# ---------------------------------------------------------------------------
+from test_torch_train_rwkv6 import (  # noqa: E402,F401  (its checks and fixtures)
+    _close as _grad_close, wkv_inputs, wkv_jax_grads,
+)
+
+from repro_torch.kernels.rwkv6_wkv import (  # noqa: E402
+    BACKWARD_CHUNK, wkv_backward_chunked, wkv_backward_ref,
+)
+
+@pytest.fixture(scope="module")
+def strong_wkv():
+    """Strong decay (log-decays in [-4.6, -3.45], a few below the clamp,
+    whose gradient is zero), K = 64, T = 45 (a chunk of 32 and a ragged
+    13), a final-state gradient: the inputs and ``jax.grad`` of the
+    reference's ``wkv_chunked`` (chunk 32, inside its float32 range)."""
+    r, kk, v, _, u, _ = _inputs(2, 45, 2, 64, seed=23)
+    rng = np.random.default_rng(24)
+    lw = (LOG_DECAY_MIN * (1.0 - 0.25 * rng.random(r.shape))).astype(np.float32)
+    lw[:, ::7, :, :8] = LOG_DECAY_MIN - 0.5
+    d_out = rng.standard_normal(r.shape).astype(np.float32)
+    d_state = rng.standard_normal((2, 2, 64, 64)).astype(np.float32)
+
+    def f(*xs):
+        out, s = jax_wkv_chunked(*xs, chunk=32)
+        return jnp.sum(out * d_out) + jnp.sum(s * d_state)
+
+    want = [np.asarray(g) for g in jax.jit(jax.grad(f, argnums=tuple(range(5))))(
+        r, kk, v, lw, u)]
+    return (r, kk, v, lw, u), d_out, d_state, want
+
+
+@pytest.mark.parametrize("final", ["zero", "nonzero"])
+def test_backward_chunked_matches_jax_grad_and_the_plain_backward(wkv_inputs, wkv_jax_grads,
+                                                                  final):
+    """Moderate decays, K = 16, T = 37 (ragged against chunks of 32)."""
+    args, d_out, d_state = wkv_inputs
+    targs = [torch.from_numpy(x) for x in args]
+    ds = torch.from_numpy(d_state) if final == "nonzero" else None
+    got = wkv_backward_chunked(*targs, torch.from_numpy(d_out), ds)
+    _grad_close([g.numpy() for g in got], wkv_jax_grads[final])
+    _grad_close([g.numpy() for g in got],
+                [w.numpy() for w in wkv_backward_ref(*targs, torch.from_numpy(d_out), ds)])
+
+
+@pytest.mark.parametrize("chunk", [BACKWARD_CHUNK, 16])
+def test_backward_chunked_under_strong_decay(strong_wkv, chunk):
+    """Strong decay, ragged T and a final-state gradient, at the kernel's
+    chunk and at 16: finite, and the decomposition does not change the
+    function."""
+    args, d_out, d_state, want = strong_wkv
+    targs = [torch.from_numpy(x) for x in args]
+    d_out_t, ds = torch.from_numpy(d_out), torch.from_numpy(d_state)
+    got = wkv_backward_chunked(*targs, d_out_t, ds, chunk=chunk)
+    assert all(torch.isfinite(g).all() for g in got)
+    _grad_close([g.numpy() for g in got], want)
+    _grad_close([g.numpy() for g in got],
+                [w.numpy() for w in wkv_backward_ref(*targs, d_out_t, ds)])
+    assert float(got[3][:, ::7, :, :8].abs().max()) == 0.0  # outside the clamp
+
+
+def test_backward_entry_and_chunk_match_the_cuda_source():
+    """ops.py packs the backward entry's arguments into one block whose size
+    the source's static_assert holds ``EntryArgs`` to, and the plain form's
+    chunk is the kernel's."""
+    import re
+
+    src = ops.BACKWARD_SOURCE.read_text()
+    size = re.search(r"static_assert\(sizeof\(EntryArgs\) == (\d+)", src)
+    chunk = re.search(r"constexpr int kChunk = (\d+);", src)
+    assert size and ops._BACKWARD_ARGS.size == int(size.group(1))
+    assert chunk and BACKWARD_CHUNK == int(chunk.group(1))

@@ -2,7 +2,9 @@
 """Time one checkout's flash-attention, WKV or selective-scan kernel, and
 the model forwards that call it, on one CUDA card.
 
-    python3 tools/kernel_compare.py --kernel {flash,flash_bwd,wkv,ssm} [--src DIR] [--label NAME]
+    python3 tools/kernel_compare.py --kernel KERNEL [--src DIR] [--label NAME]
+
+with KERNEL one of flash, flash_bwd, wkv, ssm, wkv_bwd, ssm_bwd.
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is timed (default
 this checkout's); its kernels build into that checkout's ``build/kernels/``.
@@ -21,6 +23,15 @@ by ``chip_smoke.node_step_row``, the training phase's own timing.
 ``--kernel wkv``: each row of ``chip_smoke.WKV_CASES`` is timed by
 ``chip_smoke.wkv_case``, the WKV phase's own timing (errors included);
 then full-width rwkv6-7b (bf16) runs a 1024-token forward.
+
+``--kernel wkv_bwd`` / ``ssm_bwd``: each row of ``chip_smoke.WKV_BWD_CASES``
+or ``SSM_BWD_CASES`` is timed by ``chip_smoke.wkv_bwd_case`` or
+``ssm_bwd_case``, the backward phase's own timing (errors and the bitwise
+repeat included; a checkout whose scan backward has three kernels a call
+and no forward tile states is counted so); then one node step of
+full-width rwkv6-7b at 12 layers or hymba-1.5b (bf16, remat on, seeded
+random weights) at b=34 of padded b=40, S=512, by
+``chip_smoke.node_step_row``, with each kernel's part.
 
 ``--kernel ssm``: each row of ``chip_smoke.SSM_CASES`` is timed by
 ``chip_smoke.ssm_case``, the scan phase's own timing (errors, L2-cold
@@ -54,6 +65,14 @@ FORWARDS = {
     "flash_bwd": (),
     "wkv": (("rwkv6-7b", 1024, chip_smoke.WKV_PROFILE_PREFIX),),
     "ssm": (("hymba-1.5b", 1024, chip_smoke.SSM_PROFILE_PREFIX),),
+    "wkv_bwd": (),
+    "ssm_bwd": (),
+}
+# backward kernel -> (cases, case function, the node step's arch and layers)
+BACKWARDS = {
+    "wkv_bwd": (chip_smoke.WKV_BWD_CASES, chip_smoke.wkv_bwd_case, "rwkv6-7b",
+                chip_smoke.RWKV6_TRAIN_LAYERS),
+    "ssm_bwd": (chip_smoke.SSM_BWD_CASES, chip_smoke.ssm_bwd_case, "hymba-1.5b", None),
 }
 
 
@@ -75,6 +94,18 @@ def kernel_rows(torch, kernel: str, label: str) -> None:
             print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
         node_step(torch, label)
         return
+    if kernel in BACKWARDS:
+        from repro_torch.kernels import ssm_scan
+
+        if not hasattr(ssm_scan, "ssm_scan_tile_states"):  # the first scan backward
+            chip_smoke.BWD_KERNELS_PER_CALL[chip_smoke.SSM_BWD_PROFILE] = 3
+        cases, case_fn, arch, layers = BACKWARDS[kernel]
+        gen = torch.Generator(device=dev).manual_seed(8)
+        for case in cases:
+            row = case_fn(torch, case, gen)
+            print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
+        node_step(torch, label, arch=arch, n_layers=layers)
+        return
     if kernel == "ssm":
         from repro_torch.kernels import ssm_scan
 
@@ -92,20 +123,27 @@ def kernel_rows(torch, kernel: str, label: str) -> None:
         print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
 
 
-def node_step(torch, label, b=34, b_max=40) -> None:
-    """One olmo-1b node step as phase 13 times its first node at the
-    OptPerf plan ([34, 21, 9], padded to 40)."""
+def node_step(torch, label, b=34, b_max=40, arch="olmo-1b", n_layers=None) -> None:
+    """One node step of ``arch`` (cut to ``n_layers`` when given) as phase
+    13 times its first node at the OptPerf plan ([34, 21, 9], padded to
+    40)."""
+    import dataclasses
+
     from repro_torch.configs import get_api
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.registry import build_api
     from repro_torch.optim.optimizers import constant_schedule, sgd
     from repro_torch.runtime.backend import RealBackend
 
-    api = get_api("olmo-1b")
+    api = get_api(arch)
+    if n_layers is not None:
+        api = build_api(arch, dataclasses.replace(api.cfg, n_layers=n_layers))
     data = SyntheticLM(vocab=api.cfg.vocab, seq_len=512, seed=0)
     backend = RealBackend(api, sgd(constant_schedule(0.01)), data, seed=0,
                           device=chip_smoke.DEVICE)
     row = chip_smoke.node_step_row(torch, backend, data, b, b_max)
-    print(json.dumps({"label": label, "case": f"olmo-1b node step b={b} of {b_max} S=512",
+    layers = f" ({api.cfg.n_layers} layers)" if n_layers is not None else ""
+    print(json.dumps({"label": label, "case": f"{arch}{layers} node step b={b} of {b_max} S=512",
                       **row, "clock": chip_smoke.sm_clock()}), flush=True)
     del backend
     torch.cuda.empty_cache()
@@ -125,7 +163,8 @@ def ssm_fill_rows(torch, mod, label, gen) -> None:
         for _ in range(3):
             call()
         torch.cuda.synchronize()
-        named = chip_smoke.profile_device(torch, call, 20, (prefix,), launches={prefix: 1})[1]
+        named = chip_smoke.profile_device(torch, call, 20, (prefix,), launches={prefix: 1},
+                                          sole=True)[1]
         print(json.dumps({"label": label, "case": f"fill D={1056 * k}", "device_ms": named[prefix],
                           "clock": chip_smoke.sm_clock()}), flush=True)
 
