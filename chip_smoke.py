@@ -31,7 +31,9 @@ Phases, each of which fails the run:
                    beside the card's bound for the same work; also the
                    kernel's and the library call's device time per call
                    under ``torch.profiler`` (``device_ms``) and the host's
-                   time to issue one kernel call (``issue_ms``).
+                   time to issue one kernel call (``issue_ms``).  Its last
+                   row is mixtral-8x7b's attention (S=8192, GQA 32/8, the
+                   window of 4096 active).
 4. kernel (wkv)  — the WKV kernel against its plain (chunked) version, all
                    float32 with K=64, out and final state within
                    1e-4 * max(1, max |plain|): float32 sums in another order
@@ -53,8 +55,10 @@ Phases, each of which fails the run:
                    weights: the forward over 128 tokens launches the WKV
                    kernel once per layer and its logits equal the stepped
                    decode loop's (plain recurrence) within 1e-3.
-8. serving (rwkv6) — full-width rwkv6-7b in bf16 under ``ServingRuntime``:
-                   8 seeded requests whose prompts step the decode loop, as
+8. serving (rwkv6) — rwkv6-7b in bf16 at published widths, cut to
+                   ``SSM_SERVING_LAYERS`` (16 of 32) layers to keep the
+                   whole run inside its time limit, under
+                   ``ServingRuntime``: 8 seeded requests whose prompts step the decode loop, as
                    the reference's engine does for a family with no fused
                    prefill; all completed, none dropped, tokens inside the
                    vocab, two undisturbed requests equal to a direct greedy
@@ -74,13 +78,15 @@ Phases, each of which fails the run:
                    launches the flash-attention kernel (head dim 64) and the
                    selective-scan kernel once per layer each, and its logits
                    equal the stepped decode loop's (plain torch) within 1e-3.
-11. serving (hymba) — full-width hymba-1.5b in bf16, as phase 8; then the
+11. serving (hymba) — hymba-1.5b in bf16, cut to 16 of 32 layers, as
+                   phase 8; then the
                    per-call times of a 1024-token forward and a decode step,
                    each kernel's share, device time and idle share.
 12. kernel (flash bwd) — the flash-attention backward kernel (dQ, dK, dV
                    from the forward's log-sum-exp) against autograd through
                    the plain ``attention_ref`` on the card, at the training
-                   shape and at hymba's, llama3-8b's and a float32 shape:
+                   shape and at hymba's, llama3-8b's, a float32 and
+                   mixtral-8x7b's training shape (B=8, S=512, GQA 32/8):
                    bf16 within 2e-2 * max(1, max |plain|), f32 within 1e-4 *
                    max(1, max |plain|), and a bf16 row's dq, dk, dv the same
                    bits on two calls (no atomics); with the kernel's, the
@@ -132,8 +138,9 @@ Phases, each of which fails the run:
                    fault-free twin), no invariant violation, the twin's
                    allocations equal to a host-engine replay, flash launches
                    as the path predicts, peak memory under 80 GB; each
-                   reconcile's and job-epoch's seconds.  Then one
-                   full-width job preempted through a checkpoint file and
+                   reconcile's and job-epoch's seconds.  Then one job at
+                   published widths, cut to ``PREEMPT_LAYERS`` (4 of 16)
+                   layers, preempted through a checkpoint file and
                    resumed: losses, params, momentum and GNS state the same
                    bits as an unpreempted run; the file's bytes and the
                    seconds to write, verify and restore it.
@@ -193,11 +200,40 @@ Phases, each of which fails the run:
                    --full-width``: exit 0, three finite losses.
                    ``python3 chip_smoke.py --only train-ssm`` runs phases
                    1, 2 and 17-19 alone.
+20. model (dense configs) — the config-only dense ports in float32 at
+                   published widths, as phase 5: minitron-4b at full depth,
+                   internlm2-20b and chameleon-34b cut to 4 layers
+                   (``DENSE_MODEL_LAYERS``; uncut they hold 80 and 137 GB).
+21. model (mixtral) — mixtral-8x7b in float32, 4 of 32 layers
+                   (``MIXTRAL_MODEL_LAYERS``), 128 tokens: at the published
+                   capacity factor 1.25 the forward (one flash launch a
+                   layer) against the same forward with the plain attention
+                   through the ``attend`` seam; at capacity factor 4.0 (=
+                   experts / top-k: nothing drops) against the stepped decode
+                   loop; logits within 1e-3; ``drop_frac`` and ``lb_loss``.
+22. serving (mixtral) — mixtral-8x7b in bf16, 16 of 32 layers
+                   (``MIXTRAL_SERVING_LAYERS``; uncut 93.4 GB), as phase 8;
+                   then a 1024-token forward (16 flash launches) and a decode
+                   step: wall and device ms, idle share, the flash part, the
+                   decode step's byte bound.
+23. training (mixtral) — mixtral-8x7b in bf16, 2 of 32 layers
+                   (``MIXTRAL_TRAIN_LAYERS``: ``_step`` holds ~14 B a
+                   parameter), on phase 13's recipe, two-program: losses
+                   finite, no node excluded, 14 flash forwards and 6
+                   backward calls a step, peak under 80 GB, each node
+                   step's wall and device ms with the flash part and the
+                   share of routings its padded slice drops (through
+                   ``api.loss`` after the run), and one node's float32 gradient
+                   against the plain attention (as phase 13).  A line says
+                   the uncut CLI does not fit (AdamW's moments: 374 GB).
+                   ``python3 chip_smoke.py --only moe`` runs phases 1, 2
+                   and 20-23 alone.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
-training, 15's trace, each run of 16, each training run of 18 and 19) and
-read just after it.  Device ms of a named kernel are per launch the
+training, 15's trace, each run of 16, each training run of 18 and 19,
+each model of 20, each forward of 21, 22's serving run and forward, 23's
+training run) and read just after it.  Device ms of a named kernel are per launch the
 profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
 ``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -245,6 +281,7 @@ BWD_CASES = [
     ("hymba-1.5b window=1024 S=2048", 1, 2048, 25, 5, "bf16", 1024, 64),
     ("llama3-8b heads S=1024", 1, 1024, 32, 8, "bf16", None, 128),
     ("f32 S=T=300", 1, 300, 16, 16, "f32", None, 128),
+    ("mixtral-8x7b train B=8 S=512", 8, 512, 32, 8, "bf16", 4096, 128),
 ]
 BWD_REL = {"bf16": 2e-2, "f32": 1e-4}
 
@@ -259,6 +296,7 @@ KERNEL_CASES = [
     ("hymba-1.5b global S=1024", 1, 1024, 25, 5, "bf16", None, 64),
     ("hymba-1.5b window=1024 S=2048", 1, 2048, 25, 5, "bf16", 1024, 64),
     ("D=64 f32 S=T=300", 1, 300, 25, 5, "f32", None, 64),
+    ("mixtral-8x7b S=8192 window=4096", 1, 8192, 32, 8, "bf16", 4096, 128),
 ]
 TOL = {"bf16": 1e-2, "f32": 1e-5}
 # name, B, T, H, chunk, strong decay (float32, K = 64)
@@ -311,6 +349,15 @@ WKV_BWD_MAIN_CASE = WKV_BWD_CASES[0][0]
 SSM_BWD_MAIN_CASE = SSM_BWD_CASES[0][0]
 KERNEL_BWD_REL = 1e-4  # float32 sums in another order, per output x max(1, max |plain|)
 RWKV6_TRAIN_LAYERS = 12  # phase 18's depth cut (of 32): see PERF.md section 4
+# Cuts that keep the whole run inside its time limit (PERF.md section 4):
+SSM_SERVING_LAYERS = 16  # phases 8 and 11 serve rwkv6-7b and hymba-1.5b 16 of 32 layers deep
+PREEMPT_LAYERS = 4       # phase 15's preempt/resume job: olmo-1b 4 of 16 layers deep
+# Phases 20-23's depth cuts at published widths (None: uncut); PERF.md section 4.
+DENSE_MODEL_LAYERS = {"minitron-4b": None, "internlm2-20b": 4, "chameleon-34b": 4}
+MIXTRAL_MODEL_LAYERS = 4     # phase 21, float32: 6.1 B parameters, 24 GB
+MIXTRAL_SERVING_LAYERS = 16  # phase 22, bf16: 23.5 B parameters, 47 GB
+MIXTRAL_TRAIN_LAYERS = 2     # phase 23, bf16: 3.16 B parameters, ~14 B each held by _step
+MIXTRAL_DROPLESS_CF = 4.0    # = experts / top-k: every expert's capacity is T
 DEVICE = "cuda"
 
 
@@ -901,8 +948,8 @@ KERNEL_NAMES = ("flash_attention", "rwkv6_wkv", "ssm_scan", "flash_attention_bac
 # Each forward kernel's backward, and the forward kernels of each family's path.
 BACKWARD_OF = {"flash_attention": "flash_attention_backward",
                "rwkv6_wkv": "rwkv6_wkv_backward", "ssm_scan": "ssm_scan_backward"}
-PATH_KERNELS = {"dense": ("flash_attention",), "ssm": ("rwkv6_wkv",),
-                "hybrid": ("flash_attention", "ssm_scan")}
+PATH_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
+                "ssm": ("rwkv6_wkv",), "hybrid": ("flash_attention", "ssm_scan")}
 
 
 def _wrappers():
@@ -928,22 +975,22 @@ def read_launches():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def phase_model(torch):
-    from repro_torch.configs import olmo_1b
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models.registry import build_api
-
-    cfg = dataclasses.replace(
-        olmo_1b.config(), param_dtype=torch.float32, compute_dtype=torch.float32)
-    api = build_api("olmo-1b", cfg)
+def prefill_vs_stepped(torch, api, label, seed=1, s=128):
+    """A dense model in float32 (seeded random weights): fused prefill of
+    ``s`` tokens through the kernel, one launch per layer and nothing else,
+    against the stepped decode loop (plain decode attention), logits and
+    cache K/V within 1e-3."""
+    cfg = api.cfg
     model = api.init(0, device=DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(1)
-    s = 128
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
-    before = flash_attention.launches
+    reset_launches()
     fused_logits, fused = api.prefill(model, api.init_cache(1, s, device=DEVICE), toks)
-    if flash_attention.launches - before != cfg.n_layers:
-        raise AssertionError("fused prefill did not launch the kernel once per layer")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    if counts != no_launches(flash_attention=cfg.n_layers):
+        raise AssertionError(f"{label} fused prefill launched {counts}, not the flash kernel "
+                             f"once per layer ({cfg.n_layers})")
     stepped = api.init_cache(1, s, device=DEVICE)
     rows = []
     for p in range(s):
@@ -952,19 +999,29 @@ def phase_model(torch):
     stepped_logits = torch.cat(rows, dim=1)
     torch.cuda.synchronize()
     if not torch.isfinite(fused_logits).all():
-        raise AssertionError("non-finite prefill logits")
+        raise AssertionError(f"{label}: non-finite prefill logits")
     errs = {
         "logits": (fused_logits - stepped_logits).abs().max().item(),
         "k": (fused["k"] - stepped["k"]).abs().max().item(),
         "v": (fused["v"] - stepped["v"]).abs().max().item(),
     }
-    log("model", f"full olmo-1b f32 ({api.param_count()} params), prefill {s} tokens vs "
-        f"stepped decode: " + ", ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items())
+    log("model", f"{label} f32 ({cfg.n_layers} layers, {api.param_count()} params), prefill "
+        f"{s} tokens ({counts['flash_attention']} flash launches) vs stepped decode: "
+        + ", ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items())
         + f"; logits scale {stepped_logits.abs().max().item():.3f}")
     for key, err in errs.items():
         if not err <= 1e-3:
-            raise AssertionError(f"fused vs stepped {key}: {err:.3e} > 1e-3")
-    del model, fused, stepped
+            raise AssertionError(f"{label} fused vs stepped {key}: {err:.3e} > 1e-3")
+    del model, fused, stepped, rows
+
+
+def phase_model(torch):
+    from repro_torch.configs import olmo_1b
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(
+        olmo_1b.config(), param_dtype=torch.float32, compute_dtype=torch.float32)
+    prefill_vs_stepped(torch, build_api("olmo-1b", cfg), "full olmo-1b")
 
 
 def recording(base):
@@ -1133,12 +1190,14 @@ def phase_model_rwkv6(torch):
 
 def phase_serving_rwkv6(torch, wkv_ms):
     from repro_torch.configs import get_api
+    from repro_torch.models.registry import build_api
     from repro_torch.serving import (
         RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
         generate_requests,
     )
 
-    api = get_api("rwkv6-7b")
+    api = build_api("rwkv6-7b", dataclasses.replace(get_api("rwkv6-7b").cfg,
+                                                    n_layers=SSM_SERVING_LAYERS))
     cfg = api.cfg
     model = api.init(0, device=DEVICE)
     max_len = 256
@@ -1243,12 +1302,14 @@ def phase_model_hymba(torch):
 
 def phase_serving_hymba(torch, flash_ms, ssm_ms):
     from repro_torch.configs import get_api
+    from repro_torch.models.registry import build_api
     from repro_torch.serving import (
         RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
         generate_requests,
     )
 
-    api = get_api("hymba-1.5b")
+    api = build_api("hymba-1.5b", dataclasses.replace(get_api("hymba-1.5b").cfg,
+                                                      n_layers=SSM_SERVING_LAYERS))
     cfg = api.cfg
     model = api.init(0, device=DEVICE)
     max_len = 256
@@ -1422,9 +1483,10 @@ def phase_kernel_bwd(torch):
     return rows
 
 
-def plain_seams(family):
+def plain_seams(family, window=None):
     """The plain versions a family's ``train_forward`` takes in place of
-    its kernels' entries (its ``attend`` and ``scan`` seams)."""
+    its kernels' entries (its ``attend`` and ``scan`` seams); ``window`` is
+    the attention window of a family that attends through one."""
     import functools
 
     from repro_torch.kernels.flash_attention import attention_ref
@@ -1433,6 +1495,8 @@ def plain_seams(family):
 
     if family == "dense":
         return {"attend": functools.partial(attention_ref, causal=True)}
+    if family == "moe":
+        return {"attend": functools.partial(attention_ref, causal=True, window=window)}
     if family == "ssm":
         return {"scan": wkv_chunked}
     return {"attend": attention_ref,
@@ -1443,10 +1507,11 @@ def plain_seams(family):
 def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
     """One node's float32 gradient at full width (b=2, S=256; ``n_layers``
     deep when given): through the kernels against the plain versions passed
-    through the model's seams (``plain_seams``)."""
+    through the model's seams (``plain_seams``).  A MoE loss adds its aux
+    terms, as ``ModelApi.loss`` does."""
     from repro_torch.configs import get_api
     from repro_torch.models import common
-    from repro_torch.models.registry import build_api
+    from repro_torch.models.registry import MOE_LB_WEIGHT, MOE_Z_WEIGHT, build_api
 
     cfg = dataclasses.replace(
         get_api(arch).cfg, param_dtype=torch.float32, compute_dtype=torch.float32,
@@ -1455,18 +1520,23 @@ def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     tokens = torch.randint(0, cfg.vocab, (2, 257), generator=gen, device=DEVICE)
     grads = {}
-    for name, seams in (("kernel", {}), ("plain", plain_seams(cfg.family))):
-        logits = model.train_forward(tokens[:, :-1], **seams)
+    seams = plain_seams(cfg.family, getattr(cfg, "window", None))
+    for name, seam in (("kernel", {}), ("plain", seams)):
+        out = model.train_forward(tokens[:, :-1], **seam)
+        logits, stats = out if isinstance(out, tuple) else (out, None)
         loss, w_sum = common.weighted_cross_entropy(logits, tokens[:, 1:])
-        grads[name] = torch.autograd.grad(loss / w_sum, list(model.parameters()))
-        del logits, loss
+        loss = loss / w_sum
+        if stats is not None:
+            loss = loss + MOE_LB_WEIGHT * stats["lb_loss"] + MOE_Z_WEIGHT * stats["z_loss"]
+        grads[name] = torch.autograd.grad(loss, list(model.parameters()))
+        del out, logits, loss, stats
     sq = {k: sum(float((g.double() ** 2).sum()) for g in v) for k, v in grads.items()}
     rel_sq = abs(sq["kernel"] - sq["plain"]) / sq["plain"]
     worst = max(((g - w).abs().max().item() / max(1.0, w.abs().max().item()), n)
                 for (n, _), g, w in zip(model.named_parameters(), grads["kernel"],
                                         grads["plain"]))
     log(phase, f"full {arch} f32 node gradient (b=2, S=256, {cfg.n_layers} layers), kernels "
-        f"vs plain {'/'.join(plain_seams(cfg.family))}: global sq-norm {sq['kernel']:.6e} vs "
+        f"vs plain {'/'.join(seams)}: global sq-norm {sq['kernel']:.6e} vs "
         f"{sq['plain']:.6e} (rel {rel_sq:.3e}, "
         f"limit 1e-5); worst leaf {worst[1]} err {worst[0]:.3e} x max(1, max|g|) (limit 1e-4)")
     if not rel_sq <= 1e-5 or not worst[0] <= 1e-4:
@@ -1775,14 +1845,15 @@ RUNTIME_EPE = 2         # epochs after each reconciled event
 RUNTIME_REL = 1e-5      # device vs host engine aggregate goodput (float32 sweep)
 
 
-def runtime_config():
-    """Full-width olmo-1b bf16 jobs for phase 15: seq 512, SGD at lr 0.01
-    (phase 13's rate; the reference's 0.3 is a reduced-model rate, and a
-    diverging bf16 loss would count as an anomaly beside the poison)."""
+def runtime_config(n_layers=None):
+    """Full-width olmo-1b bf16 jobs for phase 15 (``n_layers`` deep; None:
+    all 16): seq 512, SGD at lr 0.01 (phase 13's rate; the reference's 0.3
+    is a reduced-model rate, and a diverging bf16 loss would count as an
+    anomaly beside the poison)."""
     from repro_torch.runtime import RealBackendConfig
 
     return RealBackendConfig(arch="olmo-1b", reduced=False, seq_len=512, lr=0.01,
-                             device=DEVICE)
+                             device=DEVICE, n_layers=n_layers)
 
 
 def engine_profile(torch, fn, calls: int = 1):
@@ -2009,7 +2080,7 @@ def runtime_trace(torch):
     return counts
 
 
-def _drive_full_width(torch, preempt: bool, ckpt_dir):
+def _drive_full_width(torch, preempt: bool, ckpt_dir, config):
     """The reference test's ``_drive`` at full width: one real job on a
     3-node ``ClusterRuntime``, 2 x 2 epochs; with ``preempt``, preempt
     (one checkpoint generation), zero the live params and GNS state,
@@ -2022,7 +2093,7 @@ def _drive_full_width(torch, preempt: bool, ckpt_dir):
     from repro_torch.runtime import ClusterRuntime, JobState
     from repro_torch.train.checkpoint import verify_checkpoint
 
-    rt = ClusterRuntime(3, policy="cannikin", seed=0, real_backend=runtime_config(),
+    rt = ClusterRuntime(3, policy="cannikin", seed=0, real_backend=config,
                         checkpoint_dir=ckpt_dir if preempt else None)
     spec = JobSpec(
         name="rj",
@@ -2064,28 +2135,37 @@ def _drive_full_width(torch, preempt: bool, ckpt_dir):
 
 
 def runtime_preempt(torch):
-    """Preempt and resume a full-width job through its checkpoint file:
-    losses, params, optimizer state and GNS state bitwise equal to an
-    unpreempted run with the same seed."""
+    """Preempt and resume a job of olmo-1b at published widths,
+    ``PREEMPT_LAYERS`` deep, through its checkpoint file: losses, params,
+    optimizer state and GNS state bitwise equal to an unpreempted run with
+    the same seed."""
     import shutil
     import tempfile
 
     from repro_torch.configs import get_api
+    from repro_torch.models.registry import build_api
 
-    cfg = get_api("olmo-1b").cfg
+    config = runtime_config(PREEMPT_LAYERS)
+    api = build_api("olmo-1b", dataclasses.replace(get_api("olmo-1b").cfg,
+                                                   n_layers=PREEMPT_LAYERS))
+    cfg = api.cfg
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        plain, _ = _drive_full_width(torch, False, None)
+        plain, _ = _drive_full_width(torch, False, None, config)
         n_params = sum(p.numel() for p in plain.backend.named.values())
+        if (plain.backend.api.cfg.n_layers, n_params) != (PREEMPT_LAYERS, api.param_count()):
+            raise AssertionError(f"the job is not cut to {PREEMPT_LAYERS} layers: "
+                                 f"{plain.backend.api.cfg.n_layers} layers, {n_params} params")
         need = 2 * 4 * n_params  # params and SGD momentum, float32 on disk
         free = shutil.disk_usage(ckpt_dir).free
         log("runtime", f"checkpoint dir free {free / 1e9:.1f} GB; one generation needs about "
-            f"{need / 1e9:.1f} GB ({n_params} params of {cfg.name})")
+            f"{need / 1e9:.1f} GB ({n_params} params of {cfg.name}, {cfg.n_layers} of 16 "
+            "layers)")
         if free < 1.2 * need:
             raise RuntimeError(f"{free / 1e9:.1f} GB free for a {need / 1e9:.1f} GB checkpoint")
-        resumed, secs = _drive_full_width(torch, True, ckpt_dir)
+        resumed, secs = _drive_full_width(torch, True, ckpt_dir, config)
         peak = torch.cuda.max_memory_allocated()
         same_losses = [r.mean_loss for r in plain.records] == [r.mean_loss for r in resumed.records]
         same_params = all(torch.equal(p, resumed.backend.named[k])
@@ -2094,8 +2174,9 @@ def runtime_preempt(torch):
             plain.backend.opt_state.momentum.values(),
             resumed.backend.opt_state.momentum.values()))
         same_gns = plain.backend.gns == resumed.backend.gns
-        log("runtime", f"preempt/resume at full width: plans {[r.batches for r in resumed.records]}"
-            f", losses {[r.mean_loss for r in resumed.records]}; bitwise losses={same_losses} "
+        log("runtime", f"preempt/resume ({cfg.n_layers} layers): plans "
+            f"{[r.batches for r in resumed.records]}, losses "
+            f"{[r.mean_loss for r in resumed.records]}; bitwise losses={same_losses} "
             f"params={same_params} momentum={same_mom} gns={same_gns}; checkpoint "
             f"{secs['bytes']} bytes, write {secs['write_s']:.2f} s (snapshot + save), verify "
             f"{secs['verify_s']:.2f} s, restore {secs['restore_s']:.2f} s (read + verify + "
@@ -2112,7 +2193,8 @@ def runtime_preempt(torch):
 
 def phase_runtime(torch):
     """Phase 15: the scheduler's device engine, a chaos trace of full-width
-    jobs through ``compare_policies``, and a full-width preempt/resume."""
+    jobs through ``compare_policies``, and a preempt/resume at published
+    widths (``PREEMPT_LAYERS`` deep)."""
     t0 = time.perf_counter()
     runtime_engines(torch)
     t1 = time.perf_counter()
@@ -2761,6 +2843,290 @@ def phase_train_ssm(torch, which):
     return counts
 
 
+def phase_model_dense_configs(torch):
+    """Phase 20: the config-only dense ports in float32 at published
+    widths (depths in ``DENSE_MODEL_LAYERS``), as phase 5."""
+    from repro_torch.configs import get_api
+    from repro_torch.models.registry import build_api
+
+    for seed, (arch, n_layers) in enumerate(DENSE_MODEL_LAYERS.items(), start=11):
+        cfg = dataclasses.replace(
+            get_api(arch).cfg, param_dtype=torch.float32, compute_dtype=torch.float32,
+            **({} if n_layers is None else {"n_layers": n_layers}))
+        cut = "full depth" if n_layers is None else f"depth cut to {n_layers}"
+        prefill_vs_stepped(torch, build_api(arch, cfg), f"{arch} ({cut})", seed=seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mixtral_cfg(torch, n_layers, dtype=None, **overrides):
+    """mixtral-8x7b at published widths, ``n_layers`` deep, in ``dtype``
+    (default the published bf16)."""
+    from repro_torch.configs import mixtral_8x7b
+
+    cfg = dataclasses.replace(mixtral_8x7b.config(), n_layers=n_layers, **overrides)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def phase_model_mixtral(torch):
+    """Phase 21: mixtral-8x7b in float32, ``MIXTRAL_MODEL_LAYERS`` deep, 128
+    tokens.  At the published capacity factor the forward (one flash launch
+    a layer) against the same forward with the plain attention through the
+    ``attend`` seam; at the dropless one (capacity = T) against the stepped
+    decode loop (plain decode attention, the selected experts only); logits
+    within 1e-3."""
+    import functools
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models.registry import build_api
+
+    cfg = mixtral_cfg(torch, MIXTRAL_MODEL_LAYERS, torch.float32)
+    api = build_api("mixtral-8x7b", cfg)
+    model = api.init(0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    s = 128
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
+    plain = functools.partial(attention_ref, causal=True, window=cfg.window)
+    for cf in (cfg.capacity_factor, MIXTRAL_DROPLESS_CF):
+        model.cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        reset_launches()
+        logits, stats = model(toks)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        if counts != no_launches(flash_attention=cfg.n_layers):
+            raise AssertionError(f"mixtral forward launched {counts}, not the flash kernel once "
+                                 f"per layer ({cfg.n_layers})")
+        if not torch.isfinite(logits).all() or logits.shape != (1, s, cfg.vocab):
+            raise AssertionError(f"forward logits: shape {tuple(logits.shape)} or non-finite")
+        stat = ", ".join(f"{k}={float(v):.6f}" for k, v in stats.items())
+        if cf != MIXTRAL_DROPLESS_CF:
+            with torch.no_grad():
+                want, want_stats = model.train_forward(toks, attend=plain)
+            what = "the same forward with the plain attention (attend seam)"
+            stat += " (plain: " + ", ".join(
+                f"{k}={float(v):.6f}" for k, v in want_stats.items()) + ")"
+        else:
+            if float(stats["drop_frac"]) != 0.0:
+                raise AssertionError(f"capacity factor {cf} dropped routings: {stat}")
+            cache = api.init_cache(1, s, device=DEVICE)
+            rows = []
+            for p in range(s):
+                lg, cache = api.decode_step(model, cache, toks[:, p : p + 1], p)
+                rows.append(lg)
+            want = torch.cat(rows, dim=1)
+            what = "the stepped decode loop"
+            del cache, rows
+        err = (logits - want).abs().max().item()
+        log("model", f"mixtral-8x7b f32 ({cfg.n_layers} of 32 layers, {api.param_count()} "
+            f"params) capacity_factor {cf}: forward over {s} tokens "
+            f"({counts['flash_attention']} flash launches) vs {what}: logits max abs err "
+            f"{err:.3e} (limit 1e-3); logits scale {want.abs().max().item():.3f}; {stat}")
+        if not err <= 1e-3:
+            raise AssertionError(f"mixtral forward vs {what}: {err:.3e} > 1e-3")
+    del model
+
+
+def phase_serving_mixtral(torch):
+    """Phase 22: mixtral-8x7b in bf16, ``MIXTRAL_SERVING_LAYERS`` deep,
+    under ``ServingRuntime`` as phase 8 (prompts step the decode loop);
+    then a 1024-token forward (no host sync inside it) and a decode step:
+    wall and device ms, idle share, the flash kernel's part, and the decode
+    step's byte bound."""
+    from repro_torch.models.registry import build_api
+    from repro_torch.runtime.backend import _host_syncs_raise
+    from repro_torch.serving import (
+        RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
+        generate_requests,
+    )
+
+    cfg = mixtral_cfg(torch, MIXTRAL_SERVING_LAYERS)
+    api = build_api("mixtral-8x7b", cfg)
+    model = api.init(0, device=DEVICE)
+    max_len = 256
+    wl = generate_requests(
+        8, seed=0, rate=4.0, prompt_min=16, prompt_mean=48, prompt_max=128,
+        gen_min=8, gen_mean=16, gen_max=32,
+    )
+    engine = recording(RealServingEngine)(api, model, max_len=max_len, device=DEVICE)
+
+    # Warm-up outside the counted run: cuBLAS handles.
+    warm = api.init_cache(1, max_len, device=DEVICE)
+    api.decode_step(model, warm, torch.zeros((1, 1), dtype=torch.long, device=DEVICE), 0)
+    torch.cuda.synchronize()
+    del warm
+
+    alloc = ServingAllocator({0: (0.01, 0.01), 1: (0.01, 0.01)}, total_slots=4, mode="optperf")
+    rt = ServingRuntime(engine, alloc, wl, nodes=[0, 1],
+                        config=ServingConfig(total_slots=4, resolve_every=1.0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = rt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = read_launches()
+
+    summ = rep.summary
+    log("serving", f"mixtral-8x7b bf16 ({cfg.n_layers} of 32 layers, {api.param_count()} "
+        f"params), 2 nodes, 4 slots, max_len {max_len}: completed={summ['completed']}/"
+        f"{summ['requests']} dropped={summ['dropped']} requeues={summ['requeues']} "
+        f"prefills={rep.counters['admitted']} (prompts step the decode loop; launches in this "
+        f"run {served})")
+    serving_summary(torch, "mixtral-8x7b", rep, wall, served)
+    if summ["completed"] != 8 or summ["dropped"] != 0:
+        raise AssertionError(f"served {summ['completed']}/8 with {summ['dropped']} dropped")
+    if any(served.values()):
+        raise AssertionError(f"stepped prompt ingestion launched kernels: {served}")
+    rids = check_streams(torch, api, model, engine, rt, wl, max_len)
+    log("serving", f"mixtral-8x7b requests {rids} equal a direct greedy decode")
+
+    # What a forward and a decode step are made of, and the kernel's share.
+    s = 1024
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
+    reset_launches()
+    torch.cuda.synchronize()
+    with _host_syncs_raise(model.device):  # the capacity path reads nothing back
+        _, stats = model(toks)
+    if read_launches() != no_launches(flash_attention=cfg.n_layers):
+        raise AssertionError(f"the {s}-token forward launched {read_launches()}")
+    logits_ms = host_ms(torch, lambda: api.logits(model, {"tokens": toks}), 3, warmup=1)
+    cache = api.init_cache(1, max_len, device=DEVICE)
+    last = torch.zeros((1, 1), dtype=torch.long, device=DEVICE)
+    decode_ms = host_ms(torch, lambda: api.decode_step(model, cache, last, 0), 10)
+    # A batch-1 decode step reads its two experts' matrices, the attention
+    # projections and the norms of every layer, and the LM head.
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+    layer_bytes = 2 * (cfg.top_k * 3 * d * f + d * dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                       + d * cfg.n_experts + 2 * d)
+    decode_bound = (cfg.n_layers * layer_bytes + 2 * d * cfg.vocab) / HBM_BYTES_S * 1e3
+    log("serving", f"per call: mixtral-8x7b bf16 api.logits({s} tokens) {logits_ms:.3f} ms "
+        f"(drop_frac {float(stats['drop_frac']):.4f}); decode_step {decode_ms:.3f} ms against "
+        f"its byte bound {decode_bound:.3f} ms "
+        f"({(cfg.n_layers * layer_bytes + 2 * d * cfg.vocab) / 1e9:.2f} GB at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s)")
+    for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
+                              ("decode_step", lambda: api.decode_step(model, cache, last, 0),
+                               decode_ms)):
+        launches = {FLASH_PROFILE_NAME: cfg.n_layers} if name == "forward" else None
+        dev, named, idle, _, records = device_split(torch, fn, 3, wall_ms, (FLASH_PROFILE_NAME,),
+                                                    launches)
+        log("serving", f"profile mixtral-8x7b {name}: device {dev:.3f} ms of {wall_ms:.3f} ms "
+            f"(idle share {idle:.4f}), flash kernel {named[FLASH_PROFILE_NAME]:.3f} ms "
+            f"(records {records[FLASH_PROFILE_NAME]}/{3 * cfg.n_layers if launches else 0})"
+            + (f"; byte bound {decode_bound:.3f} ms, {decode_bound / dev:.1%} of the device "
+               "time" if name == "decode_step" else ""))
+    del model, cache
+    return served
+
+
+def node_drop_fracs(torch, backend, batches, b_max):
+    """The share of routings that each node's slice of one step drops, the
+    slices laid out as the training path lays them out
+    (``HeteroBatchPartitioner`` rows, then zero-token pad rows up to
+    ``b_max``, which take capacity too): ``drop_frac`` of the aux of one
+    ``api.loss`` call a node on the backend's trained parameters."""
+    from repro_torch.data.pipeline import HeteroBatchPartitioner
+
+    padded, _ = HeteroBatchPartitioner.padded(backend.data.batch(0, sum(batches)), batches)
+    width, seq = padded["tokens"].shape[1:]
+    fracs = []
+    for i, b in enumerate(batches):
+        batch = {"weights": (torch.arange(b_max, device=DEVICE) < b).float()}
+        for key in ("tokens", "labels"):
+            batch[key] = torch.zeros((b_max, seq), dtype=torch.int32, device=DEVICE)
+            batch[key][:width] = torch.as_tensor(padded[key][i], device=DEVICE)
+        with torch.no_grad():
+            fracs.append(float(backend.api.loss(backend.params, batch)[1]["drop_frac"]))
+    return fracs
+
+
+def phase_train_mixtral(torch):
+    """Phase 23: mixtral-8x7b in bf16, ``MIXTRAL_TRAIN_LAYERS`` deep, on
+    phase 13's recipe through ``EpochLoop`` (two-program, unsharded): losses
+    finite, no node excluded, the controller's OptPerf phase, launches as
+    the path predicts, peak memory under 80 GB; each node step of the last
+    plan with the flash kernels' part and the share of routings it drops;
+    one node's float32 gradient through the kernels against the plain
+    attention."""
+    label = "training (mixtral)"
+    arch = "mixtral-8x7b"
+    cfg = mixtral_cfg(torch, MIXTRAL_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend, loop, _, rows, counts = sharded_loop(torch, False, TRAIN_EPOCHS, cfg=cfg, arch=arch)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(rows[0]["batches"])
+    want = expected_training_launches(cfg, n)
+    for r in rows:
+        log(label, f"two-program epoch {r['epoch']} phase={r['phase']} total_batch={r['total']} "
+            f"batches={r['batches']} losses={[round(x, 6) for x in r['losses']]} "
+            f"anomalies={r['anomalies']} wall_s={r['wall_s']:.3f} transfers h2d={r['h2d']} "
+            f"d2h={r['d2h']}")
+        if not all(math.isfinite(x) for x in r["losses"]) or any(r["anomalies"]):
+            raise AssertionError(f"{arch} epoch {r['epoch']}: {r}")
+    log(label, f"{arch} bf16 ({cfg.n_layers} of 32 layers, published widths, "
+        f"{backend.api.param_count()} params), cluster_A ({n} nodes), {TRAIN_EPOCHS} epochs x "
+        f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s; launches {counts} (expected "
+        f"{want}); peak_mem_gb={peak / 1e9:.3f}")
+    if counts != want:
+        raise AssertionError(f"{arch} training launches {counts} != {want}")
+    if [r["phase"] for r in rows] != ["bootstrap"] * 2 + ["optperf"] * (TRAIN_EPOCHS - 2):
+        raise AssertionError("the controller did not reach its OptPerf phase")
+    if not peak < 80e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+
+    # Each node's step of the last plan: its forward and backward alone.
+    batches = rows[-1]["batches"]
+    b_max = max(8, -(-max(batches) // 8) * 8)
+    drops = node_drop_fracs(torch, backend, batches, b_max)
+    for i, (b, drop) in enumerate(zip(batches, drops)):
+        row = node_step_row(torch, backend, backend.data, b, b_max)
+        log(label, f"node {i} step (b={b} of padded {b_max}, S=512): wall "
+            f"{row['wall_ms']:.2f} ms, device {row['device_ms']:.2f} ms (idle share "
+            f"{row['idle_share']:.4f}); flash forward {row['flash_fwd_ms']:.2f} ms (records "
+            f"{row['flash_fwd_records']}/{row['flash_fwd_launches']}), flash backward "
+            f"{row['flash_bwd_ms']:.2f} ms (records {row['flash_bwd_records']}/"
+            f"{row['flash_bwd_launches']}); drop_frac {drop:.4f} (its padded slice of a step "
+            "through api.loss on the trained parameters)")
+    del backend, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    node_grad_check(torch, arch, MIXTRAL_TRAIN_LAYERS, phase=label)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_api
+
+    full = get_api(arch).param_count()
+    log(label, f"CLI --mode spmd --arch {arch} --full-width: not run, it does not fit one 80 GB "
+        f"card: AdamW's two float32 moments of its {full / 1e9:.2f} B parameters alone are "
+        f"{8 * full / 1e9:.0f} GB")
+    log(label, f"phase in {time.perf_counter() - t0:.1f} s: training {t1 - t0:.1f} s, node "
+        f"gradient {time.perf_counter() - t1:.1f} s; peak_mem_gb={peak / 1e9:.3f}")
+    return counts
+
+
+def run_moe_phases(torch, enter):
+    """Phases 20-23, each entered under its name."""
+    enter("model (dense configs)")
+    phase_model_dense_configs(torch)
+    enter("model (mixtral)")
+    phase_model_mixtral(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    enter("serving (mixtral)")
+    counts = phase_serving_mixtral(torch)
+    log("serving", f"mixtral-8x7b path launches {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    enter("training (mixtral)")
+    phase_train_mixtral(torch)
+
+
 def main() -> int:
     import torch
 
@@ -2777,13 +3143,13 @@ def main() -> int:
         starts.append((name, time.perf_counter()))
         return name
 
-    phase = enter("device")
+    enter("device")
     try:
         card = phase_device()
-        phase = enter("build")
+        enter("build")
         phase_build()
         if sys.argv[1:] in (["--only", "sharded"], ["--only", "split"]):
-            phase = enter("sharded training (olmo-1b)")
+            enter("sharded training (olmo-1b)")
             if sys.argv[2] == "split":
                 split_node_axis(torch)
             else:
@@ -2792,11 +3158,19 @@ def main() -> int:
                 f"{time.perf_counter() - t_start:.1f} s")
             print(card)
             return 0
+        if sys.argv[1:] == ["--only", "moe"]:
+            run_moe_phases(torch, enter)
+            log("done", f"--only moe passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
         if sys.argv[1:] == ["--only", "train-ssm"]:
-            phase = enter("kernel (wkv and ssm bwd)")
+            enter("kernel (wkv and ssm bwd)")
             phase_kernel_backwards(torch)
             for which in ("rwkv6", "hymba"):
-                phase = enter(f"training ({which})")
+                enter(f"training ({which})")
                 phase_train_ssm(torch, which)
             log("done", f"--only train-ssm passed in {time.perf_counter() - t_start:.1f} s; "
                 "seconds per phase: " + ", ".join(
@@ -2804,33 +3178,33 @@ def main() -> int:
                         starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
             print(card)
             return 0
-        phase = enter("kernel")
+        enter("kernel")
         rows = phase_kernel(torch)
-        phase = enter("kernel (wkv)")
+        enter("kernel (wkv)")
         wkv_rows = phase_kernel_wkv(torch)
-        phase = enter("model")
+        enter("model")
         phase_model(torch)
-        phase = enter("serving")
+        enter("serving")
         olmo_counts = phase_serving(torch)
         torch.cuda.empty_cache()
-        phase = enter("model (rwkv6)")
+        enter("model (rwkv6)")
         reset_launches()
         phase_model_rwkv6(torch)
         torch.cuda.empty_cache()
-        phase = enter("serving (rwkv6)")
+        enter("serving (rwkv6)")
         rwkv6_counts = phase_serving_rwkv6(torch, wkv_rows[WKV_MAIN_CASE]["ms"])
         log("serving", f"rwkv6-7b path launches {rwkv6_counts}")
         if rwkv6_counts != no_launches(rwkv6_wkv=32):
             raise AssertionError("the rwkv6-7b path must launch the WKV kernel once per "
                                  f"layer of its forward and nothing else: {rwkv6_counts}")
         torch.cuda.empty_cache()
-        phase = enter("kernel (ssm)")
+        enter("kernel (ssm)")
         ssm_rows = phase_kernel_ssm(torch)
-        phase = enter("model (hymba)")
+        enter("model (hymba)")
         reset_launches()
         phase_model_hymba(torch)
         torch.cuda.empty_cache()
-        phase = enter("serving (hymba)")
+        enter("serving (hymba)")
         hymba_counts = phase_serving_hymba(
             torch, rows[HYMBA_FLASH_CASE]["ms"], ssm_rows[SSM_MAIN_CASE]["ms"])
         log("serving", f"hymba-1.5b path launches {hymba_counts}")
@@ -2839,37 +3213,40 @@ def main() -> int:
                                  "selective-scan kernels once per layer of its forward and "
                                  f"nothing else: {hymba_counts}")
         torch.cuda.empty_cache()
-        phase = enter("kernel (flash bwd)")
+        enter("kernel (flash bwd)")
         bwd_rows = phase_kernel_bwd(torch)
         torch.cuda.empty_cache()
-        phase = enter("training (olmo-1b)")
+        enter("training (olmo-1b)")
         train_counts, train_rows = phase_training(torch)
         torch.cuda.empty_cache()
-        phase = enter("fused training (olmo-1b)")
+        enter("fused training (olmo-1b)")
         _, fused_rows, fused_proposals = phase_fused_training(torch, train_rows)
         torch.cuda.empty_cache()
-        phase = enter("runtime (olmo-1b)")
+        enter("runtime (olmo-1b)")
         runtime_counts = phase_runtime(torch)
         log("runtime", f"olmo-1b runtime path launches {runtime_counts}")
         gc.collect()
         torch.cuda.empty_cache()
-        phase = enter("sharded training (olmo-1b)")
+        enter("sharded training (olmo-1b)")
         phase_sharded(torch, fused_rows, fused_proposals)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = enter("kernel (wkv and ssm bwd)")
+        enter("kernel (wkv and ssm bwd)")
         ssm_bwd_rows = phase_kernel_backwards(torch)
         torch.cuda.empty_cache()
-        phase = enter("training (rwkv6)")
+        enter("training (rwkv6)")
         rwkv6_train_counts = phase_train_ssm(torch, "rwkv6")
-        phase = enter("training (hymba)")
+        enter("training (hymba)")
         hymba_train_counts = phase_train_ssm(torch, "hymba")
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_moe_phases(torch, enter)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
-        print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
+        print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-19); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-23); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []

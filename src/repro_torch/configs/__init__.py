@@ -1,18 +1,40 @@
 """Ported architecture configs.
 
-``ARCHS`` maps arch id -> config module; `get_api(arch_id, reduced=False)`
-returns a ready `ModelApi`.  The other dense configs (internlm2, minitron,
-chameleon) and the other families (moe, deepseek, whisper) come with
-later slices.
+``ARCHS`` maps arch id -> config module, in the reference's order;
+`get_api(arch_id, reduced=False)` returns a ready `ModelApi`.  Every
+reference arch is here but deepseek-v2-236b and whisper-large-v3, whose
+families (deepseek's MLA, whisper's encoder-decoder) come with later
+slices.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import hymba_1_5b, llama3_8b, olmo_1b, rwkv6_7b
+from repro_torch.configs import (
+    chameleon_34b,
+    hymba_1_5b,
+    internlm2_20b,
+    llama3_8b,
+    minitron_4b,
+    mixtral_8x7b,
+    olmo_1b,
+    rwkv6_7b,
+)
+from repro_torch.configs.shapes import REDUCED_SHAPES, SHAPES, InputShape
 from repro_torch.models.registry import ModelApi, build_api
 
-ARCHS: Dict[str, object] = {m.ARCH_ID: m for m in (olmo_1b, llama3_8b, rwkv6_7b, hymba_1_5b)}
+_MODULES = [
+    minitron_4b,
+    hymba_1_5b,
+    olmo_1b,
+    chameleon_34b,
+    rwkv6_7b,
+    internlm2_20b,
+    llama3_8b,
+    mixtral_8x7b,
+]
+
+ARCHS: Dict[str, object] = {m.ARCH_ID: m for m in _MODULES}
 
 
 def arch_ids() -> List[str]:
@@ -27,4 +49,4 @@ def get_api(arch_id: str, *, reduced: bool = False) -> ModelApi:
     return build_api(arch_id, cfg)
 
 
-__all__ = ["ARCHS", "arch_ids", "get_api"]
+__all__ = ["ARCHS", "arch_ids", "get_api", "SHAPES", "REDUCED_SHAPES", "InputShape"]

@@ -718,7 +718,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The encoder is a driver call: it needs a context current on the calling
+// thread.  A thread that has made no runtime call yet has none (autograd's
+// device thread, when this kernel is the first node a backward pass
+// reaches), and the encoder then fails with CUDA_ERROR_INVALID_CONTEXT;
+// cudaFree(nullptr) binds the device's primary context to the thread.
 EncodeTiled encode_tiled() {
+  thread_local const bool bound = cudaFree(nullptr) == cudaSuccess;
+  if (!bound) return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* ptr = nullptr;

@@ -1,9 +1,10 @@
-"""Uniform model API over the ported families (dense, rwkv6, hybrid).
+"""Uniform model API over the ported families (dense, moe, rwkv6, hybrid).
 
 The counterpart of ``repro/models/registry.py``.  Each family module names
 its ``nn.Module`` class as ``MODEL`` and provides ``schema`` and
 ``init_cache``.  ``params`` in the reference's calling convention is the
-port's ``nn.Module``:
+port's ``nn.Module``.  MoE forwards return ``(logits, stats)``; the API
+hands out the logits, and the loss adds the stats' aux terms:
 
   api.init(seed, device=)                    -> model with seeded weights
   api.load(state_dict, device=)              -> model with given weights
@@ -22,10 +23,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import common, dense, hymba, rwkv6
+from repro_torch.models import common, dense, hymba, moe, rwkv6
 from repro_torch.models.common import Param
 
-__all__ = ["ModelApi", "build_api"]
+__all__ = ["ModelApi", "build_api", "MOE_LB_WEIGHT", "MOE_Z_WEIGHT"]
+
+MOE_LB_WEIGHT = 0.01
+MOE_Z_WEIGHT = 1e-3
 
 
 def _token_loss(logits, labels, weights, denom=None):
@@ -59,12 +63,27 @@ class ModelApi:
     family: str
     _module: Any
 
+    @property
+    def has_moe_stats(self) -> bool:
+        """True if the forward returns (logits, stats) (the MoE family)."""
+        return self.family == "moe"
+
     # -- params ---------------------------------------------------------
     def schema(self):
         return self._module.schema(self.cfg)
 
     def param_count(self) -> int:
         return int(sum(math.prod(p.shape) for p in _leaves(self.schema())))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the top-k routed experts
+        only) — the N in MODEL_FLOPS = 6*N*D."""
+        total = self.param_count()
+        cfg = self.cfg
+        if isinstance(cfg, moe.MixtralConfig):
+            expert = 3 * cfg.d_model * cfg.d_ff  # swiglu expert
+            return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert
+        return total
 
     def init(self, seed: int = 0, *, device=None) -> torch.nn.Module:
         """Weights drawn from a ``torch.Generator`` seeded with ``seed`` on
@@ -85,13 +104,16 @@ class ModelApi:
         return hasattr(self._module.MODEL, "train_forward")
 
     def logits(self, params, batch: Dict[str, Any]) -> torch.Tensor:
-        return params(batch["tokens"])
+        out = params(batch["tokens"])
+        return out[0] if self.has_moe_stats else out
 
     def loss(self, params, batch: Dict[str, Any], *, denom=None) -> Tuple[torch.Tensor, Dict]:
         """Token-level CE over ``batch["tokens"]``/``["labels"]``, carrying
         gradients, with the optional per-sample ``weights`` (B,) — the
         Eq. (9) hook: pads weigh 0 and the mean runs over the weighted
-        tokens.  Every ported family (dense, rwkv6, hybrid) has a
+        tokens.  MoE adds ``MOE_LB_WEIGHT * lb_loss + MOE_Z_WEIGHT *
+        z_loss`` and returns its stats in ``aux``; ``aux["ce_loss"]`` is the
+        total, as in the reference.  Every ported family has a
         grad-carrying forward; a model without one raises."""
         train_forward = getattr(params, "train_forward", None)
         if train_forward is None:
@@ -101,9 +123,17 @@ class ModelApi:
         weights = batch.get("weights")
         if weights is not None:
             weights = torch.as_tensor(weights, device=params.device)
-        logits = train_forward(tokens)
+        aux: Dict[str, torch.Tensor] = {}
+        if self.has_moe_stats:
+            logits, stats = train_forward(tokens)
+            aux.update(stats)
+        else:
+            logits = train_forward(tokens)
         loss = _token_loss(logits, labels, weights, denom)
-        return loss, {"ce_loss": loss}
+        if self.has_moe_stats:
+            loss = loss + MOE_LB_WEIGHT * aux["lb_loss"] + MOE_Z_WEIGHT * aux["z_loss"]
+        aux["ce_loss"] = loss
+        return loss, aux
 
     # -- serving --------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, dtype=None, *, device=None):
@@ -131,7 +161,12 @@ class ModelApi:
         return params.prefill(cache, tokens)
 
 
-FAMILIES = {dense.DenseConfig: dense, rwkv6.RWKV6Config: rwkv6, hymba.HymbaConfig: hymba}
+FAMILIES = {
+    dense.DenseConfig: dense,
+    moe.MixtralConfig: moe,
+    rwkv6.RWKV6Config: rwkv6,
+    hymba.HymbaConfig: hymba,
+}
 
 
 def build_api(arch_id: str, cfg: Any) -> ModelApi:

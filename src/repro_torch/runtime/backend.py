@@ -870,7 +870,8 @@ class RealBackendConfig:
     published config in its own dtype (bf16 for olmo-1b), which is what a
     job on the card needs.  ``sharded=True`` splits each step's node axis
     over the default process group's ranks (a world of one without
-    one)."""
+    one).  ``n_layers`` cuts the config's depth and keeps its widths (None:
+    the config's own depth)."""
 
     arch: str = "olmo-1b"
     seq_len: int = 32
@@ -879,15 +880,19 @@ class RealBackendConfig:
     device: Optional[str] = None
     reduced: bool = True
     sharded: bool = False
+    n_layers: Optional[int] = None
 
     def build(
         self, *, noise: float = 0.0, seed: int = 0, injector: Any = None
     ) -> RealBackend:
         from repro_torch.configs import get_api
         from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.models.registry import build_api
         from repro_torch.optim.optimizers import constant_schedule, sgd
 
         api = get_api(self.arch, reduced=self.reduced)
+        if self.n_layers is not None:
+            api = build_api(self.arch, dataclasses.replace(api.cfg, n_layers=self.n_layers))
         data = SyntheticLM(vocab=api.cfg.vocab, seq_len=self.seq_len, seed=seed)
         return RealBackend(
             api,

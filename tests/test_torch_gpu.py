@@ -856,3 +856,99 @@ def test_wkv_backward_kernel_at_chunk_edges(cuda_device, b, t, h, chunk, with_ds
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     _bwd_close(got, wkv_backward_ref(r, k, v, lw, u, d_out, d_state))
+
+
+# Mixtral's attention: GQA 32/8 at D=128 with its sliding window of 4096,
+# forward at S=8192 (the window cuts the keys) and backward at the training
+# slice's heads.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_mixtral_shapes(cuda_device, dtype):
+    _check_against_plain(cuda_device, dtype, 1, 8192, 8192, 32, 8, 128, True, 4096, None)
+
+
+@pytest.mark.parametrize("s, window", [(512, 4096), (640, 256)])
+def test_backward_kernel_at_mixtral_heads(cuda_device, s, window):
+    _check_backward(cuda_device, torch.bfloat16, 128, 2, s, s, 32, 8, True, window, None)
+
+
+def test_mixtral_forward_and_gradient_on_the_card(cuda_device):
+    """A small float32 Mixtral (head dim 128, window 64 inside 96 tokens,
+    remat on): the forward launches flash once a layer and equals the one
+    with the plain attention through the ``attend`` seam, stats included;
+    the loss's gradient through the kernels equals the plain one's."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import mixtral_8x7b
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(
+        mixtral_8x7b.reduced(), head_dim=128, window=64, decode_window=64, remat=True,
+        capacity_factor=1.25, param_dtype=torch.float32, compute_dtype=torch.float32)
+    api = build_api("mixtral-8x7b", cfg)
+    model = api.init(0, device=cuda_device).requires_grad_(True)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 97)), device=cuda_device)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "weights": torch.ones(2, device=cuda_device)}
+    before = flash_attention.launches
+    logits, stats = model(batch["tokens"])
+    assert flash_attention.launches == before + cfg.n_layers
+    plain = functools.partial(attention_ref, causal=True, window=cfg.window)
+    with torch.no_grad():
+        ref_logits, ref_stats = model.train_forward(batch["tokens"], attend=plain)
+    assert (logits - ref_logits).abs().max().item() <= 1e-4
+    assert float(stats["drop_frac"]) == float(ref_stats["drop_frac"])
+    grads = {}
+    for name, attend in (("kernel", None), ("plain", plain)):
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        model.train_forward = functools.partial(type(model).train_forward, model, attend=attend)
+        loss, aux = api.loss(model, batch)
+        grads[name] = torch.autograd.grad(loss, list(model.parameters()))
+        del model.train_forward
+        torch.cuda.synchronize()
+        launched = (flash_attention.launches - before[0],
+                    flash_attention_backward.launches - before[1])
+        assert launched == ((2 * cfg.n_layers, cfg.n_layers) if name == "kernel" else (0, 0))
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+
+
+def test_bf16_flash_launches_from_a_thread_with_no_cuda_context(cuda_device):
+    """A thread that has made no CUDA runtime call has no current context,
+    and TMA's driver-side encoder fails there (CUDA_ERROR_INVALID_CONTEXT).
+    Autograd's device thread is such a thread when flash is the first node
+    its backward pass reaches and the caching allocator serves every
+    tensor without a cudaMalloc.  The C entries bind the device's primary
+    context first: the forward and the backward from a fresh thread, every
+    allocation cached, give the main thread's bits."""
+    import threading
+
+    from repro_torch.kernels.flash_attention import flash_attention_backward, ops
+
+    q, k, v, do = _bwd_inputs(cuda_device, torch.bfloat16, 2, 512, 512, 32, 8, 128)
+    out, lse = ops._forward(q, k, v, True, None, 128 ** -0.5, None, with_lse=True)
+    want = flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    # Free blocks in both of the allocator's pools for the thread's tensors.
+    blocks = [torch.empty(n, dtype=torch.uint8, device=cuda_device) for n in [64 << 20] + [1 << 20] * 8]
+    del blocks
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = flash_attention(q, k, v, causal=True)
+            got["grads"] = flash_attention_backward(q, k, v, out, lse, do, causal=True)
+            torch.cuda.synchronize()
+        except Exception as err:  # handed to the main thread's assert
+            got["error"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive(), "the thread's launches did not return"
+    assert "error" not in got, got.get("error")
+    assert torch.equal(got["out"], out)
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))

@@ -153,16 +153,17 @@ def test_spmd_mode_and_missing_card_are_errors(capsys, monkeypatch):
                                rtol=0, atol=1e-4)
     monkeypatch.undo()
 
-    # rwkv6 trains (ROADMAP §1.8a, done): one reduced step, a finite loss;
-    # a family not ported yet exits naming §1.8b.
-    out = _run(port_train, ["--mode", "spmd", "--arch", "rwkv6-7b", "--steps", "1",
-                            "--seq-len", "16", "--ref-batch", "4", "--device", "cpu"],
-               capsys, monkeypatch)
-    steps = [SPMD_LINE.match(x) for x in out.splitlines()]
-    assert [m.group(1) for m in steps if m] == ["0"]
-    assert all(np.isfinite(float(m.group(2))) for m in steps if m)
+    # rwkv6 and mixtral train (ROADMAP §1.8a-b): one reduced step each, a
+    # finite loss; a family not ported yet exits naming §1.8b.
+    for arch in ("rwkv6-7b", "mixtral-8x7b"):
+        out = _run(port_train, ["--mode", "spmd", "--arch", arch, "--steps", "1",
+                                "--seq-len", "16", "--ref-batch", "4", "--device", "cpu"],
+                   capsys, monkeypatch)
+        steps = [SPMD_LINE.match(x) for x in out.splitlines()]
+        assert [m.group(1) for m in steps if m] == ["0"]
+        assert all(np.isfinite(float(m.group(2))) for m in steps if m)
     with pytest.raises(SystemExit, match="1.8b"):
-        port_train.main(["--mode", "spmd", "--arch", "mixtral-8x7b", "--device", "cpu"])
+        port_train.main(["--mode", "spmd", "--arch", "deepseek-v2-236b", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             port_train.main(["--mode", "spmd", "--steps", "1"])

@@ -223,3 +223,16 @@ def test_preempt_resume_round_trip_bitwise(tmp_path, one_thread):
         assert torch.equal(a, b)
     assert plain.backend.gns == resumed.backend.gns
     assert plain.backend.steps_done == resumed.backend.steps_done
+
+
+def test_real_backend_config_cuts_depth_and_keeps_widths():
+    """``RealBackendConfig.n_layers`` builds the arch's config at that depth
+    with its widths; None keeps the config's own depth."""
+    from repro_torch.configs import get_api
+
+    full = port.RealBackendConfig(arch="olmo-1b", seq_len=8, device="cpu").build()
+    cut = port.RealBackendConfig(arch="olmo-1b", seq_len=8, device="cpu", n_layers=1).build()
+    assert full.api.cfg == get_api("olmo-1b", reduced=True).cfg
+    assert cut.api.cfg == dataclasses.replace(full.api.cfg, n_layers=1)
+    n_params = sum(p.numel() for p in cut.named.values())
+    assert n_params == cut.api.param_count() < full.api.param_count()
