@@ -18,9 +18,11 @@ Phases, each of which fails the run:
                    ``cuobjdump -sass`` (the named ones must be non-zero; a
                    missing cuobjdump is printed); and, since the library's
                    count holds the forward's, the HGMMA and UTMALDG counts
-                   of each bf16 backward kernel's own SASS (both head dims;
-                   each must be non-zero) beside its ptxas registers and
-                   spill bytes.
+                   of each bf16 backward kernel's own SASS (its three (Dqk,
+                   Dv) instances; each must be non-zero) beside its ptxas
+                   registers and spill bytes, and the registers and spill
+                   bytes of every instance at (192, 128), (48, 32) and
+                   (32, 32).
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
                    max abs error <= 1e-2: one output rounding plus another
@@ -31,9 +33,12 @@ Phases, each of which fails the run:
                    beside the card's bound for the same work; also the
                    kernel's and the library call's device time per call
                    under ``torch.profiler`` (``device_ms``) and the host's
-                   time to issue one kernel call (``issue_ms``).  Its last
-                   row is mixtral-8x7b's attention (S=8192, GQA 32/8, the
-                   window of 4096 active).
+                   time to issue one kernel call (``issue_ms``).  Then
+                   mixtral-8x7b's attention (S=8192, GQA 32/8, the window of
+                   4096 active) and deepseek-v2-236b's MLA (q/k 192, v 128,
+                   128 heads; S=1024 and 4096 bf16, S=300 f32), where the
+                   library column names SDPA's kernel (its backend) or
+                   says that it refused.
 4. kernel (wkv)  — the WKV kernel against its plain (chunked) version, all
                    float32 with K=64, out and final state within
                    1e-4 * max(1, max |plain|): float32 sums in another order
@@ -56,7 +61,7 @@ Phases, each of which fails the run:
                    kernel once per layer and its logits equal the stepped
                    decode loop's (plain recurrence) within 1e-3.
 8. serving (rwkv6) — rwkv6-7b in bf16 at published widths, cut to
-                   ``SSM_SERVING_LAYERS`` (16 of 32) layers to keep the
+                   ``SSM_SERVING_LAYERS`` (8 of 32) layers to keep the
                    whole run inside its time limit, under
                    ``ServingRuntime``: 8 seeded requests whose prompts step the decode loop, as
                    the reference's engine does for a family with no fused
@@ -78,15 +83,16 @@ Phases, each of which fails the run:
                    launches the flash-attention kernel (head dim 64) and the
                    selective-scan kernel once per layer each, and its logits
                    equal the stepped decode loop's (plain torch) within 1e-3.
-11. serving (hymba) — hymba-1.5b in bf16, cut to 16 of 32 layers, as
+11. serving (hymba) — hymba-1.5b in bf16, cut to 8 of 32 layers, as
                    phase 8; then the
                    per-call times of a 1024-token forward and a decode step,
                    each kernel's share, device time and idle share.
 12. kernel (flash bwd) — the flash-attention backward kernel (dQ, dK, dV
                    from the forward's log-sum-exp) against autograd through
                    the plain ``attention_ref`` on the card, at the training
-                   shape and at hymba's, llama3-8b's, a float32 and
-                   mixtral-8x7b's training shape (B=8, S=512, GQA 32/8):
+                   shape and at hymba's, llama3-8b's, a float32,
+                   mixtral-8x7b's training shape (B=8, S=512, GQA 32/8) and
+                   deepseek-v2-236b's (B=8, S=512, 128 heads at (192, 128)):
                    bf16 within 2e-2 * max(1, max |plain|), f32 within 1e-4 *
                    max(1, max |plain|), and a bf16 row's dq, dk, dv the same
                    bits on two calls (no atomics); with the kernel's, the
@@ -193,7 +199,8 @@ Phases, each of which fails the run:
                    (sq-norm within 1e-5 relative, leaves within 1e-4 *
                    max(1, max |g|)).  Its uncut CLI does not fit one card;
                    a line says so.
-19. training (hymba) — the same for full-width hymba-1.5b (``attend`` and
+19. training (hymba) — the same for hymba-1.5b at published widths, cut
+                   to ``HYMBA_TRAIN_LAYERS`` (16 of 32) layers (``attend`` and
                    ``scan`` seams; the gradient check at
                    ``HYMBA_GRAD_LAYERS`` layers), then ``python -m
                    repro_torch.launch.train --mode spmd --arch hymba-1.5b
@@ -211,7 +218,7 @@ Phases, each of which fails the run:
                    through the ``attend`` seam; at capacity factor 4.0 (=
                    experts / top-k: nothing drops) against the stepped decode
                    loop; logits within 1e-3; ``drop_frac`` and ``lb_loss``.
-22. serving (mixtral) — mixtral-8x7b in bf16, 16 of 32 layers
+22. serving (mixtral) — mixtral-8x7b in bf16, 8 of 32 layers
                    (``MIXTRAL_SERVING_LAYERS``; uncut 93.4 GB), as phase 8;
                    then a 1024-token forward (16 flash launches) and a decode
                    step: wall and device ms, idle share, the flash part, the
@@ -228,12 +235,38 @@ Phases, each of which fails the run:
                    the uncut CLI does not fit (AdamW's moments: 374 GB).
                    ``python3 chip_smoke.py --only moe`` runs phases 1, 2
                    and 20-23 alone.
+24. model (deepseek) — deepseek-v2-236b in float32, 3 of 60 layers (the
+                   dense layer 0 and 2 MoE; ``DEEPSEEK_MODEL_LAYERS``), 128
+                   tokens: at the published capacity factor 1.25 the forward
+                   (one flash launch a layer at (192, 128)) against the same
+                   forward with the plain attention through the ``attend``
+                   seam; at 160/6 (nothing drops) against the stepped
+                   absorbed decode over the latent cache; logits within
+                   1e-3; ``drop_frac`` and ``lb_loss``.
+25. serving (deepseek) — deepseek-v2-236b in bf16, 4 of 60 layers
+                   (``DEEPSEEK_SERVING_LAYERS``; 26.6 GB), as phase 22; the
+                   decode step's byte bound counts the top-6 routed and the
+                   shared experts of each MoE layer.
+26. training (deepseek) — deepseek-v2-236b in bf16, 2 of 60 layers: one
+                   node's step through ``api.loss`` and its backward at a
+                   padded b=40 (34 weighted), S=512, remat on (wall and
+                   device ms, the flash forward and backward parts,
+                   launches, peak under 80 GB); one node's float32 gradient
+                   through the kernels against the plain attention (as
+                   phase 13); a line on why the 3-node ``EpochLoop`` does
+                   not fit (~14 B a parameter of ``_step`` state: 75 GB);
+                   then ``python -m repro_torch.launch.train`` with its
+                   default arguments (reduced olmo-1b, float32, head dim 32,
+                   on the float32 instance at (32, 32)): exit 0, every loss
+                   finite.  ``python3 chip_smoke.py --only deepseek`` runs
+                   phases 1, 2, the deepseek rows of 3 and 12, and 24-26.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
 training, 15's trace, each run of 16, each training run of 18 and 19,
 each model of 20, each forward of 21, 22's serving run and forward, 23's
-training run) and read just after it.  Device ms of a named kernel are per launch the
+training run, each forward of 24, 25's serving run and forward, 26's node
+steps) and read just after it.  Device ms of a named kernel are per launch the
 profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
 ``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or without the repository beside
@@ -273,8 +306,13 @@ HYMBA_FLASH_CASE = "hymba-1.5b global S=1024"
 FLASH_PROFILE_NAME = "flash_fwd_kernel"  # both forward instances
 BWD_PROFILE_NAME = "flash_bwd_"        # the backward's three kernels
 BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  # bf16
+# Mangled-name tags of the flash instances at (Dqk, Dv) = (192, 128), (48, 32)
+# and (32, 32), whose ptxas registers and spills phase 2 prints.
+NEW_INSTANCE_TAGS = ("ILi192ELi128E", "ILi48ELi32E", "ILi32ELi32E", "IfLi192ELi128E",
+                     "IfLi48ELi32E", "IfLi32ELi32E")
 BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
-# name, B, S, H, KV, dtype, window, D (all causal self-attention)
+# name, B, S, H, KV, dtype, window, D (all causal self-attention); D is
+# a (Dqk, Dv) pair where v's head dim differs (DeepSeek-V2's MLA)
 BWD_CASES = [
     ("olmo-1b train S=512 B=8", 8, 512, 16, 16, "bf16", None, 128),
     ("hymba-1.5b global S=1024", 1, 1024, 25, 5, "bf16", None, 64),
@@ -282,10 +320,11 @@ BWD_CASES = [
     ("llama3-8b heads S=1024", 1, 1024, 32, 8, "bf16", None, 128),
     ("f32 S=T=300", 1, 300, 16, 16, "f32", None, 128),
     ("mixtral-8x7b train B=8 S=512", 8, 512, 32, 8, "bf16", 4096, 128),
+    ("deepseek-v2-236b train B=8 S=512", 8, 512, 128, 128, "bf16", None, (192, 128)),
 ]
 BWD_REL = {"bf16": 2e-2, "f32": 1e-4}
 
-# name, B, S, H, KV, dtype, window, D (all causal self-attention)
+# name, B, S, H, KV, dtype, window, D or (Dqk, Dv) (all causal self-attention)
 KERNEL_CASES = [
     ("olmo-1b S=128", 1, 128, 16, 16, "bf16", None, 128),
     ("olmo-1b S=512", 1, 512, 16, 16, "bf16", None, 128),
@@ -297,7 +336,13 @@ KERNEL_CASES = [
     ("hymba-1.5b window=1024 S=2048", 1, 2048, 25, 5, "bf16", 1024, 64),
     ("D=64 f32 S=T=300", 1, 300, 25, 5, "f32", None, 64),
     ("mixtral-8x7b S=8192 window=4096", 1, 8192, 32, 8, "bf16", 4096, 128),
+    ("deepseek-v2-236b S=1024", 1, 1024, 128, 128, "bf16", None, (192, 128)),
+    ("deepseek-v2-236b S=4096", 1, 4096, 128, 128, "bf16", None, (192, 128)),
+    ("deepseek f32 S=T=300", 1, 300, 16, 16, "f32", None, (192, 128)),
 ]
+# The deepseek-v2-236b rows of phases 3 and 12 (the MLA instance, (192, 128)).
+DEEPSEEK_CASE = "deepseek-v2-236b S=1024"
+DEEPSEEK_BWD_CASE = "deepseek-v2-236b train B=8 S=512"
 TOL = {"bf16": 1e-2, "f32": 1e-5}
 # name, B, T, H, chunk, strong decay (float32, K = 64)
 WKV_CASES = [
@@ -350,14 +395,21 @@ SSM_BWD_MAIN_CASE = SSM_BWD_CASES[0][0]
 KERNEL_BWD_REL = 1e-4  # float32 sums in another order, per output x max(1, max |plain|)
 RWKV6_TRAIN_LAYERS = 12  # phase 18's depth cut (of 32): see PERF.md section 4
 # Cuts that keep the whole run inside its time limit (PERF.md section 4):
-SSM_SERVING_LAYERS = 16  # phases 8 and 11 serve rwkv6-7b and hymba-1.5b 16 of 32 layers deep
+SSM_SERVING_LAYERS = 8   # phases 8 and 11 serve rwkv6-7b and hymba-1.5b 8 of 32 layers deep
+HYMBA_TRAIN_LAYERS = 16  # phase 19 trains hymba-1.5b 16 of 32 layers deep
 PREEMPT_LAYERS = 4       # phase 15's preempt/resume job: olmo-1b 4 of 16 layers deep
 # Phases 20-23's depth cuts at published widths (None: uncut); PERF.md section 4.
 DENSE_MODEL_LAYERS = {"minitron-4b": None, "internlm2-20b": 4, "chameleon-34b": 4}
 MIXTRAL_MODEL_LAYERS = 4     # phase 21, float32: 6.1 B parameters, 24 GB
-MIXTRAL_SERVING_LAYERS = 16  # phase 22, bf16: 23.5 B parameters, 47 GB
+MIXTRAL_SERVING_LAYERS = 8   # phase 22, bf16: 11.9 B parameters, 23.7 GB
 MIXTRAL_TRAIN_LAYERS = 2     # phase 23, bf16: 3.16 B parameters, ~14 B each held by _step
 MIXTRAL_DROPLESS_CF = 4.0    # = experts / top-k: every expert's capacity is T
+# Phases 24-26's depth cuts of deepseek-v2-236b (60 layers: the dense layer
+# 0, then MoE) at published widths; PERF.md section 4.
+DEEPSEEK_MODEL_LAYERS = 3    # phase 24, float32: dense + 2 MoE, 9.33 B parameters, 37.3 GB
+DEEPSEEK_SERVING_LAYERS = 4  # phase 25, bf16: dense + 3 MoE, 13.30 B parameters, 26.6 GB
+DEEPSEEK_TRAIN_LAYERS = 2    # phase 26, bf16: dense + 1 MoE, 5.36 B parameters
+DEEPSEEK_DROPLESS_CF = 160 / 6  # = experts / top-k: every expert's capacity is T
 DEVICE = "cuda"
 
 
@@ -486,15 +538,22 @@ def profile_device(torch, fn, calls: int, kernels, attempts: int = 5, launches=N
             dict.fromkeys(kernels, 0))
 
 
+def head_dims(d):
+    """(Dqk, Dv) of a case's head dim or pair."""
+    return d if isinstance(d, tuple) else (d, d)
+
+
 def attention_bound(b, s, h, kv, d, dtype, window):
-    """Least time for one causal attention call: q, k, v read once and o
-    written once over the memory rate, or the products over the valid
-    (query, key) pairs of this call over the peak rate for the dtype."""
+    """Least time for one causal attention call: q, k (Dqk), v (Dv) read
+    once and o (Dv) written once over the memory rate, or the products
+    over the valid (query, key) pairs of this call over the peak rate for
+    the dtype."""
+    dqk, dv = head_dims(d)
     elem = 2 if dtype == "bf16" else 4
-    nbytes = elem * d * b * s * (2 * h + 2 * kv)
+    nbytes = elem * b * s * ((h + kv) * dqk + (kv + h) * dv)
     w = s if window is None else min(window, s)
     pairs = sum(min(q + 1, w) for q in range(s))
-    flops = 4 * d * b * h * pairs
+    flops = 2 * (dqk + dv) * b * h * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
@@ -517,6 +576,8 @@ def phase_device():
 
 
 def phase_build():
+    import re
+
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
@@ -533,6 +594,11 @@ def phase_build():
                 log("build", line.strip())
     for fn, regs, stores, loads in ptxas_summary(results[0].log, BWD_SM90_KERNELS):
         log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
+    # The instances added for DeepSeek-V2's MLA (192, 128) and the float32
+    # ones at the reduced configs' head dims.
+    for fn, regs, stores, loads in ptxas_summary(results[0].log, NEW_INSTANCE_TAGS):
+        if not any(kernel in fn for kernel in BWD_SM90_KERNELS):  # printed above
+            log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
     for res in results[3:]:
         for fn, regs, stores, loads in ptxas_summary(res.log, ("_bwd_",)):
             log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
@@ -554,10 +620,11 @@ def phase_build():
         # the bf16 backward kernels must show their own.
         for kernel in BWD_SM90_KERNELS:
             own = {fn: c for fn, c in by_fn.items() if kernel in fn}
-            if len(own) != 2:  # head dims 64 and 128
-                raise AssertionError(f"{kernel}: expected two instances in the SASS, got {list(own)}")
+            if len(own) != 3:  # head dims (64, 64), (128, 128), (192, 128)
+                raise AssertionError(f"{kernel}: expected three instances in the SASS, got {list(own)}")
             for fn, c in sorted(own.items()):
-                log("build", f"{source} SASS {kernel}<{'128' if 'ILi128E' in fn else '64'}>: "
+                dims = ",".join(re.search(r"ILi(\d+)ELi(\d+)E", fn).groups())
+                log("build", f"{source} SASS {kernel}<{dims}>: "
                     + " ".join(f"{k}={c[k]}" for k in ("HGMMA", "UTMALDG")))
                 if not (c["HGMMA"] and c["UTMALDG"]):
                     raise AssertionError(f"{fn} must run wgmma on TMA tiles: {c}")
@@ -652,9 +719,10 @@ def flash_case(torch, flash_attention, attention_ref, case, gen):
     import torch.nn.functional as F
 
     name, b, s, h, kv, dt, window, d = case
+    dqk, dv = head_dims(d)
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
-    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=DEVICE).to(dtype)
-               for n in (h, kv, kv))
+    q, k, v = (torch.randn((b, s, n, dim), generator=gen, device=DEVICE).to(dtype)
+               for n, dim in ((h, dqk), (kv, dqk), (kv, dv)))
 
     def kernel():
         return flash_attention(q, k, v, causal=True, window=window)
@@ -683,20 +751,44 @@ def flash_case(torch, flash_attention, attention_ref, case, gen):
         max_abs_err=err,
         ms=ms,
         plain_ms=cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window), 5),
-        library_ms=cuda_ms(torch, library, 20),
         device_ms=named[FLASH_PROFILE_NAME], records=records[FLASH_PROFILE_NAME],
-        library_device_ms=device_ms(torch, library, 20),
         issue_ms=issue_ms(torch, kernel, 20),
         bound_ms=bound_ms, bound_by=bound_by,
+        **library_row(torch, library, 20),
     )
 
 
-def phase_kernel(torch):
+def library_row(torch, library, calls):
+    """The yardstick PyTorch call's CUDA-event ms (``library_ms``), its
+    device ms per call (``library_device_ms``) and the name of its longest
+    kernel, which says which SDPA backend ran (``library_kernel``); where
+    the call refuses these inputs (an SDPA without a backend for them),
+    ``library_ms`` is None and ``library_kernel`` says why."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        library()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        return dict(library_ms=None, library_device_ms=None,
+                    library_kernel="refused: " + str(err).splitlines()[0][:160])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        library()
+        torch.cuda.synchronize()
+    kernels = [(evt.self_device_time_total, evt.key) for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA]
+    return dict(library_ms=cuda_ms(torch, library, calls),
+                library_device_ms=device_ms(torch, library, calls),
+                library_kernel=max(kernels)[1][:80] if kernels else "no kernel recorded")
+
+
+def phase_kernel(torch, cases=KERNEL_CASES):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = {}
-    for case in KERNEL_CASES:
+    for case in cases:
         name, b, s, h, kv, dt, window, d = case
         row = rows[name] = flash_case(torch, flash_attention, attention_ref, case, gen)
         err, ms = row["max_abs_err"], row["ms"]
@@ -704,12 +796,17 @@ def phase_kernel(torch):
             raise AssertionError(f"{name}: max abs err {err:.3e} > {TOL[dt]:.0e}")
         log("kernel", f"{name} B={b} H={h} KV={kv} D={d} {dt} window={window}: "
             f"max_abs_err={err:.3e} (tol {TOL[dt]:.0e}) ms={ms:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={fmt_ms(row['library_ms'])} "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
             f"of_bound={row['bound_ms'] / ms:.4f} device_ms={row['device_ms']:.4f} "
             f"records={row['records']}/20 "
-            f"library_device_ms={row['library_device_ms']:.4f} issue_ms={row['issue_ms']:.4f}")
+            f"library_device_ms={fmt_ms(row['library_device_ms'])} "
+            f"library_kernel={row['library_kernel']!r} issue_ms={row['issue_ms']:.4f}")
     return rows
+
+
+def fmt_ms(ms):
+    return "None" if ms is None else f"{ms:.4f}"
 
 
 def wkv_bound(b, t, h, k):
@@ -1380,15 +1477,16 @@ def phase_serving_hymba(torch, flash_ms, ssm_ms):
 
 
 def attention_bwd_bound(b, s, h, kv, d, dtype, window):
-    """Least time for one attention backward: q, k, v, o, dO and the lse
-    read once, dq, dk, dv written once, over the memory rate; or its five
-    products over the valid (query, key) pairs (S and dP recomputed, dV,
-    dK, dQ: 2.5x the forward's two) over the peak rate for the dtype."""
+    """Least time for one attention backward: q, k (Dqk), v, o, dO (Dv) and
+    the lse read once, dq, dk (Dqk), dv (Dv) written once, over the memory
+    rate; or its five products over the valid (query, key) pairs (S, dK
+    and dQ over Dqk; dP and dV over Dv) over the peak rate for the dtype."""
+    dqk, dv = head_dims(d)
     elem = 2 if dtype == "bf16" else 4
-    nbytes = elem * d * b * s * (3 * h + 2 * kv) + 4 * b * h * s + elem * d * b * (h * s + 2 * kv * s)
+    nbytes = elem * b * s * (2 * (h + kv) * dqk + 2 * (h + kv) * dv) + 4 * b * h * s
     w = s if window is None else min(window, s)
     pairs = sum(min(q + 1, w) for q in range(s))
-    flops = 10 * d * b * h * pairs
+    flops = 2 * (3 * dqk + 2 * dv) * b * h * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
@@ -1408,10 +1506,11 @@ def flash_bwd_case(torch, case, gen):
         attention_backward_ref, attention_ref, flash_attention_backward, ops)
 
     name, b, s, h, kv, dt, window, d = case
+    dqk, dv = head_dims(d)
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
-    q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device=DEVICE).to(dtype)
-                   for n in (h, kv, kv, h))
-    scale = 1.0 / d ** 0.5
+    q, k, v, do = (torch.randn((b, s, n, dim), generator=gen, device=DEVICE).to(dtype)
+                   for n, dim in ((h, dqk), (kv, dqk), (kv, dv), (h, dv)))
+    scale = 1.0 / dqk ** 0.5
     out, lse = ops._forward(q, k, v, True, window, scale, None, with_lse=True)
 
     def kernel():
@@ -1435,12 +1534,14 @@ def flash_bwd_case(torch, case, gen):
     if window is not None:
         pos = torch.arange(s, device=DEVICE)
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-    lib_out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=h != kv)
     lib_do = do.transpose(1, 2)
+    lib_out = []
 
     def library():
-        return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+        if not lib_out:  # SDPA's forward once; a refusal raises here
+            lib_out.append(F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=h != kv))
+        return torch.autograd.grad(lib_out[0], (qt, kt, vt), lib_do, retain_graph=True)
 
     bound_ms, bound_by = attention_bwd_bound(b, s, h, kv, d, dt, window)
     ms = cuda_ms(torch, kernel, 10)
@@ -1450,19 +1551,18 @@ def flash_bwd_case(torch, case, gen):
         errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise, ms=ms,
         plain_ms=cuda_ms(torch, lambda: attention_backward_ref(
             q, k, v, out, lse, do, causal=True, window=window), 2, warmup=1),
-        library_ms=cuda_ms(torch, library, 10),
         device_ms=named[BWD_PROFILE_NAME], records=records[BWD_PROFILE_NAME],
-        library_device_ms=device_ms(torch, library, 10),
         bound_ms=bound_ms, bound_by=bound_by,
+        **library_row(torch, library, 10),
     )
     del lib_out
     return row
 
 
-def phase_kernel_bwd(torch):
+def phase_kernel_bwd(torch, cases=BWD_CASES):
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     rows = {}
-    for case in BWD_CASES:
+    for case in cases:
         name, b, s, h, kv, dt, window, d = case
         row = rows[name] = flash_bwd_case(torch, case, gen)
         for key, err in row["errs"].items():
@@ -1475,8 +1575,9 @@ def phase_kernel_bwd(torch):
             "max_abs_err " + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
                                       for key, err in row["errs"].items())
             + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms']:.4f} "
-            f"library_device_ms={row['library_device_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+            f"library_ms={fmt_ms(row['library_ms'])} "
+            f"library_device_ms={fmt_ms(row['library_device_ms'])} "
+            f"library_kernel={row['library_kernel']!r} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) device_ms={row['device_ms']:.4f} "
             f"records={row['records']}/30 of_bound_device={row['bound_ms'] / row['device_ms']:.4f} "
             f"bitwise_repeat={row['bitwise_repeat']}")
@@ -1530,9 +1631,16 @@ def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
             loss = loss + MOE_LB_WEIGHT * stats["lb_loss"] + MOE_Z_WEIGHT * stats["z_loss"]
         grads[name] = torch.autograd.grad(loss, list(model.parameters()))
         del out, logits, loss, stats
-    sq = {k: sum(float((g.double() ** 2).sum()) for g in v) for k, v in grads.items()}
+    # In chunks of 2^26 elements: a whole leaf in float64 (deepseek's
+    # expert weights: 10 GB) does not fit beside two float32 gradients.
+    def chunks(x):
+        return x.reshape(-1).split(1 << 26)
+
+    sq = {k: sum(float((c.double() ** 2).sum()) for g in v for c in chunks(g))
+          for k, v in grads.items()}
     rel_sq = abs(sq["kernel"] - sq["plain"]) / sq["plain"]
-    worst = max(((g - w).abs().max().item() / max(1.0, w.abs().max().item()), n)
+    worst = max((max(float((a - b).abs().max()) for a, b in zip(chunks(g), chunks(w)))
+                 / max(1.0, max(float(c.abs().max()) for c in chunks(w))), n)
                 for (n, _), g, w in zip(model.named_parameters(), grads["kernel"],
                                         grads["plain"]))
     log(phase, f"full {arch} f32 node gradient (b=2, S=256, {cfg.n_layers} layers), kernels "
@@ -2725,7 +2833,7 @@ HYMBA_GRAD_LAYERS = 16
 # CLI's arguments (None: it does not fit)
 SSM_TRAINING = {
     "rwkv6": ("rwkv6-7b", RWKV6_TRAIN_LAYERS, RWKV6_TRAIN_LAYERS, None),
-    "hymba": ("hymba-1.5b", None, HYMBA_GRAD_LAYERS,
+    "hymba": ("hymba-1.5b", HYMBA_TRAIN_LAYERS, HYMBA_GRAD_LAYERS,
               ["--mode", "spmd", "--arch", "hymba-1.5b", "--full-width", "--steps", "3",
                "--seq-len", "512", "--ref-batch", "16", "--microbatches", "2", "--lr", "0.01"]),
 }
@@ -2733,7 +2841,8 @@ SSM_TRAINING = {
 
 def phase_train_ssm(torch, which):
     """Phases 18 and 19: rwkv6-7b (depth cut to ``RWKV6_TRAIN_LAYERS``) or
-    full-width hymba-1.5b in bf16 on phase 13's recipe through ``EpochLoop``
+    hymba-1.5b (to ``HYMBA_TRAIN_LAYERS``) in bf16 at published widths on
+    phase 13's recipe through ``EpochLoop``
     (``sharded_loop``, unsharded): five epochs on the two-program path, then
     three on the fused path (two bootstrap, one fused adaptive epoch, its
     proposal certified); every loss finite, no node excluded, launches as the
@@ -3127,6 +3236,304 @@ def run_moe_phases(torch, enter):
     phase_train_mixtral(torch)
 
 
+def deepseek_cfg(torch, n_layers, dtype=None, **overrides):
+    """deepseek-v2-236b at published widths, ``n_layers`` deep (the dense
+    layer 0, then MoE layers), in ``dtype`` (default the published bf16)."""
+    from repro_torch.configs import deepseek_v2_236b
+
+    cfg = dataclasses.replace(deepseek_v2_236b.config(), n_layers=n_layers, **overrides)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def deepseek_decode_bytes(cfg):
+    """Bytes a batch-1 decode step of ``cfg`` must read in its dtype: every
+    layer's MLA projections and norms, the dense layer 0's FFN, each MoE
+    layer's router, top-k routed experts and shared experts, and the LM
+    head (the latent cache at a few hundred tokens is under 1 MB)."""
+    d, h, f = cfg.d_model, cfg.n_heads, cfg.d_ff_expert
+    attn = (d * cfg.q_lora_rank + cfg.q_lora_rank + cfg.q_lora_rank * h * cfg.qk_dim
+            + d * cfg.kv_lora_rank + cfg.kv_lora_rank + d * cfg.qk_rope_dim
+            + cfg.kv_lora_rank * h * (cfg.qk_nope_dim + cfg.v_head_dim)
+            + h * cfg.v_head_dim * d + 2 * d)
+    dense = 3 * d * cfg.d_ff_dense
+    moe = d * cfg.n_experts + cfg.top_k * 3 * d * f + 3 * d * cfg.n_shared_experts * f
+    return cfg.param_dtype.itemsize * (cfg.n_layers * attn + dense + (cfg.n_layers - 1) * moe + d * cfg.vocab + d)
+
+
+def phase_model_deepseek(torch):
+    """Phase 24: deepseek-v2-236b in float32, ``DEEPSEEK_MODEL_LAYERS`` deep,
+    128 tokens.  At the published capacity factor the forward (one flash
+    launch a layer, MLA at (192, 128)) against the same forward with the
+    plain attention through the ``attend`` seam; at the dropless one
+    (capacity = T) against the stepped absorbed decode (plain torch over
+    the latent cache, the selected experts only); logits within 1e-3."""
+    import functools
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models.registry import build_api
+
+    cfg = deepseek_cfg(torch, DEEPSEEK_MODEL_LAYERS, torch.float32)
+    api = build_api("deepseek-v2-236b", cfg)
+    model = api.init(0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    s = 128
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
+    plain = functools.partial(attention_ref, causal=True)
+    for cf in (cfg.capacity_factor, DEEPSEEK_DROPLESS_CF):
+        model.cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        reset_launches()
+        logits, stats = model(toks)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        if counts != no_launches(flash_attention=cfg.n_layers):
+            raise AssertionError(f"deepseek forward launched {counts}, not the flash kernel "
+                                 f"once per layer ({cfg.n_layers})")
+        if not torch.isfinite(logits).all() or logits.shape != (1, s, cfg.vocab):
+            raise AssertionError(f"forward logits: shape {tuple(logits.shape)} or non-finite")
+        stat = ", ".join(f"{k}={float(v):.6f}" for k, v in stats.items())
+        if cf != DEEPSEEK_DROPLESS_CF:
+            with torch.no_grad():
+                want, want_stats = model.train_forward(toks, attend=plain)
+            what = "the same forward with the plain attention (attend seam)"
+            stat += " (plain: " + ", ".join(
+                f"{k}={float(v):.6f}" for k, v in want_stats.items()) + ")"
+        else:
+            if float(stats["drop_frac"]) != 0.0:
+                raise AssertionError(f"capacity factor {cf} dropped routings: {stat}")
+            cache = api.init_cache(1, s, device=DEVICE)
+            rows = []
+            for p in range(s):
+                lg, cache = api.decode_step(model, cache, toks[:, p : p + 1], p)
+                rows.append(lg)
+            want = torch.cat(rows, dim=1)
+            what = "the stepped absorbed decode"
+            del cache, rows
+        err = (logits - want).abs().max().item()
+        log("model", f"deepseek-v2-236b f32 ({cfg.n_layers} of 60 layers, {api.param_count()} "
+            f"params) capacity_factor {cf:.4f}: forward over {s} tokens "
+            f"({counts['flash_attention']} flash launches at (192, 128)) vs {what}: logits max "
+            f"abs err {err:.3e} (limit 1e-3); logits scale {want.abs().max().item():.3f}; {stat}")
+        if not err <= 1e-3:
+            raise AssertionError(f"deepseek forward vs {what}: {err:.3e} > 1e-3")
+    del model
+
+
+def phase_serving_deepseek(torch):
+    """Phase 25: deepseek-v2-236b in bf16, ``DEEPSEEK_SERVING_LAYERS`` deep,
+    under ``ServingRuntime`` as phase 22 (prompts step the absorbed decode
+    loop); then a 1024-token forward (no host sync inside it) and a decode
+    step: wall and device ms, idle share, the flash part, and the decode
+    step's byte bound."""
+    from repro_torch.models.registry import build_api
+    from repro_torch.runtime.backend import _host_syncs_raise
+    from repro_torch.serving import (
+        RealServingEngine, ServingAllocator, ServingConfig, ServingRuntime,
+        generate_requests,
+    )
+
+    cfg = deepseek_cfg(torch, DEEPSEEK_SERVING_LAYERS)
+    api = build_api("deepseek-v2-236b", cfg)
+    model = api.init(0, device=DEVICE)
+    max_len = 256
+    wl = generate_requests(
+        8, seed=0, rate=4.0, prompt_min=16, prompt_mean=48, prompt_max=128,
+        gen_min=8, gen_mean=16, gen_max=32,
+    )
+    engine = recording(RealServingEngine)(api, model, max_len=max_len, device=DEVICE)
+    warm = api.init_cache(1, max_len, device=DEVICE)
+    api.decode_step(model, warm, torch.zeros((1, 1), dtype=torch.long, device=DEVICE), 0)
+    torch.cuda.synchronize()
+    del warm
+
+    alloc = ServingAllocator({0: (0.01, 0.01), 1: (0.01, 0.01)}, total_slots=4, mode="optperf")
+    rt = ServingRuntime(engine, alloc, wl, nodes=[0, 1],
+                        config=ServingConfig(total_slots=4, resolve_every=1.0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = rt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = read_launches()
+    summ = rep.summary
+    log("serving", f"deepseek-v2-236b bf16 ({cfg.n_layers} of 60 layers, {api.param_count()} "
+        f"params), 2 nodes, 4 slots, max_len {max_len}: completed={summ['completed']}/"
+        f"{summ['requests']} dropped={summ['dropped']} requeues={summ['requeues']} "
+        f"prefills={rep.counters['admitted']} (prompts step the absorbed decode loop; launches "
+        f"in this run {served})")
+    serving_summary(torch, "deepseek-v2-236b", rep, wall, served)
+    if summ["completed"] != 8 or summ["dropped"] != 0:
+        raise AssertionError(f"served {summ['completed']}/8 with {summ['dropped']} dropped")
+    if any(served.values()):
+        raise AssertionError(f"stepped prompt ingestion launched kernels: {served}")
+    rids = check_streams(torch, api, model, engine, rt, wl, max_len)
+    log("serving", f"deepseek-v2-236b requests {rids} equal a direct greedy decode")
+
+    s = 1024
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
+    reset_launches()
+    torch.cuda.synchronize()
+    with _host_syncs_raise(model.device):  # the capacity path reads nothing back
+        _, stats = model(toks)
+    forward_counts = read_launches()
+    if forward_counts != no_launches(flash_attention=cfg.n_layers):
+        raise AssertionError(f"the {s}-token forward launched {forward_counts}")
+    logits_ms = host_ms(torch, lambda: api.logits(model, {"tokens": toks}), 3, warmup=1)
+    cache = api.init_cache(1, max_len, device=DEVICE)
+    last = torch.zeros((1, 1), dtype=torch.long, device=DEVICE)
+    decode_ms = host_ms(torch, lambda: api.decode_step(model, cache, last, 0), 10)
+    nbytes = deepseek_decode_bytes(cfg)
+    decode_bound = nbytes / HBM_BYTES_S * 1e3
+    log("serving", f"per call: deepseek-v2-236b bf16 api.logits({s} tokens) {logits_ms:.3f} ms "
+        f"(drop_frac {float(stats['drop_frac']):.4f}); decode_step {decode_ms:.3f} ms against "
+        f"its byte bound {decode_bound:.3f} ms ({nbytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s: top-{cfg.top_k} routed and the shared experts a MoE "
+        "layer)")
+    for name, fn, wall_ms in (("forward", lambda: api.logits(model, {"tokens": toks}), logits_ms),
+                              ("decode_step", lambda: api.decode_step(model, cache, last, 0),
+                               decode_ms)):
+        launches = {FLASH_PROFILE_NAME: cfg.n_layers} if name == "forward" else None
+        dev, named, idle, _, records = device_split(torch, fn, 3, wall_ms, (FLASH_PROFILE_NAME,),
+                                                    launches)
+        log("serving", f"profile deepseek-v2-236b {name}: device {dev:.3f} ms of {wall_ms:.3f} "
+            f"ms (idle share {idle:.4f}), flash kernel {named[FLASH_PROFILE_NAME]:.3f} ms "
+            f"(records {records[FLASH_PROFILE_NAME]}/{3 * cfg.n_layers if launches else 0})"
+            + (f"; byte bound {decode_bound:.3f} ms, {decode_bound / dev:.1%} of the device "
+               "time" if name == "decode_step" else ""))
+    del model, cache
+    return forward_counts
+
+
+class NodeGrads:
+    """One node's forward and backward through ``api.loss`` on a model
+    that holds no optimizer state: ``RealBackend.node_grads`` without the
+    rest of ``_step`` (momentum, the other nodes' gradients, the
+    aggregate), which a MoE layer of deepseek-v2-236b does not leave room
+    for on one card."""
+
+    def __init__(self, api, params, data):
+        self.api, self.params, self.data = api, params, data
+        self.named = dict(params.named_parameters())
+
+    def node_grads(self, tokens, labels, mask):
+        import torch
+
+        loss, _ = self.api.loss(self.params, {"tokens": tokens, "labels": labels,
+                                              "weights": mask})
+        return torch.autograd.grad(loss, list(self.named.values()))
+
+
+# _step holds about 14 bytes a parameter (PERF.md section 4): bf16 weights,
+# float32 momentum, three nodes' gradients and their float32 aggregate.
+STEP_BYTES_PER_PARAM = 14
+
+
+def phase_train_deepseek(torch):
+    """Phase 26: deepseek-v2-236b at ``DEEPSEEK_TRAIN_LAYERS`` layers.  One
+    node's bf16 step through ``api.loss`` and its backward at a padded
+    b=40 (34 weighted), S=512, remat on: wall and device ms, the flash
+    forward and backward parts, launches, peak memory under 80 GB; one
+    node's float32 gradient through the kernels against the plain attention
+    (as phase 13); why the 3-node ``EpochLoop`` does not fit; then the
+    training CLI with its default arguments."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.registry import build_api
+
+    label = "training (deepseek)"
+    arch = "deepseek-v2-236b"
+    t0 = time.perf_counter()
+    cfg = deepseek_cfg(torch, DEEPSEEK_TRAIN_LAYERS)
+    api = build_api(arch, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend = NodeGrads(api, api.init(0, device=DEVICE).requires_grad_(True),
+                        SyntheticLM(vocab=cfg.vocab, seq_len=512, seed=0))
+    b, b_max = 34, 40
+    reset_launches()
+    row = node_step_row(torch, backend, backend.data, b, b_max)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # node_step_profile runs the step a few times (a warm-up, two timed, and
+    # one or more profiled): per step, each layer's forward twice (remat)
+    # and its backward once.
+    steps = counts["flash_attention_backward"] // cfg.n_layers
+    want = no_launches(flash_attention=steps * 2 * cfg.n_layers,
+                       flash_attention_backward=steps * cfg.n_layers)
+    log(label, f"{arch} bf16 ({cfg.n_layers} of 60 layers, published widths, "
+        f"{api.param_count()} params), one node step (b={b} of padded {b_max}, S=512, remat): "
+        f"wall {row['wall_ms']:.2f} ms, device {row['device_ms']:.2f} ms (idle share "
+        f"{row['idle_share']:.4f}); flash forward {row['flash_fwd_ms']:.3f} ms (records "
+        f"{row['flash_fwd_records']}/{row['flash_fwd_launches']}), flash backward "
+        f"{row['flash_bwd_ms']:.3f} ms (records {row['flash_bwd_records']}/"
+        f"{row['flash_bwd_launches']}); launches over {steps} steps {counts} (expected "
+        f"{want}); "
+        f"peak_mem_gb={peak / 1e9:.3f}")
+    if counts != want or steps < 4:
+        raise AssertionError(f"{arch} node steps launched {counts} != {want}")
+    if not peak < 80e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    node_grad_check(torch, arch, DEEPSEEK_TRAIN_LAYERS, phase=label)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = api.param_count()
+    one = build_api(arch, deepseek_cfg(torch, 1)).param_count()
+    log(label, f"EpochLoop (3 nodes): not run on one card: _step holds ~{STEP_BYTES_PER_PARAM} B a "
+        f"parameter, {STEP_BYTES_PER_PARAM * n / 1e9:.1f} GB at {cfg.n_layers} layers "
+        f"({n / 1e9:.2f} B parameters) before any activation; 1 layer "
+        f"({STEP_BYTES_PER_PARAM * one / 1e9:.1f} GB) has no MoE layer, and the reference's "
+        "aux stats are then means over none (NaN), so its loss is NaN; the epoch runs on the CPU "
+        "at the reduced config against the reference (tests/test_torch_train_moe.py)")
+    t2 = time.perf_counter()
+    default_cli(torch, label)
+    log(label, f"phase in {time.perf_counter() - t0:.1f} s: node step {t1 - t0:.1f} s, node "
+        f"gradient {t2 - t1:.1f} s, CLI {time.perf_counter() - t2:.1f} s; "
+        f"peak_mem_gb={peak / 1e9:.3f}")
+    return counts
+
+
+def default_cli(torch, phase):
+    """``python -m repro_torch.launch.train`` with its default arguments
+    (the hetero loop on cluster B over reduced olmo-1b, float32, head dim
+    32) on the card: exit 0 and every epoch's loss finite."""
+    import re
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    losses = [float(m.group(1)) for m in re.finditer(r"loss=(\S+)", proc.stdout)]
+    log(phase, f"CLI with default arguments (python -m repro_torch.launch.train): exit "
+        f"{proc.returncode} in {secs:.1f} s, {len(losses)} epochs, losses {losses}")
+    if proc.returncode != 0 or not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the default CLI failed: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-4000:]}")
+
+
+def run_deepseek_phases(torch, enter):
+    """Phases 24-26, each entered under its name; returns the serving
+    forward's launches and the node steps'."""
+    enter("model (deepseek)")
+    phase_model_deepseek(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    enter("serving (deepseek)")
+    forward_counts = phase_serving_deepseek(torch)
+    log("serving", f"deepseek-v2-236b 1024-token forward launches {forward_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    enter("training (deepseek)")
+    train_counts = phase_train_deepseek(torch)
+    return forward_counts, train_counts
+
+
 def main() -> int:
     import torch
 
@@ -3161,6 +3568,19 @@ def main() -> int:
         if sys.argv[1:] == ["--only", "moe"]:
             run_moe_phases(torch, enter)
             log("done", f"--only moe passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--only", "deepseek"]:
+            enter("kernel")
+            phase_kernel(torch, [c for c in KERNEL_CASES if isinstance(c[7], tuple)])
+            enter("kernel (flash bwd)")
+            phase_kernel_bwd(torch, [c for c in BWD_CASES if isinstance(c[7], tuple)])
+            torch.cuda.empty_cache()
+            run_deepseek_phases(torch, enter)
+            log("done", f"--only deepseek passed in {time.perf_counter() - t_start:.1f} s; "
                 "seconds per phase: " + ", ".join(
                     f"{name} {end - start:.1f}" for (name, start), end in zip(
                         starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
@@ -3241,12 +3661,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run_moe_phases(torch, enter)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ds_forward_counts, ds_train_counts = run_deepseek_phases(torch, enter)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-23); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-26); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -3263,6 +3686,12 @@ def main() -> int:
          ssm_bwd_rows[("wkv", WKV_BWD_MAIN_CASE)], rwkv6_train_counts["rwkv6_wkv_backward"]),
         ("ssm_scan_backward", SSM_BWD_SOURCE_REL, SSM_REPLACES,
          ssm_bwd_rows[("ssm", SSM_BWD_MAIN_CASE)], hymba_train_counts["ssm_scan_backward"]),
+        # The MLA instance (q/k 192, v 128) on deepseek-v2-236b's paths: the
+        # 1024-token forward of phase 25 and the node steps of phase 26.
+        ("flash_attention[192,128]", SOURCE_REL, REPLACES, rows[DEEPSEEK_CASE],
+         ds_forward_counts["flash_attention"]),
+        ("flash_attention_backward[192,128]", SOURCE_REL, REPLACES, bwd_rows[DEEPSEEK_BWD_CASE],
+         ds_train_counts["flash_attention_backward"]),
     ):
         kernels.append({
             "name": name,

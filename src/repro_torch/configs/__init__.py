@@ -2,9 +2,8 @@
 
 ``ARCHS`` maps arch id -> config module, in the reference's order;
 `get_api(arch_id, reduced=False)` returns a ready `ModelApi`.  Every
-reference arch is here but deepseek-v2-236b and whisper-large-v3, whose
-families (deepseek's MLA, whisper's encoder-decoder) come with later
-slices.
+reference arch is here but whisper-large-v3, whose encoder-decoder family
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -12,6 +11,7 @@ from typing import Dict, List
 
 from repro_torch.configs import (
     chameleon_34b,
+    deepseek_v2_236b,
     hymba_1_5b,
     internlm2_20b,
     llama3_8b,
@@ -25,6 +25,7 @@ from repro_torch.models.registry import ModelApi, build_api
 
 _MODULES = [
     minitron_4b,
+    deepseek_v2_236b,
     hymba_1_5b,
     olmo_1b,
     chameleon_34b,

@@ -72,6 +72,19 @@
 // serving traffic.  One block of 256 threads per (b, h, 64-row q tile);
 // each 64-key K/V tile is staged in shared memory and both products run as
 // scalar FMAs on the CUDA cores.
+//
+// Head dims.  Every kernel is a template on (DQK, DV): q and k share DQK, v
+// and the output have DV, as in repro/models/common.py::full_attention.
+// DeepSeek-V2's MLA attends at (192, 128): q and k are a 128-dim part from
+// the latent and a 64-dim RoPE part, v is 128 wide, and the scale is
+// 1/sqrt(192).  The instances (the C entries' forward_instance and
+// backward_instance): bf16 at (64, 64), (128, 128), (192, 128); float32 at
+// those and at the reduced configs' (32, 32) and (48, 32).  At (192, 128)
+// the bf16 forward's Q K^T runs over three 64-column swizzle chunks (12
+// k16 steps), its P V at N = 128; q, the K ring and the V ring take 24 +
+// 48 + 32 KB, so two blocks still share an SM, and the accumulators are
+// those of D = 128.  The backward's choices at (192, 128) are noted at
+// DkdvCfg and DqCfg.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,28 +121,31 @@ constexpr int kBlockN = 64;            // keys per kv tile
 constexpr int kThreads = 256;          // 16 x 16 thread grid
 constexpr int kPPitch = kBlockN + 1;   // pitch of the probability tile
 
-// Shared-memory layout for head dim D: q and K tiles at a padded row pitch
-// (no bank conflicts), the V tile unpadded; the P tile aliases the K tile.
-template <int D>
+// Shared-memory layout for head dims DQK (q, K) and DV (V, the output): q
+// and K tiles at a padded row pitch (no bank conflicts), the V tile
+// unpadded; the P tile aliases the K tile's region, which is sized for the
+// larger of the two (at DQK < 64 the P tile is the larger).
+template <int DQK, int DV>
 struct Tile {
-  static constexpr int kPitch = D + 1;
-  static constexpr size_t kSmemBytes = sizeof(float) * (2 * kBlockM * kPitch + kBlockN * D);
-  static_assert(D % 16 == 0, "16 lanes share a row's head dims");
-  static_assert(kBlockM * kPPitch <= kBlockN * kPitch, "the P tile must fit in the K tile");
+  static constexpr int kPitch = DQK + 1;
+  static constexpr int kKFloats =
+      kBlockN * kPitch > kBlockM * kPPitch ? kBlockN * kPitch : kBlockM * kPPitch;
+  static constexpr size_t kSmemBytes = sizeof(float) * (kBlockM * kPitch + kKFloats + kBlockN * DV);
+  static_assert(DV % 16 == 0, "16 lanes share a row's output dims");
 };
 
 // Thread (tx, ty) of the 16 x 16 grid owns q rows ty + 16*i (i < 4) of the
 // tile: scores at keys tx + 16*j (j < 4) and outputs at dims tx + 16*j
-// (j < D/16).  A row's 16 owners are 16 adjacent lanes of one warp, so row
+// (j < DV/16).  A row's 16 owners are 16 adjacent lanes of one warp, so row
 // reductions are four xor-shuffles.
-template <int kHeadDim>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
-  constexpr int kPitch = Tile<kHeadDim>::kPitch;
-  constexpr int kOut = kHeadDim / 16;    // output dims per thread
+  constexpr int kPitch = Tile<DQK, DV>::kPitch;
+  constexpr int kOut = DV / 16;          // output dims per thread
   extern __shared__ float smem[];
   float* qs = smem;                      // (kBlockM, kPitch), pre-scaled q
   float* ks = qs + kBlockM * kPitch;     // (kBlockN, kPitch); then P tile
-  float* vs = ks + kBlockN * kPitch;     // (kBlockN, kHeadDim)
+  float* vs = ks + Tile<DQK, DV>::kKFloats;  // (kBlockN, DV)
   float* ps = ks;                        // (kBlockM, kPPitch), aliases ks
 
   const int tid = threadIdx.x;
@@ -145,8 +161,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  for (int idx = tid; idx < kBlockM * kHeadDim; idx += kThreads) {
-    const int r = idx / kHeadDim, c = idx % kHeadDim;
+  for (int idx = tid; idx < kBlockM * DQK; idx += kThreads) {
+    const int r = idx / DQK, c = idx % DQK;
     const int m = m0 + r;
     qs[r * kPitch + c] = m < p.S ? q[m * p.q_ss + c] * p.scale : 0.f;
   }
@@ -169,12 +185,25 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
 
   for (int n0 = kv_start; n0 < kv_end; n0 += kBlockN) {
     __syncthreads();  // the previous tile's P and V reads are done
-    for (int idx = tid; idx < kBlockN * kHeadDim; idx += kThreads) {
-      const int r = idx / kHeadDim, c = idx % kHeadDim;
-      const int n = n0 + r;
-      const bool in = n < p.T;
-      ks[r * kPitch + c] = in ? k[n * p.k_ss + c] : 0.f;
-      vs[r * kHeadDim + c] = in ? v[n * p.v_ss + c] : 0.f;
+    if constexpr (DQK == DV) {  // one pass, two loads in flight a thread
+      for (int idx = tid; idx < kBlockN * DV; idx += kThreads) {
+        const int r = idx / DV, c = idx % DV;
+        const int n = n0 + r;
+        const bool in = n < p.T;
+        ks[r * kPitch + c] = in ? k[n * p.k_ss + c] : 0.f;
+        vs[r * DV + c] = in ? v[n * p.v_ss + c] : 0.f;
+      }
+    } else {
+      for (int idx = tid; idx < kBlockN * DQK; idx += kThreads) {
+        const int r = idx / DQK, c = idx % DQK;
+        const int n = n0 + r;
+        ks[r * kPitch + c] = n < p.T ? k[n * p.k_ss + c] : 0.f;
+      }
+      for (int idx = tid; idx < kBlockN * DV; idx += kThreads) {
+        const int r = idx / DV, c = idx % DV;
+        const int n = n0 + r;
+        vs[r * DV + c] = n < p.T ? v[n * p.v_ss + c] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -184,7 +213,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < kHeadDim; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float a[4], bk[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kPitch + d];
@@ -247,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kPPitch + n];
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) vv[j] = vs[n * kHeadDim + tx + 16 * j];
+      for (int j = 0; j < kOut; ++j) vv[j] = vs[n * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -268,18 +297,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t kSmemBytes = Tile<D>::kSmemBytes;
+  constexpr size_t kSmemBytes = Tile<DQK, DV>::kSmemBytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        flash_fwd_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((p.S + kBlockM - 1) / kBlockM, p.H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  flash_fwd_kernel<DQK, DV><<<grid, kThreads, kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -296,20 +325,28 @@ constexpr int kBlockThreads = 160;  // the consumer warpgroup and one producer w
 constexpr int kRowBytes = 128;      // one swizzled row chunk: 64 bf16 columns
 
 // Shared memory (from a 1024-byte aligned base; every tile starts on a
-// 1024-byte boundary, the 128-byte swizzle's period):
-//   q       D/64 chunks x 64 rows x 128 B
-//   k, v    kStages x (D/64 chunks x kBN rows x 128 B) each
+// 1024-byte boundary, the 128-byte swizzle's period), for q and K of head
+// dim DQK and V of head dim DV:
+//   q       DQK/64 chunks x 64 rows x 128 B
+//   k       kStages x (DQK/64 chunks x kBN rows x 128 B)
+//   v       kStages x (DV/64 chunks x kBN rows x 128 B)
 //   barriers  q, k[kStages], v[kStages], k_free[kStages], v_free[kStages]
-template <int D>
+// At DQK 192, DV 128 (DeepSeek-V2's MLA) that is 24 + 48 + 32 KB, so two
+// blocks still share an SM.
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int kChunks = D / 64;
-  static constexpr uint32_t kQBytes = kBM * D * 2;    // the block's q rows
-  static constexpr uint32_t kTileBytes = kBN * D * 2; // one K or V tile
+  static constexpr int kQkChunks = DQK / 64;
+  static constexpr int kVChunks = DV / 64;
+  static constexpr uint32_t kQBytes = kBM * DQK * 2;   // the block's q rows
+  static constexpr uint32_t kKBytes = kBN * DQK * 2;   // one K tile
+  static constexpr uint32_t kVBytes = kBN * DV * 2;    // one V tile
   static constexpr uint32_t kOffK = kQBytes;
-  static constexpr uint32_t kOffV = kOffK + kStages * kTileBytes;
-  static constexpr uint32_t kOffBar = kOffV + kStages * kTileBytes;
+  static constexpr uint32_t kOffV = kOffK + kStages * kKBytes;
+  static constexpr uint32_t kOffBar = kOffV + kStages * kVBytes;
   static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 4 * kStages) + 1024;
-  static_assert(D % 64 == 0 && kBN % 16 == 0, "tiles are whole swizzle chunks and k16 steps");
+  static_assert(DQK % 64 == 0 && DV % 64 == 0 && kBN % 16 == 0,
+                "tiles are whole swizzle chunks and k16 steps");
+  static_assert(2 * (kSmemBytes + 1024) <= 233472, "two blocks must share an SM");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -445,6 +482,35 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The dK accumulator at DQK 192 (the dK/dV kernel's second warpgroup).
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<192>(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -561,12 +627,12 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBN / 2], const Param
 // overlaps tile i's P V product with tile i+1's Q K^T product and softmax:
 // a K stage is released as soon as its scores are in registers, a V stage
 // when its product is done.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kBlockThreads, 2)
     flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, const Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + C::kOffBar;
@@ -605,21 +671,21 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     // soon as the consumers have released what that stage held before.
     if (lane == 0) {
       mbar_expect_tx(bar_q, C::kQBytes);
-      for (int c = 0; c < C::kChunks; ++c)
+      for (int c = 0; c < C::kQkChunks; ++c)
         tma_load_4d(base + c * kBM * kRowBytes, &tq, bar_q, 64 * c, h, m0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t free_parity = (i / kStages - 1) & 1;
         const int n0 = kv_start + i * kBN;
-        const uint32_t k_dst = base + C::kOffK + s * C::kTileBytes;
-        const uint32_t v_dst = base + C::kOffV + s * C::kTileBytes;
+        const uint32_t k_dst = base + C::kOffK + s * C::kKBytes;
+        const uint32_t v_dst = base + C::kOffV + s * C::kVBytes;
         if (i >= kStages) mbar_wait(bar_k_free + 8 * s, free_parity);
-        mbar_expect_tx(bar_k + 8 * s, C::kTileBytes);
-        for (int c = 0; c < C::kChunks; ++c)
+        mbar_expect_tx(bar_k + 8 * s, C::kKBytes);
+        for (int c = 0; c < C::kQkChunks; ++c)
           tma_load_4d(k_dst + c * kBN * kRowBytes, &tk, bar_k + 8 * s, 64 * c, kvh, n0, b);
         if (i >= kStages) mbar_wait(bar_v_free + 8 * s, free_parity);
-        mbar_expect_tx(bar_v + 8 * s, C::kTileBytes);
-        for (int c = 0; c < C::kChunks; ++c)
+        mbar_expect_tx(bar_v + 8 * s, C::kVBytes);
+        for (int c = 0; c < C::kVChunks; ++c)
           tma_load_4d(v_dst + c * kBN * kRowBytes, &tv, bar_v + 8 * s, 64 * c, kvh, n0, b);
       }
     }
@@ -630,12 +696,12 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
   const Rows r{m0, m0 + 16 * warp + lane / 4, 2 * (lane % 4)};
   const float scale_log2 = p.scale * 1.4426950408889634f;
   const uint32_t q_base = base;
-  auto k_base = [&](int s) { return base + C::kOffK + s * C::kTileBytes; };
-  auto v_base = [&](int s) { return base + C::kOffV + s * C::kTileBytes; };
+  auto k_base = [&](int s) { return base + C::kOffK + s * C::kKBytes; };
+  auto v_base = [&](int s) { return base + C::kOffV + s * C::kVBytes; };
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+  for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
   float sc[kBN / 2];
@@ -648,7 +714,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     float alpha[2];
     mbar_wait(bar_k, 0);
     wgmma_fence();
-    issue_qk<D>(sc, q_base, k_base(0));
+    issue_qk<DQK>(sc, q_base, k_base(0));
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(bar_k_free);
@@ -662,10 +728,10 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     const int s1 = (i + 1) % kStages;
     mbar_wait(bar_k + 8 * s1, ((i + 1) / kStages) & 1);
     wgmma_fence();
-    issue_qk<D>(sc, q_base, k_base(s1));
+    issue_qk<DQK>(sc, q_base, k_base(s1));
     mbar_wait(bar_v + 8 * s, (i / kStages) & 1);
     wgmma_fence();
-    issue_pv<D>(o, p_hi, p_lo, v_base(s));
+    issue_pv<DV>(o, p_hi, p_lo, v_base(s));
     wgmma_wait<1>();  // the scores are in; the product may still run
     fence_regs(sc);
     mbar_arrive(bar_k_free + 8 * s1);
@@ -676,7 +742,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     fence_regs(sc);
     mbar_arrive(bar_v_free + 8 * s);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int ii = 0; ii < 2; ++ii) {
         o[4 * j + 2 * ii] *= alpha[ii];
@@ -688,7 +754,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     const int s = (n_tiles - 1) % kStages;
     mbar_wait(bar_v + 8 * s, ((n_tiles - 1) / kStages) & 1);
     wgmma_fence();
-    issue_pv<D>(o, p_hi, p_lo, v_base(s));
+    issue_pv<DV>(o, p_hi, p_lo, v_base(s));
     wgmma_wait<0>();
     fence_regs(o);
   }
@@ -703,7 +769,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     const int row = r.row0 + 8 * ii;
     if (row < p.S) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(out + row * p.o_ss + 8 * j + r.col0) =
             __floats2bfloat162_rn(o[4 * j + 2 * ii] / denom, o[4 * j + 2 * ii + 1] / denom);
       // m_run is in log2 units; -inf for a row with no valid key.
@@ -769,26 +835,26 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
 // Returns a cudaError_t, or kTensorMapRejected when q, k or v breaks TMA's
 // layout rule (cuTensorMapEncodeTiled checks it: a 16-byte aligned base and
 // 16-byte multiple strides).
-template <int D>
+template <int DQK, int DV>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
-      !make_map(encode, &tk, p.k, B, p.T, p.KV, D, p.k_sb, p.k_ss, p.k_sh, kBN) ||
-      !make_map(encode, &tv, p.v, B, p.T, p.KV, D, p.v_sb, p.v_ss, p.v_sh, kBN))
+  if (!make_map(encode, &tq, p.q, B, p.S, p.H, DQK, p.q_sb, p.q_ss, p.q_sh, 64) ||
+      !make_map(encode, &tk, p.k, B, p.T, p.KV, DQK, p.k_sb, p.k_ss, p.k_sh, kBN) ||
+      !make_map(encode, &tv, p.v, B, p.T, p.KV, DV, p.v_sb, p.v_ss, p.v_sh, kBN))
     return kTensorMapRejected;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<D>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<DQK, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)C::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid(p.H * B, (p.S + kBM - 1) / kBM);
-  flash_fwd_kernel_sm90<D><<<grid, kBlockThreads, C::kSmemBytes, stream>>>(tq, tk, tv, p);
+  flash_fwd_kernel_sm90<DQK, DV><<<grid, kBlockThreads, C::kSmemBytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -906,8 +972,8 @@ struct BwdParams {
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ void narrow_to(float* dst, float x) { *dst = x; }
 
-// One warp per (b, row, h): delta = sum_d dO * O, in float32.
-template <typename T, int D>
+// One warp per (b, row, h): delta = sum_d dO * O over the DV dims, in float32.
+template <typename T, int DV>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(BwdParams p, int B) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -919,19 +985,23 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(BwdParams p, int B
   const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + m * p.do_ss + h * p.do_sh;
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) acc = fmaf(widen(g[d]), widen(o[d]), acc);
+  for (int d = lane; d < DV; d += 32) acc = fmaf(widen(g[d]), widen(o[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[((long long)b * p.H + h) * p.S + m] = acc;
 }
 
-// Shared memory of both backward kernels: four 64 x D float32 tiles at a
-// padded pitch, the 64 x 64 P / dS tile, and the q tile's lse and delta.
-template <int D>
+// Shared memory of both backward kernels: four float32 tiles at a padded
+// pitch (K and q 64 x DQK, V and dO 64 x DV), the 64 x 64 P / dS tile, and
+// the q tile's lse and delta.  182 KB at DQK 192, DV 128.
+template <int DQK, int DV>
 struct BwdTile {
-  static constexpr int kPitch = D + 1;
+  static constexpr int kQkPitch = DQK + 1;
+  static constexpr int kVPitch = DV + 1;
   static constexpr size_t kSmemBytes =
-      sizeof(float) * (4 * kBlockM * kPitch + kBlockM * kPPitch + 2 * kBlockM);
+      sizeof(float) * (2 * kBlockM * (kQkPitch + kVPitch) + kBlockM * kPPitch + 2 * kBlockM);
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "16 lanes share a row's dims");
+  static_assert(kSmemBytes <= 232448, "one block must fit an SM's shared memory");
 };
 
 // Rows [m0, m0+64) and cols [0, D) of a (L, heads, D) slice into a float32
@@ -954,40 +1024,42 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int n_valid, int m, 
   return ok;
 }
 
-// Thread (tx, ty) of the 16 x 16 grid: the scores of q rows ty + 16 i and
-// keys tx + 16 j (i, j < 4) become P (returned in s) and dS (in dp).
+// The 4 x 4 products of rows ty + 16 i of a (64, pitch) tile and rows
+// tx + 16 j of another over their first D columns, added to acc.
 template <int D>
+__device__ __forceinline__ void tile_dots(const float* a_tile, const float* b_tile,
+                                          float (&acc)[4][4]) {
+  constexpr int kPitch = D + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[4], bb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = a_tile[(ty + 16 * i) * kPitch + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bb[j] = b_tile[(tx + 16 * j) * kPitch + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+  }
+}
+
+// Thread (tx, ty) of the 16 x 16 grid: the scores of q rows ty + 16 i and
+// keys tx + 16 j (i, j < 4) become P (returned in s) and dS (in dp).  S
+// sums over DQK (q and K), dP over DV (dO and V).
+template <int DQK, int DV>
 __device__ __forceinline__ void scores_and_ds(const BwdParams& p, const float* qs, const float* dos,
                                               const float* ks, const float* vs, const float* lse_s,
                                               const float* delta_s, int m0, int n0, int n_valid,
                                               float (&s)[4][4], float (&dp)[4][4]) {
-  constexpr int kPitch = D + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], g[4], bk[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = qs[(ty + 16 * i) * kPitch + d];
-      g[i] = dos[(ty + 16 * i) * kPitch + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bk[j] = ks[(tx + 16 * j) * kPitch + d];
-      bv[j] = vs[(tx + 16 * j) * kPitch + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-        dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
-      }
-  }
+  tile_dots<DQK>(qs, ks, s);
+  tile_dots<DV>(dos, vs, dp);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1000,16 +1072,16 @@ __device__ __forceinline__ void scores_and_ds(const BwdParams& p, const float* q
     }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p) {
-  constexpr int kPitch = D + 1;
-  constexpr int kOut = D / 16;
+  constexpr int kQkPitch = DQK + 1, kVPitch = DV + 1;
+  constexpr int kOutK = DQK / 16, kOutV = DV / 16;
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + kBlockN * kPitch;
-  float* qs = vs + kBlockN * kPitch;
-  float* dos = qs + kBlockM * kPitch;
-  float* ps = dos + kBlockM * kPitch;  // (kBlockM, kPPitch): P, then dS
+  float* vs = ks + kBlockN * kQkPitch;
+  float* qs = vs + kBlockN * kVPitch;
+  float* dos = qs + kBlockM * kQkPitch;
+  float* ps = dos + kBlockM * kVPitch;  // (kBlockM, kPPitch): P, then dS
   float* lse_s = ps + kBlockM * kPPitch;
   float* delta_s = lse_s + kBlockM;
 
@@ -1020,14 +1092,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p
   const int group = p.H / p.KV;
   const int n_valid = min(p.kv_len, p.T);
 
-  stage<T, D>(ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, n0, p.T);
-  stage<T, D>(vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, n0, p.T);
+  stage<T, DQK>(ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, n0, p.T);
+  stage<T, DV>(vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, n0, p.T);
 
-  float dk[4][kOut], dv[4][kOut];
+  float dk[4][kOutK], dv[4][kOutV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int j = 0; j < kOutK; ++j) dk[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kOutV; ++j) dv[i][j] = 0.f;
+  }
 
   // The q rows that see a key of this tile.
   int m_begin = 0, m_end = n0 < n_valid ? p.S : 0;
@@ -1041,8 +1116,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p
     const long long stat = ((long long)b * p.H + hq) * p.S;
     for (int m0 = m_begin; m0 < m_end; m0 += kBlockM) {
       __syncthreads();  // the previous q tile's reads are done
-      stage<T, D>(qs, q, p.q_ss, m0, p.S);
-      stage<T, D>(dos, g, p.do_ss, m0, p.S);
+      stage<T, DQK>(qs, q, p.q_ss, m0, p.S);
+      stage<T, DV>(dos, g, p.do_ss, m0, p.S);
       if (threadIdx.x < kBlockM) {
         const int m = m0 + threadIdx.x;
         lse_s[threadIdx.x] = m < p.S ? p.lse[stat + m] : 0.f;
@@ -1050,7 +1125,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p
       }
       __syncthreads();
       float s[4][4], ds[4][4];
-      scores_and_ds<D>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
+      scores_and_ds<DQK, DV>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1059,15 +1134,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p
       // dV[n][d] += sum_m P[m][n] dO[m][d]: this thread's keys ty + 16 i, dims tx + 16 j.
 #pragma unroll 4
       for (int m = 0; m < kBlockM; ++m) {
-        float pv[4], gv[kOut];
+        float pv[4], gv[kOutV];
 #pragma unroll
         for (int i = 0; i < 4; ++i) pv[i] = ps[m * kPPitch + ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < kOut; ++j) gv[j] = dos[m * kPitch + tx + 16 * j];
+        for (int j = 0; j < kOutV; ++j) gv[j] = dos[m * kVPitch + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < kOut; ++j) dv[i][j] = fmaf(pv[i], gv[j], dv[i][j]);
+          for (int j = 0; j < kOutV; ++j) dv[i][j] = fmaf(pv[i], gv[j], dv[i][j]);
       }
       __syncthreads();
 #pragma unroll
@@ -1078,15 +1153,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p
       // dK[n][d] += sum_m dS[m][n] Q[m][d] (times scale at the store).
 #pragma unroll 4
       for (int m = 0; m < kBlockM; ++m) {
-        float dsv[4], qv[kOut];
+        float dsv[4], qv[kOutK];
 #pragma unroll
         for (int i = 0; i < 4; ++i) dsv[i] = ps[m * kPPitch + ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < kOut; ++j) qv[j] = qs[m * kPitch + tx + 16 * j];
+        for (int j = 0; j < kOutK; ++j) qv[j] = qs[m * kQkPitch + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < kOut; ++j) dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
+          for (int j = 0; j < kOutK; ++j) dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
       }
     }
   }
@@ -1098,23 +1173,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p
     const int n = n0 + ty + 16 * i;
     if (n >= p.T) continue;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      narrow_to(dkp + n * p.dk_ss + tx + 16 * j, dk[i][j] * p.scale);
-      narrow_to(dvp + n * p.dv_ss + tx + 16 * j, dv[i][j]);
-    }
+    for (int j = 0; j < kOutK; ++j) narrow_to(dkp + n * p.dk_ss + tx + 16 * j, dk[i][j] * p.scale);
+#pragma unroll
+    for (int j = 0; j < kOutV; ++j) narrow_to(dvp + n * p.dv_ss + tx + 16 * j, dv[i][j]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) {
-  constexpr int kPitch = D + 1;
-  constexpr int kOut = D / 16;
+  constexpr int kQkPitch = DQK + 1, kVPitch = DV + 1;
+  constexpr int kOut = DQK / 16;
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + kBlockN * kPitch;
-  float* qs = vs + kBlockN * kPitch;
-  float* dos = qs + kBlockM * kPitch;
-  float* ps = dos + kBlockM * kPitch;  // (kBlockM, kPPitch): dS
+  float* vs = ks + kBlockN * kQkPitch;
+  float* qs = vs + kBlockN * kVPitch;
+  float* dos = qs + kBlockM * kQkPitch;
+  float* ps = dos + kBlockM * kVPitch;  // (kBlockM, kPPitch): dS
   float* lse_s = ps + kBlockM * kPPitch;
   float* delta_s = lse_s + kBlockM;
 
@@ -1125,8 +1199,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) 
   const int kvh = h / (p.H / p.KV);
   const int n_valid = min(p.kv_len, p.T);
 
-  stage<T, D>(qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, m0, p.S);
-  stage<T, D>(dos, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, m0, p.S);
+  stage<T, DQK>(qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, m0, p.S);
+  stage<T, DV>(dos, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, m0, p.S);
   if (threadIdx.x < kBlockM) {
     const long long stat = ((long long)b * p.H + h) * p.S;
     const int m = m0 + threadIdx.x;
@@ -1151,11 +1225,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) 
 
   for (int n0 = kv_start; n0 < kv_end; n0 += kBlockN) {
     __syncthreads();  // the previous tile's reads are done
-    stage<T, D>(ks, k, p.k_ss, n0, p.T);
-    stage<T, D>(vs, v, p.v_ss, n0, p.T);
+    stage<T, DQK>(ks, k, p.k_ss, n0, p.T);
+    stage<T, DV>(vs, v, p.v_ss, n0, p.T);
     __syncthreads();
     float s[4][4], ds[4][4];
-    scores_and_ds<D>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
+    scores_and_ds<DQK, DV>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1168,7 +1242,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) 
 #pragma unroll
       for (int i = 0; i < 4; ++i) dsv[i] = ps[(ty + 16 * i) * kPPitch + n];
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) kv[j] = ks[n * kPitch + tx + 16 * j];
+      for (int j = 0; j < kOut; ++j) kv[j] = ks[n * kQkPitch + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1192,41 +1266,57 @@ constexpr int kDkdvStages = 3;  // Q/dO tile pairs in flight (dK/dV)
 constexpr int kDqStages = 2;    // K/V tile pairs in flight (dQ)
 constexpr float kLog2e = 1.4426950408889634f;
 
+// 64-row bf16 tiles of q and K (head dim DQK) and of V and dO (DV), each
+// DQK/64 or DV/64 swizzled chunks x 64 rows x 128 B.
+template <int DQK, int DV>
+struct BwdTiles {
+  static constexpr uint32_t kQk = 64 * DQK * 2;  // a q or K tile
+  static constexpr uint32_t kV = 64 * DV * 2;    // a V or dO tile
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "tiles are whole swizzle chunks");
+};
+
 // dK/dV: two consumer warpgroups (warps 0-7) and one producer warp.  Shared
 // memory (1024-byte aligned base):
-//   K, V      the block's 64 keys, D/64 swizzled chunks x 64 rows x 128 B each
+//   K, V      the block's 64 keys
 //   ring      kDkdvStages x (Q tile, dO tile) of 64 q rows
 //   P         kDkdvStages x P^T as warpgroup 0's bf16 fragments, 16 x 128 words
 //   stats     kDkdvStages x (64 lse in log2 units, 64 delta)
 //   barriers  K/V, full[stage], free[stage], P ready[stage]
-template <int D>
-struct DkdvCfg {
+// 186 KB at DQK 192, DV 128.
+template <int DQK, int DV>
+struct DkdvCfg : BwdTiles<DQK, DV> {
+  using Tiles = BwdTiles<DQK, DV>;
   static constexpr int kThreads = 288;
   static constexpr int kProducerWarp = 8;
-  static constexpr uint32_t kTile = 64 * D * 2;
-  static constexpr uint32_t kOffRing = 2 * kTile;
-  static constexpr uint32_t kStageBytes = 2 * kTile;
+  static constexpr uint32_t kOffRing = Tiles::kQk + Tiles::kV;
+  static constexpr uint32_t kStageBytes = Tiles::kQk + Tiles::kV;
   static constexpr uint32_t kOffP = kOffRing + kDkdvStages * kStageBytes;
   static constexpr uint32_t kOffStats = kOffP + kDkdvStages * 16 * 128 * 4;
   static constexpr uint32_t kOffBar = kOffStats + kDkdvStages * 2 * 64 * sizeof(float);
   static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 3 * kDkdvStages) + 1024;
-  static_assert(D % 64 == 0, "tiles are whole swizzle chunks");
   static_assert(kSmemBytes <= 232448, "one block must fit an SM's shared memory");
 };
 
-// dQ: one consumer warpgroup (warps 0-3) and one producer warp, two blocks
-// to an SM.  Shared memory: Q and dO of the block's 64 rows, then
-// kDqStages x (K tile, V tile), then barriers Q/dO, full[stage], free[stage].
-template <int D>
-struct DqCfg {
+// dQ: one consumer warpgroup (warps 0-3) and one producer warp.  Shared
+// memory: Q and dO of the block's 64 rows, then kDqStages x (K tile, V
+// tile), then barriers Q/dO, full[stage], free[stage].  Two blocks share
+// an SM up to DQK = DV = 128 (99 KB each).  At DQK 192, DV 128 a block
+// takes 121 KB and runs alone on its SM: it keeps both stages, so the next
+// key tile still loads under the current one's four products, and its dQ
+// accumulator (96 registers) with S, dP and dS (80) fits the 255 registers
+// a lone block may hold without spilling; one stage would let two blocks
+// share the SM but serialize each block's loads with its products.
+template <int DQK, int DV>
+struct DqCfg : BwdTiles<DQK, DV> {
+  using Tiles = BwdTiles<DQK, DV>;
   static constexpr int kThreads = 160;
   static constexpr int kProducerWarp = 4;
-  static constexpr uint32_t kTile = 64 * D * 2;
-  static constexpr uint32_t kOffRing = 2 * kTile;
-  static constexpr uint32_t kStageBytes = 2 * kTile;
+  static constexpr uint32_t kOffRing = Tiles::kQk + Tiles::kV;
+  static constexpr uint32_t kStageBytes = Tiles::kQk + Tiles::kV;
   static constexpr uint32_t kOffBar = kOffRing + kDqStages * kStageBytes;
   static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 2 * kDqStages) + 1024;
-  static_assert(2 * kSmemBytes <= 232448, "two blocks must fit an SM's shared memory");
+  static constexpr int kMinBlocks = 2 * (kSmemBytes + 1024) <= 233472 ? 2 : 1;
+  static_assert(kSmemBytes <= 232448, "one block must fit an SM's shared memory");
 };
 
 // 2^x on the special-function unit; -inf gives 0.
@@ -1247,16 +1337,16 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t bits) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
 }
 
-// d (64 x D) += A (64 x 64, registers, one bf16 term) B (64 x D, smem,
+// d (64 x N) += A (64 x 64, registers, one bf16 term) B (64 x N, smem,
 // MN-major: a 64-row tile read along its rows), issued and committed, not
 // waited.  A's columns 16*kk .. 16*kk + 15 are fragments [4*kk, 4*kk + 4).
-template <int D>
-__device__ __forceinline__ void issue_rs(float (&d)[D / 2], const uint32_t (&a)[16],
+template <int N>
+__device__ __forceinline__ void issue_rs(float (&d)[N / 2], const uint32_t (&a)[16],
                                          uint32_t b_base) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
-    wgmma_rs_tb<D>(d, f, desc_sw128(b_base + kk * 16 * kRowBytes, 64 * kRowBytes, 1024));
+    wgmma_rs_tb<N>(d, f, desc_sw128(b_base + kk * 16 * kRowBytes, 64 * kRowBytes, 1024));
   }
   wgmma_commit();
 }
@@ -1267,21 +1357,135 @@ __device__ __forceinline__ bool crosses_edge(const BwdParams& p, int n_valid, in
          (p.window > 0 && n0 <= m0 + 63 - p.window);
 }
 
+// What a dK/dV consumer warpgroup needs of its block.
+struct DkdvBlock {
+  uint32_t base;       // the aligned shared-memory base: K, then V
+  uint32_t ring;       // the ring's first stage
+  uint32_t bar_full, bar_free, bar_p;
+  const float* stats;  // kDkdvStages x (lse in log2 units, delta)
+  uint32_t* pbuf;      // kDkdvStages x P^T fragments
+  int n0, kvh, b, n_valid, m_begin, q_tiles, n_iters;
+};
+
+// One consumer warpgroup's loop and store.  Warpgroup 0 (WG = 0) computes
+// S^T = K Q^T (a depth of DQK) and P^T, hands P^T to warpgroup 1 and
+// accumulates dV += P^T dO (N = DV columns); warpgroup 1 computes dP^T =
+// V dO^T (a depth of DV), dS^T = P^T (dP^T - delta) and accumulates dK +=
+// dS^T Q (N = DQK).  WG = -1: the warpgroup is picked at run time, for DQK
+// = DV, where both run the same code and no branch separates a wgmma from
+// its wait.
+template <int DQK, int DV, int WG>
+__device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock& k) {
+  using Tiles = BwdTiles<DQK, DV>;
+  constexpr int kDepth = WG == 1 ? DV : DQK;  // of S^T (0) or dP^T (1)
+  constexpr int N = WG == 1 ? DQK : DV;       // columns of dV (0) or dK (1)
+  static_assert(WG >= 0 || DQK == DV, "a run-time warpgroup needs one head dim");
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = WG >= 0 ? WG : warp / 4;
+  const int t = threadIdx.x % 128;
+  const int key0 = k.n0 + 16 * (warp % 4) + lane / 4;    // this thread's keys: key0, key0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = p.scale * kLog2e;
+  // Every q tile the block walks sees one of its keys (m_begin and m_end
+  // are the diagonal's and the window's edges).
+  float acc[N / 2];                                        // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+  float x[32];                                             // S^T (0) or dP^T (1)
+#pragma unroll
+  for (int e = 0; e < 32; ++e) x[e] = 0.f;
+  uint32_t frag[16];                                       // P^T (0) or dS^T (1), bf16
+  mbar_wait(k.base + DkdvCfg<DQK, DV>::kOffBar, 0);        // K and V landed
+
+  for (int i = 0; i < k.n_iters; ++i) {
+    const int s = i % kDkdvStages;
+    const int m0 = k.m_begin + (i % k.q_tiles) * 64;
+    const uint32_t q_base = k.ring + s * DkdvCfg<DQK, DV>::kStageBytes;  // dO at + Tiles::kQk
+    uint32_t* pslot = k.pbuf + s * 16 * 128 + t;           // fragment f at pslot[128 f]
+    const bool masked = crosses_edge(p, k.n_valid, m0, k.n0);
+    mbar_wait(k.bar_full + 8 * s, (i / kDkdvStages) & 1);
+    wgmma_fence();
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1).
+    issue_qk<kDepth>(x, k.base + wg * Tiles::kQk, q_base + wg * Tiles::kQk);
+    wgmma_wait<0>();
+    fence_regs(x);
+    if (wg == 0) {
+      // P^T: rows are keys key0 + 8r, columns q rows m0 + 8j + col0 + c.
+      const float* lse2 = k.stats + s * 128;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + col0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            float pr = ex2_approx(fmaf(x[e], scale_log2, -(c ? l.y : l.x)));
+            if (masked && !visible(p, k.n_valid, m0 + 8 * j + col0 + c, key0 + 8 * r)) pr = 0.f;
+            x[e] = pr;
+          }
+      }
+      to_bf16_fragments(x, frag);
+#pragma unroll
+      for (int f = 0; f < 16; ++f) pslot[128 * f] = frag[f];
+      mbar_arrive(k.bar_p + 8 * s);
+    } else {
+      // dS^T = P^T (dP^T - delta), from warpgroup 0's rounded P^T.
+      const float* delta = k.stats + s * 128 + 64;
+      mbar_wait(k.bar_p + 8 * s, (i / kDkdvStages) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 pp = bf16x2_to_float2(pslot[128 * (2 * j + r)]);
+          x[4 * j + 2 * r] = pp.x * (x[4 * j + 2 * r] - dl.x);
+          x[4 * j + 2 * r + 1] = pp.y * (x[4 * j + 2 * r + 1] - dl.y);
+        }
+      }
+      to_bf16_fragments(x, frag);
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1).
+    wgmma_fence();
+    issue_rs<N>(acc, frag, q_base + (1 - wg) * Tiles::kQk);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(k.bar_free + 8 * s);
+  }
+
+  // Warpgroup 0 stores dV, warpgroup 1 dK (scaled).
+  const float out_scale = wg == 0 ? 1.f : p.scale;
+  __nv_bfloat16* dst = wg == 0
+      ? static_cast<__nv_bfloat16*>(p.dv) + k.b * p.dv_sb + k.kvh * p.dv_sh
+      : static_cast<__nv_bfloat16*>(p.dk) + k.b * p.dk_sb + k.kvh * p.dk_sh;
+  const long long row_stride = wg == 0 ? p.dv_ss : p.dk_ss;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = key0 + 8 * r;
+    if (n >= p.T) continue;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int e = 4 * j + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * row_stride + 8 * j + col0) =
+          __floats2bfloat162_rn(acc[e] * out_scale, acc[e + 1] * out_scale);
+    }
+  }
+}
+
 // Block (blockIdx.x = kv head + KV*b, blockIdx.y = 64-key tile, the
 // longest causal chain first): two consumer warpgroups share the block's 64
-// keys and split each q tile's work.  Warpgroup 0 computes S^T = K Q^T and
-// P^T, hands P^T to warpgroup 1 through shared memory (its own fragment
-// layout, one barrier per stage) and accumulates dV += P^T dO; warpgroup 1
-// computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) and accumulates dK +=
-// dS^T Q.  Each holds one 64 x D accumulator, so both fit 168 registers.
-// The producer warp comes last.
-template <int D>
-__global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
+// keys and split each q tile's work (dkdv_consume).  Each holds one
+// accumulator: 64 x D at DQK = DV = D, so both fit 168 registers; at DQK
+// 192, DV 128, dV (64 registers) in warpgroup 0 and dK (96) in warpgroup
+// 1, each in a branch of its own.  The producer warp comes last.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(DkdvCfg<DQK, DV>::kThreads, 1)
     flash_bwd_dkdv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
                                const __grid_constant__ CUtensorMap tdo, const BwdParams p) {
-  using C = DkdvCfg<D>;
+  using C = DkdvCfg<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* aligned = smem_raw + (base - smem_u32(smem_raw));
@@ -1322,11 +1526,11 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
     // Producer: K and V once, then Q, dO, lse and delta of iteration i
     // into stage i % kDkdvStages.
     if (lane == 0) {
-      mbar_expect_tx(bar_kv, 2 * C::kTile);
-      for (int c = 0; c < D / 64; ++c) {
+      mbar_expect_tx(bar_kv, C::kQk + C::kV);
+      for (int c = 0; c < DQK / 64; ++c)
         tma_load_4d(base + c * 64 * kRowBytes, &tk, bar_kv, 64 * c, kvh, n0, b);
-        tma_load_4d(base + C::kTile + c * 64 * kRowBytes, &tv, bar_kv, 64 * c, kvh, n0, b);
-      }
+      for (int c = 0; c < DV / 64; ++c)
+        tma_load_4d(base + C::kQk + c * 64 * kRowBytes, &tv, bar_kv, 64 * c, kvh, n0, b);
     }
     for (int i = 0; i < n_iters; ++i) {
       const int s = i % kDkdvStages;
@@ -1343,11 +1547,11 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
       if (lane == 0) {
         const uint32_t dst = base + C::kOffRing + s * C::kStageBytes;
         mbar_expect_tx(bar_full + 8 * s, C::kStageBytes);
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < DQK / 64; ++c)
           tma_load_4d(dst + c * 64 * kRowBytes, &tq, bar_full + 8 * s, 64 * c, hq, m0, b);
-          tma_load_4d(dst + C::kTile + c * 64 * kRowBytes, &tdo, bar_full + 8 * s, 64 * c, hq,
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load_4d(dst + C::kQk + c * 64 * kRowBytes, &tdo, bar_full + 8 * s, 64 * c, hq,
                       m0, b);
-        }
       } else {
         mbar_arrive(bar_full + 8 * s);
       }
@@ -1355,107 +1559,26 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
     return;
   }
 
-  const int wg = warp / 4;
-  const int t = threadIdx.x % 128;
-  const int key0 = n0 + 16 * (warp % 4) + lane / 4;        // this thread's keys: key0, key0 + 8
-  const int col0 = 2 * (lane % 4);
-  const float scale_log2 = p.scale * kLog2e;
-  // Every q tile the block walks sees one of its keys (m_begin and m_end
-  // are the diagonal's and the window's edges).
-  float acc[D / 2];                                        // dV (warpgroup 0) or dK (1)
-#pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
-  float x[32];                                             // S^T (0) or dP^T (1)
-#pragma unroll
-  for (int e = 0; e < 32; ++e) x[e] = 0.f;
-  uint32_t frag[16];                                       // P^T (0) or dS^T (1), bf16
-  mbar_wait(bar_kv, 0);
-
-  for (int i = 0; i < n_iters; ++i) {
-    const int s = i % kDkdvStages;
-    const int m0 = m_begin + (i % q_tiles) * 64;
-    const uint32_t q_base = base + C::kOffRing + s * C::kStageBytes;  // dO at + kTile
-    uint32_t* pslot = pbuf + s * 16 * 128 + t;             // fragment f at pslot[128 f]
-    const bool masked = crosses_edge(p, n_valid, m0, n0);
-    mbar_wait(bar_full + 8 * s, (i / kDkdvStages) & 1);
-    wgmma_fence();
-    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): operands are picked by
-    // warpgroup, so no branch separates a wgmma from its wait.
-    issue_qk<D>(x, base + wg * C::kTile, q_base + wg * C::kTile);
-    wgmma_wait<0>();
-    fence_regs(x);
-    if (wg == 0) {
-      // P^T: rows are keys key0 + 8r, columns q rows m0 + 8j + col0 + c.
-      const float* lse2 = stats + s * 128;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + col0);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 4 * j + 2 * r + c;
-            float pr = ex2_approx(fmaf(x[e], scale_log2, -(c ? l.y : l.x)));
-            if (masked && !visible(p, n_valid, m0 + 8 * j + col0 + c, key0 + 8 * r)) pr = 0.f;
-            x[e] = pr;
-          }
-      }
-      to_bf16_fragments(x, frag);
-#pragma unroll
-      for (int f = 0; f < 16; ++f) pslot[128 * f] = frag[f];
-      mbar_arrive(bar_p + 8 * s);
-    } else {
-      // dS^T = P^T (dP^T - delta), from warpgroup 0's rounded P^T.
-      const float* delta = stats + s * 128 + 64;
-      mbar_wait(bar_p + 8 * s, (i / kDkdvStages) & 1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float2 pp = bf16x2_to_float2(pslot[128 * (2 * j + r)]);
-          x[4 * j + 2 * r] = pp.x * (x[4 * j + 2 * r] - dl.x);
-          x[4 * j + 2 * r + 1] = pp.y * (x[4 * j + 2 * r + 1] - dl.y);
-        }
-      }
-      to_bf16_fragments(x, frag);
-    }
-    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1).
-    wgmma_fence();
-    issue_rs<D>(acc, frag, q_base + (1 - wg) * C::kTile);
-    wgmma_wait<0>();
-    fence_regs(acc);
-    mbar_arrive(bar_free + 8 * s);
-  }
-
-  // Warpgroup 0 stores dV, warpgroup 1 dK (scaled).
-  const float out_scale = wg == 0 ? 1.f : p.scale;
-  __nv_bfloat16* dst = wg == 0
-      ? static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh
-      : static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
-  const long long row_stride = wg == 0 ? p.dv_ss : p.dk_ss;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int n = key0 + 8 * r;
-    if (n >= p.T) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int e = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * row_stride + 8 * j + col0) =
-          __floats2bfloat162_rn(acc[e] * out_scale, acc[e + 1] * out_scale);
-    }
+  const DkdvBlock blk{base, base + C::kOffRing, bar_full, bar_free, bar_p, stats, pbuf,
+                      n0, kvh, b, n_valid, m_begin, q_tiles, n_iters};
+  if constexpr (DQK == DV) {
+    dkdv_consume<DQK, DV, -1>(p, blk);
+  } else if (warp < 4) {
+    dkdv_consume<DQK, DV, 0>(p, blk);
+  } else {
+    dkdv_consume<DQK, DV, 1>(p, blk);
   }
 }
 
 // Block (blockIdx.x = h + H*b, blockIdx.y = 64-row q tile from the last):
 // one consumer warpgroup owns the rows, the producer warp comes last.
-template <int D>
-__global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(DqCfg<DQK, DV>::kThreads, DqCfg<DQK, DV>::kMinBlocks)
     flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const __grid_constant__ CUtensorMap tdo, const BwdParams p) {
-  using C = DqCfg<D>;
+  using C = DqCfg<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + C::kOffBar;
@@ -1489,22 +1612,22 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
     // Producer: Q and dO once, then K and V of key tile i into stage
     // i % kDqStages.
     if (lane == 0) {
-      mbar_expect_tx(bar_q, 2 * C::kTile);
-      for (int c = 0; c < D / 64; ++c) {
+      mbar_expect_tx(bar_q, C::kQk + C::kV);
+      for (int c = 0; c < DQK / 64; ++c)
         tma_load_4d(base + c * 64 * kRowBytes, &tq, bar_q, 64 * c, h, m0, b);
-        tma_load_4d(base + C::kTile + c * 64 * kRowBytes, &tdo, bar_q, 64 * c, h, m0, b);
-      }
+      for (int c = 0; c < DV / 64; ++c)
+        tma_load_4d(base + C::kQk + c * 64 * kRowBytes, &tdo, bar_q, 64 * c, h, m0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kDqStages;
         const int n0 = kv_start + i * 64;
         const uint32_t dst = base + C::kOffRing + s * C::kStageBytes;
         if (i >= kDqStages) mbar_wait(bar_free + 8 * s, (i / kDqStages - 1) & 1);
         mbar_expect_tx(bar_full + 8 * s, C::kStageBytes);
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < DQK / 64; ++c)
           tma_load_4d(dst + c * 64 * kRowBytes, &tk, bar_full + 8 * s, 64 * c, kvh, n0, b);
-          tma_load_4d(dst + C::kTile + c * 64 * kRowBytes, &tv, bar_full + 8 * s, 64 * c, kvh,
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load_4d(dst + C::kQk + c * 64 * kRowBytes, &tv, bar_full + 8 * s, 64 * c, kvh,
                       n0, b);
-        }
       }
     }
     return;
@@ -1522,9 +1645,9 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
     delta[r] = m < p.S ? p.delta[stat] : 0.f;
   }
 
-  float dq[D / 2];
+  float dq[DQK / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+  for (int e = 0; e < DQK / 2; ++e) dq[e] = 0.f;
   float sc[32], dp[32];
 #pragma unroll
   for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
@@ -1537,8 +1660,8 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
     const uint32_t k_stage = base + C::kOffRing + s * C::kStageBytes;
     mbar_wait(bar_full + 8 * s, (i / kDqStages) & 1);
     wgmma_fence();
-    issue_qk<D>(sc, base, k_stage);                        // S = Q K^T
-    issue_qk<D>(dp, base + C::kTile, k_stage + C::kTile);  // dP = dO V^T
+    issue_qk<DQK>(sc, base, k_stage);                      // S = Q K^T
+    issue_qk<DV>(dp, base + C::kQk, k_stage + C::kQk);     // dP = dO V^T
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
@@ -1559,7 +1682,7 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
         }
     to_bf16_fragments(dp, dsf);
     wgmma_fence();
-    issue_rs<D>(dq, dsf, k_stage);                         // dQ += dS K
+    issue_rs<DQK>(dq, dsf, k_stage);                       // dQ += dS K
     wgmma_wait<0>();
     fence_regs(dq);
     mbar_arrive(bar_free + 8 * s);
@@ -1571,19 +1694,19 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
     const int m = row0 + 8 * r;
     if (m >= p.S) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DQK / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dqp + m * p.dq_ss + 8 * j + col0) =
           __floats2bfloat162_rn(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
   }
 }
 
-// delta = rowsum(dO * O) in float32 for each (b, row, h): D/8 lanes per
+// delta = rowsum(dO * O) in float32 for each (b, row, h): DV/8 lanes per
 // row, each reading 8 adjacent elements of both with one 16-byte load (the
 // rows are 16-byte aligned: TMA's rule holds for dO and, as the wrapper
 // sees to, for O); the grid strides over the rows.
-template <int D>
+template <int DV>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_sm90(BwdParams p, long long rows) {
-  constexpr int kLanes = D / 8;
+  constexpr int kLanes = DV / 8;
   const int lane = threadIdx.x % 32;
   const int sub = lane % kLanes;
   const long long stride = (long long)gridDim.x * (256 / kLanes);
@@ -1622,67 +1745,102 @@ cudaError_t allow_smem(Kernel kernel, uint32_t bytes) {
 
 // The delta pre-pass, then the dK/dV and dQ kernels.  Returns a
 // cudaError_t, or kTensorMapRejected when q, k, v or dO breaks TMA's rule.
-template <int D>
+template <int DQK, int DV>
 int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  using Dkdv = DkdvCfg<DQK, DV>;
+  using Dq = DqCfg<DQK, DV>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(encode, &tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
-      !make_map(encode, &tk, p.k, B, p.T, p.KV, D, p.k_sb, p.k_ss, p.k_sh, 64) ||
-      !make_map(encode, &tv, p.v, B, p.T, p.KV, D, p.v_sb, p.v_ss, p.v_sh, 64) ||
-      !make_map(encode, &tdo, p.dout, B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, 64))
+  if (!make_map(encode, &tq, p.q, B, p.S, p.H, DQK, p.q_sb, p.q_ss, p.q_sh, 64) ||
+      !make_map(encode, &tk, p.k, B, p.T, p.KV, DQK, p.k_sb, p.k_ss, p.k_sh, 64) ||
+      !make_map(encode, &tv, p.v, B, p.T, p.KV, DV, p.v_sb, p.v_ss, p.v_sh, 64) ||
+      !make_map(encode, &tdo, p.dout, B, p.S, p.H, DV, p.do_sb, p.do_ss, p.do_sh, 64))
     return kTensorMapRejected;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = allow_smem(flash_bwd_dkdv_kernel_sm90<D>, DkdvCfg<D>::kSmemBytes);
-    if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel_sm90<D>, DqCfg<D>::kSmemBytes);
+    cudaError_t err = allow_smem(flash_bwd_dkdv_kernel_sm90<DQK, DV>, Dkdv::kSmemBytes);
+    if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel_sm90<DQK, DV>, Dq::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const long long rows = (long long)B * p.S * p.H;
-  const long long blocks = (rows * (D / 8) + 255) / 256;  // at most 16 to an SM, striding
-  flash_bwd_delta_kernel_sm90<D><<<(unsigned)(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(
+  const long long blocks = (rows * (DV / 8) + 255) / 256;  // at most 16 to an SM, striding
+  flash_bwd_delta_kernel_sm90<DV><<<(unsigned)(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(
       p, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv(p.KV * B, (p.T + 63) / 64);
-  flash_bwd_dkdv_kernel_sm90<D><<<grid_kv, DkdvCfg<D>::kThreads, DkdvCfg<D>::kSmemBytes, stream>>>(
+  flash_bwd_dkdv_kernel_sm90<DQK, DV><<<grid_kv, Dkdv::kThreads, Dkdv::kSmemBytes, stream>>>(
       tq, tk, tv, tdo, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q(p.H * B, (p.S + 63) / 64);
-  flash_bwd_dq_kernel_sm90<D><<<grid_q, DqCfg<D>::kThreads, DqCfg<D>::kSmemBytes, stream>>>(
+  flash_bwd_dq_kernel_sm90<DQK, DV><<<grid_q, Dq::kThreads, Dq::kSmemBytes, stream>>>(
       tq, tk, tv, tdo, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace sm90
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
-  constexpr size_t kSmemBytes = BwdTile<D>::kSmemBytes;
+  constexpr size_t kSmemBytes = BwdTile<DQK, DV>::kSmemBytes;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DQK, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)kSmemBytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DQK, DV>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const long long rows = (long long)B * p.S * p.H;
-  flash_bwd_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, B);
+  flash_bwd_delta_kernel<T, DV><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, B);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv((p.T + kBlockN - 1) / kBlockN, p.KV, B);
-  flash_bwd_dkdv_kernel<T, D><<<grid_kv, kThreads, kSmemBytes, stream>>>(p);
+  flash_bwd_dkdv_kernel<T, DQK, DV><<<grid_kv, kThreads, kSmemBytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((p.S + kBlockM - 1) / kBlockM, p.H, B);
-  flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, kSmemBytes, stream>>>(p);
+  flash_bwd_dq_kernel<T, DQK, DV><<<grid_q, kThreads, kSmemBytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The (Dqk, Dv) instances, which ops.py's HEAD_DIMS lists: the bf16 wgmma
+// kernels at (64, 64), (128, 128) and (192, 128) (DeepSeek-V2's MLA), the
+// float32 scalar ones also at the reduced configs' (32, 32) and (48, 32).
+int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStream_t s) {
+  if (dtype == 0) {
+    if (dqk == 32 && dv == 32) return (int)launch_f32<32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return (int)launch_f32<48, 32>(p, B, s);
+    if (dqk == 64 && dv == 64) return (int)launch_f32<64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return (int)launch_f32<128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return (int)launch_f32<192, 128>(p, B, s);
+  } else if (dtype == 1) {
+    if (dqk == 64 && dv == 64) return sm90::launch<64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return sm90::launch<128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return sm90::launch<192, 128>(p, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int backward_instance(int dtype, int dqk, int dv, const BwdParams& p, int B, cudaStream_t s) {
+  if (dtype == 0) {
+    if (dqk == 32 && dv == 32) return launch_bwd<float, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return launch_bwd<float, 48, 32>(p, B, s);
+    if (dqk == 64 && dv == 64) return launch_bwd<float, 64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return launch_bwd<float, 128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return launch_bwd<float, 192, 128>(p, B, s);
+  } else if (dtype == 1) {
+    if (dqk == 64 && dv == 64) return sm90::launch_bwd<64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return sm90::launch_bwd<128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return sm90::launch_bwd<192, 128>(p, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1690,11 +1848,12 @@ int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
 extern "C" {
 
 // The entry point's arguments in one block, packed by ops.py as
-// struct.Struct("=5Q12qQ10ifi"): no padding, 192 bytes.  One pointer
+// struct.Struct("=5Q12qQ11if"): no padding, 192 bytes.  One pointer
 // argument keeps the host's cost of a ctypes call small.
-//   dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); D = 64 or
-//   128.  Strides are in elements, (batch, sequence, head) for q, k, v and
-//   o in that order; the head dim is contiguous.  bfloat16 takes q/k/v at
+//   dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); D and Dv:
+//   q's and k's head dim and v's (and o's), one of the instances above.
+//   Strides are in elements, (batch, sequence, head) for q, k, v and o in
+//   that order; the head dim is contiguous.  bfloat16 takes q/k/v at
 //   16-byte aligned addresses with 16-byte multiple strides (TMA's rule).
 //   lse: a (B, H, S) float32 buffer for each row's log-sum-exp, or null
 //   (serving passes null and nothing extra is written).
@@ -1706,34 +1865,30 @@ struct EntryArgs {
   float* lse;
   long long strides[12];
   void* stream;
-  int dtype, B, S, T, H, KV, D, causal, window, kv_len;
+  int dtype, B, S, T, H, KV, D, Dv, causal, window, kv_len;
   float scale;
-  int pad;
 };
 static_assert(sizeof(EntryArgs) == 192, "EntryArgs must match ops.py's packing");
 
 // Returns a cudaError_t, or kTensorMapRejected (-1) when a bfloat16 q, k or
 // v breaks TMA's rule; nothing is launched then.
 int flash_attention_forward(const EntryArgs* a) {
-  const int B = a->B, D = a->D;
-  if ((D != 64 && D != 128) || a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 ||
-      a->T <= 0)
+  const int B = a->B;
+  if (a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 || a->T <= 0)
     return (int)cudaErrorInvalidValue;
   const long long* st = a->strides;
   Params p{a->q, a->k, a->v, a->o, a->S, a->T, a->H, a->KV,
            st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
            a->causal, a->window, a->kv_len, a->scale, a->lse};
-  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
-  if (a->dtype == 0) return (int)(D == 64 ? launch_f32<64>(p, B, s) : launch_f32<128>(p, B, s));
-  if (a->dtype == 1) return D == 64 ? sm90::launch<64>(p, B, s) : sm90::launch<128>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return forward_instance(a->dtype, a->D, a->Dv, p, B, static_cast<cudaStream_t>(a->stream));
 }
 
-// The backward's arguments, packed by ops.py as struct.Struct("=10Q24qQ10ifi"):
+// The backward's arguments, packed by ops.py as struct.Struct("=10Q24qQ11if"):
 // 328 bytes.  Pointers q, k, v, o, dO (the forward's inputs and output and
 // the output's gradient), lse (from the forward), delta (a (B, H, S) float32
-// scratch), dq, dk, dv (outputs in q's dtype); strides in elements,
-// (batch, sequence, head) for q, k, v, o, dO, dq, dk, dv in that order.
+// scratch), dq, dk, dv (outputs in q's dtype; dv and o, dO at Dv); strides
+// in elements, (batch, sequence, head) for q, k, v, o, dO, dq, dk, dv in
+// that order.
 struct BwdEntryArgs {
   const void* q;
   const void* k;
@@ -1747,9 +1902,8 @@ struct BwdEntryArgs {
   void* dv;
   long long strides[24];
   void* stream;
-  int dtype, B, S, T, H, KV, D, causal, window, kv_len;
+  int dtype, B, S, T, H, KV, D, Dv, causal, window, kv_len;
   float scale;
-  int pad;
 };
 static_assert(sizeof(BwdEntryArgs) == 328, "BwdEntryArgs must match ops.py's packing");
 
@@ -1759,9 +1913,8 @@ static_assert(sizeof(BwdEntryArgs) == 328, "BwdEntryArgs must match ops.py's pac
 // (bfloat16 takes them at 16-byte aligned addresses with 16-byte multiple
 // strides); nothing is launched then.
 int flash_attention_backward(const BwdEntryArgs* a) {
-  const int B = a->B, D = a->D;
-  if ((D != 64 && D != 128) || a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 ||
-      a->T <= 0)
+  const int B = a->B;
+  if (a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 || a->T <= 0)
     return (int)cudaErrorInvalidValue;
   const long long* st = a->strides;
   BwdParams p{a->q, a->k, a->v, a->o, a->dout, a->lse, a->delta, a->dq, a->dk, a->dv,
@@ -1769,11 +1922,7 @@ int flash_attention_backward(const BwdEntryArgs* a) {
               st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
               st[12], st[13], st[14], st[15], st[16], st[17], st[18], st[19], st[20], st[21],
               st[22], st[23], a->causal, a->window, a->kv_len, a->scale};
-  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
-  if (a->dtype == 0)
-    return D == 64 ? launch_bwd<float, 64>(p, B, s) : launch_bwd<float, 128>(p, B, s);
-  if (a->dtype == 1) return D == 64 ? sm90::launch_bwd<64>(p, B, s) : sm90::launch_bwd<128>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return backward_instance(a->dtype, a->D, a->Dv, p, B, static_cast<cudaStream_t>(a->stream));
 }
 
 }  // extern "C"

@@ -1,14 +1,16 @@
 """Public entry for the flash-attention kernel.
 
-Takes model-layout tensors, q ``(B, S, H, D)`` and k/v ``(B, T, KV, D)``
-with GQA, like ``repro/kernels/flash_attention/ops.py``.  CUDA tensors go
-to the hand-written Hopper kernels in ``csrc/flash_attention.cu`` (the
-forward and, under autograd, the backward); CPU tensors go to the plain
-versions :func:`attention_ref` and :func:`attention_backward_ref`.  A CUDA call that
-the kernel does not take raises: there is no fallback.  bfloat16 tensors
-are read through TMA tensor maps; the C entry point refuses a layout TMA
-cannot read, and :func:`tma_layout_error` (the same rule, in Python) then
-says why.
+Takes model-layout tensors, q ``(B, S, H, Dqk)``, k ``(B, T, KV, Dqk)``
+and v ``(B, T, KV, Dv)`` with GQA, like
+``repro/kernels/flash_attention/ops.py``; v's head dim may differ from
+q's and k's, as in ``repro.models.common.full_attention`` (DeepSeek-V2's
+MLA: 192 and 128).  CUDA tensors go to the hand-written Hopper kernels in
+``csrc/flash_attention.cu`` (the forward and, under autograd, the
+backward); CPU tensors go to the plain versions :func:`attention_ref` and
+:func:`attention_backward_ref`.  A CUDA call that the kernel does not
+take raises: there is no fallback.  bfloat16 tensors are read through TMA
+tensor maps; the C entry point refuses a layout TMA cannot read, and
+:func:`tma_layout_error` (the same rule, in Python) then says why.
 
 ``flash_attention.launches`` counts forward launches (a recomputed forward
 under ``torch.utils.checkpoint`` counts again);
@@ -32,19 +34,26 @@ __all__ = ["flash_attention", "flash_attention_backward", "tma_layout_error", "S
            "HEAD_DIMS"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (64, 128)
+# The (Dqk, Dv) pairs the CUDA kernels are instantiated for, by dtype: the
+# bf16 wgmma kernels, and the float32 scalar ones, which also take the
+# reduced configs' head dims (so that training them runs on the card).
+HEAD_DIMS = {
+    torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
+    torch.float32: ((32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
+}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TENSOR_MAP_REJECTED = -1  # the C entry's code for a bf16 layout TMA cannot read
 
 
 # The C entries' argument blocks (``EntryArgs`` and ``BwdEntryArgs`` in the
-# source).  Forward: q, k, v, o, lse pointers; their (batch, sequence, head)
-# strides for q, k, v, o; the stream; dtype code, B, S, T, H, KV, D,
-# causal, window, kv_len; scale; padding.  Backward: q, k, v, o, dO, lse,
-# delta, dq, dk, dv pointers; strides for q, k, v, o, dO, dq, dk, dv; then
-# as the forward.
-_ENTRY_ARGS = struct.Struct("=5Q12qQ10ifi")
-_BWD_ARGS = struct.Struct("=10Q24qQ10ifi")
+# source, whose sizes both sides assert).  Forward: q, k, v, o, lse
+# pointers; their (batch, sequence, head) strides for q, k, v, o; the
+# stream; dtype code, B, S, T, H, KV, Dqk, Dv, causal, window, kv_len;
+# scale.  Backward: q, k, v, o, dO, lse, delta, dq, dk, dv pointers;
+# strides for q, k, v, o, dO, dq, dk, dv; then as the forward.
+_ENTRY_ARGS = struct.Struct("=5Q12qQ11if")
+_BWD_ARGS = struct.Struct("=10Q24qQ11if")
+assert (_ENTRY_ARGS.size, _BWD_ARGS.size) == (192, 328)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,9 +82,9 @@ def tma_layout_error(shape, strides, dtype: torch.dtype, ptr_mod_16: int) -> Opt
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be (B, S, H, D), (B, T, KV, D), (B, T, KV, D)")
+        raise ValueError("q, k, v must be (B, S, H, Dqk), (B, T, KV, Dqk), (B, T, KV, Dv)")
     b, _, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if h % k.shape[2]:
         raise ValueError("q heads must be a multiple of kv heads")
@@ -97,11 +106,12 @@ def _call(name: str, dev: torch.device, args: bytes) -> int:
 
 
 def _cuda_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    d = q.shape[3]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
+    dims = (q.shape[3], v.shape[3])
+    if dims not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"the {q.dtype} CUDA kernel takes (Dqk, Dv) head dims "
+                         f"{HEAD_DIMS[q.dtype]}, got {dims}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
@@ -122,20 +132,21 @@ def _scale(d: int, softmax_scale: Optional[float]) -> float:
 
 
 def _forward(q, k, v, causal, window, scale, kv_len, with_lse: bool):
-    """One forward launch: (out, lse or None).  lse is (B, H, S) float32."""
+    """One forward launch: (out, lse or None).  out is (B, S, H, Dv), lse
+    (B, H, S) float32."""
     b, s, h, d = q.shape
-    t, kv = k.shape[1], k.shape[2]
+    t, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if with_lse else None
     args = _ENTRY_ARGS.pack(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if lse is None else lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         torch._C._cuda_getCurrentRawStream(dev.index),
-        _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, int(causal),
+        _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv, int(causal),
         0 if window is None else int(window), t if kv_len is None else int(kv_len),
-        scale, 0,
+        scale,
     )
     rc = _call("flash_attention_forward", dev, args)
     if rc == _TENSOR_MAP_REJECTED:
@@ -177,7 +188,8 @@ def flash_attention(
     softmax_scale: Optional[float] = None,
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Blockwise online-softmax attention; output (B, S, H, D) in q's dtype.
+    """Blockwise online-softmax attention; output (B, S, H, Dv) in q's
+    dtype, scaled by ``softmax_scale`` (default ``1/sqrt(Dqk)``).
 
     A CUDA call whose q, k or v requires grad (with grad mode on) keeps each
     row's log-sum-exp and differentiates through
@@ -213,19 +225,19 @@ def flash_attention_backward(
     softmax_scale: Optional[float] = None,
     kv_len: Optional[int] = None,
 ):
-    """dq (B, S, H, D), dk and dv (B, T, KV, D), in q's dtype, from the
-    forward's inputs, its output ``out``, its log-sum-exp ``lse`` (B, H, S)
-    float32 and the output's gradient ``dout``.  dk and dv sum over each
-    GQA group's q heads.  CUDA tensors launch the backward kernel (a delta
-    pre-pass, then the dK/dV and dQ kernels; one count in ``launches``);
-    CPU tensors take :func:`attention_backward_ref`.  In bf16, q, k, v and
-    dO are read through TMA tensor maps: a q, k or v that breaks the rule
-    raises, as in the forward; a ``dout`` or ``out`` that breaks it is
-    copied first."""
+    """dq (B, S, H, Dqk), dk (B, T, KV, Dqk) and dv (B, T, KV, Dv), in q's
+    dtype, from the forward's inputs, its output ``out`` (B, S, H, Dv), its
+    log-sum-exp ``lse`` (B, H, S) float32 and the output's gradient
+    ``dout``.  dk and dv sum over each GQA group's q heads.  CUDA tensors
+    launch the backward kernel (a delta pre-pass, then the dK/dV and dQ
+    kernels; one count in ``launches``); CPU tensors take
+    :func:`attention_backward_ref`.  In bf16, q, k, v and dO are read
+    through TMA tensor maps: a q, k or v that breaks the rule raises, as in
+    the forward; a ``dout`` or ``out`` that breaks it is copied first."""
     _check(q, k, v, kv_len, window)
     b, s, h, d = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, s):
+    t, kv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
+    if out.shape != (b, s, h, dv_dim) or dout.shape != out.shape or lse.shape != (b, h, s):
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
     if q.device.type == "cpu":
@@ -248,16 +260,16 @@ def flash_attention_backward(
     dev = q.device
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, t, kv, d), dtype=q.dtype, device=dev)
-    dv = torch.empty((b, t, kv, d), dtype=q.dtype, device=dev)
+    dv = torch.empty((b, t, kv, dv_dim), dtype=q.dtype, device=dev)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     args = _BWD_ARGS.pack(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *(st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]),
         torch._C._cuda_getCurrentRawStream(dev.index),
-        _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, int(causal),
+        _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv_dim, int(causal),
         0 if window is None else int(window), t if kv_len is None else int(kv_len),
-        _scale(d, softmax_scale), 0,
+        _scale(d, softmax_scale),
     )
     rc = _call("flash_attention_backward", dev, args)
     if rc == _TENSOR_MAP_REJECTED:

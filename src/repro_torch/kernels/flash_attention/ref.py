@@ -4,7 +4,9 @@
 autograd through it).  :func:`attention_lse_ref` and
 :func:`attention_backward_ref` are the plain versions of what the CUDA
 training path adds: each row's log-sum-exp, and dQ, dK, dV recomputed from
-it with the backward kernel's formulas.
+it with the backward kernel's formulas.  v's head dim ``Dv`` may differ
+from q's and k's ``Dqk`` (DeepSeek-V2's MLA: 192 and 128): the output, dO
+and dv have ``Dv``, and the scale defaults to ``1/sqrt(Dqk)``.
 """
 from __future__ import annotations
 
@@ -35,25 +37,26 @@ def _scores(q, k, causal, window, softmax_scale, kv_len) -> Tuple[torch.Tensor, 
 
 
 def attention_ref(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, T, KV, D)
-    v: torch.Tensor,  # (B, T, KV, D)
+    q: torch.Tensor,  # (B, S, H, Dqk)
+    k: torch.Tensor,  # (B, T, KV, Dqk)
+    v: torch.Tensor,  # (B, T, KV, Dv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
     softmax_scale: Optional[float] = None,
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Softmax attention over whole rows in float32, output in q's dtype.
+    """Softmax attention over whole rows in float32, output (B, S, H, Dv)
+    in q's dtype.
 
     Query head ``h`` reads kv head ``h // (H // KV)``.  Keys at index
     ``>= kv_len`` are masked; rows with no valid key give zeros.
     """
-    b, s, h, d = q.shape
+    b, s, h, _ = q.shape
     scores, _ = _scores(q, k, causal, window, softmax_scale, kv_len)
     probs = torch.softmax(scores, dim=-1).nan_to_num(nan=0.0)
     out = torch.einsum("bkrst,btkd->bskrd", probs, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
 def attention_lse_ref(
@@ -88,7 +91,8 @@ def attention_backward_ref(
     """dq, dk, dv in q's dtype, with the backward kernel's formulas in
     float32: P = exp(scores - lse) where the mask allows, delta = rowsum(dO
     * O), dS = P (dO V^T - delta), dV = P^T dO, dK = scale dS^T Q, dQ =
-    scale dS K; dK and dV sum over each GQA group's q heads."""
+    scale dS K; dK and dV sum over each GQA group's q heads.  out and dout
+    are (B, S, H, Dv)."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     r = h // kv
@@ -96,7 +100,7 @@ def attention_backward_ref(
     scores, mask = _scores(q, k, causal, window, softmax_scale, kv_len)
     lse_g = lse.float().reshape(b, kv, r, s, 1)
     probs = torch.where(mask, torch.exp(scores - torch.where(mask, lse_g, 0.0)), 0.0)
-    do_g = dout.float().reshape(b, s, kv, r, d)
+    do_g = dout.float().reshape(b, s, kv, r, dout.shape[-1])
     delta = (dout.float() * out.float()).sum(-1).reshape(b, s, kv, r).permute(0, 2, 3, 1)
     dp = torch.einsum("bskrd,btkd->bkrst", do_g, v.float())
     ds = probs * (dp - delta[..., None])

@@ -167,8 +167,8 @@ def run_spmd(args) -> int:
 
     if args.arch not in ARCHS:
         raise SystemExit(
-            f"--mode spmd: {args.arch} is not ported yet (ROADMAP §1.8b: the deepseek and "
-            f"whisper families); ported: {sorted(ARCHS)}"
+            f"--mode spmd: {args.arch} is not ported yet (ROADMAP §1.8b: the whisper "
+            f"family); ported: {sorted(ARCHS)}"
         )
     api = get_api(args.arch, reduced=not args.full_width)
     params = api.init(args.seed, device=args.device).requires_grad_(True)

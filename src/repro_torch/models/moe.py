@@ -193,9 +193,10 @@ def moe_apply(
         stats = {
             "lb_loss": (cfg.n_experts * torch.sum(me * ce)).float(),
             "z_loss": z_loss,
-            # The reference's mean of the keep mask: its float32 sum times
-            # a float32 1/n.
-            "drop_frac": 1.0 - keep.sum(dtype=torch.float32) * (1.0 / keep.numel()),
+            # The reference's mean of the keep mask, op by op: its float32
+            # sum over n, correctly rounded (a product with 1/n can differ
+            # by an ulp).
+            "drop_frac": 1.0 - keep.sum(dtype=torch.float32) / keep.numel(),
         }
 
     if "shared" in lp:

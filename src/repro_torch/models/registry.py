@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import common, dense, hymba, moe, rwkv6
+from repro_torch.models import common, deepseek, dense, hymba, moe, rwkv6
 from repro_torch.models.common import Param
 
 __all__ = ["ModelApi", "build_api", "MOE_LB_WEIGHT", "MOE_Z_WEIGHT"]
@@ -76,13 +76,16 @@ class ModelApi:
         return int(sum(math.prod(p.shape) for p in _leaves(self.schema())))
 
     def active_param_count(self) -> int:
-        """Parameters touched per token (MoE: the top-k routed experts
+        """Parameters touched per token (MoE: shared + top-k routed experts
         only) — the N in MODEL_FLOPS = 6*N*D."""
         total = self.param_count()
         cfg = self.cfg
         if isinstance(cfg, moe.MixtralConfig):
             expert = 3 * cfg.d_model * cfg.d_ff  # swiglu expert
             return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert
+        if isinstance(cfg, deepseek.DeepSeekConfig):
+            expert = 3 * cfg.d_model * cfg.d_ff_expert  # layer 0 is dense
+            return total - (cfg.n_layers - 1) * (cfg.n_experts - cfg.top_k) * expert
         return total
 
     def init(self, seed: int = 0, *, device=None) -> torch.nn.Module:
@@ -164,6 +167,7 @@ class ModelApi:
 FAMILIES = {
     dense.DenseConfig: dense,
     moe.MixtralConfig: moe,
+    deepseek.DeepSeekConfig: deepseek,
     rwkv6.RWKV6Config: rwkv6,
     hymba.HymbaConfig: hymba,
 }

@@ -2,10 +2,15 @@
 
 The port's ``flash_attention`` on CPU tensors (its plain version) is held
 against the JAX Pallas kernel in interpret mode and against the JAX
-``attention_ref``, float32, atol 1e-5 (float32 sums in another order).  The
-CUDA kernel itself is held against the plain version on the card by
+``attention_ref``, float32, atol 1e-5 (float32 sums in another order).  At
+the MLA head dims, where v's differs from q's and k's ((48, 32): reduced
+deepseek-v2-236b; (192, 128): the published one), the Pallas kernel takes
+one head dim, so the plain version is held against the reference model's
+``common.full_attention``, which takes both.  The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -16,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.flash_attention.flash_attention import flash_attention_kernel  # noqa: E402
+from repro.models.common import full_attention as jax_full_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 
 pytestmark = pytest.mark.slow  # JAX-compiling; excluded from the fast lane
@@ -31,6 +37,15 @@ CASES = [
     (1, 128, 128, 8, 2, 128, True, None),   # GQA rep 4, the kernel's head dim
     (1, 70, 130, 8, 2, 32, True, None),     # GQA with ragged S and T
     (1, 150, 150, 4, 2, 64, True, 40),      # GQA + window + ragged
+]
+
+
+MLA_CASES = [
+    # b, s, t, h, kv, dqk, dv, causal, kv_len
+    (2, 40, 40, 4, 4, 48, 32, True, None),       # reduced deepseek, causal
+    (1, 33, 50, 4, 4, 48, 32, False, 37),        # non-causal, kv_len, S != T
+    (1, 48, 48, 8, 2, 192, 128, True, None),     # the published dims, GQA
+    (1, 40, 66, 2, 2, 192, 128, False, 50),      # non-causal, kv_len
 ]
 
 
@@ -104,6 +119,23 @@ def test_kv_len_matches_pallas_kernel(kv_len):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
     if kv_len == 0:
         assert not got.any()  # rows with no valid key give zeros
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,dqk,dv,causal,kv_len", MLA_CASES)
+def test_plain_version_at_mla_dims_matches_full_attention(b, s, t, h, kv, dqk, dv, causal,
+                                                          kv_len):
+    """``kv_len`` enters the reference as keys sliced off (it has no such
+    mask); its KV chunk is 32, so the chunked online softmax runs."""
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal(shape, dtype=np.float32)
+               for shape in ((b, s, h, dqk), (b, t, kv, dqk), (b, t, kv, dv)))
+    n = t if kv_len is None else kv_len
+    reference = jax.jit(functools.partial(jax_full_attention, causal=causal, kv_chunk=32))
+    want = reference(jnp.asarray(q), jnp.asarray(k[:, :n]), jnp.asarray(v[:, :n]))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          causal=causal, kv_len=kv_len)
+    assert got.shape == (b, s, h, dv) and flash_attention.launches == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize(

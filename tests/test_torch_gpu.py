@@ -42,18 +42,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _dims(d):
+    """(Dqk, Dv) of a head dim or a pair."""
+    return d if isinstance(d, tuple) else (d, d)
+
+
 def _check_against_plain(device, dtype, b, s, t, h, kv, d, causal, window, kv_len, seed=0):
+    dqk, dv = _dims(d)
     rng = np.random.default_rng(seed)
-    q = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32))
-    k = torch.from_numpy(rng.standard_normal((b, t, kv, d), dtype=np.float32))
-    v = torch.from_numpy(rng.standard_normal((b, t, kv, d), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, s, h, dqk), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, t, kv, dqk), dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, t, kv, dv), dtype=np.float32))
     q, k, v = (x.to(device, dtype) for x in (q, k, v))
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     want = attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len)
-    assert got.dtype == dtype and got.shape == q.shape
+    assert got.dtype == dtype and got.shape == (b, s, h, dv)
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
@@ -335,8 +341,9 @@ BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _bwd_inputs(device, dtype, b, s, t, h, kv, d, seed=0):
+    dqk, dv = _dims(d)
     rng = np.random.default_rng(seed)
-    shapes = [(b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d)]
+    shapes = [(b, s, h, dqk), (b, t, kv, dqk), (b, t, kv, dv), (b, s, h, dv)]
     return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
             for shape in shapes]
 
@@ -391,11 +398,12 @@ def _bf16_backward(device, do, d=128, b=2, s=333, h=8, kv=2, window=None):
     from repro_torch.kernels.flash_attention import flash_attention_backward, ops
 
     q, k, v, _ = _bwd_inputs(device, torch.bfloat16, b, s, s, h, kv, d)
-    out, lse = ops._forward(q, k, v, True, window, 1.0 / d ** 0.5, None, with_lse=True)
+    out, lse = ops._forward(q, k, v, True, window, 1.0 / _dims(d)[0] ** 0.5, None,
+                            with_lse=True)
     return flash_attention_backward(q, k, v, out, lse, do, causal=True, window=window)
 
 
-@pytest.mark.parametrize("d, window", [(128, None), (64, 100)])
+@pytest.mark.parametrize("d, window", [(128, None), (64, 100), ((192, 128), None)])
 def test_bf16_backward_gives_the_same_bits_on_two_calls(cuda_device, d, window):
     """No atomics: dK/dV sum a GQA group inside one block, dQ has its own kernel."""
     do = _bwd_inputs(cuda_device, torch.bfloat16, 2, 333, 333, 8, 2, d, seed=1)[3]
@@ -952,3 +960,109 @@ def test_bf16_flash_launches_from_a_thread_with_no_cuda_context(cuda_device):
     assert "error" not in got, got.get("error")
     assert torch.equal(got["out"], out)
     assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))
+
+
+# DeepSeek-V2's MLA: q and k at 192, v at 128 (bf16 and float32), and the
+# float32 instances at the reduced configs' head dims, (32, 32) (every
+# reduced dense config) and (48, 32) (reduced deepseek).
+MLA_DIMS = [((192, 128), torch.bfloat16), ((192, 128), torch.float32),
+            ((32, 32), torch.float32), ((48, 32), torch.float32)]
+MLA_CASES = [
+    # b, s, t, h, kv, causal, window, kv_len
+    (1, 200, 200, 8, 8, True, None, None),     # ragged S, T
+    (2, 130, 130, 8, 2, True, 64, None),       # GQA + window
+    (1, 96, 250, 4, 4, False, None, 233),      # kv_len inside the last tile
+]
+
+
+@pytest.mark.parametrize("d, dtype", MLA_DIMS, ids=lambda x: str(x).replace("torch.", ""))
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", MLA_CASES)
+def test_kernel_at_mla_and_reduced_head_dims(cuda_device, d, dtype, b, s, t, h, kv, causal,
+                                             window, kv_len):
+    _check_against_plain(cuda_device, dtype, b, s, t, h, kv, d, causal, window, kv_len)
+
+
+@pytest.mark.parametrize("d, dtype", MLA_DIMS, ids=lambda x: str(x).replace("torch.", ""))
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", MLA_CASES)
+def test_backward_kernel_at_mla_and_reduced_head_dims(cuda_device, d, dtype, b, s, t, h, kv,
+                                                      causal, window, kv_len):
+    _check_backward(cuda_device, dtype, d, b, s, t, h, kv, causal, window, kv_len)
+
+
+def test_kernel_at_deepseek_heads(cuda_device):
+    """The published MLA attention: 128 heads at (192, 128), S=1024, bf16."""
+    _check_against_plain(cuda_device, torch.bfloat16, 1, 1024, 1024, 128, 128, (192, 128),
+                         True, None, None)
+    _check_backward(cuda_device, torch.bfloat16, (192, 128), 2, 512, 512, 128, 128, True,
+                    None, None)
+
+
+def _deepseek_on_card(device, **overrides):
+    """A small float32 DeepSeek-V2 with the published MLA head dims (q/k
+    128 + 64, v 128): 3 layers (dense + 2 MoE), remat on."""
+    import dataclasses
+
+    from repro_torch.configs import deepseek_v2_236b
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(
+        deepseek_v2_236b.reduced(), n_layers=3, qk_nope_dim=128, qk_rope_dim=64,
+        v_head_dim=128, kv_lora_rank=64, remat=True, param_dtype=torch.float32,
+        compute_dtype=torch.float32, **overrides)
+    api = build_api("deepseek-v2-236b", cfg)
+    return api, api.init(0, device=device)
+
+
+def test_deepseek_forward_and_gradient_on_the_card(cuda_device):
+    """The forward launches flash once a layer at (192, 128) and equals the
+    one with the plain attention through the ``attend`` seam, stats
+    included (capacity factor 1.25: routings drop); the loss's gradient
+    through the kernels equals the plain one's."""
+    import functools
+
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    api, model = _deepseek_on_card(cuda_device, capacity_factor=1.25)
+    model.requires_grad_(True)
+    cfg = api.cfg
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 97)), device=cuda_device)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "weights": torch.ones(2, device=cuda_device)}
+    before = flash_attention.launches
+    logits, stats = model(batch["tokens"])
+    assert flash_attention.launches == before + cfg.n_layers
+    plain = functools.partial(attention_ref, causal=True)
+    with torch.no_grad():
+        ref_logits, ref_stats = model.train_forward(batch["tokens"], attend=plain)
+    assert (logits - ref_logits).abs().max().item() <= 1e-4
+    assert float(stats["drop_frac"]) == float(ref_stats["drop_frac"]) > 0
+    grads = {}
+    for name, attend in (("kernel", None), ("plain", plain)):
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        model.train_forward = functools.partial(type(model).train_forward, model, attend=attend)
+        loss, _ = api.loss(model, batch)
+        grads[name] = torch.autograd.grad(loss, list(model.parameters()))
+        del model.train_forward
+        torch.cuda.synchronize()
+        launched = (flash_attention.launches - before[0],
+                    flash_attention_backward.launches - before[1])
+        assert launched == ((2 * cfg.n_layers, cfg.n_layers) if name == "kernel" else (0, 0))
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+
+
+def test_deepseek_absorbed_decode_matches_the_forward_on_the_card(cuda_device):
+    """Dropless (capacity factor = experts / top-k): the kernel forward and
+    the absorbed decode stepped over the latent cache give one function."""
+    api, model = _deepseek_on_card(cuda_device, capacity_factor=2.0)
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, api.cfg.vocab, (1, 80)), device=cuda_device)
+    logits, stats = model(tokens)
+    assert float(stats["drop_frac"]) == 0.0
+    cache = api.init_cache(1, 80, device=cuda_device)
+    before = flash_attention.launches
+    rows = [api.decode_step(model, cache, tokens[:, p:p + 1], p)[0] for p in range(80)]
+    assert flash_attention.launches == before
+    assert (torch.cat(rows, dim=1) - logits).abs().max().item() <= 1e-4

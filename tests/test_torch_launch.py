@@ -153,9 +153,9 @@ def test_spmd_mode_and_missing_card_are_errors(capsys, monkeypatch):
                                rtol=0, atol=1e-4)
     monkeypatch.undo()
 
-    # rwkv6 and mixtral train (ROADMAP §1.8a-b): one reduced step each, a
-    # finite loss; a family not ported yet exits naming §1.8b.
-    for arch in ("rwkv6-7b", "mixtral-8x7b"):
+    # rwkv6, mixtral and deepseek train (ROADMAP §1.8a-b): one reduced step
+    # each, a finite loss; a family not ported yet exits naming §1.8b.
+    for arch in ("rwkv6-7b", "mixtral-8x7b", "deepseek-v2-236b"):
         out = _run(port_train, ["--mode", "spmd", "--arch", arch, "--steps", "1",
                                 "--seq-len", "16", "--ref-batch", "4", "--device", "cpu"],
                    capsys, monkeypatch)
@@ -163,7 +163,7 @@ def test_spmd_mode_and_missing_card_are_errors(capsys, monkeypatch):
         assert [m.group(1) for m in steps if m] == ["0"]
         assert all(np.isfinite(float(m.group(2))) for m in steps if m)
     with pytest.raises(SystemExit, match="1.8b"):
-        port_train.main(["--mode", "spmd", "--arch", "deepseek-v2-236b", "--device", "cpu"])
+        port_train.main(["--mode", "spmd", "--arch", "whisper-large-v3", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             port_train.main(["--mode", "spmd", "--steps", "1"])

@@ -2,9 +2,10 @@
 
 The same seeded numpy weights and inputs go to the reference's
 ``repro.models.moe.moe_apply`` and to the port's.  The reference runs op
-by op on the capacity path, so that its ``drop_frac`` rounds as the
-port's does (a compiled ``1 - mean(keep)`` is one multiply-add), and
-compiled on the decode path, whose drop fraction is the constant 0.  Inputs avoid top-k ties: the router's logits come from continuous
+by op on the capacity path (``jax.disable_jit``, as the model files run its
+forwards), so that its ``drop_frac`` rounds as the port's does (a compiled
+``1 - mean(keep)`` is one multiply-add, and ``jnp.mean`` compiled on its
+own multiplies by 1/n), and compiled on the decode path, whose drop fraction is the constant 0.  Inputs avoid top-k ties: the router's logits come from continuous
 random draws, and every case asserts a gap of at least 1e-5 between the
 k-th and the (k+1)-th routing probability of every token (the two
 packages' float32 probabilities differ by ~1e-8), so both pick the same
@@ -142,8 +143,9 @@ def reference():
         capacity_path = name.startswith("capacity")
         with_grad = name in GRAD_CASES
         if capacity_path:
-            (y, st), g = (jax_moe.moe_apply(jlp, jx, jcfg),
-                          jax.jit(grad)(jlp, jx) if with_grad else None)
+            with jax.disable_jit():
+                y, st = jax_moe.moe_apply(jlp, jx, jcfg)
+            g = jax.jit(grad)(jlp, jx) if with_grad else None
         else:  # one program: the forward and, where asked, the gradient
             (y, st), g = jax.jit(lambda p, v: (
                 jax_moe.moe_apply(p, v, jcfg), grad(p, v) if with_grad else None))(jlp, jx)

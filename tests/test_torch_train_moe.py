@@ -1,4 +1,5 @@
-"""Training reduced Mixtral in the port vs the JAX package, float32 on the CPU.
+"""Training reduced Mixtral and DeepSeek-V2 in the port vs the JAX package,
+float32 on the CPU.
 
 One two-program ``EpochLoop`` epoch on ``cluster_A`` (3 nodes, SGD at lr
 0.3, seq 32) through the port's ``HeteroTrainer`` / ``RealBackend`` and
@@ -9,7 +10,10 @@ and the simulated clock ``==``, no node excluded, losses within 1e-4
 relative.  Each node's padded slice enters the MoE layer whole, as in the
 reference: pad rows take capacity slots and count in the aux losses, so
 at the published ``capacity_factor`` 1.25, where routings drop, the
-losses agree only if the port drops the reference's routings.
+losses agree only if the port drops the reference's routings.  Reduced
+deepseek-v2-236b (the dense layer 0 and one MoE layer with a shared
+expert, MLA at q/k 48, v 32) runs the same epoch at the published
+capacity factor, where routings drop.
 """
 import dataclasses
 
@@ -48,19 +52,19 @@ STEPS = 1
 LOSS_REL = 1e-4
 
 
-def _f32_pair(cf):
-    jax_api, api = jax_get_api(ARCH, reduced=True), get_api(ARCH, reduced=True)
+def _f32_pair(cf, arch=ARCH):
+    jax_api, api = jax_get_api(arch, reduced=True), get_api(arch, reduced=True)
     jcfg = dataclasses.replace(jax_api.cfg, param_dtype=jnp.float32,
                                compute_dtype=jnp.float32, capacity_factor=cf)
     pcfg = dataclasses.replace(api.cfg, param_dtype=torch.float32,
                                compute_dtype=torch.float32, capacity_factor=cf)
-    return NumpyInitApi.of(jax_build_api(ARCH, jcfg)), build_api(ARCH, pcfg)
+    return NumpyInitApi.of(jax_build_api(arch, jcfg)), build_api(arch, pcfg)
 
 
-def _trainers(cf):
-    """(reference trainer, port trainer) of reduced float32 Mixtral on
+def _trainers(cf, arch=ARCH):
+    """(reference trainer, port trainer) of reduced float32 ``arch`` on
     cluster_A from the reference's weights."""
-    jax_api, api = _f32_pair(cf)
+    jax_api, api = _f32_pair(cf, arch)
     trainers = []
     for api_, cluster, ctl, lm, opt, cls, kw in (
         (jax_api, (JaxCluster, jax_cluster_A), JaxController, JaxSyntheticLM,
@@ -91,9 +95,8 @@ def _cpu_settings():
     torch.set_num_threads(threads)
 
 
-@pytest.mark.parametrize("cf", [8.0, 1.25], ids=["dropless", "published-capacity"])
-def test_two_program_epoch_plans_clock_and_losses_equal_reference(cf):
-    jtr, ptr = _trainers(cf)
+def _epoch_equals_reference(cf, arch=ARCH):
+    jtr, ptr = _trainers(cf, arch)
     jrec, jres = jax_run_backend_epoch(jtr.policy, jtr.backend, steps=STEPS, epoch_index=0)
     api, drops = ptr.backend.api, []
 
@@ -115,3 +118,12 @@ def test_two_program_epoch_plans_clock_and_losses_equal_reference(cf):
     assert len(drops) == 4 * STEPS  # three node passes and the whole-batch loss
     assert (max(drops) > 0) == (cf == 1.25)
     np.testing.assert_allclose(pres.losses, jres.losses, rtol=LOSS_REL)
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25], ids=["dropless", "published-capacity"])
+def test_two_program_epoch_plans_clock_and_losses_equal_reference(cf):
+    _epoch_equals_reference(cf)
+
+
+def test_deepseek_epoch_plans_clock_and_losses_equal_reference():
+    _epoch_equals_reference(1.25, "deepseek-v2-236b")
