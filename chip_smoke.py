@@ -172,7 +172,9 @@ Phases, each of which fails the run:
                    ``node_shard_count(3, cards)`` processes with the
                    reference's tolerances; on one card a line says it was
                    not run.  Peak memory of the in-process parts under 80
-                   GB.  ``python3 chip_smoke.py --only sharded`` runs
+                   GB.  At its end the world of one's NCCL group is shut
+                   down (``release_world_of_one``), so that no communicator
+                   outlives the phase.  ``python3 chip_smoke.py --only sharded`` runs
                    phases 1, 2 and 16 alone; ``--only split`` phases 1, 2
                    and 16's multi-card part.
 17. kernel (wkv and ssm bwd) — the WKV and selective-scan backward kernels
@@ -260,22 +262,56 @@ Phases, each of which fails the run:
                    on the float32 instance at (32, 32)): exit 0, every loss
                    finite.  ``python3 chip_smoke.py --only deepseek`` runs
                    phases 1, 2, the deepseek rows of 3 and 12, and 24-26.
+27. model (whisper) — whisper-large-v3 in float32 at published widths
+                   (``WHISPER_MODEL_LAYERS``; uncut), B=2, 1500 frames, 128
+                   text tokens: ``api.logits`` (one flash launch an
+                   attention: the encoder's and the cross non-causal, the
+                   decoder's causal) against the same forward with the plain
+                   attention through the three seams, within 1e-4; against
+                   ``encode``, ``prime_cache`` and the stepped decode (plain
+                   torch), within 1e-3; the gradient of ``api.loss`` with
+                   per-sample weights through the kernels against the plain
+                   seams (sq-norm within 1e-5 relative, leaves within 1e-4 *
+                   max(1, max |g|)).
+28. serving (whisper) — whisper-large-v3 in bf16, uncut: eight windows of
+                   1500 frames through ``encode`` (32 flash launches),
+                   ``prime_cache`` and 64 greedy ``decode_step``s (none):
+                   finite logits, tokens inside the vocab; the encoder
+                   forward's and a decode step's wall and device ms, idle
+                   share and flash part, beside the decode step's byte
+                   bound.  The reference drives whisper through the
+                   registry only (no serving engine or ``EpochLoop`` has
+                   audio input), and so does the port.
+29. training (whisper) — whisper-large-v3 in bf16, uncut, remat on: 3
+                   steps of ``build_train_step(api, adamw(...))`` on B=8 x
+                   1500 frames and 375 tokens with per-sample weights: every
+                   loss finite, weights changed, 192 flash forwards and 96
+                   backward calls a step, peak under 80 GB; the step's wall
+                   and device ms and the flash parts.  Phases 3 and 12 carry
+                   whisper's non-causal rows (B=8, 20 heads of 64: the
+                   encoder at S = T = 1500 and the cross-attention at S =
+                   375, T = 1500).  ``python3 chip_smoke.py --only whisper``
+                   runs phases 1, 2, those rows and 27-29.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
 training, 15's trace, each run of 16, each training run of 18 and 19,
 each model of 20, each forward of 21, 22's serving run and forward, 23's
 training run, each forward of 24, 25's serving run and forward, 26's node
-steps) and read just after it.  Device ms of a named kernel are per launch the
-profiler recorded, with the count of records beside them.  The last three lines of standard output are the card line from
-``nvidia-smi``, a JSON line describing each kernel, and ``{"ok": true,
-"device": {...}}``.  Without a CUDA card, or without the repository beside
+steps, 27's forward, encode, stepped decode and each gradient, 28's encoder
+forward and decode loop, 29's training steps) and read just after it.
+Device ms of a named kernel are per launch the profiler recorded, with the
+count of records beside them.  The last three lines of standard output are
+the card line from ``nvidia-smi``, a JSON line describing each kernel, and
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -311,8 +347,18 @@ BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  #
 NEW_INSTANCE_TAGS = ("ILi192ELi128E", "ILi48ELi32E", "ILi32ELi32E", "IfLi192ELi128E",
                      "IfLi48ELi32E", "IfLi32ELi32E")
 BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
-# name, B, S, H, KV, dtype, window, D (all causal self-attention); D is
-# a (Dqk, Dv) pair where v's head dim differs (DeepSeek-V2's MLA)
+# Whisper-large-v3's non-causal attentions (20 heads of 64, MHA, bf16, B=8):
+# the encoder's self-attention over 1500 frames (23 tiles of 64 and 28
+# rows) and the cross-attention of 375 text positions against them.
+WHISPER_ENC_CASE = "whisper-large-v3 encoder S=T=1500"
+WHISPER_CROSS_CASE = "whisper-large-v3 cross S=375 T=1500"
+WHISPER_CASES = [
+    (WHISPER_ENC_CASE, 8, 1500, 20, 20, "bf16", None, 64, 1500, False),
+    (WHISPER_CROSS_CASE, 8, 375, 20, 20, "bf16", None, 64, 1500, False),
+]
+# name, B, S, H, KV, dtype, window, D[, T, causal] (see ``flash_shape``: T
+# defaults to S and causal to True); D is a (Dqk, Dv) pair where v's head
+# dim differs (DeepSeek-V2's MLA)
 BWD_CASES = [
     ("olmo-1b train S=512 B=8", 8, 512, 16, 16, "bf16", None, 128),
     ("hymba-1.5b global S=1024", 1, 1024, 25, 5, "bf16", None, 64),
@@ -321,10 +367,11 @@ BWD_CASES = [
     ("f32 S=T=300", 1, 300, 16, 16, "f32", None, 128),
     ("mixtral-8x7b train B=8 S=512", 8, 512, 32, 8, "bf16", 4096, 128),
     ("deepseek-v2-236b train B=8 S=512", 8, 512, 128, 128, "bf16", None, (192, 128)),
+    *WHISPER_CASES,
 ]
 BWD_REL = {"bf16": 2e-2, "f32": 1e-4}
 
-# name, B, S, H, KV, dtype, window, D or (Dqk, Dv) (all causal self-attention)
+# name, B, S, H, KV, dtype, window, D or (Dqk, Dv)[, T, causal], as BWD_CASES
 KERNEL_CASES = [
     ("olmo-1b S=128", 1, 128, 16, 16, "bf16", None, 128),
     ("olmo-1b S=512", 1, 512, 16, 16, "bf16", None, 128),
@@ -339,6 +386,7 @@ KERNEL_CASES = [
     ("deepseek-v2-236b S=1024", 1, 1024, 128, 128, "bf16", None, (192, 128)),
     ("deepseek-v2-236b S=4096", 1, 4096, 128, 128, "bf16", None, (192, 128)),
     ("deepseek f32 S=T=300", 1, 300, 16, 16, "f32", None, (192, 128)),
+    *WHISPER_CASES,
 ]
 # The deepseek-v2-236b rows of phases 3 and 12 (the MLA instance, (192, 128)).
 DEEPSEEK_CASE = "deepseek-v2-236b S=1024"
@@ -410,6 +458,12 @@ DEEPSEEK_MODEL_LAYERS = 3    # phase 24, float32: dense + 2 MoE, 9.33 B paramete
 DEEPSEEK_SERVING_LAYERS = 4  # phase 25, bf16: dense + 3 MoE, 13.30 B parameters, 26.6 GB
 DEEPSEEK_TRAIN_LAYERS = 2    # phase 26, bf16: dense + 1 MoE, 5.36 B parameters
 DEEPSEEK_DROPLESS_CF = 160 / 6  # = experts / top-k: every expert's capacity is T
+# Phases 27-29: whisper-large-v3 (32 encoder + 32 decoder layers) at published
+# widths; PERF.md section 4.
+WHISPER_MODEL_LAYERS = None  # phase 27, float32: uncut (1.53 B parameters, 6.1 GB)
+WHISPER_MODEL_TEXT = 128     # phase 27's text positions, stepped one by one
+WHISPER_DECODE_STEPS = 64    # phase 28's greedy decode steps
+WHISPER_TRAIN_TEXT = 375     # phase 29's text positions: S_enc / 4, the reference's ratio
 DEVICE = "cuda"
 
 
@@ -543,21 +597,45 @@ def head_dims(d):
     return d if isinstance(d, tuple) else (d, d)
 
 
-def attention_bound(b, s, h, kv, d, dtype, window):
-    """Least time for one causal attention call: q, k (Dqk), v (Dv) read
-    once and o (Dv) written once over the memory rate, or the products
-    over the valid (query, key) pairs of this call over the peak rate for
-    the dtype."""
-    dqk, dv = head_dims(d)
-    elem = 2 if dtype == "bf16" else 4
-    nbytes = elem * b * s * ((h + kv) * dqk + (kv + h) * dv)
+def flash_shape(case):
+    """(name, B, S, T, H, KV, dtype, window, D, causal) of a flash case; a
+    case without T and causal is causal self-attention (T = S)."""
+    name, b, s, h, kv, dt, window, d, *rest = case
+    t, causal = rest if rest else (s, True)
+    return name, b, s, t, h, kv, dt, window, d, causal
+
+
+def attention_pairs(s, t, window, causal):
+    """The (query, key) pairs an attention call computes: causal
+    self-attention (T = S) up to the window, or every S x T pair."""
+    if not causal:
+        if window is not None:
+            raise ValueError("a non-causal bound with a window is not counted here")
+        return s * t
     w = s if window is None else min(window, s)
-    pairs = sum(min(q + 1, w) for q in range(s))
-    flops = 2 * (dqk + dv) * b * h * pairs
+    return sum(min(q + 1, w) for q in range(s))
+
+
+def roofline(nbytes, flops, dtype):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the peak rate for the dtype."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def attention_bound(b, s, h, kv, d, dtype, window, t=None, causal=True):
+    """Least time for one attention call: q (Dqk) read and o (Dv) written
+    once over S, k (Dqk) and v (Dv) read once over T (default S), over the
+    memory rate; or the products over the valid (query, key) pairs of this
+    call (``attention_pairs``) over the peak rate for the dtype."""
+    t = s if t is None else t
+    dqk, dv = head_dims(d)
+    elem = 2 if dtype == "bf16" else 4
+    nbytes = elem * b * (s * h * (dqk + dv) + t * kv * (dqk + dv))
+    flops = 2 * (dqk + dv) * b * h * attention_pairs(s, t, window, causal)
+    return roofline(nbytes, flops, dtype)
 
 
 def phase_device():
@@ -718,44 +796,51 @@ def flash_case(torch, flash_attention, attention_ref, case, gen):
     (``issue_ms``) and the card's bound."""
     import torch.nn.functional as F
 
-    name, b, s, h, kv, dt, window, d = case
+    name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
     dqk, dv = head_dims(d)
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
-    q, k, v = (torch.randn((b, s, n, dim), generator=gen, device=DEVICE).to(dtype)
-               for n, dim in ((h, dqk), (kv, dqk), (kv, dv)))
+    q, k, v = (torch.randn((b, n_rows, n, dim), generator=gen, device=DEVICE).to(dtype)
+               for n_rows, n, dim in ((s, h, dqk), (t, kv, dqk), (t, kv, dv)))
 
     def kernel():
-        return flash_attention(q, k, v, causal=True, window=window)
+        return flash_attention(q, k, v, causal=causal, window=window)
 
     out = kernel()
     torch.cuda.synchronize()
-    ref = attention_ref(q, k, v, causal=True, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
     err = (out.float() - ref.float()).abs().max().item()
     del out, ref
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = None
-    if window is not None:
-        pos = torch.arange(s, device=DEVICE)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    mask = sdpa_window_mask(torch, s, window)
 
     def library():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=h != kv)
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=h != kv)
 
-    bound_ms, bound_by = attention_bound(b, s, h, kv, d, dt, window)
+    bound_ms, bound_by = attention_bound(b, s, h, kv, d, dt, window, t, causal)
     ms = cuda_ms(torch, kernel, 20)
     _, named, _, records = profile_device(torch, kernel, 20, (FLASH_PROFILE_NAME,),
                                           launches={FLASH_PROFILE_NAME: 1}, sole=True)
     return dict(
         max_abs_err=err,
         ms=ms,
-        plain_ms=cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window), 5),
+        plain_ms=cuda_ms(torch, lambda: attention_ref(q, k, v, causal=causal, window=window),
+                         5),
         device_ms=named[FLASH_PROFILE_NAME], records=records[FLASH_PROFILE_NAME],
         issue_ms=issue_ms(torch, kernel, 20),
         bound_ms=bound_ms, bound_by=bound_by,
         **library_row(torch, library, 20),
     )
+
+
+def sdpa_window_mask(torch, s, window):
+    """SDPA's boolean mask for causal self-attention inside a window (a key
+    at most ``window - 1`` behind its query), or None without a window."""
+    if window is None:
+        return None
+    pos = torch.arange(s, device=DEVICE)
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
 
 def library_row(torch, library, calls):
@@ -789,12 +874,13 @@ def phase_kernel(torch, cases=KERNEL_CASES):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = {}
     for case in cases:
-        name, b, s, h, kv, dt, window, d = case
+        name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
         row = rows[name] = flash_case(torch, flash_attention, attention_ref, case, gen)
         err, ms = row["max_abs_err"], row["ms"]
         if not err <= TOL[dt]:
             raise AssertionError(f"{name}: max abs err {err:.3e} > {TOL[dt]:.0e}")
-        log("kernel", f"{name} B={b} H={h} KV={kv} D={d} {dt} window={window}: "
+        log("kernel", f"{name} B={b} H={h} KV={kv} D={d} {dt} window={window}"
+            f"{cross_label(s, t, causal)}: "
             f"max_abs_err={err:.3e} (tol {TOL[dt]:.0e}) ms={ms:.4f} "
             f"plain_ms={row['plain_ms']:.4f} library_ms={fmt_ms(row['library_ms'])} "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
@@ -803,6 +889,11 @@ def phase_kernel(torch, cases=KERNEL_CASES):
             f"library_device_ms={fmt_ms(row['library_device_ms'])} "
             f"library_kernel={row['library_kernel']!r} issue_ms={row['issue_ms']:.4f}")
     return rows
+
+
+def cross_label(s, t, causal):
+    """A kernel row's label for what is not causal self-attention."""
+    return "" if (t, causal) == (s, True) else f" T={t} causal={causal}"
 
 
 def fmt_ms(ms):
@@ -1476,21 +1567,18 @@ def phase_serving_hymba(torch, flash_ms, ssm_ms):
     return counts
 
 
-def attention_bwd_bound(b, s, h, kv, d, dtype, window):
-    """Least time for one attention backward: q, k (Dqk), v, o, dO (Dv) and
-    the lse read once, dq, dk (Dqk), dv (Dv) written once, over the memory
+def attention_bwd_bound(b, s, h, kv, d, dtype, window, t=None, causal=True):
+    """Least time for one attention backward: q (Dqk), o, dO (Dv) and the
+    lse read once and dq (Dqk) written once over S, k (Dqk), v (Dv) read and
+    dk (Dqk), dv (Dv) written once over T (default S), over the memory
     rate; or its five products over the valid (query, key) pairs (S, dK
     and dQ over Dqk; dP and dV over Dv) over the peak rate for the dtype."""
+    t = s if t is None else t
     dqk, dv = head_dims(d)
     elem = 2 if dtype == "bf16" else 4
-    nbytes = elem * b * s * (2 * (h + kv) * dqk + 2 * (h + kv) * dv) + 4 * b * h * s
-    w = s if window is None else min(window, s)
-    pairs = sum(min(q + 1, w) for q in range(s))
-    flops = 2 * (3 * dqk + 2 * dv) * b * h * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
+    nbytes = elem * b * 2 * (dqk + dv) * (s * h + t * kv) + 4 * b * h * s
+    flops = 2 * (3 * dqk + 2 * dv) * b * h * attention_pairs(s, t, window, causal)
+    return roofline(nbytes, flops, dtype)
 
 
 def flash_bwd_case(torch, case, gen):
@@ -1505,16 +1593,16 @@ def flash_bwd_case(torch, case, gen):
     from repro_torch.kernels.flash_attention import (
         attention_backward_ref, attention_ref, flash_attention_backward, ops)
 
-    name, b, s, h, kv, dt, window, d = case
+    name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
     dqk, dv = head_dims(d)
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
-    q, k, v, do = (torch.randn((b, s, n, dim), generator=gen, device=DEVICE).to(dtype)
-                   for n, dim in ((h, dqk), (kv, dqk), (kv, dv), (h, dv)))
+    q, k, v, do = (torch.randn((b, n_rows, n, dim), generator=gen, device=DEVICE).to(dtype)
+                   for n_rows, n, dim in ((s, h, dqk), (t, kv, dqk), (t, kv, dv), (s, h, dv)))
     scale = 1.0 / dqk ** 0.5
-    out, lse = ops._forward(q, k, v, True, window, scale, None, with_lse=True)
+    out, lse = ops._forward(q, k, v, causal, window, scale, None, with_lse=True)
 
     def kernel():
-        return flash_attention_backward(q, k, v, out, lse, do, causal=True, window=window)
+        return flash_attention_backward(q, k, v, out, lse, do, causal=causal, window=window)
 
     got = kernel()
     again = kernel()
@@ -1522,7 +1610,7 @@ def flash_bwd_case(torch, case, gen):
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    want = torch.autograd.grad(attention_ref(*leaves, causal=True, window=window), leaves, do)
+    want = torch.autograd.grad(attention_ref(*leaves, causal=causal, window=window), leaves, do)
     errs = {key: (g.float() - w.float()).abs().max().item()
             for key, g, w in zip(("dq", "dk", "dv"), got, want)}
     tols = {key: BWD_REL[dt] * max(1.0, w.float().abs().max().item())
@@ -1530,27 +1618,25 @@ def flash_bwd_case(torch, case, gen):
     del got, want, leaves
 
     qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_() for x in (q, k, v))
-    mask = None
-    if window is not None:
-        pos = torch.arange(s, device=DEVICE)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    mask = sdpa_window_mask(torch, s, window)
     lib_do = do.transpose(1, 2)
     lib_out = []
 
     def library():
         if not lib_out:  # SDPA's forward once; a refusal raises here
             lib_out.append(F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=h != kv))
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=h != kv))
         return torch.autograd.grad(lib_out[0], (qt, kt, vt), lib_do, retain_graph=True)
 
-    bound_ms, bound_by = attention_bwd_bound(b, s, h, kv, d, dt, window)
+    bound_ms, bound_by = attention_bwd_bound(b, s, h, kv, d, dt, window, t, causal)
     ms = cuda_ms(torch, kernel, 10)
     _, named, _, records = profile_device(torch, kernel, 10, (BWD_PROFILE_NAME,),
                                           launches={BWD_PROFILE_NAME: 3}, sole=True)
     row = dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise, ms=ms,
         plain_ms=cuda_ms(torch, lambda: attention_backward_ref(
-            q, k, v, out, lse, do, causal=True, window=window), 2, warmup=1),
+            q, k, v, out, lse, do, causal=causal, window=window), 2, warmup=1),
         device_ms=named[BWD_PROFILE_NAME], records=records[BWD_PROFILE_NAME],
         bound_ms=bound_ms, bound_by=bound_by,
         **library_row(torch, library, 10),
@@ -1563,7 +1649,7 @@ def phase_kernel_bwd(torch, cases=BWD_CASES):
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     rows = {}
     for case in cases:
-        name, b, s, h, kv, dt, window, d = case
+        name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
         row = rows[name] = flash_bwd_case(torch, case, gen)
         for key, err in row["errs"].items():
             if not err <= row["tols"][key]:
@@ -1571,7 +1657,8 @@ def phase_kernel_bwd(torch, cases=BWD_CASES):
                                      f"{row['tols'][key]:.3e}")
         if dt == "bf16" and not row["bitwise_repeat"]:
             raise AssertionError(f"flash bwd {name}: two calls gave different bits")
-        log("kernel", f"flash bwd {name} B={b} H={h} KV={kv} D={d} {dt} window={window}: "
+        log("kernel", f"flash bwd {name} B={b} H={h} KV={kv} D={d} {dt} window={window}"
+            f"{cross_label(s, t, causal)}: "
             "max_abs_err " + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
                                       for key, err in row["errs"].items())
             + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -1600,6 +1687,10 @@ def plain_seams(family, window=None):
         return {"attend": functools.partial(attention_ref, causal=True, window=window)}
     if family == "ssm":
         return {"scan": wkv_chunked}
+    if family == "audio":
+        return {"enc_attend": functools.partial(attention_ref, causal=False),
+                "self_attend": functools.partial(attention_ref, causal=True),
+                "cross_attend": functools.partial(attention_ref, causal=False)}
     return {"attend": attention_ref,
             "scan": lambda u, dt, b_t, c_t, log_a, chunk: selective_scan_ref(
                 u, dt, log_a, b_t, c_t)}
@@ -1631,6 +1722,16 @@ def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
             loss = loss + MOE_LB_WEIGHT * stats["lb_loss"] + MOE_Z_WEIGHT * stats["z_loss"]
         grads[name] = torch.autograd.grad(loss, list(model.parameters()))
         del out, logits, loss, stats
+    check_grads(phase, f"full {arch} f32 node gradient (b=2, S=256, {cfg.n_layers} layers), "
+                f"kernels vs plain {'/'.join(seams)}", model, grads)
+    del model, grads
+
+
+def check_grads(phase, label, model, grads):
+    """Hold the gradients through the kernels (``grads["kernel"]``, one per
+    parameter of ``model``) against the plain ones (``grads["plain"]``):
+    global sq-norm within 1e-5 relative, every leaf within 1e-4 x max(1,
+    max |g|); log both and raise past either limit."""
     # In chunks of 2^26 elements: a whole leaf in float64 (deepseek's
     # expert weights: 10 GB) does not fit beside two float32 gradients.
     def chunks(x):
@@ -1643,13 +1744,11 @@ def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
                  / max(1.0, max(float(c.abs().max()) for c in chunks(w))), n)
                 for (n, _), g, w in zip(model.named_parameters(), grads["kernel"],
                                         grads["plain"]))
-    log(phase, f"full {arch} f32 node gradient (b=2, S=256, {cfg.n_layers} layers), kernels "
-        f"vs plain {'/'.join(seams)}: global sq-norm {sq['kernel']:.6e} vs "
-        f"{sq['plain']:.6e} (rel {rel_sq:.3e}, "
-        f"limit 1e-5); worst leaf {worst[1]} err {worst[0]:.3e} x max(1, max|g|) (limit 1e-4)")
+    log(phase, f"{label}: global sq-norm {sq['kernel']:.6e} vs {sq['plain']:.6e} (rel "
+        f"{rel_sq:.3e}, limit 1e-5); worst leaf {worst[1]} err {worst[0]:.3e} x max(1, max|g|) "
+        "(limit 1e-4)")
     if not rel_sq <= 1e-5 or not worst[0] <= 1e-4:
-        raise AssertionError(f"node gradient: sq-norm rel {rel_sq:.3e}, leaf {worst}")
-    del model, grads
+        raise AssertionError(f"{label}: sq-norm rel {rel_sq:.3e}, leaf {worst}")
 
 
 def node_step_profile(torch, backend, data, b, b_max, launches):
@@ -2641,7 +2740,10 @@ def split_node_axis(torch):
 def phase_sharded(torch, fused_rows=None, fused_proposals=None):
     """Phase 16: the node-sharded step (see the module docstring), held
     against phase 14's unsharded fused run (run here for
-    ``SHARDED_FUSED_EPOCHS`` epochs when not given)."""
+    ``SHARDED_FUSED_EPOCHS`` epochs when not given); at its end the world
+    of one's NCCL group is shut down."""
+    from repro_torch.launch.mesh import release_world_of_one
+
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2661,9 +2763,13 @@ def phase_sharded(torch, fused_rows=None, fused_proposals=None):
     t3 = time.perf_counter()
     split_node_axis(torch)
     t4 = time.perf_counter()
+    # The sharded backends are gone: shut their world-of-one NCCL group down.
+    gc.collect()
+    released = release_world_of_one()
     log("sharded", f"phase 16 in {t4 - t0:.1f} s: two-program {t1 - t0:.1f} s, fused "
         f"{t2 - t1:.1f} s, CLI {t3 - t2:.1f} s, split node axis {t4 - t3:.1f} s; "
-        f"peak_mem_gb={peak / 1e9:.3f} (two-program and fused parts)")
+        f"peak_mem_gb={peak / 1e9:.3f} (two-program and fused parts); released {released} "
+        "world-of-one group(s)")
     if not peak < 80e9:
         raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
 
@@ -3534,6 +3640,327 @@ def run_deepseek_phases(torch, enter):
     return forward_counts, train_counts
 
 
+def whisper_cfg(torch, dtype=None, n_layers=None):
+    """whisper-large-v3 at published widths, ``n_layers`` deep on each side
+    (default uncut: 32 + 32), in ``dtype`` (default the published bf16)."""
+    from repro_torch.configs import whisper_large_v3
+
+    cfg = whisper_large_v3.config()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_layers, n_dec_layers=n_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def whisper_attentions(cfg):
+    """Flash launches of one whisper forward: each encoder layer's
+    self-attention, each decoder layer's self- and cross-attention."""
+    return cfg.n_enc_layers + 2 * cfg.n_dec_layers
+
+
+def whisper_batch(torch, cfg, b, s, seed):
+    """Seeded ``audio_embed`` (b, enc_frames, d_model) in the compute dtype,
+    tokens and next-token labels (b, s), and per-sample weights (the last
+    sample half weighted)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    audio = torch.randn((b, cfg.enc_frames, cfg.d_model), generator=gen, device=DEVICE)
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, device=DEVICE)
+    weights = torch.ones(b, device=DEVICE)
+    weights[-1] = 0.5
+    return {"audio_embed": audio.to(cfg.compute_dtype), "tokens": toks[:, :-1],
+            "labels": toks[:, 1:], "weights": weights}
+
+
+@contextlib.contextmanager
+def seams_on(model, seams):
+    """Within the block, ``model.train_forward`` (what ``api.loss`` calls)
+    takes ``seams``."""
+    model.train_forward = functools.partial(type(model).train_forward, model, **seams)
+    try:
+        yield model
+    finally:
+        del model.train_forward
+
+
+def phase_model_whisper(torch):
+    """Phase 27: whisper-large-v3 in float32 at published widths,
+    ``WHISPER_MODEL_LAYERS`` deep, B=2, 1500 frames, ``WHISPER_MODEL_TEXT``
+    text tokens.  ``api.logits`` through the kernels (one flash launch an
+    attention) against the same forward with the plain attention through
+    the three seams, within 1e-4; against ``encode``, ``prime_cache`` and
+    the stepped decode (plain torch, no launch), within 1e-3; the gradient
+    of ``api.loss`` with per-sample weights through the kernels against
+    the plain seams (``check_grads``)."""
+    from repro_torch.models.registry import build_api
+
+    label = "model (whisper)"
+    cfg = whisper_cfg(torch, torch.float32, WHISPER_MODEL_LAYERS)
+    api = build_api("whisper-large-v3", cfg)
+    model = api.init(0, device=DEVICE)
+    b, s = 2, WHISPER_MODEL_TEXT
+    batch = whisper_batch(torch, cfg, b, s, seed=27)
+    n = whisper_attentions(cfg)
+    reset_launches()
+    logits = api.logits(model, batch)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    if counts != no_launches(flash_attention=n):
+        raise AssertionError(f"whisper forward launched {counts}, not the flash kernel once "
+                             f"an attention ({n})")
+    if not torch.isfinite(logits).all() or logits.shape != (b, s, cfg.vocab):
+        raise AssertionError(f"forward logits: shape {tuple(logits.shape)} or non-finite")
+    seams = plain_seams(cfg.family)
+    with torch.no_grad():
+        plain = model.train_forward(batch["audio_embed"], batch["tokens"], **seams)
+    seam_err = (logits - plain).abs().max().item()
+    del plain
+
+    reset_launches()
+    enc = model.encode(batch["audio_embed"])
+    cache = model.prime_cache(api.init_cache(b, s, device=DEVICE), enc)
+    torch.cuda.synchronize()
+    enc_counts = read_launches()
+    reset_launches()
+    rows = []
+    for p in range(s):
+        lg, cache = api.decode_step(model, cache, batch["tokens"][:, p:p + 1], p)
+        rows.append(lg)
+    stepped = torch.cat(rows, dim=1)
+    torch.cuda.synchronize()
+    decode_counts = read_launches()
+    step_err = (logits - stepped).abs().max().item()
+    log(label, f"whisper-large-v3 f32 ({cfg.n_enc_layers} + {cfg.n_dec_layers} layers, "
+        f"{api.param_count()} params), B={b}, {cfg.enc_frames} frames, {s} tokens: api.logits "
+        f"({counts['flash_attention']} flash launches) vs the plain attention through the "
+        f"seams {'/'.join(seams)}: max abs err {seam_err:.3e} (limit 1e-4); vs encode "
+        f"({enc_counts['flash_attention']} launches), prime_cache and {s} stepped decode_steps "
+        f"({decode_counts['flash_attention']} launches): max abs err {step_err:.3e} (limit "
+        f"1e-3); logits scale {logits.abs().max().item():.3f}")
+    if enc_counts != no_launches(flash_attention=cfg.n_enc_layers) or any(
+            decode_counts.values()):
+        raise AssertionError(f"encode launched {enc_counts}, the stepped decode {decode_counts}")
+    if not seam_err <= 1e-4:
+        raise AssertionError(f"whisper kernels vs plain seams: {seam_err:.3e} > 1e-4")
+    if not step_err <= 1e-3:
+        raise AssertionError(f"whisper forward vs stepped decode: {step_err:.3e} > 1e-3")
+    del cache, rows, stepped, enc
+
+    model.requires_grad_(True)
+    grads = {}
+    for name, seam in (("kernel", {}), ("plain", seams)):
+        reset_launches()
+        with seams_on(model, seam):
+            loss, _ = api.loss(model, batch)
+        grads[name] = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        launched = read_launches()
+        want = (no_launches(flash_attention=(2 if cfg.remat else 1) * n,
+                            flash_attention_backward=n) if name == "kernel" else no_launches())
+        if launched != want:
+            raise AssertionError(f"{name} loss gradient launched {launched}, not {want}")
+        del loss
+    check_grads(label, f"whisper-large-v3 f32 gradient of api.loss (B={b}, weights "
+                f"{batch['weights'].tolist()}, {cfg.n_enc_layers} + {cfg.n_dec_layers} layers, "
+                f"remat={cfg.remat}), kernels vs plain {'/'.join(seams)}", model, grads)
+    del model, grads
+
+
+def top_kernels(torch, fn, n=6):
+    """One call of ``fn`` under ``torch.profiler``: its ``n`` CUDA kernels
+    with the most device time, as "name ms xcount" strings, and its count
+    of kernel records (what the host launched, where none was lost)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((evt.self_device_time_total / 1e3, evt.key, evt.count)
+                      for evt in prof.key_averages()
+                      if evt.device_type == DeviceType.CUDA
+                      and not getattr(evt, "is_user_annotation", False)), reverse=True)
+    return ([f"{name[:70]} {ms:.3f} ms x{count}" for ms, name, count in kernels[:n]],
+            sum(count for _, _, count in kernels))
+
+
+def whisper_decode_bytes(cfg, b, enc_len, pos):
+    """Bytes one decode step at ``pos`` must move (weights and caches in
+    the parameter dtype): each decoder layer's self-attention projections,
+    the cross-attention's q and output projections (its K/V come primed),
+    the MLP and three norms; the final norm and the tied head (the
+    embedding, read once); the primed cross K/V over ``enc_len`` frames and
+    the self cache over ``pos + 1`` positions read, one position written;
+    the float32 logits written."""
+    d, hd, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
+    weights = cfg.n_dec_layers * (6 * d * hd + 2 * d * f + 6 * d) + 2 * d + cfg.vocab * d
+    caches = cfg.n_dec_layers * b * 2 * hd * (enc_len + pos + 2)
+    return cfg.param_dtype.itemsize * (weights + caches) + 4 * b * cfg.vocab
+
+
+def phase_serving_whisper(torch):
+    """Phase 28: whisper-large-v3 in bf16, uncut.  Eight 30-second windows
+    (``audio_embed`` (8, 1500, 1280), seeded) through ``encode`` (32 flash
+    launches and nothing else), ``prime_cache`` and ``WHISPER_DECODE_STEPS``
+    greedy ``decode_step``s (no launch): every logit finite, every token
+    inside the vocab; the encoder forward's and a decode step's wall and
+    device ms, idle share and flash part, and the decode step's byte
+    bound."""
+    from repro_torch.models.registry import build_api
+
+    label = "serving (whisper)"
+    cfg = whisper_cfg(torch)
+    api = build_api("whisper-large-v3", cfg)
+    model = api.init(0, device=DEVICE)
+    b, steps = 8, WHISPER_DECODE_STEPS
+    audio = whisper_batch(torch, cfg, b, 1, seed=28)["audio_embed"]
+    model.encode(audio)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    enc = model.encode(audio)
+    torch.cuda.synchronize()
+    enc_counts = read_launches()
+    if enc_counts != no_launches(flash_attention=cfg.n_enc_layers):
+        raise AssertionError(f"the encoder forward launched {enc_counts}")
+    if not torch.isfinite(enc).all():
+        raise AssertionError("non-finite encoder output")
+    cache = model.prime_cache(api.init_cache(b, steps, device=DEVICE), enc)
+    tok = torch.zeros((b, 1), dtype=torch.long, device=DEVICE)
+    out = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(steps):
+        logits, cache = api.decode_step(model, cache, tok, p)
+        tok = logits[:, -1:].argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / steps
+    decode_counts = read_launches()
+    toks = torch.cat(out, dim=1)
+    if any(decode_counts.values()):
+        raise AssertionError(f"the stepped decode launched {decode_counts}")
+    if not torch.isfinite(logits).all() or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError("non-finite decode logits or a token outside the vocab")
+    peak = torch.cuda.max_memory_allocated()
+    log(label, f"whisper-large-v3 bf16 (uncut, {api.param_count()} params), {b} windows of "
+        f"{cfg.enc_frames} frames: encode ({enc_counts['flash_attention']} flash launches), "
+        f"prime_cache, {steps} greedy decode_steps ({decode_counts['flash_attention']} "
+        f"launches) at {loop_ms:.3f} ms a step; every logit finite, tokens inside the vocab "
+        f"(first window's first 8: {toks[0, :8].tolist()}); peak_mem_gb={peak / 1e9:.3f}")
+
+    last = steps - 1
+    nbytes = whisper_decode_bytes(cfg, b, enc.shape[1], last)
+    bound = nbytes / HBM_BYTES_S * 1e3
+    enc_ms = host_ms(torch, lambda: model.encode(audio), 3, warmup=1)
+    decode_ms = host_ms(torch, lambda: api.decode_step(model, cache, tok, last), 10)
+    for name, fn, wall_ms, launches in (
+            ("encoder forward", lambda: model.encode(audio), enc_ms,
+             {FLASH_PROFILE_NAME: cfg.n_enc_layers}),
+            ("decode_step", lambda: api.decode_step(model, cache, tok, last), decode_ms, None)):
+        dev, named, idle, _, records = device_split(torch, fn, 3, wall_ms, (FLASH_PROFILE_NAME,),
+                                                    launches)
+        log(label, f"profile whisper-large-v3 {name} (B={b}): wall {wall_ms:.3f} ms, device "
+            f"{dev:.3f} ms (idle share {idle:.4f}), flash kernel {named[FLASH_PROFILE_NAME]:.3f} "
+            f"ms (records {records[FLASH_PROFILE_NAME]}/{3 * cfg.n_enc_layers if launches else 0})"
+            + (f"; byte bound {bound:.3f} ms ({nbytes / 1e9:.3f} GB at {HBM_BYTES_S / 1e12:.2f} "
+               f"TB/s: decoder weights but the cross K/V projections, the tied head, the cross "
+               f"K/V of {enc.shape[1]} frames, the self cache at pos {last}), "
+               f"{bound / dev:.1%} of the device time" if launches is None else ""))
+        top, records = top_kernels(torch, fn)
+        log(label, f"whisper-large-v3 {name}: {records} kernel records; the most device time: "
+            + "; ".join(top))
+    del model, cache, enc
+    return enc_counts
+
+
+WHISPER_TRAIN_STEPS = 3
+WHISPER_TRAIN_LR = 1e-3  # AdamW: moves every bf16 weight matrix in one step
+
+
+def phase_train_whisper(torch):
+    """Phase 29: whisper-large-v3 in bf16, uncut, remat on:
+    ``WHISPER_TRAIN_STEPS`` steps of ``build_train_step(api, adamw(...))`` on
+    B=8 of (1500, 1280) frames and 375 tokens and labels with per-sample
+    weights: every loss finite, watched weights changed by each step, 192
+    flash forwards and 96 backward calls a step, peak under 80 GB; the
+    step's wall and device ms and the flash forward and backward parts."""
+    from repro_torch.models.registry import build_api
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.train.step import build_train_step
+
+    label = "training (whisper)"
+    cfg = whisper_cfg(torch)
+    api = build_api("whisper-large-v3", cfg)
+    model = api.init(0, device=DEVICE).requires_grad_(True)
+    opt = adamw(constant_schedule(WHISPER_TRAIN_LR))
+    step = build_train_step(api, opt)
+    state = opt.init(dict(model.named_parameters()))
+    b, s = 8, WHISPER_TRAIN_TEXT
+    batch = whisper_batch(torch, cfg, b, s, seed=29)
+    named = dict(model.named_parameters())
+    watch = ("embed", "enc_layers.0.attn.wq", f"dec_layers.{cfg.n_dec_layers - 1}.mlp.w_out")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, walls = [], []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        before = {k: named[k].detach().clone() for k in watch}
+        t0 = time.perf_counter()
+        model, state, metrics = step(model, state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        still = [k for k in watch if torch.equal(before[k], named[k])]
+        if still or not math.isfinite(losses[-1]):
+            raise AssertionError(f"step {len(losses)}: loss {losses[-1]}, unchanged {still}")
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = whisper_attentions(cfg)
+    per_step = (2 if cfg.remat else 1) * n
+    want = no_launches(flash_attention=WHISPER_TRAIN_STEPS * per_step,
+                       flash_attention_backward=WHISPER_TRAIN_STEPS * n)
+    launches = {FLASH_PROFILE_NAME: per_step, BWD_PROFILE_NAME: BWD_KERNELS_PER_CALL[
+        BWD_PROFILE_NAME] * n}
+    dev, part, idle, _, records = device_split(
+        torch, lambda: step(model, state, batch), 1, min(walls[1:]), tuple(launches), launches)
+    log(label, f"whisper-large-v3 bf16 (uncut, {api.param_count()} params, remat), "
+        f"{WHISPER_TRAIN_STEPS} AdamW steps (lr {WHISPER_TRAIN_LR}) on B={b} x "
+        f"{cfg.enc_frames} frames and {s} tokens, weights {batch['weights'].tolist()}: losses "
+        f"{losses}; wall ms {[round(w, 2) for w in walls]}; a step: device {dev:.2f} ms (idle "
+        f"share {idle:.4f}), flash forward {part[FLASH_PROFILE_NAME]:.3f} ms (records "
+        f"{records[FLASH_PROFILE_NAME]}/{per_step}), flash backward "
+        f"{part[BWD_PROFILE_NAME]:.3f} ms (records {records[BWD_PROFILE_NAME]}/"
+        f"{launches[BWD_PROFILE_NAME]}); launches over {WHISPER_TRAIN_STEPS} steps {counts} "
+        f"(expected {want}); peak_mem_gb={peak / 1e9:.3f}")
+    top, records = top_kernels(torch, lambda: step(model, state, batch))
+    log(label, f"whisper-large-v3 train step: {records} kernel records; the most device time: "
+        + "; ".join(top))
+    if counts != want:
+        raise AssertionError(f"whisper training launched {counts} != {want}")
+    if not peak < 80e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB")
+    del model, state, step
+    return counts
+
+
+def run_whisper_phases(torch, enter):
+    """Phases 27-29, each entered under its name; returns the encoder
+    forward's launches and the training steps'."""
+    enter("model (whisper)")
+    phase_model_whisper(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    enter("serving (whisper)")
+    forward_counts = phase_serving_whisper(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    enter("training (whisper)")
+    train_counts = phase_train_whisper(torch)
+    return forward_counts, train_counts
+
+
 def main() -> int:
     import torch
 
@@ -3581,6 +4008,19 @@ def main() -> int:
             torch.cuda.empty_cache()
             run_deepseek_phases(torch, enter)
             log("done", f"--only deepseek passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--only", "whisper"]:
+            enter("kernel")
+            phase_kernel(torch, WHISPER_CASES)
+            enter("kernel (flash bwd)")
+            phase_kernel_bwd(torch, WHISPER_CASES)
+            torch.cuda.empty_cache()
+            run_whisper_phases(torch, enter)
+            log("done", f"--only whisper passed in {time.perf_counter() - t_start:.1f} s; "
                 "seconds per phase: " + ", ".join(
                     f"{name} {end - start:.1f}" for (name, start), end in zip(
                         starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
@@ -3664,12 +4104,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ds_forward_counts, ds_train_counts = run_deepseek_phases(torch, enter)
+        gc.collect()
+        torch.cuda.empty_cache()
+        wh_forward_counts, wh_train_counts = run_whisper_phases(torch, enter)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-26); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-29); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -3692,6 +4135,13 @@ def main() -> int:
          ds_forward_counts["flash_attention"]),
         ("flash_attention_backward[192,128]", SOURCE_REL, REPLACES, bwd_rows[DEEPSEEK_BWD_CASE],
          ds_train_counts["flash_attention_backward"]),
+        # Non-causal (S x T pairs) on whisper-large-v3's paths: the encoder
+        # forward of phase 28 and the training steps of phase 29 (whose
+        # decoder self-attention is causal).
+        ("flash_attention[whisper]", SOURCE_REL, REPLACES, rows[WHISPER_ENC_CASE],
+         wh_forward_counts["flash_attention"]),
+        ("flash_attention_backward[whisper]", SOURCE_REL, REPLACES, bwd_rows[WHISPER_ENC_CASE],
+         wh_train_counts["flash_attention_backward"]),
     ):
         kernels.append({
             "name": name,

@@ -2,8 +2,7 @@
 
 ``ARCHS`` maps arch id -> config module, in the reference's order;
 `get_api(arch_id, reduced=False)` returns a ready `ModelApi`.  Every
-reference arch is here but whisper-large-v3, whose encoder-decoder family
-comes with a later slice.
+reference arch is here.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ from repro_torch.configs import (
     mixtral_8x7b,
     olmo_1b,
     rwkv6_7b,
+    whisper_large_v3,
 )
 from repro_torch.configs.shapes import REDUCED_SHAPES, SHAPES, InputShape
 from repro_torch.models.registry import ModelApi, build_api
@@ -26,6 +26,7 @@ from repro_torch.models.registry import ModelApi, build_api
 _MODULES = [
     minitron_4b,
     deepseek_v2_236b,
+    whisper_large_v3,
     hymba_1_5b,
     olmo_1b,
     chameleon_34b,

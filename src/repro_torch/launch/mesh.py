@@ -11,8 +11,9 @@ every rank.
 
 Without an initialised default group, :func:`make_node_mesh` builds a
 world of one over a ``HashStore``: gloo for the CPU, NCCL for a card (the
-counterpart of the reference's one-device mesh).  Nothing here moves work
-to the CPU: a card that is not there raises.
+counterpart of the reference's one-device mesh).  It lives until
+:func:`release_world_of_one` shuts it down.  Nothing here moves work to
+the CPU: a card that is not there raises.
 
 The TPU production layouts (``make_production_mesh``, ``make_rules``) wait
 for the dry run.
@@ -31,6 +32,7 @@ from repro_torch import resolve_device
 __all__ = [
     "NodeMesh",
     "make_node_mesh",
+    "release_world_of_one",
     "mesh_axis_sizes",
     "node_shard_count",
     "train_microbatches",
@@ -49,7 +51,7 @@ TRAIN_MICROBATCHES = {
 _TIMEOUT = datetime.timedelta(minutes=10)
 # device -> the world-of-one group.  One per process, as the default group
 # is: every backend of the process shares it rather than opening another
-# NCCL communicator.
+# NCCL communicator, until release_world_of_one.
 _SOLO: Dict[str, Any] = {}
 
 
@@ -150,6 +152,20 @@ def _world_of_one(device: torch.device):
             raise ValueError(f"no process-group backend for device {device}")
         _SOLO[str(device)] = group
     return group
+
+
+def release_world_of_one() -> int:
+    """Shut down and forget every world-of-one group of this process (a
+    NCCL communicator and its watchdog, or a gloo context); the next
+    :func:`make_node_mesh` without a group builds a new one.  Drop the
+    backends and meshes that hold one first.  Returns how many it shut
+    down."""
+    released = 0
+    while _SOLO:
+        _, group = _SOLO.popitem()
+        group.shutdown()
+        released += 1
+    return released
 
 
 def make_node_mesh(n_nodes: int, group: Any = None, *, device: Any = None) -> NodeMesh:

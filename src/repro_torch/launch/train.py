@@ -160,17 +160,18 @@ def run_spmd(args) -> int:
     ``SyntheticLM`` batches of ``--ref-batch``), on ``--device``."""
     import torch
 
-    from repro_torch.configs import ARCHS, get_api
+    from repro_torch.configs import get_api
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.train.step import build_train_step
 
-    if args.arch not in ARCHS:
-        raise SystemExit(
-            f"--mode spmd: {args.arch} is not ported yet (ROADMAP §1.8b: the whisper "
-            f"family); ported: {sorted(ARCHS)}"
-        )
     api = get_api(args.arch, reduced=not args.full_width)
+    if api.is_encoder_decoder:
+        # The JAX package's run_spmd fails at this key too, in its first step.
+        raise KeyError(
+            f"audio_embed: --mode spmd trains on SyntheticLM batches (tokens and labels), "
+            f"which carry no audio frames for the {args.arch} encoder-decoder"
+        )
     params = api.init(args.seed, device=args.device).requires_grad_(True)
     opt = adamw(constant_schedule(args.lr))
     step = build_train_step(api, opt, microbatches=args.microbatches)

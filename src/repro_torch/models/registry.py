@@ -1,10 +1,13 @@
-"""Uniform model API over the ported families (dense, moe, rwkv6, hybrid).
+"""Uniform model API over the six families (dense, moe with deepseek's MLA,
+rwkv6's ssm, hymba's hybrid, whisper's audio encoder-decoder).
 
 The counterpart of ``repro/models/registry.py``.  Each family module names
 its ``nn.Module`` class as ``MODEL`` and provides ``schema`` and
 ``init_cache``.  ``params`` in the reference's calling convention is the
 port's ``nn.Module``.  MoE forwards return ``(logits, stats)``; the API
-hands out the logits, and the loss adds the stats' aux terms:
+hands out the logits, and the loss adds the stats' aux terms.  The
+encoder-decoder (whisper) reads ``batch["audio_embed"]`` (B, S_enc,
+d_model) beside the tokens:
 
   api.init(seed, device=)                    -> model with seeded weights
   api.load(state_dict, device=)              -> model with given weights
@@ -23,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import common, deepseek, dense, hymba, moe, rwkv6
+from repro_torch.models import common, deepseek, dense, hymba, moe, rwkv6, whisper
 from repro_torch.models.common import Param
 
 __all__ = ["ModelApi", "build_api", "MOE_LB_WEIGHT", "MOE_Z_WEIGHT"]
@@ -68,6 +71,11 @@ class ModelApi:
         """True if the forward returns (logits, stats) (the MoE family)."""
         return self.family == "moe"
 
+    @property
+    def is_encoder_decoder(self) -> bool:
+        """True if the forward takes ``(audio_embed, tokens)`` (whisper)."""
+        return self.family == "audio"
+
     # -- params ---------------------------------------------------------
     def schema(self):
         return self._module.schema(self.cfg)
@@ -106,12 +114,21 @@ class ModelApi:
         """True if the family has a grad-carrying forward (``loss``)."""
         return hasattr(self._module.MODEL, "train_forward")
 
+    def _inputs(self, params, batch: Dict[str, Any]) -> Tuple:
+        """The forward's inputs from ``batch``: the tokens, after the audio
+        frames for the encoder-decoder, on the model's device."""
+        tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        if self.is_encoder_decoder:
+            return torch.as_tensor(batch["audio_embed"], device=params.device), tokens
+        return (tokens,)
+
     def logits(self, params, batch: Dict[str, Any]) -> torch.Tensor:
-        out = params(batch["tokens"])
+        out = params(*self._inputs(params, batch))
         return out[0] if self.has_moe_stats else out
 
     def loss(self, params, batch: Dict[str, Any], *, denom=None) -> Tuple[torch.Tensor, Dict]:
-        """Token-level CE over ``batch["tokens"]``/``["labels"]``, carrying
+        """Token-level CE over ``batch["tokens"]``/``["labels"]`` (and the
+        encoder-decoder's ``["audio_embed"]``), carrying
         gradients, with the optional per-sample ``weights`` (B,) — the
         Eq. (9) hook: pads weigh 0 and the mean runs over the weighted
         tokens.  MoE adds ``MOE_LB_WEIGHT * lb_loss + MOE_Z_WEIGHT *
@@ -121,17 +138,17 @@ class ModelApi:
         train_forward = getattr(params, "train_forward", None)
         if train_forward is None:
             raise NotImplementedError(f"{self.arch_id} ({self.family}) does not train yet")
-        tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        inputs = self._inputs(params, batch)
         labels = torch.as_tensor(batch["labels"], device=params.device)
         weights = batch.get("weights")
         if weights is not None:
             weights = torch.as_tensor(weights, device=params.device)
         aux: Dict[str, torch.Tensor] = {}
         if self.has_moe_stats:
-            logits, stats = train_forward(tokens)
+            logits, stats = train_forward(*inputs)
             aux.update(stats)
         else:
-            logits = train_forward(tokens)
+            logits = train_forward(*inputs)
         loss = _token_loss(logits, labels, weights, denom)
         if self.has_moe_stats:
             loss = loss + MOE_LB_WEIGHT * aux["lb_loss"] + MOE_Z_WEIGHT * aux["z_loss"]
@@ -170,6 +187,7 @@ FAMILIES = {
     deepseek.DeepSeekConfig: deepseek,
     rwkv6.RWKV6Config: rwkv6,
     hymba.HymbaConfig: hymba,
+    whisper.WhisperConfig: whisper,
 }
 
 

@@ -3,9 +3,9 @@
 Every ported config's ``config()`` and ``reduced()`` equal the
 reference's field by field (dtype fields by name: ``jnp.bfloat16`` is
 ``torch.bfloat16``; the reference's attention switches ``kv_chunk`` and
-``use_kernel`` have no counterpart); ``ARCHS`` holds the reference's ids in its order but
-the family not ported yet (whisper's encoder-decoder); ``SHAPES`` and ``REDUCED_SHAPES`` are the
-reference's.  The config-only dense ports (internlm2-20b, minitron-4b,
+``use_kernel`` have no counterpart); ``ARCHS`` holds every one of the reference's ids in its
+order (``UNPORTED`` is empty since whisper's encoder-decoder came); ``SHAPES`` and
+``REDUCED_SHAPES`` are the reference's.  The config-only dense ports (internlm2-20b, minitron-4b,
 chameleon-34b) run their reduced forwards and fused prefills in float32
 variants against the reference, from the same weights (drawn with numpy
 at the reference's init scales, ``tests/_torch_numpy_init.py``), at the
@@ -29,7 +29,7 @@ from repro_torch.models.registry import build_api  # noqa: E402
 
 pytestmark = pytest.mark.slow  # JAX-compiling; excluded from the fast lane
 
-UNPORTED = ("whisper-large-v3",)
+UNPORTED = ()
 LOGIT_ATOL = 1e-4
 DENSE_PORTS = ["internlm2-20b", "minitron-4b", "chameleon-34b"]
 
@@ -55,8 +55,8 @@ def _fields(cfg, names=None):
 def test_archs_are_the_reference_ids_but_the_unported():
     want = [a for a in jax_configs.ARCHS if a not in UNPORTED]
     assert list(configs.ARCHS) == configs.arch_ids() == want
-    assert len(want) == len(jax_configs.ARCHS) - 1
-    assert "deepseek-v2-236b" in configs.ARCHS
+    assert len(want) == len(jax_configs.ARCHS) - len(UNPORTED) == 10
+    assert "deepseek-v2-236b" in configs.ARCHS and "whisper-large-v3" in configs.ARCHS
 
 
 @pytest.mark.parametrize("arch", [a for a in jax_configs.ARCHS if a not in UNPORTED])

@@ -1066,3 +1066,88 @@ def test_deepseek_absorbed_decode_matches_the_forward_on_the_card(cuda_device):
     rows = [api.decode_step(model, cache, tokens[:, p:p + 1], p)[0] for p in range(80)]
     assert flash_attention.launches == before
     assert (torch.cat(rows, dim=1) - logits).abs().max().item() <= 1e-4
+
+
+# Whisper's non-causal attentions: the cross-attention's S=375 queries
+# against T=1500 frames (ragged in both), the encoder's S = T = 1500, and S
+# and T both under one tile.  In the backward, the rows past S of the last
+# q tile are zero-filled by TMA; their lse and delta must not turn P^T dO
+# into inf * 0.
+NONCAUSAL_CASES = [
+    # b, s, t, h
+    (2, 375, 1500, 4),
+    (1, 1500, 1500, 2),
+    (2, 37, 50, 4),
+]
+
+
+@pytest.mark.parametrize("d, dtype", [(32, torch.float32), (64, torch.bfloat16)],
+                         ids=["f32-32", "bf16-64"])
+@pytest.mark.parametrize("b,s,t,h", NONCAUSAL_CASES)
+def test_noncausal_cross_lengths_forward_and_backward(cuda_device, d, dtype, b, s, t, h):
+    _check_against_plain(cuda_device, dtype, b, s, t, h, h, d, False, None, None)
+    _check_backward(cuda_device, dtype, d, b, s, t, h, h, False, None, None)
+
+
+def _whisper_on_card(device):
+    """Reduced whisper-large-v3 in float32 (2 + 2 layers, 4 heads of 32),
+    remat on."""
+    import dataclasses
+
+    from repro_torch.configs import whisper_large_v3
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(whisper_large_v3.reduced(), remat=True,
+                              param_dtype=torch.float32, compute_dtype=torch.float32)
+    api = build_api("whisper-large-v3", cfg)
+    return api, api.init(0, device=device)
+
+
+def test_whisper_forward_decode_and_gradient_on_the_card(cuda_device):
+    """The forward launches flash once an attention (the encoder's and the
+    cross non-causal at 100 frames, the decoder's causal) and equals the
+    plain attention through the three seams and the stepped decode over
+    the primed cache; the loss's gradient through the kernels equals the
+    plain seams' (remat: each layer's attentions launched twice)."""
+    import functools
+
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    api, model = _whisper_on_card(cuda_device)
+    cfg = api.cfg
+    n = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 38)), device=cuda_device)
+    audio = torch.from_numpy(rng.standard_normal((2, 100, cfg.d_model), dtype=np.float32))
+    batch = {"audio_embed": audio.to(cuda_device), "tokens": tokens[:, :-1],
+             "labels": tokens[:, 1:], "weights": torch.tensor([1.0, 0.5], device=cuda_device)}
+    seams = {"enc_attend": functools.partial(attention_ref, causal=False),
+             "self_attend": functools.partial(attention_ref, causal=True),
+             "cross_attend": functools.partial(attention_ref, causal=False)}
+    before = flash_attention.launches
+    logits = api.logits(model, batch)
+    assert flash_attention.launches == before + n
+    with torch.no_grad():
+        plain = model.train_forward(batch["audio_embed"], batch["tokens"], **seams)
+    assert (logits - plain).abs().max().item() <= 1e-4
+    enc = model.encode(batch["audio_embed"])
+    cache = model.prime_cache(api.init_cache(2, 37, device=cuda_device), enc)
+    before = flash_attention.launches
+    rows = [api.decode_step(model, cache, batch["tokens"][:, p:p + 1], p)[0] for p in range(37)]
+    assert flash_attention.launches == before
+    assert (torch.cat(rows, dim=1) - logits).abs().max().item() <= 1e-4
+    model.requires_grad_(True)
+    grads = {}
+    for name, seam in (("kernel", {}), ("plain", seams)):
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        model.train_forward = functools.partial(type(model).train_forward, model, **seam)
+        loss, _ = api.loss(model, batch)
+        grads[name] = torch.autograd.grad(loss, list(model.parameters()))
+        del model.train_forward
+        torch.cuda.synchronize()
+        launched = (flash_attention.launches - before[0],
+                    flash_attention_backward.launches - before[1])
+        assert launched == ((2 * n, n) if name == "kernel" else (0, 0))
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol

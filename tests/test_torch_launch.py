@@ -106,8 +106,8 @@ def test_spmd_mode_and_missing_card_are_errors(capsys, monkeypatch):
     about 0.3, the loss climbs from 6.8 to 15.8 in 3 steps, and float32
     roundoff grows about 100x per step (the reference's own ``--microbatches
     1`` and ``2`` differ by 3.5e-4 at step 2).  Without a card the default
-    device raises, as a real hetero backend does; an arch with no training
-    path exits naming ROADMAP §1.8a."""
+    device raises, as a real hetero backend does; whisper-large-v3 raises the
+    reference's exception (``KeyError``: no ``audio_embed`` in the batch)."""
     import repro.train.step as ref_step
     import repro_torch.models.registry as port_registry
     import repro_torch.train.step as port_step
@@ -154,7 +154,8 @@ def test_spmd_mode_and_missing_card_are_errors(capsys, monkeypatch):
     monkeypatch.undo()
 
     # rwkv6, mixtral and deepseek train (ROADMAP §1.8a-b): one reduced step
-    # each, a finite loss; a family not ported yet exits naming §1.8b.
+    # each, a finite loss.  whisper fails as the reference's run_spmd does:
+    # SyntheticLM's batches carry no audio_embed.
     for arch in ("rwkv6-7b", "mixtral-8x7b", "deepseek-v2-236b"):
         out = _run(port_train, ["--mode", "spmd", "--arch", arch, "--steps", "1",
                                 "--seq-len", "16", "--ref-batch", "4", "--device", "cpu"],
@@ -162,8 +163,13 @@ def test_spmd_mode_and_missing_card_are_errors(capsys, monkeypatch):
         steps = [SPMD_LINE.match(x) for x in out.splitlines()]
         assert [m.group(1) for m in steps if m] == ["0"]
         assert all(np.isfinite(float(m.group(2))) for m in steps if m)
-    with pytest.raises(SystemExit, match="1.8b"):
-        port_train.main(["--mode", "spmd", "--arch", "whisper-large-v3", "--device", "cpu"])
+    whisper = ["--mode", "spmd", "--arch", "whisper-large-v3", "--steps", "1", "--seq-len", "16",
+               "--ref-batch", "4"]
+    monkeypatch.setattr(sys, "argv", ["train"] + whisper)
+    with pytest.raises(KeyError, match="audio_embed") as ref_err:
+        ref_train.main()
+    with pytest.raises(type(ref_err.value), match="audio_embed"):
+        port_train.main(whisper + ["--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             port_train.main(["--mode", "spmd", "--steps", "1"])

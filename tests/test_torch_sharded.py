@@ -346,3 +346,16 @@ def test_gloo_world_of_two_matches_reference_two_device_mesh(reference, weights,
     assert ranks.same_arrays(a["momentum"], b["momentum"])
     for key in ("losses", "sq_i", "sq_g", "valid", "gns"):
         assert a[key] == b[key], key
+
+
+def test_release_world_of_one_shuts_the_group_down():
+    """``release_world_of_one`` shuts down and forgets the cached group; the
+    next mesh builds a new one, which sums as the first did."""
+    first = mesh.make_node_mesh(2, device="cpu")
+    assert mesh.release_world_of_one() >= 1
+    assert mesh.release_world_of_one() == 0
+    fresh = mesh.make_node_mesh(2, device="cpu")
+    assert fresh.group is not first.group
+    x = torch.arange(4.0)
+    assert torch.equal(fresh.all_reduce_(x.clone()), x)
+    assert mesh.make_node_mesh(1, device="cpu").group is fresh.group
