@@ -292,6 +292,24 @@ Phases, each of which fails the run:
                    encoder at S = T = 1500 and the cross-attention at S =
                    375, T = 1500).  ``python3 chip_smoke.py --only whisper``
                    runs phases 1, 2, those rows and 27-29.
+30. dry run      — the dry run (``python -m repro_torch.launch.dryrun``) on
+                   the ``"cuda"`` single-pod mesh, the kernels' custom ops'
+                   route, in child processes side by side: olmo-1b
+                   ``train_4k`` and ``decode_32k``, deepseek-v2-236b
+                   ``train_4k`` (depth cut to ``DRYRUN_DEEPSEEK_LAYERS``;
+                   FSDP, the expert axis, MLA through flash at (192, 128)),
+                   rwkv6-7b ``prefill_32k`` and hymba-1.5b ``long_500k``,
+                   each ``ok``, with a ``[dryrun]`` line of its per-device
+                   counts (not card times) and whether its argument and temp
+                   bytes fit 80 GB.  Then, in another child, the dry run held
+                   to a real step: full-width olmo-1b bf16,
+                   ``build_train_step`` with AdamW at B=8 x 512, traced on a
+                   one-rank ``"cuda"`` mesh and then run on the card under
+                   ``FlopCounterMode``: argument bytes equal, matmul FLOPs
+                   equal (flash's custom ops included), the real peak within
+                   10 % of the predicted argument + temp bytes; the real step
+                   launches the flash forward and backward.  ``python3
+                   chip_smoke.py --only dryrun`` runs phases 1, 2 and 30.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
@@ -299,7 +317,8 @@ training, 15's trace, each run of 16, each training run of 18 and 19,
 each model of 20, each forward of 21, 22's serving run and forward, 23's
 training run, each forward of 24, 25's serving run and forward, 26's node
 steps, 27's forward, encode, stepped decode and each gradient, 28's encoder
-forward and decode loop, 29's training steps) and read just after it.
+forward and decode loop, 29's training steps, 30's real step) and read just
+after it.
 Device ms of a named kernel are per launch the profiler recorded, with the
 count of records beside them.  The last three lines of standard output are
 the card line from ``nvidia-smi``, a JSON line describing each kernel, and
@@ -323,6 +342,12 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# Phase 18's whole-batch loss asks for one 15 GiB block at a 61 GB peak,
+# after the WKV passes' 2 GB scratch blocks have cut the cache up: with
+# fixed segments that request has failed on a card with 29 GB cached but
+# free.  Growable segments keep the cache whole (set before torch loads;
+# it changes no allocated byte, which every peak here reads).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_S = 3.35e12                  # H100 SXM device memory rate
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # f32 off the tensor cores
@@ -3961,6 +3986,165 @@ def run_whisper_phases(torch, enter):
     return forward_counts, train_counts
 
 
+# Phase 30: the dry run on the card's machine.  deepseek-v2-236b's train step
+# traces 16 microbatches a step; cut to 3 of 60 layers it fits the phase's
+# time beside the other cases.
+DRYRUN_DEEPSEEK_LAYERS = 3
+DRYRUN_CASES = (
+    ("olmo-1b", "train_4k", None),
+    ("olmo-1b", "decode_32k", None),
+    ("deepseek-v2-236b", "train_4k", DRYRUN_DEEPSEEK_LAYERS),
+    ("rwkv6-7b", "prefill_32k", None),
+    ("hymba-1.5b", "long_500k", None),
+)
+DRYRUN_STEP = dict(arch="olmo-1b", batch=8, seq=512)
+DRYRUN_PEAK_TOL = 0.10
+CARD_BYTES = 80e9
+
+
+def dryrun_step_child(out_path: str) -> int:
+    """Phase 30's second part, in a process of its own (the trace takes a
+    fake default process group): full-width olmo-1b bf16, AdamW, at
+    ``DRYRUN_STEP``'s batch, traced by the dry run on a one-rank ``"cuda"``
+    mesh, then run for real on the card; writes both sides' numbers."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import InputShape, get_api
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_fake_mesh, make_rules
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.train.step import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s = DRYRUN_STEP["batch"], DRYRUN_STEP["seq"]
+    api = get_api(DRYRUN_STEP["arch"])
+    shape = InputShape("step_check", s, b, "train")
+    mesh = make_fake_mesh((1, 1), ("data", "model"), device_type="cuda")
+    rules = make_rules(mesh, api.arch_id, kind="train", global_batch=b)
+    t0 = time.perf_counter()
+    traced = dryrun.trace_step(api, shape, mesh, rules, device="cuda")
+    trace_s = time.perf_counter() - t0
+
+    model = api.init(0, device="cuda")
+    model.requires_grad_(True)
+    opt = adamw(constant_schedule(1e-4))
+    named = dict(model.named_parameters())
+    state = opt.init(named)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {
+        "tokens": torch.randint(0, api.cfg.vocab, (b, s), generator=gen, device="cuda",
+                                dtype=torch.int32),
+        "labels": torch.randint(0, api.cfg.vocab, (b, s), generator=gen, device="cuda",
+                                dtype=torch.int32),
+        "weights": torch.ones(b, device="cuda"),
+    }
+    args = [*named.values(), *state.m.values(), *state.v.values(), *batch.values()]
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    step = build_train_step(api, opt, microbatches=traced["microbatches"], with_metrics=False)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        _, _, metrics = step(model, state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    result = {
+        "trace_s": trace_s, "wall_s": wall_s, "loss": loss,
+        "microbatches": traced["microbatches"],
+        "predicted": {**traced["memory"], "matmul_flops": traced["stats"].matmul_flops},
+        "real": {"argument_size_in_bytes": arg_bytes, "allocated_before": before,
+                 "peak": torch.cuda.max_memory_allocated(),
+                 "matmul_flops": counter.get_total_flops()},
+        "launches": read_launches(),
+    }
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def dryrun_line(rec) -> str:
+    mem = rec["memory"]
+    args, temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
+    cut = f", {rec['layers']} layers" if rec.get("layers") else ""
+    return (f"{rec['arch']} {rec['shape']} {rec['mesh']} ({rec['device']}{cut}): "
+            f"{rec['status']} in {rec['trace_seconds']} s; per device (counts, not card "
+            f"times): matmul_flops={rec['hlo']['matmul_flops']:.4e} "
+            f"flops={rec['hlo']['flops']:.4e} collective bytes by kind "
+            f"{rec['hlo']['collective_by_kind']} counts {rec['hlo']['collective_counts']}; "
+            f"argument {args / 1e9:.3f} GB, temp {temp / 1e9:.3f} GB, fits "
+            f"{CARD_BYTES / 1e9:.0f} GB: {args + temp < CARD_BYTES}")
+
+
+def phase_dryrun(torch):
+    """Phase 30: the dry run's cases on the ``"cuda"`` single-pod mesh and
+    the one-device check against a real step, every child at once."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        procs = []
+        for arch, shape, layers in DRYRUN_CASES:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--mesh", "single", "--device", "cuda", "--out", out,
+                   "--force"] + ([] if layers is None else ["--layers", str(layers)])
+            procs.append(subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        step_path = os.path.join(out, "step.json")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--dryrun-step", step_path], env=env, cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+        outputs = [p.communicate(timeout=900) for p in procs]
+        failed = []
+        for (arch, shape, layers), p, (_, err) in zip(DRYRUN_CASES, procs, outputs):
+            suffix = "" if layers is None else f"__L{layers}"
+            path = os.path.join(out, f"{arch}__{shape}__single{suffix}.json")
+            rec = json.load(open(path)) if os.path.exists(path) else {"status": "missing"}
+            if rec["status"] != "ok":
+                failed.append((arch, shape, rec.get("error"), rec.get("traceback", err[-3000:])))
+                log("dryrun", f"{arch} {shape}: {rec['status']} {rec.get('error', '')}")
+                continue
+            log("dryrun", dryrun_line(rec))
+            if not (rec["hlo"]["matmul_flops"] > 0 and rec["hlo"]["unknown_trip_whiles"] == 0):
+                failed.append((arch, shape, "no matmul FLOPs counted", ""))
+        if procs[-1].returncode != 0 or not os.path.exists(step_path):
+            raise AssertionError(f"the step check failed: {outputs[-1][1][-4000:]}; "
+                                 f"dry-run cases failed: {failed}")
+        res = json.load(open(step_path))
+    pred, real = res["predicted"], res["real"]
+    predicted_peak = pred["argument_size_in_bytes"] + pred["temp_size_in_bytes"]
+    peak_rel = abs(real["peak"] - predicted_peak) / predicted_peak
+    want = no_launches(flash_attention=2 * 16 * res["microbatches"],
+                       flash_attention_backward=16 * res["microbatches"])
+    log("dryrun", f"step check: {DRYRUN_STEP['arch']} bf16 AdamW B={DRYRUN_STEP['batch']} x "
+        f"{DRYRUN_STEP['seq']} ({res['microbatches']} microbatches), traced on a one-rank "
+        f"cuda mesh in {res['trace_s']:.1f} s, run on the card in {res['wall_s']:.2f} s "
+        f"(loss {res['loss']:.4f}): argument bytes predicted {pred['argument_size_in_bytes']} "
+        f"real {real['argument_size_in_bytes']}; matmul FLOPs predicted "
+        f"{pred['matmul_flops']:.6e} real {real['matmul_flops']:.6e} (FlopCounterMode); "
+        f"peak predicted (argument + temp) {predicted_peak / 1e9:.3f} GB real "
+        f"{real['peak'] / 1e9:.3f} GB (allocated before the step "
+        f"{real['allocated_before'] / 1e9:.3f} GB), rel {peak_rel:.4f} (limit "
+        f"{DRYRUN_PEAK_TOL}); launches {res['launches']} (expected {want}); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"dry-run cases failed: {failed}")
+    if pred["argument_size_in_bytes"] != real["argument_size_in_bytes"]:
+        raise AssertionError("the dry run's argument bytes differ from the real step's")
+    if pred["matmul_flops"] != real["matmul_flops"]:
+        raise AssertionError("the dry run's matmul FLOPs differ from the real step's")
+    if not peak_rel <= DRYRUN_PEAK_TOL:
+        raise AssertionError(f"the real peak is {peak_rel:.3f} off the prediction")
+    if res["launches"] != want or not math.isfinite(res["loss"]):
+        raise AssertionError(f"the real step launched {res['launches']} != {want}")
+    return res["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -4024,6 +4208,12 @@ def main() -> int:
                 "seconds per phase: " + ", ".join(
                     f"{name} {end - start:.1f}" for (name, start), end in zip(
                         starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--only", "dryrun"]:
+            enter("dry run")
+            phase_dryrun(torch)
+            log("done", f"--only dryrun passed in {time.perf_counter() - t_start:.1f} s")
             print(card)
             return 0
         if sys.argv[1:] == ["--only", "train-ssm"]:
@@ -4107,12 +4297,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         wh_forward_counts, wh_train_counts = run_whisper_phases(torch, enter)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("dry run")
+        phase_dryrun(torch)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-29); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-30); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -4168,4 +4362,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-step"]:
+        sys.exit(dryrun_step_child(sys.argv[2]))
     sys.exit(main())

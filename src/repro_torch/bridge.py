@@ -24,7 +24,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["to_tensor", "state_dict_from_tree"]
+__all__ = ["to_tensor", "state_dict_from_tree", "is_stack"]
 
 
 def to_tensor(arr) -> torch.Tensor:
@@ -43,16 +43,17 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
             out[name] = sub
 
 
-def _is_stack(key: str) -> bool:
+def is_stack(key: str) -> bool:
+    """True for a top-level key whose leaves stack the layers."""
     return key == "layers" or key.endswith("_layers")
 
 
 def state_dict_from_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flatten a reference parameter tree into the port's state_dict."""
     flat: Dict[str, np.ndarray] = {}
-    _flatten({k: v for k, v in tree.items() if not _is_stack(k)}, "", flat)
+    _flatten({k: v for k, v in tree.items() if not is_stack(k)}, "", flat)
     out = {name: to_tensor(arr) for name, arr in flat.items()}
-    for key in (k for k in tree if _is_stack(k)):
+    for key in (k for k in tree if is_stack(k)):
         layers: Dict[str, np.ndarray] = {}
         _flatten(tree[key], "", layers)
         n_layers = {np.shape(arr)[0] for arr in layers.values()}

@@ -15,6 +15,15 @@ tensor maps; the C entry point refuses a layout TMA cannot read, and
 ``flash_attention.launches`` counts forward launches (a recomputed forward
 under ``torch.utils.checkpoint`` counts again);
 ``flash_attention_backward.launches`` counts backward launches.
+
+Each launch is a ``torch.library`` custom op (``repro_torch::
+flash_attention_forward`` and ``repro_torch::flash_attention_backward``)
+with a fake implementation, which gives fake and meta tensors the
+outputs' shapes, dtypes and strides so that the dry run traces the
+kernel's route, and a FLOP formula (:func:`attention_pairs`), the
+operations the kernel's bound counts.  Only fake and meta tensors reach
+the fake implementations.  DTensors run the call on each rank's shards,
+split over batch and heads (:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
@@ -23,15 +32,19 @@ import functools
 import math
 import pathlib
 import struct
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_backward_ref, attention_ref
+from repro_torch.kernels.sharded import local_over_batch_heads
+from repro_torch.sharding.context import is_dtensor
 
 __all__ = ["flash_attention", "flash_attention_backward", "tma_layout_error", "SOURCE",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "attention_pairs"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # The (Dqk, Dv) pairs the CUDA kernels are instantiated for, by dtype: the
@@ -131,17 +144,34 @@ def _scale(d: int, softmax_scale: Optional[float]) -> float:
     return float(softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d))
 
 
-def _forward(q, k, v, causal, window, scale, kv_len, with_lse: bool):
-    """One forward launch: (out, lse or None).  out is (B, S, H, Dv), lse
-    (B, H, S) float32."""
+def attention_pairs(s: int, t: int, causal: bool, window: Optional[int],
+                    kv_len: Optional[int]) -> int:
+    """The (query, key) pairs an attention call computes: key j of query i
+    counts when j < kv_len (default T), j <= i if causal, and j > i -
+    window if windowed (the kernel's mask)."""
+    q = np.arange(s, dtype=np.int64)
+    hi = np.full(s, (t if kv_len is None else kv_len) - 1, dtype=np.int64)
+    if causal:
+        hi = np.minimum(hi, q)
+    lo = np.maximum(q - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@torch.library.custom_op("repro_torch::flash_attention_forward", mutates_args=(),
+                         device_types="cuda")
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                window: Optional[int], scale: float, kv_len: Optional[int],
+                with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One forward launch: (out (B, S, H, Dv), lse (B, H, S) float32, or an
+    empty lse without ``with_lse``)."""
     b, s, h, d = q.shape
     t, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if with_lse else None
+    lse = torch.empty((b, h, s) if with_lse else (0,), dtype=torch.float32, device=dev)
     args = _ENTRY_ARGS.pack(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        0 if lse is None else lse.data_ptr(),
+        lse.data_ptr() if with_lse else 0,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         torch._C._cuda_getCurrentRawStream(dev.index),
         _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv, int(causal),
@@ -155,6 +185,63 @@ def _forward(q, k, v, causal, window, scale, kv_len, with_lse: bool):
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     flash_attention.launches += 1
     return out, lse
+
+
+@_forward_op.register_fake
+def _(q, k, v, causal, window, scale, kv_len, with_lse):
+    b, s, h, _ = q.shape
+    return (q.new_empty((b, s, h, v.shape[3])),
+            q.new_empty((b, h, s) if with_lse else (0,), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_forward)
+def _forward_flops(q_shape, k_shape, v_shape, causal, window, scale, kv_len, with_lse,
+                   *args, **kwargs) -> int:
+    """2 (Dqk + Dv) B H x the pairs: the forward bound's operations."""
+    b, s, h, dqk = q_shape
+    return 2 * (dqk + v_shape[3]) * b * h * attention_pairs(s, k_shape[1], causal, window,
+                                                             kv_len)
+
+
+def _forward(q, k, v, causal, window, scale, kv_len, with_lse: bool):
+    """One forward launch: (out, lse or None).  out is (B, S, H, Dv), lse
+    (B, H, S) float32."""
+    out, lse = _forward_op(q, k, v, causal, window, scale, kv_len, with_lse)
+    return out, lse if with_lse else None
+
+
+def _sharded(q, k, v, **mask):
+    """:func:`flash_attention` on DTensors: each rank's shards, over batch
+    and heads as q is split (after pinning q, k and v to the reference's
+    attention layouts).  When q's heads are split over m ranks and the GQA
+    kv heads do not split m ways, k and v stay whole over those ranks and
+    each rank takes the kv head of each of its query heads (the
+    reference's GQA repeat, per rank)."""
+    from repro_torch.sharding.context import constrain, rank_block
+
+    q = constrain(q, ("batch", None, "heads", None))
+    h, kv = q.shape[2], k.shape[2]
+    mesh = q.device_mesh
+    splits = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
+    m = math.prod(mesh.size(i) for i in splits)
+    attend = functools.partial(flash_attention, **mask)
+    if kv % m == 0:
+        heads = "heads" if kv == h else "kv_heads"
+        k = constrain(k, ("batch", None, heads, None))
+        v = constrain(v, ("batch", None, heads, None))
+        fn, kv_dims = attend, (0, 2)
+    else:
+        k = constrain(k, ("batch", None, None, None))
+        v = constrain(v, ("batch", None, None, None))
+        part = rank_block(mesh, splits)  # this rank's block of query heads
+
+        def fn(q_l, k_l, v_l):
+            h_l = q_l.shape[2]
+            idx = (part * h_l + torch.arange(h_l, device=q_l.device)) // (h // kv)
+            return attend(q_l, k_l[:, :, idx], v_l[:, :, idx])
+
+        kv_dims = (0, None)
+    return local_over_batch_heads(fn, [q, k, v], [(0, 2), kv_dims, kv_dims], [(0, 2)])
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -194,8 +281,12 @@ def flash_attention(
     A CUDA call whose q, k or v requires grad (with grad mode on) keeps each
     row's log-sum-exp and differentiates through
     :func:`flash_attention_backward`; any other CUDA call writes the output
-    only.  CPU tensors take :func:`attention_ref`, under autograd."""
+    only.  CPU tensors take :func:`attention_ref`, under autograd.
+    DTensors compute on each rank's shards (:func:`_sharded`)."""
     _check(q, k, v, kv_len, window)
+    if is_dtensor(q):
+        return _sharded(q, k, v, causal=causal, window=window, softmax_scale=softmax_scale,
+                        kv_len=kv_len)
     if q.device.type == "cpu":
         return attention_ref(
             q, k, v, causal=causal, window=window, softmax_scale=softmax_scale, kv_len=kv_len
@@ -249,6 +340,19 @@ def flash_attention_backward(
     _cuda_checks(q, k, v)
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("out and dout must have q's dtype, lse float32")
+    return tuple(_backward_op(q, k, v, out, lse, dout, causal, window,
+                              _scale(d, softmax_scale), kv_len))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=(),
+                         device_types="cuda")
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                 lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: Optional[int],
+                 scale: float, kv_len: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor,
+                                                               torch.Tensor]:
+    """One backward launch (three kernels): (dq, dk, dv)."""
+    b, s, h, d = q.shape
+    t, kv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
     bf16 = q.dtype == torch.bfloat16
     if dout.stride(-1) != 1 or (bf16 and _layout_error(dout)):
         # dO is the one operand autograd shapes: a copy, not a fallback.
@@ -269,7 +373,7 @@ def flash_attention_backward(
         torch._C._cuda_getCurrentRawStream(dev.index),
         _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv_dim, int(causal),
         0 if window is None else int(window), t if kv_len is None else int(kv_len),
-        _scale(d, softmax_scale),
+        scale,
     )
     rc = _call("flash_attention_backward", dev, args)
     if rc == _TENSOR_MAP_REJECTED:
@@ -278,6 +382,22 @@ def flash_attention_backward(
         raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {rc}")
     flash_attention_backward.launches += 1
     return dq, dk, dv
+
+
+@_backward_op.register_fake
+def _(q, k, v, out, lse, dout, causal, window, scale, kv_len):
+    b, t, kv = k.shape[:3]
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, t, kv, q.shape[3])), q.new_empty((b, t, kv, v.shape[3])))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _backward_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape, causal,
+                    window, scale, kv_len, *args, **kwargs) -> int:
+    """2 (3 Dqk + 2 Dv) B H x the pairs: the backward bound's operations."""
+    b, s, h, dqk = q_shape
+    return 2 * (3 * dqk + 2 * v_shape[3]) * b * h * attention_pairs(s, k_shape[1], causal,
+                                                                     window, kv_len)
 
 
 flash_attention_backward.launches = 0

@@ -107,4 +107,5 @@ def attention_backward_ref(
     dv = torch.einsum("bkrst,bskrd->btkd", probs, do_g)
     dk = torch.einsum("bkrst,bskrd->btkd", ds, q.float().reshape(b, s, kv, r, d)) * scale
     dq = torch.einsum("bkrst,btkd->bskrd", ds, k.float()) * scale
-    return dq.reshape(b, s, h, d).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    # Contiguous, as the backward kernel writes them.
+    return tuple(x.to(q.dtype).contiguous() for x in (dq.reshape(b, s, h, d), dk, dv))

@@ -18,6 +18,13 @@ version.
 
 ``wkv.launches`` counts calls that launch the kernel's passes, and
 ``wkv_backward.launches`` calls that launch the backward kernel.
+
+Each launch is a ``torch.library`` custom op (``repro_torch::wkv_forward``,
+``repro_torch::wkv_backward``) with a fake implementation for fake and
+meta tensors (the dry run's kernel route) and a FLOP formula, the
+operations the kernel's bound counts.  DTensors run the call on each
+rank's shards, split over batch and heads
+(:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
@@ -28,9 +35,12 @@ import struct
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_backward_ref, wkv_chunked
+from repro_torch.kernels.sharded import local_over_batch_heads
+from repro_torch.sharding.context import is_dtensor
 
 __all__ = [
     "wkv", "wkv_with_chunk_states", "wkv_backward", "layout_error", "SOURCE", "BACKWARD_SOURCE",
@@ -41,6 +51,7 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 BACKWARD_SOURCE = SOURCE.with_name("wkv_backward.cu")
 HEAD_SIZE = 64
 MAX_CHUNK = 64
+BACKWARD_CHUNK = 32  # the backward kernel's chunk (kChunk in wkv_backward.cu)
 _REJECTED = -1  # the C entry's code for a head size, chunk or layout it does not take
 
 # The C entry's argument block (``EntryArgs`` in the source): r, k, v,
@@ -122,7 +133,9 @@ def _rejected(r, k, v, log_w, c) -> ValueError:
                       f"{'; '.join(why) or 'r, k, v or log_w'}")
 
 
-def _launch(r, k, v, log_w, u, chunk):
+@torch.library.custom_op("repro_torch::wkv_forward", mutates_args=(), device_types="cuda")
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+            u: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Both passes on the card; returns (out, final state, scratch), the
     scratch starting with the chunk states."""
     b, t, h, kk = r.shape
@@ -151,13 +164,33 @@ def _launch(r, k, v, log_w, u, chunk):
     return out, state, scratch
 
 
+@_launch.register_fake
+def _(r, k, v, log_w, u, chunk):
+    b, t, h, kk = r.shape
+    n_chunks = -(-t // min(chunk, t))
+    return (r.new_empty((b, t, h, kk), dtype=torch.float32),
+            r.new_empty((b, h, kk, kk), dtype=torch.float32),
+            r.new_empty((b * h * n_chunks * (kk * kk + 1),), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv_forward)
+def _launch_flops(r_shape, *args, **kwargs) -> int:
+    """4 K^2 per token and head: the forward bound's operations."""
+    b, t, h, kk = r_shape
+    return 4 * kk * kk * b * t * h
+
+
 def wkv(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
     *, chunk: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/log_w: (B, T, H, K) float32; u: (H, K) float32.
-    Returns (out (B, T, H, K), final state (B, H, K, K) float32)."""
+    Returns (out (B, T, H, K), final state (B, H, K, K) float32).
+    DTensors compute on each rank's shards."""
     _check(r, k, v, log_w, u, chunk)
+    if is_dtensor(r):
+        return local_over_batch_heads(functools.partial(wkv, chunk=chunk), [r, k, v, log_w, u],
+                                      [(0, 2)] * 4 + [(None, 0)], [(0, 2), (0, 1)])
     if r.device.type == "cpu":
         return wkv_chunked(r, k, v, log_w, u, chunk=chunk)
     if r.device.type != "cuda":
@@ -191,7 +224,12 @@ class _WKV(torch.autograd.Function):
         return (*grads, None)
 
 
-def _launch_backward(r, k, v, log_w, u, state, d_out, d_state, chunk):
+@torch.library.custom_op("repro_torch::wkv_backward", mutates_args=(), device_types="cuda")
+def _launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+                     u: torch.Tensor, state: torch.Tensor, d_out: torch.Tensor,
+                     d_state: Optional[torch.Tensor], chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
     """The backward kernel on ``r``'s device: (dr, dk, dv, dlog_w, du)."""
     b, t, h, kk = r.shape
     dev = r.device
@@ -220,6 +258,21 @@ def _launch_backward(r, k, v, log_w, u, state, d_out, d_state, chunk):
         raise RuntimeError(f"wkv backward kernel launch failed: cudaError {rc}")
     wkv_backward.launches += 1
     return (*grads, du)
+
+
+@_launch_backward.register_fake
+def _(r, k, v, log_w, u, state, d_out, d_state, chunk):
+    b, t, h, kk = r.shape
+    grads = [r.new_empty((b, t, h, kk), dtype=torch.float32) for _ in range(4)]
+    return (*grads, r.new_empty((h, kk), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv_backward)
+def _launch_backward_flops(r_shape, *args, **kwargs) -> int:
+    """2 (5 K^2 + 6 C K) per token and head at the backward's chunk C: the
+    backward bound's operations (the chunked form's)."""
+    b, t, h, kk = r_shape
+    return 2 * (5 * kk * kk + 6 * BACKWARD_CHUNK * kk) * b * t * h
 
 
 def wkv_backward(

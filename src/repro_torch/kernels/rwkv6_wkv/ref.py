@@ -109,7 +109,7 @@ def wkv_chunked(
         )
         outs.append(out)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, t + pad, h, kk)[:, :t]
-    return out.to(r.dtype), s
+    return out.to(r.dtype).contiguous(), s  # contiguous, as the kernel writes it
 
 
 def _by_chunk(x: torch.Tensor, c: int) -> torch.Tensor:

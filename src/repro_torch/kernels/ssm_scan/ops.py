@@ -20,6 +20,13 @@ differentiate through the plain version.
 
 ``ssm_scan.launches`` counts calls that launch the kernel, one per call,
 and ``ssm_scan_backward.launches`` calls that launch the backward kernel.
+
+Each launch is a ``torch.library`` custom op
+(``repro_torch::ssm_scan_forward``, ``repro_torch::ssm_scan_backward``)
+with a fake implementation for fake and meta tensors (the dry run's
+kernel route) and a FLOP formula, the operations the kernel's bound
+counts.  DTensors run the call on each rank's shards, split over batch and
+channels (:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
@@ -30,8 +37,11 @@ import struct
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
+from repro_torch.kernels.sharded import local_over_batch_heads
+from repro_torch.sharding.context import is_dtensor
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_backward_ref
 
 __all__ = [
@@ -111,8 +121,13 @@ def ssm_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, T, D), final state (B, D, N)), both float32.  ``chunk``
     is the reference's time tile; the CUDA kernel takes chunks of at most
-    ``MAX_CHUNK`` and picks its own tiles, which do not change the result."""
+    ``MAX_CHUNK`` and picks its own tiles, which do not change the result.
+    DTensors compute on each rank's shards (over batch and channels)."""
     _check(u, dt, b_t, c_t, log_a, chunk)
+    if is_dtensor(u):
+        return local_over_batch_heads(
+            functools.partial(ssm_scan, chunk=chunk), [u, dt, b_t, c_t, log_a],
+            [(0, 2), (0, 2), (0, None), (0, None), (None, 0)], [(0, 2), (0, 1)])
     if u.device.type == "cpu":
         return selective_scan_ref(u, dt, log_a, b_t, c_t)
     if u.device.type != "cuda":
@@ -120,7 +135,7 @@ def ssm_scan(
     _cuda_checks(u, dt, b_t, c_t, chunk)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (u, dt, b_t, c_t, log_a)):
         return _SSMScan.apply(u, dt, b_t, c_t, log_a, chunk)
-    return _launch(u, dt, b_t, c_t, log_a, chunk)
+    return _launch(u, dt, b_t, c_t, log_a, chunk, False)[:2]
 
 
 def _cuda_checks(u, dt, b_t, c_t, chunk) -> None:
@@ -139,20 +154,26 @@ def _tile_shape(u, n):
     return bsz, -(-t // BACKWARD_TILE), d, n
 
 
-def _launch(u, dt, b_t, c_t, log_a, chunk, tiles=None):
-    """The forward kernel on ``u``'s device: (y, final state); with
-    ``tiles`` it also writes the state entering every ``BACKWARD_TILE``
-    steps there."""
+@torch.library.custom_op("repro_torch::ssm_scan_forward", mutates_args=(), device_types="cuda")
+def _launch(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+            log_a: torch.Tensor, chunk: int, with_tiles: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel on ``u``'s device: (y, final state, tiles); with
+    ``with_tiles`` it also writes the state entering every
+    ``BACKWARD_TILE`` steps into tiles (B, ceil(T / 64), D, N), which is
+    empty without."""
     bsz, t, d = u.shape
     n = b_t.shape[2]
     c = min(chunk, t)
     log_a = log_a.contiguous()
     y = torch.empty((bsz, t, d), dtype=torch.float32, device=u.device)
     h = torch.empty((bsz, d, n), dtype=torch.float32, device=u.device)
+    tiles = torch.empty(_tile_shape(u, n) if with_tiles else (0,), dtype=torch.float32,
+                        device=u.device)
     dev = u.device
     args = _ENTRY_ARGS.pack(
         u.data_ptr(), dt.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), h.data_ptr(), 0 if tiles is None else tiles.data_ptr(),
+        y.data_ptr(), h.data_ptr(), tiles.data_ptr() if with_tiles else 0,
         *u.stride()[:2], *dt.stride()[:2], *b_t.stride()[:2], *c_t.stride()[:2],
         _stream(dev),
         bsz, t, d, n, c, 0,
@@ -165,7 +186,22 @@ def _launch(u, dt, b_t, c_t, log_a, chunk, tiles=None):
     if rc != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {rc}")
     ssm_scan.launches += 1
-    return y, h
+    return y, h, tiles
+
+
+@_launch.register_fake
+def _(u, dt, b_t, c_t, log_a, chunk, with_tiles):
+    bsz, t, d = u.shape
+    n = b_t.shape[2]
+    return (u.new_empty((bsz, t, d)), u.new_empty((bsz, d, n)),
+            u.new_empty(_tile_shape(u, n) if with_tiles else (0,)))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan_forward)
+def _launch_flops(u_shape, dt_shape, b_shape, *args, **kwargs) -> int:
+    """7 per (token, channel, state): the forward bound's operations."""
+    bsz, t, d = u_shape
+    return 7 * bsz * t * d * b_shape[2]
 
 
 class _SSMScan(torch.autograd.Function):
@@ -177,8 +213,7 @@ class _SSMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u, dt, b_t, c_t, log_a, chunk):
-        tiles = torch.empty(_tile_shape(u, b_t.shape[2]), dtype=torch.float32, device=u.device)
-        y, h = _launch(u, dt, b_t, c_t, log_a, chunk, tiles)
+        y, h, tiles = _launch(u, dt, b_t, c_t, log_a, chunk, True)
         ctx.save_for_backward(u, dt, b_t, c_t, log_a, tiles)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
@@ -206,13 +241,18 @@ def ssm_scan_tile_states(
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_tile_states runs on cuda only, not {u.device.type}")
     _cuda_checks(u, dt, b_t, c_t, chunk)
-    tiles = torch.empty(_tile_shape(u, b_t.shape[2]), dtype=torch.float32, device=u.device)
-    y, h = _launch(u, dt, b_t, c_t, log_a, chunk, tiles)
-    return y, h, tiles
+    return _launch(u, dt, b_t, c_t, log_a, chunk, True)
 
 
-def _launch_backward(u, dt, b_t, c_t, log_a, dy, dh, chunk, tiles):
-    """The backward kernel on ``u``'s device: (du, ddt, db_t, dc_t, dlog_a)."""
+@torch.library.custom_op("repro_torch::ssm_scan_backward", mutates_args=(),
+                         device_types="cuda")
+def _launch_backward(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+                     log_a: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor],
+                     chunk: int, tiles: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """The backward kernel on ``u``'s device, from the forward's ``tiles``:
+    (du, ddt, db_t, dc_t, dlog_a)."""
     bsz, t, d = u.shape
     n = b_t.shape[2]
     dev = u.device
@@ -225,11 +265,6 @@ def _launch_backward(u, dt, b_t, c_t, log_a, dy, dh, chunk, tiles):
     outs = [torch.empty((bsz, t, d), dtype=torch.float32, device=dev) for _ in range(2)]
     outs += [torch.empty((bsz, t, n), dtype=torch.float32, device=dev) for _ in range(2)]
     outs.append(torch.empty((d, n), dtype=torch.float32, device=dev))
-    if tiles is None:
-        _, _, tiles = ssm_scan_tile_states(u, dt, b_t, c_t, log_a, chunk=chunk)
-    elif tiles.shape != _tile_shape(u, n) or tiles.dtype != torch.float32 or not (
-            tiles.is_contiguous() and tiles.device == dev):
-        raise ValueError(f"tiles must be float32 {_tile_shape(u, n)}, contiguous on {dev}")
     scratch = torch.empty(scratch_floats(bsz, t, d), dtype=torch.float32, device=dev)
     inputs = (u, dt, b_t, c_t, dy)
     args = _BACKWARD_ARGS.pack(
@@ -246,6 +281,21 @@ def _launch_backward(u, dt, b_t, c_t, log_a, dy, dh, chunk, tiles):
         raise RuntimeError(f"ssm_scan backward kernel launch failed: cudaError {rc}")
     ssm_scan_backward.launches += 1
     return tuple(outs)
+
+
+@_launch_backward.register_fake
+def _(u, dt, b_t, c_t, log_a, dy, dh, chunk, tiles):
+    bsz, t, d = u.shape
+    n = b_t.shape[2]
+    return (u.new_empty((bsz, t, d)), u.new_empty((bsz, t, d)), u.new_empty((bsz, t, n)),
+            u.new_empty((bsz, t, n)), u.new_empty((d, n)))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan_backward)
+def _launch_backward_flops(u_shape, dt_shape, b_shape, *args, **kwargs) -> int:
+    """16 per (token, channel, state): the backward bound's operations."""
+    bsz, t, d = u_shape
+    return 16 * bsz * t * d * b_shape[2]
 
 
 def ssm_scan_backward(
@@ -270,6 +320,12 @@ def ssm_scan_backward(
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_backward runs on cuda or cpu, not {u.device.type}")
     _cuda_checks(u, dt, b_t, c_t, chunk)
+    n = b_t.shape[2]
+    if tiles is None:
+        _, _, tiles = ssm_scan_tile_states(u, dt, b_t, c_t, log_a, chunk=chunk)
+    elif tiles.shape != _tile_shape(u, n) or tiles.dtype != torch.float32 or not (
+            tiles.is_contiguous() and tiles.device == u.device):
+        raise ValueError(f"tiles must be float32 {_tile_shape(u, n)}, contiguous on {u.device}")
     return _launch_backward(u, dt, b_t, c_t, log_a, dy.float(), dh, chunk, tiles)
 
 

@@ -1,9 +1,8 @@
-"""Launchers: the node mesh and the training CLI (``python -m
-repro_torch.launch.train``).
+"""Launchers: the node mesh, the production meshes, the training CLI
+(``python -m repro_torch.launch.train``) and the dry run (``python -m
+repro_torch.launch.dryrun``).
 
-The counterpart of ``repro/launch``.  The reference's production meshes
-and rule assembly (``make_production_mesh``, ``make_rules``) and its
-multi-pod dry run wait for the dry run's port.
+The counterpart of ``repro/launch``.
 """
 from repro_torch.launch.mesh import make_node_mesh, node_shard_count
 

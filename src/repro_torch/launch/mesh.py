@@ -15,29 +15,54 @@ counterpart of the reference's one-device mesh).  It lives until
 :func:`release_world_of_one` shuts it down.  Nothing here moves work to
 the CPU: a card that is not there raises.
 
-The TPU production layouts (``make_production_mesh``, ``make_rules``) wait
-for the dry run.
+The production layouts of the dry run (:mod:`repro_torch.launch.dryrun`):
+:func:`make_production_mesh` lays a ``DeviceMesh`` named ``("data",
+"model")`` over 256 ranks, or ``("pod", "data", "model")`` over 512, of a
+``torch.distributed`` fake process group (no process, card or
+communicator behind any rank but this one), and :func:`make_rules`
+assembles the reference's ``MeshRules`` for one (mesh, arch, shape kind).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.sharding.rules import MeshRules
 
 __all__ = [
     "NodeMesh",
     "make_node_mesh",
     "release_world_of_one",
+    "make_fake_mesh",
+    "make_production_mesh",
+    "make_rules",
     "mesh_axis_sizes",
     "node_shard_count",
     "train_microbatches",
+    "FSDP_ARCHS",
     "TRAIN_MICROBATCHES",
 ]
+
+# Archs whose parameter+optimizer state exceeds per-chip memory under
+# 16-way TP alone: shard the d_model dim of large matrices over the data
+# axis (FSDP / ZeRO-3-style).
+FSDP_ARCHS = {
+    "deepseek-v2-236b",
+    "chameleon-34b",
+    "internlm2-20b",
+    "mixtral-8x7b",
+}
+
+# The production meshes: 16 x 16 ranks in one pod, 2 x 16 x 16 over two.
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+FAKE_WORLD = 512
 
 # Gradient-accumulation microbatches for train_4k (global batch 256).
 TRAIN_MICROBATCHES = {
@@ -133,8 +158,84 @@ class NodeMesh:
         float(self.all_reduce_(flag)[0])
 
 
-def mesh_axis_sizes(mesh: NodeMesh) -> dict:
-    return {"nodes": mesh.shards}
+def mesh_axis_sizes(mesh) -> dict:
+    """Axis name -> extent: a :class:`NodeMesh`'s ``nodes`` axis, or a
+    ``DeviceMesh``'s named dims."""
+    if isinstance(mesh, NodeMesh):
+        return {"nodes": mesh.shards}
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def _fake_world(world: int) -> None:
+    """Make a fake process group of ``world`` ranks this process's
+    default group (this process is rank 0), unless one is."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() < world:
+            raise RuntimeError(
+                "the production meshes need a fake default group of at least "
+                f"{world} ranks; this process already has a {dist.get_backend()} "
+                f"group of {dist.get_world_size()}")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+
+
+def make_fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], *, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``names`` over the first ranks of
+    a fake default group of 512 ranks (made here if the process has none;
+    this process is rank 0).  ``device_type`` is where this rank's shards
+    live: ``"cuda"`` (the kernels' route) needs a card."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if device_type == "cuda":
+        resolve_device("cuda")
+    _fake_world(FAKE_WORLD)
+    ranks = torch.arange(math.prod(shape)).reshape(shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The single-pod ``(16, 16)`` ``("data", "model")`` mesh over ranks
+    0-255, or the multi-pod ``(2, 16, 16)`` ``("pod", "data", "model")``
+    one over 0-511 (:func:`make_fake_mesh`)."""
+    shape, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    return make_fake_mesh(shape, names, device_type=device_type)
+
+
+def make_rules(
+    mesh,
+    arch_id: str,
+    *,
+    kind: str = "train",
+    global_batch: Optional[int] = None,
+) -> MeshRules:
+    """MeshRules for one (mesh, arch, shape-kind) combination.
+
+    Decode KV caches shard their sequence dim over the model axis
+    (flash-decode style); when the batch is too small to occupy the data
+    axis (long_500k: B=1) the cache sequence also spreads over data.
+    """
+    sizes = mesh_axis_sizes(mesh)
+    multi = "pod" in sizes
+    batch_axes: Tuple[str, ...] = ("pod", "data") if multi else ("data",)
+    cache_seq: Tuple[str, ...] = ("model",)
+    if kind == "decode" and global_batch is not None:
+        data_extent = sizes["data"] * (sizes.get("pod", 1))
+        if global_batch < data_extent:
+            cache_seq = ("pod", "data", "model") if multi else ("data", "model")
+    fsdp = "data" if arch_id in FSDP_ARCHS else None
+    # Expert parallelism (experts sharded over the model axis) pays off when
+    # E >= model-axis extent: deepseek's 160 experts.
+    experts_axis = "model" if arch_id == "deepseek-v2-236b" else None
+    return MeshRules(
+        mesh_axes=sizes,
+        batch_axes=batch_axes,
+        model_axis="model",
+        fsdp_axis=fsdp,
+        cache_seq_axes=cache_seq,
+        experts_axis=experts_axis,
+    )
 
 
 def _world_of_one(device: torch.device):

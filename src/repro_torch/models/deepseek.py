@@ -104,15 +104,15 @@ def mla_schema(cfg: DeepSeekConfig) -> Dict[str, Param]:
     qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "w_dq": Param((d, qr)),
-        "q_norm": Param((qr,), init="ones"),
-        "w_uq": Param((qr, h, dn + dr)),
-        "w_dkv": Param((d, kr)),
-        "kv_norm": Param((kr,), init="ones"),
-        "w_kr": Param((d, dr)),
-        "w_uk": Param((kr, h, dn)),
-        "w_uv": Param((kr, h, dv)),
-        "wo": Param((h, dv, d)),
+        "w_dq": Param((d, qr), ("embed", None)),
+        "q_norm": Param((qr,), (None,), init="ones"),
+        "w_uq": Param((qr, h, dn + dr), (None, "heads", None)),
+        "w_dkv": Param((d, kr), ("embed", None)),
+        "kv_norm": Param((kr,), (None,), init="ones"),
+        "w_kr": Param((d, dr), ("embed", None)),
+        "w_uk": Param((kr, h, dn), (None, "heads", None)),
+        "w_uv": Param((kr, h, dv), (None, "heads", None)),
+        "wo": Param((h, dv, d), ("heads", None, "embed")),
     }
 
 
@@ -120,14 +120,14 @@ def layer_schema(cfg: DeepSeekConfig, *, dense: bool) -> Dict[str, object]:
     d = cfg.d_model
     s: Dict[str, object] = {
         "attn": mla_schema(cfg),
-        "attn_norm": Param((d,), init="ones"),
-        "mlp_norm": Param((d,), init="ones"),
+        "attn_norm": Param((d,), (None,), init="ones"),
+        "mlp_norm": Param((d,), (None,), init="ones"),
     }
     if dense:
         s["mlp"] = {
-            "w_gate": Param((d, cfg.d_ff_dense)),
-            "w_up": Param((d, cfg.d_ff_dense)),
-            "w_down": Param((cfg.d_ff_dense, d)),
+            "w_gate": Param((d, cfg.d_ff_dense), ("embed", "ff")),
+            "w_up": Param((d, cfg.d_ff_dense), ("embed", "ff")),
+            "w_down": Param((cfg.d_ff_dense, d), ("ff", "embed")),
         }
     else:
         s["moe"] = moe_layer_schema(cfg.moe)
@@ -138,11 +138,11 @@ def schema(cfg: DeepSeekConfig) -> Dict[str, object]:
     """The reference's parameter tree: the dense layer 0 apart, the MoE
     layers stacked on a leading dim."""
     return {
-        "embed": Param((cfg.vocab, cfg.d_model), init="embed"),
+        "embed": Param((cfg.vocab, cfg.d_model), ("vocab", None), init="embed"),
         "dense_layer": layer_schema(cfg, dense=True),
         "layers": common.stacked(layer_schema(cfg, dense=False), cfg.n_layers - 1),
-        "final_norm": Param((cfg.d_model,), init="ones"),
-        "lm_head": Param((cfg.d_model, cfg.vocab)),
+        "final_norm": Param((cfg.d_model,), (None,), init="ones"),
+        "lm_head": Param((cfg.d_model, cfg.vocab), ("embed", "vocab")),
     }
 
 
@@ -205,10 +205,11 @@ class DeepSeekModel(nn.Module):
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self.embed[tokens].to(self.cfg.compute_dtype)
+        x = common.embedding(self.embed, tokens).to(self.cfg.compute_dtype)
+        return common.constrain(x, ("batch", None, None))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = common.rms_norm(x, self.final_norm)
+        x = common.block_input(common.rms_norm(x, self.final_norm))
         return (x @ self.lm_head.to(self.cfg.compute_dtype)).float()
 
     def _run(self, tokens, *, remat: bool, attend: Attend):
@@ -266,8 +267,7 @@ MODEL = DeepSeekModel
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, r) x w (r, h, k) -> (B, S, h, k)."""
-    r, h, k = w.shape
-    return (x @ w.reshape(r, h * k)).view(*x.shape[:-1], h, k)
+    return common.heads(x, w)
 
 
 def _mla_full(ap, x: torch.Tensor, positions: torch.Tensor, cfg: DeepSeekConfig,
@@ -275,15 +275,16 @@ def _mla_full(ap, x: torch.Tensor, positions: torch.Tensor, cfg: DeepSeekConfig,
     """Full-sequence MLA: per-head q, k (``qk_dim``) and v (``v_head_dim``)
     from the latents, attention, then the output projection."""
     dn = cfg.qk_nope_dim
-    q = _heads(common.rms_norm(x @ ap["w_dq"], ap["q_norm"]), ap["w_uq"])
+    q = _heads(common.block_input(common.rms_norm(x @ ap["w_dq"], ap["q_norm"])), ap["w_uq"])
     q = torch.cat([q[..., :dn], common.apply_rope(q[..., dn:], positions, cfg.rope_theta)], -1)
-    c_kv = common.rms_norm(x @ ap["w_dkv"], ap["kv_norm"])
+    c_kv = common.block_input(common.rms_norm(x @ ap["w_dkv"], ap["kv_norm"]))
     k_rope = common.apply_rope((x @ ap["w_kr"])[:, :, None, :], positions, cfg.rope_theta)
     k_nope = _heads(c_kv, ap["w_uk"])
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], cfg.qk_rope_dim)], -1)
     attn = attend(q, k, _heads(c_kv, ap["w_uv"]))
     wo = ap["wo"]
-    return attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return common.constrain(attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]),
+                            ("batch", None, None))
 
 
 def _mla_absorbed(ap, x: torch.Tensor, c_cache: torch.Tensor, kr_cache: torch.Tensor,
@@ -294,10 +295,13 @@ def _mla_absorbed(ap, x: torch.Tensor, c_cache: torch.Tensor, kr_cache: torch.Te
     positions = torch.full((1,), pos, device=x.device)
     q = _heads(common.rms_norm(x @ ap["w_dq"], ap["q_norm"]), ap["w_uq"])  # (B,1,H,dn+dr)
     q_rope = common.apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    c_cache[:, pos:pos + 1] = common.rms_norm(x @ ap["w_dkv"], ap["kv_norm"])
-    kr_cache[:, pos:pos + 1] = common.apply_rope(
-        (x @ ap["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
-    c, kr = c_cache[:, :pos + 1], kr_cache[:, :pos + 1]
+    common.write_slot(c_cache, common.rms_norm(x @ ap["w_dkv"], ap["kv_norm"]), pos)
+    common.write_slot(kr_cache, common.apply_rope(
+        (x @ ap["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :], pos)
+    c = common.constrain(c_cache, ("batch", "cache_seq", None))
+    kr = common.constrain(kr_cache, ("batch", "cache_seq", None))
+    if pos + 1 < c.shape[1]:  # a full cache is read whole, unsliced
+        c, kr = c[:, :pos + 1], kr[:, :pos + 1]
     # W_uk absorbed into the query: q_eff (B, H, kv_lora).
     q_eff = torch.einsum("bshk,chk->bhc", q[..., :dn], ap["w_uk"])
     scores = torch.einsum("bhc,btc->bht", q_eff.float(), c.float())
@@ -313,9 +317,11 @@ def _ffn(lp: DeepSeekLayer, h: torch.Tensor, cfg: DeepSeekConfig):
     ``(out, lb_loss, z_loss, drop_frac)``."""
     if lp.dense:
         mp = lp.mlp
-        return (common.swiglu(h @ mp["w_gate"], h @ mp["w_up"]) @ mp["w_down"],)
+        return (common.constrain(common.swiglu(h @ mp["w_gate"], h @ mp["w_up"]) @ mp["w_down"],
+                                 ("batch", None, None)),)
     out, stats = moe_apply(lp.moe, h, cfg.moe)
-    return (out,) + tuple(stats[key] for key in STAT_KEYS)
+    return (common.constrain(out, ("batch", None, None)),) + tuple(
+        stats[key] for key in STAT_KEYS)
 
 
 def _layer(lp: DeepSeekLayer, x: torch.Tensor, *, positions: torch.Tensor,
@@ -323,8 +329,9 @@ def _layer(lp: DeepSeekLayer, x: torch.Tensor, *, positions: torch.Tensor,
     """One layer: ``(x,)`` for the dense layer 0, ``(x, lb_loss, z_loss,
     drop_frac)`` for a MoE layer, a tuple so that ``torch.utils.checkpoint``
     carries the stats' gradients."""
-    x = x + _mla_full(lp.attn, common.rms_norm(x, lp.attn_norm), positions, cfg, attend)
-    out, *stats = _ffn(lp, common.rms_norm(x, lp.mlp_norm), cfg)
+    h = common.block_input(common.rms_norm(x, lp.attn_norm))
+    x = x + _mla_full(lp.attn, h, positions, cfg, attend)
+    out, *stats = _ffn(lp, common.block_input(common.rms_norm(x, lp.mlp_norm)), cfg)
     return (x + out, *stats)
 
 

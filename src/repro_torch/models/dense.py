@@ -82,39 +82,40 @@ def layer_schema(cfg: DenseConfig) -> Dict[str, object]:
     d, h, kv, dh, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     s: Dict[str, object] = {
         "attn": {
-            "wq": Param((d, h, dh)),
-            "wk": Param((d, kv, dh)),
-            "wv": Param((d, kv, dh)),
-            "wo": Param((h, dh, d)),
+            "wq": Param((d, h, dh), ("embed", "heads", None)),
+            "wk": Param((d, kv, dh), ("embed", "kv_heads", None)),
+            "wv": Param((d, kv, dh), ("embed", "kv_heads", None)),
+            "wo": Param((h, dh, d), ("heads", None, "embed")),
         },
     }
     if cfg.qk_norm:
-        s["attn"]["q_norm"] = Param((dh,), init="ones")
-        s["attn"]["k_norm"] = Param((dh,), init="ones")
+        s["attn"]["q_norm"] = Param((dh,), (None,), init="ones")
+        s["attn"]["k_norm"] = Param((dh,), (None,), init="ones")
     if cfg.act == "swiglu":
         s["mlp"] = {
-            "w_gate": Param((d, ff)),
-            "w_up": Param((d, ff)),
-            "w_down": Param((ff, d)),
+            "w_gate": Param((d, ff), ("embed", "ff")),
+            "w_up": Param((d, ff), ("embed", "ff")),
+            "w_down": Param((ff, d), ("ff", "embed")),
         }
     else:
-        s["mlp"] = {"w_in": Param((d, ff)), "w_down": Param((ff, d))}
+        s["mlp"] = {"w_in": Param((d, ff), ("embed", "ff")),
+                    "w_down": Param((ff, d), ("ff", "embed"))}
     if cfg.norm == "rmsnorm":
-        s["attn_norm"] = Param((d,), init="ones")
-        s["mlp_norm"] = Param((d,), init="ones")
+        s["attn_norm"] = Param((d,), (None,), init="ones")
+        s["mlp_norm"] = Param((d,), (None,), init="ones")
     return s
 
 
 def schema(cfg: DenseConfig) -> Dict[str, object]:
     """The reference's parameter tree, layers stacked on a leading dim."""
     s: Dict[str, object] = {
-        "embed": Param((cfg.vocab, cfg.d_model), init="embed"),
+        "embed": Param((cfg.vocab, cfg.d_model), ("vocab", None), init="embed"),
         "layers": common.stacked(layer_schema(cfg), cfg.n_layers),
     }
     if cfg.norm == "rmsnorm":
-        s["final_norm"] = Param((cfg.d_model,), init="ones")
+        s["final_norm"] = Param((cfg.d_model,), (None,), init="ones")
     if not cfg.tie_embeddings:
-        s["lm_head"] = Param((cfg.d_model, cfg.vocab))
+        s["lm_head"] = Param((cfg.d_model, cfg.vocab), ("embed", "vocab"))
     return s
 
 
@@ -170,10 +171,11 @@ class DenseModel(nn.Module):
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self.embed[tokens].to(self.cfg.compute_dtype)
+        x = common.embedding(self.embed, tokens).to(self.cfg.compute_dtype)
+        return common.constrain(x, ("batch", None, None))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = _norm(x, self.final_norm, self.cfg)
+        x = common.block_input(_norm(x, self.final_norm, self.cfg))
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return (x @ head.to(self.cfg.compute_dtype)).float()
 
@@ -297,16 +299,15 @@ def _mlp(lp: DenseLayer, x: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
     return hidden @ lp.mlp["w_down"]
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _heads(x: torch.Tensor, w: torch.Tensor, axis: str = "heads") -> torch.Tensor:
     """x (B, S, d) x w (d, h, dh) -> (B, S, h, dh)."""
-    d, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
+    return common.heads(x, w, axis)
 
 
 def _qkv(lp: DenseLayer, x: torch.Tensor, positions: torch.Tensor, cfg: DenseConfig):
     q = _heads(x, lp.attn["wq"])
-    k = _heads(x, lp.attn["wk"])
-    v = _heads(x, lp.attn["wv"])
+    k = _heads(x, lp.attn["wk"], "kv_heads")
+    v = _heads(x, lp.attn["wv"], "kv_heads")
     if cfg.qk_norm:
         q = common.rms_norm(q, lp.attn["q_norm"])
         k = common.rms_norm(k, lp.attn["k_norm"])
@@ -321,13 +322,16 @@ Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 def _layer(
     lp: DenseLayer, x: torch.Tensor, positions: torch.Tensor, cfg: DenseConfig, attend: Attend
 ) -> torch.Tensor:
-    h = _norm(x, lp.attn_norm, cfg)
+    h = common.block_input(_norm(x, lp.attn_norm, cfg))
     q, k, v = _qkv(lp, h, positions, cfg)
     attn = attend(q, k, v)
     wo = lp.attn["wo"]
-    x = x + attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
-    h = _norm(x, lp.mlp_norm, cfg)
-    return x + _mlp(lp, h, cfg)
+    # Under a sharding context the two projections' partial sums are
+    # reduced into the replicated residual stream (a no-op otherwise).
+    x = x + common.constrain(attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]),
+                             ("batch", None, None))
+    h = common.block_input(_norm(x, lp.mlp_norm, cfg))
+    return x + common.constrain(_mlp(lp, h, cfg), ("batch", None, None))
 
 
 # ---------------------------------------------------------------------------

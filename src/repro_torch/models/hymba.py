@@ -112,31 +112,31 @@ def layer_schema(cfg: HymbaConfig) -> Dict[str, object]:
     di, n, dtr = cfg.inner, cfg.ssm_state, cfg.dtr
     return {
         "attn": {
-            "wq": Param((d, h, dh)),
-            "wk": Param((d, kv, dh)),
-            "wv": Param((d, kv, dh)),
-            "wo": Param((h, dh, d)),
+            "wq": Param((d, h, dh), ("embed", "heads", None)),
+            "wk": Param((d, kv, dh), ("embed", "kv_heads", None)),
+            "wv": Param((d, kv, dh), ("embed", "kv_heads", None)),
+            "wo": Param((h, dh, d), ("heads", None, "embed")),
         },
         "ssm": {
-            "w_in": Param((d, 2 * di)),
-            "conv_w": Param((cfg.conv_kernel, di)),
-            "conv_b": Param((di,), init="zeros"),
-            "w_dt_in": Param((di, dtr)),
-            "w_dt_out": Param((dtr, di)),
-            "dt_bias": Param((di,), init="zeros"),
-            "w_bc": Param((di, 2 * n)),
-            "log_a": Param((di, n), init="zeros"),
-            "d_skip": Param((di,), init="ones"),
-            "w_out": Param((di, d)),
+            "w_in": Param((d, 2 * di), ("embed", "ssm_inner")),
+            "conv_w": Param((cfg.conv_kernel, di), (None, "ssm_inner")),
+            "conv_b": Param((di,), ("ssm_inner",), init="zeros"),
+            "w_dt_in": Param((di, dtr), ("ssm_inner", None)),
+            "w_dt_out": Param((dtr, di), (None, "ssm_inner")),
+            "dt_bias": Param((di,), ("ssm_inner",), init="zeros"),
+            "w_bc": Param((di, 2 * n), ("ssm_inner", None)),
+            "log_a": Param((di, n), ("ssm_inner", None), init="zeros"),
+            "d_skip": Param((di,), ("ssm_inner",), init="ones"),
+            "w_out": Param((di, d), ("ssm_inner", "embed")),
         },
-        "attn_scale": Param((d,), init="ones"),
-        "ssm_scale": Param((d,), init="ones"),
-        "in_norm": Param((d,), init="ones"),
-        "mlp_norm": Param((d,), init="ones"),
+        "attn_scale": Param((d,), (None,), init="ones"),
+        "ssm_scale": Param((d,), (None,), init="ones"),
+        "in_norm": Param((d,), (None,), init="ones"),
+        "mlp_norm": Param((d,), (None,), init="ones"),
         "mlp": {
-            "w_gate": Param((d, cfg.d_ff)),
-            "w_up": Param((d, cfg.d_ff)),
-            "w_down": Param((cfg.d_ff, d)),
+            "w_gate": Param((d, cfg.d_ff), ("embed", "ff")),
+            "w_up": Param((d, cfg.d_ff), ("embed", "ff")),
+            "w_down": Param((cfg.d_ff, d), ("ff", "embed")),
         },
     }
 
@@ -144,13 +144,13 @@ def layer_schema(cfg: HymbaConfig) -> Dict[str, object]:
 def schema(cfg: HymbaConfig) -> Dict[str, object]:
     """The reference's parameter tree, layers stacked on a leading dim."""
     s: Dict[str, object] = {
-        "embed": Param((cfg.vocab, cfg.d_model), init="embed"),
+        "embed": Param((cfg.vocab, cfg.d_model), ("vocab", None), init="embed"),
         "layers": common.stacked(layer_schema(cfg), cfg.n_layers),
-        "final_norm": Param((cfg.d_model,), init="ones"),
-        "lm_head": Param((cfg.d_model, cfg.vocab)),
+        "final_norm": Param((cfg.d_model,), (None,), init="ones"),
+        "lm_head": Param((cfg.d_model, cfg.vocab), ("embed", "vocab")),
     }
     if cfg.n_meta_tokens:
-        s["meta_tokens"] = Param((cfg.n_meta_tokens, cfg.d_model), init="embed")
+        s["meta_tokens"] = Param((cfg.n_meta_tokens, cfg.d_model), (None, None), init="embed")
     return s
 
 
@@ -208,10 +208,11 @@ class HymbaModel(nn.Module):
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self.embed[tokens].to(self.cfg.compute_dtype)
+        x = common.embedding(self.embed, tokens).to(self.cfg.compute_dtype)
+        return common.constrain(x, ("batch", None, None))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = common.rms_norm(x, self.final_norm)
+        x = common.block_input(common.rms_norm(x, self.final_norm))
         return (x @ self.lm_head.to(self.cfg.compute_dtype)).float()
 
     @torch.no_grad()
@@ -289,21 +290,21 @@ MODEL = HymbaModel
 # ---------------------------------------------------------------------------
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _heads(x: torch.Tensor, w: torch.Tensor, axis: str = "heads") -> torch.Tensor:
     """x (B, S, d) x w (d, h, dh) -> (B, S, h, dh)."""
-    d, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
+    return common.heads(x, w, axis)
 
 
 def _qkv(ap: nn.ParameterDict, x: torch.Tensor, positions: torch.Tensor, cfg: HymbaConfig):
     q = common.apply_rope(_heads(x, ap["wq"]), positions, cfg.rope_theta)
-    k = common.apply_rope(_heads(x, ap["wk"]), positions, cfg.rope_theta)
-    return q, k, _heads(x, ap["wv"])
+    k = common.apply_rope(_heads(x, ap["wk"], "kv_heads"), positions, cfg.rope_theta)
+    return q, k, _heads(x, ap["wv"], "kv_heads")
 
 
 def _out_proj(ap: nn.ParameterDict, attn: torch.Tensor) -> torch.Tensor:
     wo = ap["wo"]
-    return attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return common.constrain(attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]),
+                            ("batch", None, None))
 
 
 def _attn_branch(
@@ -342,12 +343,18 @@ def _ssm_branch(
     goes to the kernel (``scan``) in float32; with it (decode) the plain
     recurrence carries the state.  Returns (out, final state, conv tail)."""
     di, n = cfg.inner, cfg.ssm_state
-    xz = x @ sp["w_in"]
-    u, z = xz[..., :di], xz[..., di:]
+    # Under a sharding context xz is gathered whole so that u and z each
+    # split over the channels (a no-op otherwise).
+    xz = common.constrain(x @ sp["w_in"], ("batch", None, None))
+    u = common.constrain(xz[..., :di], ("batch", None, "ssm_inner"))
+    z = common.constrain(xz[..., di:], ("batch", None, "ssm_inner"))
     u, new_tail = _causal_conv(u, sp["conv_w"], sp["conv_b"], conv_tail)
     u = F.silu(u)
-    dt = F.softplus((u @ sp["w_dt_in"]) @ sp["w_dt_out"] + sp["dt_bias"])
-    bc = u @ sp["w_bc"]
+    # The two products over the split channels, reduced whole (no-ops
+    # outside a sharding context).
+    dt_low = common.constrain(u @ sp["w_dt_in"], ("batch", None, None))
+    dt = F.softplus(dt_low @ sp["w_dt_out"] + sp["dt_bias"])
+    bc = common.constrain(u @ sp["w_bc"], ("batch", None, None))
     b_t, c_t = bc[..., :n], bc[..., n:]
     if h0 is None:
         y, h = scan(
@@ -358,7 +365,7 @@ def _ssm_branch(
     else:
         y, h = selective_scan_ref(u, dt, sp["log_a"], b_t, c_t, h0=h0)
     y = (y + sp["d_skip"] * u) * F.silu(z)
-    return y @ sp["w_out"], h, new_tail
+    return common.constrain(y @ sp["w_out"], ("batch", None, None)), h, new_tail
 
 
 def _fuse(lp: HymbaLayer, attn_out: torch.Tensor, ssm_out: torch.Tensor) -> torch.Tensor:
@@ -378,11 +385,12 @@ def _layer(
     """One layer of the full-sequence forward: both branches on the normed
     input, their fusion, then the MLP (the unit that ``train_forward``
     recomputes)."""
-    h = common.rms_norm(x, lp.in_norm)
+    h = common.block_input(common.rms_norm(x, lp.in_norm))
     attn_out = _attn_branch(lp.attn, h, positions, cfg, is_global=is_global, attend=attend)
     ssm_out, _, _ = _ssm_branch(lp.ssm, h, cfg, scan=scan)
     x = x + _fuse(lp, attn_out, ssm_out)
-    return x + _mlp(lp.mlp, common.rms_norm(x, lp.mlp_norm))
+    return x + common.constrain(_mlp(lp.mlp, common.block_input(common.rms_norm(x, lp.mlp_norm))),
+                                ("batch", None, None))
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,14 @@ read once (the reference gathers a weight copy per routing instead; the
 function is the same).  The expert products are ``torch.bmm`` /
 ``torch.matmul``, as the reference's are plain einsums.
 
-The reference's ``constrain``/``active_rules`` dispatch layout hints are
-GSPMD sharding constraints, no-ops without active mesh rules; the port has
-no counterpart until the sharded layouts are (ROADMAP §1.6).
+Under a sharding context (the dry run, :mod:`repro_torch.sharding.context`)
+decode-sized batches take the capacity form at capacity = T (no routing
+drops, so it computes what the grouped decode does, with no host read),
+and a DTensor input routes on DTensors and dispatches each rank's tokens
+to the experts its shard holds (:func:`_sharded_moe_apply`): the expert
+buffers lie split over experts (deepseek's expert axis) or the experts'
+hidden dim, and over the batch, the layout the reference pins with
+``constrain``.
 
 Aux losses: switch-style load-balance loss and router z-loss, returned in a
 stats dict (with the dropped share of routings) so the loss can add them
@@ -38,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.sharding.context import active_rules, is_dtensor, rank_block
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import common
 from repro_torch.models.common import Param
@@ -75,17 +81,17 @@ class MoEConfig:
 def moe_layer_schema(cfg: MoEConfig) -> Dict[str, object]:
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     s: Dict[str, object] = {
-        "router": Param((d, e), scale=0.02),
-        "w_gate": Param((e, d, f)),
-        "w_up": Param((e, d, f)),
-        "w_down": Param((e, f, d)),
+        "router": Param((d, e), (None, None), scale=0.02),
+        "w_gate": Param((e, d, f), ("experts", "embed", "ff")),
+        "w_up": Param((e, d, f), ("experts", "embed", "ff")),
+        "w_down": Param((e, f, d), ("experts", "ff", "embed")),
     }
     if cfg.n_shared_experts:
         fs = cfg.d_ff_shared or cfg.d_ff * cfg.n_shared_experts
         s["shared"] = {
-            "w_gate": Param((d, fs)),
-            "w_up": Param((d, fs)),
-            "w_down": Param((fs, d)),
+            "w_gate": Param((d, fs), ("embed", "ff")),
+            "w_up": Param((d, fs), ("embed", "ff")),
+            "w_down": Param((fs, d), ("ff", "embed")),
         }
     return s
 
@@ -100,6 +106,14 @@ def capacity(cfg: MoEConfig, n_tokens: int) -> int:
     if c >= 32:
         c = -(-c // 32) * 32  # round up, as the reference (its capacity dim shards)
     return c
+
+
+def _capacity(cfg: MoEConfig, n_tokens: int) -> int:
+    """The capacity ``moe_apply`` dispatches at: ``capacity``, or T for a
+    decode-sized batch under a sharding context (every routing fits)."""
+    if n_tokens * cfg.top_k <= DECODE_GATHER_MAX and active_rules() is not None:
+        return n_tokens
+    return capacity(cfg, n_tokens)
 
 
 def _one_hot(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -147,6 +161,105 @@ def _selected_experts(lp, xf, gate_vals, expert_idx):
     return (routed.view(t, k, -1) * gate_vals[..., None].to(routed.dtype)).sum(dim=1)
 
 
+def _routed_local(xf, gate_vals, expert_idx, w_gate, w_up, w_down, *, cfg: MoEConfig,
+                  first_expert: int):
+    """One rank's routed experts on its tokens: ``(out (T, d), kept)``.
+
+    The rank's ``xf`` (T, d) tokens are dispatched over all E experts at
+    the capacity of T tokens; only the routings to the experts its
+    weights hold (``first_expert`` on, as many as ``w_gate`` has) run, so
+    ``out`` is this rank's part of the routed sum.  ``kept`` counts the
+    routings within capacity."""
+    t, k = expert_idx.shape
+    d = xf.shape[1]
+    cap = _capacity(cfg, t)
+    keep, dest = dispatch(expert_idx, cfg.n_experts, cap)
+    n = w_gate.shape[0] * cap
+    local = dest - first_expert * cap
+    mine = keep & (local >= 0) & (local < n)
+    slot = torch.where(mine, local, torch.full_like(local, n))
+    src = xf[:, None].expand(t, k, d).reshape(t * k, d)
+    buf = xf.new_zeros((n + 1, d)).index_put((slot,), src)
+    expert_in = buf[:n].view(w_gate.shape[0], cap, d)
+    h = common.swiglu(torch.bmm(expert_in, w_gate), torch.bmm(expert_in, w_up))
+    expert_out = torch.bmm(h, w_down).reshape(n, d)
+    routed = torch.cat([expert_out, expert_out.new_zeros((1, d))])[slot]
+    gates = (gate_vals.reshape(-1) * mine).to(routed.dtype)
+    out = (routed * gates[:, None]).reshape(t, k, d).sum(dim=1)
+    return out, keep.sum(dtype=torch.float32)
+
+
+def _sharded_moe_apply(lp, x: torch.Tensor, cfg: MoEConfig):
+    """:func:`moe_apply` on DTensors.  The router, the gates and the aux
+    losses are DTensor ops over the batch-split tokens; the routed experts
+    run per rank (:func:`_routed_local`) on its tokens and the expert
+    weights' shard it holds (split over experts or their hidden dim;
+    gathered over a split d_model), and their partial outputs sum over
+    those ranks.  Each rank dispatches its own tokens at their capacity."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, d = x.shape
+    t = b * s
+    xf = common.constrain(x.reshape(t, d), ("batch", None))  # its gradient whole, too
+    logits = xf.to(cfg.router_dtype) @ lp["router"].to(cfg.router_dtype)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    z_loss = common.constrain((torch.logsumexp(logits, dim=-1) ** 2).mean().float(), ())
+
+    mesh = xf.device_mesh
+    w_gate = lp["w_gate"]
+    roles = []  # per mesh dim: "batch", "experts", "ff" or None
+    for i in range(mesh.ndim):
+        if xf.placements[i].is_shard(0):
+            roles.append("batch")
+        elif w_gate.placements[i].is_shard(0):
+            roles.append("experts")
+        elif w_gate.placements[i].is_shard(2):
+            roles.append("ff")
+        else:
+            roles.append(None)
+
+    def layout(batch=None, experts=None, ff=None, other=Replicate):
+        return [batch if r == "batch" and batch else experts if r == "experts" and experts
+                else ff if r == "ff" and ff else other() for r in roles]
+
+    rows = layout(batch=Shard(0))
+    w_in = layout(experts=Shard(0), ff=Shard(2))
+    w_out = layout(experts=Shard(0), ff=Shard(1))
+    rows_grad = layout(batch=Shard(0), experts=Partial(), ff=Partial())
+    expert_dims = [i for i, r in enumerate(roles) if r == "experts"]
+    first = rank_block(mesh, expert_dims) * (  # this rank's first expert
+        cfg.n_experts // math.prod(mesh.size(i) for i in expert_dims))
+    routed = local_map(
+        functools.partial(_routed_local, cfg=cfg, first_expert=first),
+        out_placements=(layout(batch=Shard(0), experts=Partial(), ff=Partial()),
+                        layout(batch=Partial())),
+        in_placements=(rows, rows, rows, w_in, w_in, w_out),
+        in_grad_placements=(rows_grad, rows_grad, rows, layout(batch=Partial(), experts=Shard(0),
+                            ff=Shard(2)), layout(batch=Partial(), experts=Shard(0), ff=Shard(2)),
+                            layout(batch=Partial(), experts=Shard(0), ff=Shard(1))),
+        device_mesh=mesh, redistribute_inputs=True)
+    out, kept = routed(xf, gate_vals, expert_idx, w_gate, lp["w_up"], lp["w_down"])
+
+    flat_e = expert_idx.reshape(-1)
+    # The batch-split means and counts, each reduced and whole on every rank.
+    me = common.constrain(probs.mean(dim=0), (None,))
+    ce = common.constrain(_one_hot(flat_e, cfg.n_experts).sum(dim=0).to(probs.dtype),
+                          (None,)) / (t * cfg.top_k)
+    kept = common.constrain(kept, ())
+    stats = {
+        "lb_loss": (cfg.n_experts * torch.sum(me * ce)).float(),
+        "z_loss": z_loss,
+        "drop_frac": 1.0 - kept / (t * cfg.top_k),
+    }
+    if "shared" in lp:
+        sp = lp["shared"]
+        out = out + _swiglu_ffn(xf, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return out.reshape(b, s, d), stats
+
+
 def moe_apply(
     lp: Mapping[str, object], x: torch.Tensor, cfg: MoEConfig
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -158,6 +271,8 @@ def moe_apply(
     (contribute zero from that expert), matching GShard/Switch semantics.
     Gates are renormalized over the chosen top-k.
     """
+    if is_dtensor(x):
+        return _sharded_moe_apply(lp, x, cfg)
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -168,12 +283,12 @@ def moe_apply(
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean().float()
 
-    if t * cfg.top_k <= DECODE_GATHER_MAX:
+    if t * cfg.top_k <= DECODE_GATHER_MAX and active_rules() is None:
         out = _selected_experts(lp, xf, gate_vals, expert_idx)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         stats = {"lb_loss": zero, "z_loss": z_loss, "drop_frac": zero}
     else:
-        cap = capacity(cfg, t)
+        cap = _capacity(cfg, t)
         n_slots = cfg.n_experts * cap
         keep, dest = dispatch(expert_idx, cfg.n_experts, cap)
         # Scatter the routings into (E*cap + 1, d) (the last row: dropped).
@@ -249,13 +364,13 @@ def layer_schema(cfg: MixtralConfig) -> Dict[str, object]:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
         "attn": {
-            "wq": Param((d, h, dh)),
-            "wk": Param((d, kv, dh)),
-            "wv": Param((d, kv, dh)),
-            "wo": Param((h, dh, d)),
+            "wq": Param((d, h, dh), ("embed", "heads", None)),
+            "wk": Param((d, kv, dh), ("embed", "kv_heads", None)),
+            "wv": Param((d, kv, dh), ("embed", "kv_heads", None)),
+            "wo": Param((h, dh, d), ("heads", None, "embed")),
         },
-        "attn_norm": Param((d,), init="ones"),
-        "mlp_norm": Param((d,), init="ones"),
+        "attn_norm": Param((d,), (None,), init="ones"),
+        "mlp_norm": Param((d,), (None,), init="ones"),
         "moe": moe_layer_schema(cfg.moe),
     }
 
@@ -263,10 +378,10 @@ def layer_schema(cfg: MixtralConfig) -> Dict[str, object]:
 def schema(cfg: MixtralConfig) -> Dict[str, object]:
     """The reference's parameter tree, layers stacked on a leading dim."""
     return {
-        "embed": Param((cfg.vocab, cfg.d_model), init="embed"),
+        "embed": Param((cfg.vocab, cfg.d_model), ("vocab", None), init="embed"),
         "layers": common.stacked(layer_schema(cfg), cfg.n_layers),
-        "final_norm": Param((cfg.d_model,), init="ones"),
-        "lm_head": Param((cfg.d_model, cfg.vocab)),
+        "final_norm": Param((cfg.d_model,), (None,), init="ones"),
+        "lm_head": Param((cfg.d_model, cfg.vocab), ("embed", "vocab")),
     }
 
 
@@ -336,10 +451,11 @@ class MixtralModel(nn.Module):
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self.embed[tokens].to(self.cfg.compute_dtype)
+        x = common.embedding(self.embed, tokens).to(self.cfg.compute_dtype)
+        return common.constrain(x, ("batch", None, None))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = common.rms_norm(x, self.final_norm)
+        x = common.block_input(common.rms_norm(x, self.final_norm))
         return (x @ self.lm_head.to(self.cfg.compute_dtype)).float()
 
     def _run(self, tokens, *, remat: bool, attend: Attend):
@@ -402,24 +518,25 @@ class MixtralModel(nn.Module):
 MODEL = MixtralModel
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _heads(x: torch.Tensor, w: torch.Tensor, axis: str = "heads") -> torch.Tensor:
     """x (B, S, d) x w (d, h, dh) -> (B, S, h, dh)."""
-    d, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
+    return common.heads(x, w, axis)
 
 
 def _layer(lp: MixtralLayer, x: torch.Tensor, *, positions: torch.Tensor,
            cfg: MixtralConfig, attend: Attend):
     """One layer: (x, lb_loss, z_loss, drop_frac), a tuple so that
     ``torch.utils.checkpoint`` carries the stats' gradients."""
-    h = common.rms_norm(x, lp.attn_norm)
+    h = common.block_input(common.rms_norm(x, lp.attn_norm))
     q = common.apply_rope(_heads(h, lp.attn["wq"]), positions, cfg.rope_theta)
-    k = common.apply_rope(_heads(h, lp.attn["wk"]), positions, cfg.rope_theta)
-    attn = attend(q, k, _heads(h, lp.attn["wv"]))
+    k = common.apply_rope(_heads(h, lp.attn["wk"], "kv_heads"), positions, cfg.rope_theta)
+    attn = attend(q, k, _heads(h, lp.attn["wv"], "kv_heads"))
     wo = lp.attn["wo"]
-    x = x + attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
-    out, stats = moe_apply(lp.moe, common.rms_norm(x, lp.mlp_norm), cfg.moe)
-    return (x + out,) + tuple(stats[key] for key in STAT_KEYS)
+    x = x + common.constrain(attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]),
+                             ("batch", None, None))
+    out, stats = moe_apply(lp.moe, common.block_input(common.rms_norm(x, lp.mlp_norm)), cfg.moe)
+    return (x + common.constrain(out, ("batch", None, None)),) + tuple(
+        stats[key] for key in STAT_KEYS)
 
 
 def init_cache(cfg: MixtralConfig, batch: int, seq_len: int, dtype=None, *, device):

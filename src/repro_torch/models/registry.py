@@ -16,6 +16,13 @@ d_model) beside the tokens:
   api.init_cache(batch_size, seq_len, device=) -> cache dict
   api.decode_step(params, cache, tok, pos)   -> (logits, cache)
   api.prefill(params, cache, tokens)         -> (logits, cache)
+  api.specs(rules)                           -> {state_dict name: spec}
+  api.cache_specs(rules, batch, seq_len)     -> {cache name: spec}
+  api.train_batch_specs(batch, seq)          -> {name: (shape, dtype)}
+  api.batch_sharding(rules, batch_specs)     -> {name: spec}
+
+A spec is :meth:`repro_torch.sharding.rules.MeshRules.spec`'s tuple, what
+the reference's ``PartitionSpec`` holds.
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.bridge import is_stack
 from repro_torch.models import common, deepseek, dense, hymba, moe, rwkv6, whisper
 from repro_torch.models.common import Param
+from repro_torch.sharding.rules import MeshRules
 
 __all__ = ["ModelApi", "build_api", "MOE_LB_WEIGHT", "MOE_Z_WEIGHT"]
 
@@ -59,6 +68,34 @@ def _leaves(tree):
             yield from _leaves(sub)
 
 
+def _flat(tree, prefix: str = ""):
+    """(dotted name, leaf) pairs of a nested dict."""
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _flat(sub, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", sub
+
+
+def _unrolled(schema, specs) -> Dict[str, Tuple]:
+    """``specs`` (a tree matching ``schema``) by the port's state_dict
+    names: each stack's leaf once per layer (``layers.<i>.attn.wq``), its
+    leading (replicated) layer dim dropped, as :mod:`repro_torch.bridge`
+    unrolls the weights."""
+    out: Dict[str, Tuple] = {}
+    for key in schema:
+        if not is_stack(key):
+            out.update(_flat({key: specs[key]}))
+            continue
+        leaves = dict(_flat(schema[key]))
+        for name, spec in _flat(specs[key]):
+            if spec and spec[0] is not None:
+                raise ValueError(f"{key}.{name}: the layer dim must stay replicated, got {spec}")
+            for i in range(leaves[name].shape[0]):
+                out[f"{key}.{i}.{name}"] = tuple(spec[1:])
+    return out
+
+
 @dataclasses.dataclass
 class ModelApi:
     arch_id: str
@@ -79,6 +116,14 @@ class ModelApi:
     # -- params ---------------------------------------------------------
     def schema(self):
         return self._module.schema(self.cfg)
+
+    def specs(self, rules: MeshRules) -> Dict[str, Tuple]:
+        """Each parameter's spec by its state_dict name: the reference's
+        ``api.specs(rules)`` (resolved on the stacked schema, so the
+        fallback records are the reference's) with each layer's leading
+        dim dropped."""
+        schema = self.schema()
+        return _unrolled(schema, common.specs_from_schema(schema, rules))
 
     def param_count(self) -> int:
         return int(sum(math.prod(p.shape) for p in _leaves(self.schema())))
@@ -179,6 +224,89 @@ class ModelApi:
                 "use the stepped decode_step loop"
             )
         return params.prefill(cache, tokens)
+
+    def supports_long_context(self) -> bool:
+        """True if decode over 500k positions is sub-quadratic / bounded-cache."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.arch_id.startswith("whisper"):
+            return False
+        cfg = self.cfg
+        if getattr(cfg, "decode_window", None) is not None:
+            return True
+        if isinstance(cfg, deepseek.DeepSeekConfig):
+            return True  # MLA latent cache: 576 floats/token
+        return False
+
+    def cache_logical_axes(self) -> Dict[str, Tuple]:
+        """Logical axes per cache leaf name (leading dim = stacked layers)."""
+        if self.arch_id.startswith("whisper"):
+            kv = (None, "batch", "cache_seq", "heads", None)
+            return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv, "pos": ()}
+        if self.family == "ssm":  # rwkv6
+            return {
+                "wkv": (None, "batch", "heads", None, None),
+                "time_shift": (None, "batch", None),
+                "chan_shift": (None, "batch", None),
+                "pos": (),
+            }
+        if self.family == "hybrid":  # hymba
+            kv = (None, "batch", "cache_seq", "kv_heads", None)
+            return {
+                "k": kv,
+                "v": kv,
+                "ssm": (None, "batch", "ssm_inner", None),
+                "conv": (None, "batch", None, "ssm_inner"),
+                "pos": (),
+            }
+        if isinstance(self.cfg, deepseek.DeepSeekConfig):
+            return {
+                "c": (None, "batch", "cache_seq", None),
+                "kr": (None, "batch", "cache_seq", None),
+                "pos": (),
+            }
+        kv = (None, "batch", "cache_seq", "kv_heads", None)
+        return {"k": kv, "v": kv, "pos": ()}
+
+    def cache_specs(self, rules: MeshRules, batch: int, seq_len: int) -> Dict[str, Tuple]:
+        """Spec per decode-cache leaf (divisibility-checked), from the
+        cache's shapes on the meta device; the host-int ``pos`` is a
+        scalar.  Resolved in the reference's (sorted) order."""
+        shapes = {name: tuple(getattr(x, "shape", ()))
+                  for name, x in self.init_cache(batch, seq_len, device="meta").items()}
+        axes = self.cache_logical_axes()
+        return {
+            name: rules.spec(axes[name], shapes[name], path=f"cache/{name}")
+            for name in sorted(shapes)
+        }
+
+    # -- dry-run input specs --------------------------------------------
+    def train_batch_specs(self, batch: int, seq: int) -> Dict[str, Tuple[Tuple, torch.dtype]]:
+        """``{name: (shape, dtype)}`` of a training batch; the
+        encoder-decoder's text is ``max(seq // 4, 8)`` tokens against
+        ``seq`` audio frames, as in the reference."""
+        if self.is_encoder_decoder:
+            st = max(seq // 4, 8)
+            return {
+                "audio_embed": ((batch, seq, self.cfg.d_model), torch.bfloat16),
+                "tokens": ((batch, st), torch.int32),
+                "labels": ((batch, st), torch.int32),
+                "weights": ((batch,), torch.float32),
+            }
+        return {
+            "tokens": ((batch, seq), torch.int32),
+            "labels": ((batch, seq), torch.int32),
+            "weights": ((batch,), torch.float32),
+        }
+
+    def batch_sharding(self, rules: MeshRules, specs: Dict[str, Any]) -> Dict[str, Tuple]:
+        """The batch spec of each input: its leading dim over the batch
+        axes.  ``specs`` holds ``(shape, dtype)`` pairs or tensors."""
+        out = {}
+        for name, sd in specs.items():
+            shape = sd.shape if hasattr(sd, "shape") else sd[0]
+            out[name] = rules.batch_spec(extra_dims=len(shape) - 1)
+        return out
 
 
 FAMILIES = {

@@ -36,8 +36,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.rwkv6_wkv import LOG_DECAY_MIN, wkv, wkv_chunked, wkv_scan_ref
+from repro_torch.kernels.sharded import local_over_batch_heads
 from repro_torch.models import common
 from repro_torch.models.common import Param
+from repro_torch.sharding.context import is_dtensor
 
 __all__ = [
     "RWKV6Config",
@@ -88,41 +90,41 @@ def layer_schema(cfg: RWKV6Config) -> Dict[str, object]:
     d, h, k = cfg.d_model, cfg.n_heads, cfg.head_size
     return {
         "time": {
-            "mu_r": Param((d,), init="zeros"),
-            "mu_k": Param((d,), init="zeros"),
-            "mu_v": Param((d,), init="zeros"),
-            "mu_w": Param((d,), init="zeros"),
-            "mu_g": Param((d,), init="zeros"),
-            "w0": Param((h, k), init="zeros"),
-            "w_lora_a": Param((d, cfg.decay_lora)),
-            "w_lora_b": Param((cfg.decay_lora, h, k)),
-            "u": Param((h, k), init="zeros"),
-            "w_r": Param((d, h, k)),
-            "w_k": Param((d, h, k)),
-            "w_v": Param((d, h, k)),
-            "w_g": Param((d, h, k)),
-            "w_o": Param((h, k, d)),
-            "ln_x": Param((h, k), init="ones"),
+            "mu_r": Param((d,), (None,), init="zeros"),
+            "mu_k": Param((d,), (None,), init="zeros"),
+            "mu_v": Param((d,), (None,), init="zeros"),
+            "mu_w": Param((d,), (None,), init="zeros"),
+            "mu_g": Param((d,), (None,), init="zeros"),
+            "w0": Param((h, k), ("heads", None), init="zeros"),
+            "w_lora_a": Param((d, cfg.decay_lora), ("embed", None)),
+            "w_lora_b": Param((cfg.decay_lora, h, k), (None, "heads", None)),
+            "u": Param((h, k), ("heads", None), init="zeros"),
+            "w_r": Param((d, h, k), ("embed", "heads", None)),
+            "w_k": Param((d, h, k), ("embed", "heads", None)),
+            "w_v": Param((d, h, k), ("embed", "heads", None)),
+            "w_g": Param((d, h, k), ("embed", "heads", None)),
+            "w_o": Param((h, k, d), ("heads", None, "embed")),
+            "ln_x": Param((h, k), ("heads", None), init="ones"),
         },
         "chan": {
-            "mu_ck": Param((d,), init="zeros"),
-            "mu_cr": Param((d,), init="zeros"),
-            "w_ck": Param((d, cfg.d_ff)),
-            "w_cv": Param((cfg.d_ff, d)),
-            "w_cr": Param((d, d)),
+            "mu_ck": Param((d,), (None,), init="zeros"),
+            "mu_cr": Param((d,), (None,), init="zeros"),
+            "w_ck": Param((d, cfg.d_ff), ("embed", "ff")),
+            "w_cv": Param((cfg.d_ff, d), ("ff", "embed")),
+            "w_cr": Param((d, d), ("embed", None)),
         },
-        "time_norm": Param((d,), init="ones"),
-        "chan_norm": Param((d,), init="ones"),
+        "time_norm": Param((d,), (None,), init="ones"),
+        "chan_norm": Param((d,), (None,), init="ones"),
     }
 
 
 def schema(cfg: RWKV6Config) -> Dict[str, object]:
     """The reference's parameter tree, layers stacked on a leading dim."""
     return {
-        "embed": Param((cfg.vocab, cfg.d_model), init="embed"),
+        "embed": Param((cfg.vocab, cfg.d_model), ("vocab", None), init="embed"),
         "layers": common.stacked(layer_schema(cfg), cfg.n_layers),
-        "final_norm": Param((cfg.d_model,), init="ones"),
-        "lm_head": Param((cfg.d_model, cfg.vocab)),
+        "final_norm": Param((cfg.d_model,), (None,), init="ones"),
+        "lm_head": Param((cfg.d_model, cfg.vocab), ("embed", "vocab")),
     }
 
 
@@ -170,10 +172,11 @@ class RWKV6Model(nn.Module):
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self.embed[tokens].to(self.cfg.compute_dtype)
+        x = common.embedding(self.embed, tokens).to(self.cfg.compute_dtype)
+        return common.constrain(x, ("batch", None, None))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = common.rms_norm(x, self.final_norm)
+        x = common.block_input(common.rms_norm(x, self.final_norm))
         return (x @ self.lm_head.to(self.cfg.compute_dtype)).float()
 
     @torch.no_grad()
@@ -235,15 +238,14 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _heads(x: torch.Tensor, w: torch.Tensor, axis: str = "heads") -> torch.Tensor:
     """x (B, T, d) x w (d, h, k) -> (B, T, h, k)."""
-    d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+    return common.heads(x, w, axis)
 
 
 def _decay(tp: nn.ParameterDict, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent log-decay, (B, T, H, K) float32, clamped."""
-    lora = torch.tanh(xw @ tp["w_lora_a"].float())
+    lora = common.block_input(torch.tanh(xw @ tp["w_lora_a"].float()))
     log_w = -torch.exp(tp["w0"].float() + _heads(lora, tp["w_lora_b"].float()))
     return log_w.clamp(LOG_DECAY_MIN, 0.0)
 
@@ -261,7 +263,7 @@ def _time_mix(
     xs = _shift(x, shift_prev)
 
     def mix(mu: torch.Tensor) -> torch.Tensor:
-        return x + (xs - x) * mu
+        return common.block_input(x + (xs - x) * mu)
 
     r = _heads(mix(tp["mu_r"]), tp["w_r"])
     k = _heads(mix(tp["mu_k"]), tp["w_k"])
@@ -272,24 +274,29 @@ def _time_mix(
     if t > 1 and state is None:
         out, s_new = scan(r.float(), k.float(), v.float(), log_w, u, chunk=cfg.wkv_chunk)
         out = out.to(cfg.compute_dtype)
+    elif is_dtensor(r):  # each rank's batch and heads (the dry run's decode)
+        out, s_new = local_over_batch_heads(
+            lambda *a: wkv_scan_ref(*a[:5], s0=a[5]), [r, k, v, log_w, u, state],
+            [(0, 2)] * 4 + [(None, 0), (0, 1)], [(0, 2), (0, 1)])
     else:
         out, s_new = wkv_scan_ref(r, k, v, log_w, u, s0=state)
     # Per-head LayerNorm (GroupNorm equivalent), then gate and project.
     out = common.layer_norm(out.float()) * tp["ln_x"].float()
     out = out.to(cfg.compute_dtype) * g
     w_o = tp["w_o"]
-    return out.reshape(b, t, -1) @ w_o.reshape(-1, d), s_new
+    out = common.constrain(out.reshape(b, t, -1) @ w_o.reshape(-1, d), ("batch", None, None))
+    return out, s_new
 
 
 def _chan_mix(
     cp: nn.ParameterDict, x: torch.Tensor, *, shift_prev: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     xs = _shift(x, shift_prev)
-    xk = x + (xs - x) * cp["mu_ck"]
-    xr = x + (xs - x) * cp["mu_cr"]
+    xk = common.block_input(x + (xs - x) * cp["mu_ck"])
+    xr = common.block_input(x + (xs - x) * cp["mu_cr"])
     k = common.relu2(xk @ cp["w_ck"])
     r = torch.sigmoid(xr @ cp["w_cr"])
-    return r * (k @ cp["w_cv"])
+    return r * common.constrain(k @ cp["w_cv"], ("batch", None, None))
 
 
 def _layer(

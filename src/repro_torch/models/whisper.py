@@ -101,19 +101,21 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
 def _attn_schema(cfg: WhisperConfig) -> Dict[str, object]:
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     return {
-        "wq": Param((d, h, dh)),
-        "wk": Param((d, h, dh)),
-        "wv": Param((d, h, dh)),
-        "wo": Param((h, dh, d)),
+        "wq": Param((d, h, dh), ("embed", "heads", None)),
+        "wk": Param((d, h, dh), ("embed", "heads", None)),
+        "wv": Param((d, h, dh), ("embed", "heads", None)),
+        "wo": Param((h, dh, d), ("heads", None, "embed")),
     }
 
 
 def _mlp_schema(cfg: WhisperConfig) -> Dict[str, object]:
-    return {"w_in": Param((cfg.d_model, cfg.d_ff)), "w_out": Param((cfg.d_ff, cfg.d_model))}
+    return {"w_in": Param((cfg.d_model, cfg.d_ff), ("embed", "ff")),
+            "w_out": Param((cfg.d_ff, cfg.d_model), ("ff", "embed"))}
 
 
 def _norm_schema(prefix: str, d: int) -> Dict[str, object]:
-    return {f"{prefix}_w": Param((d,), init="ones"), f"{prefix}_b": Param((d,), init="zeros")}
+    return {f"{prefix}_w": Param((d,), (None,), init="ones"),
+            f"{prefix}_b": Param((d,), (None,), init="zeros")}
 
 
 def enc_layer_schema(cfg: WhisperConfig) -> Dict[str, object]:
@@ -134,7 +136,7 @@ def schema(cfg: WhisperConfig) -> Dict[str, object]:
     leading dim."""
     d = cfg.d_model
     return {
-        "embed": Param((cfg.vocab, d), init="embed"),
+        "embed": Param((cfg.vocab, d), ("vocab", None), init="embed"),
         "enc_layers": common.stacked(enc_layer_schema(cfg), cfg.n_enc_layers),
         "dec_layers": common.stacked(dec_layer_schema(cfg), cfg.n_dec_layers),
         **_norm_schema("enc_norm", d),
@@ -197,10 +199,11 @@ class WhisperModel(nn.Module):
 
     def _embed(self, tokens, positions: torch.Tensor) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self._positions(self.embed[tokens].to(self.cfg.compute_dtype), positions)
+        x = common.embedding(self.embed, tokens).to(self.cfg.compute_dtype)
+        return self._positions(common.constrain(x, ("batch", None, None)), positions)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = common.layer_norm(x, self.dec_norm_w, self.dec_norm_b)
+        x = common.block_input(common.layer_norm(x, self.dec_norm_w, self.dec_norm_b))
         return (x @ self.embed.to(self.cfg.compute_dtype).T).float()
 
     def _encode(self, audio_embed, attend: Attend, remat: bool) -> torch.Tensor:
@@ -295,43 +298,45 @@ MODEL = WhisperModel
 # ---------------------------------------------------------------------------
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _heads(x: torch.Tensor, w: torch.Tensor, axis: str = "heads") -> torch.Tensor:
     """x (B, S, d) x w (d, h, dh) -> (B, S, h, dh)."""
-    d, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
+    return common.heads(x, w, axis)
 
 
 def _merge(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """attn (B, S, h, dh) x wo (h, dh, d) -> (B, S, d)."""
-    return attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return common.constrain(attn.reshape(*attn.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1]),
+                            ("batch", None, None))
 
 
 def _mlp(mlp: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x @ mlp["w_in"], approximate="tanh") @ mlp["w_out"]
+    return common.constrain(F.gelu(x @ mlp["w_in"], approximate="tanh") @ mlp["w_out"],
+                            ("batch", None, None))
 
 
 def _enc_layer(lp: WhisperLayer, x: torch.Tensor, attend: Attend) -> torch.Tensor:
-    h = common.layer_norm(x, lp.attn_norm_w, lp.attn_norm_b)
+    h = common.block_input(common.layer_norm(x, lp.attn_norm_w, lp.attn_norm_b))
     attn = attend(_heads(h, lp.attn["wq"]), _heads(h, lp.attn["wk"]), _heads(h, lp.attn["wv"]))
     x = x + _merge(attn, lp.attn["wo"])
-    h = common.layer_norm(x, lp.mlp_norm_w, lp.mlp_norm_b)
+    h = common.block_input(common.layer_norm(x, lp.mlp_norm_w, lp.mlp_norm_b))
     return x + _mlp(lp.mlp, h)
 
 
 def _cross_kv(lp: WhisperLayer, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    enc_out = common.block_input(enc_out)
     return _heads(enc_out, lp.cross_attn["wk"]), _heads(enc_out, lp.cross_attn["wv"])
 
 
 def _dec_layer(lp: WhisperLayer, x: torch.Tensor, cross_k: torch.Tensor,
                cross_v: torch.Tensor, self_attend: Attend, cross_attend: Attend) -> torch.Tensor:
-    h = common.layer_norm(x, lp.self_norm_w, lp.self_norm_b)
+    h = common.block_input(common.layer_norm(x, lp.self_norm_w, lp.self_norm_b))
     sa = lp.self_attn
     attn = self_attend(_heads(h, sa["wq"]), _heads(h, sa["wk"]), _heads(h, sa["wv"]))
     x = x + _merge(attn, sa["wo"])
-    h = common.layer_norm(x, lp.cross_norm_w, lp.cross_norm_b)
+    h = common.block_input(common.layer_norm(x, lp.cross_norm_w, lp.cross_norm_b))
     attn = cross_attend(_heads(h, lp.cross_attn["wq"]), cross_k, cross_v)
     x = x + _merge(attn, lp.cross_attn["wo"])
-    h = common.layer_norm(x, lp.mlp_norm_w, lp.mlp_norm_b)
+    h = common.block_input(common.layer_norm(x, lp.mlp_norm_w, lp.mlp_norm_b))
     return x + _mlp(lp.mlp, h)
 
 

@@ -55,6 +55,12 @@ def _zip(tree: Tree, *others: Tree) -> Iterator[Tuple[torch.Tensor, ...]]:
         yield from zip(tree, *others)
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """A float32 moment of ``p``'s shape on its device, laid out as ``p``
+    is (a DTensor parameter gets a DTensor moment, sharded alike)."""
+    return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """(init, update) pair.  update(grads, state, params, lr_scale) ->
@@ -116,11 +122,7 @@ def sgd(
     max_grad_norm: Optional[float] = 1.0,
 ) -> Optimizer:
     def init(params: Tree) -> SGDState:
-        return SGDState(
-            momentum=_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                          params),
-            step=0,
-        )
+        return SGDState(momentum=_map(_zeros_f32, params), step=0)
 
     @torch.no_grad()
     def update(grads: Tree, state: SGDState, params: Tree, lr_scale: float = 1.0):
@@ -153,10 +155,7 @@ def adamw(
     max_grad_norm: Optional[float] = 1.0,
 ) -> Optimizer:
     def init(params: Tree) -> AdamWState:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-
-        return AdamWState(m=_map(zeros, params), v=_map(zeros, params), step=0)
+        return AdamWState(m=_map(_zeros_f32, params), v=_map(_zeros_f32, params), step=0)
 
     @torch.no_grad()
     def update(grads: Tree, state: AdamWState, params: Tree, lr_scale: float = 1.0):

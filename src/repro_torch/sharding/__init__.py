@@ -1,9 +1,6 @@
-"""Sharding: logical-axis rules (the counterpart of ``repro/sharding``).
-
-``sharding/context.py`` (``constrain``, ``active_rules``) places XLA
-sharding constraints inside traced code; it has no counterpart until the
-dry run is ported.
-"""
+"""Sharding: logical-axis rules and the activation constraint hook (the
+counterpart of ``repro/sharding``)."""
+from repro_torch.sharding.context import active_rules, constrain, sharding_context
 from repro_torch.sharding.rules import Fallback, MeshRules
 
-__all__ = ["MeshRules", "Fallback"]
+__all__ = ["MeshRules", "Fallback", "sharding_context", "constrain", "active_rules"]

@@ -68,15 +68,33 @@ def build_train_step(
     """Returns step(params, opt_state, batch, lr_scale) ->
     (params, opt_state, metrics).
 
-    ``microbatch_shardings`` is the reference's GSPMD layout hint for each
-    microbatch; it has no meaning for a model on one device, and any value
-    but ``None`` raises until the dry run is ported (ROADMAP §1.9).
+    ``microbatch_shardings``: {input name: DTensor placements} that every
+    microbatch of a DTensor batch is redistributed to (the dry run's batch
+    layout).  A DTensor batch split into microbatches this way gives
+    microbatch m the rows m, m + M, m + 2M, ... rather than the m-th
+    block: each rank's rows split evenly over the microbatches, where the
+    block split would leave each microbatch on B/M rows' ranks (the
+    reference pins the same layout after its split).  The step's sums do
+    not depend on which rows share a microbatch.  Plain tensors are split
+    into blocks and take no layout.
     """
-    if microbatch_shardings is not None:
-        raise NotImplementedError(
-            "microbatch_shardings is a GSPMD layout hint; the port has no "
-            "counterpart until the dry run (ROADMAP §1.9)"
-        )
+    from torch.distributed.tensor import DTensor
+
+    def split(x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} not divisible by microbatches {microbatches}")
+        rest = tuple(x.shape[1:])
+        if microbatch_shardings is not None and isinstance(x, DTensor):
+            return x.reshape((b // microbatches, microbatches) + rest).transpose(0, 1)
+        return x.reshape((microbatches, b // microbatches) + rest)
+
+    def constrain_mb(name: str, x: torch.Tensor) -> torch.Tensor:
+        if microbatch_shardings is None or not isinstance(x, DTensor):
+            return x
+        if name not in microbatch_shardings:
+            return x
+        return x.redistribute(x.device_mesh, microbatch_shardings[name])
 
     def step(params, opt_state, batch, lr_scale=1.0):
         named = dict(params.named_parameters())
@@ -91,22 +109,15 @@ def build_train_step(
             loss = loss.detach()
             aux = {k: v.detach() for k, v in aux.items()}
         else:
-            def reshape(x):
-                b = x.shape[0]
-                if b % microbatches:
-                    raise ValueError(
-                        f"batch {b} not divisible by microbatches {microbatches}"
-                    )
-                return x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))
-
-            mbs = {k: reshape(v) for k, v in batch.items()}
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            mbs = {k: split(v) for k, v in batch.items()}
+            grads = {k: torch.zeros_like(p, dtype=torch.float32,
+                                         memory_format=torch.contiguous_format)
                      for k, p in named.items()}
             loss = torch.zeros((), dtype=torch.float32, device=params.device)
             auxs = []
             for m in range(microbatches):
-                mb_loss, mb_aux = api.loss(params, {k: v[m] for k, v in mbs.items()},
-                                           denom=denom)
+                mb = {k: constrain_mb(k, v[m]) for k, v in mbs.items()}
+                mb_loss, mb_aux = api.loss(params, mb, denom=denom)
                 for acc, g in zip(grads.values(), torch.autograd.grad(mb_loss, leaves)):
                     acc.add_(g.float())
                 loss = loss + mb_loss.detach()

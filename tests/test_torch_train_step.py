@@ -110,8 +110,16 @@ def test_train_step_options(reference):
     with pytest.raises(ValueError, match="not divisible"):
         build_train_step(api, opt, microbatches=3)(
             model, opt.init(dict(model.named_parameters())), batch)
-    with pytest.raises(NotImplementedError, match="1.9"):
-        build_train_step(api, opt, microbatch_shardings={"tokens": None})
+    # microbatch_shardings lays out a DTensor batch's microbatches (the dry
+    # run's); plain tensors take no layout, and the step is the same.
+    losses = []
+    for shardings in (None, {"tokens": None, "labels": None}):
+        _, fresh = _model(reference["init"])
+        _, _, out = build_train_step(api, opt, microbatches=2, with_metrics=False,
+                                     microbatch_shardings=shardings)(
+            fresh, opt.init(dict(fresh.named_parameters())), batch)
+        losses.append(out["loss"])
+    assert torch.equal(losses[0], losses[1])
 
 
 def test_serve_and_prefill_steps_are_the_api(reference):
