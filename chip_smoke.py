@@ -310,6 +310,42 @@ Phases, each of which fails the run:
                    10 % of the predicted argument + temp bytes; the real step
                    launches the flash forward and backward.  ``python3
                    chip_smoke.py --only dryrun`` runs phases 1, 2 and 30.
+31. examples     — every script of ``examples_torch/`` as a user runs it,
+                   ``python examples_torch/<name>.py`` in a child process
+                   with ``PYTHONPATH`` unset (``_common.py`` finds
+                   ``src``), all ten runs at once (``EXAMPLES``: the eight
+                   scripts with the reference's default flags, and
+                   ``runtime_trace.py --faults chaos-small`` and
+                   ``preempt_resume.py --faults chaos-real``): each exits
+                   0 and prints its own final line; its seconds.  The
+                   device scripts run on the card by default.  A child's
+                   launches cannot be counted here, so meanwhile this
+                   process calls the scripts' functions on the card with the
+                   counts set to 0 just before each and read just after:
+                   ``serve_runtime``'s lane 3, ``serve_batched``'s
+                   ``serve`` for each arch (flash only in reduced
+                   llama3-8b's fused prefill, bf16 at (32, 32); nothing in
+                   the stepped prefills and decode of deepseek, rwkv6 and
+                   hymba), ``quickstart``'s first ``EXAMPLE_QUICKSTART_STEPS``
+                   training steps (flash forward and backward) and its
+                   greedy decode (none), ``preempt_resume``'s ``main`` at one
+                   epoch of one step a phase, and one cannikin epoch of
+                   ``hetero_cluster_training``'s ``build``.  Phases 3 and 12
+                   carry the bf16 (32, 32) rows at those scripts' shapes.
+32. trace CLI    — ``python -m repro_torch.launch.train`` with
+                   ``TRACE_CLI`` (``--mode trace --backend real
+                   --full-width``: 2 jobs of full-width olmo-1b bf16 on 4
+                   nodes, seq 512, 2 steps an epoch, 2 epochs an event),
+                   started beside phase 31's scripts in a child process
+                   that runs the module as ``__main__`` and keeps the
+                   reports its ``compare_policies`` returns: exit 0; in
+                   the ``--out`` JSON and the printed summary every job
+                   done or running, every running job with an epoch, no
+                   node that left the trace assigned; every job-epoch's
+                   loss finite; its wall seconds, each job's epochs and the
+                   peak memory.  ``python3 chip_smoke.py --only examples``
+                   runs phases 1, 2, the bf16 (32, 32) rows of 3 and 12,
+                   and 31-32.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
@@ -317,8 +353,8 @@ training, 15's trace, each run of 16, each training run of 18 and 19,
 each model of 20, each forward of 21, 22's serving run and forward, 23's
 training run, each forward of 24, 25's serving run and forward, 26's node
 steps, 27's forward, encode, stepped decode and each gradient, 28's encoder
-forward and decode loop, 29's training steps, 30's real step) and read just
-after it.
+forward and decode loop, 29's training steps, 30's real step, each of 31's
+in-process calls) and read just after it.
 Device ms of a named kernel are per launch the profiler recorded, with the
 count of records beside them.  The last three lines of standard output are
 the card line from ``nvidia-smi``, a JSON line describing each kernel, and
@@ -370,7 +406,7 @@ BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  #
 # Mangled-name tags of the flash instances at (Dqk, Dv) = (192, 128), (48, 32)
 # and (32, 32), whose ptxas registers and spills phase 2 prints.
 NEW_INSTANCE_TAGS = ("ILi192ELi128E", "ILi48ELi32E", "ILi32ELi32E", "IfLi192ELi128E",
-                     "IfLi48ELi32E", "IfLi32ELi32E")
+                     "IfLi48ELi32E", "IfLi32ELi32E", "I13__nv_bfloat16Li32ELi32E")
 BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
 # Whisper-large-v3's non-causal attentions (20 heads of 64, MHA, bf16, B=8):
 # the encoder's self-attention over 1500 frames (23 tiles of 64 and 28
@@ -381,6 +417,11 @@ WHISPER_CASES = [
     (WHISPER_ENC_CASE, 8, 1500, 20, 20, "bf16", None, 64, 1500, False),
     (WHISPER_CROSS_CASE, 8, 375, 20, 20, "bf16", None, 64, 1500, False),
 ]
+# Reduced llama3-8b (bf16, 8 heads of 32 over 2 KV heads: the scalar bf16
+# instance at (32, 32)) at the example scripts' shapes: serve_batched's
+# prefill of 4 prompts of 24 tokens and quickstart's step at 16 x 32.
+LLAMA_REDUCED_CASE = "llama3-8b reduced bf16 B=4 S=24"
+LLAMA_REDUCED_BWD_CASE = "llama3-8b reduced bf16 train B=16 S=32"
 # name, B, S, H, KV, dtype, window, D[, T, causal] (see ``flash_shape``: T
 # defaults to S and causal to True); D is a (Dqk, Dv) pair where v's head
 # dim differs (DeepSeek-V2's MLA)
@@ -393,6 +434,7 @@ BWD_CASES = [
     ("mixtral-8x7b train B=8 S=512", 8, 512, 32, 8, "bf16", 4096, 128),
     ("deepseek-v2-236b train B=8 S=512", 8, 512, 128, 128, "bf16", None, (192, 128)),
     *WHISPER_CASES,
+    (LLAMA_REDUCED_BWD_CASE, 16, 32, 8, 2, "bf16", None, 32),
 ]
 BWD_REL = {"bf16": 2e-2, "f32": 1e-4}
 
@@ -412,6 +454,7 @@ KERNEL_CASES = [
     ("deepseek-v2-236b S=4096", 1, 4096, 128, 128, "bf16", None, (192, 128)),
     ("deepseek f32 S=T=300", 1, 300, 16, 16, "f32", None, (192, 128)),
     *WHISPER_CASES,
+    (LLAMA_REDUCED_CASE, 4, 24, 8, 2, "bf16", None, 32),
 ]
 # The deepseek-v2-236b rows of phases 3 and 12 (the MLA instance, (192, 128)).
 DEEPSEEK_CASE = "deepseek-v2-236b S=1024"
@@ -4145,6 +4188,268 @@ def phase_dryrun(torch):
     return res["launches"]
 
 
+# Phase 31: each example script as a user runs it, its flags and the regex
+# its own final line must match.
+EXAMPLES = [
+    ("gns_heterogeneous", [], r"^average +[\d.]+ +[\d.]+ +[\d.]+ +[\d.]+$"),
+    ("policy_zoo", [], r"^ok$"),
+    ("runtime_trace", [], r"^all invariants OK$"),
+    ("runtime_trace", ["--faults", "chaos-small"], r"^  chaos invariants OK$"),
+    ("serve_runtime", [], r"^serving runtime demo OK$"),
+    ("serve_batched", [], r"^ +cache\[ssm\] \(2, 4, 128, 8\)$"),
+    ("quickstart", [], r"^  aggregate goodput=[\d.]+ \(fraction [\d.]+\)$"),
+    ("preempt_resume", [], r"^epochs=4 preemptions=1 sim_time=[\d.]+s — all invariants OK$"),
+    ("preempt_resume", ["--faults", "chaos-real"],
+     r"^epochs=7 preemptions=2 — chaos-real invariants OK$"),
+    ("hetero_cluster_training", [], r"^  lb-bsp +[\d.]+s +\( *[\d.]+%\)$"),
+]
+EXAMPLE_QUICKSTART_STEPS = 5  # phase 31's in-process count: quickstart's first steps
+# Phase 32: the training CLI's trace mode at full width, the module
+# docstring's command with the per-epoch counts spelled out.
+TRACE_CLI = ["--mode", "trace", "--backend", "real", "--full-width", "--trace-jobs", "2",
+             "--trace-nodes", "4", "--ref-batch", "16", "--seq-len", "512", "--lr", "0.01",
+             "--steps-per-epoch", "2", "--epochs-per-event", "2"]
+
+
+def example_module(name):
+    """``examples_torch/<name>.py``, imported under its own name."""
+    import importlib.util
+
+    folder = os.path.join(ROOT, "examples_torch")
+    if folder not in sys.path:
+        sys.path.insert(0, folder)  # the script's ``import _common``
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  os.path.join(folder, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def start_examples():
+    """Every ``EXAMPLES`` run as ``python examples_torch/<name>.py [flags]``
+    from the checkout's root with ``PYTHONPATH`` unset (``_common.py``
+    finds ``src``), all at once, each waited for by a thread of its own;
+    returns the futures of (run, exit code, stdout, stderr, seconds)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+    def run(example):
+        name, flags, _ = example
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join("examples_torch", f"{name}.py"), *flags], env=env,
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        return example, proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(EXAMPLES))
+    futures = [pool.submit(run, example) for example in EXAMPLES]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def example_launches(torch):
+    """The flash launches of each device script's path, counted in this
+    process by calling the script's functions on the card (the counts are
+    set to 0 just before each and read just after): serve_runtime's lane 3
+    (8 requests), serve_batched's ``serve`` for each arch, quickstart's
+    first ``EXAMPLE_QUICKSTART_STEPS`` training steps and its greedy decode,
+    preempt_resume's ``main`` at 1 epoch of 1 step a phase, and one
+    cannikin epoch of hetero_cluster_training's ``build``."""
+    import contextlib
+    import io
+
+    counts = {}
+
+    def counted(label, fn, *args, **kw):
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        counts[label] = {k: v for k, v in read_launches().items() if v}
+        return out
+
+    counted("serve_runtime lane 3", example_module("serve_runtime").lane_real_engine, 8,
+            DEVICE)
+    serve_batched = example_module("serve_batched")
+    for arch in serve_batched.ARCHS:
+        counted(f"serve_batched {arch}", serve_batched.serve, arch, device=DEVICE)
+    quick = example_module("quickstart")
+    api = quick.get_api("llama3-8b", reduced=True)
+    params = api.init(0, device=DEVICE).requires_grad_(True)
+    data = quick.SyntheticLM(vocab=api.cfg.vocab, seq_len=quick.SEQ, seed=0)
+    history = counted(f"quickstart train ({EXAMPLE_QUICKSTART_STEPS} steps)", quick.train,
+                      api, params, data, EXAMPLE_QUICKSTART_STEPS)
+    counted("quickstart greedy decode", quick.greedy_decode, api, params, data.rule)
+    counted("preempt_resume (1 epoch of 1 step a phase)", example_module("preempt_resume").main,
+            ["--epochs", "1", "--steps", "1"])
+    tr = example_module("hetero_cluster_training").build("cannikin", DEVICE)
+    rec = counted("hetero_cluster_training cannikin epoch 0", tr.run_epoch)
+    for label, c in counts.items():
+        log("examples", f"{label}: launches {c}")
+    want = {
+        "serve_batched llama3-8b": ("flash_attention",),
+        f"quickstart train ({EXAMPLE_QUICKSTART_STEPS} steps)":
+            ("flash_attention", "flash_attention_backward"),
+        "preempt_resume (1 epoch of 1 step a phase)":
+            ("flash_attention", "flash_attention_backward"),
+        "hetero_cluster_training cannikin epoch 0":
+            ("flash_attention", "flash_attention_backward"),
+        "serve_runtime lane 3": ("flash_attention",),
+    }
+    for label, c in counts.items():
+        need = want.get(label, ())
+        if sorted(c) != sorted(need) or not all(c[k] > 0 for k in need):
+            raise AssertionError(f"{label} launched {c}; its path launches {need} and nothing "
+                                 "else (decode and the stepped prefills run plain torch)")
+    if not (all(math.isfinite(x) for pair in history for x in pair)
+            and math.isfinite(rec.mean_loss)):
+        raise AssertionError(f"non-finite losses: {history} {rec.mean_loss}")
+    del params, tr
+    return counts
+
+
+def finish_examples(futures):
+    """Wait for every run: exit 0 and its own final line, with its seconds."""
+    import re
+
+    failed = []
+    for future in futures:
+        (name, flags, final), rc, out, err, secs = future.result()
+        lines = out.rstrip("\n").splitlines()
+        last = lines[-1] if lines else ""
+        log("examples", f"python examples_torch/{name}.py {' '.join(flags)}".rstrip()
+            + f": exit {rc} in {secs:.1f} s, {len(lines)} lines, last {last.strip()!r}")
+        if rc != 0 or re.match(final, last) is None:
+            failed.append((name, flags, out[-1500:], err[-3000:]))
+    if failed:
+        raise AssertionError(f"example scripts failed: {failed}")
+
+
+def trace_cli_child(out_path: str, argv) -> int:
+    """Phase 32's process: ``python -m repro_torch.launch.train`` with
+    ``argv``, run as ``__main__``, with the reports its ``compare_policies``
+    returns kept to read each job-epoch's loss; writes the exit code, the
+    wall seconds, the peak allocated bytes and the losses."""
+    import runpy
+
+    import torch
+
+    import repro_torch.runtime as runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reports = []
+    compare = runtime.compare_policies
+
+    def kept(*args, **kw):
+        reports.append(compare(*args, **kw))
+        return reports[-1]
+
+    runtime.compare_policies = kept
+    sys.argv = ["repro_torch.launch.train", *argv]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("repro_torch.launch.train", run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as done:
+        rc = done.code or 0
+    wall = time.perf_counter() - t0
+    losses = {}
+    for rep in (reports[-1].values() if reports else ()):
+        for name, h in rep.runtime.handles.items():
+            losses[name] = [r.mean_loss for r in h.records]
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "wall_s": wall, "peak": torch.cuda.max_memory_allocated(),
+                   "losses": losses}, f)
+    return 0
+
+
+def start_trace_cli(out_dir):
+    """Phase 32's process, started beside phase 31's scripts."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = os.path.join(out_dir, "trace.json")
+    cmd = [sys.executable, os.path.abspath(__file__), "--trace-cli",
+           os.path.join(out_dir, "child.json"), *TRACE_CLI, "--out", out]
+    return subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def finish_trace_cli(proc, t0, out_dir):
+    """``--mode trace --backend real --full-width`` through the CLI: exit 0;
+    in the ``--out`` JSON and the printed summary every job done or running,
+    every running job with an epoch, no node that left the trace assigned;
+    every job-epoch's loss finite.  Logs the wall seconds, each job's epochs
+    and the peak memory."""
+    import re
+
+    out, err = proc.communicate(timeout=900)
+    secs = time.perf_counter() - t0
+    child_path, out_path = (os.path.join(out_dir, f) for f in ("child.json", "trace.json"))
+    if proc.returncode != 0 or not os.path.exists(child_path) or not os.path.exists(out_path):
+        raise AssertionError(f"the trace CLI failed (exit {proc.returncode}): {out[-2000:]} "
+                             f"{err[-4000:]}")
+    child, summary = json.load(open(child_path)), json.load(open(out_path))
+    rep = summary["cannikin"]
+    down = {int(n) for ev in rep["events"] if ev.startswith("node_leave")
+            for n in re.findall(r"\d+", ev)}
+    printed = [x for x in out.splitlines() if x.startswith("cannikin ")]
+    losses = [x for v in child["losses"].values() for x in v]
+    log("trace CLI", f"python -m repro_torch.launch.train {' '.join(TRACE_CLI)}: exit "
+        f"{child['rc']} in {child['wall_s']:.1f} s in the CLI ({secs:.1f} s with the process); "
+        f"events {rep['events']}; job states {rep['job_states']}; epochs {rep['epochs']}; "
+        f"assignment {rep['assignment']}; aggregate goodput {rep['aggregate_goodput']:.4f}; "
+        f"losses {child['losses']}; peak_mem_gb={child['peak'] / 1e9:.3f}")
+    log("trace CLI", f"printed: {out.strip().splitlines()}")
+    problems = []
+    if child["rc"] != 0:
+        problems.append(f"exit {child['rc']}")
+    if not all(state in ("done", "running") for state in rep["job_states"].values()):
+        problems.append(f"job states {rep['job_states']}")
+    if any(rep["epochs"].get(j, 0) < 1 for j, st in rep["job_states"].items()
+           if st == "running"):
+        problems.append(f"a running job without an epoch: {rep['epochs']}")
+    if any(down & set(ids) for ids in rep["assignment"].values()):
+        problems.append(f"a node that left is assigned: {rep['assignment']}, down {down}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        problems.append(f"losses {child['losses']}")
+    if len(printed) != 1 or any(f"{j}:{st}" not in printed[0]
+                                for j, st in rep["job_states"].items()):
+        problems.append(f"the printed summary {printed} is not the JSON's")
+    if not child["peak"] < CARD_BYTES:
+        problems.append(f"peak {child['peak']}")
+    if problems:
+        raise AssertionError(f"the trace CLI broke its invariants: {problems}")
+    return child
+
+
+def run_example_phases(torch, enter):
+    """Phases 31 and 32: the example scripts and the trace CLI start
+    together in child processes; this process counts the scripts' launches
+    meanwhile, then waits for each."""
+    import tempfile
+
+    enter("examples")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_cli_") as out_dir:
+        cli = start_trace_cli(out_dir)
+        try:
+            futures = start_examples()
+            try:
+                counts = example_launches(torch)
+                t1 = time.perf_counter()
+            finally:
+                finish_examples(futures)  # each run ends within its timeout
+            log("examples", f"phase in {time.perf_counter() - t0:.1f} s (in-process launch "
+                f"counts {t1 - t0:.1f} s)")
+            gc.collect()
+            torch.cuda.empty_cache()
+            enter("trace CLI")
+            finish_trace_cli(*cli, out_dir)
+        finally:
+            if cli[0].poll() is None:
+                cli[0].kill()
+                cli[0].wait()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4205,6 +4510,18 @@ def main() -> int:
             torch.cuda.empty_cache()
             run_whisper_phases(torch, enter)
             log("done", f"--only whisper passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--only", "examples"]:
+            enter("kernel")
+            phase_kernel(torch, [c for c in KERNEL_CASES if c[0] == LLAMA_REDUCED_CASE])
+            enter("kernel (flash bwd)")
+            phase_kernel_bwd(torch, [c for c in BWD_CASES if c[0] == LLAMA_REDUCED_BWD_CASE])
+            run_example_phases(torch, enter)
+            log("done", f"--only examples passed in {time.perf_counter() - t_start:.1f} s; "
                 "seconds per phase: " + ", ".join(
                     f"{name} {end - start:.1f}" for (name, start), end in zip(
                         starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
@@ -4301,12 +4618,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         enter("dry run")
         phase_dryrun(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        example_counts = run_example_phases(torch, enter)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-30); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-32); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -4336,6 +4656,14 @@ def main() -> int:
          wh_forward_counts["flash_attention"]),
         ("flash_attention_backward[whisper]", SOURCE_REL, REPLACES, bwd_rows[WHISPER_ENC_CASE],
          wh_train_counts["flash_attention_backward"]),
+        # The scalar bf16 instance at (32, 32) on phase 31's paths: reduced
+        # llama3-8b's fused prefill in serve_batched and quickstart's steps.
+        ("flash_attention[bf16,32]", SOURCE_REL, REPLACES, rows[LLAMA_REDUCED_CASE],
+         example_counts["serve_batched llama3-8b"]["flash_attention"]),
+        ("flash_attention_backward[bf16,32]", SOURCE_REL, REPLACES,
+         bwd_rows[LLAMA_REDUCED_BWD_CASE],
+         example_counts[f"quickstart train ({EXAMPLE_QUICKSTART_STEPS} steps)"]
+         ["flash_attention_backward"]),
     ):
         kernels.append({
             "name": name,
@@ -4364,4 +4692,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun-step"]:
         sys.exit(dryrun_step_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--trace-cli"]:
+        sys.exit(trace_cli_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

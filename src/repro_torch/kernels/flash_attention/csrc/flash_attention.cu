@@ -70,16 +70,21 @@
 // float32, flash_fwd_kernel: the scalar v1 body.  It is the parity path
 // (held at 1e-5, which TF32 or bf16 splits would not meet) and carries no
 // serving traffic.  One block of 256 threads per (b, h, 64-row q tile);
-// each 64-key K/V tile is staged in shared memory and both products run as
-// scalar FMAs on the CUDA cores.
+// each 64-key K/V tile is staged in shared memory (widened to float32)
+// and both products run as scalar FMAs on the CUDA cores.  Its bf16
+// instance at (32, 32) serves the reduced bf16 configs (llama3-8b's: the
+// examples' quickstart and batched serving), whose 32 columns are half of
+// one 128-byte swizzle row, which the wgmma kernel's TMA tiles are built
+// from; it rounds the output to bf16 once.
 //
 // Head dims.  Every kernel is a template on (DQK, DV): q and k share DQK, v
 // and the output have DV, as in repro/models/common.py::full_attention.
 // DeepSeek-V2's MLA attends at (192, 128): q and k are a 128-dim part from
 // the latent and a 64-dim RoPE part, v is 128 wide, and the scale is
 // 1/sqrt(192).  The instances (the C entries' forward_instance and
-// backward_instance): bf16 at (64, 64), (128, 128), (192, 128); float32 at
-// those and at the reduced configs' (32, 32) and (48, 32).  At (192, 128)
+// backward_instance): bf16 at (64, 64), (128, 128), (192, 128) on wgmma
+// and at (32, 32) on the scalar body; float32 at those four and at (48,
+// 32).  At (192, 128)
 // the bf16 forward's Q K^T runs over three 64-column swizzle chunks (12
 // k16 steps), its P V at N = 128; q, the K ring and the V ring take 24 +
 // 48 + 32 KB, so two blocks still share an SM, and the accumulators are
@@ -121,6 +126,14 @@ constexpr int kBlockN = 64;            // keys per kv tile
 constexpr int kThreads = 256;          // 16 x 16 thread grid
 constexpr int kPPitch = kBlockN + 1;   // pitch of the probability tile
 
+// Loads widen to float32; stores round once to the tensor's dtype.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow_to(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void narrow_to(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
+
 // Shared-memory layout for head dims DQK (q, K) and DV (V, the output): q
 // and K tiles at a padded row pitch (no bank conflicts), the V tile
 // unpadded; the P tile aliases the K tile's region, which is sized for the
@@ -137,8 +150,9 @@ struct Tile {
 // Thread (tx, ty) of the 16 x 16 grid owns q rows ty + 16*i (i < 4) of the
 // tile: scores at keys tx + 16*j (j < 4) and outputs at dims tx + 16*j
 // (j < DV/16).  A row's 16 owners are 16 adjacent lanes of one warp, so row
-// reductions are four xor-shuffles.
-template <int DQK, int DV>
+// reductions are four xor-shuffles.  T is the element type of q, k, v and
+// the output (float or __nv_bfloat16); every sum is float32.
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   constexpr int kPitch = Tile<DQK, DV>::kPitch;
   constexpr int kOut = DV / 16;          // output dims per thread
@@ -156,15 +170,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
 
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int idx = tid; idx < kBlockM * DQK; idx += kThreads) {
     const int r = idx / DQK, c = idx % DQK;
     const int m = m0 + r;
-    qs[r * kPitch + c] = m < p.S ? q[m * p.q_ss + c] * p.scale : 0.f;
+    qs[r * kPitch + c] = m < p.S ? widen(q[m * p.q_ss + c]) * p.scale : 0.f;
   }
 
   float row_max[4], row_sum[4], acc[4][kOut];
@@ -190,19 +204,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
         const int r = idx / DV, c = idx % DV;
         const int n = n0 + r;
         const bool in = n < p.T;
-        ks[r * kPitch + c] = in ? k[n * p.k_ss + c] : 0.f;
-        vs[r * DV + c] = in ? v[n * p.v_ss + c] : 0.f;
+        ks[r * kPitch + c] = in ? widen(k[n * p.k_ss + c]) : 0.f;
+        vs[r * DV + c] = in ? widen(v[n * p.v_ss + c]) : 0.f;
       }
     } else {
       for (int idx = tid; idx < kBlockN * DQK; idx += kThreads) {
         const int r = idx / DQK, c = idx % DQK;
         const int n = n0 + r;
-        ks[r * kPitch + c] = n < p.T ? k[n * p.k_ss + c] : 0.f;
+        ks[r * kPitch + c] = n < p.T ? widen(k[n * p.k_ss + c]) : 0.f;
       }
       for (int idx = tid; idx < kBlockN * DV; idx += kThreads) {
         const int r = idx / DV, c = idx % DV;
         const int n = n0 + r;
-        vs[r * DV + c] = n < p.T ? v[n * p.v_ss + c] : 0.f;
+        vs[r * DV + c] = n < p.T ? widen(v[n * p.v_ss + c]) : 0.f;
       }
     }
     __syncthreads();
@@ -290,25 +304,26 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
     if (m >= p.S) continue;
     const float denom = fmaxf(row_sum[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) o[m * p.o_ss + tx + 16 * j] = acc[i][j] / denom;
+    for (int j = 0; j < kOut; ++j) narrow_to(o + m * p.o_ss + tx + 16 * j, acc[i][j] / denom);
     // -inf for a row with no valid key (row_max -inf, row_sum 0).
     if (p.lse != nullptr && tx == 0)
       p.lse[((long long)b * p.H + h) * p.S + m] = row_max[i] + logf(row_sum[i]);
   }
 }
 
-template <int DQK, int DV>
-cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+template <typename T, int DQK, int DV>
+cudaError_t launch_scalar(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t kSmemBytes = Tile<DQK, DV>::kSmemBytes;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DQK, DV>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((p.S + kBlockM - 1) / kBlockM, p.H, B);
-  flash_fwd_kernel<DQK, DV><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  flash_fwd_kernel<T, DQK, DV><<<grid, kThreads, kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -968,9 +983,6 @@ struct BwdParams {
   int kv_len;
   float scale;
 };
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ void narrow_to(float* dst, float x) { *dst = x; }
 
 // One warp per (b, row, h): delta = sum_d dO * O over the DV dims, in float32.
 template <typename T, int DV>
@@ -1811,16 +1823,18 @@ int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
 }
 
 // The (Dqk, Dv) instances, which ops.py's HEAD_DIMS lists: the bf16 wgmma
-// kernels at (64, 64), (128, 128) and (192, 128) (DeepSeek-V2's MLA), the
-// float32 scalar ones also at the reduced configs' (32, 32) and (48, 32).
+// kernels at (64, 64), (128, 128) and (192, 128) (DeepSeek-V2's MLA) and
+// the bf16 scalar ones at (32, 32) (the reduced bf16 configs); the float32
+// scalar ones at those and at the reduced configs' (32, 32) and (48, 32).
 int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStream_t s) {
   if (dtype == 0) {
-    if (dqk == 32 && dv == 32) return (int)launch_f32<32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return (int)launch_f32<48, 32>(p, B, s);
-    if (dqk == 64 && dv == 64) return (int)launch_f32<64, 64>(p, B, s);
-    if (dqk == 128 && dv == 128) return (int)launch_f32<128, 128>(p, B, s);
-    if (dqk == 192 && dv == 128) return (int)launch_f32<192, 128>(p, B, s);
+    if (dqk == 32 && dv == 32) return (int)launch_scalar<float, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return (int)launch_scalar<float, 48, 32>(p, B, s);
+    if (dqk == 64 && dv == 64) return (int)launch_scalar<float, 64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return (int)launch_scalar<float, 128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return (int)launch_scalar<float, 192, 128>(p, B, s);
   } else if (dtype == 1) {
+    if (dqk == 32 && dv == 32) return (int)launch_scalar<__nv_bfloat16, 32, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return sm90::launch<64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return sm90::launch<128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return sm90::launch<192, 128>(p, B, s);
@@ -1836,6 +1850,7 @@ int backward_instance(int dtype, int dqk, int dv, const BwdParams& p, int B, cud
     if (dqk == 128 && dv == 128) return launch_bwd<float, 128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return launch_bwd<float, 192, 128>(p, B, s);
   } else if (dtype == 1) {
+    if (dqk == 32 && dv == 32) return launch_bwd<__nv_bfloat16, 32, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return sm90::launch_bwd<64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return sm90::launch_bwd<128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return sm90::launch_bwd<192, 128>(p, B, s);

@@ -48,10 +48,11 @@ __all__ = ["flash_attention", "flash_attention_backward", "tma_layout_error", "S
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # The (Dqk, Dv) pairs the CUDA kernels are instantiated for, by dtype: the
-# bf16 wgmma kernels, and the float32 scalar ones, which also take the
-# reduced configs' head dims (so that training them runs on the card).
+# bf16 wgmma kernels, and the scalar ones, which take the reduced configs'
+# head dims (so that training and serving them runs on the card): bf16 at
+# (32, 32) (reduced llama3-8b), float32 at every pair.
 HEAD_DIMS = {
-    torch.bfloat16: ((64, 64), (128, 128), (192, 128)),
+    torch.bfloat16: ((32, 32), (64, 64), (128, 128), (192, 128)),
     torch.float32: ((32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

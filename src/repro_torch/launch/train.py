@@ -6,8 +6,8 @@ defaults, and two of the port's own, which the card needs:
 * ``--device`` — where real gradients train (default the card; ``cpu``
   must be asked for);
 * ``--full-width`` — train the published config in its own dtype
-  (``RealBackendConfig(reduced=False)``) instead of the reduced float32
-  one, whose head dim 32 the card's flash kernel does not take.
+  (``RealBackendConfig(reduced=False)``) instead of the reduced one (both
+  run on the card).
 
 Three modes, each supporting ``--backend {real,sim}`` where it applies:
 
@@ -45,7 +45,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode trace --backend real \
       --trace-jobs 1 --trace-nodes 3 --epochs-per-event 2 --ref-batch 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --mode trace --backend real --full-width \
-      --trace-jobs 2 --trace-nodes 4 --ref-batch 16 --seq-len 512 --lr 0.01
+      --trace-jobs 2 --trace-nodes 4 --ref-batch 16 --seq-len 512 --lr 0.01 \
+      --steps-per-epoch 2 --epochs-per-event 2
 """
 from __future__ import annotations
 
@@ -315,8 +316,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "'cpu' runs the plain PyTorch path)")
     ap.add_argument("--full-width", action="store_true",
                     help="train the published config in its own dtype instead "
-                         "of the reduced float32 one (the card's flash kernel "
-                         "takes head dims 64 and 128 only)")
+                         "of the reduced one (olmo-1b: bf16 at head dim 128, not "
+                         "float32 at 32; the card's flash kernel takes both)")
     args = ap.parse_args(argv)
     if args.backend is None:
         args.backend = "real" if args.mode == "hetero" else "sim"

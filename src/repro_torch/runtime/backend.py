@@ -864,11 +864,11 @@ class RealBackendConfig:
     ``SyntheticLM`` data and constant-LR SGD, on ``device`` (the card when
     None).
 
-    ``reduced=True`` (the reference's recipe) builds the reduced config:
-    float32 with head dim 32, which trains on the CPU only, since the CUDA
-    flash kernel takes head dims 64 and 128.  ``reduced=False`` builds the
-    published config in its own dtype (bf16 for olmo-1b), which is what a
-    job on the card needs.  ``sharded=True`` splits each step's node axis
+    ``reduced=True`` (the reference's recipe) builds the reduced config
+    (olmo-1b's: float32 with head dim 32), which trains on the CPU and on
+    the card, where the flash kernel's float32 instance at (32, 32) takes
+    it.  ``reduced=False`` builds the published config in its own dtype
+    (bf16 for olmo-1b, head dim 128).  ``sharded=True`` splits each step's node axis
     over the default process group's ranks (a world of one without
     one).  ``n_layers`` cuts the config's depth and keeps its widths (None:
     the config's own depth)."""

@@ -963,10 +963,12 @@ def test_bf16_flash_launches_from_a_thread_with_no_cuda_context(cuda_device):
 
 
 # DeepSeek-V2's MLA: q and k at 192, v at 128 (bf16 and float32), and the
-# float32 instances at the reduced configs' head dims, (32, 32) (every
-# reduced dense config) and (48, 32) (reduced deepseek).
+# instances at the reduced configs' head dims: float32 (32, 32) (reduced
+# olmo-1b) and (48, 32) (reduced deepseek), bf16 (32, 32) (reduced
+# llama3-8b, on the scalar body).
 MLA_DIMS = [((192, 128), torch.bfloat16), ((192, 128), torch.float32),
-            ((32, 32), torch.float32), ((48, 32), torch.float32)]
+            ((32, 32), torch.float32), ((48, 32), torch.float32),
+            ((32, 32), torch.bfloat16)]
 MLA_CASES = [
     # b, s, t, h, kv, causal, window, kv_len
     (1, 200, 200, 8, 8, True, None, None),     # ragged S, T

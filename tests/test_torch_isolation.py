@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-``src/repro_torch/**/*.py``, ``chip_smoke.py`` and ``tools/*.py`` import
-neither ``jax`` nor ``repro`` (as opposed to ``repro_torch``); the port's
+``src/repro_torch/**/*.py``, ``chip_smoke.py``, ``tools/*.py`` and
+``examples_torch/*.py`` import neither ``jax`` nor ``repro`` (as opposed
+to ``repro_torch``); the port's
 public modules import with both blocked; entry points without
 ``device="cpu"`` raise when there is no card.
 """
@@ -17,7 +18,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").glob("*.py")))
+              + sorted((ROOT / "tools").glob("*.py"))
+              + sorted((ROOT / "examples_torch").glob("*.py")))
 FORBIDDEN = ("jax", "repro")
 
 

@@ -96,6 +96,57 @@ def test_hetero_real_cpu_matches_reference(tmp_path, capsys, monkeypatch):
         assert np.isfinite(g["mean_loss"])
 
 
+def _goodput_rows(out):
+    """The summary table's rows: (policy, goodput, fraction, jobs, states)."""
+    rows = [x.split() for x in out.splitlines()[2:] if x.strip()]
+    return [(r[0], float(r[1]), float(r[2]), r[3], r[4]) for r in rows]
+
+
+def test_trace_real_cpu_matches_reference(tmp_path, capsys, monkeypatch):
+    """``--mode trace --backend real --device cpu`` (the module docstring's
+    command, at 2 steps an epoch of 16 tokens to keep the test short; the
+    reference's compiles take most of its time either way): the trace line
+    and the summary's job and state columns are equal; the goodput
+    figures, which the GNS estimate from the losses' gradients scales,
+    within 1e-4 relative; the ``--out`` summaries' other fields equal."""
+    import repro_torch.runtime.backend as port_backend
+
+    argv = ["--mode", "trace", "--backend", "real", "--trace-jobs", "1", "--trace-nodes", "3",
+            "--epochs-per-event", "2", "--ref-batch", "16", "--steps-per-epoch", "2",
+            "--seq-len", "16"]
+    ref_out = _run(ref_train, argv + ["--out", str(tmp_path / "ref.json")], capsys,
+                   monkeypatch)
+    monkeypatch.setattr(port_backend, "RealBackend", BridgedRealBackend)
+    port_out = _run(port_train, argv + ["--device", "cpu", "--out",
+                                        str(tmp_path / "port.json")], capsys, monkeypatch)
+    assert port_out.splitlines()[:2] == ref_out.splitlines()[:2]
+    assert port_out.splitlines()[0].startswith("# trace: ")
+    got, want = _goodput_rows(port_out), _goodput_rows(ref_out)
+    assert [(g[0], g[3], g[4]) for g in got] == [(w[0], w[3], w[4]) for w in want]
+    assert [g[0] for g in got] == ["cannikin"]
+    np.testing.assert_allclose([g[1:3] for g in got], [w[1:3] for w in want], rtol=REL,
+                               atol=0.06)  # printed to 1 and 3 decimals
+    got_js = json.loads((tmp_path / "port.json").read_text())
+    want_js = json.loads((tmp_path / "ref.json").read_text())
+
+    def close(g, w, path):
+        if isinstance(w, dict):
+            assert g.keys() == w.keys(), path
+            for k in w:
+                close(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, list):
+            assert len(g) == len(w), path
+            for i, (a, b) in enumerate(zip(g, w)):
+                close(a, b, f"{path}/{i}")
+        elif isinstance(w, float) and not isinstance(g, bool):
+            np.testing.assert_allclose(g, w, rtol=REL, atol=0, err_msg=path)
+        else:
+            assert g == w, path
+
+    close(got_js, want_js, "")
+    assert got_js["cannikin"]["aggregate_goodput"] > 0
+
+
 SPMD_LINE = re.compile(r"step +(\d+) loss=(\S+) \((\d+)ms\)")
 
 
