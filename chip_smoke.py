@@ -21,8 +21,8 @@ Phases, each of which fails the run:
                    of each bf16 backward kernel's own SASS (its three (Dqk,
                    Dv) instances; each must be non-zero) beside its ptxas
                    registers and spill bytes, and the registers and spill
-                   bytes of every instance at (192, 128), (48, 32) and
-                   (32, 32).
+                   bytes of every instance at (192, 128), (48, 32), (32,
+                   32) and (16, 16).
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
                    max abs error <= 1e-2: one output rounding plus another
@@ -38,9 +38,14 @@ Phases, each of which fails the run:
                    4096 active) and deepseek-v2-236b's MLA (q/k 192, v 128,
                    128 heads; S=1024 and 4096 bf16, S=300 f32), where the
                    library column names SDPA's kernel (its backend) or
-                   says that it refused.
+                   says that it refused; and the reduced configs' scalar
+                   instances at phase 33's shapes (``REDUCED_FLASH_CASES``:
+                   hymba-1.5b's (16, 16) with 5 q heads over 1 KV head,
+                   global and windowed, bf16 and f32; deepseek-v2-236b's
+                   MLA at (48, 32)).
 4. kernel (wkv)  — the WKV kernel against its plain (chunked) version, all
-                   float32 with K=64, out and final state within
+                   float32 with K=64 (and, for reduced rwkv6-7b, K=32 at
+                   chunk 16 and 32), out and final state within
                    1e-4 * max(1, max |plain|): float32 sums in another order
                    through decay factors up to exp(chunk * 4.6 / 2); also
                    the first pass's states entering each chunk against
@@ -71,7 +76,8 @@ Phases, each of which fails the run:
                    and a decode step, and their device time and idle share
                    under ``torch.profiler``.
 9. kernel (ssm)  — the selective-scan kernel against its plain (step by
-                   step) version, float32 with N=16, y and final state
+                   step) version, float32 with N=16 (and, for reduced
+                   hymba-1.5b, N=8 at D=128 and at a ragged D), y and final state
                    within 1e-5 * max(1, max |plain|): float32 sums over the
                    16 states in another order, through segments carried
                    with the reference's combine; rows cover a T with no
@@ -196,13 +202,14 @@ Phases, each of which fails the run:
                    path predicts (``expected_training_launches``), peak
                    memory under 80 GB, each node step's wall and device ms
                    and its backward kernels' part, and one node's float32
-                   gradient (b=2, S=256) through the kernels against the
+                   gradient (b=2, S=256, ``RWKV6_GRAD_LAYERS`` layers)
+                   through the kernels against the
                    plain versions passed through the model's ``scan`` seam
                    (sq-norm within 1e-5 relative, leaves within 1e-4 *
                    max(1, max |g|)).  Its uncut CLI does not fit one card;
                    a line says so.
 19. training (hymba) — the same for hymba-1.5b at published widths, cut
-                   to ``HYMBA_TRAIN_LAYERS`` (16 of 32) layers (``attend`` and
+                   to ``HYMBA_TRAIN_LAYERS`` (8 of 32) layers (``attend`` and
                    ``scan`` seams; the gradient check at
                    ``HYMBA_GRAD_LAYERS`` layers), then ``python -m
                    repro_torch.launch.train --mode spmd --arch hymba-1.5b
@@ -282,10 +289,12 @@ Phases, each of which fails the run:
                    bound.  The reference drives whisper through the
                    registry only (no serving engine or ``EpochLoop`` has
                    audio input), and so does the port.
-29. training (whisper) — whisper-large-v3 in bf16, uncut, remat on: 3
+29. training (whisper) — whisper-large-v3 in bf16 at published widths,
+                   ``WHISPER_TRAIN_LAYERS`` (16 of 32) layers deep on each
+                   side, remat on: 3
                    steps of ``build_train_step(api, adamw(...))`` on B=8 x
                    1500 frames and 375 tokens with per-sample weights: every
-                   loss finite, weights changed, 192 flash forwards and 96
+                   loss finite, weights changed, 96 flash forwards and 48
                    backward calls a step, peak under 80 GB; the step's wall
                    and device ms and the flash parts.  Phases 3 and 12 carry
                    whisper's non-causal rows (B=8, 20 heads of 64: the
@@ -346,6 +355,28 @@ Phases, each of which fails the run:
                    peak memory.  ``python3 chip_smoke.py --only examples``
                    runs phases 1, 2, the bf16 (32, 32) rows of 3 and 12,
                    and 31-32.
+33. reduced configs — every arch of ``ARCHS`` at its reduced config (the
+                   one the CLI builds by default) on the card: (a) a float32
+                   copy, the forward through the kernels against the same
+                   model with the plain versions through its seams
+                   (``plain_seams``; logits within 1e-4), then the gradient
+                   of ``api.loss`` against the plain seams (``check_grads``);
+                   (b) in the config's own dtype (bf16 but olmo-1b),
+                   ``repro_torch.launch.train.main`` in this process with
+                   ``--mode hetero --backend real --epochs 1
+                   --steps-per-epoch 2`` and with ``--mode spmd --steps 1
+                   --seq-len 16 --ref-batch 4``: exit 0 and every loss
+                   finite; whisper-large-v3 raises the reference's
+                   ``KeyError`` (``audio_embed``) in both, since
+                   ``SyntheticLM`` batches carry no audio.  The launches of
+                   (a) and (b) are counted by CUDA instance
+                   (``launches_by_instance``): each instance this slice
+                   added (flash bf16 and f32 at (16, 16), bf16 at (48, 32),
+                   WKV at K=32, the scan at N=8, forward and backward) must
+                   have launched.  Phases 3, 4, 9, 12 and 17 carry these
+                   instances' rows at the shapes phase 33 gives them
+                   (B=4, S=32).  ``python3 chip_smoke.py --only reduced``
+                   runs phases 1, 2, those rows and 33.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
@@ -354,7 +385,7 @@ each model of 20, each forward of 21, 22's serving run and forward, 23's
 training run, each forward of 24, 25's serving run and forward, 26's node
 steps, 27's forward, encode, stepped decode and each gradient, 28's encoder
 forward and decode loop, 29's training steps, 30's real step, each of 31's
-in-process calls) and read just after it.
+in-process calls, 33's whole run) and read just after it.
 Device ms of a named kernel are per launch the profiler recorded, with the
 count of records beside them.  The last three lines of standard output are
 the card line from ``nvidia-smi``, a JSON line describing each kernel, and
@@ -406,7 +437,9 @@ BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  #
 # Mangled-name tags of the flash instances at (Dqk, Dv) = (192, 128), (48, 32)
 # and (32, 32), whose ptxas registers and spills phase 2 prints.
 NEW_INSTANCE_TAGS = ("ILi192ELi128E", "ILi48ELi32E", "ILi32ELi32E", "IfLi192ELi128E",
-                     "IfLi48ELi32E", "IfLi32ELi32E", "I13__nv_bfloat16Li32ELi32E")
+                     "IfLi48ELi32E", "IfLi32ELi32E", "I13__nv_bfloat16Li32ELi32E",
+                     "IfLi16ELi16E", "I13__nv_bfloat16Li16ELi16E",
+                     "I13__nv_bfloat16Li48ELi32E")
 BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
 # Whisper-large-v3's non-causal attentions (20 heads of 64, MHA, bf16, B=8):
 # the encoder's self-attention over 1500 frames (23 tiles of 64 and 28
@@ -422,6 +455,18 @@ WHISPER_CASES = [
 # prefill of 4 prompts of 24 tokens and quickstart's step at 16 x 32.
 LLAMA_REDUCED_CASE = "llama3-8b reduced bf16 B=4 S=24"
 LLAMA_REDUCED_BWD_CASE = "llama3-8b reduced bf16 train B=16 S=32"
+# The reduced configs' scalar instances at the shapes phase 33 gives them
+# (a node's slice of B=4 at S=32): hymba-1.5b's (16, 16), 5 q heads over 1
+# KV head, global and windowed (its window of 16), in bf16 and in float32
+# (phase 33's float32 copy); deepseek-v2-236b's MLA at (48, 32), 4 heads.
+HYMBA_REDUCED_CASE = "hymba-1.5b reduced bf16 B=4 S=32"
+DEEPSEEK_REDUCED_CASE = "deepseek-v2-236b reduced bf16 B=4 S=32"
+REDUCED_FLASH_CASES = [
+    (HYMBA_REDUCED_CASE, 4, 32, 5, 1, "bf16", None, 16),
+    ("hymba-1.5b reduced bf16 window=16 B=4 S=32", 4, 32, 5, 1, "bf16", 16, 16),
+    ("hymba-1.5b reduced f32 B=4 S=32", 4, 32, 5, 1, "f32", None, 16),
+    (DEEPSEEK_REDUCED_CASE, 4, 32, 4, 4, "bf16", None, (48, 32)),
+]
 # name, B, S, H, KV, dtype, window, D[, T, causal] (see ``flash_shape``: T
 # defaults to S and causal to True); D is a (Dqk, Dv) pair where v's head
 # dim differs (DeepSeek-V2's MLA)
@@ -435,6 +480,7 @@ BWD_CASES = [
     ("deepseek-v2-236b train B=8 S=512", 8, 512, 128, 128, "bf16", None, (192, 128)),
     *WHISPER_CASES,
     (LLAMA_REDUCED_BWD_CASE, 16, 32, 8, 2, "bf16", None, 32),
+    *REDUCED_FLASH_CASES,
 ]
 BWD_REL = {"bf16": 2e-2, "f32": 1e-4}
 
@@ -455,12 +501,18 @@ KERNEL_CASES = [
     ("deepseek f32 S=T=300", 1, 300, 16, 16, "f32", None, (192, 128)),
     *WHISPER_CASES,
     (LLAMA_REDUCED_CASE, 4, 24, 8, 2, "bf16", None, 32),
+    *REDUCED_FLASH_CASES,
 ]
 # The deepseek-v2-236b rows of phases 3 and 12 (the MLA instance, (192, 128)).
 DEEPSEEK_CASE = "deepseek-v2-236b S=1024"
 DEEPSEEK_BWD_CASE = "deepseek-v2-236b train B=8 S=512"
 TOL = {"bf16": 1e-2, "f32": 1e-5}
-# name, B, T, H, chunk, strong decay (float32, K = 64)
+# name, B, T, H, chunk, strong decay[, K] (float32, K = 64 unless given)
+WKV_REDUCED_CASE = "rwkv6-7b reduced K=32 B=4 T=32"
+WKV_REDUCED_CASES = [
+    (WKV_REDUCED_CASE, 4, 32, 4, 16, False, 32),
+    ("K=32 ragged T=300 chunk 32", 2, 300, 4, 32, True, 32),
+]
 WKV_CASES = [
     ("rwkv6-7b T=1024", 1, 1024, 64, 32, False),
     ("T=128", 1, 128, 64, 32, False),
@@ -468,9 +520,15 @@ WKV_CASES = [
     ("B=4 T=256", 4, 256, 64, 32, False),
     ("chunk 64 T=1024", 1, 1024, 64, 64, False),
     ("strong decay T=1024", 1, 1024, 64, 32, True),
+    *WKV_REDUCED_CASES,
 ]
 WKV_REL = 1e-4
-# name, B, T, D, chunk, strong decay (float32, N = 16)
+# name, B, T, D, chunk, strong decay[, N] (float32, N = 16 unless given)
+SSM_REDUCED_CASE = "hymba-1.5b reduced N=8 B=4 T=32"
+SSM_REDUCED_CASES = [
+    (SSM_REDUCED_CASE, 4, 32, 128, 8, False, 8),
+    ("N=8 D=203 T=301 (4-byte copies)", 2, 301, 203, 64, True, 8),
+]
 SSM_CASES = [
     ("hymba-1.5b T=1024", 1, 1024, 3200, 128, False),
     ("T=128", 1, 128, 3200, 128, False),
@@ -480,6 +538,7 @@ SSM_CASES = [
     ("strong decay T=1024", 1, 1024, 3200, 128, True),
     ("T=1021 (no whole last segment)", 1, 1021, 3200, 128, False),
     ("T=5 (below one segment)", 1, 5, 3200, 128, True),
+    *SSM_REDUCED_CASES,
 ]
 SSM_REL = 1e-5
 SFU_EXP_S = 132 * 16 * 1.98e9          # H100 SXM: 16 exponentials per clock and SM at boost
@@ -491,28 +550,42 @@ SSM_BWD_PROFILE = "ssm_bwd_"           # the scan backward's two kernels
 # three; wkv_bwd_state_kernel, wkv_bwd_grad_kernel, wkv_bwd_du_kernel;
 # ssm_bwd_kernel, ssm_bwd_reduce_kernel.
 BWD_KERNELS_PER_CALL = {BWD_PROFILE_NAME: 3, WKV_BWD_PROFILE: 3, SSM_BWD_PROFILE: 2}
-# Phase 17: name, B, T, H (or D), chunk, strong decay, final-state gradient
-# (float32; WKV K = 64, the scan N = 16).  The first row of each is one
-# node's training slice (b_max 40 at S 512).
+# Phase 17: name, B, T, H (or D), chunk, strong decay, final-state
+# gradient[, K or N] (float32; WKV K = 64, the scan N = 16, unless given).
+# The first row of each is one node's training slice (b_max 40 at S 512);
+# the reduced rows are phase 33's (a node's slice of B=4 at S=32).
+WKV_REDUCED_BWD_CASE = "rwkv6-7b reduced K=32 train B=4 T=32"
+SSM_REDUCED_BWD_CASE = "hymba-1.5b reduced N=8 train B=4 T=32"
+WKV_REDUCED_BWD_CASES = [
+    (WKV_REDUCED_BWD_CASE, 4, 32, 4, 16, False, False, 32),
+    ("K=32 ragged T=300", 2, 300, 4, 16, True, True, 32),
+]
+SSM_REDUCED_BWD_CASES = [
+    (SSM_REDUCED_BWD_CASE, 4, 32, 128, 8, False, False, 8),
+    ("N=8 ragged T=301 D=203", 2, 301, 203, 64, True, True, 8),
+]
 WKV_BWD_CASES = [
     ("rwkv6-7b train B=40 T=512", 40, 512, 64, 32, False, False),
     ("ragged T=300", 2, 300, 64, 32, False, True),
     ("strong decay T=512", 4, 512, 64, 32, True, False),
     ("final-state grad B=8 T=512", 8, 512, 64, 32, False, True),
+    *WKV_REDUCED_BWD_CASES,
 ]
 SSM_BWD_CASES = [
     ("hymba-1.5b train B=40 T=512", 40, 512, 3200, 128, False, False),
     ("ragged T=301 D=203", 2, 301, 203, 128, False, True),
     ("strong decay T=512", 4, 512, 3200, 128, True, False),
     ("final-state grad B=8 T=512", 8, 512, 3200, 128, False, True),
+    *SSM_REDUCED_BWD_CASES,
 ]
 WKV_BWD_MAIN_CASE = WKV_BWD_CASES[0][0]
 SSM_BWD_MAIN_CASE = SSM_BWD_CASES[0][0]
 KERNEL_BWD_REL = 1e-4  # float32 sums in another order, per output x max(1, max |plain|)
-RWKV6_TRAIN_LAYERS = 12  # phase 18's depth cut (of 32): see PERF.md section 4
+RWKV6_TRAIN_LAYERS = 6   # phase 18's depth cut (of 32): see PERF.md section 4
+RWKV6_GRAD_LAYERS = 12   # phase 18's float32 node-gradient check
 # Cuts that keep the whole run inside its time limit (PERF.md section 4):
 SSM_SERVING_LAYERS = 8   # phases 8 and 11 serve rwkv6-7b and hymba-1.5b 8 of 32 layers deep
-HYMBA_TRAIN_LAYERS = 16  # phase 19 trains hymba-1.5b 16 of 32 layers deep
+HYMBA_TRAIN_LAYERS = 8   # phase 19 trains hymba-1.5b 8 of 32 layers deep
 PREEMPT_LAYERS = 4       # phase 15's preempt/resume job: olmo-1b 4 of 16 layers deep
 # Phases 20-23's depth cuts at published widths (None: uncut); PERF.md section 4.
 DENSE_MODEL_LAYERS = {"minitron-4b": None, "internlm2-20b": 4, "chameleon-34b": 4}
@@ -532,6 +605,7 @@ WHISPER_MODEL_LAYERS = None  # phase 27, float32: uncut (1.53 B parameters, 6.1 
 WHISPER_MODEL_TEXT = 128     # phase 27's text positions, stepped one by one
 WHISPER_DECODE_STEPS = 64    # phase 28's greedy decode steps
 WHISPER_TRAIN_TEXT = 375     # phase 29's text positions: S_enc / 4, the reference's ratio
+WHISPER_TRAIN_LAYERS = 16    # phase 29's depth on each side (of 32)
 DEVICE = "cuda"
 
 
@@ -992,8 +1066,8 @@ def wkv_case(torch, mod, case, gen):
     time; ``busy_ms``: the union of their intervals, which counts their
     overlap once; both per recorded launch, ``records`` of the 40), the
     host's ms to issue one call (``issue_ms``) and the card's bound."""
-    name, b, t, h, chunk, strong = case
-    k = 64
+    name, b, t, h, chunk, strong, *rest = case
+    k = rest[0] if rest else 64
 
     def rand(shape, scale):
         return torch.randn(shape, generator=gen, device=DEVICE) * scale
@@ -1037,22 +1111,23 @@ def wkv_case(torch, mod, case, gen):
     )
 
 
-def phase_kernel_wkv(torch):
+def phase_kernel_wkv(torch, cases=WKV_CASES):
     from repro_torch.kernels import rwkv6_wkv
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     rows = {}
-    for case in WKV_CASES:
-        name, b, t, h, chunk, strong = case
+    for case in cases:
+        name, b, t, h, chunk, strong, *rest = case
         row = rows[name] = wkv_case(torch, rwkv6_wkv, case, gen)
         errs, tols, ms = row["errs"], row["tols"], row["ms"]
         for key, err in errs.items():
             if not err <= tols[key]:
                 raise AssertionError(f"wkv {name}: {key} max abs err {err:.3e} > {tols[key]:.3e}")
-        log("kernel", f"wkv {name} B={b} H={h} K=64 chunk={chunk} f32: max_abs_err "
+        log("kernel", f"wkv {name} B={b} H={h} K={rest[0] if rest else 64} chunk={chunk} f32: "
+            "max_abs_err "
             + " ".join(f"{key}={err:.3e} (tol {tols[key]:.3e})" for key, err in errs.items())
-            + f" ms={ms:.4f} plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
-            f"({row['bound_by']}) of_bound={row['bound_ms'] / ms:.4f} "
+            + f" ms={ms:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) of_bound={row['bound_ms'] / ms:.4f} "
             f"device_ms={row['device_ms']:.4f} busy_ms={row['busy_ms']:.4f} "
             f"records={row['records']}/{20 * WKV_KERNELS} "
             f"of_bound_busy={row['bound_ms'] / row['busy_ms']:.4f} "
@@ -1107,8 +1182,8 @@ def ssm_inputs(torch, case, gen):
     """Seeded float32 inputs of one ``SSM_CASES`` row: dt > 0 as softplus
     gives it, A = -exp(log_a) < 0; a strong-decay row draws dt |A| up to
     about 50, so the state forgets within a step."""
-    name, b, t, d, chunk, strong = case
-    n = 16
+    name, b, t, d, chunk, strong, *rest = case
+    n = rest[0] if rest else 16
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
@@ -1187,15 +1262,16 @@ def log_ssm_row(label, row):
         f"clock [{row['clock_before']}] -> [{row['clock_after']}]")
 
 
-def phase_kernel_ssm(torch):
+def phase_kernel_ssm(torch, cases=SSM_CASES):
     from repro_torch.kernels import ssm_scan
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     rows = {}
-    for case in SSM_CASES:
-        name, b, t, d, chunk, strong = case
+    for case in cases:
+        name, b, t, d, chunk, strong, *rest = case
         rows[name] = ssm_case(torch, ssm_scan, case, gen)
-        log_ssm_row(f"{name}: B={b} T={t} D={d} N=16 chunk={chunk}", rows[name])
+        log_ssm_row(f"{name}: B={b} T={t} D={d} N={rest[0] if rest else 16} chunk={chunk}",
+                    rows[name])
     return rows
 
 
@@ -1225,10 +1301,19 @@ def no_launches(**counts):
 def reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+        fn.launches_by_instance.clear()
 
 
 def read_launches():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def read_instance_launches():
+    """Each wrapper's launches by CUDA instance: {(kernel, instance key):
+    count}, the key as the wrapper keeps it (flash: (dtype name, Dqk, Dv);
+    WKV: (K,); the scan: (N,))."""
+    return {(name, key): n for name, fn in _wrappers().items()
+            for key, n in fn.launches_by_instance.items()}
 
 
 def prefill_vs_stepped(torch, api, label, seed=1, s=128):
@@ -2921,8 +3006,8 @@ def wkv_bwd_case(torch, case, gen):
     -3.45], inside the clamp, so each carries a gradient."""
     from repro_torch.kernels import rwkv6_wkv as mod
 
-    name, b, t, h, chunk, strong, with_ds = case
-    k = 64
+    name, b, t, h, chunk, strong, with_ds, *rest = case
+    k = rest[0] if rest else 64
 
     def rand(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=DEVICE) * scale
@@ -2950,9 +3035,9 @@ def ssm_bwd_case(torch, case, gen):
     (a checkout before the second design has none)."""
     from repro_torch.kernels import ssm_scan as mod
 
-    name, b, t, d, chunk, strong, with_dh = case
-    n = 16
-    u, dt, _, _, log_a = ssm_inputs(torch, (name, b, t, d, chunk, strong), gen)
+    name, b, t, d, chunk, strong, with_dh, *rest = case
+    n = rest[0] if rest else 16
+    u, dt, _, _, log_a = ssm_inputs(torch, (name, b, t, d, chunk, strong, n), gen)
     bc = torch.randn((b, t, 2 * n), generator=gen, device=DEVICE)
     bt, ct = bc[..., :n], bc[..., n:]
     dy = torch.randn((b, t, d), generator=gen, device=DEVICE)
@@ -2966,15 +3051,16 @@ def ssm_bwd_case(torch, case, gen):
         ("du", "ddt", "db", "dc", "dlog_a"), SSM_BWD_PROFILE, ssm_bwd_bound(b, t, d, n, with_dh))
 
 
-def phase_kernel_backwards(torch):
+def phase_kernel_backwards(torch, wkv_cases=WKV_BWD_CASES, ssm_cases=SSM_BWD_CASES):
     """Phase 17: each backward kernel against its plain backward."""
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     rows = {}
     for label, cases, case_fn, profile in (
-            ("wkv", WKV_BWD_CASES, wkv_bwd_case, WKV_BWD_PROFILE),
-            ("ssm", SSM_BWD_CASES, ssm_bwd_case, SSM_BWD_PROFILE)):
+            ("wkv", wkv_cases, wkv_bwd_case, WKV_BWD_PROFILE),
+            ("ssm", ssm_cases, ssm_bwd_case, SSM_BWD_PROFILE)):
         for case in cases:
-            name, b, t, width, chunk, strong, with_grad = case
+            name, b, t, width, chunk, strong, with_grad, *rest = case
+            size = f" {'K' if label == 'wkv' else 'N'}={rest[0]}" if rest else ""
             row = rows[(label, name)] = case_fn(torch, case, gen)
             for key, err in row["errs"].items():
                 if not err <= row["tols"][key]:
@@ -2983,7 +3069,7 @@ def phase_kernel_backwards(torch):
             if not row["bitwise_repeat"]:
                 raise AssertionError(f"{label} bwd {name}: two calls gave different bits")
             log("kernel", f"{label} bwd {name}: B={b} T={t} {'H' if label == 'wkv' else 'D'}="
-                f"{width} chunk={chunk} final-state grad={with_grad} f32: max_abs_err "
+                f"{width}{size} chunk={chunk} final-state grad={with_grad} f32: max_abs_err "
                 + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
                            for key, err in row["errs"].items())
                 + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
@@ -3006,7 +3092,7 @@ HYMBA_GRAD_LAYERS = 16
 # name, arch, n_layers (None: all), the node-gradient check's layers, the
 # CLI's arguments (None: it does not fit)
 SSM_TRAINING = {
-    "rwkv6": ("rwkv6-7b", RWKV6_TRAIN_LAYERS, RWKV6_TRAIN_LAYERS, None),
+    "rwkv6": ("rwkv6-7b", RWKV6_TRAIN_LAYERS, RWKV6_GRAD_LAYERS, None),
     "hymba": ("hymba-1.5b", HYMBA_TRAIN_LAYERS, HYMBA_GRAD_LAYERS,
               ["--mode", "spmd", "--arch", "hymba-1.5b", "--full-width", "--steps", "3",
                "--seq-len", "512", "--ref-batch", "16", "--microbatches", "2", "--lr", "0.01"]),
@@ -3948,18 +4034,19 @@ WHISPER_TRAIN_LR = 1e-3  # AdamW: moves every bf16 weight matrix in one step
 
 
 def phase_train_whisper(torch):
-    """Phase 29: whisper-large-v3 in bf16, uncut, remat on:
+    """Phase 29: whisper-large-v3 in bf16, ``WHISPER_TRAIN_LAYERS`` deep, remat on:
     ``WHISPER_TRAIN_STEPS`` steps of ``build_train_step(api, adamw(...))`` on
     B=8 of (1500, 1280) frames and 375 tokens and labels with per-sample
-    weights: every loss finite, watched weights changed by each step, 192
-    flash forwards and 96 backward calls a step, peak under 80 GB; the
+    weights: every loss finite, watched weights changed by each step, 96
+    flash forwards and 48 backward calls a step (16 encoder and 32 decoder
+    attentions, each forward twice under remat), peak under 80 GB; the
     step's wall and device ms and the flash forward and backward parts."""
     from repro_torch.models.registry import build_api
     from repro_torch.optim import adamw, constant_schedule
     from repro_torch.train.step import build_train_step
 
     label = "training (whisper)"
-    cfg = whisper_cfg(torch)
+    cfg = whisper_cfg(torch, n_layers=WHISPER_TRAIN_LAYERS)
     api = build_api("whisper-large-v3", cfg)
     model = api.init(0, device=DEVICE).requires_grad_(True)
     opt = adamw(constant_schedule(WHISPER_TRAIN_LR))
@@ -3993,7 +4080,8 @@ def phase_train_whisper(torch):
         BWD_PROFILE_NAME] * n}
     dev, part, idle, _, records = device_split(
         torch, lambda: step(model, state, batch), 1, min(walls[1:]), tuple(launches), launches)
-    log(label, f"whisper-large-v3 bf16 (uncut, {api.param_count()} params, remat), "
+    log(label, f"whisper-large-v3 bf16 ({cfg.n_enc_layers} + {cfg.n_dec_layers} layers, "
+        f"{api.param_count()} params, remat), "
         f"{WHISPER_TRAIN_STEPS} AdamW steps (lr {WHISPER_TRAIN_LR}) on B={b} x "
         f"{cfg.enc_frames} frames and {s} tokens, weights {batch['weights'].tolist()}: losses "
         f"{losses}; wall ms {[round(w, 2) for w in walls]}; a step: device {dev:.2f} ms (idle "
@@ -4450,6 +4538,151 @@ def run_example_phases(torch, enter):
     return counts
 
 
+# Phase 33: the CUDA instances this slice added, by the kernels line's name
+# (the first eight) or a name of their own (float32 (16, 16), which the line
+# leaves out): (wrapper, instance key as the wrapper counts it).
+REDUCED_INSTANCES = {
+    "flash_attention[bf16,16]": ("flash_attention", ("bf16", 16, 16)),
+    "flash_attention_backward[bf16,16]": ("flash_attention_backward", ("bf16", 16, 16)),
+    "flash_attention[bf16,48x32]": ("flash_attention", ("bf16", 48, 32)),
+    "flash_attention_backward[bf16,48x32]": ("flash_attention_backward", ("bf16", 48, 32)),
+    "rwkv6_wkv[32]": ("rwkv6_wkv", (32,)),
+    "rwkv6_wkv_backward[32]": ("rwkv6_wkv_backward", (32,)),
+    "ssm_scan[8]": ("ssm_scan", (8,)),
+    "ssm_scan_backward[8]": ("ssm_scan_backward", (8,)),
+    "flash_attention[f32,16]": ("flash_attention", ("f32", 16, 16)),
+    "flash_attention_backward[f32,16]": ("flash_attention_backward", ("f32", 16, 16)),
+}
+REDUCED_BATCH = (4, 32)      # phase 33(a)'s float32 batch: B, S
+REDUCED_LOGITS_TOL = 1e-4    # phase 33(a): kernels vs plain seams, float32 logits
+REDUCED_CLI = (
+    ["--mode", "hetero", "--backend", "real", "--epochs", "1", "--steps-per-epoch", "2"],
+    ["--mode", "spmd", "--steps", "1", "--seq-len", "16", "--ref-batch", "4"],
+)
+
+
+def reduced_batch(torch, api, b, s, seed):
+    """Seeded tokens and next-token labels (b, s) in the config's vocab and
+    per-sample weights (the last sample half weighted); the encoder-decoder
+    also gets its ``audio_embed`` (``whisper_batch``)."""
+    cfg = api.cfg
+    if api.is_encoder_decoder:
+        return whisper_batch(torch, cfg, b, s, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, device=DEVICE)
+    weights = torch.ones(b, device=DEVICE)
+    weights[-1] = 0.5
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "weights": weights}
+
+
+def reduced_f32(torch, arch, label):
+    """Phase 33(a): a float32 copy of ``arch``'s reduced config, seeded
+    weights, ``REDUCED_BATCH``: ``train_forward`` through the kernels
+    against the same model with the plain versions through its seams
+    (logits within ``REDUCED_LOGITS_TOL``), then the gradient of
+    ``api.loss`` through each (``check_grads``)."""
+    from repro_torch.configs import get_api
+    from repro_torch.models.registry import build_api
+
+    cfg = dataclasses.replace(get_api(arch, reduced=True).cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    api = build_api(arch, cfg)
+    model = api.init(0, device=DEVICE)
+    b, s = REDUCED_BATCH
+    batch = reduced_batch(torch, api, b, s, seed=33)
+    inputs = ((batch["audio_embed"], batch["tokens"]) if api.is_encoder_decoder
+              else (batch["tokens"],))
+    seams = plain_seams(cfg.family, getattr(cfg, "window", None))
+    with torch.no_grad():
+        got, want = model.train_forward(*inputs), model.train_forward(*inputs, **seams)
+    if api.has_moe_stats:
+        got, want = got[0], want[0]
+    err = (got - want).abs().max().item()
+    log(label, f"{arch} reduced f32 B={b} S={s}: train_forward through the kernels vs the "
+        f"plain {'/'.join(seams)} seams: logits max abs err {err:.3e} (limit "
+        f"{REDUCED_LOGITS_TOL:.0e}), scale {want.abs().max().item():.3f}")
+    if not (torch.isfinite(got).all() and err <= REDUCED_LOGITS_TOL):
+        raise AssertionError(f"{arch} reduced f32 logits: err {err:.3e}")
+    del got, want
+    model.requires_grad_(True)
+    grads = {}
+    for name, seam in (("kernel", {}), ("plain", seams)):
+        with seams_on(model, seam):
+            loss, _ = api.loss(model, batch)
+        grads[name] = torch.autograd.grad(loss, list(model.parameters()))
+        del loss
+    check_grads(label, f"{arch} reduced f32 gradient of api.loss (B={b}, S={s}, weights "
+                f"{batch['weights'].tolist()}), kernels vs plain {'/'.join(seams)}", model, grads)
+
+
+def reduced_cli(torch, arch, args, label):
+    """Phase 33(b): ``repro_torch.launch.train.main`` in this process with
+    ``args`` and ``--arch arch`` (the reduced config in its own dtype, on
+    the card): exit 0 and one finite loss per epoch or step; the
+    encoder-decoder raises the reference's ``KeyError`` (``audio_embed``)."""
+    import io
+    import re
+
+    from repro_torch.configs import get_api
+    from repro_torch.launch import train as train_cli
+
+    api = get_api(arch, reduced=True)
+    argv = [*args, "--arch", arch]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main(argv)
+        raised = None
+    except KeyError as err:
+        rc, raised = None, err
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = [float(m.group(1)) for m in re.finditer(r"loss=(\S+)", out.getvalue())]
+    log(label, f"{' '.join(argv)} ({api.cfg.param_dtype}): "
+        + (f"raised KeyError {raised}" if raised is not None else f"exit {rc}")
+        + f" in {secs:.2f} s, losses {losses}")
+    if api.is_encoder_decoder:
+        if raised is None or "audio_embed" not in str(raised):
+            raise AssertionError(f"{arch}: expected the reference's KeyError (audio_embed)")
+        return
+    if raised is not None:
+        raise raised
+    if rc != 0 or len(losses) != 1 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{' '.join(argv)}: exit {rc}, losses {losses}: "
+                             f"{out.getvalue()[-2000:]}")
+
+
+def phase_reduced(torch):
+    """Phase 33: every arch of ``ARCHS`` at its reduced config, (a) and (b)
+    (``reduced_f32``, ``reduced_cli``), with the launch counts set to 0
+    before the first and read after the last; every instance of
+    ``REDUCED_INSTANCES`` must have launched.  Returns those instances'
+    launches by name."""
+    from repro_torch.configs import ARCHS
+
+    label = "reduced"
+    t0 = time.perf_counter()
+    reset_launches()
+    for arch in ARCHS:
+        t_arch = time.perf_counter()
+        reduced_f32(torch, arch, label)
+        for args in REDUCED_CLI:
+            reduced_cli(torch, arch, args, label)
+        log(label, f"{arch} in {time.perf_counter() - t_arch:.2f} s")
+    torch.cuda.synchronize()
+    by_instance = read_instance_launches()
+    counts = {name: by_instance.get(key, 0) for name, key in REDUCED_INSTANCES.items()}
+    log(label, "launches by instance " + ", ".join(
+        f"{name}<{','.join(map(str, key))}>={n}" for (name, key), n in sorted(
+            by_instance.items(), key=str)))
+    log(label, f"phase 33 in {time.perf_counter() - t0:.1f} s: new instances' launches {counts}")
+    missing = [name for name, n in counts.items() if not n]
+    if missing:
+        raise AssertionError(f"phase 33 launched no {missing}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4522,6 +4755,25 @@ def main() -> int:
             phase_kernel_bwd(torch, [c for c in BWD_CASES if c[0] == LLAMA_REDUCED_BWD_CASE])
             run_example_phases(torch, enter)
             log("done", f"--only examples passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--only", "reduced"]:
+            enter("kernel")
+            phase_kernel(torch, REDUCED_FLASH_CASES)
+            enter("kernel (wkv)")
+            phase_kernel_wkv(torch, WKV_REDUCED_CASES)
+            enter("kernel (ssm)")
+            phase_kernel_ssm(torch, SSM_REDUCED_CASES)
+            enter("kernel (flash bwd)")
+            phase_kernel_bwd(torch, REDUCED_FLASH_CASES)
+            enter("kernel (wkv and ssm bwd)")
+            phase_kernel_backwards(torch, WKV_REDUCED_BWD_CASES, SSM_REDUCED_BWD_CASES)
+            enter("reduced configs")
+            phase_reduced(torch)
+            log("done", f"--only reduced passed in {time.perf_counter() - t_start:.1f} s; "
                 "seconds per phase: " + ", ".join(
                     f"{name} {end - start:.1f}" for (name, start), end in zip(
                         starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
@@ -4621,12 +4873,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         example_counts = run_example_phases(torch, enter)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("reduced configs")
+        reduced_counts = phase_reduced(torch)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-32); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-33); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -4664,6 +4920,26 @@ def main() -> int:
          bwd_rows[LLAMA_REDUCED_BWD_CASE],
          example_counts[f"quickstart train ({EXAMPLE_QUICKSTART_STEPS} steps)"]
          ["flash_attention_backward"]),
+        # The reduced configs' instances on phase 33's paths (every arch's
+        # float32 forward and gradient, and the CLI's hetero and spmd
+        # modes): hymba-1.5b's (16, 16), deepseek-v2-236b's MLA at (48,
+        # 32), rwkv6-7b's K = 32 and hymba-1.5b's N = 8.
+        ("flash_attention[bf16,16]", SOURCE_REL, REPLACES, rows[HYMBA_REDUCED_CASE],
+         reduced_counts["flash_attention[bf16,16]"]),
+        ("flash_attention_backward[bf16,16]", SOURCE_REL, REPLACES, bwd_rows[HYMBA_REDUCED_CASE],
+         reduced_counts["flash_attention_backward[bf16,16]"]),
+        ("flash_attention[bf16,48x32]", SOURCE_REL, REPLACES, rows[DEEPSEEK_REDUCED_CASE],
+         reduced_counts["flash_attention[bf16,48x32]"]),
+        ("flash_attention_backward[bf16,48x32]", SOURCE_REL, REPLACES,
+         bwd_rows[DEEPSEEK_REDUCED_CASE], reduced_counts["flash_attention_backward[bf16,48x32]"]),
+        ("rwkv6_wkv[32]", WKV_SOURCE_REL, WKV_REPLACES, wkv_rows[WKV_REDUCED_CASE],
+         reduced_counts["rwkv6_wkv[32]"]),
+        ("rwkv6_wkv_backward[32]", WKV_BWD_SOURCE_REL, WKV_REPLACES,
+         ssm_bwd_rows[("wkv", WKV_REDUCED_BWD_CASE)], reduced_counts["rwkv6_wkv_backward[32]"]),
+        ("ssm_scan[8]", SSM_SOURCE_REL, SSM_REPLACES, ssm_rows[SSM_REDUCED_CASE],
+         reduced_counts["ssm_scan[8]"]),
+        ("ssm_scan_backward[8]", SSM_BWD_SOURCE_REL, SSM_REPLACES,
+         ssm_bwd_rows[("ssm", SSM_REDUCED_BWD_CASE)], reduced_counts["ssm_scan_backward[8]"]),
     ):
         kernels.append({
             "name": name,

@@ -72,10 +72,13 @@
 // serving traffic.  One block of 256 threads per (b, h, 64-row q tile);
 // each 64-key K/V tile is staged in shared memory (widened to float32)
 // and both products run as scalar FMAs on the CUDA cores.  Its bf16
-// instance at (32, 32) serves the reduced bf16 configs (llama3-8b's: the
-// examples' quickstart and batched serving), whose 32 columns are half of
-// one 128-byte swizzle row, which the wgmma kernel's TMA tiles are built
-// from; it rounds the output to bf16 once.
+// instances serve the reduced bf16 configs (llama3-8b's and whisper's
+// (32, 32): the examples' quickstart and batched serving; hymba's (16, 16),
+// 5 q heads over 1 KV head; deepseek's MLA at (48, 32)), whose rows are
+// narrower than one 128-byte swizzle row, which the wgmma kernel's TMA
+// tiles are built from; it rounds the output to bf16 once.  At these
+// widths a call is a few microseconds of launch: the scalar body is right
+// and the tensor cores would buy nothing.
 //
 // Head dims.  Every kernel is a template on (DQK, DV): q and k share DQK, v
 // and the output have DV, as in repro/models/common.py::full_attention.
@@ -83,8 +86,8 @@
 // the latent and a 64-dim RoPE part, v is 128 wide, and the scale is
 // 1/sqrt(192).  The instances (the C entries' forward_instance and
 // backward_instance): bf16 at (64, 64), (128, 128), (192, 128) on wgmma
-// and at (32, 32) on the scalar body; float32 at those four and at (48,
-// 32).  At (192, 128)
+// and at (16, 16), (32, 32), (48, 32) on the scalar body; float32 at all
+// six.  At (192, 128)
 // the bf16 forward's Q K^T runs over three 64-column swizzle chunks (12
 // k16 steps), its P V at N = 128; q, the K ring and the V ring take 24 +
 // 48 + 32 KB, so two blocks still share an SM, and the accumulators are
@@ -1824,17 +1827,21 @@ int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
 
 // The (Dqk, Dv) instances, which ops.py's HEAD_DIMS lists: the bf16 wgmma
 // kernels at (64, 64), (128, 128) and (192, 128) (DeepSeek-V2's MLA) and
-// the bf16 scalar ones at (32, 32) (the reduced bf16 configs); the float32
-// scalar ones at those and at the reduced configs' (32, 32) and (48, 32).
+// the bf16 scalar ones at the reduced configs' head dims, (16, 16) (hymba),
+// (32, 32) (llama3-8b, whisper) and (48, 32) (deepseek's MLA); the float32
+// scalar ones at every pair of both lists.
 int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStream_t s) {
   if (dtype == 0) {
+    if (dqk == 16 && dv == 16) return (int)launch_scalar<float, 16, 16>(p, B, s);
     if (dqk == 32 && dv == 32) return (int)launch_scalar<float, 32, 32>(p, B, s);
     if (dqk == 48 && dv == 32) return (int)launch_scalar<float, 48, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return (int)launch_scalar<float, 64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return (int)launch_scalar<float, 128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return (int)launch_scalar<float, 192, 128>(p, B, s);
   } else if (dtype == 1) {
+    if (dqk == 16 && dv == 16) return (int)launch_scalar<__nv_bfloat16, 16, 16>(p, B, s);
     if (dqk == 32 && dv == 32) return (int)launch_scalar<__nv_bfloat16, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return (int)launch_scalar<__nv_bfloat16, 48, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return sm90::launch<64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return sm90::launch<128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return sm90::launch<192, 128>(p, B, s);
@@ -1844,13 +1851,16 @@ int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStr
 
 int backward_instance(int dtype, int dqk, int dv, const BwdParams& p, int B, cudaStream_t s) {
   if (dtype == 0) {
+    if (dqk == 16 && dv == 16) return launch_bwd<float, 16, 16>(p, B, s);
     if (dqk == 32 && dv == 32) return launch_bwd<float, 32, 32>(p, B, s);
     if (dqk == 48 && dv == 32) return launch_bwd<float, 48, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return launch_bwd<float, 64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return launch_bwd<float, 128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return launch_bwd<float, 192, 128>(p, B, s);
   } else if (dtype == 1) {
+    if (dqk == 16 && dv == 16) return launch_bwd<__nv_bfloat16, 16, 16>(p, B, s);
     if (dqk == 32 && dv == 32) return launch_bwd<__nv_bfloat16, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return launch_bwd<__nv_bfloat16, 48, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return sm90::launch_bwd<64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return sm90::launch_bwd<128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return sm90::launch_bwd<192, 128>(p, B, s);

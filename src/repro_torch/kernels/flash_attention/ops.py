@@ -14,7 +14,9 @@ tensor maps; the C entry point refuses a layout TMA cannot read, and
 
 ``flash_attention.launches`` counts forward launches (a recomputed forward
 under ``torch.utils.checkpoint`` counts again);
-``flash_attention_backward.launches`` counts backward launches.
+``flash_attention_backward.launches`` counts backward launches.  Each also
+keeps ``launches_by_instance``, the same launches by the CUDA instance
+that ran them, ``(dtype name, Dqk, Dv)`` (e.g. ``("bf16", 16, 16)``).
 
 Each launch is a ``torch.library`` custom op (``repro_torch::
 flash_attention_forward`` and ``repro_torch::flash_attention_backward``)
@@ -27,6 +29,7 @@ split over batch and heads (:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -48,14 +51,18 @@ __all__ = ["flash_attention", "flash_attention_backward", "tma_layout_error", "S
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # The (Dqk, Dv) pairs the CUDA kernels are instantiated for, by dtype: the
-# bf16 wgmma kernels, and the scalar ones, which take the reduced configs'
-# head dims (so that training and serving them runs on the card): bf16 at
-# (32, 32) (reduced llama3-8b), float32 at every pair.
+# bf16 wgmma kernels at (64, 64), (128, 128) and (192, 128), and the scalar
+# ones, which take the reduced configs' head dims (so that training and
+# serving them runs on the card): (16, 16) (hymba-1.5b), (32, 32)
+# (llama3-8b, whisper-large-v3) and (48, 32) (deepseek-v2-236b's MLA), in
+# bf16 and in float32.  tests/test_torch_kernel_coverage.py holds every
+# config in ARCHS, at both widths, to this table.
 HEAD_DIMS = {
-    torch.bfloat16: ((32, 32), (64, 64), (128, 128), (192, 128)),
-    torch.float32: ((32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
+    torch.bfloat16: ((16, 16), (32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
+    torch.float32: ((16, 16), (32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _TENSOR_MAP_REJECTED = -1  # the C entry's code for a bf16 layout TMA cannot read
 
 
@@ -124,10 +131,15 @@ def _cuda_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
     dims = (q.shape[3], v.shape[3])
     if dims not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"the {q.dtype} CUDA kernel takes (Dqk, Dv) head dims "
-                         f"{HEAD_DIMS[q.dtype]}, got {dims}")
+        raise ValueError(f"the {q.dtype} CUDA kernel takes the (Dqk, Dv) head dims in "
+                         f"HEAD_DIMS[{q.dtype}] = {HEAD_DIMS[q.dtype]}, got {dims}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
+
+
+def _instance(q: torch.Tensor, v: torch.Tensor) -> Tuple[str, int, int]:
+    """The CUDA instance a call runs: (dtype name, Dqk, Dv)."""
+    return _DTYPE_NAMES[q.dtype], q.shape[3], v.shape[3]
 
 
 def _layout_error(x: torch.Tensor) -> Optional[str]:
@@ -185,6 +197,7 @@ def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_instance[_instance(q, v)] += 1
     return out, lse
 
 
@@ -302,6 +315,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_instance = collections.Counter()
 
 
 def flash_attention_backward(
@@ -382,6 +396,7 @@ def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.T
     if rc != 0:
         raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {rc}")
     flash_attention_backward.launches += 1
+    flash_attention_backward.launches_by_instance[_instance(q, v)] += 1
     return dq, dk, dv
 
 
@@ -402,3 +417,4 @@ def _backward_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_instance = collections.Counter()

@@ -14,9 +14,10 @@
 //   S_{c+1}      = exp(L_C) . S_c + (k . exp(L_C - L))^T v
 // with S_c the state entering chunk c.  Inputs and output are float32;
 // r/k/v/log_w (B,T,H,K) are read in place through their strides, out is
-// (B,T,H,K), the final state (B,H,K,K).  K = 64 only; 1 <= C <= 64.  The
-// ragged last chunk is zero-filled (r = k = v = 0, log-decay 0), so the
-// final state is the padded form's.
+// (B,T,H,K), the final state (B,H,K,K).  K is a template parameter,
+// instantiated at 32 (the reduced rwkv6-7b config) and 64 (the published
+// one); 1 <= C <= 64.  The ragged last chunk is zero-filled (r = k = v = 0,
+// log-decay 0), so the final state is the padded form's.
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s float32 off the tensor
 // cores): at B=1, T=1024, H=64, K=64 the function must move r, k, v, lw
@@ -61,6 +62,11 @@
 //     scores keep the reference's mid-point factors, and with them its
 //     limit: at chunk 64 a summed log-decay below about -177 overflows.
 //
+// At K = 32 the same design runs with K / 16 = 2 pass-A blocks a head, one
+// 8-column state tile per compute warp, and 8 cumsum segments a channel in
+// pass B; at the reduced rwkv6-7b shapes (B=4, T=32, H=4) a call is a few
+// microseconds of launch, far above its byte bound (PERF.md).
+//
 // The design's own bytes at that shape (16.8 MB per (B,T,H,K) tensor):
 // pass A reads k and log_w once and v once per 16-row block (4x, the four
 // blocks of a head run side by side, so L2 serves repeats) and writes the
@@ -74,27 +80,35 @@
 
 namespace {
 
-constexpr int kK = 64;             // head size: the only one taken
 constexpr int kMaxChunk = 64;
 constexpr int kComputeA = 128;     // pass A: four compute warps ...
 constexpr int kThreadsA = kComputeA + 32;  // ... and one that publishes S_c
-constexpr int kStP = kK + 8;       // row pitch of pass A's S_c staging tiles
 constexpr int kRows = 16;          // state rows per pass-A block
-constexpr int kNtA = kK / 8 / (kComputeA / 32);  // 8-column state tiles per compute warp
 constexpr int kStages = 2;         // pass A's cp.async ring
 constexpr int kSegsA = kComputeA / kRows;  // cumsum segments per channel, pass A
 constexpr int kThreadsB = 256;     // pass B: eight warps
 constexpr int kWarpsB = kThreadsB / 32;
 constexpr int kUnitNt = 2;         // pass B: 8-column output tiles per warp unit
-constexpr int kSegsB = kThreadsB / kK;     // cumsum segments per channel, pass B
-// Row pitches (floats), chosen so that mma fragment loads are free of bank
-// conflicts: tiles read as A[row][k] (or as a B given as [n][k]) have
-// pitch = 4 mod 32, tiles read as B[k][n] pitch = 8 mod 32 (or 24 mod 32).
+constexpr int kKdP = kRows + 8;
+
+// What follows the head size K (32 or 64).  Row pitches (floats) are
+// chosen so that mma fragment loads are free of bank conflicts: tiles read
+// as A[row][k] (or as a B given as [n][k]) have pitch = 4 mod 32, tiles
+// read as B[k][n] pitch = 8 mod 32 (or 24 mod 32); both hold at either K.
 // Pass B's S_c tile, read as B[k][n], takes the pitch of the buffers it
 // reuses (4 mod 32: two-way conflicts).
-constexpr int kRP = kK + 4;
-constexpr int kVP = kK + 8;
-constexpr int kKdP = kRows + 8;
+template <int K>
+struct Dims {
+  static_assert(K == 32 || K == 64, "head sizes 32 and 64");
+  static constexpr int kStP = K + 8;  // row pitch of pass A's S_c staging tiles
+  // 8-column state tiles per compute warp of pass A: 2 at K = 64, 1 at 32.
+  static constexpr int kNtA = K / 8 / (kComputeA / 32);
+  static constexpr int kSegsB = kThreadsB / K;  // cumsum segments per channel, pass B
+  static constexpr int kUnits = K / 8 / kUnitNt;  // pass B's warp units per 16 rows
+  static constexpr int kVecs = K / 4;  // 16-byte vectors per row
+  static constexpr int kRP = K + 4;
+  static constexpr int kVP = K + 8;
+};
 constexpr int kLayoutRejected = -1;
 constexpr float kLogDecayMin = -4.6f;
 
@@ -118,19 +132,24 @@ __host__ __device__ constexpr int chunks_per_step(int C16) {
   return C16 <= 16 ? 4 : C16 <= 32 ? 2 : 1;
 }
 
+template <int K>
 size_t states_smem_floats(int C16) {
+  using D = Dims<K>;
   const int G = chunks_per_step(C16);
-  return kStages * G * C16 * (2 * kRows + kVP) + G * C16 * kKdP + kSegsA * kRows + G * kRows +
-         G * kRows * kStP;
+  return kStages * G * C16 * (2 * kRows + D::kVP) + G * C16 * kKdP + kSegsA * kRows +
+         G * kRows + G * kRows * D::kStP;
 }
 
-// Pass B's S_c tile (kK x kRP) goes over kn and rr, dead once the scores
+// Pass B's S_c tile (K x kRP) goes over kn and rr, dead once the scores
 // are formed, where those two fill it.
-__host__ __device__ constexpr bool out_states_alias(int C16) { return 2 * C16 >= kK; }
+template <int K>
+__host__ __device__ constexpr bool out_states_alias(int C16) { return 2 * C16 >= K; }
 
+template <int K>
 size_t out_smem_floats(int C16) {
-  return 3 * C16 * kRP + C16 * kVP + (out_states_alias(C16) ? 0 : kK * kRP) +
-         C16 * (C16 + 4) + C16 + kSegsB * kK;
+  using D = Dims<K>;
+  return 3 * C16 * D::kRP + C16 * D::kVP + (out_states_alias<K>(C16) ? 0 : K * D::kRP) +
+         C16 * (C16 + 4) + C16 + D::kSegsB * K;
 }
 
 __device__ __forceinline__ float clamp_decay(float x) {
@@ -228,10 +247,10 @@ __device__ __forceinline__ FragB load_b_t(const float* m, int pitch, int k0, int
 }
 
 // Start copying one step's chunks (chunks G step .. G step + G - 1, each
-// C16 rows): k and log_w of this block's 16 channels and v (all 64
+// C16 rows): k and log_w of this block's 16 channels and v (all K
 // columns) into one ring stage.  Rows past a chunk's end are zero-filled;
 // chunks past the last are not copied (nor used).
-template <int C16>
+template <int K, int C16>
 __device__ __forceinline__ void load_states_step(const float* k, const float* lw, const float* v,
                                                  const Params& p, int step, float* stage,
                                                  int tid) {
@@ -255,12 +274,13 @@ __device__ __forceinline__ void load_states_step(const float* k, const float* lw
       cp_async16(kb + (r0 + t) * kRows + j, k + tt * p.st[kKey] + j, valid);
       cp_async16(wb + (r0 + t) * kRows + j, lw + tt * p.st[kW] + j, valid);
     }
-    for (int i = tid; i < C16 * (kK / 4); i += kComputeA) {
-      const int t = i >> 4;
-      const int j = (i & 15) * 4;
+    constexpr int vecs = Dims<K>::kVecs;
+    for (int i = tid; i < C16 * vecs; i += kComputeA) {
+      const int t = i / vecs;
+      const int j = (i % vecs) * 4;
       const bool valid = t < n;
       const long long tt = t0 + (valid ? t : 0);
-      cp_async16(vb + (r0 + t) * kVP + j, v + tt * p.st[kV] + j, valid);
+      cp_async16(vb + (r0 + t) * Dims<K>::kVP + j, v + tt * p.st[kV] + j, valid);
     }
   }
 }
@@ -280,12 +300,13 @@ constexpr int kBarStaged = 1;
 constexpr int kBarCompute = 2;
 
 // A compute warp's slice of a state block (rows 0..15 of the block,
-// kNtA 8-column tiles) into a row-major tile with row pitch `pitch`.
-__device__ __forceinline__ void put_state(float* s, int pitch, const float (&S)[kNtA][4],
+// NT 8-column tiles) into a row-major tile with row pitch `pitch`.
+template <int NT>
+__device__ __forceinline__ void put_state(float* s, int pitch, const float (&S)[NT][4],
                                           int warp, int g, int q) {
 #pragma unroll
-  for (int nt = 0; nt < kNtA; ++nt) {
-    const int j = (warp * kNtA + nt) * 8 + 2 * q;
+  for (int nt = 0; nt < NT; ++nt) {
+    const int j = (warp * NT + nt) * 8 + 2 * q;
     *reinterpret_cast<float2*>(s + g * pitch + j) = make_float2(S[nt][0], S[nt][1]);
     *reinterpret_cast<float2*>(s + (g + 8) * pitch + j) = make_float2(S[nt][2], S[nt][3]);
   }
@@ -296,10 +317,11 @@ __device__ __forceinline__ void put_state(float* s, int pitch, const float (&S)[
 // once (G C16 <= 64): one cumsum phase and one product phase for all G,
 // each chunk's product in its own accumulators, then the G state updates
 // one after another.
-template <int C16>
+template <int K, int C16>
 __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int kNtA = Dims<K>::kNtA, kVP = Dims<K>::kVP, kStP = Dims<K>::kStP;
   constexpr int G = chunks_per_step(C16);
   constexpr int rows = G * C16;
   constexpr int stage = rows * (2 * kRows + kVP);
@@ -325,7 +347,7 @@ __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
   const float* k = p.in[kKey] + b * p.sb[kKey] + h * p.sh[kKey] + d0;
   const float* lw = p.in[kW] + b * p.sb[kW] + h * p.sh[kW] + d0;
   const float* v = p.in[kV] + b * p.sb[kV] + h * p.sh[kV];
-  float* states = p.states + (long long)bh * nc * kK * kK;
+  float* states = p.states + (long long)bh * nc * K * K;
   int* ready = p.ready + (long long)bh * nc;
   const int steps = (nc + G - 1) / G;
   // Every block of this grid is running: pass B may start beside it.
@@ -342,11 +364,11 @@ __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
       for (int ci = 0; ci < G; ++ci) {
         const int c = step * G + ci;
         if (c >= nc) break;
-        float* dst = states + (long long)c * kK * kK + d0 * kK;
-        for (int i = lane; i < kRows * kK / 4; i += 32) {
-          const int row = i / (kK / 4);
-          const int j = (i % (kK / 4)) * 4;
-          *reinterpret_cast<float4*>(dst + row * kK + j) =
+        float* dst = states + (long long)c * K * K + d0 * K;
+        for (int i = lane; i < kRows * K / 4; i += 32) {
+          const int row = i / (K / 4);
+          const int j = (i % (K / 4)) * 4;
+          *reinterpret_cast<float4*>(dst + row * K + j) =
               *reinterpret_cast<const float4*>(staged + (ci * kRows + row) * kStP + j);
         }
       }
@@ -364,7 +386,7 @@ __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load_states_step<C16>(k, lw, v, p, s, ring + s * stage, tid);
+    if (s < steps) load_states_step<K, C16>(k, lw, v, p, s, ring + s * stage, tid);
     cp_async_commit();
   }
 
@@ -380,7 +402,8 @@ __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
     __syncthreads();  // this step has landed; the last step's stage, kd and seg are free
     {
       const int sn = step + kStages - 1;
-      if (sn < steps) load_states_step<C16>(k, lw, v, p, sn, ring + (sn % kStages) * stage, tid);
+      if (sn < steps)
+        load_states_step<K, C16>(k, lw, v, p, sn, ring + (sn % kStages) * stage, tid);
       cp_async_commit();
     }
     const float* kb = ring + (step % kStages) * stage;
@@ -446,24 +469,26 @@ __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
     }
     bar_arrive(kBarStaged, kThreadsA);
   }
-  put_state(p.state + ((long long)bh * kK + d0) * kK, kK, S, warp, g, q);
+  put_state(p.state + ((long long)bh * K + d0) * K, K, S, warp, g, q);
 }
 
 // Pass B: one chunk's output from its inputs and S_c.
-template <int C16>
+template <int K, int C16>
 __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int kRP = Dims<K>::kRP, kVP = Dims<K>::kVP, kSegsB = Dims<K>::kSegsB;
+  constexpr int vecs = Dims<K>::kVecs;
   constexpr int scp = C16 + 4;
   float* rb = smem;              // (C16, kRP) r, then rq = r . exp(L_{t-1})
   float* kb = rb + C16 * kRP;    // (C16, kRP) k, then kn = k . exp(L_mid - L_t)
   float* wb = kb + C16 * kRP;    // (C16, kRP) log_w, then rr = r . exp(L_{t-1} - L_mid)
   float* vb = wb + C16 * kRP;    // (C16, kVP) v
-  constexpr bool alias = out_states_alias(C16);
-  float* sb = alias ? kb : vb + C16 * kVP;  // (kK, kRP) S_c, after the scores
-  float* sc = vb + C16 * kVP + (alias ? 0 : kK * kRP);  // (C16, scp) scores
+  constexpr bool alias = out_states_alias<K>(C16);
+  float* sb = alias ? kb : vb + C16 * kVP;  // (K, kRP) S_c, after the scores
+  float* sc = vb + C16 * kVP + (alias ? 0 : K * kRP);  // (C16, scp) scores
   float* dg = sc + C16 * scp;    // (C16) r_t . (u . k_t)
-  float* seg = dg + C16;         // (kSegsB, kK) segment sums
+  float* seg = dg + C16;         // (kSegsB, K) segment sums
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -484,9 +509,9 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       const float* src = p.in[x] + b * p.sb[x] + h * p.sh[x];
-      for (int i = tid; i < C16 * (kK / 4); i += kThreadsB) {
-        const int t = i >> 4;
-        const int j = (i & 15) * 4;
+      for (int i = tid; i < C16 * vecs; i += kThreadsB) {
+        const int t = i / vecs;
+        const int j = (i % vecs) * 4;
         const bool valid = t < n;
         const long long tt = t0 + (valid ? t : 0);
         cp_async16(dst[x] + t * pitch[x] + j, src + tt * p.st[x] + j, valid);
@@ -500,25 +525,29 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
   // 1. The bonus term (a warp per row) and segment sums of the clamped
   //    log-decay (thread (d, sg)).
   {
-    const float u0 = p.u[h * kK + lane];
-    const float u1 = p.u[h * kK + lane + 32];
+    constexpr int per = K / 32;  // channels per lane
+    float uu[per];
+#pragma unroll
+    for (int e = 0; e < per; ++e) uu[e] = p.u[h * K + lane + 32 * e];
     for (int t = warp; t < C16; t += kWarpsB) {
       const float* rt = rb + t * kRP;
       const float* kt = kb + t * kRP;
-      float x = rt[lane] * u0 * kt[lane] + rt[lane + 32] * u1 * kt[lane + 32];
+      float x = 0.f;
+#pragma unroll
+      for (int e = 0; e < per; ++e) x += rt[lane + 32 * e] * uu[e] * kt[lane + 32 * e];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
       if (lane == 0) dg[t] = x;
     }
   }
-  const int d = tid & (kK - 1);
-  const int sg = tid / kK;
+  const int d = tid & (K - 1);
+  const int sg = tid / K;
   constexpr int len = C16 / kSegsB;
   {
     float acc = 0.f;
 #pragma unroll
     for (int i = 0; i < len; ++i) acc += clamp_decay(wb[(sg * len + i) * kRP + d]);
-    seg[sg * kK + d] = acc;
+    seg[sg * K + d] = acc;
   }
   __syncthreads();
 
@@ -529,7 +558,7 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
     float total = 0.f;
 #pragma unroll
     for (int s = 0; s < kSegsB; ++s) {
-      const float x = seg[s * kK + d];
+      const float x = seg[s * K + d];
       if (s < sg) off += x;
       total += x;
     }
@@ -558,7 +587,7 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
     if (nt * 8 > mt * 16 + 14) continue;
     float acc[4] = {};
 #pragma unroll
-    for (int ks = 0; ks < kK / 8; ++ks) {
+    for (int ks = 0; ks < K / 8; ++ks) {
       mma3(acc, load_a(wb, kRP, mt * 16, ks * 8, g, q), load_b_t(kb, kRP, ks * 8, nt * 8, g, q));
     }
     const int s = nt * 8 + 2 * q;
@@ -570,17 +599,17 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
     }
   }
 
-  // S_c: wait until the four pass-A blocks of this head have published it.
+  // S_c: wait until the K / 16 pass-A blocks of this head have published it.
   if (tid == 0) {
     const int* ready = p.ready + (long long)bh * p.nc + c;
-    while (load_acquire(ready) < kK / kRows) __nanosleep(256);
+    while (load_acquire(ready) < K / kRows) __nanosleep(256);
   }
   __syncthreads();  // also: the scores are in shared memory
-  const float* s_c = p.states + ((long long)bh * p.nc + c) * kK * kK;
-  for (int i = tid; i < kK * (kK / 4); i += kThreadsB) {
-    const int row = i >> 4;
-    const int j = (i & 15) * 4;
-    cp_async16(sb + row * kRP + j, s_c + row * kK + j, true);
+  const float* s_c = p.states + ((long long)bh * p.nc + c) * K * K;
+  for (int i = tid; i < K * vecs; i += kThreadsB) {
+    const int row = i / vecs;
+    const int j = (i % vecs) * 4;
+    cp_async16(sb + row * kRP + j, s_c + row * K + j, true);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -589,7 +618,7 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
   // 4. out = scores v + rq S_c + bonus . v: a warp per 16 rows x kUnitNt
   //    8-column tiles.
   float* o = p.out + b * p.sb[kO] + h * p.sh[kO];
-  constexpr int kUnits = kK / 8 / kUnitNt;  // units per 16 rows
+  constexpr int kUnits = Dims<K>::kUnits;
   for (int i = warp; i < mtiles * kUnits; i += kWarpsB) {
     const int mt = i / kUnits;
     const int n0 = (i % kUnits) * kUnitNt * 8;
@@ -603,7 +632,7 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
       }
     }
 #pragma unroll
-    for (int ks = 0; ks < kK / 8; ++ks) {
+    for (int ks = 0; ks < K / 8; ++ks) {
       const FragA a = load_a(rb, kRP, mt * 16, ks * 8, g, q);
 #pragma unroll
       for (int nt = 0; nt < kUnitNt; ++nt) {
@@ -629,6 +658,48 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
+// Both passes at head size K on `stream`: the flags' memset, pass A, then
+// pass B as its programmatic dependent.
+template <int K>
+int launch(const Params& p, int bh, long long n_states, cudaStream_t stream) {
+  const size_t bytes_a = states_smem_floats<K>(p.C16) * sizeof(float);
+  const size_t bytes_b = out_smem_floats<K>(p.C16) * sizeof(float);
+  void (*states_kernel)(Params) = wkv_states_kernel<K, 64>;
+  void (*out_kernel)(Params) = wkv_out_kernel<K, 64>;
+  switch (p.C16) {
+    case 16: states_kernel = wkv_states_kernel<K, 16>; out_kernel = wkv_out_kernel<K, 16>; break;
+    case 32: states_kernel = wkv_states_kernel<K, 32>; out_kernel = wkv_out_kernel<K, 32>; break;
+    case 48: states_kernel = wkv_states_kernel<K, 48>; out_kernel = wkv_out_kernel<K, 48>; break;
+    default: break;
+  }
+  cudaError_t err = cudaFuncSetAttribute(states_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_a);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes_b);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(p.ready, 0, n_states * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  states_kernel<<<dim3(bh, K / kRows), kThreadsA, bytes_a, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // Pass B launches as soon as every pass-A block runs (programmatic
+  // dependent launch) and waits for each S_c on its flag.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_states));
+  cfg.blockDim = dim3(kThreadsB);
+  cfg.dynamicSmemBytes = bytes_b;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, out_kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -648,14 +719,14 @@ struct EntryArgs {
 static_assert(sizeof(EntryArgs) == 256, "EntryArgs must match ops.py's packing");
 
 // Returns the first non-zero cudaError_t of the flags' memset and the two
-// launches (0 on success), or kLayoutRejected (-1) when K is not 64, the chunk is over 64,
-// or a tensor is not read as 16-byte rows (base 16-byte aligned, channel
-// stride 1, every other stride of a dim longer than 1 a multiple of 4);
-// nothing is launched then.
+// launches (0 on success), or kLayoutRejected (-1) when K is neither 32 nor
+// 64 (ops.py's HEAD_SIZES), the chunk is over 64, or a tensor is not read
+// as 16-byte rows (base 16-byte aligned, channel stride 1, every other
+// stride of a dim longer than 1 a multiple of 4); nothing is launched then.
 int wkv_forward(const EntryArgs* a) {
   if (a->B < 1 || a->T < 1 || a->H < 1 || a->chunk < 1) return (int)cudaErrorInvalidValue;
   const int C = a->chunk < a->T ? a->chunk : a->T;
-  if (a->K != kK || C > kMaxChunk) return kLayoutRejected;
+  if ((a->K != 32 && a->K != 64) || C > kMaxChunk) return kLayoutRejected;
   const int sizes[3] = {a->B, a->T, a->H};
   for (int x = 0; x < 5; ++x) {
     const void* ptr = x < 4 ? a->in[x] : a->out;
@@ -677,49 +748,15 @@ int wkv_forward(const EntryArgs* a) {
   p.C16 = round16(C);
   p.nc = (a->T + C - 1) / C;
   const long long n_states = (long long)a->B * a->H * p.nc;
-  p.ready = reinterpret_cast<int*>(p.states + n_states * kK * kK);
+  p.ready = reinterpret_cast<int*>(p.states + n_states * a->K * a->K);
   for (int x = 0; x < 5; ++x) {
     p.sb[x] = a->strides[4 * x];
     p.st[x] = a->strides[4 * x + 1];
     p.sh[x] = a->strides[4 * x + 2];
   }
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  const size_t bytes_a = states_smem_floats(p.C16) * sizeof(float);
-  const size_t bytes_b = out_smem_floats(p.C16) * sizeof(float);
-  void (*states_kernel)(Params) = wkv_states_kernel<64>;
-  void (*out_kernel)(Params) = wkv_out_kernel<64>;
-  switch (p.C16) {
-    case 16: states_kernel = wkv_states_kernel<16>; out_kernel = wkv_out_kernel<16>; break;
-    case 32: states_kernel = wkv_states_kernel<32>; out_kernel = wkv_out_kernel<32>; break;
-    case 48: states_kernel = wkv_states_kernel<48>; out_kernel = wkv_out_kernel<48>; break;
-    default: break;
-  }
-  cudaError_t err = cudaFuncSetAttribute(states_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_a);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes_b);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(p.ready, 0, n_states * sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
-  states_kernel<<<dim3(a->B * a->H, kK / kRows), kThreadsA, bytes_a, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // Pass B launches as soon as every pass-A block runs (programmatic
-  // dependent launch) and waits for each S_c on its flag.
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n_states));
-  cfg.blockDim = dim3(kThreadsB);
-  cfg.dynamicSmemBytes = bytes_b;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, out_kernel, p);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return a->K == 32 ? launch<32>(p, a->B * a->H, n_states, stream)
+                    : launch<64>(p, a->B * a->H, n_states, stream);
 }
 
 }  // extern "C"

@@ -17,9 +17,11 @@
 //               + sum_{t' > t} r_t'[i] (S_{t'-1} dout_t')[i]
 //               - sum_{t' >= t} k_t'[i] (G_t' v_t')[i].
 // Inputs r/k/v/log_w/dout are float32 (B,T,H,K), read in place through
-// their strides (rows of 64 floats as 16-byte vectors, the forward's
-// layout rule); u (H,K) and the final state (B,H,K,K) contiguous.  K = 64
-// only; the chunk limit (<= 64) is the forward's.
+// their strides (rows of K floats as 16-byte vectors, the forward's
+// layout rule); u (H,K) and the final state (B,H,K,K) contiguous.  K is a
+// template parameter, instantiated at 32 (the reduced rwkv6-7b config) and
+// 64 (the published one), as the forward; the chunk limit (<= 64) is the
+// forward's.
 //
 // Bound on an H100 SXM at one node's training slice (B=40, T=512, H=64):
 // the function reads r, k, v, log_w and dout and writes dr, dk, dv and
@@ -59,6 +61,9 @@
 //     mid-point products are selected away, not multiplied.
 //   * wkv_bwd_du_kernel: du[h, i] = sum over b of the (b, h) parts, in
 //     order.  No float atomics anywhere: two calls give the same bits.
+// At K = 32 (reduced rwkv6-7b) the warp splits follow Dims: a warp's share
+// of a 32-row output is one 8-column tile, and segments of 4 rows; a call
+// at the reduced shapes is launch-bound.
 // The design's own bytes at the training slice: the first kernel reads k,
 // v, log_w and dout and writes dr's state term, the second reads it back
 // with r, k, v, log_w and dout and writes dr, dk, dv and dlog_w: 15 x
@@ -69,20 +74,34 @@
 
 namespace {
 
-constexpr int kK = 64;            // head size: the only one taken
 constexpr int kMaxChunk = 64;     // the forward's limit
 constexpr int kChunk = 32;        // steps per chunk here
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kVecs = kK / 4;     // float4s per row
-constexpr int kSegs = kThreads / kK;    // cumsum segments per channel
-constexpr int kSegLen = kChunk / kSegs;
-// Row pitches (floats) that keep the mma fragment loads free of bank
-// conflicts: 4 mod 32 for tiles read as A[row][k] (or as a B given as
-// [n][k]), 8 mod 32 for tiles read as B[k][n] (or as a transposed A).
-constexpr int kP4 = kK + 4;
-constexpr int kP8 = kK + 8;
 constexpr int kSP = kChunk + 4;   // C x C tiles, read as A[row][k]
+
+// What follows the head size K (32 or 64).  Every warp split below is
+// written in these: at K = 64 a warp's share of a 32-row output is two
+// 8-column tiles, at K = 32 one.
+template <int K>
+struct Dims {
+  static_assert(K == 32 || K == 64, "head sizes 32 and 64");
+  static constexpr int kVecs = K / 4;            // float4s per row
+  static constexpr int kSegs = kThreads / K;     // cumsum segments per channel: 4 or 8
+  static constexpr int kSegLen = kChunk / kSegs;  // their rows: 8 or 4
+  // Row pitches (floats) that keep the mma fragment loads free of bank
+  // conflicts at either K: 4 mod 32 for tiles read as A[row][k] (or as a B
+  // given as [n][k]), 8 mod 32 for tiles read as B[k][n] (or as a
+  // transposed A).
+  static constexpr int kP4 = K + 4;
+  static constexpr int kP8 = K + 8;
+  // Four warps share the K columns of a 32-row output (dr's state term;
+  // dk; dv) at kTw 8-column tiles each; the K x K state (S, G) is kMt
+  // 16-row tiles, each shared by kWarps / kMt warps at kSNt 8-column tiles.
+  static constexpr int kTw = K / 32;
+  static constexpr int kMt = K / 16;
+  static constexpr int kSNt = K / 8 / (kWarps / kMt);
+};
 constexpr int kLayoutRejected = -1;
 constexpr float kLogDecayMin = -4.6f;
 
@@ -108,8 +127,9 @@ __device__ __forceinline__ float clamp_decay(float x) {
 }
 
 // Offset of element (b, t, h, 0) of a contiguous (B, T, H, K) output.
+template <int K>
 __device__ __forceinline__ long long out_row(const Params& p, int b, int t, int h) {
-  return (((long long)b * p.T + t) * p.H + h) * kK;
+  return (((long long)b * p.T + t) * p.H + h) * K;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -126,8 +146,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Stage chunk c's rows of input x (zero past row n) into a tile of pitch
 // `pitch`, as 16-byte copies by every thread.
+template <int K>
 __device__ __forceinline__ void stage(const Params& p, int x, int b, int h, int t0, int n,
                                       float* tile, int pitch) {
+  constexpr int kVecs = Dims<K>::kVecs;
   const float* src = p.in[x] + b * p.sb[x] + h * p.sh[x];
   for (int i = threadIdx.x; i < kChunk * kVecs; i += kThreads) {
     const int t = i / kVecs, j = (i % kVecs) * 4;
@@ -220,24 +242,27 @@ __device__ __forceinline__ float exp_acc(double x) {
   return fmaf(e, lo, e);
 }
 
-// The chunk's cumulative log-decay, in float64, channel i = tid % kK over
-// rows kSegLen * sg .. of segment sg = tid / kK: the segment sums into
+// The chunk's cumulative log-decay, in float64, channel i = tid % K over
+// rows kSegLen * sg .. of segment sg = tid / K: the segment sums into
 // `seg`, then (after a barrier) `offsets` gives channel i's offset and
 // total.
+template <int K>
 __device__ __forceinline__ void segment_sum(const float* lw, double* seg, int i, int sg) {
+  constexpr int kSegLen = Dims<K>::kSegLen;
   double acc = 0.0;
 #pragma unroll
-  for (int r = 0; r < kSegLen; ++r) acc += clamp_decay(lw[(sg * kSegLen + r) * kP4 + i]);
-  seg[sg * kK + i] = acc;
+  for (int r = 0; r < kSegLen; ++r) acc += clamp_decay(lw[(sg * kSegLen + r) * Dims<K>::kP4 + i]);
+  seg[sg * K + i] = acc;
 }
 
+template <int K>
 __device__ __forceinline__ void offsets(const double* seg, int i, int sg, double& off,
                                         double& total) {
   off = 0.0;
   total = 0.0;
 #pragma unroll
-  for (int s = 0; s < kSegs; ++s) {
-    const double x = seg[s * kK + i];
+  for (int s = 0; s < Dims<K>::kSegs; ++s) {
+    const double x = seg[s * K + i];
     if (s < sg) off += x;
     total += x;
   }
@@ -245,51 +270,56 @@ __device__ __forceinline__ void offsets(const double* seg, int i, int sg, double
 
 // Shared memory of sweep 1: the staged inputs twice (chunk c + 1 lands
 // while chunk c computes).
+template <int K>
 struct StateIn {
-  float kd[kChunk * kP8];   // k, then k exp(L_C - L)
-  float v[kChunk * kP8];
-  float dout[kChunk * kP4];
-  float f[kChunk * kP4];    // log_w, then exp(L_p - L_m)
+  float kd[kChunk * Dims<K>::kP8];   // k, then k exp(L_C - L)
+  float v[kChunk * Dims<K>::kP8];
+  float dout[kChunk * Dims<K>::kP4];
+  float f[kChunk * Dims<K>::kP4];    // log_w, then exp(L_p - L_m)
 };
 
+template <int K>
 struct StateSmem {
-  StateIn in[2];
-  float kn[kChunk * kP8];   // k exp(L_m - L)
-  float vd[kChunk * kSP];   // dout_t . v_s for s < t
-  float S[kK * kP4];        // the state entering the chunk
-  double seg[kSegs * kK];
-  float elm[kK], elc[kK];
+  StateIn<K> in[2];
+  float kn[kChunk * Dims<K>::kP8];   // k exp(L_m - L)
+  float vd[kChunk * kSP];            // dout_t . v_s for s < t
+  float S[K * Dims<K>::kP4];         // the state entering the chunk
+  double seg[Dims<K>::kSegs * K];
+  float elm[K], elc[K];
 };
 
 // Sweep 1: dr's state term, chunks forward.
+template <int K>
 __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
+  using D = Dims<K>;
+  constexpr int kP4 = D::kP4, kP8 = D::kP8, kSegLen = D::kSegLen;
   extern __shared__ float4 smem4[];
-  StateSmem& sm = *reinterpret_cast<StateSmem*>(smem4);
+  StateSmem<K>& sm = *reinterpret_cast<StateSmem<K>*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int ci = tid % kK, sg = tid / kK;
+  const int ci = tid % K, sg = tid / K;
   auto stage_chunk = [&](int c) {
     const int t0 = c * kChunk, n = min(kChunk, p.T - t0);
-    StateIn& in = sm.in[c & 1];
-    stage(p, kKey, b, h, t0, n, in.kd, kP8);
-    stage(p, kV, b, h, t0, n, in.v, kP8);
-    stage(p, kW, b, h, t0, n, in.f, kP4);
-    stage(p, kDo, b, h, t0, n, in.dout, kP4);
+    StateIn<K>& in = sm.in[c & 1];
+    stage<K>(p, kKey, b, h, t0, n, in.kd, kP8);
+    stage<K>(p, kV, b, h, t0, n, in.v, kP8);
+    stage<K>(p, kW, b, h, t0, n, in.f, kP4);
+    stage<K>(p, kDo, b, h, t0, n, in.dout, kP4);
     cp_async_commit();
   };
-  for (int i = tid; i < kK * kP4; i += kThreads) sm.S[i] = 0.f;
+  for (int i = tid; i < K * kP4; i += kThreads) sm.S[i] = 0.f;
   stage_chunk(0);
   for (int c = 0; c < p.nc; ++c) {
     const int t0 = c * kChunk, n = min(kChunk, p.T - t0);
-    StateIn& in = sm.in[c & 1];
+    StateIn<K>& in = sm.in[c & 1];
     cp_async_wait_all();
     __syncthreads();  // chunk c landed; chunk c - 1's reads are done and S is written
     if (c + 1 < p.nc) stage_chunk(c + 1);
-    segment_sum(in.f, sm.seg, ci, sg);
+    segment_sum<K>(in.f, sm.seg, ci, sg);
     __syncthreads();
     {
       double off, total;
-      offsets(sm.seg, ci, sg, off, total);
+      offsets<K>(sm.seg, ci, sg, off, total);
       const double lm = 0.5 * total;
       const float elm = exp_acc(lm);
       // exp(L_p - L_m) and exp(L_m - L) of each row: the segment's entry
@@ -317,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
       if (nt * 8 <= mt * 16 + 14) {
         float acc[4] = {};
 #pragma unroll
-        for (int ks = 0; ks < kK / 8; ++ks)
+        for (int ks = 0; ks < K / 8; ++ks)
           mma3(acc, load_a(in.dout, kP4, mt * 16, ks * 8, g, q),
                load_b_t(in.v, kP8, ks * 8, nt * 8, g, q));
         const int s = nt * 8 + 2 * q;
@@ -330,27 +360,30 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
       }
     }
     __syncthreads();
-    {  // dr_state = exp(L_p) (dout S^T) + exp(L_p - L_m) (VD kn): two 16 x 8 tiles a warp.
-      const int mt = warp & 1, nt0 = (warp >> 1) * 2;
-      float a1[2][4] = {}, a2[2][4] = {};
+    {  // dr_state = exp(L_p) (dout S^T) + exp(L_p - L_m) (VD kn): kTw 16 x 8 tiles a warp.
+      constexpr int kTw = D::kTw;
+      const int mt = warp & 1, nt0 = (warp >> 1) * kTw;
+      float a1[kTw][4] = {}, a2[kTw][4] = {};
 #pragma unroll
-      for (int ks = 0; ks < kK / 8; ++ks) {
+      for (int ks = 0; ks < K / 8; ++ks) {
         const FragA a = load_a(in.dout, kP4, mt * 16, ks * 8, g, q);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) mma3(a1[j], a, load_b_t(sm.S, kP4, ks * 8, (nt0 + j) * 8, g, q));
+        for (int j = 0; j < kTw; ++j)
+          mma3(a1[j], a, load_b_t(sm.S, kP4, ks * 8, (nt0 + j) * 8, g, q));
       }
       for (int ks = 0; ks < 2 * mt + 2; ++ks) {
         const FragA a = load_a(sm.vd, kSP, mt * 16, ks * 8, g, q);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) mma3(a2[j], a, load_b(sm.kn, kP8, ks * 8, (nt0 + j) * 8, g, q));
+        for (int j = 0; j < kTw; ++j)
+          mma3(a2[j], a, load_b(sm.kn, kP8, ks * 8, (nt0 + j) * 8, g, q));
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int t = mt * 16 + g + 8 * half;
         if (t >= n) continue;
-        float* out = p.dr + out_row(p, b, t0 + t, h);
+        float* out = p.dr + out_row<K>(p, b, t0 + t, h);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < kTw; ++j) {
           const int i = (nt0 + j) * 8 + 2 * q;
           float val[2];
 #pragma unroll
@@ -362,15 +395,16 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
         }
       }
     }
-    // S <- exp(L_C) S + kd^T v: this warp's 16 rows x four 8-column tiles.
-    const int mt = warp & 3, nt0 = (warp >> 2) * 4;
-    float acc[4][4];
+    // S <- exp(L_C) S + kd^T v: this warp's 16 rows x kSNt 8-column tiles.
+    constexpr int kSNt = D::kSNt;
+    const int mt = warp % D::kMt, nt0 = (warp / D::kMt) * kSNt;
+    float acc[kSNt][4];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = mt * 16 + g + 8 * half;
       const float e = sm.elc[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kSNt; ++j) {
         const float2 s2 = *reinterpret_cast<const float2*>(sm.S + i * kP4 + (nt0 + j) * 8 + 2 * q);
         acc[j][2 * half] = e * s2.x;
         acc[j][2 * half + 1] = e * s2.y;
@@ -380,14 +414,15 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
     for (int ks = 0; ks < kChunk / 8; ++ks) {
       const FragA a = load_a_t(in.kd, kP8, mt * 16, ks * 8, g, q);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mma3(acc[j], a, load_b(in.v, kP8, ks * 8, (nt0 + j) * 8, g, q));
+      for (int j = 0; j < kSNt; ++j)
+        mma3(acc[j], a, load_b(in.v, kP8, ks * 8, (nt0 + j) * 8, g, q));
     }
     __syncthreads();  // every read of S is done
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = mt * 16 + g + 8 * half;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kSNt; ++j)
         *reinterpret_cast<float2*>(sm.S + i * kP4 + (nt0 + j) * 8 + 2 * q) =
             make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
     }
@@ -398,7 +433,9 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
 // chunk to the next, so that chunk c - 1's r, k and dout land, while chunk
 // c forms G and dlog_w, in the buffers that held chunk c's kn, kdec and rr
 // (dead by then); v and log_w land in their own (dead as well).
+template <int K>
 struct GradSmem {
+  static constexpr int kP4 = Dims<K>::kP4, kP8 = Dims<K>::kP8;
   float rbuf[2][kChunk * kP4];  // r (then r dr_state, dlog_w's first term) / kn = k exp(L_m - L)
   float kbuf[2][kChunk * kP4];  // k (then k dk_state, its second) / kdec = k exp(L_C - L)
   float dbuf[2][kChunk * kP8];  // dout / rr = r exp(L_p - L_m)
@@ -407,48 +444,54 @@ struct GradSmem {
   float rq[kChunk * kP8];       // r exp(L_p)
   float vdt[kChunk * kSP];      // v_t . dout_s for s > t
   float at[kChunk * kSP];       // kn_t . rr_s for s > t
-  float G[kK * kP4];            // the gradient of the state leaving the chunk
-  double carry[2][kK];          // dlog_w's running sum entering the chunk from its right
-  double seg[kSegs * kK];       // per segment: log-decay sums, dlog_w's terms, du's parts
-  float elm[kK], elc[kK], us[kK];
+  float G[K * kP4];             // the gradient of the state leaving the chunk
+  double carry[2][K];           // dlog_w's running sum entering the chunk from its right
+  double seg[Dims<K>::kSegs * K];  // per segment: log-decay sums, dlog_w's terms, du's parts
+  float elm[K], elc[K], us[K];
   float vd[kChunk], ruk[kChunk];
-  unsigned char inside[kChunk * kK];
+  unsigned char inside[kChunk * K];
 };
 
 // Sweep 2: dr, dk, dv, dlog_w and du's (b, h) part, chunks backward.
-// Warps 0-3 form dk (a 16-column slice of both 16-row halves each), warps
-// 4-7 dv; then all warps the next G (16 rows x 32 columns each).
+// Warps 0-3 form dk (a K/4-column slice of both 16-row halves each), warps
+// 4-7 dv; then all warps the next G (16 rows x 8 kSNt columns each).
+template <int K>
 __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
+  using D = Dims<K>;
+  constexpr int kP4 = D::kP4, kP8 = D::kP8, kSegLen = D::kSegLen, kSegs = D::kSegs;
+  constexpr int kTw = D::kTw;
   extern __shared__ float4 smem4[];
-  GradSmem& sm = *reinterpret_cast<GradSmem*>(smem4);
+  GradSmem<K>& sm = *reinterpret_cast<GradSmem<K>*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int ci = tid % kK, sg = tid / kK;
-  const int n0 = (warp & 3) * 16;
-  const long long sbase = (long long)bh * kK * kK;
+  const int ci = tid % K, sg = tid / K;
+  const int n0 = (warp & 3) * (K / 4);
+  const long long sbase = (long long)bh * K * K;
   auto stage_chunk = [&](int c) {
     const int t0 = c * kChunk, n = min(kChunk, p.T - t0);
-    stage(p, kR, b, h, t0, n, sm.rbuf[c & 1], kP4);
-    stage(p, kKey, b, h, t0, n, sm.kbuf[c & 1], kP4);
-    stage(p, kV, b, h, t0, n, sm.v, kP4);
-    stage(p, kW, b, h, t0, n, sm.em, kP4);
-    stage(p, kDo, b, h, t0, n, sm.dbuf[c & 1], kP8);
+    stage<K>(p, kR, b, h, t0, n, sm.rbuf[c & 1], kP4);
+    stage<K>(p, kKey, b, h, t0, n, sm.kbuf[c & 1], kP4);
+    stage<K>(p, kV, b, h, t0, n, sm.v, kP4);
+    stage<K>(p, kW, b, h, t0, n, sm.em, kP4);
+    stage<K>(p, kDo, b, h, t0, n, sm.dbuf[c & 1], kP8);
     cp_async_commit();
   };
-  for (int i = tid; i < kK * kK; i += kThreads) {
-    const int row = i / kK, col = i % kK;
+  for (int i = tid; i < K * K; i += kThreads) {
+    const int row = i / K, col = i % K;
     sm.G[row * kP4 + col] = p.d_state ? p.d_state[sbase + i] : 0.f;
   }
-  if (tid < kK) {
-    sm.us[tid] = p.u[h * kK + tid];
+  if (tid < K) {
+    sm.us[tid] = p.u[h * K + tid];
     double f = 0.0;  // sum_j dS_T S_T of row tid
     if (p.d_state) {
-      for (int j = 0; j < kK; ++j)
-        f += (double)p.d_state[sbase + tid * kK + j] * (double)p.state[sbase + tid * kK + j];
+      for (int j = 0; j < K; ++j)
+        f += (double)p.d_state[sbase + tid * K + j] * (double)p.state[sbase + tid * K + j];
     }
     sm.carry[(p.nc - 1) & 1][tid] = f;
   }
-  const float u0 = p.u[h * kK + lane], u1 = p.u[h * kK + lane + 32];
+  float uu[kTw];  // u of channels lane + 32 e
+#pragma unroll
+  for (int e = 0; e < kTw; ++e) uu[e] = p.u[h * K + lane + 32 * e];
   float du_part = 0.f;
   stage_chunk(p.nc - 1);
   for (int c = p.nc - 1; c >= 0; --c) {
@@ -467,8 +510,13 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
       const float* dt = dout + t * kP8;
       const float* rt = r + t * kP4;
       const float* kt = kk + t * kP4;
-      float x = fmaf(vt[lane], dt[lane], vt[lane + 32] * dt[lane + 32]);
-      float y = fmaf(rt[lane] * u0, kt[lane], rt[lane + 32] * u1 * kt[lane + 32]);
+      float x = 0.f, y = 0.f;
+#pragma unroll
+      for (int e = kTw - 1; e >= 0; --e) {
+        const int i = lane + 32 * e;
+        x = fmaf(vt[i], dt[i], x);
+        y = fmaf(rt[i] * uu[e], kt[i], y);
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
         x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -479,11 +527,11 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
         sm.ruk[t] = y;
       }
     }
-    segment_sum(sm.em, sm.seg, ci, sg);
+    segment_sum<K>(sm.em, sm.seg, ci, sg);
     __syncthreads();
     {
       double off, total;
-      offsets(sm.seg, ci, sg, off, total);
+      offsets<K>(sm.seg, ci, sg, off, total);
       const double lm = 0.5 * total;
       const float elm = exp_acc(lm);
       // exp(L_p - L_m) and exp(L_m - L) of each row: the segment's entry
@@ -494,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
         const int t = sg * kSegLen + row;
         const int a = t * kP4 + ci, a8 = t * kP8 + ci;
         const float raw = sm.em[a];
-        sm.inside[t * kK + ci] = raw >= kLogDecayMin && raw <= 0.f;
+        sm.inside[t * K + ci] = raw >= kLogDecayMin && raw <= 0.f;
         const float rv = r[a], kv = kk[a], lw = clamp_decay(raw);
         const float rrv = rv * fp;  // r exp(L_p - L_m)
         fp *= expf(lw);
@@ -518,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
       if (nt * 8 + 7 > mt * 16) {
         float a1[4] = {}, a2[4] = {};
 #pragma unroll
-        for (int ks = 0; ks < kK / 8; ++ks) {
+        for (int ks = 0; ks < K / 8; ++ks) {
           mma3(a1, load_a(sm.v, kP4, mt * 16, ks * 8, g, q), load_b_t(dout, kP8, ks * 8, nt * 8, g, q));
           mma3(a2, load_a(kn, kP4, mt * 16, ks * 8, g, q), load_b_t(rr, kP8, ks * 8, nt * 8, g, q));
         }
@@ -536,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
     __syncthreads();
     // dr's state term, read now so that the loads fly during the products: this
     // thread's dk elements (warps 0-3).
-    float ds[2][2][2][2] = {};
+    float ds[2][2][kTw][2] = {};
     if (warp < 4) {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -545,16 +593,16 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
           const int t = mt * 16 + g + 8 * half;
           if (t < n) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
+            for (int j = 0; j < kTw; ++j) {
               const float2 d2 = *reinterpret_cast<const float2*>(
-                  p.dr + out_row(p, b, t0 + t, h) + n0 + j * 8 + 2 * q);
+                  p.dr + out_row<K>(p, b, t0 + t, h) + n0 + j * 8 + 2 * q);
               ds[mt][half][j][0] = d2.x;
               ds[mt][half][j][1] = d2.y;
             }
           }
         }
     }
-    float acc[4][2][4] = {};
+    float acc[4][kTw][4] = {};
     // dk (warps 0-3): acc[mt] = v G^T, acc[2 + mt] = VD^T rr; dv (warps
     // 4-7): acc[mt] = kdec G, acc[2 + mt] = A^T dout.  Rows 16-31 have s > t
     // only in the last 16 columns.
@@ -562,11 +610,11 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
     const float* a_intra = warp < 4 ? sm.vdt : sm.at;
     const float* b_intra = warp < 4 ? rr : dout;
 #pragma unroll
-    for (int ks = 0; ks < kK / 8; ++ks) {
+    for (int ks = 0; ks < K / 8; ++ks) {
       const FragA a0 = load_a(a_main, kP4, 0, ks * 8, g, q);
       const FragA a1 = load_a(a_main, kP4, 16, ks * 8, g, q);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < kTw; ++j) {
         const FragB fb = warp < 4 ? load_b_t(sm.G, kP4, ks * 8, n0 + j * 8, g, q)
                                   : load_b(sm.G, kP4, ks * 8, n0 + j * 8, g, q);
         mma3(acc[0][j], a0, fb);
@@ -579,7 +627,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
       const FragA a1 = load_a(a_intra, kSP, 16, ks * 8, g, q);
       const bool lower = ks >= 2;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < kTw; ++j) {
         const FragB fb = load_b(b_intra, kP8, ks * 8, n0 + j * 8, g, q);
         mma3(acc[2][j], a0, fb);
         if (lower) mma3(acc[3][j], a1, fb);
@@ -593,7 +641,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
           const int t = mt * 16 + g + 8 * half;
           const float vdt = sm.vd[t];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
+          for (int j = 0; j < kTw; ++j) {
             const int i = n0 + j * 8 + 2 * q;
             float dr2[2], dk2[2];
 #pragma unroll
@@ -610,7 +658,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
               kk[a] = kv * dks;
             }
             if (t < n) {
-              const long long o = out_row(p, b, t0 + t, h) + i;
+              const long long o = out_row<K>(p, b, t0 + t, h) + i;
               *reinterpret_cast<float2*>(p.dr + o) = make_float2(dr2[0], dr2[1]);
               *reinterpret_cast<float2*>(p.dk + o) = make_float2(dk2[0], dk2[1]);
             }
@@ -624,9 +672,9 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
           const int t = mt * 16 + g + 8 * half;
           if (t >= n) continue;
           const float ruk = sm.ruk[t];
-          float* out = p.dv + out_row(p, b, t0 + t, h);
+          float* out = p.dv + out_row<K>(p, b, t0 + t, h);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
+          for (int j = 0; j < kTw; ++j) {
             const int col = n0 + j * 8 + 2 * q;
             *reinterpret_cast<float2*>(out + col) = make_float2(
                 fmaf(ruk, dout[t * kP8 + col], acc[mt][j][2 * half] + acc[2 + mt][j][2 * half]),
@@ -637,15 +685,16 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
     }
     __syncthreads();  // every read of G, v, kn, kdec, rr and em is done
     if (c > 0) stage_chunk(c - 1);
-    {  // G <- exp(L_C) G + rq^T dout: rows 16 (warp & 3) .., columns 32 (warp >> 2) ...
-      const int mt = warp & 3, c0 = (warp >> 2) * 32;
-      float a[4][4];
+    {  // G <- exp(L_C) G + rq^T dout: rows 16 (warp % kMt) .., kSNt 8-column tiles.
+      constexpr int kSNt = D::kSNt;
+      const int mt = warp % D::kMt, c0 = (warp / D::kMt) * kSNt * 8;
+      float a[kSNt][4];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = mt * 16 + g + 8 * half;
         const float e = sm.elc[i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kSNt; ++j) {
           const float2 g2 = *reinterpret_cast<const float2*>(sm.G + i * kP4 + c0 + j * 8 + 2 * q);
           a[j][2 * half] = e * g2.x;
           a[j][2 * half + 1] = e * g2.y;
@@ -655,33 +704,34 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
       for (int ks = 0; ks < kChunk / 8; ++ks) {
         const FragA fa = load_a_t(sm.rq, kP8, mt * 16, ks * 8, g, q);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma3(a[j], fa, load_b(dout, kP8, ks * 8, c0 + j * 8, g, q));
+        for (int j = 0; j < kSNt; ++j) mma3(a[j], fa, load_b(dout, kP8, ks * 8, c0 + j * 8, g, q));
       }
       // Each warp rewrites only the tiles it read.
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = mt * 16 + g + 8 * half;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kSNt; ++j)
           *reinterpret_cast<float2*>(sm.G + i * kP4 + c0 + j * 8 + 2 * q) =
               make_float2(a[j][2 * half], a[j][2 * half + 1]);
       }
     }
     // dlog_w, channel ci over rows kSegLen sg ..: the running sum from the
     // chunk's right end, acc -= k dk_state, dlog_w = acc, acc += r dr_state.
-    // A segment's 8 terms sum in float (errors of 1e-7 of a term); the
-    // running sum across segments and chunks, which cancels, in float64.
+    // A segment's kSegLen terms (8 at K = 64, 4 at 32) sum in float (errors
+    // of 1e-7 of a term); the running sum across segments and chunks, which
+    // cancels, in float64.
     float dsum = 0.f;
 #pragma unroll
     for (int row = 0; row < kSegLen; ++row) {
       const int a = (sg * kSegLen + row) * kP4 + ci;
       dsum += r[a] - kk[a];
     }
-    sm.seg[sg * kK + ci] = dsum;
+    sm.seg[sg * K + ci] = dsum;
     __syncthreads();
     {
       double entry = sm.carry[c & 1][ci];
-      for (int s = kSegs - 1; s > sg; --s) entry += sm.seg[s * kK + ci];
+      for (int s = kSegs - 1; s > sg; --s) entry += sm.seg[s * K + ci];
       if (sg == 0) sm.carry[(c & 1) ^ 1][ci] = entry + sm.seg[ci];
       const float base = static_cast<float>(entry);
       const float rest = static_cast<float>(entry - static_cast<double>(base));
@@ -691,27 +741,49 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
         const int t = sg * kSegLen + row, a = t * kP4 + ci;
         acc_w -= kk[a];
         if (t < n)
-          p.dlw[out_row(p, b, t0 + t, h) + ci] = sm.inside[t * kK + ci] ? base + (rest + acc_w) : 0.f;
+          p.dlw[out_row<K>(p, b, t0 + t, h) + ci] = sm.inside[t * K + ci] ? base + (rest + acc_w) : 0.f;
         acc_w += r[a];
       }
     }
   }
   __syncthreads();
-  sm.seg[sg * kK + ci] = du_part;
+  sm.seg[sg * K + ci] = du_part;
   __syncthreads();
-  if (tid < kK) {
+  if (tid < K) {
     float sum = 0.f;
 #pragma unroll
-    for (int s = 0; s < kSegs; ++s) sum += (float)sm.seg[s * kK + tid];
-    p.partial[(long long)bh * kK + tid] = sum;
+    for (int s = 0; s < kSegs; ++s) sum += (float)sm.seg[s * K + tid];
+    p.partial[(long long)bh * K + tid] = sum;
   }
 }
 
-__global__ void __launch_bounds__(kK) wkv_bwd_du_kernel(Params p) {
+template <int K>
+__global__ void __launch_bounds__(K) wkv_bwd_du_kernel(Params p) {
   const int h = blockIdx.x, i = threadIdx.x;
   float sum = 0.f;
-  for (int b = 0; b < p.B; ++b) sum += p.partial[((long long)b * p.H + h) * kK + i];
-  p.du[h * kK + i] = sum;
+  for (int b = 0; b < p.B; ++b) sum += p.partial[((long long)b * p.H + h) * K + i];
+  p.du[h * K + i] = sum;
+}
+
+// The three kernels at head size K on `stream`.
+template <int K>
+int launch(const Params& p, cudaStream_t stream) {
+  const int bytes_state = (int)sizeof(StateSmem<K>), bytes_grad = (int)sizeof(GradSmem<K>);
+  cudaError_t err = cudaFuncSetAttribute(wkv_bwd_state_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_state);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(wkv_bwd_grad_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes_grad);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.B * p.H);
+  wkv_bwd_state_kernel<K><<<grid, kThreads, bytes_state, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wkv_bwd_grad_kernel<K><<<grid, kThreads, bytes_grad, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wkv_bwd_du_kernel<K><<<p.H, K, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -734,14 +806,15 @@ struct EntryArgs {
 static_assert(sizeof(EntryArgs) == 304, "EntryArgs must match ops.py's packing");
 
 // Returns the first non-zero cudaError_t of the three launches (0 on
-// success), or kLayoutRejected (-1) when K is not 64, the chunk is over 64,
+// success), or kLayoutRejected (-1) when K is neither 32 nor 64 (ops.py's
+// HEAD_SIZES), the chunk is over 64,
 // or an input is not read as 16-byte rows (base 16-byte aligned, channel
 // stride 1, every other stride of a dim longer than 1 a multiple of 4);
 // nothing is launched then.
 int wkv_backward(const EntryArgs* a) {
   if (a->B < 1 || a->T < 1 || a->H < 1 || a->chunk < 1) return (int)cudaErrorInvalidValue;
   const int C = a->chunk < a->T ? a->chunk : a->T;
-  if (a->K != kK || C > kMaxChunk) return kLayoutRejected;
+  if ((a->K != 32 && a->K != 64) || C > kMaxChunk) return kLayoutRejected;
   const int sizes[3] = {a->B, a->T, a->H};
   for (int x = 0; x < 5; ++x) {
     const long long* st = a->strides + 4 * x;
@@ -771,22 +844,7 @@ int wkv_backward(const EntryArgs* a) {
   p.H = a->H;
   p.nc = (a->T + kChunk - 1) / kChunk;
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  const int bytes_state = (int)sizeof(StateSmem), bytes_grad = (int)sizeof(GradSmem);
-  cudaError_t err = cudaFuncSetAttribute(wkv_bwd_state_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_state);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(wkv_bwd_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes_grad);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a->B * a->H);
-  wkv_bwd_state_kernel<<<grid, kThreads, bytes_state, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  wkv_bwd_grad_kernel<<<grid, kThreads, bytes_grad, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  wkv_bwd_du_kernel<<<a->H, kK, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return a->K == 32 ? launch<32>(p, stream) : launch<64>(p, stream);
 }
 
 }  // extern "C"

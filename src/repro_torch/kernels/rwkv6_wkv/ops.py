@@ -17,7 +17,9 @@ cores, as ``ref.wkv_backward_chunked`` decomposes them) through
 version.
 
 ``wkv.launches`` counts calls that launch the kernel's passes, and
-``wkv_backward.launches`` calls that launch the backward kernel.
+``wkv_backward.launches`` calls that launch the backward kernel; each
+also keeps ``launches_by_instance``, the same launches by head size
+``(K,)``.
 
 Each launch is a ``torch.library`` custom op (``repro_torch::wkv_forward``,
 ``repro_torch::wkv_backward``) with a fake implementation for fake and
@@ -28,6 +30,7 @@ rank's shards, split over batch and heads
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import pathlib
@@ -44,12 +47,14 @@ from repro_torch.sharding.context import is_dtensor
 
 __all__ = [
     "wkv", "wkv_with_chunk_states", "wkv_backward", "layout_error", "SOURCE", "BACKWARD_SOURCE",
-    "HEAD_SIZE", "MAX_CHUNK",
+    "HEAD_SIZES", "MAX_CHUNK",
 ]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 BACKWARD_SOURCE = SOURCE.with_name("wkv_backward.cu")
-HEAD_SIZE = 64
+# The head sizes K the CUDA kernels are instantiated for: the reduced
+# rwkv6-7b config's 32 and the published one's 64.
+HEAD_SIZES = (32, 64)
 MAX_CHUNK = 64
 BACKWARD_CHUNK = 32  # the backward kernel's chunk (kChunk in wkv_backward.cu)
 _REJECTED = -1  # the C entry's code for a head size, chunk or layout it does not take
@@ -123,8 +128,9 @@ def _check(r, k, v, log_w, u, chunk) -> None:
 
 def _rejected(r, k, v, log_w, c) -> ValueError:
     kk = r.shape[-1]
-    if kk != HEAD_SIZE:
-        return ValueError(f"the CUDA kernel takes head size {HEAD_SIZE}, got {kk}")
+    if kk not in HEAD_SIZES:
+        return ValueError(f"the CUDA kernel takes head sizes HEAD_SIZES = {HEAD_SIZES}, "
+                          f"got {kk}")
     if c > MAX_CHUNK:
         return ValueError(f"the CUDA kernel takes chunks of at most {MAX_CHUNK}, got {c}")
     why = [f"{name}: {err}" for name, x in (("r", r), ("k", k), ("v", v), ("log_w", log_w))
@@ -161,6 +167,7 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tens
     if rc != 0:
         raise RuntimeError(f"wkv kernel launch failed: cudaError {rc}")
     wkv.launches += 1
+    wkv.launches_by_instance[(kk,)] += 1
     return out, state, scratch
 
 
@@ -257,6 +264,7 @@ def _launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: t
     if rc != 0:
         raise RuntimeError(f"wkv backward kernel launch failed: cudaError {rc}")
     wkv_backward.launches += 1
+    wkv_backward.launches_by_instance[(kk,)] += 1
     return (*grads, du)
 
 
@@ -285,7 +293,7 @@ def wkv_backward(
     ``d_state`` (B, H, K, K; None is zero): (dr, dk, dv, dlog_w (B, T, H,
     K), du (H, K)), float32.  ``state`` is the forward's final state.  CUDA
     tensors go to the kernel in ``csrc/wkv_backward.cu`` (the forward's
-    limits: K = 64, chunk <= 64, 16-byte rows), CPU tensors to
+    limits: K in ``HEAD_SIZES``, chunk <= 64, 16-byte rows), CPU tensors to
     :func:`wkv_backward_ref`."""
     _check(r, k, v, log_w, u, chunk)
     if d_out.shape != r.shape:
@@ -316,3 +324,5 @@ def wkv_with_chunk_states(
 
 wkv.launches = 0
 wkv_backward.launches = 0
+wkv.launches_by_instance = collections.Counter()
+wkv_backward.launches_by_instance = collections.Counter()

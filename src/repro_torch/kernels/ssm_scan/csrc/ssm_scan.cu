@@ -9,7 +9,9 @@
 //   h_t[d, n] = exp(dt_t[d] A[d, n]) h_{t-1}[d, n] + (dt_t[d] u_t[d]) B_t[n]
 //   y_t[d]    = sum_n C_t[n] h_t[d, n]
 // u/dt (B,T,D), B/C (B,T,N) and log_a (D,N) are float32; y (B,T,D) and the
-// final state (B,D,N) are float32.  N = 16 only; any B, D and T >= 1.
+// final state (B,D,N) are float32.  N is a template parameter,
+// instantiated at 8 (the reduced hymba-1.5b config) and 16 (the published
+// one); any B, D and T >= 1.
 //
 // Bound on an H100 SXM (3.35 TB/s): at hymba-1.5b B=1, T=1024, D=3200,
 // N=16 the function must read u and dt and write y, about 39.3 MB, plus B,
@@ -26,10 +28,10 @@
 //   * Time is split within the block: it walks T in tiles of sb * kSeg
 //     steps, and `sb` segments of kSeg = 8 steps each run side by side
 //     (sb = 7 at B=1: 7 x 25 x 2 = 350 threads, launched as 352).  Two
-//     threads share a (channel, segment), eight states each, so y_t is a
-//     sum inside the thread plus one shuffle per two steps, with no
-//     per-step butterfly; dt u is formed once per thread and step, and
-//     B_t/C_t are 16-byte shared-memory broadcasts.
+//     threads share a (channel, segment), N / 2 states each (8 at N = 16,
+//     4 at N = 8), so y_t is a sum inside the thread plus one shuffle per
+//     two steps, with no per-step butterfly; dt u is formed once per thread
+//     and step, and B_t/C_t are 16-byte shared-memory broadcasts.
 //   * Pass 1 scans each segment from h = 0 and keeps its 64 decays in
 //     registers, with the local y; the segment's total decay P is
 //     exp2(A log2(e) * the sum of its dt), one more exponential per state
@@ -41,7 +43,8 @@
 //     to the local y.  No decay is computed twice and no intermediate
 //     leaves the SM; the state between tiles stays in shared memory.
 //   * Inputs are staged per tile by TMA (one thread issues a 2-D box each
-//     for u, dt, B and C; steps past T and channels past D come back as
+//     for u, dt, B and C, the last N floats wide: 32 bytes at N = 8, over
+//     TMA's 16-byte minimum; steps past T and channels past D come back as
 //     zeros) in a ring of three tiles on mbarriers, so no compute thread
 //     spends instructions or queue slots on copies.  Where a base or stride
 //     breaks TMA's 16-byte rule the same ring is filled with 4-byte
@@ -53,6 +56,9 @@
 //     kBwdTile = 64 steps goes to a (B, T / 64, D, N) tensor, which the
 //     backward in ssm_scan_backward.cu starts its tiles from: the thread
 //     whose segment starts such a tile stores the state g it carried in.
+//
+// At N = 8 (reduced hymba-1.5b: D = 128, chunk 8) each thread keeps 4
+// states, one float4; a call at those shapes is launch-bound.
 //
 // Cost per state update, as compiled (the TMA instance's SASS at the main
 // case): about 1,080 warp instructions per thread and 64-update tile plus
@@ -70,10 +76,7 @@
 
 namespace {
 
-constexpr int kN = 16;             // state size: the only one taken
 constexpr int kLanes = 2;          // threads per (channel, segment)
-constexpr int kPer = kN / kLanes;  // states per thread
-constexpr int kVec = kPer / 4;     // float4s per thread's states
 constexpr int kSeg = 8;            // steps per segment
 constexpr int kMaxGroups = 192;    // (channel, segment) groups per block
 constexpr int kMaxThreads = kLanes * kMaxGroups;
@@ -103,8 +106,18 @@ struct Params {
 __host__ __device__ inline int box_width(int cb) { return (cb + 3 + 3) / 4 * 4; }
 __host__ __device__ inline int round32(int floats) { return (floats + 31) / 32 * 32; }
 
+// What follows the state size N (8 or 16): each of a (channel, segment)'s
+// kLanes threads keeps kPer states as kVec float4s.
+template <int kN>
+struct Dims {
+  static_assert(kN == 8 || kN == 16, "state sizes 8 and 16");
+  static constexpr int kPer = kN / kLanes;  // states per thread
+  static constexpr int kVec = kPer / 4;     // float4s per thread's states
+};
+
 // One ring stage, in floats: u and dt as (rows, box_width), then B and C as
-// (rows, 16), each region starting on 128 bytes.
+// (rows, N), each region starting on 128 bytes.
+template <int kN>
 struct Stage {
   int u, dt, b, c, floats;
   __host__ __device__ Stage(int cb, int rows) {
@@ -126,11 +139,13 @@ __host__ __device__ inline int block_threads(int cb, int sb) {
 
 // Shared memory in bytes: the ring, the segments' (P, h) twice, the carry
 // twice, and one mbarrier per stage.
+template <int kN>
 __host__ __device__ inline int smem_bytes(int cb, int sb) {
+  constexpr int kVec = Dims<kN>::kVec;
   const int threads = block_threads(cb, sb);
   const int agg = 2 * 2 * kVec * 4 * threads;    // (P, h) per thread, two tiles
   const int carry = 2 * kVec * 4 * kLanes * cb;  // two tiles
-  const int floats = kStages * Stage(cb, sb * kSeg).floats + agg + carry;
+  const int floats = kStages * Stage<kN>(cb, sb * kSeg).floats + agg + carry;
   return 4 * floats + 8 * kStages + 128;  // + 128: the base is aligned up to 128 bytes
 }
 
@@ -202,11 +217,11 @@ struct Maps {
 // Stage time steps [t0, t0 + rows) of columns [a0, a0 + box_width) into `buf`.
 // TMA: one thread, completing on `bar`.  Otherwise every thread issues
 // 4-byte copies (zero-filled past T and D) as one cp.async group.
-template <bool kTma>
+template <int kN, bool kTma>
 __device__ __forceinline__ void load_tile(const Params& p, const Maps& maps, float* buf,
                                           uint32_t bar, int bidx, int a0, int t0) {
   const int cb = p.cb, rows = p.sb * kSeg, W = box_width(cb);
-  const Stage st(cb, rows);
+  const Stage<kN> st(cb, rows);
   if constexpr (kTma) {
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar, 4u * static_cast<uint32_t>(2 * rows * W + 2 * rows * kN));
@@ -238,11 +253,13 @@ __device__ __forceinline__ void load_tile(const Params& p, const Maps& maps, flo
   }
 }
 
-template <bool kTma>
+template <int kN, bool kTma>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ssm_scan_kernel(const __grid_constant__ CUtensorMap tu, const __grid_constant__ CUtensorMap tdt,
                     const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
                     const Params p) {
+  constexpr int kPer = Dims<kN>::kPer, kVec = Dims<kN>::kVec;
+  constexpr int kRowVecs = kN / 4;  // float4s per step of B or C
   extern __shared__ uint8_t smem_raw[];
   // TMA writes boxes to 128-byte aligned shared memory.
   float* smem = reinterpret_cast<float*>(smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u));
@@ -262,7 +279,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int bidx = blockIdx.y;
   const bool valid = active && d < p.D;
 
-  const Stage st(cb, rows);
+  const Stage<kN> st(cb, rows);
   // The segments' (P, h), [2][2 kVec][threads], and the carry, [2][kVec][kLanes cb].
   float4* agg = reinterpret_cast<float4*>(smem + kStages * st.floats);
   float4* carry = agg + 2 * 2 * kVec * nthreads;
@@ -290,7 +307,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
   for (int k = 0; k < kStages - 1; ++k) {
     if (k < n_tiles)
-      load_tile<kTma>(p, maps, smem + k * st.floats, bars + 8 * k, bidx, a0, k * rows);
+      load_tile<kN, kTma>(p, maps, smem + k * st.floats, bars + 8 * k, bidx, a0, k * rows);
     else if constexpr (!kTma)
       cp_async_commit();  // an empty group keeps the group count per tile
   }
@@ -307,8 +324,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     const float* us = buf + st.u + s * kSeg * W + col;
     const float* dts = buf + st.dt + s * kSeg * W + col;
-    const float4* bs = reinterpret_cast<const float4*>(buf + st.b) + s * kSeg * 4 + kVec * lane;
-    const float4* cs = reinterpret_cast<const float4*>(buf + st.c) + s * kSeg * 4 + kVec * lane;
+    const float4* bs =
+        reinterpret_cast<const float4*>(buf + st.b) + s * kSeg * kRowVecs + kVec * lane;
+    const float4* cs =
+        reinterpret_cast<const float4*>(buf + st.c) + s * kSeg * kRowVecs + kVec * lane;
 
     // Pass 1: the segment from h = 0; its decays kept in registers.  The
     // segment's total decay P is exp2(A log2(e) * the sum of its dt): one
@@ -325,7 +344,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       float bv[kPer], cv[kPer];
 #pragma unroll
       for (int v = 0; v < kVec; ++v) {
-        const float4 b4 = bs[j * 4 + v], c4 = cs[j * 4 + v];
+        const float4 b4 = bs[j * kRowVecs + v], c4 = cs[j * kRowVecs + v];
         bv[4 * v] = b4.x; bv[4 * v + 1] = b4.y; bv[4 * v + 2] = b4.z; bv[4 * v + 3] = b4.w;
         cv[4 * v] = c4.x; cv[4 * v + 1] = c4.y; cv[4 * v + 2] = c4.z; cv[4 * v + 3] = c4.w;
       }
@@ -353,8 +372,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     // finished: refill it with tile k + kStages - 1.
     if (k + kStages - 1 < n_tiles) {
       const int next = (k + kStages - 1) % kStages;
-      load_tile<kTma>(p, maps, smem + next * st.floats, bars + 8 * next, bidx, a0,
-                      (k + kStages - 1) * rows);
+      load_tile<kN, kTma>(p, maps, smem + next * st.floats, bars + 8 * next, bidx, a0,
+                          (k + kStages - 1) * rows);
     } else if constexpr (!kTma) {
       cp_async_commit();
     }
@@ -399,7 +418,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
     // Pass 2: g through the kept decays; y = local y + C_t g over the
     // thread's states.  Then a reduce-scatter over the kLanes threads of
-    // the (channel, segment) sums the 16 states: each round a thread sends
+    // the (channel, segment) sums the N states: each round a thread sends
     // its partner the half of its steps the partner keeps.
     float yv[kSeg];
 #pragma unroll
@@ -407,7 +426,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       float cv[kPer];
 #pragma unroll
       for (int v = 0; v < kVec; ++v) {
-        const float4 c4 = cs[j * 4 + v];
+        const float4 c4 = cs[j * kRowVecs + v];
         cv[4 * v] = c4.x; cv[4 * v + 1] = c4.y; cv[4 * v + 2] = c4.z; cv[4 * v + 3] = c4.w;
       }
       float acc[2] = {yl[j], 0.f};
@@ -498,22 +517,44 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kTma>
-cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, dim3 grid, int threads,
-                   int bytes, cudaStream_t stream) {
+template <int kN, bool kTma>
+cudaError_t launch_kernel(const CUtensorMap (&maps)[4], const Params& p, dim3 grid, int threads,
+                          int bytes, cudaStream_t stream) {
   static bool configured[64] = {false};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(ssm_scan_kernel<kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               227 * 1024);
+    err = cudaFuncSetAttribute(ssm_scan_kernel<kN, kTma>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
-  ssm_scan_kernel<kTma><<<grid, threads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  ssm_scan_kernel<kN, kTma><<<grid, threads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                              p);
   return cudaGetLastError();
+}
+
+// The scan at state size kN: TMA maps where the layout allows them, else
+// the 4-byte cp.async instance.
+template <int kN>
+cudaError_t launch(const void* const (&in)[4], const long long* st, int B, int T, int D,
+                   const Params& p, cudaStream_t stream) {
+  const int cb = p.cb, rows = p.sb * kSeg;
+  const dim3 grid((D + cb - 1) / cb, B);
+  const int threads = block_threads(cb, p.sb);
+  const int bytes = smem_bytes<kN>(cb, p.sb);
+  CUtensorMap maps[4];  // u, dt, b, c
+  EncodeTiled encode = encode_tiled();
+  const int W = box_width(cb);
+  const bool tma = encode != nullptr &&
+                   make_map(encode, &maps[0], in[0], B, T, D, st[0], st[1], W, rows) &&
+                   make_map(encode, &maps[1], in[1], B, T, D, st[2], st[3], W, rows) &&
+                   make_map(encode, &maps[2], in[2], B, T, kN, st[4], st[5], kN, rows) &&
+                   make_map(encode, &maps[3], in[3], B, T, kN, st[6], st[7], kN, rows);
+  return tma ? launch_kernel<kN, true>(maps, p, grid, threads, bytes, stream)
+             : launch_kernel<kN, false>(maps, p, grid, threads, bytes, stream);
 }
 
 }  // namespace
@@ -533,9 +574,11 @@ struct EntryArgs {
 };
 static_assert(sizeof(EntryArgs) == 160, "EntryArgs must match ops.py's packing");
 
-// Launches the scan; returns the first non-zero cudaError_t (0 on success).
+// Launches the scan; returns the first non-zero cudaError_t (0 on success),
+// cudaErrorInvalidValue for a state size other than 8 or 16 (ops.py's
+// STATE_SIZES) or a chunk over 128.
 int ssm_scan_forward(const EntryArgs* a) {
-  if (a->N != kN || a->B <= 0 || a->T <= 0 || a->D <= 0 || a->chunk <= 0 ||
+  if ((a->N != 8 && a->N != 16) || a->B <= 0 || a->T <= 0 || a->D <= 0 || a->chunk <= 0 ||
       a->chunk > kMaxChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
@@ -554,7 +597,6 @@ int ssm_scan_forward(const EntryArgs* a) {
   if (cb > kMaxGroups) cb = kMaxGroups;
   int sb = kMaxGroups / cb;
   if (sb > kMaxSegs) sb = kMaxSegs;
-  const int rows = sb * kSeg;
 
   const long long* st = a->strides;
   const Params p{static_cast<const float*>(a->in[0]), static_cast<const float*>(a->in[1]),
@@ -563,21 +605,9 @@ int ssm_scan_forward(const EntryArgs* a) {
                  static_cast<float*>(a->h), static_cast<float*>(a->tiles),
                  st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                  a->T, a->D, cb, sb};
-  const dim3 grid((a->D + cb - 1) / cb, a->B);
-  const int threads = block_threads(cb, sb);
-  const int bytes = smem_bytes(cb, sb);
   const cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  CUtensorMap maps[4];  // u, dt, b, c
-  EncodeTiled encode = encode_tiled();
-  const int W = box_width(cb);
-  const bool tma =
-      encode != nullptr &&
-      make_map(encode, &maps[0], a->in[0], a->B, a->T, a->D, st[0], st[1], W, rows) &&
-      make_map(encode, &maps[1], a->in[1], a->B, a->T, a->D, st[2], st[3], W, rows) &&
-      make_map(encode, &maps[2], a->in[2], a->B, a->T, kN, st[4], st[5], kN, rows) &&
-      make_map(encode, &maps[3], a->in[3], a->B, a->T, kN, st[6], st[7], kN, rows);
-  err = tma ? launch<true>(maps, p, grid, threads, bytes, stream)
-            : launch<false>(maps, p, grid, threads, bytes, stream);
+  err = a->N == 8 ? launch<8>(a->in, st, a->B, a->T, a->D, p, stream)
+                  : launch<16>(a->in, st, a->B, a->T, a->D, p, stream);
   return static_cast<int>(err);
 }
 

@@ -15,8 +15,8 @@
 //   dlog_a    = A sum_{b,t} Gh_t h_{t-1} a_t dt_t
 // u/dt/dy (B,T,D) and B/C (B,T,N) are float32, read in place through their
 // (batch, time) strides with the last dim contiguous (any alignment);
-// log_a (D,N) and the final state's gradient (B,D,N) contiguous.  N = 16
-// only, as the forward.
+// log_a (D,N) and the final state's gradient (B,D,N) contiguous.  N is a
+// template parameter, instantiated at 8 and 16, as the forward.
 //
 // Bound on an H100 SXM at one node's training slice of hymba-1.5b (B=40,
 // T=512, D=3200, N=16): the function reads u, dt and dy and writes du and
@@ -31,8 +31,10 @@
 // (plain form: ref.py::ssm_scan_backward_segments):
 //   * A block is one batch row and kBlockChannels = 128 channels: 256
 //     threads, warp w = segment w of a tile of kSegs * kSeg = 64 steps,
-//     lane = 8 channels x 4 threads of 4 states each.  The block walks its
-//     channels 8 at a time (a sub-block); every input of a sub-block's tile
+//     lane = kSub channels x kLanes threads of 4 states each: 8 x 4 at N =
+//     16, 16 x 2 at N = 8 (the lane count follows N, so every thread keeps
+//     one float4 of states at either size).  The block walks its
+//     channels kSub at a time (a sub-block); every input of a sub-block's tile
 //     is staged in shared memory by 4-byte cp.async (zero past T and D,
 //     where dt = 0 makes the step an identity), the next one while this one
 //     computes.
@@ -53,9 +55,11 @@
 //     shared memory, which keeps the kernel at 128 registers, two blocks an
 //     SM) and walks back forming every output; segment 0's walk leaves the
 //     tile's left-exit gradient for the tile before it.
-//   * du and ddt sum a step's 16 states over the four threads of a channel
-//     (two shuffles each).  dB and dC sum over the 8 channels of a warp (a
-//     reduce-scatter a step) and over the block's sub-blocks in registers,
+//   * du and ddt sum a step's N states over the kLanes threads of a
+//     channel (log2 kLanes shuffles each).  dB and dC sum over the kSub
+//     channels of a warp (a reduce-scatter a step over 8 of them, then at N
+//     = 8 one butterfly over the last two) and over the block's sub-blocks
+//     in registers,
 //     so each block writes one partial per (b, t) and slot; dlog_a's block
 //     part sums in shared memory; the reduce kernel sums the blocks'
 //     partials and dlog_a's batch rows, each in a fixed order.  No float
@@ -71,17 +75,22 @@
 
 namespace {
 
-constexpr int kN = 16;             // state size: the only one taken
-constexpr int kLanes = 4;          // threads per (channel, segment)
-constexpr int kPer = kN / kLanes;  // states per thread
+constexpr int kPer = 4;            // states per thread: one float4
 constexpr int kSeg = 8;            // steps per segment
 constexpr int kSegs = 8;           // segments per tile: one per warp
 constexpr int kTile = kSeg * kSegs;
-constexpr int kSub = 8;            // channels per sub-block: the lanes of a warp / kLanes
 constexpr int kThreads = 32 * kSegs;
 constexpr int kBlockChannels = 128;
-constexpr int kSlots = 2 * kN;     // dB then dC per (b, t)
 constexpr int kMaxChunk = 128;     // the forward's limit
+
+// What follows the state size N (8 or 16).
+template <int kN>
+struct Dims {
+  static_assert(kN == 8 || kN == 16, "state sizes 8 and 16");
+  static constexpr int kLanes = kN / kPer;   // threads per (channel, segment): 2 or 4
+  static constexpr int kSub = 32 / kLanes;   // channels per sub-block: the lanes of a warp / kLanes
+  static constexpr int kSlots = 2 * kN;      // dB then dC per (b, t)
+};
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -111,11 +120,13 @@ struct Params {
 // segment, dlog_a's per-segment parts, and per channel of the block the
 // gradient carried into the tile from its right and dlog_a over the tiles
 // so far.
+template <int kN>
 struct Smem {
+  static constexpr int kSub = Dims<kN>::kSub;
   float4 uvd[2][kTile][kSub];
   float la[2][kSub][kN];
   float hin[2][kSub][kN];
-  float bc[2][kTile][kSlots];
+  float bc[2][kTile][Dims<kN>::kSlots];
   float4 agg[3][kSegs][32];
   float4 hs[kSegs][kSeg][32];
   float4 red[kSegs][32];
@@ -144,8 +155,10 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // Stage the sub-block of kSub channels from d0 of tile k (steps k * kTile
 // ..): dt, u and dy into uvd[stage], log_a's rows into la[stage].  Zero
 // past T and D.
-__device__ __forceinline__ void load_sub(const Params& p, Smem& sm, int stage, int bidx, int d0,
-                                         int k) {
+template <int kN>
+__device__ __forceinline__ void load_sub(const Params& p, Smem<kN>& sm, int stage, int bidx,
+                                         int d0, int k) {
+  constexpr int kSub = Dims<kN>::kSub;
   for (int idx = threadIdx.x; idx < kTile * kSub; idx += kThreads) {
     const int j = idx / kSub, ch = idx % kSub;
     const int t = k * kTile + j, d = d0 + ch;
@@ -165,7 +178,8 @@ __device__ __forceinline__ void load_sub(const Params& p, Smem& sm, int stage, i
 }
 
 // Stage tile k's B and C into bc[k & 1].
-__device__ __forceinline__ void load_bc(const Params& p, Smem& sm, int bidx, int k) {
+template <int kN>
+__device__ __forceinline__ void load_bc(const Params& p, Smem<kN>& sm, int bidx, int k) {
   for (int idx = threadIdx.x; idx < kTile * kN; idx += kThreads) {
     const int j = idx / kN, n = idx % kN;
     const int t = k * kTile + j;
@@ -194,9 +208,11 @@ __device__ __forceinline__ void fold(float (&x)[kPer], const float4 P, const flo
 }
 
 // One (b, kBlockChannels) block, tiles backward; see the note at the top.
+template <int kN>
 __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
+  constexpr int kLanes = Dims<kN>::kLanes, kSub = Dims<kN>::kSub, kSlots = Dims<kN>::kSlots;
   extern __shared__ float4 smem4[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem4);
+  Smem<kN>& sm = *reinterpret_cast<Smem<kN>*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, s = tid >> 5;  // s: the segment
   const int ch = lane / kLanes, q = lane % kLanes, n0 = kPer * q;
   const int bidx = blockIdx.y;
@@ -210,17 +226,19 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
     sm.carry[idx / kN][idx % kN] =
         p.dh && d < p.D ? p.dh[((long long)bidx * p.D + d) * kN + idx % kN] : 0.f;
   }
-  load_sub(p, sm, 0, bidx, c0, n_tiles - 1);
-  load_bc(p, sm, bidx, n_tiles - 1);
+  load_sub<kN>(p, sm, 0, bidx, c0, n_tiles - 1);
+  load_bc<kN>(p, sm, bidx, n_tiles - 1);
   cp_async_commit();
   int it = 0;  // iterations so far: the stage is it & 1
   // Lane `lane` of warp s keeps slot `slot` of dB/dC for the segment's 8
-  // steps, summed over the block's channels.
+  // steps, summed over the block's channels.  At N = 8 two lanes (lane bit
+  // 1 apart) hold each slot's sum; the one with bit 1 clear writes it.
   int first = 0;  // after the reduce-scatter: the value index this lane holds
   first += (lane & 16) ? 4 : 0;
   first += (lane & 8) ? 2 : 0;
   first += (lane & 4) ? 1 : 0;
   const int slot = first < kPer ? n0 + first : kN + n0 + first - kPer;
+  const bool writes_slot = (lane & 3 & ~(kLanes - 1)) == 0;
   for (int k = n_tiles - 1; k >= 0; --k) {
     float acc[kSeg];
 #pragma unroll
@@ -232,8 +250,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
         const bool last = sub + 1 == n_sub;
         if (!(last && k == 0)) {
           const int nk = last ? k - 1 : k, ns = last ? 0 : sub + 1;
-          load_sub(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
-          if (last) load_bc(p, sm, bidx, nk);
+          load_sub<kN>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
+          if (last) load_bc<kN>(p, sm, bidx, nk);
         }
         cp_async_commit();
       }
@@ -324,21 +342,24 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
           v[kPer + i] = f.z * hj[i];     // dC's term
           g[i] = e[j][i] * gh;
         }
-        // du and ddt: the four threads of the channel sum their states;
-        // thread j % 4 writes step j.
-        sb += __shfl_xor_sync(0xffffffffu, sb, 1);
-        qq += __shfl_xor_sync(0xffffffffu, qq, 1);
-        sb += __shfl_xor_sync(0xffffffffu, sb, 2);
-        qq += __shfl_xor_sync(0xffffffffu, qq, 2);
+        // du and ddt: the kLanes threads of the channel sum their states;
+        // thread j % kLanes writes step j.
+#pragma unroll
+        for (int bit = 1; bit < kLanes; bit *= 2) {
+          sb += __shfl_xor_sync(0xffffffffu, sb, bit);
+          qq += __shfl_xor_sync(0xffffffffu, qq, bit);
+        }
         {
           const int t = k * kTile + s * kSeg + j;
-          if ((j & 3) == q && valid && t < p.T) {
+          if (j % kLanes == q && valid && t < p.T) {
             const long long o = ((long long)bidx * p.T + t) * p.D + d;
             p.du[o] = f.x * sb;
             p.ddt[o] = fmaf(f.y, sb, qq * kLn2);
           }
         }
-        // Sum the 8 channels of the warp: lane keeps value `first`.
+        // Sum the kSub channels of the warp: lane keeps value `first`
+        // (a reduce-scatter over lane bits 4-2, then at N = 8 a butterfly
+        // over bit 1).
 #pragma unroll
         for (int mask = 16, nv = kPer; mask >= 4; mask /= 2, nv /= 2) {
           const bool upper = lane & mask;
@@ -348,6 +369,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
             v[i] = (upper ? v[i + nv] : v[i]) + __shfl_xor_sync(0xffffffffu, send, mask);
           }
         }
+#pragma unroll
+        for (int mask = 2; mask >= kLanes; mask /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], mask);
         acc[j] += v[0];
 #pragma unroll
         for (int i = 0; i < kPer; ++i) hj[i] = hp[i];
@@ -373,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) {
       const int t = k * kTile + s * kSeg + j;
-      if (t < p.T)
+      if (writes_slot && t < p.T)
         p.part_bc[(((long long)bidx * p.T + t) * p.n_blocks + blockIdx.x) * kSlots + slot] = acc[j];
     }
   }
@@ -386,7 +409,9 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
 
 // dB and dC (B * T * 2N sums over the blocks) and dlog_a (D * N sums over
 // the batch rows), one output per thread, each in a fixed order.
+template <int kN>
 __global__ void ssm_bwd_reduce_kernel(Params p) {
+  constexpr int kSlots = Dims<kN>::kSlots;
   const long long n_bc = (long long)p.B * p.T * kSlots;
   const long long n_a = (long long)p.D * kN;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n_bc + n_a;
@@ -408,6 +433,22 @@ __global__ void ssm_bwd_reduce_kernel(Params p) {
   }
 }
 
+// Both kernels at state size kN on `stream`.
+template <int kN>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_kernel<kN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(sizeof(Smem<kN>)));
+  if (err != cudaSuccess) return err;
+  ssm_bwd_kernel<kN><<<dim3(p.n_blocks, p.B), kThreads, sizeof(Smem<kN>), stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)p.B * p.T * Dims<kN>::kSlots + (long long)p.D * kN;
+  const unsigned blocks = static_cast<unsigned>(items / 256 < 4096 ? items / 256 + 1 : 4096);
+  ssm_bwd_reduce_kernel<kN><<<blocks, 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -426,18 +467,18 @@ struct EntryArgs {
 };
 static_assert(sizeof(EntryArgs) == 224, "EntryArgs must match ops.py's packing");
 
-// Floats of scratch the entry needs (ops.py sizes the buffer with it): the
-// blocks' dB/dC partials and dlog_a's batch rows.
-long long ssm_scan_backward_scratch(int B, int T, int D) {
+// Floats of scratch the entry needs at state size N (ops.py sizes the
+// buffer with it): the blocks' dB/dC partials and dlog_a's batch rows.
+long long ssm_scan_backward_scratch(int B, int T, int D, int N) {
   const long long n_blocks = (D + kBlockChannels - 1) / kBlockChannels;
-  return (long long)B * T * n_blocks * kSlots + (long long)B * D * kN;
+  return (long long)B * T * n_blocks * 2 * N + (long long)B * D * N;
 }
 
 // Launches the two kernels; returns the first non-zero cudaError_t (0 on
 // success), cudaErrorInvalidValue for a call outside the forward's limits
-// or without the tile states.
+// (N is 8 or 16, the chunk at most 128) or without the tile states.
 int ssm_scan_backward(const EntryArgs* a) {
-  if (a->N != kN || a->B <= 0 || a->T <= 0 || a->D <= 0 || a->chunk <= 0 || !a->tiles ||
+  if ((a->N != 8 && a->N != 16) || a->B <= 0 || a->T <= 0 || a->D <= 0 || a->chunk <= 0 || !a->tiles ||
       (a->chunk < a->T ? a->chunk : a->T) > kMaxChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -463,19 +504,10 @@ int ssm_scan_backward(const EntryArgs* a) {
   p.n_tiles = (a->T + kTile - 1) / kTile;
   p.n_blocks = (a->D + kBlockChannels - 1) / kBlockChannels;
   p.part_bc = static_cast<float*>(a->scratch);
-  p.part_a = p.part_bc + (long long)a->B * a->T * p.n_blocks * kSlots;
+  p.part_a = p.part_bc + (long long)a->B * a->T * p.n_blocks * 2 * a->N;
   p.tiles = static_cast<const float*>(a->tiles);
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(sizeof(Smem)));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssm_bwd_kernel<<<dim3(p.n_blocks, a->B), kThreads, sizeof(Smem), stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long items = (long long)a->B * a->T * kSlots + (long long)a->D * kN;
-  const unsigned blocks = static_cast<unsigned>(items / 256 < 4096 ? items / 256 + 1 : 4096);
-  ssm_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(a->N == 8 ? launch<8>(p, stream) : launch<16>(p, stream));
 }
 
 }  // extern "C"

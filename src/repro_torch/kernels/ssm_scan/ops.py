@@ -19,7 +19,9 @@ forward under :class:`_SSMScan`, which also keeps the state entering every
 differentiate through the plain version.
 
 ``ssm_scan.launches`` counts calls that launch the kernel, one per call,
-and ``ssm_scan_backward.launches`` calls that launch the backward kernel.
+and ``ssm_scan_backward.launches`` calls that launch the backward kernel;
+each also keeps ``launches_by_instance``, the same launches by state size
+``(N,)``.
 
 Each launch is a ``torch.library`` custom op
 (``repro_torch::ssm_scan_forward``, ``repro_torch::ssm_scan_backward``)
@@ -30,6 +32,7 @@ channels (:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import pathlib
@@ -46,12 +49,14 @@ from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_backwa
 
 __all__ = [
     "ssm_scan", "ssm_scan_backward", "ssm_scan_tile_states", "SOURCE", "BACKWARD_SOURCE",
-    "STATE_SIZE", "MAX_CHUNK", "BACKWARD_TILE",
+    "STATE_SIZES", "MAX_CHUNK", "BACKWARD_TILE",
 ]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 BACKWARD_SOURCE = SOURCE.with_name("ssm_scan_backward.cu")
-STATE_SIZE = 16
+# The state sizes N the CUDA kernels are instantiated for: the reduced
+# hymba-1.5b config's 8 and the published one's 16.
+STATE_SIZES = (8, 16)
 MAX_CHUNK = 128
 # Steps per tile of the backward kernel (kTile in ssm_scan_backward.cu,
 # kBwdTile in ssm_scan.cu): it starts each tile from the state entering it.
@@ -79,12 +84,12 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _backward_kernel():
-    """(entry, scratch floats for (B, T, D)) of the backward library."""
+    """(entry, scratch floats for (B, T, D, N)) of the backward library."""
     lib = build.load(BACKWARD_SOURCE)
     fn, scratch = lib.ssm_scan_backward, lib.ssm_scan_backward_scratch
     fn.argtypes = [ctypes.c_char_p]
     fn.restype = ctypes.c_int
-    scratch.argtypes = [ctypes.c_int] * 3
+    scratch.argtypes = [ctypes.c_int] * 4
     scratch.restype = ctypes.c_longlong
     return fn, scratch
 
@@ -140,8 +145,9 @@ def ssm_scan(
 
 def _cuda_checks(u, dt, b_t, c_t, chunk) -> None:
     n = b_t.shape[2]
-    if n != STATE_SIZE:
-        raise ValueError(f"the CUDA kernel takes state size {STATE_SIZE}, got {n}")
+    if n not in STATE_SIZES:
+        raise ValueError(f"the CUDA kernel takes state sizes STATE_SIZES = {STATE_SIZES}, "
+                         f"got {n}")
     c = min(chunk, u.shape[1])
     if c > MAX_CHUNK:
         raise ValueError(f"the CUDA kernel takes chunks of at most {MAX_CHUNK}, got {c}")
@@ -186,6 +192,7 @@ def _launch(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Ten
     if rc != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {rc}")
     ssm_scan.launches += 1
+    ssm_scan.launches_by_instance[(n,)] += 1
     return y, h, tiles
 
 
@@ -265,7 +272,7 @@ def _launch_backward(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: 
     outs = [torch.empty((bsz, t, d), dtype=torch.float32, device=dev) for _ in range(2)]
     outs += [torch.empty((bsz, t, n), dtype=torch.float32, device=dev) for _ in range(2)]
     outs.append(torch.empty((d, n), dtype=torch.float32, device=dev))
-    scratch = torch.empty(scratch_floats(bsz, t, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_floats(bsz, t, d, n), dtype=torch.float32, device=dev)
     inputs = (u, dt, b_t, c_t, dy)
     args = _BACKWARD_ARGS.pack(
         *(x.data_ptr() for x in inputs), log_a.data_ptr(), 0 if dh is None else dh.data_ptr(),
@@ -280,6 +287,7 @@ def _launch_backward(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: 
     if rc != 0:
         raise RuntimeError(f"ssm_scan backward kernel launch failed: cudaError {rc}")
     ssm_scan_backward.launches += 1
+    ssm_scan_backward.launches_by_instance[(n,)] += 1
     return tuple(outs)
 
 
@@ -307,7 +315,7 @@ def ssm_scan_backward(
     gradient ``dy`` (B, T, D) and the final state's ``dh`` (B, D, N; None
     is zero): (du, ddt (B, T, D), db_t, dc_t (B, T, N), dlog_a (D, N)),
     float32.  CUDA tensors go to the kernel in ``csrc/ssm_scan_backward.cu``
-    (the forward's limits: N = 16, chunk <= 128, float32, last dims
+    (the forward's limits: N in ``STATE_SIZES``, chunk <= 128, float32, last dims
     contiguous), which starts from ``tiles`` (the forward's states entering
     every ``BACKWARD_TILE`` steps, :func:`ssm_scan_tile_states`; when None
     the forward kernel forms them first); CPU tensors go to
@@ -331,3 +339,5 @@ def ssm_scan_backward(
 
 ssm_scan.launches = 0
 ssm_scan_backward.launches = 0
+ssm_scan.launches_by_instance = collections.Counter()
+ssm_scan_backward.launches_by_instance = collections.Counter()

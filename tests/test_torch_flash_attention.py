@@ -37,6 +37,8 @@ CASES = [
     (1, 128, 128, 8, 2, 128, True, None),   # GQA rep 4, the kernel's head dim
     (1, 70, 130, 8, 2, 32, True, None),     # GQA with ragged S and T
     (1, 150, 150, 4, 2, 64, True, 40),      # GQA + window + ragged
+    (2, 70, 70, 5, 1, 16, True, None),      # reduced hymba-1.5b: d 16, GQA 5/1
+    (2, 70, 70, 5, 1, 16, True, 16),        # ... and its window of 16
 ]
 
 

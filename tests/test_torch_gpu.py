@@ -139,7 +139,8 @@ def test_kernel_matches_plain_version_at_head_dim_64(cuda_device, dtype, b, s, h
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
-@pytest.mark.parametrize("d, dtype", [(96, torch.float32), (128, torch.float16)])
+@pytest.mark.parametrize("d, dtype", [(96, torch.float32), (128, torch.float16),
+                                      (24, torch.bfloat16)])
 def test_kernel_rejects_what_it_does_not_take(cuda_device, d, dtype):
     q = torch.zeros(1, 8, 2, d, device=cuda_device, dtype=dtype)
     with pytest.raises(ValueError):
@@ -215,7 +216,7 @@ def test_wkv_kernel_reads_strided_inputs(cuda_device):
     _wkv_close(state, want_state)
 
 
-@pytest.mark.parametrize("k, dtype, chunk", [(32, torch.float32, 32), (64, torch.bfloat16, 32),
+@pytest.mark.parametrize("k, dtype, chunk", [(48, torch.float32, 32), (64, torch.bfloat16, 32),
                                              (64, torch.float32, 128)])
 def test_wkv_kernel_rejects_what_it_does_not_take(cuda_device, k, dtype, chunk):
     x = torch.zeros(1, 200, 2, k, device=cuda_device, dtype=dtype)
@@ -316,7 +317,7 @@ def test_ssm_kernel_reads_unaligned_inputs(cuda_device):
 
 
 @pytest.mark.parametrize("n, dtype, chunk, transpose", [
-    (8, torch.float32, 64, False),       # state size
+    (4, torch.float32, 64, False),       # state size
     (16, torch.bfloat16, 64, False),     # dtype
     (16, torch.float32, 256, False),     # chunk above 128
     (16, torch.float32, 64, True),       # channel dim not contiguous
@@ -771,7 +772,7 @@ def test_wkv_backward_kernel_under_autograd_gives_the_same_bits_twice(cuda_devic
     _bwd_close(grads[0], wkv_backward_ref(*plain, d_out))
 
 
-@pytest.mark.parametrize("k, chunk", [(32, 32), (64, 128)])
+@pytest.mark.parametrize("k, chunk", [(48, 32), (64, 128)])
 def test_wkv_backward_kernel_rejects_what_it_does_not_take(cuda_device, k, chunk):
     x = torch.zeros(1, 200, 2, k, device=cuda_device)
     u = torch.zeros(2, k, device=cuda_device)
@@ -810,7 +811,7 @@ def test_ssm_backward_kernel_under_autograd_gives_the_same_bits_twice(cuda_devic
     _bwd_close(grads[0], ssm_scan_backward_ref(*plain, dy))
 
 
-@pytest.mark.parametrize("n, chunk", [(8, 64), (16, 256)])
+@pytest.mark.parametrize("n, chunk", [(4, 64), (16, 256)])
 def test_ssm_backward_kernel_rejects_what_it_does_not_take(cuda_device, n, chunk):
     u = torch.zeros(1, 300, 32, device=cuda_device)
     bt = torch.zeros(1, 300, n, device=cuda_device)
@@ -1153,3 +1154,73 @@ def test_whisper_forward_decode_and_gradient_on_the_card(cuda_device):
     for got, want in zip(grads["kernel"], grads["plain"]):
         tol = 1e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# The reduced configs' instances: flash's scalar body at (16, 16) (hymba-1.5b,
+# 5 q heads over 1 KV head) in bf16 and float32 and at (48, 32) in bf16
+# (deepseek-v2-236b's MLA); the WKV kernels at K = 32 (rwkv6-7b); the scan
+# kernels at N = 8 (hymba-1.5b), each forward and backward against its
+# plain version.
+# ---------------------------------------------------------------------------
+REDUCED_FLASH_CASES = [
+    # b, s, t, h, kv, d, causal, window, kv_len
+    (2, 100, 100, 5, 1, 16, True, None, None),        # GQA 5/1, ragged S
+    (2, 100, 100, 5, 1, 16, True, 16, None),          # ... inside hymba's window of 16
+    (4, 32, 32, 5, 1, 16, True, None, None),          # a reduced node slice
+    (2, 70, 70, 4, 4, (48, 32), True, None, None),    # MLA, causal
+    (1, 45, 90, 4, 4, (48, 32), False, None, 77),     # MLA, non-causal, kv_len, S != T
+]
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window,kv_len", REDUCED_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_flash_instances_match_plain(cuda_device, dtype, b, s, t, h, kv, d, causal,
+                                             window, kv_len):
+    _check_against_plain(cuda_device, dtype, b, s, t, h, kv, d, causal, window, kv_len)
+    _check_backward(cuda_device, dtype, d, b, s, t, h, kv, causal, window, kv_len)
+
+
+@pytest.mark.parametrize("b,t,h,chunk,strong", [
+    (4, 32, 4, 16, False),     # a reduced rwkv6-7b node slice
+    (2, 300, 4, 16, False),    # ragged T at the config's chunk
+    (1, 77, 4, 32, True),      # ragged T at chunk 32, every log-decay at the floor
+    (3, 10, 2, 32, False),     # T < chunk
+])
+def test_wkv_kernels_at_head_size_32(cuda_device, b, t, h, chunk, strong):
+    args = _wkv_inputs(b, t, h, cuda_device, k=32, seed=9, strong=strong)
+    out, state, states = wkv_with_chunk_states(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _wkv_close(states, wkv_chunk_states(*args[1:4], chunk=chunk)[0])
+    want_out, want_state = wkv_chunked(*args, chunk=chunk)
+    _wkv_close(out, want_out)
+    _wkv_close(state, want_state)
+    d_out = torch.randn_like(args[0])
+    d_state = torch.randn(b, h, 32, 32, device=cuda_device)
+    got = wkv_backward(*args, state, d_out, d_state, chunk=chunk)
+    again = wkv_backward(*args, state, d_out, d_state, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _bwd_close(got, wkv_backward_ref(*args, d_out, d_state))
+
+
+@pytest.mark.parametrize("b,t,d,chunk,strong", [
+    (4, 32, 128, 8, False),     # a reduced hymba-1.5b node slice (d_inner 128)
+    (2, 301, 128, 64, False),   # ragged T, chunk 64
+    (2, 77, 203, 8, True),      # D not a multiple of a block or sub-block, strong decay
+    (1, 5, 9, 64, False),       # below one segment
+])
+def test_ssm_kernels_at_state_size_8(cuda_device, b, t, d, chunk, strong):
+    u, dt, bt, ct, log_a = _ssm_inputs(b, t, d, cuda_device, n=8, seed=10, strong=strong)
+    y, h, tiles = ssm_scan_tile_states(u, dt, bt, ct, log_a, chunk=chunk)
+    torch.cuda.synchronize()
+    want_y, want_h = selective_scan_ref(u, dt, log_a, bt, ct)
+    _ssm_close(y, want_y)
+    _ssm_close(h, want_h)
+    dy = torch.randn_like(u)
+    dh = torch.randn(b, d, 8, device=cuda_device)
+    got = ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=chunk, tiles=tiles)
+    again = ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=chunk, tiles=tiles)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _bwd_close(got, ssm_scan_backward_ref(u, dt, bt, ct, log_a, dy, dh))

@@ -256,12 +256,47 @@ def test_backward_segments_under_strong_decay(strong_scan, seg):
                 [w.numpy() for w in ssm_scan_backward_ref(*targs, dy_t, dh_t)])
 
 
+@pytest.fixture(scope="module")
+def reduced_scan():
+    """The reduced hymba-1.5b config's state size N = 8 (the CUDA kernels'
+    other instance), 12 channels, T = 45 (five segments of 8 and a ragged
+    5), a final-state gradient: the inputs and ``jax.grad`` of the
+    reference's ``selective_scan`` at the config's chunk, 8."""
+    u, dt, bt, ct, log_a, _ = _inputs(2, 45, 12, 8, seed=33)
+    rng = np.random.default_rng(34)
+    dy = rng.standard_normal(u.shape).astype(np.float32)
+    dh = rng.standard_normal((2, 12, 8)).astype(np.float32)
+
+    def f(u, dt, b_t, c_t, log_a):
+        y, h = jax_selective_scan(u, dt, log_a, b_t, c_t, chunk=8)
+        return jnp.sum(y * dy) + jnp.sum(h * dh)
+
+    want = [np.asarray(g) for g in jax.jit(jax.grad(f, argnums=tuple(range(5))))(
+        u, dt, bt, ct, log_a)]
+    return (u, dt, bt, ct, log_a), dy, dh, want
+
+
+@pytest.mark.parametrize("seg", [BACKWARD_SEGMENT_STEPS, 5])
+def test_backward_segments_at_the_reduced_state_size(reduced_scan, seg):
+    """N = 8: the backward kernel's segment form, at its segment length and
+    at 5, against ``jax.grad`` of the reference and the plain backward."""
+    args, dy, dh, want = reduced_scan
+    targs = [torch.from_numpy(x) for x in args]
+    dy_t, dh_t = torch.from_numpy(dy), torch.from_numpy(dh)
+    got = ssm_scan_backward_segments(*targs, dy_t, dh_t, seg=seg)
+    _grad_close([g.numpy() for g in got], want)
+    _grad_close([g.numpy() for g in got],
+                [w.numpy() for w in ssm_scan_backward_ref(*targs, dy_t, dh_t)])
+
+
 def _constants(src):
-    """The ``constexpr int`` constants of a CUDA source, evaluated in order."""
+    """The file-scope ``constexpr int`` constants of a CUDA source (those at
+    the start of a line; the ones inside a template follow its state size),
+    evaluated in order."""
     import re
 
     env = {}
-    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
         env[name] = eval(expr.replace("/", "//"), {}, dict(env))
     return env
 
@@ -285,20 +320,22 @@ def test_backward_entry_and_constants_match_the_cuda_sources():
 @pytest.mark.parametrize("b,t,d", [(40, 512, 3200), (2, 301, 203), (1, 5, 16), (3, 64, 129)])
 def test_backward_scratch_formula_matches_its_layout(b, t, d):
     """``ssm_scan_backward_scratch`` (read from the source and evaluated)
-    sizes the layout the entry cuts the buffer into: the blocks' dB/dC
-    partials (B, T, blocks, 2N) and dlog_a's batch rows (B, D, N)."""
+    sizes the layout the entry cuts the buffer into, at every state size
+    the kernel takes: the blocks' dB/dC partials (B, T, blocks, 2N) and
+    dlog_a's batch rows (B, D, N)."""
     import re
 
     src = ssm_ops.BACKWARD_SOURCE.read_text()
     env = _constants(src)
     body = re.search(r"long long ssm_scan_backward_scratch\(([^)]*)\) \{(.*?)\n\}", src, re.S)
-    scope = dict(env, B=b, T=t, D=d)
-    for stmt in body.group(2).split(";"):
-        stmt = " ".join(stmt.replace("(long long)", "").replace("const long long ", "").split())
-        if not stmt:
-            continue
-        stmt = re.sub(r"\((\w+) \? (.+?) : (.+)\)$", r"(\2 if \1 else \3)", stmt)
-        exec(stmt.replace("/", "//").replace("return ", "result = "), {}, scope)
-    n, blocks = env["kN"], -(-d // env["kBlockChannels"])
-    layout = b * t * blocks * 2 * n + b * d * n
-    assert scope["result"] == layout
+    for n in ssm_ops.STATE_SIZES:
+        scope = dict(env, B=b, T=t, D=d, N=n)
+        for stmt in body.group(2).split(";"):
+            stmt = " ".join(stmt.replace("(long long)", "").replace("const long long ", "").split())
+            if not stmt:
+                continue
+            stmt = re.sub(r"\((\w+) \? (.+?) : (.+)\)$", r"(\2 if \1 else \3)", stmt)
+            exec(stmt.replace("/", "//").replace("return ", "result = "), {}, scope)
+        blocks = -(-d // env["kBlockChannels"])
+        layout = b * t * blocks * 2 * n + b * d * n
+        assert scope["result"] == layout

@@ -290,6 +290,43 @@ def test_backward_chunked_under_strong_decay(strong_wkv, chunk):
     assert float(got[3][:, ::7, :, :8].abs().max()) == 0.0  # outside the clamp
 
 
+@pytest.fixture(scope="module")
+def reduced_wkv():
+    """The reduced rwkv6-7b config's head size K = 32 (the CUDA kernels'
+    other instance), 2 heads, T = 45 (ragged against chunks of 16 and 32),
+    moderate log-decays with a few below the clamp, a final-state gradient:
+    the inputs and ``jax.grad`` of the reference's ``wkv_chunked`` at the
+    config's chunk, 16."""
+    r, kk, v, lw, u, _ = _inputs(2, 45, 2, 32, seed=31)
+    lw[:, ::9, :, :4] = LOG_DECAY_MIN - 0.5
+    rng = np.random.default_rng(32)
+    d_out = rng.standard_normal(r.shape).astype(np.float32)
+    d_state = rng.standard_normal((2, 2, 32, 32)).astype(np.float32)
+
+    def f(*xs):
+        out, s = jax_wkv_chunked(*xs, chunk=16)
+        return jnp.sum(out * d_out) + jnp.sum(s * d_state)
+
+    want = [np.asarray(g) for g in jax.jit(jax.grad(f, argnums=tuple(range(5))))(
+        r, kk, v, lw, u)]
+    return (r, kk, v, lw, u), d_out, d_state, want
+
+
+@pytest.mark.parametrize("chunk", [BACKWARD_CHUNK, 16])
+def test_backward_chunked_at_the_reduced_head_size(reduced_wkv, chunk):
+    """K = 32: the backward kernel's chunked form, at its chunk and at the
+    reduced config's, against ``jax.grad`` of the reference and the plain
+    backward; zero where the log-decay lies below the clamp."""
+    args, d_out, d_state, want = reduced_wkv
+    targs = [torch.from_numpy(x) for x in args]
+    d_out_t, ds = torch.from_numpy(d_out), torch.from_numpy(d_state)
+    got = wkv_backward_chunked(*targs, d_out_t, ds, chunk=chunk)
+    _grad_close([g.numpy() for g in got], want)
+    _grad_close([g.numpy() for g in got],
+                [w.numpy() for w in wkv_backward_ref(*targs, d_out_t, ds)])
+    assert float(got[3][:, ::9, :, :4].abs().max()) == 0.0  # outside the clamp
+
+
 def test_backward_entry_and_chunk_match_the_cuda_source():
     """ops.py packs the backward entry's arguments into one block whose size
     the source's static_assert holds ``EntryArgs`` to, and the plain form's
