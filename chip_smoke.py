@@ -20,9 +20,14 @@ Phases, each of which fails the run:
                    count holds the forward's, the HGMMA and UTMALDG counts
                    of each bf16 backward kernel's own SASS (its three (Dqk,
                    Dv) instances; each must be non-zero) beside its ptxas
-                   registers and spill bytes, and the registers and spill
-                   bytes of every instance at (192, 128), (48, 32), (32,
-                   32) and (16, 16).
+                   registers and spill bytes; the tensor-core (HMMA) and
+                   cp.async (LDGSTS) counts of each mma.sync kernel's own
+                   SASS (``MMA_KERNELS``: the forward, dQ and dK/dV at
+                   float32's six (Dqk, Dv) pairs and bf16's (16, 16),
+                   (32, 32), (48, 32); each must be non-zero); and the
+                   registers and spill bytes of every instance at (192,
+                   128), (48, 32), (32, 32) and (16, 16) and of the float32
+                   ones at (64, 64) and (128, 128).
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
                    max abs error <= 1e-2: one output rounding plus another
@@ -38,11 +43,15 @@ Phases, each of which fails the run:
                    4096 active) and deepseek-v2-236b's MLA (q/k 192, v 128,
                    128 heads; S=1024 and 4096 bf16, S=300 f32), where the
                    library column names SDPA's kernel (its backend) or
-                   says that it refused; and the reduced configs' scalar
-                   instances at phase 33's shapes (``REDUCED_FLASH_CASES``:
-                   hymba-1.5b's (16, 16) with 5 q heads over 1 KV head,
-                   global and windowed, bf16 and f32; deepseek-v2-236b's
-                   MLA at (48, 32)).
+                   says that it refused; the node gradient's float32 call
+                   (B=2, S=256, 16 heads of 128); and the reduced configs'
+                   mma.sync instances at phase 33's shapes
+                   (``REDUCED_FLASH_CASES``: hymba-1.5b's (16, 16) with 5 q
+                   heads over 1 KV head, global and windowed, bf16 and f32;
+                   deepseek-v2-236b's MLA at (48, 32), bf16 and f32;
+                   reduced olmo-1b's float32 (32, 32), the CLI's default).
+                   A float32 row's bound counts its operations at the
+                   3xTF32 rate (a third of TF32's), as its kernel runs them.
 4. kernel (wkv)  — the WKV kernel against its plain (chunked) version, all
                    float32 with K=64 (and, for reduced rwkv6-7b, K=32 at
                    chunk 16 and 32), out and final state within
@@ -96,12 +105,15 @@ Phases, each of which fails the run:
 12. kernel (flash bwd) — the flash-attention backward kernel (dQ, dK, dV
                    from the forward's log-sum-exp) against autograd through
                    the plain ``attention_ref`` on the card, at the training
-                   shape and at hymba's, llama3-8b's, a float32,
-                   mixtral-8x7b's training shape (B=8, S=512, GQA 32/8) and
-                   deepseek-v2-236b's (B=8, S=512, 128 heads at (192, 128)):
-                   bf16 within 2e-2 * max(1, max |plain|), f32 within 1e-4 *
-                   max(1, max |plain|), and a bf16 row's dq, dk, dv the same
-                   bits on two calls (no atomics); with the kernel's, the
+                   shape and at hymba's, llama3-8b's, float32 at S=T=300
+                   ((128, 128), (64, 64), (192, 128)) and at the node
+                   gradient's call (B=2, S=256, 16 heads of 128),
+                   mixtral-8x7b's training shape (B=8, S=512, GQA 32/8),
+                   deepseek-v2-236b's (B=8, S=512, 128 heads at (192, 128))
+                   and the reduced configs' rows of phase 3: bf16 within
+                   2e-2 * max(1, max |plain|), f32 within 1e-4 * max(1, max
+                   |plain|), and every row's dq, dk, dv the same bits on
+                   two calls (no atomics); with the kernel's, the
                    plain backward's (``attention_backward_ref``) and SDPA's
                    backward times (CUDA events, and SDPA's device ms under
                    ``torch.profiler``) beside the card's bound.
@@ -418,6 +430,10 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_S = 3.35e12                  # H100 SXM device memory rate
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # f32 off the tensor cores
+# The float32 flash kernels' products run as 3xTF32 (three TF32 products
+# for each): their operations bound is a third of the TF32 rate.
+PEAK_FLOPS["3xtf32"] = PEAK_FLOPS["tf32"] / 3
+FLASH_RATE = {"bf16": "bf16", "f32": "3xtf32"}  # the flash bound's rate by dtype
 REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:85"
 SOURCE_REL = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MAIN_CASE = "olmo-1b S=512"            # the kernel line's shape: a typical prompt
@@ -431,15 +447,21 @@ SSM_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 SSM_MAIN_CASE = "hymba-1.5b T=1024"    # the forward's shape at 1024 tokens
 SSM_PROFILE_PREFIX = "ssm_"            # every CUDA kernel of the selective scan
 HYMBA_FLASH_CASE = "hymba-1.5b global S=1024"
-FLASH_PROFILE_NAME = "flash_fwd_kernel"  # both forward instances
-BWD_PROFILE_NAME = "flash_bwd_"        # the backward's three kernels
+FLASH_PROFILE_NAME = "flash_fwd_kernel"  # both forward bodies
+BWD_PROFILE_NAME = "flash_bwd_"        # the backward's kernels (``bwd_kernels`` a call)
 BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  # bf16
+# The mma.sync kernels (float32 at every (Dqk, Dv), bf16 at (16, 16),
+# (32, 32), (48, 32)): phase 2 prints each instance's tensor-core (HMMA)
+# and cp.async (LDGSTS) counts, which must be non-zero.
+MMA_KERNELS = ("flash_fwd_kernel_mma", "flash_bwd_dq_kernel_mma", "flash_bwd_dkdv_kernel_mma")
+MMA_INSTANCES = 9  # float32 at six pairs, bf16 at three
 # Mangled-name tags of the flash instances at (Dqk, Dv) = (192, 128), (48, 32)
-# and (32, 32), whose ptxas registers and spills phase 2 prints.
+# and (32, 32), and of every mma.sync instance, whose ptxas registers and
+# spills phase 2 prints.
 NEW_INSTANCE_TAGS = ("ILi192ELi128E", "ILi48ELi32E", "ILi32ELi32E", "IfLi192ELi128E",
                      "IfLi48ELi32E", "IfLi32ELi32E", "I13__nv_bfloat16Li32ELi32E",
                      "IfLi16ELi16E", "I13__nv_bfloat16Li16ELi16E",
-                     "I13__nv_bfloat16Li48ELi32E")
+                     "I13__nv_bfloat16Li48ELi32E", "IfLi64ELi64E", "IfLi128ELi128E")
 BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
 # Whisper-large-v3's non-causal attentions (20 heads of 64, MHA, bf16, B=8):
 # the encoder's self-attention over 1500 frames (23 tiles of 64 and 28
@@ -461,12 +483,20 @@ LLAMA_REDUCED_BWD_CASE = "llama3-8b reduced bf16 train B=16 S=32"
 # (phase 33's float32 copy); deepseek-v2-236b's MLA at (48, 32), 4 heads.
 HYMBA_REDUCED_CASE = "hymba-1.5b reduced bf16 B=4 S=32"
 DEEPSEEK_REDUCED_CASE = "deepseek-v2-236b reduced bf16 B=4 S=32"
+OLMO_REDUCED_CASE = "olmo-1b reduced f32 B=4 S=32"
 REDUCED_FLASH_CASES = [
     (HYMBA_REDUCED_CASE, 4, 32, 5, 1, "bf16", None, 16),
     ("hymba-1.5b reduced bf16 window=16 B=4 S=32", 4, 32, 5, 1, "bf16", 16, 16),
     ("hymba-1.5b reduced f32 B=4 S=32", 4, 32, 5, 1, "f32", None, 16),
     (DEEPSEEK_REDUCED_CASE, 4, 32, 4, 4, "bf16", None, (48, 32)),
+    # Reduced olmo-1b (float32, 4 heads of 32): the CLI's default run; and
+    # reduced deepseek-v2-236b's MLA in phase 33's float32 copy.
+    (OLMO_REDUCED_CASE, 4, 32, 4, 4, "f32", None, 32),
+    ("deepseek-v2-236b reduced f32 B=4 S=32", 4, 32, 4, 4, "f32", None, (48, 32)),
 ]
+# The node gradient's call (phases 13, 18, 19, 23, 26: one node's float32
+# gradient at b=2, S=256), at olmo-1b's 16 heads of 128.
+NODE_GRAD_FLASH_CASE = ("olmo-1b node gradient f32 B=2 S=256", 2, 256, 16, 16, "f32", None, 128)
 # name, B, S, H, KV, dtype, window, D[, T, causal] (see ``flash_shape``: T
 # defaults to S and causal to True); D is a (Dqk, Dv) pair where v's head
 # dim differs (DeepSeek-V2's MLA)
@@ -476,6 +506,9 @@ BWD_CASES = [
     ("hymba-1.5b window=1024 S=2048", 1, 2048, 25, 5, "bf16", 1024, 64),
     ("llama3-8b heads S=1024", 1, 1024, 32, 8, "bf16", None, 128),
     ("f32 S=T=300", 1, 300, 16, 16, "f32", None, 128),
+    ("D=64 f32 S=T=300", 1, 300, 25, 5, "f32", None, 64),
+    ("deepseek f32 S=T=300", 1, 300, 16, 16, "f32", None, (192, 128)),
+    NODE_GRAD_FLASH_CASE,
     ("mixtral-8x7b train B=8 S=512", 8, 512, 32, 8, "bf16", 4096, 128),
     ("deepseek-v2-236b train B=8 S=512", 8, 512, 128, 128, "bf16", None, (192, 128)),
     *WHISPER_CASES,
@@ -499,6 +532,7 @@ KERNEL_CASES = [
     ("deepseek-v2-236b S=1024", 1, 1024, 128, 128, "bf16", None, (192, 128)),
     ("deepseek-v2-236b S=4096", 1, 4096, 128, 128, "bf16", None, (192, 128)),
     ("deepseek f32 S=T=300", 1, 300, 16, 16, "f32", None, (192, 128)),
+    NODE_GRAD_FLASH_CASE,
     *WHISPER_CASES,
     (LLAMA_REDUCED_CASE, 4, 24, 8, 2, "bf16", None, 32),
     *REDUCED_FLASH_CASES,
@@ -546,9 +580,10 @@ WKV_BWD_SOURCE_REL = "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv_backward.cu"
 SSM_BWD_SOURCE_REL = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_backward.cu"
 WKV_BWD_PROFILE = "wkv_bwd_"           # the WKV backward's three kernels
 SSM_BWD_PROFILE = "ssm_bwd_"           # the scan backward's two kernels
-# CUDA kernels per backward call, by profiler prefix: the flash backward's
-# three; wkv_bwd_state_kernel, wkv_bwd_grad_kernel, wkv_bwd_du_kernel;
-# ssm_bwd_kernel, ssm_bwd_reduce_kernel.
+# CUDA kernels per backward call, by profiler prefix: the bf16 wgmma flash
+# backward's three (every node step's; a kernel row's count is
+# ``bwd_kernels``); wkv_bwd_state_kernel, wkv_bwd_grad_kernel,
+# wkv_bwd_du_kernel; ssm_bwd_kernel, ssm_bwd_reduce_kernel.
 BWD_KERNELS_PER_CALL = {BWD_PROFILE_NAME: 3, WKV_BWD_PROFILE: 3, SSM_BWD_PROFILE: 2}
 # Phase 17: name, B, T, H (or D), chunk, strong decay, final-state
 # gradient[, K or N] (float32; WKV K = 64, the scan N = 16, unless given).
@@ -760,7 +795,8 @@ def attention_pairs(s, t, window, causal):
 
 def roofline(nbytes, flops, dtype):
     """(least ms, "bytes" or "operations"): the larger of the bytes over
-    the memory rate and the operations over the peak rate for the dtype."""
+    the memory rate and the operations over the peak rate for the dtype
+    (a key of ``PEAK_FLOPS``)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
@@ -771,13 +807,14 @@ def attention_bound(b, s, h, kv, d, dtype, window, t=None, causal=True):
     """Least time for one attention call: q (Dqk) read and o (Dv) written
     once over S, k (Dqk) and v (Dv) read once over T (default S), over the
     memory rate; or the products over the valid (query, key) pairs of this
-    call (``attention_pairs``) over the peak rate for the dtype."""
+    call (``attention_pairs``) over the kernel's peak rate for the dtype
+    (``FLASH_RATE``: float32 at the 3xTF32 rate)."""
     t = s if t is None else t
     dqk, dv = head_dims(d)
     elem = 2 if dtype == "bf16" else 4
     nbytes = elem * b * (s * h * (dqk + dv) + t * kv * (dqk + dv))
     flops = 2 * (dqk + dv) * b * h * attention_pairs(s, t, window, causal)
-    return roofline(nbytes, flops, dtype)
+    return roofline(nbytes, flops, FLASH_RATE[dtype])
 
 
 def phase_device():
@@ -848,6 +885,20 @@ def phase_build():
                     + " ".join(f"{k}={c[k]}" for k in ("HGMMA", "UTMALDG")))
                 if not (c["HGMMA"] and c["UTMALDG"]):
                     raise AssertionError(f"{fn} must run wgmma on TMA tiles: {c}")
+        # The mma.sync kernels (float32, and bf16 at the reduced head dims):
+        # tensor-core products on cp.async tiles in each instance.
+        for kernel in MMA_KERNELS:
+            own = {fn: c for fn, c in by_fn.items() if kernel in fn}
+            if len(own) != MMA_INSTANCES:
+                raise AssertionError(f"{kernel}: expected {MMA_INSTANCES} instances in the SASS, "
+                                     f"got {list(own)}")
+            for fn, c in sorted(own.items()):
+                m = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
+                inst = f"{'f32' if m.group(1) == 'f' else 'bf16'},{m.group(2)},{m.group(3)}"
+                log("build", f"{source} SASS {kernel}<{inst}>: "
+                    + " ".join(f"{k}={c[k]}" for k in ("HMMA", "LDGSTS")))
+                if not (c["HMMA"] and c["LDGSTS"]):
+                    raise AssertionError(f"{fn} must run mma.sync on cp.async tiles: {c}")
 
 
 def ptxas_summary(log_text, names):
@@ -1725,13 +1776,25 @@ def attention_bwd_bound(b, s, h, kv, d, dtype, window, t=None, causal=True):
     lse read once and dq (Dqk) written once over S, k (Dqk), v (Dv) read and
     dk (Dqk), dv (Dv) written once over T (default S), over the memory
     rate; or its five products over the valid (query, key) pairs (S, dK
-    and dQ over Dqk; dP and dV over Dv) over the peak rate for the dtype."""
+    and dQ over Dqk; dP and dV over Dv) over the kernel's peak rate for the
+    dtype (``FLASH_RATE``)."""
     t = s if t is None else t
     dqk, dv = head_dims(d)
     elem = 2 if dtype == "bf16" else 4
     nbytes = elem * b * 2 * (dqk + dv) * (s * h + t * kv) + 4 * b * h * s
     flops = 2 * (3 * dqk + 2 * dv) * b * h * attention_pairs(s, t, window, causal)
-    return roofline(nbytes, flops, dtype)
+    return roofline(nbytes, flops, FLASH_RATE[dtype])
+
+
+def bwd_kernels(ops, dt, d):
+    """CUDA kernels one flash backward call runs at a case's dtype and head
+    dims (``ops.backward_kernels``; 3 for a checkout without it, whose
+    backward always ran the delta pre-pass, dK/dV and dQ)."""
+    import torch
+
+    count = getattr(ops, "backward_kernels", None)
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    return 3 if count is None else count(dtype, *head_dims(d))
 
 
 def flash_bwd_case(torch, case, gen):
@@ -1740,8 +1803,8 @@ def flash_bwd_case(torch, case, gen):
     tolerance) and whether two calls give the same bits; the kernel's, the
     plain backward's (``attention_backward_ref``: the same inputs, the same
     formulas) and SDPA's backward's CUDA-event ms over back-to-back calls;
-    the kernel's device ms per recorded call (its three kernels), SDPA's
-    backward's device ms per call and the card's bound."""
+    the kernel's device ms per recorded call (its ``kernels`` kernels),
+    SDPA's backward's device ms per call and the card's bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         attention_backward_ref, attention_ref, flash_attention_backward, ops)
@@ -1783,11 +1846,13 @@ def flash_bwd_case(torch, case, gen):
         return torch.autograd.grad(lib_out[0], (qt, kt, vt), lib_do, retain_graph=True)
 
     bound_ms, bound_by = attention_bwd_bound(b, s, h, kv, d, dt, window, t, causal)
+    n_kernels = bwd_kernels(ops, dt, d)
     ms = cuda_ms(torch, kernel, 10)
     _, named, _, records = profile_device(torch, kernel, 10, (BWD_PROFILE_NAME,),
-                                          launches={BWD_PROFILE_NAME: 3}, sole=True)
+                                          launches={BWD_PROFILE_NAME: n_kernels}, sole=True)
     row = dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise, ms=ms,
+        kernels=n_kernels,
         plain_ms=cuda_ms(torch, lambda: attention_backward_ref(
             q, k, v, out, lse, do, causal=causal, window=window), 2, warmup=1),
         device_ms=named[BWD_PROFILE_NAME], records=records[BWD_PROFILE_NAME],
@@ -1808,7 +1873,7 @@ def phase_kernel_bwd(torch, cases=BWD_CASES):
             if not err <= row["tols"][key]:
                 raise AssertionError(f"flash bwd {name}: {key} max abs err {err:.3e} > "
                                      f"{row['tols'][key]:.3e}")
-        if dt == "bf16" and not row["bitwise_repeat"]:
+        if not row["bitwise_repeat"]:
             raise AssertionError(f"flash bwd {name}: two calls gave different bits")
         log("kernel", f"flash bwd {name} B={b} H={h} KV={kv} D={d} {dt} window={window}"
             f"{cross_label(s, t, causal)}: "
@@ -1819,7 +1884,8 @@ def phase_kernel_bwd(torch, cases=BWD_CASES):
             f"library_device_ms={fmt_ms(row['library_device_ms'])} "
             f"library_kernel={row['library_kernel']!r} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) device_ms={row['device_ms']:.4f} "
-            f"records={row['records']}/30 of_bound_device={row['bound_ms'] / row['device_ms']:.4f} "
+            f"records={row['records']}/{10 * row['kernels']} "
+            f"of_bound_device={row['bound_ms'] / row['device_ms']:.4f} "
             f"bitwise_repeat={row['bitwise_repeat']}")
     return rows
 
@@ -1866,6 +1932,7 @@ def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
     tokens = torch.randint(0, cfg.vocab, (2, 257), generator=gen, device=DEVICE)
     grads = {}
     seams = plain_seams(cfg.family, getattr(cfg, "window", None))
+    before = read_instance_launches()  # the counts are left as they are
     for name, seam in (("kernel", {}), ("plain", seams)):
         out = model.train_forward(tokens[:, :-1], **seam)
         logits, stats = out if isinstance(out, tuple) else (out, None)
@@ -1875,8 +1942,13 @@ def node_grad_check(torch, arch="olmo-1b", n_layers=None, phase="training"):
             loss = loss + MOE_LB_WEIGHT * stats["lb_loss"] + MOE_Z_WEIGHT * stats["z_loss"]
         grads[name] = torch.autograd.grad(loss, list(model.parameters()))
         del out, logits, loss, stats
+    launched = {key: n - before.get(key, 0) for key, n in read_instance_launches().items()
+                if n != before.get(key, 0)}
     check_grads(phase, f"full {arch} f32 node gradient (b=2, S=256, {cfg.n_layers} layers), "
                 f"kernels vs plain {'/'.join(seams)}", model, grads)
+    log(phase, f"full {arch} f32 node gradient launches by instance " + ", ".join(
+        f"{name}<{','.join(map(str, key))}>={n}" for (name, key), n in sorted(
+            launched.items(), key=str)))
     del model, grads
 
 
@@ -4552,6 +4624,10 @@ REDUCED_INSTANCES = {
     "ssm_scan_backward[8]": ("ssm_scan_backward", (8,)),
     "flash_attention[f32,16]": ("flash_attention", ("f32", 16, 16)),
     "flash_attention_backward[f32,16]": ("flash_attention_backward", ("f32", 16, 16)),
+    "flash_attention[f32,32]": ("flash_attention", ("f32", 32, 32)),
+    "flash_attention_backward[f32,32]": ("flash_attention_backward", ("f32", 32, 32)),
+    "flash_attention[f32,48x32]": ("flash_attention", ("f32", 48, 32)),
+    "flash_attention_backward[f32,48x32]": ("flash_attention_backward", ("f32", 48, 32)),
 }
 REDUCED_BATCH = (4, 32)      # phase 33(a)'s float32 batch: B, S
 REDUCED_LOGITS_TOL = 1e-4    # phase 33(a): kernels vs plain seams, float32 logits
@@ -4932,6 +5008,12 @@ def main() -> int:
          reduced_counts["flash_attention[bf16,48x32]"]),
         ("flash_attention_backward[bf16,48x32]", SOURCE_REL, REPLACES,
          bwd_rows[DEEPSEEK_REDUCED_CASE], reduced_counts["flash_attention_backward[bf16,48x32]"]),
+        # The float32 instance at (32, 32) on the CLI's default path
+        # (reduced olmo-1b) and phase 33's float32 copies.
+        ("flash_attention[f32,32]", SOURCE_REL, REPLACES, rows[OLMO_REDUCED_CASE],
+         reduced_counts["flash_attention[f32,32]"]),
+        ("flash_attention_backward[f32,32]", SOURCE_REL, REPLACES, bwd_rows[OLMO_REDUCED_CASE],
+         reduced_counts["flash_attention_backward[f32,32]"]),
         ("rwkv6_wkv[32]", WKV_SOURCE_REL, WKV_REPLACES, wkv_rows[WKV_REDUCED_CASE],
          reduced_counts["rwkv6_wkv[32]"]),
         ("rwkv6_wkv_backward[32]", WKV_BWD_SOURCE_REL, WKV_REPLACES,

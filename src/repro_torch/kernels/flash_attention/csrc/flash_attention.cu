@@ -67,18 +67,46 @@
 //   tile's keys over blocks (at S <= 512 the longest tile's chain of tile
 //   steps bounds the time, not the card's rate).
 //
-// float32, flash_fwd_kernel: the scalar v1 body.  It is the parity path
-// (held at 1e-5, which TF32 or bf16 splits would not meet) and carries no
-// serving traffic.  One block of 256 threads per (b, h, 64-row q tile);
-// each 64-key K/V tile is staged in shared memory (widened to float32)
-// and both products run as scalar FMAs on the CUDA cores.  Its bf16
-// instances serve the reduced bf16 configs (llama3-8b's and whisper's
-// (32, 32): the examples' quickstart and batched serving; hymba's (16, 16),
-// 5 q heads over 1 KV head; deepseek's MLA at (48, 32)), whose rows are
-// narrower than one 128-byte swizzle row, which the wgmma kernel's TMA
-// tiles are built from; it rounds the output to bf16 once.  At these
-// widths a call is a few microseconds of launch: the scalar body is right
-// and the tensor cores would buy nothing.
+// float32 at every head dim, and bfloat16 at the reduced configs' (16, 16),
+// (32, 32) and (48, 32), tc::flash_fwd_kernel_mma: mma.sync on cp.async
+// tiles.  The bf16 instances serve the reduced bf16 configs (llama3-8b's
+// and whisper's (32, 32): the examples' quickstart and batched serving;
+// hymba's (16, 16), 5 q heads over 1 KV head; deepseek's MLA at (48, 32)),
+// whose rows are narrower than one 128-byte swizzle row, which the wgmma
+// kernel's TMA tiles are built from; the float32 ones are the parity path
+// (held at 1e-5) and the CLI's default run (reduced olmo-1b at (32, 32)).
+//   * Both products run on the tensor cores with mma.sync: bf16 m16n8k16,
+//     and for float32 3xTF32 m16n8k8 (each operand split into TF32 hi and
+//     lo, lo.hi + hi.lo + hi.hi in float32, about 22 bits of each product:
+//     one TF32 term keeps 11 and misses the 1e-5 check, which
+//     tests/test_torch_flash_tf32_split.py shows on the CPU).  At 165
+//     TFLOP/s for 3xTF32 against 67 for float32 FMAs, and with fragments
+//     loaded once per 8 x 8 product instead of 8 values per 16 FMAs, the
+//     products stop being bound by shared-memory loads.
+//   * Warps own 16-row strips of a 32-row q tile (reduced configs run
+//     S = 32: no half-empty 64-row tiles), over K/V tiles of 32 keys (16
+//     in float32 at Dqk + Dv >= 256).  A block runs G warp pairs side by
+//     side on one q tile (float32: 4; bf16: 1), pair j taking every G-th
+//     K/V tile; the pairs' (output, max, sum) merge in a fixed order at
+//     the end.  At S = 300 a float32 call has about one block an SM, and
+//     one pair of warps alone there left the products' latencies bare: one
+//     pair a block ran the (192, 128) forward in 0.0787 ms and the (128,
+//     128) backward in 0.2275, two pairs in 0.0445 and 0.1342 (PERF.md
+//     section 6).
+//     The online softmax runs on the accumulators in registers
+//     (row max and sum over the four lanes that share a row), and P stays
+//     in registers as the A operand of P V: in two bf16 terms (as the wgmma
+//     forward, for the 1e-2 check), re-split into TF32 hi and lo in float32.
+//   * K and V arrive through two stages of 16-byte cp.async copies: tile
+//     i + 1 loads while tile i computes.  Rows past S and T are zero-filled.
+//   * Dead tiles are skipped as in the wgmma kernel, and a tile is masked
+//     element by element only where it crosses the diagonal, the window's
+//     edge or kv_len.  Blocks run longest causal tile first.
+//   * Shared-memory pitches (row width + 4 words in float32, + 8 elements
+//     in bf16) make every fragment load conflict-free; at (192, 128)
+//     float32 a block (four pairs, 16-key tiles) takes 189 KB.
+//   What it does not do yet: split the K tile into TF32 terms once per
+//   block (each warp splits what it reads), or use ldmatrix for float32.
 //
 // Head dims.  Every kernel is a template on (DQK, DV): q and k share DQK, v
 // and the output have DV, as in repro/models/common.py::full_attention.
@@ -86,8 +114,8 @@
 // the latent and a 64-dim RoPE part, v is 128 wide, and the scale is
 // 1/sqrt(192).  The instances (the C entries' forward_instance and
 // backward_instance): bf16 at (64, 64), (128, 128), (192, 128) on wgmma
-// and at (16, 16), (32, 32), (48, 32) on the scalar body; float32 at all
-// six.  At (192, 128)
+// and at (16, 16), (32, 32), (48, 32) on mma.sync; float32 at all six on
+// mma.sync.  At (192, 128)
 // the bf16 forward's Q K^T runs over three 64-column swizzle chunks (12
 // k16 steps), its P V at N = 128; q, the K ring and the V ring take 24 +
 // 48 + 32 KB, so two blocks still share an SM, and the accumulators are
@@ -120,215 +148,547 @@ struct Params {
   float* lse;  // (B, H, S) log-sum-exp of each row's scaled scores, or null
 };
 
-// ===========================================================================
-// float32: the scalar v1 body
-// ===========================================================================
+// Helpers of both kernel families.
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kBlockM = 64;            // q rows per block
-constexpr int kBlockN = 64;            // keys per kv tile
-constexpr int kThreads = 256;          // 16 x 16 thread grid
-constexpr int kPPitch = kBlockN + 1;   // pitch of the probability tile
-
-// Loads widen to float32; stores round once to the tensor's dtype.
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void narrow_to(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void narrow_to(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16_rn(x);
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// Shared-memory layout for head dims DQK (q, K) and DV (V, the output): q
-// and K tiles at a padded row pitch (no bank conflicts), the V tile
-// unpadded; the P tile aliases the K tile's region, which is sized for the
-// larger of the two (at DQK < 64 the P tile is the larger).
-template <int DQK, int DV>
-struct Tile {
-  static constexpr int kPitch = DQK + 1;
-  static constexpr int kKFloats =
-      kBlockN * kPitch > kBlockM * kPPitch ? kBlockN * kPitch : kBlockM * kPPitch;
-  static constexpr size_t kSmemBytes = sizeof(float) * (kBlockM * kPitch + kKFloats + kBlockN * DV);
-  static_assert(DV % 16 == 0, "16 lanes share a row's output dims");
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), each packed low element first.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ===========================================================================
+// float32 at every head dim, bfloat16 at (16, 16), (32, 32), (48, 32):
+// mma.sync on cp.async tiles
+// ===========================================================================
+
+namespace tc {
+
+constexpr int kPair = 64;  // threads of a warp pair, which owns a tile's 32 rows (16 each)
+constexpr int kRows = 32;  // q rows of a forward or dQ block, keys of a dK/dV block
+
+// 16 bytes from global to shared memory; !valid zero-fills and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (round to nearest, ties away).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  return bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Fragments of one warp's mma.sync (g = lane / 4, qd = lane % 4).  Tiles
+// in shared memory are [row][column] at a pitch of the row's width plus
+// kPad elements.  Every product accumulates a 16 x 8 float32 block c[4]:
+// (g, 2qd), (g, 2qd + 1), (g + 8, 2qd), (g + 8, 2qd + 1).
+//   a_rows   A[m][k] = t[r0 + m][k0 + k]            (q, dO, K, V as A)
+//   b_rows   B[k][n] = t[n0 + n][k0 + k]            (K, V, q, dO as B of S-like products)
+//   b_cols   B[k][n] = t[k0 + k'][n0 + n]           (V, K, dO, q as B of P-like products)
+//   a_acc    A from the accumulators of the previous product (P, dS)
+//   mma      d += A B
+// The k' of b_cols is the order a_acc reads the accumulators in (below).
+template <typename T>
+struct Ops;
+
+// float32: m16n8k8 TF32 three times, each operand split into TF32 hi and
+// lo, lo.hi + hi.lo + hi.hi (the small terms first) into a float32
+// accumulator: about 22 bits of each product, where one TF32 term keeps 11.
+// With a pitch of the width plus 4 words (the widths are multiples of 16)
+// every fragment load below hits 32 distinct banks.  An accumulator block
+// holds keys 2qd and 2qd + 1 where the A fragment wants qd and qd + 4, so
+// a_acc reads its columns in the order 0, 2, 4, 6, 1, 3, 5, 7 and b_cols
+// reads the rows of B in the same order: the sum over k is unchanged.
+template <>
+struct Ops<float> {
+  static constexpr int kK = 8;
+  static constexpr int kPad = 4;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+  static __device__ __forceinline__ A split_a(float x0, float x1, float x2, float x3) {
+    A f;
+    split_tf32(x0, f.hi[0], f.lo[0]);
+    split_tf32(x1, f.hi[1], f.lo[1]);
+    split_tf32(x2, f.hi[2], f.lo[2]);
+    split_tf32(x3, f.hi[3], f.lo[3]);
+    return f;
+  }
+  static __device__ __forceinline__ B split_b(float x0, float x1) {
+    B f;
+    split_tf32(x0, f.hi[0], f.lo[0]);
+    split_tf32(x1, f.hi[1], f.lo[1]);
+    return f;
+  }
+  static __device__ __forceinline__ A a_rows(const float* t, int pitch, int r0, int k0, int g,
+                                             int qd) {
+    const float* p = t + (r0 + g) * pitch + k0 + qd;
+    return split_a(p[0], p[8 * pitch], p[4], p[8 * pitch + 4]);
+  }
+  static __device__ __forceinline__ B b_rows(const float* t, int pitch, int n0, int k0, int g,
+                                             int qd) {
+    const float* p = t + (n0 + g) * pitch + k0 + qd;
+    return split_b(p[0], p[4]);
+  }
+  static __device__ __forceinline__ B b_cols(const float* t, int pitch, int k0, int n0, int g,
+                                             int qd) {
+    const float* p = t + (k0 + 2 * qd) * pitch + n0 + g;
+    return split_b(p[0], p[pitch]);
+  }
+  // c: the accumulator block of keys k0 .. k0 + 7.
+  static __device__ __forceinline__ A a_acc(const float* c) { return split_a(c[0], c[2], c[1], c[3]); }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    mma_tf32(d, a.lo, b.hi);
+    mma_tf32(d, a.hi, b.lo);
+    mma_tf32(d, a.hi, b.hi);
+  }
 };
 
-// Thread (tx, ty) of the 16 x 16 grid owns q rows ty + 16*i (i < 4) of the
-// tile: scores at keys tx + 16*j (j < 4) and outputs at dims tx + 16*j
-// (j < DV/16).  A row's 16 owners are 16 adjacent lanes of one warp, so row
-// reductions are four xor-shuffles.  T is the element type of q, k, v and
-// the output (float or __nv_bfloat16); every sum is float32.
-template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
-  constexpr int kPitch = Tile<DQK, DV>::kPitch;
-  constexpr int kOut = DV / 16;          // output dims per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                      // (kBlockM, kPitch), pre-scaled q
-  float* ks = qs + kBlockM * kPitch;     // (kBlockN, kPitch); then P tile
-  float* vs = ks + Tile<DQK, DV>::kKFloats;  // (kBlockN, DV)
-  float* ps = ks;                        // (kBlockM, kPPitch), aliases ks
+// bfloat16: m16n8k16, float32 accumulators.  A pitch of the width plus 8
+// elements makes each row (2 D + 16) bytes, an odd number of 16-byte
+// chunks at D = 16, 32, 48: the 32-bit fragment loads and ldmatrix's eight
+// rows hit distinct banks.  The accumulator layout of two adjacent 8-key
+// blocks is the A fragment of one k16 step, so a_acc packs in place; b_cols
+// reads B across rows with ldmatrix.trans.
+template <>
+struct Ops<__nv_bfloat16> {
+  static constexpr int kK = 16;
+  static constexpr int kPad = 8;
+  struct A {
+    uint32_t x[4];
+  };
+  struct B {
+    uint32_t x[2];
+  };
+  static __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ A a_rows(const __nv_bfloat16* t, int pitch, int r0, int k0,
+                                             int g, int qd) {
+    const __nv_bfloat16* p = t + (r0 + g) * pitch + k0 + 2 * qd;
+    return {{ld32(p), ld32(p + 8 * pitch), ld32(p + 8), ld32(p + 8 * pitch + 8)}};
+  }
+  static __device__ __forceinline__ B b_rows(const __nv_bfloat16* t, int pitch, int n0, int k0,
+                                             int g, int qd) {
+    const __nv_bfloat16* p = t + (n0 + g) * pitch + k0 + 2 * qd;
+    return {{ld32(p), ld32(p + 8)}};
+  }
+  // ldmatrix.x2.trans: lanes 0-15 give the addresses of rows k0 .. k0 + 15
+  // (8 columns from n0 each); lanes 16-31 repeat them.
+  static __device__ __forceinline__ B b_cols(const __nv_bfloat16* t, int pitch, int k0, int n0,
+                                             int, int) {
+    const __nv_bfloat16* row = t + (k0 + threadIdx.x % 16) * pitch + n0;
+    B f;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(f.x[0]), "=r"(f.x[1])
+                 : "r"(smem_u32(row)));
+    return f;
+  }
+  // c: the accumulator blocks of keys k0 .. k0 + 7 and k0 + 8 .. k0 + 15, one bf16 term.
+  static __device__ __forceinline__ A a_acc(const float* c) {
+    return {{pack_bf16(c[0], c[1]), pack_bf16(c[2], c[3]), pack_bf16(c[4], c[5]),
+             pack_bf16(c[6], c[7])}};
+  }
+  // The same in two terms, hi = bf16(x) and lo = bf16(x - hi).
+  static __device__ __forceinline__ void a_acc2(const float* c, A& hi, A& lo) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_bf16x2(c[2 * i], c[2 * i + 1], hi.x[i], lo.x[i]);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]), "r"(b.x[1]));
+  }
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+template <typename T, int D>
+__host__ __device__ constexpr int pitch() {
+  return D + Ops<T>::kPad;
+}
+
+// Rows [r0, r0 + ROWS) of a (L, D) slice at `src` (rows `ld` elements
+// apart) into a tile at pitch<T, D>(), by 16-byte cp.async over the block's
+// threads; rows at or past `rows` are zero-filled (masked keys then meet
+// zeros in V, never stale shared memory).
+template <typename T, int ROWS, int D, int NT>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld, int r0, int rows) {
+  constexpr int kPer = 16 / sizeof(T);  // elements per copy
+  constexpr int kChunks = D / kPer;     // copies per row
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += NT) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = r0 + r < rows;
+    cp_async16(dst + r * pitch<T, D>() + c * kPer, src + (valid ? r0 + r : 0) * ld + c * kPer,
+               valid);
+  }
+}
+
+// s (16 x 8 NG) = A B^T: A the 16 rows of `a` from r0, B the first 8 NG
+// rows of `bt`, both over D columns.  S = q K^T, dP = dO V^T, and in the
+// dK/dV kernel S^T = K q^T, dP^T = V dO^T.
+template <typename T, int NG, int D>
+__device__ __forceinline__ void gemm_rows(float (&s)[NG][4], const T* a, int r0, const T* bt,
+                                          int g, int qd) {
+  using O = Ops<T>;
+#pragma unroll
+  for (int j = 0; j < NG; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / O::kK; ++kk) {
+    const typename O::A fa = O::a_rows(a, pitch<T, D>(), r0, kk * O::kK, g, qd);
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      O::mma(s[j], fa, O::b_rows(bt, pitch<T, D>(), 8 * j, kk * O::kK, g, qd));
+  }
+}
+
+// d (16 x 8 NO) += P B: P (16 x 8 NP) the accumulators of the previous
+// product, B the first 8 NP rows of `bt` (its rows are P's columns) over
+// 8 NO columns.  O += P V, dQ += dS K, dV += P^T dO, dK += dS^T q.  TWO:
+// P enters a bf16 product in two terms (the forward's P V).
+template <typename T, int NP, int NO, bool TWO>
+__device__ __forceinline__ void gemm_acc(float (&d)[NO][4], const float (&p)[NP][4], const T* bt,
+                                         int g, int qd) {
+  using O = Ops<T>;
+  constexpr int kPitch = pitch<T, 8 * NO>();
+#pragma unroll
+  for (int kk = 0; kk < 8 * NP / O::kK; ++kk) {
+    const float* c = &p[kk * O::kK / 8][0];
+    if constexpr (TWO) {
+      typename O::A hi, lo;
+      O::a_acc2(c, hi, lo);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const typename O::B fb = O::b_cols(bt, kPitch, kk * O::kK, 8 * j, g, qd);
+        O::mma(d[j], lo, fb);
+        O::mma(d[j], hi, fb);
+      }
+    } else {
+      const typename O::A fa = O::a_acc(c);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) O::mma(d[j], fa, O::b_cols(bt, kPitch, kk * O::kK, 8 * j, g, qd));
+    }
+  }
+}
+
+// Two 8-byte-aligned adjacent outputs in T.
+__device__ __forceinline__ void store2(float* dst, float x0, float x1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+}
+
+// Warp pairs a block runs side by side.  Each pair owns the block's 32
+// rows and takes every G-th tile (or q step) of the block's loop; the
+// pairs' partial results are merged in a fixed order at the end (the same
+// bits every run).  At S = 300 a float32 call has about one block an SM,
+// and a lone pair of warps leaves the products' and loads' latencies bare.
+// float32 runs four pairs; bf16, whose instances serve the reduced
+// configs' rows of one tile, one.
+template <typename T>
+__host__ __device__ constexpr int groups() {
+  return sizeof(T) == 2 ? 1 : 4;
+}
+
+// Keys of a K/V tile (forward, dQ): 32, or 16 where four pairs' double
+// stages of 32-key float32 tiles would not fit (Dqk + Dv >= 256).
+template <typename T, int DQK, int DV>
+__host__ __device__ constexpr int tile_keys() {
+  return sizeof(T) == 4 && DQK + DV >= 256 ? 16 : 32;
+}
+
+// The forward's shared memory: q, then two stages of a round's G K tiles
+// and G V tiles.  After the loop the stages hold the merge: pairs 1 .. G-1
+// leave each row's output, running max and sum there.
+template <typename T, int DQK, int DV>
+struct FwdCfg {
+  static constexpr int G = groups<T>();
+  static constexpr int kThreads = kPair * G;
+  static constexpr int kKeys = tile_keys<T, DQK, DV>();
+  static constexpr int kQ = kRows * pitch<T, DQK>();  // elements of the q tile
+  static constexpr int kK = kKeys * pitch<T, DQK>();  // of one K tile
+  static constexpr int kV = kKeys * pitch<T, DV>();   // of one V tile
+  static constexpr int kStage = G * (kK + kV);
+  static constexpr int kMergePitch = DV + 2;          // a row's output, max and sum
+  static constexpr size_t kSmemBytes = sizeof(T) * (kQ + 2 * kStage);
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "whole k16 steps and 16-byte rows");
+  static_assert(sizeof(float) * (G - 1) * kRows * kMergePitch <= sizeof(T) * 2 * kStage,
+                "the merge fits the stages");
+};
+
+// Block (blockIdx.x = h + H b, blockIdx.y = q tile from the last): G warp
+// pairs over one 32-row q tile, each warp owning 16 of its rows.  q is
+// loaded once, K and V in rounds of G tiles of C::kKeys keys through two
+// cp.async stages, round r + 1 loading while round r computes; pair j takes
+// tile r G + j.  Per tile each warp computes S = q K^T, the online softmax
+// on its accumulators (the row max and sum over the four lanes that share
+// a row) and O += P V with P from registers.  Pair 0 merges the others'
+// (output, max, sum) at the end and stores.
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(FwdCfg<T, DQK, DV>::kThreads, 1)
+    flash_fwd_kernel_mma(Params p) {
+  using C = FwdCfg<T, DQK, DV>;
+  constexpr int G = C::G, NT = C::kThreads, kKeys = C::kKeys;
+  constexpr int NS = kKeys / 8;  // score blocks
+  constexpr int NO = DV / 8;     // output blocks
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  T* qs = reinterpret_cast<T*>(tc_smem);
+  T* stages = qs + C::kQ;
+
+  const int h = blockIdx.x % p.H;
+  const int b = blockIdx.x / p.H;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest causal tiles first
   const int kvh = h / (p.H / p.KV);
+  const int pair = threadIdx.x / kPair;
+  const int warp = threadIdx.x / 32 % 2, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int n_valid = min(p.kv_len, p.T);
+  int kv_end = n_valid;
+  if (p.causal) kv_end = min(kv_end, m0 + kRows);  // keys <= last q row
+  int kv_start = 0;
+  if (p.window > 0) kv_start = max(0, m0 - p.window + 1) / kKeys * kKeys;  // keys > first row - window
+  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + kKeys - 1) / kKeys : 0;
+  const int n_rounds = (n_tiles + G - 1) / G;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  for (int idx = tid; idx < kBlockM * DQK; idx += kThreads) {
-    const int r = idx / DQK, c = idx % DQK;
-    const int m = m0 + r;
-    qs[r * kPitch + c] = m < p.S ? widen(q[m * p.q_ss + c]) * p.scale : 0.f;
-  }
-
-  float row_max[4], row_sum[4], acc[4][kOut];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row_max[i] = -INFINITY;
-    row_sum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_valid = min(p.kv_len, p.T);
-  int kv_end = n_valid;
-  if (p.causal) kv_end = min(kv_end, m0 + kBlockM);  // keys <= last q row
-  int kv_start = 0;
-  if (p.window > 0) kv_start = max(0, m0 - p.window + 1);  // keys > first q row - window
-  kv_start = (kv_start / kBlockN) * kBlockN;
-
-  for (int n0 = kv_start; n0 < kv_end; n0 += kBlockN) {
-    __syncthreads();  // the previous tile's P and V reads are done
-    if constexpr (DQK == DV) {  // one pass, two loads in flight a thread
-      for (int idx = tid; idx < kBlockN * DV; idx += kThreads) {
-        const int r = idx / DV, c = idx % DV;
-        const int n = n0 + r;
-        const bool in = n < p.T;
-        ks[r * kPitch + c] = in ? widen(k[n * p.k_ss + c]) : 0.f;
-        vs[r * DV + c] = in ? widen(v[n * p.v_ss + c]) : 0.f;
-      }
-    } else {
-      for (int idx = tid; idx < kBlockN * DQK; idx += kThreads) {
-        const int r = idx / DQK, c = idx % DQK;
-        const int n = n0 + r;
-        ks[r * kPitch + c] = n < p.T ? widen(k[n * p.k_ss + c]) : 0.f;
-      }
-      for (int idx = tid; idx < kBlockN * DV; idx += kThreads) {
-        const int r = idx / DV, c = idx % DV;
-        const int n = n0 + r;
-        vs[r * DV + c] = n < p.T ? widen(v[n * p.v_ss + c]) : 0.f;
-      }
+  auto load_round = [&](int r) {
+    T* st = stages + (r & 1) * C::kStage;
+    for (int slot = 0; slot < G && r * G + slot < n_tiles; ++slot) {
+      const int n0 = kv_start + (r * G + slot) * kKeys;
+      load_tile<T, kKeys, DQK, NT>(st + slot * C::kK, k, p.k_ss, n0, p.T);
+      load_tile<T, kKeys, DV, NT>(st + G * C::kK + slot * C::kV, v, p.v_ss, n0, p.T);
     }
+  };
+  load_tile<T, kRows, DQK, NT>(qs, q, p.q_ss, m0, p.S);
+  if (n_rounds > 0) load_round(0);
+  cp_async_commit();
+
+  const int row0 = 16 * warp;                  // the warp's first row in the tile
+  const bool live = m0 + row0 < p.S;           // a warp past S computes nothing
+  const float scale_log2 = p.scale * kLog2e;   // scores in log2 units: exp2f
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) load_round(r + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // q and round r have landed
     __syncthreads();
-
-    float s[4][4];
+    const int i = r * G + pair;
+    if (live && i < n_tiles) {
+      const int n0 = kv_start + i * kKeys;
+      const T* st = stages + (r & 1) * C::kStage;
+      float s[NS][4];
+      gemm_rows<T, NS, DQK>(s, qs, row0, st + pair * C::kK, g, qd);
+      const bool masked = n0 + kKeys > n_valid || (p.causal && n0 + kKeys - 1 > m0) ||
+                          (p.window > 0 && n0 <= m0 + kRows - 1 - p.window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DQK; ++d) {
-      float a[4], bk[4];
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= scale_log2;
+          if (masked) {
+            const int row = m0 + row0 + g + 8 * (e >> 1);
+            const int key = n0 + 8 * j + 2 * qd + (e & 1);
+            bool ok = key < n_valid;
+            if (p.causal) ok = ok && key <= row;
+            if (p.window > 0) ok = ok && key > row - p.window;
+            if (!ok) s[j][e] = -INFINITY;
+          }
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kPitch + d];
+      for (int r2 = 0; r2 < 2; ++r2) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * kPitch + d];
+        for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r2], s[j][2 * r2 + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r2], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no valid key yet: p = 0
+        const float alpha = exp2f(m_run[r2] - m_use);
+        m_run[r2] = m_new;
+        float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NS; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
+          for (int c = 0; c < 2; ++c) {
+            const float pr = exp2f(s[j][2 * r2 + c] - m_use);
+            s[j][2 * r2 + c] = pr;
+            sum += pr;
+          }
+        l_run[r2] = l_run[r2] * alpha + sum;  // this lane's part of the row sum
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = m0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = n0 + tx + 16 * j;
-        bool ok = kpos < n_valid;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        if (!ok) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(row_max[i], mx);
-      float alpha = 1.f, sum = 0.f;
-      if (m_new == -INFINITY) {  // no valid key in this row yet
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      } else {
-        alpha = expf(row_max[i] - m_new);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = expf(s[i][j] - m_new);
-          sum += s[i][j];
+        for (int j = 0; j < NO; ++j) {
+          o[j][2 * r2] *= alpha;
+          o[j][2 * r2 + 1] *= alpha;
         }
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      row_sum[i] = row_sum[i] * alpha + sum;
-      row_max[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) acc[i][j] *= alpha;
+      gemm_acc<T, NS, NO, sizeof(T) == 2>(o, s, st + G * C::kK + pair * C::kV, g, qd);
     }
-
-    __syncthreads();  // every thread is done reading ks: reuse it for P
+    __syncthreads();  // every pair is done with stage r & 1 before it refills
+  }
+  cp_async_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = s[i][j];
+  for (int r2 = 0; r2 < 2; ++r2) {  // each row's whole sum
+    l_run[r2] += __shfl_xor_sync(0xffffffffu, l_run[r2], 1);
+    l_run[r2] += __shfl_xor_sync(0xffffffffu, l_run[r2], 2);
+  }
+  if constexpr (G > 1) {
     __syncthreads();
-
-#pragma unroll 4
-    for (int n = 0; n < kBlockN; ++n) {
-      float pv[4], vv[kOut];
+    float* merge = reinterpret_cast<float*>(stages);
+    constexpr int MP = C::kMergePitch;
+    if (pair > 0) {
+      float* mine = merge + (pair - 1) * kRows * MP;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kPPitch + n];
+      for (int r2 = 0; r2 < 2; ++r2) {
+        float* row = mine + (row0 + g + 8 * r2) * MP;
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) vv[j] = vs[n * DV + tx + 16 * j];
+        for (int j = 0; j < NO; ++j) {
+          row[8 * j + 2 * qd] = o[j][2 * r2];
+          row[8 * j + 2 * qd + 1] = o[j][2 * r2 + 1];
+        }
+        if (qd == 0) {
+          row[DV] = m_run[r2];
+          row[DV + 1] = l_run[r2];
+        }
+      }
+    }
+    __syncthreads();
+    if (pair > 0) return;
+    for (int other = 1; other < G; ++other) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const float* row = merge + ((other - 1) * kRows + row0 + g + 8 * r2) * MP;
+        const float m_new = fmaxf(m_run[r2], row[DV]);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float a = exp2f(m_run[r2] - m_use), c = exp2f(row[DV] - m_use);
 #pragma unroll
-        for (int j = 0; j < kOut; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < NO; ++j) {
+          o[j][2 * r2] = o[j][2 * r2] * a + row[8 * j + 2 * qd] * c;
+          o[j][2 * r2 + 1] = o[j][2 * r2 + 1] * a + row[8 * j + 2 * qd + 1] * c;
+        }
+        l_run[r2] = l_run[r2] * a + row[DV + 1] * c;
+        m_run[r2] = m_new;
+      }
     }
   }
 
+  if (!live) return;
+  T* out = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= p.S) continue;
-    const float denom = fmaxf(row_sum[i], 1e-30f);
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const float inv = 1.f / fmaxf(l_run[r2], 1e-30f);
+    const int row = m0 + row0 + g + 8 * r2;
+    if (row < p.S) {
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) narrow_to(o + m * p.o_ss + tx + 16 * j, acc[i][j] / denom);
-    // -inf for a row with no valid key (row_max -inf, row_sum 0).
-    if (p.lse != nullptr && tx == 0)
-      p.lse[((long long)b * p.H + h) * p.S + m] = row_max[i] + logf(row_sum[i]);
+      for (int j = 0; j < NO; ++j)
+        store2(out + row * p.o_ss + 8 * j + 2 * qd, o[j][2 * r2] * inv, o[j][2 * r2 + 1] * inv);
+      // m_run is in log2 units; -inf for a row with no valid key.
+      if (p.lse != nullptr && qd == 0)
+        p.lse[((long long)b * p.H + h) * p.S + row] =
+            m_run[r2] * 0.6931471805599453f + logf(l_run[r2]);
+    }
   }
 }
 
+// The 16-byte rule of cp.async for a (B, L, heads, D) tensor: a 16-byte
+// aligned base and every stepped stride a multiple of 16 bytes (the head
+// dim is contiguous, and D is a multiple of 16).
+bool rows_16b(const void* ptr, long long sb, long long sl, long long sh, int B, int L, int heads,
+              int elem) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const long long strides[3] = {sb, sl, sh};
+  const int sizes[3] = {B, L, heads};
+  for (int i = 0; i < 3; ++i)
+    if (sizes[i] > 1 && (strides[i] * elem) % 16) return false;
+  return true;
+}
+
+// Returns a cudaError_t, or kTensorMapRejected when q, k or v breaks the
+// 16-byte rule (ops.py copies such a tensor first).
 template <typename T, int DQK, int DV>
-cudaError_t launch_scalar(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t kSmemBytes = Tile<DQK, DV>::kSmemBytes;
+int launch_fwd(const Params& p, int B, cudaStream_t stream) {
+  using C = FwdCfg<T, DQK, DV>;
+  constexpr int e = sizeof(T);
+  if (!rows_16b(p.q, p.q_sb, p.q_ss, p.q_sh, B, p.S, p.H, e) ||
+      !rows_16b(p.k, p.k_sb, p.k_ss, p.k_sh, B, p.T, p.KV, e) ||
+      !rows_16b(p.v, p.v_sb, p.v_ss, p.v_sh, B, p.T, p.KV, e))
+    return kTensorMapRejected;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DQK, DV>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kSmemBytes);
-    if (err != cudaSuccess) return err;
+    cudaError_t err = allow_smem(flash_fwd_kernel_mma<T, DQK, DV>, C::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid((p.S + kBlockM - 1) / kBlockM, p.H, B);
-  flash_fwd_kernel<T, DQK, DV><<<grid, kThreads, kSmemBytes, stream>>>(p);
-  return cudaGetLastError();
+  dim3 grid(p.H * B, (p.S + kRows - 1) / kRows);
+  flash_fwd_kernel_mma<T, DQK, DV><<<grid, C::kThreads, C::kSmemBytes, stream>>>(p);
+  return (int)cudaGetLastError();
 }
+
+}  // namespace tc
 
 // ===========================================================================
 // bfloat16: wgmma, TMA and an mbarrier ring (sm_90a)
@@ -366,10 +726,6 @@ struct Cfg {
                 "tiles are whole swizzle chunks and k16 steps");
   static_assert(2 * (kSmemBytes + 1024) <= 233472, "two blocks must share an SM");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -527,17 +883,6 @@ __device__ __forceinline__ void wgmma_rs_tb<192>(float (&d)[96], const uint32_t 
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), each packed low element first.
-__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
 }
 
 // Thread t of the consumer warpgroup (warp w = t / 32, lane l) owns q rows
@@ -885,21 +1230,19 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 // The reference has no Pallas backward: it differentiates plain jnp
 // attention.  The port's training path runs the forward kernel, so its
 // gradient is a kernel too (FlashAttention-2's backward, simple form):
-//   * a pre-pass writes delta = rowsum(dO * O) per (b, h, row);
-//   * flash_bwd_dkdv_kernel: one block per (key tile of 64, kv head, b)
-//     walks every q head of the GQA group and every q tile the mask lets
-//     see the tile, recomputing P = exp(scale q.k - lse) and dS = P (dO V^T -
-//     delta), and keeps dV = sum P^T dO and dK = scale sum dS^T Q in
-//     registers: the group's sum needs no atomics;
-//   * flash_bwd_dq_kernel: one block per (q tile of 64, head, b) walks the
-//     key tiles the forward walks and keeps dQ = scale sum dS K in registers.
-//     A separate dQ kernel recomputes S and dO V^T once more, and in
-//     exchange nothing is accumulated across blocks (no atomics, no f32
-//     scratch, the same result every run).
+//   * delta = rowsum(dO * O) per (b, h, row);
+//   * dK/dV: one block per (key tile, kv head, b) walks every q head of the
+//     GQA group and every q tile the mask lets see the tile, recomputing
+//     P = exp(scale q.k - lse) and dS = P (dO V^T - delta), and keeps dV =
+//     sum P^T dO and dK = scale sum dS^T Q in registers: the group's sum
+//     needs no atomics;
+//   * dQ: one block per (q tile, head, b) walks the key tiles the forward
+//     walks and keeps dQ = scale sum dS K in registers.  A separate dQ
+//     kernel recomputes S and dO V^T once more, and in exchange nothing is
+//     accumulated across blocks (no atomics, no f32 scratch, the same
+//     result every run).
 // The mask predicate is the forward's; tiles it leaves dead are never
-// loaded.  The pre-pass is flash_bwd_delta_kernel (float32) or
-// sm90::flash_bwd_delta_kernel_sm90 (bfloat16: 16-byte loads, rows strided
-// over a grid of at most 16 blocks an SM).
+// loaded.
 //
 // Bound on an H100 SXM: q, k, v, o, dO and the lse read once and dq, dk, dv
 // written once are about 0.040 ms at olmo-1b's training shape (B=8, S=512,
@@ -908,10 +1251,29 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 // split runs seven products (S and dP once more for dQ), 0.030 ms at that
 // rate, still below the byte bound.
 //
-// float32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): the scalar v1 body,
-// every product a float32 FMA on the CUDA cores from padded shared-memory
-// tiles, one 256-thread block per SM at D=128.  It is the 1e-4 parity path,
-// as the float32 forward is, and carries no training traffic.
+// float32 at every head dim and bfloat16 at (16, 16), (32, 32), (48, 32)
+// (tc::flash_bwd_dq_kernel_mma, tc::flash_bwd_dkdv_kernel_mma): the
+// forward's fragments, 3xTF32 split and 32-row tiles.
+//   * Two launches a call.  The dQ kernel runs first and computes delta for
+//     its own rows from O and dO, under its first copies, and writes it
+//     out; the dK/dV kernel reads it with each q tile's lse.  The v1
+//     backward's separate delta pre-pass is gone, and with it a launch:
+//     at the reduced configs' shapes (B=4, S=32) a call is launches and
+//     serial tails, not products.
+//   * dK/dV works transposed (rows are keys): each warp of a pair owns 16
+//     of the block's 32 keys, computes S^T = K q^T and dP^T = V dO^T, forms
+//     P^T and dS^T in registers and accumulates dV += P^T dO and dK += dS^T
+//     q, P^T and dS^T entering from registers as A operands.  q and dO
+//     stream through two cp.async stages (32 rows a step, 16 at (128, 128)
+//     and (192, 128), where the dK and dV accumulators take 128-160
+//     registers a thread).
+//   * dQ: each warp of a pair owns 16 q rows; K and V stream through two
+//     stages.
+//   * Both run the forward's G warp pairs, pair j taking every G-th step or
+//     tile; pair 0 adds the others' dK, dV or dQ in a fixed order.
+//   * bf16 tiles stay bf16 in shared memory.  In bf16, P and dS enter the
+//     tensor cores in one term each, dS formed from the rounded P, as the
+//     wgmma backward (tests/test_torch_flash_bwd_rounding.py).
 //
 // bfloat16 (sm90::flash_bwd_dkdv_kernel_sm90, sm90::flash_bwd_dq_kernel_sm90):
 // every product on the tensor cores, what the design does about the bound.
@@ -968,7 +1330,7 @@ struct BwdParams {
   const void* o;
   const void* dout;
   const float* lse;  // (B, H, S), from the forward
-  float* delta;      // (B, H, S), written by the pre-pass
+  float* delta;      // (B, H, S), written by the pre-pass (wgmma) or the dQ kernel
   void* dq;
   void* dk;
   void* dv;
@@ -987,51 +1349,6 @@ struct BwdParams {
   float scale;
 };
 
-// One warp per (b, row, h): delta = sum_d dO * O over the DV dims, in float32.
-template <typename T, int DV>
-__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(BwdParams p, int B) {
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * p.S * p.H) return;
-  const int h = row % p.H;
-  const int m = (row / p.H) % p.S;
-  const int b = row / ((long long)p.H * p.S);
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + m * p.o_ss + h * p.o_sh;
-  const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + m * p.do_ss + h * p.do_sh;
-  float acc = 0.f;
-#pragma unroll
-  for (int d = lane; d < DV; d += 32) acc = fmaf(widen(g[d]), widen(o[d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[((long long)b * p.H + h) * p.S + m] = acc;
-}
-
-// Shared memory of both backward kernels: four float32 tiles at a padded
-// pitch (K and q 64 x DQK, V and dO 64 x DV), the 64 x 64 P / dS tile, and
-// the q tile's lse and delta.  182 KB at DQK 192, DV 128.
-template <int DQK, int DV>
-struct BwdTile {
-  static constexpr int kQkPitch = DQK + 1;
-  static constexpr int kVPitch = DV + 1;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (2 * kBlockM * (kQkPitch + kVPitch) + kBlockM * kPPitch + 2 * kBlockM);
-  static_assert(DQK % 16 == 0 && DV % 16 == 0, "16 lanes share a row's dims");
-  static_assert(kSmemBytes <= 232448, "one block must fit an SM's shared memory");
-};
-
-// Rows [m0, m0+64) and cols [0, D) of a (L, heads, D) slice into a float32
-// tile; rows past `rows` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row_stride, int m0,
-                                      int rows) {
-  constexpr int kPitch = D + 1;
-  for (int idx = threadIdx.x; idx < kBlockM * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int m = m0 + r;
-    dst[r * kPitch + c] = m < rows ? widen(src[m * row_stride + c]) : 0.f;
-  }
-}
-
 __device__ __forceinline__ bool visible(const BwdParams& p, int n_valid, int m, int n) {
   bool ok = m < p.S && n < n_valid;
   if (p.causal) ok = ok && n <= m;
@@ -1039,247 +1356,415 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int n_valid, int m, 
   return ok;
 }
 
-// The 4 x 4 products of rows ty + 16 i of a (64, pitch) tile and rows
-// tx + 16 j of another over their first D columns, added to acc.
-template <int D>
-__device__ __forceinline__ void tile_dots(const float* a_tile, const float* b_tile,
-                                          float (&acc)[4][4]) {
-  constexpr int kPitch = D + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = a_tile[(ty + 16 * i) * kPitch + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = b_tile[(tx + 16 * j) * kPitch + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-  }
-}
+namespace tc {
 
-// Thread (tx, ty) of the 16 x 16 grid: the scores of q rows ty + 16 i and
-// keys tx + 16 j (i, j < 4) become P (returned in s) and dS (in dp).  S
-// sums over DQK (q and K), dP over DV (dO and V).
-template <int DQK, int DV>
-__device__ __forceinline__ void scores_and_ds(const BwdParams& p, const float* qs, const float* dos,
-                                              const float* ks, const float* vs, const float* lse_s,
-                                              const float* delta_s, int m0, int n0, int n_valid,
-                                              float (&s)[4][4], float (&dp)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-  tile_dots<DQK>(qs, ks, s);
-  tile_dots<DV>(dos, vs, dp);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i;
-      const bool ok = visible(p, n_valid, m0 + r, n0 + tx + 16 * j);
-      const float pr = ok ? expf(s[i][j] * p.scale - lse_s[r]) : 0.f;
-      s[i][j] = pr;
-      dp[i][j] = pr * (dp[i][j] - delta_s[r]);
-    }
-}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// dQ: q and dO of the block's 32 rows, then two stages of a round's G K
+// tiles and G V tiles; after the loop the stages hold pairs 1 .. G-1's dQ.
 template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p) {
-  constexpr int kQkPitch = DQK + 1, kVPitch = DV + 1;
-  constexpr int kOutK = DQK / 16, kOutV = DV / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kBlockN * kQkPitch;
-  float* qs = vs + kBlockN * kVPitch;
-  float* dos = qs + kBlockM * kQkPitch;
-  float* ps = dos + kBlockM * kVPitch;  // (kBlockM, kPPitch): P, then dS
-  float* lse_s = ps + kBlockM * kPPitch;
-  float* delta_s = lse_s + kBlockM;
+struct DqCfg {
+  static constexpr int G = groups<T>();
+  static constexpr int kThreads = kPair * G;
+  static constexpr int kKeys = tile_keys<T, DQK, DV>();
+  static constexpr int kQ = kRows * pitch<T, DQK>();
+  static constexpr int kDo = kRows * pitch<T, DV>();
+  static constexpr int kK = kKeys * pitch<T, DQK>();
+  static constexpr int kV = kKeys * pitch<T, DV>();
+  static constexpr int kStage = G * (kK + kV);
+  static constexpr size_t kSmemBytes = sizeof(T) * (kQ + kDo + 2 * kStage);
+  static_assert(sizeof(float) * (G - 1) * kRows * DQK <= sizeof(T) * 2 * kStage,
+                "the merge fits the stages");
+};
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n0 = blockIdx.x * kBlockN;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = p.H / p.KV;
-  const int n_valid = min(p.kv_len, p.T);
-
-  stage<T, DQK>(ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, n0, p.T);
-  stage<T, DV>(vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, n0, p.T);
-
-  float dk[4][kOutK], dv[4][kOutV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < kOutK; ++j) dk[i][j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOutV; ++j) dv[i][j] = 0.f;
-  }
-
-  // The q rows that see a key of this tile.
-  int m_begin = 0, m_end = n0 < n_valid ? p.S : 0;
-  if (p.causal) m_begin = n0;                                            // rows >= first key
-  if (p.window > 0) m_end = min(m_end, n0 + kBlockN - 1 + p.window);    // rows < last key + window
-  m_begin = (m_begin / kBlockM) * kBlockM;
-
-  for (int hq = kvh * group; hq < (kvh + 1) * group; ++hq) {
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh;
-    const long long stat = ((long long)b * p.H + hq) * p.S;
-    for (int m0 = m_begin; m0 < m_end; m0 += kBlockM) {
-      __syncthreads();  // the previous q tile's reads are done
-      stage<T, DQK>(qs, q, p.q_ss, m0, p.S);
-      stage<T, DV>(dos, g, p.do_ss, m0, p.S);
-      if (threadIdx.x < kBlockM) {
-        const int m = m0 + threadIdx.x;
-        lse_s[threadIdx.x] = m < p.S ? p.lse[stat + m] : 0.f;
-        delta_s[threadIdx.x] = m < p.S ? p.delta[stat + m] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], ds[4][4];
-      scores_and_ds<DQK, DV>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = s[i][j];
-      __syncthreads();
-      // dV[n][d] += sum_m P[m][n] dO[m][d]: this thread's keys ty + 16 i, dims tx + 16 j.
-#pragma unroll 4
-      for (int m = 0; m < kBlockM; ++m) {
-        float pv[4], gv[kOutV];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = ps[m * kPPitch + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kOutV; ++j) gv[j] = dos[m * kVPitch + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < kOutV; ++j) dv[i][j] = fmaf(pv[i], gv[j], dv[i][j]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = ds[i][j];
-      __syncthreads();
-      // dK[n][d] += sum_m dS[m][n] Q[m][d] (times scale at the store).
-#pragma unroll 4
-      for (int m = 0; m < kBlockM; ++m) {
-        float dsv[4], qv[kOutK];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dsv[i] = ps[m * kPPitch + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kOutK; ++j) qv[j] = qs[m * kQkPitch + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < kOutK; ++j) dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
-      }
-    }
-  }
-
-  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
-  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= p.T) continue;
-#pragma unroll
-    for (int j = 0; j < kOutK; ++j) narrow_to(dkp + n * p.dk_ss + tx + 16 * j, dk[i][j] * p.scale);
-#pragma unroll
-    for (int j = 0; j < kOutV; ++j) narrow_to(dvp + n * p.dv_ss + tx + 16 * j, dv[i][j]);
-  }
-}
-
+// dK/dV: K and V of the block's 32 keys, then two stages of a round's G
+// (q, dO) slots of kStep q rows, then the slots' (lse, delta).  At (192,
+// 128) and (128, 128) a step is 16 rows, which keeps the dK and dV
+// accumulators with S^T and dP^T in registers; 32 rows elsewhere.  After
+// the loop the stages hold pairs 1 .. G-1's dK and dV.
 template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) {
-  constexpr int kQkPitch = DQK + 1, kVPitch = DV + 1;
-  constexpr int kOut = DQK / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kBlockN * kQkPitch;
-  float* qs = vs + kBlockN * kVPitch;
-  float* dos = qs + kBlockM * kQkPitch;
-  float* ps = dos + kBlockM * kVPitch;  // (kBlockM, kPPitch): dS
-  float* lse_s = ps + kBlockM * kPPitch;
-  float* delta_s = lse_s + kBlockM;
+struct DkdvCfg {
+  static constexpr int G = groups<T>();
+  static constexpr int kThreads = kPair * G;
+  static constexpr int kStep = DQK + DV >= 256 ? 16 : 32;
+  static constexpr int kK = kRows * pitch<T, DQK>();
+  static constexpr int kV = kRows * pitch<T, DV>();
+  static constexpr int kQ = kStep * pitch<T, DQK>();
+  static constexpr int kSlot = kQ + kStep * pitch<T, DV>();  // a step's q, then its dO
+  static constexpr int kStage = G * kSlot;
+  static constexpr size_t kTileBytes = sizeof(T) * (kK + kV + 2 * kStage);
+  static constexpr size_t kSmemBytes = kTileBytes + sizeof(float) * 2 * G * 2 * kStep;
+  static_assert(kTileBytes % 16 == 0, "the stats follow 16-byte tiles");
+  static_assert(sizeof(float) * (G - 1) * kRows * (DQK + DV) <= sizeof(T) * 2 * kStage,
+                "the merge fits the stages");
+};
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// dQ per (32-row q tile, head, b), launched first: delta = rowsum(dO O) of
+// its rows in float32 (written out for the dK/dV kernel), then over the key
+// tiles the forward walks, in rounds of G tiles through two cp.async
+// stages (pair j takes tile r G + j): S = q K^T, dP = dO V^T, P =
+// exp2(S scale log2e - lse log2e), dS = P (dP - delta) in registers, dQ +=
+// dS K.  Each warp owns 16 of the rows; pair 0 sums the pairs' dQ in order.
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(DqCfg<T, DQK, DV>::kThreads, 1)
+    flash_bwd_dq_kernel_mma(BwdParams p) {
+  using C = DqCfg<T, DQK, DV>;
+  constexpr int G = C::G, NT = C::kThreads, kKeys = C::kKeys;
+  constexpr int NS = kKeys / 8;
+  constexpr int NQ = DQK / 8;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  __shared__ float lse_s[kRows], delta_s[kRows];
+  T* qs = reinterpret_cast<T*>(tc_smem);
+  T* dos = qs + C::kQ;
+  T* stages = dos + C::kDo;
+
+  const int h = blockIdx.x % p.H;
+  const int b = blockIdx.x / p.H;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest causal chains first
   const int kvh = h / (p.H / p.KV);
+  const int pair = threadIdx.x / kPair;
+  const int warp = threadIdx.x / 32 % 2, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;
   const int n_valid = min(p.kv_len, p.T);
-
-  stage<T, DQK>(qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, m0, p.S);
-  stage<T, DV>(dos, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, m0, p.S);
-  if (threadIdx.x < kBlockM) {
-    const long long stat = ((long long)b * p.H + h) * p.S;
-    const int m = m0 + threadIdx.x;
-    lse_s[threadIdx.x] = m < p.S ? p.lse[stat + m] : 0.f;
-    delta_s[threadIdx.x] = m < p.S ? p.delta[stat + m] : 0.f;
-  }
-
-  // The key tiles the forward walks for this q tile.
   int kv_end = n_valid;
-  if (p.causal) kv_end = min(kv_end, m0 + kBlockM);
+  if (p.causal) kv_end = min(kv_end, m0 + kRows);
   int kv_start = 0;
-  if (p.window > 0) kv_start = max(0, m0 - p.window + 1);
-  kv_start = (kv_start / kBlockN) * kBlockN;
+  if (p.window > 0) kv_start = max(0, m0 - p.window + 1) / kKeys * kKeys;
+  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + kKeys - 1) / kKeys : 0;
+  const int n_rounds = (n_tiles + G - 1) / G;
 
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  float dq[4][kOut];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) dq[i][j] = 0.f;
+  auto load_round = [&](int r) {
+    T* st = stages + (r & 1) * C::kStage;
+    for (int slot = 0; slot < G && r * G + slot < n_tiles; ++slot) {
+      const int n0 = kv_start + (r * G + slot) * kKeys;
+      load_tile<T, kKeys, DQK, NT>(st + slot * C::kK, k, p.k_ss, n0, p.T);
+      load_tile<T, kKeys, DV, NT>(st + G * C::kK + slot * C::kV, v, p.v_ss, n0, p.T);
+    }
+  };
+  load_tile<T, kRows, DQK, NT>(qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+                               m0, p.S);
+  load_tile<T, kRows, DV, NT>(dos, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh,
+                              p.do_ss, m0, p.S);
+  if (n_rounds > 0) load_round(0);
+  cp_async_commit();
 
-  for (int n0 = kv_start; n0 < kv_end; n0 += kBlockN) {
-    __syncthreads();  // the previous tile's reads are done
-    stage<T, DQK>(ks, k, p.k_ss, n0, p.T);
-    stage<T, DV>(vs, v, p.v_ss, n0, p.T);
-    __syncthreads();
-    float s[4][4], ds[4][4];
-    scores_and_ds<DQK, DV>(p, qs, dos, ks, vs, lse_s, delta_s, m0, n0, n_valid, s, ds);
+  if (threadIdx.x < kPair) {  // delta and lse of the tile's rows, two threads a row
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+    const int m = m0 + r;
+    const long long stat = ((long long)b * p.H + h) * p.S + m;
+    float acc = 0.f;
+    if (m < p.S) {
+      const T* o = static_cast<const T*>(p.o) + b * p.o_sb + m * p.o_ss + h * p.o_sh + half * (DV / 2);
+      const T* go = static_cast<const T*>(p.dout) + b * p.do_sb + m * p.do_ss + h * p.do_sh +
+                    half * (DV / 2);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    // dQ[m][d] += sum_n dS[m][n] K[n][d]: this thread's rows ty + 16 i, dims tx + 16 j.
-#pragma unroll 4
-    for (int n = 0; n < kBlockN; ++n) {
-      float dsv[4], kv[kOut];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = ps[(ty + 16 * i) * kPPitch + n];
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) kv[j] = ks[n * kQkPitch + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) dq[i][j] = fmaf(dsv[i], kv[j], dq[i][j]);
+      for (int d = 0; d < DV / 2; ++d) acc = fmaf(to_float(go[d]), to_float(o[d]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = m < p.S ? p.lse[stat] * kLog2e : 0.f;
+      if (m < p.S) p.delta[stat] = acc;
     }
   }
+  __syncthreads();
 
+  const int row0 = 16 * warp;
+  const bool live = m0 + row0 < p.S;
+  const float scale_log2 = p.scale * kLog2e;
+  const float lse_r[2] = {lse_s[row0 + g], lse_s[row0 + g + 8]};
+  const float delta_r[2] = {delta_s[row0 + g], delta_s[row0 + g + 8]};
+  float dq[NQ][4];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) load_round(r + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int i = r * G + pair;
+    if (live && i < n_tiles) {
+      const int n0 = kv_start + i * kKeys;
+      const T* kt = stages + (r & 1) * C::kStage + pair * C::kK;
+      float s[NS][4], dp[NS][4];
+      gemm_rows<T, NS, DQK>(s, qs, row0, kt, g, qd);
+      gemm_rows<T, NS, DV>(dp, dos, row0, stages + (r & 1) * C::kStage + G * C::kK + pair * C::kV,
+                           g, qd);
+      const bool masked = n0 + kKeys > n_valid || m0 + kRows > p.S ||
+                          (p.causal && n0 + kKeys - 1 > m0) ||
+                          (p.window > 0 && n0 <= m0 + kRows - 1 - p.window);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = e >> 1;
+          float pr = exp2f(s[j][e] * scale_log2 - lse_r[rr]);
+          if (masked && !visible(p, n_valid, m0 + row0 + g + 8 * rr, n0 + 8 * j + 2 * qd + (e & 1)))
+            pr = 0.f;
+          if constexpr (sizeof(T) == 2) pr = bf16_round(pr);  // dS from the P a bf16 product sees
+          s[j][e] = pr * (dp[j][e] - delta_r[rr]);            // dS
+        }
+      gemm_acc<T, NS, NQ, false>(dq, s, kt, g, qd);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if constexpr (G > 1) {  // pair 0 adds the others' dQ, in order
+    __syncthreads();
+    float* merge = reinterpret_cast<float*>(stages);
+    if (pair > 0) {
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        float* row = merge + ((pair - 1) * kRows + row0 + g + 8 * r2) * DQK;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          row[8 * j + 2 * qd] = dq[j][2 * r2];
+          row[8 * j + 2 * qd + 1] = dq[j][2 * r2 + 1];
+        }
+      }
+    }
+    __syncthreads();
+    if (pair > 0) return;
+    for (int other = 1; other < G; ++other)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const float* row = merge + ((other - 1) * kRows + row0 + g + 8 * r2) * DQK;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          dq[j][2 * r2] += row[8 * j + 2 * qd];
+          dq[j][2 * r2 + 1] += row[8 * j + 2 * qd + 1];
+        }
+      }
+  }
+
+  if (!live) return;
   T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int m = m0 + row0 + g + 8 * r2;
     if (m >= p.S) continue;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) narrow_to(dqp + m * p.dq_ss + tx + 16 * j, dq[i][j] * p.scale);
+    for (int j = 0; j < NQ; ++j)
+      store2(dqp + m * p.dq_ss + 8 * j + 2 * qd, dq[j][2 * r2] * p.scale,
+             dq[j][2 * r2 + 1] * p.scale);
   }
 }
+
+// dK/dV per (32-key tile, kv head, b), after the dQ kernel: K and V are
+// loaded once; the q and dO rows of every q tile that sees the keys, over
+// every q head of the GQA group (the group's sum needs no atomics), stream
+// in rounds of G steps through two cp.async stages with their lse and
+// delta (pair j takes step r G + j).  The work is transposed (rows are
+// keys): each warp owns 16 keys and computes S^T = K q^T and dP^T = V dO^T,
+// P^T and dS^T = P^T (dP^T - delta) in registers, dV += P^T dO and dK +=
+// dS^T q.  Pair 0 sums the pairs' dK and dV in order.
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(DkdvCfg<T, DQK, DV>::kThreads, 1)
+    flash_bwd_dkdv_kernel_mma(BwdParams p) {
+  using C = DkdvCfg<T, DQK, DV>;
+  constexpr int G = C::G, NT = C::kThreads;
+  constexpr int kStep = C::kStep;
+  constexpr int NS = kStep / 8;
+  constexpr int NK = DQK / 8, NV = DV / 8;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  T* ks = reinterpret_cast<T*>(tc_smem);
+  T* vs = ks + C::kK;
+  T* stages = vs + C::kV;
+  float* stats = reinterpret_cast<float*>(tc_smem + C::kTileBytes);  // [stage][slot][lse, delta]
+
+  const int kvh = blockIdx.x % p.KV;
+  const int b = blockIdx.x / p.KV;
+  const int n0 = blockIdx.y * kRows;  // the first key tiles see the most rows: launched first
+  const int group = p.H / p.KV;
+  const int pair = threadIdx.x / kPair;
+  const int warp = threadIdx.x / 32 % 2, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int n_valid = min(p.kv_len, p.T);
+  // The q rows that see a key of this tile, in steps of kStep rows.
+  int m_begin = 0, m_end = n0 < n_valid ? p.S : 0;
+  if (p.causal) m_begin = n0;                                        // rows >= first key
+  if (p.window > 0) m_end = min(m_end, n0 + kRows - 1 + p.window);  // rows < last key + window
+  m_begin = m_begin / kStep * kStep;
+  const int per_head = m_end > m_begin ? (m_end - m_begin + kStep - 1) / kStep : 0;
+  const int n_steps = group * per_head;
+  const int n_rounds = (n_steps + G - 1) / G;
+
+  load_tile<T, kRows, DQK, NT>(ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
+                               p.k_ss, n0, p.T);
+  load_tile<T, kRows, DV, NT>(vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
+                              p.v_ss, n0, p.T);
+  // Step i: q head kvh * group + i / per_head, rows from m_begin + (i % per_head) kStep.
+  auto load_round = [&](int r) {
+    for (int slot = 0; slot < G && r * G + slot < n_steps; ++slot) {
+      const int i = r * G + slot;
+      const int hq = kvh * group + i / per_head;
+      const int m = m_begin + (i % per_head) * kStep;
+      T* qt = stages + (r & 1) * C::kStage + slot * C::kSlot;
+      load_tile<T, kStep, DQK, NT>(qt, static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh,
+                                   p.q_ss, m, p.S);
+      load_tile<T, kStep, DV, NT>(qt + C::kQ,
+                                  static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh,
+                                  p.do_ss, m, p.S);
+      if (threadIdx.x < 2 * kStep) {  // lse, then delta
+        const int rr = threadIdx.x % kStep;
+        const bool valid = m + rr < p.S;
+        const float* src = threadIdx.x < kStep ? p.lse : p.delta;
+        cp_async4(stats + ((r & 1) * G + slot) * 2 * kStep + threadIdx.x,
+                  src + ((long long)b * p.H + hq) * p.S + (valid ? m + rr : 0), valid);
+      }
+    }
+  };
+  if (n_rounds > 0) load_round(0);
+  cp_async_commit();
+
+  const int row0 = 16 * warp;  // the warp's first key in the tile
+  const bool live = n0 + row0 < n_valid;
+  const float scale_log2 = p.scale * kLog2e;
+  float dk[NK][4], dv[NV][4];
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[j][e] = 0.f;
+
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) load_round(r + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int i = r * G + pair;
+    if (live && i < n_steps) {
+      const int m0 = m_begin + (i % per_head) * kStep;
+      const T* qt = stages + (r & 1) * C::kStage + pair * C::kSlot;
+      const T* dot = qt + C::kQ;
+      const float* sl = stats + ((r & 1) * G + pair) * 2 * kStep;
+      float s[NS][4], dp[NS][4];
+      gemm_rows<T, NS, DQK>(s, ks, row0, qt, g, qd);   // S^T
+      gemm_rows<T, NS, DV>(dp, vs, row0, dot, g, qd);  // dP^T
+      const bool masked = n0 + kRows > n_valid || m0 + kStep > p.S ||
+                          (p.causal && n0 + kRows - 1 > m0) ||
+                          (p.window > 0 && n0 <= m0 + kStep - 1 - p.window);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * qd + c;  // the q row in the step
+          const float lse = sl[col] * kLog2e, delta = sl[kStep + col];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int e = 2 * rr + c;
+            float pr = exp2f(s[j][e] * scale_log2 - lse);
+            if (masked && !visible(p, n_valid, m0 + col, n0 + row0 + g + 8 * rr)) pr = 0.f;
+            if constexpr (sizeof(T) == 2) pr = bf16_round(pr);
+            s[j][e] = pr;                        // P^T
+            dp[j][e] = pr * (dp[j][e] - delta);  // dS^T
+          }
+        }
+      gemm_acc<T, NS, NV, false>(dv, s, dot, g, qd);
+      gemm_acc<T, NS, NK, false>(dk, dp, qt, g, qd);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if constexpr (G > 1) {  // pair 0 adds the others' dK and dV, in order
+    __syncthreads();
+    float* merge = reinterpret_cast<float*>(stages);
+    constexpr int MP = DQK + DV;
+    if (pair > 0) {
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        float* row = merge + ((pair - 1) * kRows + row0 + g + 8 * r2) * MP;
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          row[8 * j + 2 * qd] = dk[j][2 * r2];
+          row[8 * j + 2 * qd + 1] = dk[j][2 * r2 + 1];
+        }
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          row[DQK + 8 * j + 2 * qd] = dv[j][2 * r2];
+          row[DQK + 8 * j + 2 * qd + 1] = dv[j][2 * r2 + 1];
+        }
+      }
+    }
+    __syncthreads();
+    if (pair > 0) return;
+    for (int other = 1; other < G; ++other)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const float* row = merge + ((other - 1) * kRows + row0 + g + 8 * r2) * MP;
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          dk[j][2 * r2] += row[8 * j + 2 * qd];
+          dk[j][2 * r2 + 1] += row[8 * j + 2 * qd + 1];
+        }
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          dv[j][2 * r2] += row[DQK + 8 * j + 2 * qd];
+          dv[j][2 * r2 + 1] += row[DQK + 8 * j + 2 * qd + 1];
+        }
+      }
+  }
+
+  // Keys past n_valid (but inside T) get zeros.
+  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int n = n0 + row0 + g + 8 * r2;
+    if (n >= p.T) continue;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+      store2(dkp + n * p.dk_ss + 8 * j + 2 * qd, dk[j][2 * r2] * p.scale,
+             dk[j][2 * r2 + 1] * p.scale);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      store2(dvp + n * p.dv_ss + 8 * j + 2 * qd, dv[j][2 * r2], dv[j][2 * r2 + 1]);
+  }
+}
+
+// dQ (which writes delta), then dK/dV.  Returns a cudaError_t, or
+// kTensorMapRejected when q, k, v or dO breaks the 16-byte rule.
+template <typename T, int DQK, int DV>
+int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  using Dq = DqCfg<T, DQK, DV>;
+  using Dkdv = DkdvCfg<T, DQK, DV>;
+  constexpr int e = sizeof(T);
+  if (!rows_16b(p.q, p.q_sb, p.q_ss, p.q_sh, B, p.S, p.H, e) ||
+      !rows_16b(p.k, p.k_sb, p.k_ss, p.k_sh, B, p.T, p.KV, e) ||
+      !rows_16b(p.v, p.v_sb, p.v_ss, p.v_sh, B, p.T, p.KV, e) ||
+      !rows_16b(p.dout, p.do_sb, p.do_ss, p.do_sh, B, p.S, p.H, e))
+    return kTensorMapRejected;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = allow_smem(flash_bwd_dq_kernel_mma<T, DQK, DV>, Dq::kSmemBytes);
+    if (err == cudaSuccess) err = allow_smem(flash_bwd_dkdv_kernel_mma<T, DQK, DV>, Dkdv::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid_q(p.H * B, (p.S + kRows - 1) / kRows);
+  flash_bwd_dq_kernel_mma<T, DQK, DV><<<grid_q, Dq::kThreads, Dq::kSmemBytes, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_kv(p.KV * B, (p.T + kRows - 1) / kRows);
+  flash_bwd_dkdv_kernel_mma<T, DQK, DV><<<grid_kv, Dkdv::kThreads, Dkdv::kSmemBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 namespace sm90 {
 
 constexpr int kDkdvStages = 3;  // Q/dO tile pairs in flight (dK/dV)
 constexpr int kDqStages = 2;    // K/V tile pairs in flight (dQ)
-constexpr float kLog2e = 1.4426950408889634f;
 
 // 64-row bf16 tiles of q and K (head dim DQK) and of V and dO (DV), each
 // DQK/64 or DV/64 swizzled chunks x 64 rows x 128 B.
@@ -1753,11 +2238,6 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_sm90(BwdParams p, 
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, uint32_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // The delta pre-pass, then the dK/dV and dQ kernels.  Returns a
 // cudaError_t, or kTensorMapRejected when q, k, v or dO breaks TMA's rule.
 template <int DQK, int DV>
@@ -1798,50 +2278,23 @@ int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
 
 }  // namespace sm90
 
-template <typename T, int DQK, int DV>
-int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
-  constexpr size_t kSmemBytes = BwdTile<DQK, DV>::kSmemBytes;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DQK, DV>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kSmemBytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DQK, DV>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const long long rows = (long long)B * p.S * p.H;
-  flash_bwd_delta_kernel<T, DV><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, B);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_kv((p.T + kBlockN - 1) / kBlockN, p.KV, B);
-  flash_bwd_dkdv_kernel<T, DQK, DV><<<grid_kv, kThreads, kSmemBytes, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_q((p.S + kBlockM - 1) / kBlockM, p.H, B);
-  flash_bwd_dq_kernel<T, DQK, DV><<<grid_q, kThreads, kSmemBytes, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// The (Dqk, Dv) instances, which ops.py's HEAD_DIMS lists: the bf16 wgmma
-// kernels at (64, 64), (128, 128) and (192, 128) (DeepSeek-V2's MLA) and
-// the bf16 scalar ones at the reduced configs' head dims, (16, 16) (hymba),
-// (32, 32) (llama3-8b, whisper) and (48, 32) (deepseek's MLA); the float32
-// scalar ones at every pair of both lists.
+// The (Dqk, Dv) instances, which ops.py's HEAD_DIMS lists: bf16 at (64, 64),
+// (128, 128) and (192, 128) (DeepSeek-V2's MLA) on the wgmma kernels; bf16
+// at the reduced configs' head dims, (16, 16) (hymba), (32, 32) (llama3-8b,
+// whisper) and (48, 32) (deepseek's MLA), and float32 at all six pairs on
+// the mma.sync kernels.
 int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStream_t s) {
   if (dtype == 0) {
-    if (dqk == 16 && dv == 16) return (int)launch_scalar<float, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return (int)launch_scalar<float, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return (int)launch_scalar<float, 48, 32>(p, B, s);
-    if (dqk == 64 && dv == 64) return (int)launch_scalar<float, 64, 64>(p, B, s);
-    if (dqk == 128 && dv == 128) return (int)launch_scalar<float, 128, 128>(p, B, s);
-    if (dqk == 192 && dv == 128) return (int)launch_scalar<float, 192, 128>(p, B, s);
+    if (dqk == 16 && dv == 16) return tc::launch_fwd<float, 16, 16>(p, B, s);
+    if (dqk == 32 && dv == 32) return tc::launch_fwd<float, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return tc::launch_fwd<float, 48, 32>(p, B, s);
+    if (dqk == 64 && dv == 64) return tc::launch_fwd<float, 64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return tc::launch_fwd<float, 128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return tc::launch_fwd<float, 192, 128>(p, B, s);
   } else if (dtype == 1) {
-    if (dqk == 16 && dv == 16) return (int)launch_scalar<__nv_bfloat16, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return (int)launch_scalar<__nv_bfloat16, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return (int)launch_scalar<__nv_bfloat16, 48, 32>(p, B, s);
+    if (dqk == 16 && dv == 16) return tc::launch_fwd<__nv_bfloat16, 16, 16>(p, B, s);
+    if (dqk == 32 && dv == 32) return tc::launch_fwd<__nv_bfloat16, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return tc::launch_fwd<__nv_bfloat16, 48, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return sm90::launch<64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return sm90::launch<128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return sm90::launch<192, 128>(p, B, s);
@@ -1851,16 +2304,16 @@ int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStr
 
 int backward_instance(int dtype, int dqk, int dv, const BwdParams& p, int B, cudaStream_t s) {
   if (dtype == 0) {
-    if (dqk == 16 && dv == 16) return launch_bwd<float, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return launch_bwd<float, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return launch_bwd<float, 48, 32>(p, B, s);
-    if (dqk == 64 && dv == 64) return launch_bwd<float, 64, 64>(p, B, s);
-    if (dqk == 128 && dv == 128) return launch_bwd<float, 128, 128>(p, B, s);
-    if (dqk == 192 && dv == 128) return launch_bwd<float, 192, 128>(p, B, s);
+    if (dqk == 16 && dv == 16) return tc::launch_bwd<float, 16, 16>(p, B, s);
+    if (dqk == 32 && dv == 32) return tc::launch_bwd<float, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return tc::launch_bwd<float, 48, 32>(p, B, s);
+    if (dqk == 64 && dv == 64) return tc::launch_bwd<float, 64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return tc::launch_bwd<float, 128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return tc::launch_bwd<float, 192, 128>(p, B, s);
   } else if (dtype == 1) {
-    if (dqk == 16 && dv == 16) return launch_bwd<__nv_bfloat16, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return launch_bwd<__nv_bfloat16, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return launch_bwd<__nv_bfloat16, 48, 32>(p, B, s);
+    if (dqk == 16 && dv == 16) return tc::launch_bwd<__nv_bfloat16, 16, 16>(p, B, s);
+    if (dqk == 32 && dv == 32) return tc::launch_bwd<__nv_bfloat16, 32, 32>(p, B, s);
+    if (dqk == 48 && dv == 32) return tc::launch_bwd<__nv_bfloat16, 48, 32>(p, B, s);
     if (dqk == 64 && dv == 64) return sm90::launch_bwd<64, 64>(p, B, s);
     if (dqk == 128 && dv == 128) return sm90::launch_bwd<128, 128>(p, B, s);
     if (dqk == 192 && dv == 128) return sm90::launch_bwd<192, 128>(p, B, s);
@@ -1878,8 +2331,9 @@ extern "C" {
 //   dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); D and Dv:
 //   q's and k's head dim and v's (and o's), one of the instances above.
 //   Strides are in elements, (batch, sequence, head) for q, k, v and o in
-//   that order; the head dim is contiguous.  bfloat16 takes q/k/v at
-//   16-byte aligned addresses with 16-byte multiple strides (TMA's rule).
+//   that order; the head dim is contiguous.  q/k/v are taken at 16-byte
+//   aligned addresses with 16-byte multiple strides (TMA's rule for the
+//   bf16 wgmma instances, cp.async's for the others).
 //   lse: a (B, H, S) float32 buffer for each row's log-sum-exp, or null
 //   (serving passes null and nothing extra is written).
 struct EntryArgs {
@@ -1895,8 +2349,9 @@ struct EntryArgs {
 };
 static_assert(sizeof(EntryArgs) == 192, "EntryArgs must match ops.py's packing");
 
-// Returns a cudaError_t, or kTensorMapRejected (-1) when a bfloat16 q, k or
-// v breaks TMA's rule; nothing is launched then.
+// Returns a cudaError_t, or kTensorMapRejected (-1) when q, k or v breaks
+// TMA's rule (bfloat16 wgmma) or the 16-byte rule of cp.async (the other
+// instances); nothing is launched then.
 int flash_attention_forward(const EntryArgs* a) {
   const int B = a->B;
   if (a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 || a->T <= 0)
@@ -1932,11 +2387,12 @@ struct BwdEntryArgs {
 };
 static_assert(sizeof(BwdEntryArgs) == 328, "BwdEntryArgs must match ops.py's packing");
 
-// Launches the delta pre-pass, the dK/dV kernel and the dQ kernel on the
-// stream; returns the first cudaError_t that is not cudaSuccess, or
-// kTensorMapRejected (-1) when a bfloat16 q, k, v or dO breaks TMA's rule
-// (bfloat16 takes them at 16-byte aligned addresses with 16-byte multiple
-// strides); nothing is launched then.
+// Launches the backward's kernels on the stream (the bf16 wgmma instances:
+// the delta pre-pass, dK/dV, dQ; the mma.sync ones: dQ, which writes delta,
+// then dK/dV); returns the first cudaError_t that is not cudaSuccess, or
+// kTensorMapRejected (-1) when q, k, v or dO breaks TMA's rule (bfloat16
+// wgmma) or the 16-byte rule of cp.async (the others: 16-byte aligned
+// addresses and 16-byte multiple strides); nothing is launched then.
 int flash_attention_backward(const BwdEntryArgs* a) {
   const int B = a->B;
   if (a->KV <= 0 || a->H % a->KV != 0 || B <= 0 || a->S <= 0 || a->T <= 0)

@@ -8,9 +8,15 @@ MLA: 192 and 128).  CUDA tensors go to the hand-written Hopper kernels in
 ``csrc/flash_attention.cu`` (the forward and, under autograd, the
 backward); CPU tensors go to the plain versions :func:`attention_ref` and
 :func:`attention_backward_ref`.  A CUDA call that the kernel does not
-take raises: there is no fallback.  bfloat16 tensors are read through TMA
-tensor maps; the C entry point refuses a layout TMA cannot read, and
+take raises: there is no fallback.  Which body serves a call
+(:func:`uses_wgmma`): bfloat16 at (64, 64), (128, 128) and (192, 128)
+runs the wgmma kernels, which read q, k, v and dO through TMA tensor
+maps; the C entry point refuses a layout TMA cannot read, and
 :func:`tma_layout_error` (the same rule, in Python) then says why.
+float32 at every pair and bfloat16 at (16, 16), (32, 32) and (48, 32)
+run the mma.sync kernels, which read 16-byte rows with cp.async under the
+same rule; there the C entry's refusal is answered with contiguous copies
+(a copy, not a fallback: the same kernel runs).
 
 ``flash_attention.launches`` counts forward launches (a recomputed forward
 under ``torch.utils.checkpoint`` counts again);
@@ -47,23 +53,24 @@ from repro_torch.kernels.sharded import local_over_batch_heads
 from repro_torch.sharding.context import is_dtensor
 
 __all__ = ["flash_attention", "flash_attention_backward", "tma_layout_error", "SOURCE",
-           "HEAD_DIMS", "attention_pairs"]
+           "HEAD_DIMS", "attention_pairs", "uses_wgmma", "backward_kernels"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # The (Dqk, Dv) pairs the CUDA kernels are instantiated for, by dtype: the
-# bf16 wgmma kernels at (64, 64), (128, 128) and (192, 128), and the scalar
-# ones, which take the reduced configs' head dims (so that training and
-# serving them runs on the card): (16, 16) (hymba-1.5b), (32, 32)
-# (llama3-8b, whisper-large-v3) and (48, 32) (deepseek-v2-236b's MLA), in
-# bf16 and in float32.  tests/test_torch_kernel_coverage.py holds every
-# config in ARCHS, at both widths, to this table.
+# bf16 wgmma kernels at (64, 64), (128, 128) and (192, 128), and the
+# mma.sync ones at every pair in float32 and at the reduced configs' head
+# dims in bf16 (so that training and serving them runs on the card):
+# (16, 16) (hymba-1.5b), (32, 32) (llama3-8b, whisper-large-v3) and
+# (48, 32) (deepseek-v2-236b's MLA).  tests/test_torch_kernel_coverage.py
+# holds every config in ARCHS, at both widths, to this table.
 HEAD_DIMS = {
     torch.bfloat16: ((16, 16), (32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
     torch.float32: ((16, 16), (32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
 }
+_WGMMA_DIMS = ((64, 64), (128, 128), (192, 128))  # bf16 on the wgmma kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_TENSOR_MAP_REJECTED = -1  # the C entry's code for a bf16 layout TMA cannot read
+_TENSOR_MAP_REJECTED = -1  # the C entry's code for a layout its kernels cannot read
 
 
 # The C entries' argument blocks (``EntryArgs`` and ``BwdEntryArgs`` in the
@@ -137,6 +144,27 @@ def _cuda_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
 
+def uses_wgmma(dtype: torch.dtype, dqk: int, dv: int) -> bool:
+    """Whether a CUDA call at (dtype, Dqk, Dv) runs the wgmma kernels (bf16
+    at (64, 64), (128, 128), (192, 128)) rather than the mma.sync ones."""
+    return dtype == torch.bfloat16 and (dqk, dv) in _WGMMA_DIMS
+
+
+def backward_kernels(dtype: torch.dtype, dqk: int, dv: int) -> int:
+    """CUDA kernels one backward launch runs: the wgmma instances' delta
+    pre-pass, dK/dV and dQ; the mma.sync instances' dQ (which writes delta)
+    and dK/dV."""
+    return 3 if uses_wgmma(dtype, dqk, dv) else 2
+
+
+def _dense(*xs: torch.Tensor):
+    """Contiguous copies: what the mma.sync kernels read when the C entry
+    refused a view whose rows break their cp.async reads' 16-byte rule (the
+    rule of :func:`tma_layout_error`).  A copy, not a fallback: the same
+    kernel runs on them."""
+    return tuple(x.clone(memory_format=torch.contiguous_format) for x in xs)
+
+
 def _instance(q: torch.Tensor, v: torch.Tensor) -> Tuple[str, int, int]:
     """The CUDA instance a call runs: (dtype name, Dqk, Dv)."""
     return _DTYPE_NAMES[q.dtype], q.shape[3], v.shape[3]
@@ -182,16 +210,22 @@ def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     dev = q.device
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s) if with_lse else (0,), dtype=torch.float32, device=dev)
-    args = _ENTRY_ARGS.pack(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else 0,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        torch._C._cuda_getCurrentRawStream(dev.index),
-        _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv, int(causal),
-        0 if window is None else int(window), t if kv_len is None else int(kv_len),
-        scale,
-    )
-    rc = _call("flash_attention_forward", dev, args)
+
+    def launch(q, k, v):
+        return _call("flash_attention_forward", dev, _ENTRY_ARGS.pack(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else 0,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            torch._C._cuda_getCurrentRawStream(dev.index),
+            _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv, int(causal),
+            0 if window is None else int(window), t if kv_len is None else int(kv_len),
+            scale,
+        ))
+
+    rc = launch(q, k, v)
+    if rc == _TENSOR_MAP_REJECTED and not uses_wgmma(q.dtype, d, dv):
+        q, k, v = _dense(q, k, v)
+        rc = launch(q, k, v)
     if rc == _TENSOR_MAP_REJECTED:
         _raise_tma_refusal(q, k, v)
     if rc != 0:
@@ -335,11 +369,12 @@ def flash_attention_backward(
     dtype, from the forward's inputs, its output ``out`` (B, S, H, Dv), its
     log-sum-exp ``lse`` (B, H, S) float32 and the output's gradient
     ``dout``.  dk and dv sum over each GQA group's q heads.  CUDA tensors
-    launch the backward kernel (a delta pre-pass, then the dK/dV and dQ
-    kernels; one count in ``launches``); CPU tensors take
-    :func:`attention_backward_ref`.  In bf16, q, k, v and dO are read
-    through TMA tensor maps: a q, k or v that breaks the rule raises, as in
-    the forward; a ``dout`` or ``out`` that breaks it is copied first."""
+    launch the backward kernels (:func:`backward_kernels` a call; one count
+    in ``launches``); CPU tensors take :func:`attention_backward_ref`.  On
+    the wgmma instances q, k, v and dO are read through TMA tensor maps: a
+    q, k or v that breaks the rule raises, as in the forward; a ``dout`` or
+    ``out`` that breaks it is copied first.  The mma.sync instances copy
+    q, k, v and dO when the C entry refuses their layout."""
     _check(q, k, v, kv_len, window)
     b, s, h, d = q.shape
     t, kv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
@@ -365,14 +400,14 @@ def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.T
                  lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: Optional[int],
                  scale: float, kv_len: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor,
                                                                torch.Tensor]:
-    """One backward launch (three kernels): (dq, dk, dv)."""
+    """One backward launch (``backward_kernels`` kernels): (dq, dk, dv)."""
     b, s, h, d = q.shape
     t, kv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
-    bf16 = q.dtype == torch.bfloat16
-    if dout.stride(-1) != 1 or (bf16 and _layout_error(dout)):
+    wgmma = uses_wgmma(q.dtype, d, dv_dim)
+    if dout.stride(-1) != 1 or (wgmma and _layout_error(dout)):
         # dO is the one operand autograd shapes: a copy, not a fallback.
         dout = dout.clone(memory_format=torch.contiguous_format)
-    if bf16 and _layout_error(out):
+    if wgmma and _layout_error(out):
         out = out.clone(memory_format=torch.contiguous_format)  # the pre-pass reads 16-byte rows
     if out.stride(-1) != 1 or not lse.is_contiguous():
         raise ValueError("out's head dim and lse must be contiguous")
@@ -381,16 +416,22 @@ def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.T
     dk = torch.empty((b, t, kv, d), dtype=q.dtype, device=dev)
     dv = torch.empty((b, t, kv, dv_dim), dtype=q.dtype, device=dev)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    args = _BWD_ARGS.pack(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *(st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]),
-        torch._C._cuda_getCurrentRawStream(dev.index),
-        _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv_dim, int(causal),
-        0 if window is None else int(window), t if kv_len is None else int(kv_len),
-        scale,
-    )
-    rc = _call("flash_attention_backward", dev, args)
+
+    def launch(q, k, v, dout):
+        return _call("flash_attention_backward", dev, _BWD_ARGS.pack(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]),
+            torch._C._cuda_getCurrentRawStream(dev.index),
+            _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv_dim, int(causal),
+            0 if window is None else int(window), t if kv_len is None else int(kv_len),
+            scale,
+        ))
+
+    rc = launch(q, k, v, dout)
+    if rc == _TENSOR_MAP_REJECTED and not wgmma:
+        q, k, v, dout = _dense(q, k, v, dout)
+        rc = launch(q, k, v, dout)
     if rc == _TENSOR_MAP_REJECTED:
         _raise_tma_refusal(q, k, v)
     if rc != 0:

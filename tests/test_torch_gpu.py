@@ -1181,6 +1181,99 @@ def test_reduced_flash_instances_match_plain(cuda_device, dtype, b, s, t, h, kv,
     _check_backward(cuda_device, dtype, d, b, s, t, h, kv, causal, window, kv_len)
 
 
+# ---------------------------------------------------------------------------
+# The mma.sync kernels (csrc/flash_attention.cu, tc::): float32 at every
+# (Dqk, Dv) pair and bf16 at (16, 16), (32, 32), (48, 32), forward and
+# backward, across their 32-row tiles' edges.
+# ---------------------------------------------------------------------------
+MMA_INSTANCES = ([(torch.float32, d) for d in (16, 32, (48, 32), 64, 128, (192, 128))]
+                 + [(torch.bfloat16, d) for d in (16, 32, (48, 32))])
+MMA_CASES = [
+    # b, s, t, h, kv, causal, window, kv_len
+    (1, 300, 300, 4, 2, True, None, None),      # ragged S=300, GQA 2/1
+    (1, 96, 250, 4, 4, False, None, 233),       # kv_len < T, non-causal S != T
+    (1, 100, 40, 4, 4, False, None, None),      # non-causal, S > T
+    (2, 130, 130, 4, 4, True, 40, None),        # windowed
+    (2, 70, 70, 5, 1, True, None, None),        # GQA 5/1
+]
+
+
+def _mma_id(x):
+    return str(x).replace("torch.", "").replace(" ", "")
+
+
+@pytest.mark.parametrize("dtype, d", MMA_INSTANCES, ids=_mma_id)
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", MMA_CASES)
+def test_mma_instances_match_plain_forward_and_backward(cuda_device, dtype, d, b, s, t, h, kv,
+                                                        causal, window, kv_len):
+    _check_against_plain(cuda_device, dtype, b, s, t, h, kv, d, causal, window, kv_len)
+    _check_backward(cuda_device, dtype, d, b, s, t, h, kv, causal, window, kv_len)
+
+
+@pytest.mark.parametrize("dtype, d", MMA_INSTANCES, ids=_mma_id)
+def test_mma_backward_gives_the_same_bits_on_two_calls(cuda_device, dtype, d):
+    """No atomics: dK/dV sum a GQA group inside one block, dQ has its own kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward, ops
+
+    q, k, v, do = _bwd_inputs(cuda_device, dtype, 2, 300, 300, 8, 2, d, seed=2)
+    out, lse = ops._forward(q, k, v, True, None, 1.0 / _dims(d)[0] ** 0.5, None, with_lse=True)
+    first = flash_attention_backward(q, k, v, out, lse, do)
+    second = flash_attention_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("dtype, d", [(torch.float32, 32), (torch.bfloat16, 16)], ids=_mma_id)
+@pytest.mark.parametrize("offset", ["base", "stride"])
+def test_mma_kernels_copy_views_that_break_the_16_byte_rule(cuda_device, dtype, d, offset):
+    """The mma.sync kernels read 16-byte rows: a view off a 16-byte base, or
+    with rows (d + 1) elements apart, is refused by the C entry and copied,
+    and gives the bits of contiguous inputs, forward and backward."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward, ops
+
+    dense = _bwd_inputs(cuda_device, dtype, 1, 70, 70, 4, 4, d)
+
+    def misaligned(x):
+        if offset == "base":
+            view = torch.zeros(x.numel() + 1, device=cuda_device, dtype=dtype)[1:].view(x.shape)
+        else:
+            view = torch.zeros(*x.shape[:3], d + 1, device=cuda_device, dtype=dtype)[..., :d]
+        view.copy_(x)
+        return view
+
+    views = [misaligned(x) for x in dense]
+    scale = 1.0 / d ** 0.5
+    got = ops._forward(*views[:3], True, None, scale, None, with_lse=True)
+    want = ops._forward(*dense[:3], True, None, scale, None, with_lse=True)
+    grads = flash_attention_backward(*views[:3], *got, views[3])
+    want_grads = flash_attention_backward(*dense[:3], *want, dense[3])
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "lse", "dq", "dk", "dv"), (*got, *grads), (*want, *want_grads)):
+        assert torch.equal(x, y), name
+
+
+def test_launches_by_instance_counts_one_entry_a_call(cuda_device):
+    """Each forward and each backward call adds one to its instance's count
+    and to nothing else's."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    for dtype, d in MMA_INSTANCES:
+        dqk, dv = _dims(d)
+        key = ({torch.float32: "f32", torch.bfloat16: "bf16"}[dtype], dqk, dv)
+        q, k, v, do = _bwd_inputs(cuda_device, dtype, 1, 40, 40, 4, 4, d)
+        before = (dict(flash_attention.launches_by_instance),
+                  dict(flash_attention_backward.launches_by_instance))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        flash_attention(*leaves).backward(do)
+        torch.cuda.synchronize()
+        for fn, was in zip((flash_attention, flash_attention_backward), before):
+            now = dict(fn.launches_by_instance)
+            assert now.get(key, 0) == was.get(key, 0) + 1, (fn.__name__, key)
+            assert {x: n for x, n in now.items() if x != key} == {
+                x: n for x, n in was.items() if x != key}, fn.__name__
+
+
 @pytest.mark.parametrize("b,t,h,chunk,strong", [
     (4, 32, 4, 16, False),     # a reduced rwkv6-7b node slice
     (2, 300, 4, 16, False),    # ragged T at the config's chunk

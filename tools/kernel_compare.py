@@ -2,23 +2,28 @@
 """Time one checkout's flash-attention, WKV or selective-scan kernel, and
 the model forwards that call it, on one CUDA card.
 
-    python3 tools/kernel_compare.py --kernel KERNEL [--src DIR] [--label NAME]
+    python3 tools/kernel_compare.py --kernel KERNEL [--src DIR] [--label NAME] [--rows mma]
 
 with KERNEL one of flash, flash_bwd, wkv, ssm, wkv_bwd, ssm_bwd.
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is timed (default
 this checkout's); its kernels build into that checkout's ``build/kernels/``.
 
-``--kernel flash``: each bf16 row of ``chip_smoke.KERNEL_CASES`` is timed by
-``chip_smoke.flash_case``, the kernel phase's own timing; then full-width
-olmo-1b (bf16, seeded random weights) prefills 256 tokens and full-width
-hymba-1.5b (bf16) runs a 1024-token forward.
+``--kernel flash``: each row of ``chip_smoke.KERNEL_CASES``, bf16 and
+float32, is timed by ``chip_smoke.flash_case``, the kernel phase's own
+timing; then full-width olmo-1b (bf16, seeded random weights) prefills 256
+tokens and full-width hymba-1.5b (bf16) runs a 1024-token forward.
 
 ``--kernel flash_bwd``: each row of ``chip_smoke.BWD_CASES`` is timed by
 ``chip_smoke.flash_bwd_case``, the backward phase's own timing (errors and
-the bitwise repeat included); then one node step of full-width olmo-1b
+the bitwise repeat included; the kernels a call are the checkout's own,
+``chip_smoke.bwd_kernels``); then one node step of full-width olmo-1b
 (bf16, remat on, seeded random weights) at b=34 of padded b=40, S=512,
 by ``chip_smoke.node_step_row``, the training phase's own timing.
+
+``--rows mma`` (flash and flash_bwd): only the rows the mma.sync kernels
+serve (float32 at every head dim, bf16 at (16, 16), (32, 32), (48, 32)),
+and no model forward or node step.
 
 ``--kernel wkv``: each row of ``chip_smoke.WKV_CASES`` is timed by
 ``chip_smoke.wkv_case``, the WKV phase's own timing (errors included);
@@ -76,23 +81,31 @@ BACKWARDS = {
 }
 
 
-def kernel_rows(torch, kernel: str, label: str) -> None:
+def mma_row(case) -> bool:
+    """Whether a flash case runs the mma.sync kernels: float32, or bf16 at a
+    reduced config's head dims."""
+    return case[5] == "f32" or chip_smoke.head_dims(case[7]) in ((16, 16), (32, 32), (48, 32))
+
+
+def kernel_rows(torch, kernel: str, label: str, rows: str) -> None:
     dev = chip_smoke.DEVICE
     if kernel == "flash":
         from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
         gen = torch.Generator(device=dev).manual_seed(0)
         for case in chip_smoke.KERNEL_CASES:
-            if case[5] == "bf16":
+            if rows == "all" or mma_row(case):
                 row = chip_smoke.flash_case(torch, flash_attention, attention_ref, case, gen)
                 print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
         return
     if kernel == "flash_bwd":
         gen = torch.Generator(device=dev).manual_seed(6)
         for case in chip_smoke.BWD_CASES:
-            row = chip_smoke.flash_bwd_case(torch, case, gen)
-            print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
-        node_step(torch, label)
+            if rows == "all" or mma_row(case):
+                row = chip_smoke.flash_bwd_case(torch, case, gen)
+                print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
+        if rows == "all":
+            node_step(torch, label)
         return
     if kernel in BACKWARDS:
         from repro_torch.kernels import ssm_scan
@@ -236,6 +249,7 @@ def main() -> int:
     ap.add_argument("--kernel", choices=sorted(FORWARDS), required=True)
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--rows", choices=("all", "mma"), default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -248,8 +262,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    kernel_rows(torch, args.kernel, args.label)
-    forward_rows(torch, args.kernel, args.label)
+    kernel_rows(torch, args.kernel, args.label, args.rows)
+    if args.rows == "all":
+        forward_rows(torch, args.kernel, args.label)
     return 0
 
 
