@@ -59,7 +59,11 @@ Phases, each of which fails the run:
                    through decay factors up to exp(chunk * 4.6 / 2); also
                    the first pass's states entering each chunk against
                    ``wkv_chunk_states``, so that a wrong pass is named.  One
-                   row puts every log-decay at the floor.
+                   row puts every log-decay at the floor.  Two rows time one
+                   node's training slice (B=40, T=512) in float32 and in
+                   bf16 (out the plain value on the widened inputs rounded,
+                   or one bf16 step away); phase 17 has the bf16 slice's
+                   backward beside the float32 one.
 5. model         — full-width olmo-1b in float32 with seeded random weights:
                    fused prefill of 128 tokens (through the kernel) against
                    the stepped decode loop (plain decode attention), logits
@@ -86,7 +90,11 @@ Phases, each of which fails the run:
                    under ``torch.profiler``.
 9. kernel (ssm)  — the selective-scan kernel against its plain (step by
                    step) version, float32 with N=16 (and, for reduced
-                   hymba-1.5b, N=8 at D=128 and at a ragged D), y and final state
+                   hymba-1.5b, N=8 at D=128 and at a ragged D), and in bf16
+                   at hymba-1.5b's T=1024 (the instance its bf16 path runs;
+                   y the plain value on the widened inputs rounded, or one
+                   bf16 step away, y and state equal to the float32-copy
+                   call's rounded), y and final state
                    within 1e-5 * max(1, max |plain|): float32 sums over the
                    16 states in another order, through segments carried
                    with the reference's combine; rows cover a T with no
@@ -200,7 +208,9 @@ Phases, each of which fails the run:
                    ``ssm_scan_backward_ref``) in float32 at one node's
                    training slice (B=40, T=512; WKV H=64, the scan D=3200)
                    and at a ragged T, a strong decay and a nonzero
-                   final-state gradient: each output within 1e-4 * max(1,
+                   final-state gradient, and the scan's training slice in
+                   bf16 (bf16 gradients under the bf16 rule and equal to the
+                   float32-copy call's rounded): each output within 1e-4 * max(1,
                    max |plain|), two calls the same bits; ms, plain ms,
                    device ms and the bound.  The scan backward starts
                    from the forward's tile states, as the training path
@@ -390,6 +400,27 @@ Phases, each of which fails the run:
                    (B=4, S=32).  ``python3 chip_smoke.py --only reduced``
                    runs phases 1, 2, those rows and 33.
 
+34. kernel reach — the SSM kernels' reach at small shapes (B=2, T=300;
+                   reduced hymba-1.5b's node slice for the scan in bf16 at
+                   N=8): a driven path, every case once forward and
+                   backward through ``ssm_scan`` / ``wkv`` under autograd,
+                   counted by instance, then each case's rows against the
+                   plain version on the inputs widened to float32 (float32
+                   outputs within ``SSM_REL`` / ``WKV_REL`` /
+                   ``KERNEL_BWD_REL``; bf16 ones the plain value rounded or
+                   one bf16 step away), each backward the same bits twice,
+                   a bf16 case's outputs and gradients equal to the
+                   float32-copy call's rounded: the scan in bf16 at N=16
+                   (TMA), N=8 and D=203 (plain loads), at N = 5 (padded), 24,
+                   64 and 72 (two groups) and chunk 256; WKV in bf16 at
+                   K=64, at K = 20 and 96 (zero-padded), 128 and chunk 128.
+                   Phase 11 also holds hymba-1.5b's bf16 ``api.logits``
+                   equal, bit for bit, to the same call through the float32
+                   copies of the scan's call site before (``hymba_float_route``),
+                   and phase 19 its node gradient, beside each route's
+                   device ms and peak memory.  ``python3 chip_smoke.py
+                   --only reach`` runs phases 1, 2 and 34.
+
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
 training, 15's trace, each run of 16, each training run of 18 and 19,
@@ -397,9 +428,11 @@ each model of 20, each forward of 21, 22's serving run and forward, 23's
 training run, each forward of 24, 25's serving run and forward, 26's node
 steps, 27's forward, encode, stepped decode and each gradient, 28's encoder
 forward and decode loop, 29's training steps, 30's real step, each of 31's
-in-process calls, 33's whole run) and read just after it.
-Device ms of a named kernel are per launch the profiler recorded, with the
-count of records beside them.  The last three lines of standard output are
+in-process calls, 33's whole run, 34's driven path) and read just after
+it.  Device ms of a named kernel are per launch the profiler recorded, with
+the count of records beside them; a kernels-line entry's
+``device_ms_from`` says ``cuda_events`` where every profile window lost
+them.  The last three lines of standard output are
 the card line from ``nvidia-smi``, a JSON line describing each kernel, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the repository beside
 it, the script exits non-zero and prints no result.
@@ -449,6 +482,9 @@ SSM_PROFILE_PREFIX = "ssm_"            # every CUDA kernel of the selective scan
 HYMBA_FLASH_CASE = "hymba-1.5b global S=1024"
 FLASH_PROFILE_NAME = "flash_fwd_kernel"  # both forward bodies
 BWD_PROFILE_NAME = "flash_bwd_"        # the backward's kernels (``bwd_kernels`` a call)
+# Each of them by name: the wgmma instances' delta pre-pass, and dK/dV and
+# dQ of both bodies.
+BWD_KERNEL_NAMES = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  # bf16
 # The mma.sync kernels (float32 at every (Dqk, Dv), bf16 at (16, 16),
 # (32, 32), (48, 32)): phase 2 prints each instance's tensor-core (HMMA)
@@ -541,7 +577,9 @@ KERNEL_CASES = [
 DEEPSEEK_CASE = "deepseek-v2-236b S=1024"
 DEEPSEEK_BWD_CASE = "deepseek-v2-236b train B=8 S=512"
 TOL = {"bf16": 1e-2, "f32": 1e-5}
-# name, B, T, H, chunk, strong decay[, K] (float32, K = 64 unless given)
+# name, B, T, H, chunk, strong decay[, K[, dtype]] (float32, K = 64 unless
+# given).  The training-slice rows time the WKV kernel on bf16 inputs
+# beside float32 at one node's slice (rwkv6-7b itself widens r, k, v).
 WKV_REDUCED_CASE = "rwkv6-7b reduced K=32 B=4 T=32"
 WKV_REDUCED_CASES = [
     (WKV_REDUCED_CASE, 4, 32, 4, 16, False, 32),
@@ -554,17 +592,23 @@ WKV_CASES = [
     ("B=4 T=256", 4, 256, 64, 32, False),
     ("chunk 64 T=1024", 1, 1024, 64, 64, False),
     ("strong decay T=1024", 1, 1024, 64, 32, True),
+    ("training slice B=40 T=512", 40, 512, 64, 32, False),
+    ("training slice B=40 T=512 bf16", 40, 512, 64, 32, False, 64, "bf16"),
     *WKV_REDUCED_CASES,
 ]
 WKV_REL = 1e-4
-# name, B, T, D, chunk, strong decay[, N] (float32, N = 16 unless given)
+# name, B, T, D, chunk, strong decay[, N[, dtype]] (float32, N = 16 unless
+# given).  The bf16 rows are the main path's own instance: hymba-1.5b hands
+# the scan its bf16 tensors.
 SSM_REDUCED_CASE = "hymba-1.5b reduced N=8 B=4 T=32"
 SSM_REDUCED_CASES = [
     (SSM_REDUCED_CASE, 4, 32, 128, 8, False, 8),
     ("N=8 D=203 T=301 (4-byte copies)", 2, 301, 203, 64, True, 8),
 ]
+SSM_MAIN_BF16_CASE = "hymba-1.5b T=1024 bf16"
 SSM_CASES = [
     ("hymba-1.5b T=1024", 1, 1024, 3200, 128, False),
+    (SSM_MAIN_BF16_CASE, 1, 1024, 3200, 128, False, 16, "bf16"),
     ("T=128", 1, 128, 3200, 128, False),
     ("ragged T=300", 1, 300, 3200, 128, False),
     ("B=4 T=256", 4, 256, 3200, 128, False),
@@ -601,13 +645,16 @@ SSM_REDUCED_BWD_CASES = [
 ]
 WKV_BWD_CASES = [
     ("rwkv6-7b train B=40 T=512", 40, 512, 64, 32, False, False),
+    ("training slice B=40 T=512 bf16", 40, 512, 64, 32, False, False, 64, "bf16"),
     ("ragged T=300", 2, 300, 64, 32, False, True),
     ("strong decay T=512", 4, 512, 64, 32, True, False),
     ("final-state grad B=8 T=512", 8, 512, 64, 32, False, True),
     *WKV_REDUCED_BWD_CASES,
 ]
+SSM_BWD_MAIN_BF16_CASE = "hymba-1.5b train B=40 T=512 bf16"
 SSM_BWD_CASES = [
     ("hymba-1.5b train B=40 T=512", 40, 512, 3200, 128, False, False),
+    (SSM_BWD_MAIN_BF16_CASE, 40, 512, 3200, 128, False, False, 16, "bf16"),
     ("ragged T=301 D=203", 2, 301, 203, 128, False, True),
     ("strong decay T=512", 4, 512, 3200, 128, True, False),
     ("final-state grad B=8 T=512", 8, 512, 3200, 128, False, True),
@@ -769,6 +816,13 @@ def profile_device(torch, fn, calls: int, kernels, attempts: int = 5, launches=N
             dict.fromkeys(kernels, 0))
 
 
+def device_ms_from(records) -> str:
+    """Where a row's device ms came from: ``profile_device`` counts no
+    record of a kernel only where every profile window lost them and it
+    timed the calls with CUDA events instead."""
+    return "profiler" if records else "cuda_events"
+
+
 def head_dims(d):
     """(Dqk, Dv) of a case's head dim or pair."""
     return d if isinstance(d, tuple) else (d, d)
@@ -856,8 +910,11 @@ def phase_build():
     for fn, regs, stores, loads in ptxas_summary(results[0].log, NEW_INSTANCE_TAGS):
         if not any(kernel in fn for kernel in BWD_SM90_KERNELS):  # printed above
             log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
-    for res in results[3:]:
-        for fn, regs, stores, loads in ptxas_summary(res.log, ("_bwd_",)):
+    # Every WKV and scan instance, forward (each (K, chunk tile) and (N,
+    # TMA, element type)) and backward.
+    for res, names in ((results[1], ("wkv_",)), (results[2], ("ssm_scan_kernel",)),
+                       (results[3], ("_bwd_",)), (results[4], ("_bwd_",))):
+        for fn, regs, stores, loads in ptxas_summary(res.log, names):
             log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
     for res, need, why in ((results[0], ("HGMMA", "UTMALDG"), "run wgmma on TMA tiles"),
                            (results[1], ("HMMA",), "run its products on the tensor cores"),
@@ -1093,12 +1150,12 @@ def fmt_ms(ms):
     return "None" if ms is None else f"{ms:.4f}"
 
 
-def wkv_bound(b, t, h, k):
+def wkv_bound(b, t, h, k, elem=4):
     """Least time for one WKV call: r, k, v, log_w read once, out written
-    once, plus u and the final state (float32), over the memory rate; or
-    the sequential recurrence's 4 K^2 operations per token and head over
-    the float32 rate."""
-    nbytes = 4 * (5 * b * t * h * k + h * k + b * h * k * k)
+    once (``elem`` bytes each), plus u and the final state (float32), over
+    the memory rate; or the sequential recurrence's 4 K^2 operations per
+    token and head over the float32 rate."""
+    nbytes = elem * 5 * b * t * h * k + 4 * (h * k + b * h * k * k)
     flops = 4 * k * k * b * t * h
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
     if t_bytes >= t_ops:
@@ -1116,9 +1173,12 @@ def wkv_case(torch, mod, case, gen):
     call under ``torch.profiler`` (``device_ms``: the WKV passes' summed
     time; ``busy_ms``: the union of their intervals, which counts their
     overlap once; both per recorded launch, ``records`` of the 40), the
-    host's ms to issue one call (``issue_ms``) and the card's bound."""
+    host's ms to issue one call (``issue_ms``) and the card's bound.  A
+    bf16 row's r, k, v, log_w and u are bf16, held against the plain
+    version on them widened (out under the bf16 rule, ``steps``)."""
     name, b, t, h, chunk, strong, *rest = case
     k = rest[0] if rest else 64
+    dtype = getattr(torch, REACH_DTYPES[rest[1] if len(rest) > 1 else "f32"])
 
     def rand(shape, scale):
         return torch.randn(shape, generator=gen, device=DEVICE) * scale
@@ -1129,32 +1189,36 @@ def wkv_case(torch, mod, case, gen):
     else:
         lw = -torch.exp(rand((b, t, h, k), 1.0))
     u = rand((h, k), 0.2)
+    r, kk, v, lw, u = (x.to(dtype) for x in (r, kk, v, lw, u))
+    wide = [x.float() for x in (r, kk, v, lw, u)]
     pairs = []
     # A package from before the two-pass kernel (tools/kernel_compare.py
     # times one beside this checkout) has no chunk states to check.
     if hasattr(mod, "wkv_with_chunk_states"):
         out, state, states = mod.wkv_with_chunk_states(r, kk, v, lw, u, chunk=chunk)
         torch.cuda.synchronize()
-        pairs.append(("states", states, mod.wkv_chunk_states(kk, v, lw, chunk=chunk)[0]))
+        pairs.append(("states", states, mod.wkv_chunk_states(*wide[1:4], chunk=chunk)[0]))
     else:
         out, state = mod.wkv(r, kk, v, lw, u, chunk=chunk)
-    ref_out, ref_state = mod.wkv_chunked(r, kk, v, lw, u, chunk=chunk)
+    ref_out, ref_state = mod.wkv_chunked(*wide, chunk=chunk)
     pairs += [("out", out, ref_out), ("state", state, ref_state)]
-    errs = {key: (got - want).abs().max().item() for key, got, want in pairs}
+    errs = {key: (got.float() - want).abs().max().item() for key, got, want in pairs}
     tols = {key: WKV_REL * max(1.0, want.abs().max().item()) for key, _, want in pairs}
+    steps = {key: bf16_steps(got, want, tols[key]) for key, got, want in pairs
+             if got.dtype == torch.bfloat16}
     del pairs, out, state, ref_out, ref_state
 
     def kernel():
         return mod.wkv(r, kk, v, lw, u, chunk=chunk)
 
-    bound_ms, bound_by = wkv_bound(b, t, h, k)
+    bound_ms, bound_by = wkv_bound(b, t, h, k, r.element_size())
     ms = cuda_ms(torch, kernel, 20)
     _, named, busy, records = profile_device(torch, kernel, 20, (WKV_PROFILE_PREFIX,),
                                              launches={WKV_PROFILE_PREFIX: WKV_KERNELS},
                                              sole=True)
     return dict(
-        errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
-        plain_ms=cuda_ms(torch, lambda: mod.wkv_chunked(r, kk, v, lw, u, chunk=chunk), 3),
+        errs=errs, tols=tols, steps=steps, max_abs_err=max(errs.values()), ms=ms,
+        plain_ms=cuda_ms(torch, lambda: mod.wkv_chunked(*wide, chunk=chunk), 3),
         library_ms=None, device_ms=named[WKV_PROFILE_PREFIX], busy_ms=busy[WKV_PROFILE_PREFIX],
         records=records[WKV_PROFILE_PREFIX],
         issue_ms=issue_ms(torch, kernel, 20),
@@ -1170,13 +1234,18 @@ def phase_kernel_wkv(torch, cases=WKV_CASES):
     for case in cases:
         name, b, t, h, chunk, strong, *rest = case
         row = rows[name] = wkv_case(torch, rwkv6_wkv, case, gen)
-        errs, tols, ms = row["errs"], row["tols"], row["ms"]
+        errs, tols, ms, steps = row["errs"], row["tols"], row["ms"], row["steps"]
         for key, err in errs.items():
-            if not err <= tols[key]:
+            if key in steps and not steps[key] <= 1.0:
+                raise AssertionError(f"wkv {name}: {key} is {steps[key]:.2f} bf16 steps off the "
+                                     "plain version rounded")
+            if key not in steps and not err <= tols[key]:
                 raise AssertionError(f"wkv {name}: {key} max abs err {err:.3e} > {tols[key]:.3e}")
-        log("kernel", f"wkv {name} B={b} H={h} K={rest[0] if rest else 64} chunk={chunk} f32: "
-            "max_abs_err "
-            + " ".join(f"{key}={err:.3e} (tol {tols[key]:.3e})" for key, err in errs.items())
+        log("kernel", f"wkv {name} B={b} H={h} K={rest[0] if rest else 64} chunk={chunk} "
+            f"{rest[1] if len(rest) > 1 else 'f32'}: max_abs_err "
+            + " ".join(f"{key}={err:.3e} (tol {tols[key]:.3e}"
+                       + (f", bf16 steps {steps[key]:.2f}" if key in steps else "") + ")"
+                       for key, err in errs.items())
             + f" ms={ms:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) of_bound={row['bound_ms'] / ms:.4f} "
             f"device_ms={row['device_ms']:.4f} busy_ms={row['busy_ms']:.4f} "
@@ -1186,13 +1255,14 @@ def phase_kernel_wkv(torch, cases=WKV_CASES):
     return rows
 
 
-def ssm_bound(b, t, d, n):
+def ssm_bound(b, t, d, n, elem=4):
     """Least time for one selective-scan call: u and dt read once and y
-    written once, plus B, C, log_a and the final state (float32), over the
-    memory rate; or about seven float32 operations (the exponential counted
-    as one) per (token, channel, state) over the float32 rate.  Also the
-    exponentials alone at the SFU's rate, which the table has no row for."""
-    nbytes = 4 * (3 * b * t * d + 2 * b * t * n + d * n + b * d * n)
+    written once, plus B, C and log_a (``elem`` bytes each) and the final
+    state (float32), over the memory rate; or about seven float32
+    operations (the exponential counted as one) per (token, channel, state)
+    over the float32 rate.  Also the exponentials alone at the SFU's rate,
+    which the table has no row for."""
+    nbytes = elem * (3 * b * t * d + 2 * b * t * n + d * n) + 4 * b * d * n
     flops = 7 * b * t * d * n
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
     sfu_ms = b * t * d * n / SFU_EXP_S * 1e3
@@ -1230,11 +1300,13 @@ def cold_device_ms(torch, fn, calls: int, kernel: str, flush_mb: int = 256):
 
 
 def ssm_inputs(torch, case, gen):
-    """Seeded float32 inputs of one ``SSM_CASES`` row: dt > 0 as softplus
-    gives it, A = -exp(log_a) < 0; a strong-decay row draws dt |A| up to
-    about 50, so the state forgets within a step."""
+    """Seeded inputs of one ``SSM_CASES`` row, drawn in float32 and rounded
+    to the row's dtype (all five, as hymba-1.5b's bf16 config holds them):
+    dt > 0 as softplus gives it, A = -exp(log_a) < 0; a strong-decay row
+    draws dt |A| up to about 50, so the state forgets within a step."""
     name, b, t, d, chunk, strong, *rest = case
     n = rest[0] if rest else 16
+    dtype = getattr(torch, REACH_DTYPES[rest[1] if len(rest) > 1 else "f32"])
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
@@ -1243,13 +1315,16 @@ def ssm_inputs(torch, case, gen):
     dt = torch.exp(rand(b, t, d) * 0.5) * (3.0 if strong else 0.3)
     bt, ct = rand(b, t, n), rand(b, t, n)
     log_a = rand(d, n) * (1.0 if strong else 0.5)
-    return u, dt, bt, ct, log_a
+    return tuple(x.to(dtype) for x in (u, dt, bt, ct, log_a))
 
 
 def ssm_row(torch, mod, inputs, chunk):
     """The selective-scan package ``mod`` (its ``ssm_scan`` and plain
     ``selective_scan_ref``) on ``inputs`` (u, dt, b_t, c_t, log_a): max abs
-    errors of y and the final state, each beside its tolerance; the
+    errors of y and the final state against the plain version on the
+    inputs widened to float32, each beside its tolerance (a bf16 y under
+    the bf16 rule, ``steps``; a bf16 call's y and state also equal to the
+    float32-copy call's rounded, bit for bit); the
     kernel's and the plain version's CUDA-event ms over back-to-back calls
     (``ms``, ``plain_ms``), the ``ssm_`` kernels' device ms per call under
     ``torch.profiler`` (``device_ms``: their summed time; ``busy_ms``: the
@@ -1259,29 +1334,35 @@ def ssm_row(torch, mod, inputs, chunk):
     host's ms to issue one call (``issue_ms``), the card's bound and the SM
     clock before and after the row."""
     u, dt, bt, ct, log_a = inputs
+    wide = [x.float() for x in inputs]
     b, t, d = u.shape
     n = bt.shape[-1]
     clock_before = sm_clock()
     y, h = mod.ssm_scan(u, dt, bt, ct, log_a, chunk=chunk)
     torch.cuda.synchronize()
-    ref_y, ref_h = mod.selective_scan_ref(u, dt, log_a, bt, ct)
-    pairs = (("y", y, ref_y), ("state", h, ref_h))
-    errs = {key: (got - want).abs().max().item() for key, got, want in pairs}
-    tols = {key: SSM_REL * max(1.0, want.abs().max().item()) for key, _, want in pairs}
-    del pairs, y, h, ref_y, ref_h
+    ref_y, ref_h = mod.selective_scan_ref(wide[0], wide[1], wide[4], wide[2], wide[3])
+    label = f"ssm B={b} T={t} D={d} N={n}"
+    checks = {key: reach_check(label, key, got, want, SSM_REL)
+              for key, got, want in (("y", y, ref_y), ("state", h, ref_h))}
+    if u.dtype != torch.float32:
+        reach_same_bits(label, (y, h), mod.ssm_scan(*wide, chunk=chunk))
+    errs = {key: c[0] for key, c in checks.items()}
+    tols = {key: c[1] for key, c in checks.items()}
+    steps = {key: c[2] for key, c in checks.items() if c[2] is not None}
+    del y, h, ref_y, ref_h
 
     def kernel():
         return mod.ssm_scan(u, dt, bt, ct, log_a, chunk=chunk)
 
-    bound_ms, bound_by, sfu_ms = ssm_bound(b, t, d, n)
+    bound_ms, bound_by, sfu_ms = ssm_bound(b, t, d, n, u.element_size())
     ms = cuda_ms(torch, kernel, 20)
     _, named, busy, records = profile_device(torch, kernel, 20, (SSM_PROFILE_PREFIX,),
                                              launches={SSM_PROFILE_PREFIX: 1}, sole=True)
     cold_ms, cold_records = cold_device_ms(torch, kernel, 20, SSM_PROFILE_PREFIX)
     return dict(
-        errs=errs, tols=tols, max_abs_err=max(errs.values()), ms=ms,
-        plain_ms=cuda_ms(torch, lambda: mod.selective_scan_ref(u, dt, log_a, bt, ct), 2,
-                         warmup=1),
+        errs=errs, tols=tols, steps=steps, max_abs_err=max(errs.values()), ms=ms,
+        plain_ms=cuda_ms(torch, lambda: mod.selective_scan_ref(
+            wide[0], wide[1], wide[4], wide[2], wide[3]), 2, warmup=1),
         library_ms=None, device_ms=named[SSM_PROFILE_PREFIX],
         busy_ms=busy[SSM_PROFILE_PREFIX], records=records[SSM_PROFILE_PREFIX],
         cold_ms=cold_ms, cold_records=cold_records,
@@ -1298,12 +1379,13 @@ def ssm_case(torch, mod, case, gen):
 
 
 def log_ssm_row(label, row):
-    errs, tols, ms = row["errs"], row["tols"], row["ms"]
-    for key, err in errs.items():
-        if not err <= tols[key]:
-            raise AssertionError(f"ssm {label}: {key} max abs err {err:.3e} > {tols[key]:.3e}")
-    log("kernel", f"ssm {label} f32: max_abs_err "
-        + " ".join(f"{key}={err:.3e} (tol {tols[key]:.3e})" for key, err in errs.items())
+    """Log a row whose checks ``ssm_row`` made (a float32 output within its
+    tolerance, a bf16 one within one bf16 step)."""
+    errs, tols, ms, steps = row["errs"], row["tols"], row["ms"], row["steps"]
+    log("kernel", f"ssm {label}: max_abs_err "
+        + " ".join(f"{key}={err:.3e} (tol {tols[key]:.3e}"
+                   + (f", bf16 steps {steps[key]:.2f}" if key in steps else "") + ")"
+                   for key, err in errs.items())
         + f" ms={ms:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
         f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) sfu_exp_ms={row['sfu_exp_ms']:.5f} "
         f"device_ms={row['device_ms']:.4f} busy_ms={row['busy_ms']:.4f} "
@@ -1321,8 +1403,8 @@ def phase_kernel_ssm(torch, cases=SSM_CASES):
     for case in cases:
         name, b, t, d, chunk, strong, *rest = case
         rows[name] = ssm_case(torch, ssm_scan, case, gen)
-        log_ssm_row(f"{name}: B={b} T={t} D={d} N={rest[0] if rest else 16} chunk={chunk}",
-                    rows[name])
+        log_ssm_row(f"{name}: B={b} T={t} D={d} N={rest[0] if rest else 16} chunk={chunk} "
+                    f"{rest[1] if len(rest) > 1 else 'f32'}", rows[name])
     return rows
 
 
@@ -1655,6 +1737,27 @@ def phase_serving_rwkv6(torch, wkv_ms):
     return counts
 
 
+@contextlib.contextmanager
+def hymba_float_route():
+    """hymba-1.5b's scan call site before the SSM kernels took bfloat16:
+    the scan on float32 copies of its inputs, y cast back to u's dtype (the
+    model's ``ssm_scan`` replaced while the context is open)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models import hymba
+
+    def float_scan(u, dt, b_t, c_t, log_a, *, chunk):
+        y, h = ssm_scan(u.float(), dt.float(), b_t.float(), c_t.float(), log_a.float(),
+                        chunk=chunk)
+        return y.to(u.dtype), h
+
+    saved = hymba.ssm_scan
+    hymba.ssm_scan = float_scan
+    try:
+        yield
+    finally:
+        hymba.ssm_scan = saved
+
+
 def phase_model_hymba(torch):
     from repro_torch.configs import hymba_1_5b
     from repro_torch.models.registry import build_api
@@ -1768,6 +1871,24 @@ def phase_serving_hymba(torch, flash_ms, ssm_ms):
             f"selective-scan kernels {named[SSM_PROFILE_PREFIX]:.3f} ms, "
             f"busy {busy[SSM_PROFILE_PREFIX]:.3f} ms (records flash "
             f"{records[FLASH_PROFILE_NAME]}/{want}, scan {records[SSM_PROFILE_PREFIX]}/{want})")
+
+    # The scan takes the bf16 tensors as they are: the same logits, bit for
+    # bit, as the float32 copies of the call site before, in this process.
+    # (Serving steps the decode loop, which does not reach the kernel.)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    rtoks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=DEVICE)
+    reset_launches()
+    new = api.logits(model, {"tokens": rtoks})
+    torch.cuda.synchronize()
+    bf16_launches = read_instance_launches().get(("ssm_scan", ("bf16", cfg.ssm_state)), 0)
+    with hymba_float_route():
+        old = api.logits(model, {"tokens": rtoks})
+    same = torch.equal(new, old)
+    log("serving", f"hymba-1.5b bf16 api.logits({s} random tokens): bf16 scan launches "
+        f"{bf16_launches}; logits equal the float32-copy call site's bit for bit: {same}")
+    if not same or bf16_launches != cfg.n_layers:
+        raise AssertionError(f"hymba-1.5b bf16 forward: same bits {same}, bf16 scan launches "
+                             f"{bf16_launches}")
     return counts
 
 
@@ -1848,11 +1969,16 @@ def flash_bwd_case(torch, case, gen):
     bound_ms, bound_by = attention_bwd_bound(b, s, h, kv, d, dt, window, t, causal)
     n_kernels = bwd_kernels(ops, dt, d)
     ms = cuda_ms(torch, kernel, 10)
-    _, named, _, records = profile_device(torch, kernel, 10, (BWD_PROFILE_NAME,),
+    _, named, _, records = profile_device(torch, kernel, 10,
+                                          (BWD_PROFILE_NAME, *BWD_KERNEL_NAMES),
                                           launches={BWD_PROFILE_NAME: n_kernels}, sole=True)
     row = dict(
         errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise, ms=ms,
         kernels=n_kernels,
+        # Each of the call's kernels: device ms per call and its records of
+        # the 10 calls, so that a window short of records shows whose.
+        by_kernel={k: (named[k], records[k]) for k in BWD_KERNEL_NAMES if records[k]
+                   or not records[BWD_PROFILE_NAME]},
         plain_ms=cuda_ms(torch, lambda: attention_backward_ref(
             q, k, v, out, lse, do, causal=causal, window=window), 2, warmup=1),
         device_ms=named[BWD_PROFILE_NAME], records=records[BWD_PROFILE_NAME],
@@ -1884,7 +2010,9 @@ def phase_kernel_bwd(torch, cases=BWD_CASES):
             f"library_device_ms={fmt_ms(row['library_device_ms'])} "
             f"library_kernel={row['library_kernel']!r} bound_ms={row['bound_ms']:.5f} "
             f"({row['bound_by']}) device_ms={row['device_ms']:.4f} "
-            f"records={row['records']}/{10 * row['kernels']} "
+            f"records={row['records']}/{10 * row['kernels']} ("
+            + ", ".join(f"{k} {ms:.4f} ms {n}/10" for k, (ms, n) in row["by_kernel"].items())
+            + f"; device_ms_from {device_ms_from(row['records'])}) "
             f"of_bound_device={row['bound_ms'] / row['device_ms']:.4f} "
             f"bitwise_repeat={row['bitwise_repeat']}")
     return rows
@@ -3014,15 +3142,16 @@ def event_timed(torch, fn):
 WKV_BWD_CHUNK = 32  # the backward kernel's chunk (kChunk in wkv_backward.cu)
 
 
-def wkv_bwd_bound(b, t, h, k, with_ds):
+def wkv_bwd_bound(b, t, h, k, with_ds, elem=4):
     """Least time for one WKV backward: r, k, v, log_w and dout read once,
-    dr, dk, dv and dlog_w written once, plus u, du, the final state and its
-    gradient (float32), over the memory rate; or the chunked form's 5 K^2 +
+    dr, dk, dv and dlog_w written once (``elem`` bytes each), plus u, du,
+    the final state and its gradient (float32), over the memory rate; or
+    the chunked form's 5 K^2 +
     6 C K multiply-adds per token and head over the dense TF32 rate, the
     least operations of the forms the kernels run.  Also returns the
     recurrence form's bound (12 K^2 operations per token and head over the
     float32 rate off the tensor cores), the first backward's."""
-    nbytes = 4 * (9 * b * t * h * k + 2 * h * k + (2 if with_ds else 1) * b * h * k * k)
+    nbytes = elem * 9 * b * t * h * k + 4 * (2 * h * k + (2 if with_ds else 1) * b * h * k * k)
     flops = 2 * (5 * k * k + 6 * WKV_BWD_CHUNK * k) * b * t * h
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["tf32"]
     recurrence_ms = 12 * k * k * b * t * h / PEAK_FLOPS["f32"] * 1e3
@@ -3031,13 +3160,15 @@ def wkv_bwd_bound(b, t, h, k, with_ds):
     return t_ops * 1e3, "operations", recurrence_ms
 
 
-def ssm_bwd_bound(b, t, d, n, with_dh):
+def ssm_bwd_bound(b, t, d, n, with_dh, elem=4):
     """Least time for one selective-scan backward: u, dt and dy read once,
-    du and ddt written once, B, C, dB, dC, log_a, dlog_a and the final
-    state's gradient (float32), over the memory rate; or about 16 operations
-    per (token, channel, state) (the state recomputed, the carried gradient,
-    four products, the decay) over the float32 rate."""
-    nbytes = 4 * (5 * b * t * d + 4 * b * t * n + 2 * d * n + (b * d * n if with_dh else 0))
+    du and ddt written once, B, C, dB, dC, log_a and dlog_a (``elem`` bytes
+    each) and the final state's gradient (float32), over the memory rate;
+    or about 16 operations per (token, channel, state) (the state
+    recomputed, the carried gradient, four products, the decay) over the
+    float32 rate."""
+    nbytes = (elem * (5 * b * t * d + 4 * b * t * n + 2 * d * n)
+              + (4 * b * d * n if with_dh else 0))
     flops = 16 * b * t * d * n
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["f32"]
     if t_bytes >= t_ops:
@@ -3045,29 +3176,39 @@ def ssm_bwd_bound(b, t, d, n, with_dh):
     return t_ops * 1e3, "operations", None
 
 
-def bwd_row(torch, kernel, plain, keys, profile, bound):
+def bwd_row(torch, kernel, plain, keys, profile, bound, wide=None):
     """A backward kernel's row: max abs error of each output against the
-    plain backward on the same inputs, each beside its tolerance
-    (``KERNEL_BWD_REL`` x max(1, max |plain|)), whether two calls give the
-    same bits, the kernel's CUDA-event ms over back-to-back calls, the plain
-    backward's for one call, the kernel's device ms per recorded call under
-    ``torch.profiler`` with its records, and the bound."""
+    plain backward on the same inputs (widened to float32), each beside its
+    tolerance (``KERNEL_BWD_REL`` x max(1, max |plain|); a bf16 output also
+    its bf16 steps, ``steps``), whether two calls give the same bits, the
+    kernel's CUDA-event ms over back-to-back calls, the plain backward's for
+    one call, the kernel's device ms per recorded call under
+    ``torch.profiler`` with its records, and the bound.  ``wide``: the same
+    kernel's float32-copy call, whose outputs rounded must equal the
+    kernel's bit for bit."""
     got = kernel()
     again = kernel()
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
+    if wide is not None:
+        reach_same_bits(f"{profile} backward", got, wide())
     want, plain_ms = event_timed(torch, plain)
-    errs = {key: (g - w).abs().max().item() for key, g, w in zip(keys, got, want)}
-    tols = {key: KERNEL_BWD_REL * max(1.0, w.abs().max().item()) for key, w in zip(keys, want)}
+    errs, tols, steps = {}, {}, {}
+    for key, g, w in zip(keys, got, want):
+        errs[key] = (g.float() - w.float()).abs().max().item()
+        tols[key] = KERNEL_BWD_REL * max(1.0, w.float().abs().max().item())
+        if g.dtype == torch.bfloat16:
+            steps[key] = bf16_steps(g, w.float(), tols[key])
     del got, want
     ms = cuda_ms(torch, kernel, 5, warmup=1)
     _, named, _, records = profile_device(torch, kernel, 5, (profile,),
                                           launches={profile: BWD_KERNELS_PER_CALL[profile]},
                                           sole=True)
     bound_ms, bound_by, recurrence_ms = bound
-    return dict(errs=errs, tols=tols, max_abs_err=max(errs.values()), bitwise_repeat=bitwise,
-                ms=ms, plain_ms=plain_ms, library_ms=None, device_ms=named[profile],
+    return dict(errs=errs, tols=tols, steps=steps, max_abs_err=max(errs.values()),
+                bitwise_repeat=bitwise, ms=ms, plain_ms=plain_ms, library_ms=None,
+                device_ms=named[profile],
                 records=records[profile], bound_ms=bound_ms, bound_by=bound_by,
                 recurrence_bound_ms=recurrence_ms)
 
@@ -3075,11 +3216,14 @@ def bwd_row(torch, kernel, plain, keys, profile, bound):
 def wkv_bwd_case(torch, case, gen):
     """One ``WKV_BWD_CASES`` row (see ``bwd_row``): the forward kernel gives
     the final state; a strong-decay row draws every log-decay in [-4.6,
-    -3.45], inside the clamp, so each carries a gradient."""
+    -3.45], inside the clamp, so each carries a gradient.  A bf16 row's
+    inputs and dout are bf16, held against the plain backward on them
+    widened and against the float32-copy call."""
     from repro_torch.kernels import rwkv6_wkv as mod
 
     name, b, t, h, chunk, strong, with_ds, *rest = case
     k = rest[0] if rest else 64
+    dtype = getattr(torch, REACH_DTYPES[rest[1] if len(rest) > 1 else "f32"])
 
     def rand(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=DEVICE) * scale
@@ -3093,34 +3237,51 @@ def wkv_bwd_case(torch, case, gen):
     u = rand((h, k), 0.2)
     dout = rand((b, t, h, k))
     ds = rand((b, h, k, k)) if with_ds else None
-    _, state = mod.wkv(r, kk, v, lw, u, chunk=chunk)
+    r, kk, v, lw, u, dout = (x.to(dtype) for x in (r, kk, v, lw, u, dout))
+    wide = [x.float() for x in (r, kk, v, lw, u, dout)]
+
+    def call(r, kk, v, lw, u, dout):
+        _, state = mod.wkv(r, kk, v, lw, u, chunk=chunk)
+        return lambda: mod.wkv_backward(r, kk, v, lw, u, state, dout, ds, chunk=chunk)
+
     return bwd_row(
-        torch, lambda: mod.wkv_backward(r, kk, v, lw, u, state, dout, ds, chunk=chunk),
-        lambda: mod.wkv_backward_ref(r, kk, v, lw, u, dout, ds),
-        ("dr", "dk", "dv", "dlog_w", "du"), WKV_BWD_PROFILE, wkv_bwd_bound(b, t, h, k, with_ds))
+        torch, call(r, kk, v, lw, u, dout), lambda: mod.wkv_backward_ref(*wide, ds),
+        ("dr", "dk", "dv", "dlog_w", "du"), WKV_BWD_PROFILE,
+        wkv_bwd_bound(b, t, h, k, with_ds, r.element_size()),
+        wide=None if dtype == torch.float32 else call(*wide))
 
 
 def ssm_bwd_case(torch, case, gen):
     """One ``SSM_BWD_CASES`` row (see ``bwd_row``) on ``ssm_inputs``, B and
     C read as views of one (B, T, 2N) tensor, as the model passes them: the
     backward from the forward's tile states, as the training path runs it
-    (a checkout before the second design has none)."""
+    (a checkout before the second design has none).  A bf16 row's inputs
+    and dy are bf16 (the final state's gradient float32), held against the
+    plain backward on them widened and against the float32-copy call."""
     from repro_torch.kernels import ssm_scan as mod
 
     name, b, t, d, chunk, strong, with_dh, *rest = case
     n = rest[0] if rest else 16
-    u, dt, _, _, log_a = ssm_inputs(torch, (name, b, t, d, chunk, strong, n), gen)
-    bc = torch.randn((b, t, 2 * n), generator=gen, device=DEVICE)
+    dt_name = rest[1] if len(rest) > 1 else "f32"
+    u, dt, _, _, log_a = ssm_inputs(torch, (name, b, t, d, chunk, strong, n, dt_name), gen)
+    dtype = u.dtype
+    bc = torch.randn((b, t, 2 * n), generator=gen, device=DEVICE).to(dtype)
     bt, ct = bc[..., :n], bc[..., n:]
-    dy = torch.randn((b, t, d), generator=gen, device=DEVICE)
+    dy = torch.randn((b, t, d), generator=gen, device=DEVICE).to(dtype)
     dh = torch.randn((b, d, n), generator=gen, device=DEVICE) if with_dh else None
-    kw = {}
-    if hasattr(mod, "ssm_scan_tile_states"):
-        kw["tiles"] = mod.ssm_scan_tile_states(u, dt, bt, ct, log_a, chunk=chunk)[2]
+    wide = [x.float() for x in (u, dt, bt, ct, log_a, dy)]
+
+    def call(u, dt, bt, ct, log_a, dy):
+        kw = {}
+        if hasattr(mod, "ssm_scan_tile_states"):
+            kw["tiles"] = mod.ssm_scan_tile_states(u, dt, bt, ct, log_a, chunk=chunk)[2]
+        return lambda: mod.ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=chunk, **kw)
+
     return bwd_row(
-        torch, lambda: mod.ssm_scan_backward(u, dt, bt, ct, log_a, dy, dh, chunk=chunk, **kw),
-        lambda: mod.ssm_scan_backward_ref(u, dt, bt, ct, log_a, dy, dh),
-        ("du", "ddt", "db", "dc", "dlog_a"), SSM_BWD_PROFILE, ssm_bwd_bound(b, t, d, n, with_dh))
+        torch, call(u, dt, bt, ct, log_a, dy), lambda: mod.ssm_scan_backward_ref(*wide, dh),
+        ("du", "ddt", "db", "dc", "dlog_a"), SSM_BWD_PROFILE,
+        ssm_bwd_bound(b, t, d, n, with_dh, u.element_size()),
+        wide=None if dtype == torch.float32 else call(*wide))
 
 
 def phase_kernel_backwards(torch, wkv_cases=WKV_BWD_CASES, ssm_cases=SSM_BWD_CASES):
@@ -3135,14 +3296,20 @@ def phase_kernel_backwards(torch, wkv_cases=WKV_BWD_CASES, ssm_cases=SSM_BWD_CAS
             size = f" {'K' if label == 'wkv' else 'N'}={rest[0]}" if rest else ""
             row = rows[(label, name)] = case_fn(torch, case, gen)
             for key, err in row["errs"].items():
-                if not err <= row["tols"][key]:
+                if key in row["steps"] and not row["steps"][key] <= 1.0:
+                    raise AssertionError(f"{label} bwd {name}: {key} is {row['steps'][key]:.2f} "
+                                         "bf16 steps off the plain backward rounded")
+                if key not in row["steps"] and not err <= row["tols"][key]:
                     raise AssertionError(f"{label} bwd {name}: {key} max abs err {err:.3e} > "
                                          f"{row['tols'][key]:.3e}")
             if not row["bitwise_repeat"]:
                 raise AssertionError(f"{label} bwd {name}: two calls gave different bits")
             log("kernel", f"{label} bwd {name}: B={b} T={t} {'H' if label == 'wkv' else 'D'}="
-                f"{width}{size} chunk={chunk} final-state grad={with_grad} f32: max_abs_err "
-                + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e})"
+                f"{width}{size} chunk={chunk} final-state grad={with_grad} "
+                f"{rest[1] if len(rest) > 1 else 'f32'}: max_abs_err "
+                + " ".join(f"{key}={err:.3e} (tol {row['tols'][key]:.3e}"
+                           + (f", bf16 steps {row['steps'][key]:.2f}" if key in row["steps"]
+                              else "") + ")"
                            for key, err in row["errs"].items())
                 + f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms=none "
                 f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}"
@@ -3152,6 +3319,332 @@ def phase_kernel_backwards(torch, wkv_cases=WKV_BWD_CASES, ssm_cases=SSM_BWD_CAS
                 f"{5 * BWD_KERNELS_PER_CALL[profile]} of_bound_device="
                 f"{row['bound_ms'] / row['device_ms']:.4f} bitwise_repeat={row['bitwise_repeat']}")
     return rows
+
+
+# Phase 34: the SSM kernels' reach.  Each route the slice added, at small
+# shapes, forward and backward through the public entries (autograd), held
+# against the plain version on the same inputs widened to float32.
+# name, B, T, D, N, chunk, dtype
+REACH_SSM_CASES = [
+    ("bf16 N=16", 2, 300, 64, 16, 64, "bf16"),          # TMA in bfloat16
+    ("bf16 N=8", 4, 32, 128, 8, 8, "bf16"),             # reduced hymba-1.5b's node slice
+    ("bf16 D=203", 2, 300, 203, 16, 64, "bf16"),        # rows off 16 bytes: plain loads
+    ("f32 N=5", 2, 300, 48, 5, 64, "f32"),              # the 8 instance, padded
+    ("f32 N=24", 2, 300, 48, 24, 64, "f32"),            # the 32 instance
+    ("f32 N=64", 2, 300, 48, 64, 64, "f32"),            # the 64 instance
+    ("f32 N=72", 2, 300, 48, 72, 64, "f32"),            # two groups: 64 + 8
+    ("f32 chunk=256", 2, 300, 48, 16, 256, "f32"),      # the chunk limit lifted
+]
+# name, B, T, H, K, chunk, dtype
+REACH_WKV_CASES = [
+    ("bf16 K=64", 2, 300, 4, 64, 64, "bf16"),           # 8-byte loads, widened
+    ("f32 K=20", 2, 300, 4, 20, 32, "f32"),             # the 32 instance, zero-padded
+    ("f32 K=96", 2, 300, 4, 96, 64, "f32"),             # the 128 instance, zero-padded
+    ("f32 K=128", 2, 300, 4, 128, 64, "f32"),           # the 128 instance
+    ("f32 chunk=128", 2, 300, 4, 64, 128, "f32"),       # 128-row tiles
+]
+REACH_DTYPES = {"bf16": "bfloat16", "f32": "float32"}
+# The reach rows in the kernels line: (entry name, family, case, the
+# instance key of launches_by_instance).
+REACH_KERNEL_ROWS = (
+    ("ssm_scan[bf16,16]", "ssm", "bf16 N=16", ("bf16", 16)),
+    ("ssm_scan[bf16,8]", "ssm", "bf16 N=8", ("bf16", 8)),
+    ("ssm_scan[f32,8,padded]", "ssm", "f32 N=5", ("f32", 8)),
+    ("ssm_scan[f32,32]", "ssm", "f32 N=24", ("f32", 32)),
+    ("ssm_scan[f32,64]", "ssm", "f32 N=64", ("f32", 64)),
+    ("rwkv6_wkv[bf16,64]", "wkv", "bf16 K=64", ("bf16", 64)),
+    ("rwkv6_wkv[f32,32,padded]", "wkv", "f32 K=20", ("f32", 32)),
+    ("rwkv6_wkv[f32,128]", "wkv", "f32 K=128", ("f32", 128)),
+)
+
+
+def bf16_steps(got, want, tol):
+    """The bf16 rule: each element of ``got`` equal to ``want`` rounded to
+    bfloat16 or one bfloat16 step (its ulp) away, up to ``tol`` (the
+    float32 tolerance) besides; returns the largest |got - round(want)| -
+    tol over that step (<= 1 passes)."""
+    import torch
+
+    r16 = want.to(torch.bfloat16).float()
+    _, e = torch.frexp(r16)
+    ulp = torch.where(r16 == 0, torch.zeros_like(r16), torch.ldexp(torch.ones_like(r16), e - 8))
+    excess = ((got.float() - r16).abs() - tol).clamp(min=0.0)
+    return (excess / ulp.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+
+
+def reach_check(label, key, got, want, rel):
+    """(max abs err, tolerance, bf16 steps or None) of one output; raises
+    where it breaks the float32 tolerance (float32 outputs) or the bf16
+    rule (bfloat16 outputs)."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    tol = rel * max(1.0, want.float().abs().max().item())
+    if got.dtype == torch.bfloat16:
+        steps = bf16_steps(got, want.float(), tol)
+        if not steps <= 1.0:
+            raise AssertionError(f"{label}: {key} is {steps:.2f} bf16 steps off the plain "
+                                 f"version rounded (max abs err {err:.3e})")
+        return err, tol, steps
+    if not err <= tol:
+        raise AssertionError(f"{label}: {key} max abs err {err:.3e} > {tol:.3e}")
+    return err, tol, None
+
+
+def reach_same_bits(label, got, want):
+    """The bf16 call's outputs equal the float32-copy call's rounded to
+    each output's dtype, bit for bit."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w.to(g.dtype)):
+            raise AssertionError(f"{label}: output {i} differs from the float32-copy "
+                                 "call rounded")
+
+
+def reach_ssm_inputs(torch, case, gen):
+    """A scan case's inputs in its dtype (B and C views of one (B, T, 2N)
+    tensor, as the model passes them), the output gradients and the final
+    state's (float32)."""
+    name, b, t, d, n, chunk, dt_name = case
+    dtype = getattr(torch, REACH_DTYPES[dt_name])
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    u = rand(b, t, d).to(dtype)
+    dt = (torch.exp(rand(b, t, d) * 0.5) * 0.3).to(dtype)
+    bc = rand(b, t, 2 * n).to(dtype)
+    log_a = (rand(d, n) * 0.5).to(dtype)
+    dy, dh = rand(b, t, d).to(dtype), rand(b, d, n)
+    return [u, dt, bc, log_a], dy, dh
+
+
+def reach_wkv_inputs(torch, case, gen):
+    name, b, t, h, k, chunk, dt_name = case
+    dtype = getattr(torch, REACH_DTYPES[dt_name])
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    r, kk, v = (rand(b, t, h, k).mul(0.5).to(dtype) for _ in range(3))
+    # Past chunk 64 weaker decays: the chunked form's mid-point factors
+    # exp(L_C / 2) stay inside float32 (the plain version's as the kernel's).
+    lw = (-torch.exp(rand(b, t, h, k)) * (0.1 if chunk > 64 else 1.0)).to(dtype)
+    u = rand(h, k).mul(0.2).to(dtype)
+    return [r, kk, v, lw, u], rand(b, t, h, k).to(dtype), rand(b, h, k, k)
+
+
+def reach_call(torch, family, case, leaves, outs_grad=None):
+    """The family's entry on ``leaves`` (forward; with ``outs_grad`` also
+    the gradients of every leaf through autograd)."""
+    from repro_torch.kernels.rwkv6_wkv import wkv
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    chunk = case[5]
+    if family == "ssm":
+        u, dt, bc, log_a = leaves
+        n = case[4]
+        outs = ssm_scan(u, dt, bc[..., :n], bc[..., n:], log_a, chunk=chunk)
+    else:
+        outs = wkv(*leaves, chunk=chunk)
+    if outs_grad is None:
+        return outs
+    return outs, torch.autograd.grad(outs, leaves, outs_grad)
+
+
+def reach_plain(torch, family, case, inputs, outs_grad=None):
+    """The plain forward on the inputs widened to float32, or with
+    ``outs_grad`` the plain backward (each input's gradient)."""
+    from repro_torch.kernels.rwkv6_wkv import wkv_backward_ref, wkv_chunked
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_backward_ref
+
+    wide = [x.float() for x in inputs]
+    if family == "ssm":
+        u, dt, bc, log_a = wide
+        n = case[4]
+        bt, ct = bc[..., :n], bc[..., n:]
+        if outs_grad is None:
+            return selective_scan_ref(u, dt, log_a, bt, ct)
+        du, ddt, db, dc, dla = ssm_scan_backward_ref(u, dt, bt, ct, log_a,
+                                                     outs_grad[0].float(), outs_grad[1])
+        return du, ddt, torch.cat([db, dc], dim=-1), dla
+    if outs_grad is None:
+        return wkv_chunked(*wide, chunk=case[5])
+    return wkv_backward_ref(*wide, outs_grad[0].float(), outs_grad[1])
+
+
+def reach_bounds(family, case):
+    """(forward (ms, by), backward (ms, by)) at the case's element size:
+    the forward's and backward's bytes (inputs read once, outputs written
+    once, states and u float32) and operations, as ``ssm_bound`` /
+    ``wkv_bound`` and their backward's count them."""
+    name, b, t, w, n, chunk, dt_name = case
+    elem = 2 if dt_name == "bf16" else 4
+    if family == "ssm":
+        fwd_bytes = elem * (3 * b * t * w + 2 * b * t * n + w * n) + 4 * b * w * n
+        bwd_bytes = elem * (5 * b * t * w + 4 * b * t * n + 2 * w * n) + 4 * b * w * n
+        fwd = roofline(fwd_bytes, 7 * b * t * w * n, "f32")
+        bwd = roofline(bwd_bytes, 16 * b * t * w * n, "f32")
+    else:
+        fwd_bytes = elem * (5 * b * t * w * n + w * n) + 4 * b * w * n * n
+        bwd_bytes = elem * (9 * b * t * w * n + 2 * w * n) + 4 * 2 * b * w * n * n
+        fwd = roofline(fwd_bytes, 4 * n * n * b * t * w, "f32")
+        bwd = roofline(bwd_bytes, 2 * (5 * n * n + 6 * WKV_BWD_CHUNK * n) * b * t * w, "tf32")
+    return fwd, bwd
+
+
+def reach_row(torch, family, case, gen):
+    """One case: outputs and gradients against the plain version, two
+    backward calls' bits, a bf16 case's outputs and gradients against the
+    same kernels' float32-copy call rounded, then each direction's
+    CUDA-event ms, device ms per call under ``torch.profiler`` with its
+    records, the plain version's ms and the bound."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    name = case[0]
+    label = f"reach {family} {name}"
+    inputs, dy, dh = (reach_ssm_inputs if family == "ssm" else reach_wkv_inputs)(torch, case, gen)
+    grads_out = (dy, dh)
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    outs, grads = reach_call(torch, family, case, leaves, grads_out)
+    _, again = reach_call(torch, family, case, leaves, grads_out)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+    if not bitwise:
+        raise AssertionError(f"reach {label}: two backward calls gave different bits")
+    want_y, want_h = reach_plain(torch, family, case, inputs)
+    want_grads = reach_plain(torch, family, case, inputs, grads_out)
+    rel = SSM_REL if family == "ssm" else WKV_REL
+    keys = ("u", "dt", "bc", "log_a") if family == "ssm" else ("r", "k", "v", "log_w", "u")
+    out_key = "y" if family == "ssm" else "out"
+    checks = {out_key: reach_check(label, out_key, outs[0], want_y, rel),
+              "state": reach_check(label, "state", outs[1], want_h, rel)}
+    for key, g, w in zip(keys, grads, want_grads):
+        checks["d" + key] = reach_check(label, "d" + key, g, w, KERNEL_BWD_REL)
+    if case[-1] == "bf16":
+        wide = [x.detach().float().requires_grad_() for x in inputs]
+        w_outs, w_grads = reach_call(torch, family, case, wide, (dy.float(), dh))
+        reach_same_bits(label, outs, w_outs)
+        reach_same_bits(label, grads, w_grads)
+    n_launch = (len(ssm_ops._groups(case[4])) if family == "ssm" else 1)
+    fwd_profile = SSM_PROFILE_PREFIX if family == "ssm" else WKV_PROFILE_PREFIX
+    fwd_kernels = n_launch * (1 if family == "ssm" else WKV_KERNELS)
+    bwd_profile = SSM_BWD_PROFILE if family == "ssm" else WKV_BWD_PROFILE
+    bwd_kernels = n_launch * BWD_KERNELS_PER_CALL[bwd_profile]
+    plain_in = [x.float() for x in inputs]
+
+    def forward():
+        return reach_call(torch, family, case, inputs)
+
+    def backward():
+        return reach_call(torch, family, case, leaves, grads_out)
+
+    def plain_forward():
+        return reach_plain(torch, family, case, plain_in)
+
+    def plain_backward():
+        return reach_plain(torch, family, case, plain_in, grads_out)
+
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = reach_bounds(family, case)
+    rows = {}
+    for direction, fn, profile, kernels, bound, by in (
+            ("forward", forward, fwd_profile, fwd_kernels, fwd_bound, fwd_by),
+            ("backward", backward, None, bwd_kernels, bwd_bound, bwd_by)):
+        ms = cuda_ms(torch, fn, 10, warmup=2)
+        if direction == "forward":
+            _, named, _, records = profile_device(torch, fn, 10, (profile,),
+                                                  launches={profile: kernels}, sole=True)
+            device, recs = named[profile], records[profile]
+        else:  # the forward of the same call beside it: the backward's kernels alone
+            _, named, _, records = profile_device(torch, fn, 10, (bwd_profile,),
+                                                  launches={bwd_profile: kernels})
+            device, recs = named[bwd_profile], records[bwd_profile]
+        rows[direction] = dict(ms=ms, device_ms=device, records=recs, calls=10 * kernels,
+                               bound_ms=bound, bound_by=by)
+    rows["forward"]["plain_ms"] = event_timed(torch, plain_forward)[1]
+    rows["backward"]["plain_ms"] = event_timed(torch, plain_backward)[1]
+    fwd_keys = (out_key, "state")
+    bwd_keys = tuple(k for k in checks if k not in fwd_keys)
+    for direction, ks in (("forward", fwd_keys), ("backward", bwd_keys)):
+        row = rows[direction]
+        row.update(errs={k: checks[k][0] for k in ks}, tols={k: checks[k][1] for k in ks},
+                   steps={k: checks[k][2] for k in ks if checks[k][2] is not None},
+                   max_abs_err=max(checks[k][0] for k in ks), library_ms=None,
+                   bitwise_repeat=bitwise)
+    return rows
+
+
+def reach_kernel_entries(rows, path, reduced_counts):
+    """(name, source, replaces, row, launches) of each instance in
+    ``REACH_KERNEL_ROWS`` but the bf16 scan's at N=16, forward and
+    backward: the launches phase 33 made for the bf16 scan at N=8 (reduced
+    hymba-1.5b's CLI runs), phase 34's driven path for the rest."""
+    entries = []
+    for name, family, case, key in REACH_KERNEL_ROWS[1:]:
+        wrapper = "ssm_scan" if family == "ssm" else "rwkv6_wkv"
+        replaces = SSM_REPLACES if family == "ssm" else WKV_REPLACES
+        sources = ((SSM_SOURCE_REL, SSM_BWD_SOURCE_REL) if family == "ssm"
+                   else (WKV_SOURCE_REL, WKV_BWD_SOURCE_REL))
+        for direction, source, kernel in (("forward", sources[0], wrapper),
+                                          ("backward", sources[1], BACKWARD_OF[wrapper])):
+            entry = name.replace(wrapper, kernel)
+            launches = reduced_counts.get(entry, path.get((kernel, key), 0))
+            entries.append((entry, source, replaces, rows[(family, case)][direction], launches))
+    return entries
+
+
+def phase_reach(torch):
+    """Phase 34: the driven path (every case once forward and backward
+    through the public entries, the counts set to 0 just before and read
+    just after, by instance), then each case's rows (``reach_row``).  Each
+    case lies inside its wrapper's reach (``reach_error``)."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(34)
+    cases = [("ssm", c) for c in REACH_SSM_CASES] + [("wkv", c) for c in REACH_WKV_CASES]
+    for family, (name, b, t, w, n, chunk, dt_name) in cases:
+        ops = ssm_ops if family == "ssm" else wkv_ops
+        why = ops.reach_error(getattr(torch, REACH_DTYPES[dt_name]), n, min(chunk, t))
+        if why:
+            raise AssertionError(f"reach {family} {name}: {why}")
+    inputs = {}
+    for family, case in cases:
+        make = reach_ssm_inputs if family == "ssm" else reach_wkv_inputs
+        inputs[(family, case[0])] = make(torch, case, gen)
+    reset_launches()
+    for family, case in cases:
+        x, dy, dh = inputs[(family, case[0])]
+        leaves = [t.detach().requires_grad_() for t in x]
+        reach_call(torch, family, case, leaves, (dy, dh))
+    torch.cuda.synchronize()
+    path = read_instance_launches()
+    log("reach", "path launches by instance " + ", ".join(
+        f"{name}{list(key)}={n}" for (name, key), n in sorted(path.items(), key=str)))
+    del inputs
+    rows = {}
+    for family, case in cases:
+        rows[(family, case[0])] = row = reach_row(torch, family, case, gen)
+        name, b, t, w, n, chunk, dt_name = case
+        dims = (f"B={b} T={t} D={w} N={n}" if family == "ssm" else f"B={b} T={t} H={w} K={n}")
+        for direction in ("forward", "backward"):
+            r = row[direction]
+            log("reach", f"{family} {direction} {name}: {dims} chunk={chunk} {dt_name}: max_abs_err "
+                + " ".join(f"{k}={e:.3e} (tol {r['tols'][k]:.3e}"
+                           + (f", bf16 steps {r['steps'][k]:.2f}" if k in r["steps"] else "")
+                           + ")" for k, e in r["errs"].items())
+                + f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) device_ms={r['device_ms']:.4f} "
+                f"records={r['records']}/{r['calls']} device_ms_from="
+                f"{device_ms_from(r['records'])} bitwise_repeat={r['bitwise_repeat']}"
+                + (" same bits as the float32-copy call rounded" if dt_name == "bf16" else ""))
+    for family, wrapper in (("ssm", "ssm_scan"), ("wkv", "rwkv6_wkv")):
+        for _, fam, _, key in REACH_KERNEL_ROWS:
+            if fam == family and not (path.get((wrapper, key)) and
+                                      path.get((BACKWARD_OF[wrapper], key))):
+                raise AssertionError(f"reach: {wrapper}{key} or its backward did not launch")
+    return rows, path
 
 
 # Layers of hymba-1.5b's float32 node-gradient check.  At all 32 layers the
@@ -3195,6 +3688,7 @@ def phase_train_ssm(torch, which):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend, loop, _, rows, counts = sharded_loop(torch, False, TRAIN_EPOCHS, cfg=cfg, arch=arch)
+    instances = read_instance_launches()
     peak = torch.cuda.max_memory_allocated()
     n = len(rows[0]["batches"])
     want = expected_training_launches(cfg, n)
@@ -3229,6 +3723,8 @@ def phase_train_ssm(torch, which):
             + ", ".join(f"{k}* {named[k]:.3f} ms (records {records[k]}/{profile[k]})"
                         for k in profile)
             + f"; forward launches per step {per_node * cfg.n_layers} of each of {list(fwd)}")
+    if which == "hymba":
+        hymba_route_check(torch, backend, batches, b_max)
     del backend, loop
     gc.collect()
     torch.cuda.empty_cache()
@@ -3269,7 +3765,10 @@ def phase_train_ssm(torch, which):
     torch.cuda.empty_cache()
 
     t2 = time.perf_counter()
+    reset_launches()
     node_grad_check(torch, arch, grad_layers, phase=label)
+    torch.cuda.synchronize()
+    grad_instances = read_instance_launches()  # the float32 node gradient's alone
     gc.collect()
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
@@ -3281,7 +3780,52 @@ def phase_train_ssm(torch, which):
     log(label, f"phase in {time.perf_counter() - t0:.1f} s: two-program {t1 - t0:.1f} s, fused "
         f"{t2 - t1:.1f} s, node gradient {t3 - t2:.1f} s, CLI {time.perf_counter() - t3:.1f} s; "
         f"peak_mem_gb={peak / 1e9:.3f} (the two training runs)")
-    return counts
+    return counts, instances, grad_instances
+
+
+def hymba_route_check(torch, backend, batches, b_max):
+    """Phase 19's node step at the largest batch of the last plan through
+    the scan call site that hands the kernel bf16 tensors and through the
+    one before (float32 copies, ``hymba_float_route``), in this process:
+    the node gradient bit for bit, each route's device ms, scan parts and
+    peak memory above what was resident."""
+    b = max(batches)
+    raw = backend.data.batch(0, b_max)
+    tok = torch.as_tensor(raw["tokens"], device=DEVICE)
+    lab = torch.as_tensor(raw["labels"], device=DEVICE)
+    msk = (torch.arange(b_max, device=DEVICE) < b).float()
+    cfg = backend.api.cfg
+    # The scan's kernels a step: its forward (twice under remat) and the
+    # backward's two, each layer.
+    profile = {SSM_PROFILE_PREFIX: (4 if cfg.remat else 3) * cfg.n_layers}
+    grads, rows = {}, {}
+    for route, ctx in (("bf16 call site", contextlib.nullcontext),
+                       ("float32 copies (before)", hymba_float_route)):
+        with ctx():
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads[route] = [g.clone() for g in backend.node_grads(tok, lab, msk)]
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - resident
+            wall_ms, dev, idle, named, records = node_step_profile(
+                torch, backend, backend.data, b, b_max, profile)
+        rows[route] = (dev, peak)
+        log("training (hymba)", f"node step (b={b} of padded {b_max}) through the {route}: "
+            f"wall {wall_ms:.2f} ms, device {dev:.2f} ms (idle share {idle:.4f}), selective-scan "
+            f"kernels {named[SSM_PROFILE_PREFIX]:.3f} ms (records "
+            f"{records[SSM_PROFILE_PREFIX]}/{profile[SSM_PROFILE_PREFIX]}, device_ms_from "
+            f"{device_ms_from(records[SSM_PROFILE_PREFIX])}), peak above resident "
+            f"{peak / 1e9:.3f} GB")
+    new, old = grads.values()
+    same = len(new) == len(old) and all(torch.equal(a, c) for a, c in zip(new, old))
+    (dev_new, peak_new), (dev_old, peak_old) = rows.values()
+    log("training (hymba)", f"node gradient equal bit for bit across the two call sites: {same}; "
+        f"device ms {dev_new:.2f} vs {dev_old:.2f} before ({dev_new - dev_old:+.2f}), peak "
+        f"{peak_new / 1e9:.3f} vs {peak_old / 1e9:.3f} GB before")
+    if not same:
+        raise AssertionError("hymba-1.5b node gradient: the bf16 call site's differs from the "
+                             "float32 copies'")
 
 
 def phase_model_dense_configs(torch):
@@ -4618,10 +5162,13 @@ REDUCED_INSTANCES = {
     "flash_attention_backward[bf16,16]": ("flash_attention_backward", ("bf16", 16, 16)),
     "flash_attention[bf16,48x32]": ("flash_attention", ("bf16", 48, 32)),
     "flash_attention_backward[bf16,48x32]": ("flash_attention_backward", ("bf16", 48, 32)),
-    "rwkv6_wkv[32]": ("rwkv6_wkv", (32,)),
-    "rwkv6_wkv_backward[32]": ("rwkv6_wkv_backward", (32,)),
-    "ssm_scan[8]": ("ssm_scan", (8,)),
-    "ssm_scan_backward[8]": ("ssm_scan_backward", (8,)),
+    "rwkv6_wkv[32]": ("rwkv6_wkv", ("f32", 32)),
+    "rwkv6_wkv_backward[32]": ("rwkv6_wkv_backward", ("f32", 32)),
+    "ssm_scan[8]": ("ssm_scan", ("f32", 8)),
+    "ssm_scan_backward[8]": ("ssm_scan_backward", ("f32", 8)),
+    # reduced hymba-1.5b's own bf16 (the CLI's runs), since the scan takes it
+    "ssm_scan[bf16,8]": ("ssm_scan", ("bf16", 8)),
+    "ssm_scan_backward[bf16,8]": ("ssm_scan_backward", ("bf16", 8)),
     "flash_attention[f32,16]": ("flash_attention", ("f32", 16, 16)),
     "flash_attention_backward[f32,16]": ("flash_attention_backward", ("f32", 16, 16)),
     "flash_attention[f32,32]": ("flash_attention", ("f32", 32, 32)),
@@ -4861,6 +5408,15 @@ def main() -> int:
             log("done", f"--only dryrun passed in {time.perf_counter() - t_start:.1f} s")
             print(card)
             return 0
+        if sys.argv[1:] == ["--only", "reach"]:
+            enter("kernel reach")
+            phase_reach(torch)
+            log("done", f"--only reach passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
         if sys.argv[1:] == ["--only", "train-ssm"]:
             enter("kernel (wkv and ssm bwd)")
             phase_kernel_backwards(torch)
@@ -4898,10 +5454,11 @@ def main() -> int:
         enter("model (hymba)")
         reset_launches()
         phase_model_hymba(torch)
+        hymba_f32_instances = read_instance_launches()  # the float32 forward's alone
         torch.cuda.empty_cache()
         enter("serving (hymba)")
         hymba_counts = phase_serving_hymba(
-            torch, rows[HYMBA_FLASH_CASE]["ms"], ssm_rows[SSM_MAIN_CASE]["ms"])
+            torch, rows[HYMBA_FLASH_CASE]["ms"], ssm_rows[SSM_MAIN_BF16_CASE]["ms"])
         log("serving", f"hymba-1.5b path launches {hymba_counts}")
         if hymba_counts != no_launches(flash_attention=32, ssm_scan=32):
             raise AssertionError("the hymba-1.5b path must launch the flash-attention and "
@@ -4930,9 +5487,9 @@ def main() -> int:
         ssm_bwd_rows = phase_kernel_backwards(torch)
         torch.cuda.empty_cache()
         enter("training (rwkv6)")
-        rwkv6_train_counts = phase_train_ssm(torch, "rwkv6")
+        rwkv6_train_counts, _, _ = phase_train_ssm(torch, "rwkv6")
         enter("training (hymba)")
-        hymba_train_counts = phase_train_ssm(torch, "hymba")
+        _, hymba_train_instances, hymba_grad_instances = phase_train_ssm(torch, "hymba")
         gc.collect()
         torch.cuda.empty_cache()
         run_moe_phases(torch, enter)
@@ -4953,12 +5510,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         enter("reduced configs")
         reduced_counts = phase_reduced(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("kernel reach")
+        reach_rows, reach_path = phase_reach(torch)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-33); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-34); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -4967,14 +5528,18 @@ def main() -> int:
          olmo_counts["flash_attention"]),
         ("rwkv6_wkv", WKV_SOURCE_REL, WKV_REPLACES, wkv_rows[WKV_MAIN_CASE],
          rwkv6_counts["rwkv6_wkv"]),
+        # The scan's float32 instance at N=16 on hymba-1.5b's float32 paths:
+        # phase 10's forward and phase 19's float32 node gradient (the
+        # counts set to 0 just before each).
         ("ssm_scan", SSM_SOURCE_REL, SSM_REPLACES, ssm_rows[SSM_MAIN_CASE],
-         hymba_counts["ssm_scan"]),
+         hymba_f32_instances.get(("ssm_scan", ("f32", 16)), 0)),
         ("flash_attention_backward", SOURCE_REL, REPLACES, bwd_rows[BWD_MAIN_CASE],
          train_counts["flash_attention_backward"]),
         ("rwkv6_wkv_backward", WKV_BWD_SOURCE_REL, WKV_REPLACES,
          ssm_bwd_rows[("wkv", WKV_BWD_MAIN_CASE)], rwkv6_train_counts["rwkv6_wkv_backward"]),
         ("ssm_scan_backward", SSM_BWD_SOURCE_REL, SSM_REPLACES,
-         ssm_bwd_rows[("ssm", SSM_BWD_MAIN_CASE)], hymba_train_counts["ssm_scan_backward"]),
+         ssm_bwd_rows[("ssm", SSM_BWD_MAIN_CASE)],
+         hymba_grad_instances.get(("ssm_scan_backward", ("f32", 16)), 0)),
         # The MLA instance (q/k 192, v 128) on deepseek-v2-236b's paths: the
         # 1024-token forward of phase 25 and the node steps of phase 26.
         ("flash_attention[192,128]", SOURCE_REL, REPLACES, rows[DEEPSEEK_CASE],
@@ -5022,7 +5587,21 @@ def main() -> int:
          reduced_counts["ssm_scan[8]"]),
         ("ssm_scan_backward[8]", SSM_BWD_SOURCE_REL, SSM_REPLACES,
          ssm_bwd_rows[("ssm", SSM_REDUCED_BWD_CASE)], reduced_counts["ssm_scan_backward[8]"]),
+        # The bf16 scan at N=16, the instance hymba-1.5b's bf16 main path
+        # runs: its rows are phases 9 and 17's at hymba's shapes in bf16,
+        # its launches phase 19's bf16 training run's (the counts set to 0
+        # just before it).
+        ("ssm_scan[bf16,16]", SSM_SOURCE_REL, SSM_REPLACES, ssm_rows[SSM_MAIN_BF16_CASE],
+         hymba_train_instances.get(("ssm_scan", ("bf16", 16)), 0)),
+        ("ssm_scan_backward[bf16,16]", SSM_BWD_SOURCE_REL, SSM_REPLACES,
+         ssm_bwd_rows[("ssm", SSM_BWD_MAIN_BF16_CASE)],
+         hymba_train_instances.get(("ssm_scan_backward", ("bf16", 16)), 0)),
+        # The reach's other instances on phase 34's driven path.
+        *reach_kernel_entries(reach_rows, reach_path, reduced_counts),
     ):
+        if not launches:
+            print(f"chip_smoke: {name} was not launched on its path", file=sys.stderr)
+            return 1
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -5036,6 +5615,8 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "device_ms": main_row["device_ms"],
+            "device_records": main_row["records"],
+            "device_ms_from": device_ms_from(main_row["records"]),
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,12 +12,21 @@
 //   scores(t, s) = (r_t . exp(L_{t-1} - L_mid)) . (k_s . exp(L_mid - L_s)), s < t
 //   out_t        = scores v + (r_t . u . k_t) v_t + (r_t . exp(L_{t-1})) S_c
 //   S_{c+1}      = exp(L_C) . S_c + (k . exp(L_C - L))^T v
-// with S_c the state entering chunk c.  Inputs and output are float32;
-// r/k/v/log_w (B,T,H,K) are read in place through their strides, out is
-// (B,T,H,K), the final state (B,H,K,K).  K is a template parameter,
-// instantiated at 32 (the reduced rwkv6-7b config) and 64 (the published
-// one); 1 <= C <= 64.  The ragged last chunk is zero-filled (r = k = v = 0,
-// log-decay 0), so the final state is the padded form's.
+// with S_c the state entering chunk c.  r/k/v/log_w (B,T,H,K) share one
+// element type T, float32 or bfloat16 (a template parameter), and are read
+// in place through their strides: float32 rows as 16-byte cp.async
+// copies, bfloat16 rows as 8-byte loads of 4 elements widened before the
+// 3xTF32 split and stored as float32 tiles.  out (B,T,H,K) is in T,
+// rounded once; u (H,K), the final state (B,H,K,K) and the chunk states
+// are float32.  K is a template parameter, instantiated at 32 (the reduced
+// rwkv6-7b config), 64 (the published one) and 128; ops.py runs any head
+// size up to 128 on the first that holds it, r, k, v, log_w and u padded
+// by zero channels (a log-decay of 0 is inside the clamp), whose state
+// rows and columns stay 0.  1 <= C <= 128 (C <= 64 at K = 128, whose pass
+// B would not fit in shared memory at 128 rows); a chunk over 64 runs on
+// 128-row tiles, its rows past C zero.  The ragged last chunk is
+// zero-filled (r = k = v = 0, log-decay 0), so the final state is the
+// padded form's.
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s float32 off the tensor
 // cores): at B=1, T=1024, H=64, K=64 the function must move r, k, v, lw
@@ -74,13 +83,17 @@
 // states and writes out.  At least 84.9 + 117.4 = 202 MB of device-memory
 // traffic (60 us at the memory rate) where L2 keeps none of the chunk
 // states, against the function's 84.9 MB.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxChunk = 64;
+typedef __nv_bfloat16 bf16;
+
+constexpr int kMaxChunk = 128;
+constexpr int kMaxChunkK128 = 64;  // pass B's tiles at K = 128 and 128 rows pass 227 KB
 constexpr int kComputeA = 128;     // pass A: four compute warps ...
 constexpr int kThreadsA = kComputeA + 32;  // ... and one that publishes S_c
 constexpr int kRows = 16;          // state rows per pass-A block
@@ -91,7 +104,7 @@ constexpr int kWarpsB = kThreadsB / 32;
 constexpr int kUnitNt = 2;         // pass B: 8-column output tiles per warp unit
 constexpr int kKdP = kRows + 8;
 
-// What follows the head size K (32 or 64).  Row pitches (floats) are
+// What follows the head size K (32, 64 or 128).  Row pitches (floats) are
 // chosen so that mma fragment loads are free of bank conflicts: tiles read
 // as A[row][k] (or as a B given as [n][k]) have pitch = 4 mod 32, tiles
 // read as B[k][n] pitch = 8 mod 32 (or 24 mod 32); both hold at either K.
@@ -99,9 +112,9 @@ constexpr int kKdP = kRows + 8;
 // reuses (4 mod 32: two-way conflicts).
 template <int K>
 struct Dims {
-  static_assert(K == 32 || K == 64, "head sizes 32 and 64");
+  static_assert(K == 32 || K == 64 || K == 128, "head sizes 32, 64 and 128");
   static constexpr int kStP = K + 8;  // row pitch of pass A's S_c staging tiles
-  // 8-column state tiles per compute warp of pass A: 2 at K = 64, 1 at 32.
+  // 8-column state tiles per compute warp of pass A: 4 at K = 128, 2 at 64, 1 at 32.
   static constexpr int kNtA = K / 8 / (kComputeA / 32);
   static constexpr int kSegsB = kThreadsB / K;  // cumsum segments per channel, pass B
   static constexpr int kUnits = K / 8 / kUnitNt;  // pass B's warp units per 16 rows
@@ -115,9 +128,9 @@ constexpr float kLogDecayMin = -4.6f;
 enum { kR = 0, kKey = 1, kV = 2, kW = 3, kO = 4 };
 
 struct Params {
-  const float* in[4];  // r, k, v, log_w
+  const void* in[4];   // r, k, v, log_w: the element type T
   const float* u;      // (H, K) contiguous
-  float* out;
+  void* out;           // (B, T, H, K): T
   float* state;        // (B, H, K, K) contiguous
   float* states;       // (B, H, nc, K, K) contiguous: S_c entering chunk c
   int* ready;          // (B, H, nc): pass-A blocks that have published S_c
@@ -156,11 +169,37 @@ __device__ __forceinline__ float clamp_decay(float x) {
   return fminf(fmaxf(x, kLogDecayMin), 0.f);
 }
 
+// Output elements j and j + 1 at `o` (element j, an even offset), in T.
+__device__ __forceinline__ void store_pair(float* o, float o0, float o1) {
+  *reinterpret_cast<float2*>(o) = make_float2(o0, o1);
+}
+
+__device__ __forceinline__ void store_pair(bf16* o, float o0, float o1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(o0, o1);
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int src_size = valid ? 16 : 0;  // 0: zero-fill, read nothing
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
                "r"(src_size));
+}
+
+// Four elements of a row from `src` into the float32 tile at `dst`, zero
+// where !valid (src is not read then): a 16-byte cp.async copy (float32),
+// or an 8-byte load widened and stored (bfloat16).
+__device__ __forceinline__ void stage4(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+
+__device__ __forceinline__ void stage4(float* dst, const bf16* src, bool valid) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src);
+    x = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                    __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  }
+  *reinterpret_cast<float4*>(dst) = x;
 }
 
 __device__ __forceinline__ int load_acquire(const int* p) {
@@ -250,8 +289,8 @@ __device__ __forceinline__ FragB load_b_t(const float* m, int pitch, int k0, int
 // C16 rows): k and log_w of this block's 16 channels and v (all K
 // columns) into one ring stage.  Rows past a chunk's end are zero-filled;
 // chunks past the last are not copied (nor used).
-template <int K, int C16>
-__device__ __forceinline__ void load_states_step(const float* k, const float* lw, const float* v,
+template <int K, int C16, typename T>
+__device__ __forceinline__ void load_states_step(const T* k, const T* lw, const T* v,
                                                  const Params& p, int step, float* stage,
                                                  int tid) {
   constexpr int G = chunks_per_step(C16);
@@ -271,8 +310,8 @@ __device__ __forceinline__ void load_states_step(const float* k, const float* lw
       const int j = (i & 3) * 4;
       const bool valid = t < n;
       const long long tt = t0 + (valid ? t : 0);
-      cp_async16(kb + (r0 + t) * kRows + j, k + tt * p.st[kKey] + j, valid);
-      cp_async16(wb + (r0 + t) * kRows + j, lw + tt * p.st[kW] + j, valid);
+      stage4(kb + (r0 + t) * kRows + j, k + tt * p.st[kKey] + j, valid);
+      stage4(wb + (r0 + t) * kRows + j, lw + tt * p.st[kW] + j, valid);
     }
     constexpr int vecs = Dims<K>::kVecs;
     for (int i = tid; i < C16 * vecs; i += kComputeA) {
@@ -280,7 +319,7 @@ __device__ __forceinline__ void load_states_step(const float* k, const float* lw
       const int j = (i % vecs) * 4;
       const bool valid = t < n;
       const long long tt = t0 + (valid ? t : 0);
-      cp_async16(vb + (r0 + t) * Dims<K>::kVP + j, v + tt * p.st[kV] + j, valid);
+      stage4(vb + (r0 + t) * Dims<K>::kVP + j, v + tt * p.st[kV] + j, valid);
     }
   }
 }
@@ -314,10 +353,10 @@ __device__ __forceinline__ void put_state(float* s, int pitch, const float (&S)[
 
 // Pass A: the states entering every chunk, and the final state.  A block
 // owns 16 rows of one head's state.  A step takes G chunks of C16 rows at
-// once (G C16 <= 64): one cumsum phase and one product phase for all G,
-// each chunk's product in its own accumulators, then the G state updates
-// one after another.
-template <int K, int C16>
+// once (G C16 <= 64, or one chunk of 128 rows): one cumsum phase and one
+// product phase for all G, each chunk's product in its own accumulators,
+// then the G state updates one after another.
+template <int K, int C16, typename T>
 __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -344,9 +383,9 @@ __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int d0 = blockIdx.y * kRows;
-  const float* k = p.in[kKey] + b * p.sb[kKey] + h * p.sh[kKey] + d0;
-  const float* lw = p.in[kW] + b * p.sb[kW] + h * p.sh[kW] + d0;
-  const float* v = p.in[kV] + b * p.sb[kV] + h * p.sh[kV];
+  const T* k = static_cast<const T*>(p.in[kKey]) + b * p.sb[kKey] + h * p.sh[kKey] + d0;
+  const T* lw = static_cast<const T*>(p.in[kW]) + b * p.sb[kW] + h * p.sh[kW] + d0;
+  const T* v = static_cast<const T*>(p.in[kV]) + b * p.sb[kV] + h * p.sh[kV];
   float* states = p.states + (long long)bh * nc * K * K;
   int* ready = p.ready + (long long)bh * nc;
   const int steps = (nc + G - 1) / G;
@@ -473,7 +512,7 @@ __global__ void __launch_bounds__(kThreadsA) wkv_states_kernel(Params p) {
 }
 
 // Pass B: one chunk's output from its inputs and S_c.
-template <int K, int C16>
+template <int K, int C16, typename T>
 __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -508,13 +547,13 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
     const int pitch[4] = {kRP, kRP, kVP, kRP};
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      const float* src = p.in[x] + b * p.sb[x] + h * p.sh[x];
+      const T* src = static_cast<const T*>(p.in[x]) + b * p.sb[x] + h * p.sh[x];
       for (int i = tid; i < C16 * vecs; i += kThreadsB) {
         const int t = i / vecs;
         const int j = (i % vecs) * 4;
         const bool valid = t < n;
         const long long tt = t0 + (valid ? t : 0);
-        cp_async16(dst[x] + t * pitch[x] + j, src + tt * p.st[x] + j, valid);
+        stage4(dst[x] + t * pitch[x] + j, src + tt * p.st[x] + j, valid);
       }
     }
     cp_async_commit();
@@ -617,7 +656,7 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
 
   // 4. out = scores v + rq S_c + bonus . v: a warp per 16 rows x kUnitNt
   //    8-column tiles.
-  float* o = p.out + b * p.sb[kO] + h * p.sh[kO];
+  T* o = static_cast<T*>(p.out) + b * p.sb[kO] + h * p.sh[kO];
   constexpr int kUnits = Dims<K>::kUnits;
   for (int i = warp; i < mtiles * kUnits; i += kWarpsB) {
     const int mt = i / kUnits;
@@ -644,13 +683,12 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
       const int t = mt * 16 + g + 8 * half;
       if (t >= n) continue;
       const float bonus = dg[t];
-      float* ot = o + (long long)(t0 + t) * p.st[kO];
+      T* ot = o + (long long)(t0 + t) * p.st[kO];
 #pragma unroll
       for (int nt = 0; nt < kUnitNt; ++nt) {
         const int j = n0 + nt * 8 + 2 * q;
-        *reinterpret_cast<float2*>(ot + j) =
-            make_float2(fmaf(bonus, vb[t * kVP + j], acc[nt][2 * half]),
-                        fmaf(bonus, vb[t * kVP + j + 1], acc[nt][2 * half + 1]));
+        store_pair(ot + j, fmaf(bonus, vb[t * kVP + j], acc[nt][2 * half]),
+                   fmaf(bonus, vb[t * kVP + j + 1], acc[nt][2 * half + 1]));
       }
     }
   }
@@ -658,20 +696,39 @@ __global__ void __launch_bounds__(kThreadsB) wkv_out_kernel(Params p) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// Both passes at head size K on `stream`: the flags' memset, pass A, then
-// pass B as its programmatic dependent.
-template <int K>
-int launch(const Params& p, int bh, long long n_states, cudaStream_t stream) {
+typedef void (*KernelFn)(Params);
+
+template <int K, int C16, typename T>
+void pick(KernelFn& states_kernel, KernelFn& out_kernel) {
+  states_kernel = wkv_states_kernel<K, C16, T>;
+  out_kernel = wkv_out_kernel<K, C16, T>;
+}
+
+// Both passes at head size K and element type T on `stream`: the flags'
+// memset, pass A, then pass B as its programmatic dependent.  K <= 64 runs
+// instances at the call's own padded chunk length p.C16, in either type
+// (so a bfloat16 call sums in the order of its float32 copy's); K = 128
+// runs 64-row tiles, its rows past the chunk zero.
+template <int K, typename T>
+int launch(Params p, int bh, long long n_states, cudaStream_t stream) {
+  constexpr bool kEveryTile = K <= 64;
+  if (!kEveryTile) p.C16 = 64;
+  KernelFn states_kernel = nullptr, out_kernel = nullptr;
+  if constexpr (kEveryTile) {
+    switch (p.C16) {
+      case 16: pick<K, 16, T>(states_kernel, out_kernel); break;
+      case 32: pick<K, 32, T>(states_kernel, out_kernel); break;
+      case 48: pick<K, 48, T>(states_kernel, out_kernel); break;
+      default: break;
+    }
+  }
+  if (p.C16 == 64) pick<K, 64, T>(states_kernel, out_kernel);
+  if constexpr (K <= 64) {  // K = 128 takes chunks up to 64
+    if (p.C16 == 128) pick<K, 128, T>(states_kernel, out_kernel);
+  }
+  if (states_kernel == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes_a = states_smem_floats<K>(p.C16) * sizeof(float);
   const size_t bytes_b = out_smem_floats<K>(p.C16) * sizeof(float);
-  void (*states_kernel)(Params) = wkv_states_kernel<K, 64>;
-  void (*out_kernel)(Params) = wkv_out_kernel<K, 64>;
-  switch (p.C16) {
-    case 16: states_kernel = wkv_states_kernel<K, 16>; out_kernel = wkv_out_kernel<K, 16>; break;
-    case 32: states_kernel = wkv_states_kernel<K, 32>; out_kernel = wkv_out_kernel<K, 32>; break;
-    case 48: states_kernel = wkv_states_kernel<K, 48>; out_kernel = wkv_out_kernel<K, 48>; break;
-    default: break;
-  }
   cudaError_t err = cudaFuncSetAttribute(states_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_a);
   if (err != cudaSuccess) return (int)err;
@@ -706,46 +763,52 @@ extern "C" {
 
 // The C entry's argument block, packed by ops.py (_ENTRY_ARGS).
 struct EntryArgs {
-  const void* in[4];         // r, k, v, log_w
-  const void* u;             // (H, K) contiguous
-  void* out;                 // (B, T, H, K)
-  void* state;               // (B, H, K, K) contiguous
+  const void* in[4];         // r, k, v, log_w: one element type
+  const void* u;             // (H, K) contiguous float32
+  void* out;                 // (B, T, H, K), the inputs' element type
+  void* state;               // (B, H, K, K) contiguous float32
   void* states;              // (B, H, n_chunks, K, K) float32 scratch, then (B, H,
                              // n_chunks) int32 flags
   long long strides[20];     // (batch, time, head, channel) of r, k, v, log_w, out
   void* stream;
-  int B, T, H, K, chunk, unused;
+  int B, T, H, K, chunk;
+  int in_bf16;               // 1: r, k, v, log_w and out bfloat16, else float32
 };
 static_assert(sizeof(EntryArgs) == 256, "EntryArgs must match ops.py's packing");
 
 // Returns the first non-zero cudaError_t of the flags' memset and the two
-// launches (0 on success), or kLayoutRejected (-1) when K is neither 32 nor
-// 64 (ops.py's HEAD_SIZES), the chunk is over 64, or a tensor is not read
-// as 16-byte rows (base 16-byte aligned, channel stride 1, every other
-// stride of a dim longer than 1 a multiple of 4); nothing is launched then.
+// launches (0 on success), or kLayoutRejected (-1) when K is not 32, 64 or
+// 128 (ops.py pads the others), the chunk is over 128 (over 64 at K =
+// 128), or an input is not read as rows of 4-element vectors (a 16-byte
+// aligned base for float32, 8-byte for bfloat16; channel stride 1; every
+// other stride of a dim longer than 1 a multiple of 4).  Nothing is
+// launched then.
 int wkv_forward(const EntryArgs* a) {
   if (a->B < 1 || a->T < 1 || a->H < 1 || a->chunk < 1) return (int)cudaErrorInvalidValue;
   const int C = a->chunk < a->T ? a->chunk : a->T;
-  if ((a->K != 32 && a->K != 64) || C > kMaxChunk) return kLayoutRejected;
+  if ((a->K != 32 && a->K != 64 && a->K != 128) || C > kMaxChunk ||
+      (a->K == 128 && C > kMaxChunkK128))
+    return kLayoutRejected;
   const int sizes[3] = {a->B, a->T, a->H};
+  const uintptr_t align = a->in_bf16 ? 8 : 16;
   for (int x = 0; x < 5; ++x) {
     const void* ptr = x < 4 ? a->in[x] : a->out;
     const long long* st = a->strides + 4 * x;
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 || st[3] != 1) return kLayoutRejected;
+    if (reinterpret_cast<uintptr_t>(ptr) % align || st[3] != 1) return kLayoutRejected;
     for (int dim = 0; dim < 3; ++dim) {
       if (sizes[dim] > 1 && st[dim] % 4) return kLayoutRejected;
     }
   }
   Params p;
-  for (int x = 0; x < 4; ++x) p.in[x] = static_cast<const float*>(a->in[x]);
+  for (int x = 0; x < 4; ++x) p.in[x] = a->in[x];
   p.u = static_cast<const float*>(a->u);
-  p.out = static_cast<float*>(a->out);
+  p.out = a->out;
   p.state = static_cast<float*>(a->state);
   p.states = static_cast<float*>(a->states);
   p.T = a->T;
   p.H = a->H;
   p.C = C;
-  p.C16 = round16(C);
+  p.C16 = round16(C) > 64 ? 128 : round16(C);
   p.nc = (a->T + C - 1) / C;
   const long long n_states = (long long)a->B * a->H * p.nc;
   p.ready = reinterpret_cast<int*>(p.states + n_states * a->K * a->K);
@@ -755,8 +818,19 @@ int wkv_forward(const EntryArgs* a) {
     p.sh[x] = a->strides[4 * x + 2];
   }
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  return a->K == 32 ? launch<32>(p, a->B * a->H, n_states, stream)
-                    : launch<64>(p, a->B * a->H, n_states, stream);
+  const int bh = a->B * a->H;
+  if (a->in_bf16) {
+    switch (a->K) {
+      case 32: return launch<32, bf16>(p, bh, n_states, stream);
+      case 64: return launch<64, bf16>(p, bh, n_states, stream);
+      default: return launch<128, bf16>(p, bh, n_states, stream);
+    }
+  }
+  switch (a->K) {
+    case 32: return launch<32, float>(p, bh, n_states, stream);
+    case 64: return launch<64, float>(p, bh, n_states, stream);
+    default: return launch<128, float>(p, bh, n_states, stream);
+  }
 }
 
 }  // extern "C"

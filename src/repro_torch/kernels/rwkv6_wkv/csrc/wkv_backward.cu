@@ -16,12 +16,18 @@
 //   dlog_w_t[i] = sum_j dS_T[i, j] S_T[i, j]
 //               + sum_{t' > t} r_t'[i] (S_{t'-1} dout_t')[i]
 //               - sum_{t' >= t} k_t'[i] (G_t' v_t')[i].
-// Inputs r/k/v/log_w/dout are float32 (B,T,H,K), read in place through
-// their strides (rows of K floats as 16-byte vectors, the forward's
-// layout rule); u (H,K) and the final state (B,H,K,K) contiguous.  K is a
-// template parameter, instantiated at 32 (the reduced rwkv6-7b config) and
-// 64 (the published one), as the forward; the chunk limit (<= 64) is the
-// forward's.
+// Inputs r/k/v/log_w/dout (B,T,H,K) share one element type T, float32 or
+// bfloat16 (a template parameter), read in place through their strides
+// (rows of K elements as 16-byte cp.async copies in float32, as 8-byte
+// loads widened as they are staged in bfloat16: the forward's layout
+// rule); u (H,K) and the final state (B,H,K,K) float32, contiguous.  dr,
+// dk, dv and dlog_w go out in T, each rounded once from its float32 value
+// (in bfloat16 dr's state term, which the second kernel adds to, goes
+// through a float32 buffer); du in float32 (ops.py rounds it to u's
+// dtype).  K is a template parameter, instantiated at 32 (the reduced
+// rwkv6-7b config), 64 (the published one) and 128, as the forward, which
+// ops.py pads other head sizes to.  The forward's chunk does not enter:
+// this kernel runs its own chunk of kChunk steps.
 //
 // Bound on an H100 SXM at one node's training slice (B=40, T=512, H=64):
 // the function reads r, k, v, log_w and dout and writes dr, dk, dv and
@@ -68,24 +74,26 @@
 // v, log_w and dout and writes dr's state term, the second reads it back
 // with r, k, v, log_w and dout and writes dr, dk, dv and dlog_w: 15 x
 // 335.5 MB = 5.03 GB, 1.50 ms at the memory rate.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxChunk = 64;     // the forward's limit
+typedef __nv_bfloat16 bf16;
+
 constexpr int kChunk = 32;        // steps per chunk here
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSP = kChunk + 4;   // C x C tiles, read as A[row][k]
 
-// What follows the head size K (32 or 64).  Every warp split below is
+// What follows the head size K (32, 64 or 128).  Every warp split below is
 // written in these: at K = 64 a warp's share of a 32-row output is two
-// 8-column tiles, at K = 32 one.
+// 8-column tiles, at K = 32 one, at 128 four.
 template <int K>
 struct Dims {
-  static_assert(K == 32 || K == 64, "head sizes 32 and 64");
+  static_assert(K == 32 || K == 64 || K == 128, "head sizes 32, 64 and 128");
   static constexpr int kVecs = K / 4;            // float4s per row
   static constexpr int kSegs = kThreads / K;     // cumsum segments per channel: 4 or 8
   static constexpr int kSegLen = kChunk / kSegs;  // their rows: 8 or 4
@@ -101,6 +109,12 @@ struct Dims {
   static constexpr int kTw = K / 32;
   static constexpr int kMt = K / 16;
   static constexpr int kSNt = K / 8 / (kWarps / kMt);
+  // Sweep 2 keeps r exp(L_p) in a buffer of its own, so that chunk c - 1
+  // lands while chunk c forms G; at K = 128 that buffer would pass the
+  // shared memory, so G's update scales rr there and chunk c - 1 lands
+  // after it (the same products, the same bits).
+  static constexpr bool kKeepRq = K < 128;
+  static constexpr int kBlocks = K < 128 ? 2 : 1;  // blocks an SM
 };
 constexpr int kLayoutRejected = -1;
 constexpr float kLogDecayMin = -4.6f;
@@ -108,14 +122,15 @@ constexpr float kLogDecayMin = -4.6f;
 enum { kR = 0, kKey = 1, kV = 2, kW = 3, kDo = 4 };
 
 struct Params {
-  const float* in[5];    // r, k, v, log_w, dout
+  const void* in[5];     // r, k, v, log_w, dout: the element type T
   const float* u;        // (H, K)
   const float* state;    // (B, H, K, K): the forward's final state
   const float* d_state;  // (B, H, K, K) or null
-  float* dr;             // (B, T, H, K) contiguous, as are dk, dv, dlw
-  float* dk;
-  float* dv;
-  float* dlw;
+  void* dr;              // (B, T, H, K) contiguous, as are dk, dv, dlw: T
+  void* dk;
+  void* dv;
+  void* dlw;
+  float* drs;            // (B, T, H, K) contiguous float32: dr's state term in bfloat16
   float* du;             // (H, K)
   float* partial;        // (B, H, K): du per (b, h)
   int B, T, H, nc;
@@ -132,6 +147,25 @@ __device__ __forceinline__ long long out_row(const Params& p, int b, int t, int 
   return (((long long)b * p.T + t) * p.H + h) * K;
 }
 
+// dr's state term: dr itself in float32, a float32 buffer of its own in
+// bfloat16.
+template <typename T>
+__device__ __forceinline__ float* dr_state(const Params& p) {
+  return sizeof(T) == 4 ? static_cast<float*>(p.dr) : p.drs;
+}
+
+// An output element, or elements i and i + 1 at `o` (an even offset), in T.
+__device__ __forceinline__ void put(float* o, float x) { *o = x; }
+__device__ __forceinline__ void put(bf16* o, float x) { *o = __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ void put_pair(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void put_pair(bf16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
@@ -144,17 +178,34 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Four elements of a row from `src` into the float32 tile at `dst`, zero
+// where !valid (src is not read then), as in wkv.cu: a 16-byte cp.async
+// copy (float32), or an 8-byte load widened and stored (bfloat16).
+__device__ __forceinline__ void stage4(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+
+__device__ __forceinline__ void stage4(float* dst, const bf16* src, bool valid) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src);
+    x = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                    __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  }
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
 // Stage chunk c's rows of input x (zero past row n) into a tile of pitch
-// `pitch`, as 16-byte copies by every thread.
-template <int K>
+// `pitch`, as 4-element vectors by every thread.
+template <int K, typename T>
 __device__ __forceinline__ void stage(const Params& p, int x, int b, int h, int t0, int n,
                                       float* tile, int pitch) {
   constexpr int kVecs = Dims<K>::kVecs;
-  const float* src = p.in[x] + b * p.sb[x] + h * p.sh[x];
+  const T* src = static_cast<const T*>(p.in[x]) + b * p.sb[x] + h * p.sh[x];
   for (int i = threadIdx.x; i < kChunk * kVecs; i += kThreads) {
     const int t = i / kVecs, j = (i % kVecs) * 4;
     const bool valid = t < n;
-    cp_async16(tile + t * pitch + j, src + (long long)(t0 + (valid ? t : 0)) * p.st[x] + j, valid);
+    stage4(tile + t * pitch + j, src + (long long)(t0 + (valid ? t : 0)) * p.st[x] + j, valid);
   }
 }
 
@@ -208,6 +259,20 @@ __device__ __forceinline__ FragA load_a_t(const float* m, int pitch, int row0, i
   split_tf32(p[8], f.hi[1], f.lo[1]);
   split_tf32(p[4 * pitch], f.hi[2], f.lo[2]);
   split_tf32(p[4 * pitch + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// load_a_t of m[k][row] scale[row]: each element times its row's factor,
+// rounded as the product stored in a tile of its own would be.
+__device__ __forceinline__ FragA load_a_t_scaled(const float* m, int pitch, int row0, int k0,
+                                                 int g, int q, const float* scale) {
+  FragA f;
+  const float* p = m + (k0 + q) * pitch + row0 + g;
+  const float s0 = scale[row0 + g], s1 = scale[row0 + g + 8];
+  split_tf32(p[0] * s0, f.hi[0], f.lo[0]);
+  split_tf32(p[8] * s1, f.hi[1], f.lo[1]);
+  split_tf32(p[4 * pitch] * s0, f.hi[2], f.lo[2]);
+  split_tf32(p[4 * pitch + 8] * s1, f.hi[3], f.lo[3]);
   return f;
 }
 
@@ -289,8 +354,8 @@ struct StateSmem {
 };
 
 // Sweep 1: dr's state term, chunks forward.
-template <int K>
-__global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
+template <int K, typename T>
+__global__ void __launch_bounds__(kThreads, Dims<K>::kBlocks) wkv_bwd_state_kernel(Params p) {
   using D = Dims<K>;
   constexpr int kP4 = D::kP4, kP8 = D::kP8, kSegLen = D::kSegLen;
   extern __shared__ float4 smem4[];
@@ -301,10 +366,10 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
   auto stage_chunk = [&](int c) {
     const int t0 = c * kChunk, n = min(kChunk, p.T - t0);
     StateIn<K>& in = sm.in[c & 1];
-    stage<K>(p, kKey, b, h, t0, n, in.kd, kP8);
-    stage<K>(p, kV, b, h, t0, n, in.v, kP8);
-    stage<K>(p, kW, b, h, t0, n, in.f, kP4);
-    stage<K>(p, kDo, b, h, t0, n, in.dout, kP4);
+    stage<K, T>(p, kKey, b, h, t0, n, in.kd, kP8);
+    stage<K, T>(p, kV, b, h, t0, n, in.v, kP8);
+    stage<K, T>(p, kW, b, h, t0, n, in.f, kP4);
+    stage<K, T>(p, kDo, b, h, t0, n, in.dout, kP4);
     cp_async_commit();
   };
   for (int i = tid; i < K * kP4; i += kThreads) sm.S[i] = 0.f;
@@ -381,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_state_kernel(Params p) {
       for (int half = 0; half < 2; ++half) {
         const int t = mt * 16 + g + 8 * half;
         if (t >= n) continue;
-        float* out = p.dr + out_row<K>(p, b, t0 + t, h);
+        float* out = dr_state<T>(p) + out_row<K>(p, b, t0 + t, h);
 #pragma unroll
         for (int j = 0; j < kTw; ++j) {
           const int i = (nt0 + j) * 8 + 2 * q;
@@ -441,7 +506,8 @@ struct GradSmem {
   float dbuf[2][kChunk * kP8];  // dout / rr = r exp(L_p - L_m)
   float v[kChunk * kP4];
   float em[kChunk * kP4];       // log_w, then exp(L_m - L)
-  float rq[kChunk * kP8];       // r exp(L_p)
+  float rq[Dims<K>::kKeepRq ? kChunk * kP8 : 4];  // r exp(L_p), while kKeepRq (else 4 floats:
+                                                  // what follows stays 16-byte aligned)
   float vdt[kChunk * kSP];      // v_t . dout_s for s > t
   float at[kChunk * kSP];       // kn_t . rr_s for s > t
   float G[K * kP4];             // the gradient of the state leaving the chunk
@@ -455,8 +521,8 @@ struct GradSmem {
 // Sweep 2: dr, dk, dv, dlog_w and du's (b, h) part, chunks backward.
 // Warps 0-3 form dk (a K/4-column slice of both 16-row halves each), warps
 // 4-7 dv; then all warps the next G (16 rows x 8 kSNt columns each).
-template <int K>
-__global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
+template <int K, typename T>
+__global__ void __launch_bounds__(kThreads, Dims<K>::kBlocks) wkv_bwd_grad_kernel(Params p) {
   using D = Dims<K>;
   constexpr int kP4 = D::kP4, kP8 = D::kP8, kSegLen = D::kSegLen, kSegs = D::kSegs;
   constexpr int kTw = D::kTw;
@@ -469,11 +535,11 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
   const long long sbase = (long long)bh * K * K;
   auto stage_chunk = [&](int c) {
     const int t0 = c * kChunk, n = min(kChunk, p.T - t0);
-    stage<K>(p, kR, b, h, t0, n, sm.rbuf[c & 1], kP4);
-    stage<K>(p, kKey, b, h, t0, n, sm.kbuf[c & 1], kP4);
-    stage<K>(p, kV, b, h, t0, n, sm.v, kP4);
-    stage<K>(p, kW, b, h, t0, n, sm.em, kP4);
-    stage<K>(p, kDo, b, h, t0, n, sm.dbuf[c & 1], kP8);
+    stage<K, T>(p, kR, b, h, t0, n, sm.rbuf[c & 1], kP4);
+    stage<K, T>(p, kKey, b, h, t0, n, sm.kbuf[c & 1], kP4);
+    stage<K, T>(p, kV, b, h, t0, n, sm.v, kP4);
+    stage<K, T>(p, kW, b, h, t0, n, sm.em, kP4);
+    stage<K, T>(p, kDo, b, h, t0, n, sm.dbuf[c & 1], kP8);
     cp_async_commit();
   };
   for (int i = tid; i < K * K; i += kThreads) {
@@ -550,7 +616,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
         sm.em[a] = em;
         const float knv = kv * em;
         rr[a8] = rrv;
-        sm.rq[a8] = rrv * elm;   // r exp(L_p)
+        if constexpr (D::kKeepRq) sm.rq[a8] = rrv * elm;   // r exp(L_p)
         kn[a] = knv;
         kdec[a] = knv * elm;     // k exp(L_C - L)
         du_part = fmaf(rv * kv, sm.vd[t], du_part);
@@ -595,7 +661,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
 #pragma unroll
             for (int j = 0; j < kTw; ++j) {
               const float2 d2 = *reinterpret_cast<const float2*>(
-                  p.dr + out_row<K>(p, b, t0 + t, h) + n0 + j * 8 + 2 * q);
+                  dr_state<T>(p) + out_row<K>(p, b, t0 + t, h) + n0 + j * 8 + 2 * q);
               ds[mt][half][j][0] = d2.x;
               ds[mt][half][j][1] = d2.y;
             }
@@ -659,8 +725,8 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
             }
             if (t < n) {
               const long long o = out_row<K>(p, b, t0 + t, h) + i;
-              *reinterpret_cast<float2*>(p.dr + o) = make_float2(dr2[0], dr2[1]);
-              *reinterpret_cast<float2*>(p.dk + o) = make_float2(dk2[0], dk2[1]);
+              put_pair(static_cast<T*>(p.dr) + o, dr2[0], dr2[1]);
+              put_pair(static_cast<T*>(p.dk) + o, dk2[0], dk2[1]);
             }
           }
         }
@@ -672,19 +738,22 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
           const int t = mt * 16 + g + 8 * half;
           if (t >= n) continue;
           const float ruk = sm.ruk[t];
-          float* out = p.dv + out_row<K>(p, b, t0 + t, h);
+          T* out = static_cast<T*>(p.dv) + out_row<K>(p, b, t0 + t, h);
 #pragma unroll
           for (int j = 0; j < kTw; ++j) {
             const int col = n0 + j * 8 + 2 * q;
-            *reinterpret_cast<float2*>(out + col) = make_float2(
+            put_pair(
+                out + col,
                 fmaf(ruk, dout[t * kP8 + col], acc[mt][j][2 * half] + acc[2 + mt][j][2 * half]),
                 fmaf(ruk, dout[t * kP8 + col + 1],
                      acc[mt][j][2 * half + 1] + acc[2 + mt][j][2 * half + 1]));
           }
         }
     }
-    __syncthreads();  // every read of G, v, kn, kdec, rr and em is done
-    if (c > 0) stage_chunk(c - 1);
+    __syncthreads();  // every read of G, v, kn, kdec, em (and rr but at K = 128) is done
+    if constexpr (D::kKeepRq) {
+      if (c > 0) stage_chunk(c - 1);
+    }
     {  // G <- exp(L_C) G + rq^T dout: rows 16 (warp % kMt) .., kSNt 8-column tiles.
       constexpr int kSNt = D::kSNt;
       const int mt = warp % D::kMt, c0 = (warp / D::kMt) * kSNt * 8;
@@ -702,7 +771,11 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
       }
 #pragma unroll
       for (int ks = 0; ks < kChunk / 8; ++ks) {
-        const FragA fa = load_a_t(sm.rq, kP8, mt * 16, ks * 8, g, q);
+        FragA fa;
+        if constexpr (D::kKeepRq)
+          fa = load_a_t(sm.rq, kP8, mt * 16, ks * 8, g, q);
+        else
+          fa = load_a_t_scaled(rr, kP8, mt * 16, ks * 8, g, q, sm.elm);
 #pragma unroll
         for (int j = 0; j < kSNt; ++j) mma3(a[j], fa, load_b(dout, kP8, ks * 8, c0 + j * 8, g, q));
       }
@@ -715,6 +788,10 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
           *reinterpret_cast<float2*>(sm.G + i * kP4 + c0 + j * 8 + 2 * q) =
               make_float2(a[j][2 * half], a[j][2 * half + 1]);
       }
+    }
+    if constexpr (!D::kKeepRq) {
+      __syncthreads();  // every read of rr is done
+      if (c > 0) stage_chunk(c - 1);
     }
     // dlog_w, channel ci over rows kSegLen sg ..: the running sum from the
     // chunk's right end, acc -= k dk_state, dlog_w = acc, acc += r dr_state.
@@ -741,7 +818,8 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_bwd_grad_kernel(Params p) {
         const int t = sg * kSegLen + row, a = t * kP4 + ci;
         acc_w -= kk[a];
         if (t < n)
-          p.dlw[out_row<K>(p, b, t0 + t, h) + ci] = sm.inside[t * K + ci] ? base + (rest + acc_w) : 0.f;
+          put(static_cast<T*>(p.dlw) + out_row<K>(p, b, t0 + t, h) + ci,
+              sm.inside[t * K + ci] ? base + (rest + acc_w) : 0.f);
         acc_w += r[a];
       }
     }
@@ -765,21 +843,23 @@ __global__ void __launch_bounds__(K) wkv_bwd_du_kernel(Params p) {
   p.du[h * K + i] = sum;
 }
 
-// The three kernels at head size K on `stream`.
-template <int K>
+// The three kernels at head size K and element type T on `stream`.
+template <int K, typename T>
 int launch(const Params& p, cudaStream_t stream) {
+  static_assert(sizeof(StateSmem<K>) <= 227 * 1024 && sizeof(GradSmem<K>) <= 227 * 1024,
+                "the backward's shared memory");
   const int bytes_state = (int)sizeof(StateSmem<K>), bytes_grad = (int)sizeof(GradSmem<K>);
-  cudaError_t err = cudaFuncSetAttribute(wkv_bwd_state_kernel<K>,
+  cudaError_t err = cudaFuncSetAttribute(wkv_bwd_state_kernel<K, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_state);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(wkv_bwd_grad_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(wkv_bwd_grad_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes_grad);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.B * p.H);
-  wkv_bwd_state_kernel<K><<<grid, kThreads, bytes_state, stream>>>(p);
+  wkv_bwd_state_kernel<K, T><<<grid, kThreads, bytes_state, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wkv_bwd_grad_kernel<K><<<grid, kThreads, bytes_grad, stream>>>(p);
+  wkv_bwd_grad_kernel<K, T><<<grid, kThreads, bytes_grad, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   wkv_bwd_du_kernel<K><<<p.H, K, 0, stream>>>(p);
@@ -792,40 +872,43 @@ extern "C" {
 
 // The C entry's argument block, packed by ops.py (_BACKWARD_ARGS).
 struct EntryArgs {
-  const void* in[5];       // r, k, v, log_w, dout: (B, T, H, K)
-  const void* u;           // (H, K) contiguous
-  const void* state;       // (B, H, K, K) contiguous: the forward's final state
-  const void* d_state;     // (B, H, K, K) contiguous, or null
+  const void* in[5];       // r, k, v, log_w, dout: (B, T, H, K), one element type
+  const void* u;           // (H, K) contiguous float32
+  const void* state;       // (B, H, K, K) contiguous float32: the forward's final state
+  const void* d_state;     // (B, H, K, K) contiguous float32, or null
   void* out[4];            // dr, dk, dv, dlog_w: (B, T, H, K) contiguous
   void* du;                // (H, K)
   void* partial;           // (B, H, K) float32 scratch
+  void* dr_state;          // (B, T, H, K) float32 scratch: dr's state term in bfloat16
   long long strides[20];   // (batch, time, head, channel) of r, k, v, log_w, dout
   void* stream;
-  int B, T, H, K, chunk, unused;
+  int B, T, H, K, chunk;
+  int in_bf16;             // 1: the inputs and dr, dk, dv, dlog_w bfloat16, else float32
 };
-static_assert(sizeof(EntryArgs) == 304, "EntryArgs must match ops.py's packing");
+static_assert(sizeof(EntryArgs) == 312, "EntryArgs must match ops.py's packing");
 
 // Returns the first non-zero cudaError_t of the three launches (0 on
-// success), or kLayoutRejected (-1) when K is neither 32 nor 64 (ops.py's
-// HEAD_SIZES), the chunk is over 64,
-// or an input is not read as 16-byte rows (base 16-byte aligned, channel
-// stride 1, every other stride of a dim longer than 1 a multiple of 4);
+// success), or kLayoutRejected (-1) when K is not 32, 64 or 128, the chunk
+// is over 128 (over 64 at K = 128), the forward's reach, or an input is
+// not read as rows of 4-element vectors (the forward's layout rule);
 // nothing is launched then.
 int wkv_backward(const EntryArgs* a) {
   if (a->B < 1 || a->T < 1 || a->H < 1 || a->chunk < 1) return (int)cudaErrorInvalidValue;
   const int C = a->chunk < a->T ? a->chunk : a->T;
-  if ((a->K != 32 && a->K != 64) || C > kMaxChunk) return kLayoutRejected;
+  if ((a->K != 32 && a->K != 64 && a->K != 128) || C > 128 || (a->K == 128 && C > 64))
+    return kLayoutRejected;
   const int sizes[3] = {a->B, a->T, a->H};
+  const uintptr_t align = a->in_bf16 ? 8 : 16;
   for (int x = 0; x < 5; ++x) {
     const long long* st = a->strides + 4 * x;
-    if (reinterpret_cast<uintptr_t>(a->in[x]) % 16 || st[3] != 1) return kLayoutRejected;
+    if (reinterpret_cast<uintptr_t>(a->in[x]) % align || st[3] != 1) return kLayoutRejected;
     for (int dim = 0; dim < 3; ++dim) {
       if (sizes[dim] > 1 && st[dim] % 4) return kLayoutRejected;
     }
   }
   Params p;
   for (int x = 0; x < 5; ++x) {
-    p.in[x] = static_cast<const float*>(a->in[x]);
+    p.in[x] = a->in[x];
     p.sb[x] = a->strides[4 * x];
     p.st[x] = a->strides[4 * x + 1];
     p.sh[x] = a->strides[4 * x + 2];
@@ -833,10 +916,11 @@ int wkv_backward(const EntryArgs* a) {
   p.u = static_cast<const float*>(a->u);
   p.state = static_cast<const float*>(a->state);
   p.d_state = static_cast<const float*>(a->d_state);
-  p.dr = static_cast<float*>(a->out[0]);
-  p.dk = static_cast<float*>(a->out[1]);
-  p.dv = static_cast<float*>(a->out[2]);
-  p.dlw = static_cast<float*>(a->out[3]);
+  p.dr = a->out[0];
+  p.dk = a->out[1];
+  p.dv = a->out[2];
+  p.dlw = a->out[3];
+  p.drs = static_cast<float*>(a->dr_state);
   p.du = static_cast<float*>(a->du);
   p.partial = static_cast<float*>(a->partial);
   p.B = a->B;
@@ -844,7 +928,18 @@ int wkv_backward(const EntryArgs* a) {
   p.H = a->H;
   p.nc = (a->T + kChunk - 1) / kChunk;
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  return a->K == 32 ? launch<32>(p, stream) : launch<64>(p, stream);
+  if (a->in_bf16) {
+    switch (a->K) {
+      case 32: return launch<32, bf16>(p, stream);
+      case 64: return launch<64, bf16>(p, stream);
+      default: return launch<128, bf16>(p, stream);
+    }
+  }
+  switch (a->K) {
+    case 32: return launch<32, float>(p, stream);
+    case 64: return launch<64, float>(p, stream);
+    default: return launch<128, float>(p, stream);
+  }
 }
 
 }  // extern "C"

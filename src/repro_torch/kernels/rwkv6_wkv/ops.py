@@ -1,13 +1,24 @@
-"""Public entry for the WKV kernel: model layout (B, T, H, K) + u (H, K).
+"""Public entry for the WKV kernel: model layout (B, T, H, K) + u (H, K),
+float32 or bfloat16.
 
 The signature of ``repro/kernels/rwkv6_wkv/ops.py::wkv``.  CUDA tensors go
 to the hand-written Hopper kernel in ``csrc/wkv.cu`` (two passes: the
 states entering every chunk, then every chunk's output), which reads r/k/
-v/log_w in place through their strides and masks the ragged last chunk
-itself; CPU tensors go to the plain version :func:`wkv_chunked`.  A CUDA
-call that the kernel does not take raises: there is no fallback.  The C
-entry refuses a head size, chunk or layout it cannot take, and
-:func:`layout_error` (the same rule, in Python) then says why.
+v/log_w in place through their strides in their own dtype, widens them to
+float32, and masks the ragged last chunk itself; out comes back in r's
+dtype, rounded once, the state float32.  The kernel is instantiated at
+the head sizes ``HEAD_SIZES``; a call of another head size runs on the
+first that holds it, on copies padded by zero channels (whose state rows
+and columns stay 0), and gets its own channels back.  r, k, v and log_w
+in two dtypes run as float32 copies, a bfloat16 view the kernel cannot
+read as 8-byte rows as a contiguous copy; u is read in float32.  CPU
+tensors go to the plain version :func:`wkv_chunked`, which widens every
+input first.  :func:`reach_error` says whether the kernel takes a call
+(head sizes up to 128, chunks up to ``MAX_CHUNK``, ``MAX_CHUNK_K128``
+past head size 64); a CUDA call outside that raises: there is no
+fallback.  The C entry also refuses a float32 layout it cannot read as
+16-byte rows, and :func:`layout_error` (the same rule, in Python) then
+says why.
 
 A CUDA call whose inputs require grad (with grad mode on) runs the same
 forward under :class:`_WKV`, whose backward launches the hand-written
@@ -18,8 +29,8 @@ version.
 
 ``wkv.launches`` counts calls that launch the kernel's passes, and
 ``wkv_backward.launches`` calls that launch the backward kernel; each
-also keeps ``launches_by_instance``, the same launches by head size
-``(K,)``.
+also keeps ``launches_by_instance``, the same launches by the instance
+that ran, ``(dtype name, head size of the instance)`` (``("f32", 64)``).
 
 Each launch is a ``torch.library`` custom op (``repro_torch::wkv_forward``,
 ``repro_torch::wkv_backward``) with a fake implementation for fake and
@@ -46,29 +57,38 @@ from repro_torch.kernels.sharded import local_over_batch_heads
 from repro_torch.sharding.context import is_dtensor
 
 __all__ = [
-    "wkv", "wkv_with_chunk_states", "wkv_backward", "layout_error", "SOURCE", "BACKWARD_SOURCE",
-    "HEAD_SIZES", "MAX_CHUNK",
+    "wkv", "wkv_with_chunk_states", "wkv_backward", "layout_error", "reach_error", "instance",
+    "SOURCE", "BACKWARD_SOURCE", "HEAD_SIZES", "MAX_CHUNK", "MAX_CHUNK_K128", "DTYPES",
 ]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 BACKWARD_SOURCE = SOURCE.with_name("wkv_backward.cu")
-# The head sizes K the CUDA kernels are instantiated for: the reduced
-# rwkv6-7b config's 32 and the published one's 64.
-HEAD_SIZES = (32, 64)
-MAX_CHUNK = 64
+# The head sizes the CUDA kernels are instantiated for: a call of head size
+# K runs on the first that holds K, padded by zero channels (the reduced
+# rwkv6-7b config's 32 and the published one's 64 run as they are).
+HEAD_SIZES = (32, 64, 128)
+# The longest chunk (chunks over 64 run on 128-row tiles), and the longest
+# at the 128 instance, whose second pass would not fit in shared memory on
+# 128-row tiles.
+MAX_CHUNK = 128
+MAX_CHUNK_K128 = 64
+# The element types the kernels read and write.
+DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 BACKWARD_CHUNK = 32  # the backward kernel's chunk (kChunk in wkv_backward.cu)
 _REJECTED = -1  # the C entry's code for a head size, chunk or layout it does not take
 
 # The C entry's argument block (``EntryArgs`` in the source): r, k, v,
 # log_w, u, out, state and chunk-state pointers; the (batch, time, head,
 # channel) strides of r, k, v, log_w and out; the stream; B, T, H, K,
-# chunk; one unused int.
+# chunk; whether the inputs and out are bfloat16.
 _ENTRY_ARGS = struct.Struct("=8Q20qQ6i")
 # The backward entry's block (``EntryArgs`` in wkv_backward.cu): r, k, v,
 # log_w, dout, u, final state, its gradient (0: none), dr, dk, dv, dlog_w,
-# du and scratch pointers; the (batch, time, head, channel) strides of r,
-# k, v, log_w and dout; the stream; B, T, H, K, chunk; one unused int.
-_BACKWARD_ARGS = struct.Struct("=14Q20qQ6i")
+# du, du-scratch and dr-state-term pointers; the (batch, time, head,
+# channel) strides of r, k, v, log_w and dout; the stream; B, T, H, K,
+# chunk; whether the inputs and their gradients are bfloat16.
+_BACKWARD_ARGS = struct.Struct("=15Q20qQ6i")
 
 
 def _entry(source: pathlib.Path, name: str):
@@ -107,6 +127,27 @@ def layout_error(shape: Sequence[int], strides: Sequence[int], ptr_mod_16: int) 
     return None
 
 
+def instance(k: int) -> int:
+    """The head size of the instance a head size ``k`` (<= 128) runs on."""
+    return next(size for size in HEAD_SIZES if k <= size)
+
+
+def reach_error(dtype: torch.dtype, k: int, chunk: int) -> Optional[str]:
+    """Why the CUDA kernels do not take a call whose r/k/v/log_w are
+    ``dtype`` at head size ``k`` and chunk ``chunk`` (the chunk a call
+    runs, ``min(chunk, T)``), naming the limit, or None when they do."""
+    if dtype not in DTYPES:
+        return f"the CUDA kernels take DTYPES = (float32, bfloat16), got {dtype}"
+    if not 1 <= k <= HEAD_SIZES[-1]:
+        return f"the CUDA kernels take head sizes up to HEAD_SIZES[-1] = {HEAD_SIZES[-1]}, got {k}"
+    if not 1 <= chunk <= MAX_CHUNK:
+        return f"the CUDA kernels take chunks of 1 to MAX_CHUNK = {MAX_CHUNK}, got {chunk}"
+    if instance(k) == HEAD_SIZES[-1] and chunk > MAX_CHUNK_K128:
+        return (f"the CUDA kernels take chunks of at most MAX_CHUNK_K128 = {MAX_CHUNK_K128} "
+                f"at head sizes over {HEAD_SIZES[-2]}, got {chunk} at {k}")
+    return None
+
+
 def _check(r, k, v, log_w, u, chunk) -> None:
     if r.dim() != 4:
         raise ValueError(f"r must be (B, T, H, K), got {tuple(r.shape)}")
@@ -120,45 +161,86 @@ def _check(r, k, v, log_w, u, chunk) -> None:
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     tensors = (r, k, v, log_w, u)
-    if not r.dtype == k.dtype == v.dtype == log_w.dtype == u.dtype == torch.float32:
-        raise ValueError(f"wkv takes float32, got {sorted({str(x.dtype) for x in tensors})}")
+    if any(x.dtype not in DTYPES for x in tensors):
+        raise ValueError(f"wkv takes float32 or bfloat16, got "
+                         f"{sorted({str(x.dtype) for x in tensors})}")
     if not r.device == k.device == v.device == log_w.device == u.device:
         raise ValueError("r, k, v, log_w and u must be on one device")
 
 
 def _rejected(r, k, v, log_w, c) -> ValueError:
-    kk = r.shape[-1]
-    if kk not in HEAD_SIZES:
-        return ValueError(f"the CUDA kernel takes head sizes HEAD_SIZES = {HEAD_SIZES}, "
-                          f"got {kk}")
-    if c > MAX_CHUNK:
-        return ValueError(f"the CUDA kernel takes chunks of at most {MAX_CHUNK}, got {c}")
+    why = reach_error(r.dtype, r.shape[-1], c)
+    if why:
+        return ValueError(why)
+    if any(x.stride(-1) != 1 for x in (r, k, v, log_w)):
+        return ValueError("the channel dim of r, k, v and log_w must be contiguous")
     why = [f"{name}: {err}" for name, x in (("r", r), ("k", k), ("v", v), ("log_w", log_w))
            if (err := layout_error(x.shape, x.stride(), x.data_ptr() % 16))]
-    return ValueError(f"the CUDA kernel copies rows as 16-byte vectors and cannot read "
+    return ValueError(f"the CUDA kernel copies float32 rows as 16-byte vectors and cannot read "
                       f"{'; '.join(why) or 'r, k, v or log_w'}")
+
+
+def _rows(x: torch.Tensor, ki: int) -> torch.Tensor:
+    """``x`` (..., K) as the kernels read it at instance ``ki``: padded by
+    zero channels to ``ki`` where K is short of it, and a bfloat16 view off
+    the 8-byte row rule (a base on 8 bytes, the channel dim contiguous,
+    every other stride a multiple of 4) copied contiguous.  A copy, not a
+    fallback: the same kernel runs."""
+    if x.shape[-1] < ki:
+        return torch.nn.functional.pad(x, (0, ki - x.shape[-1]))
+    if x.dtype == torch.bfloat16 and (
+            x.stride(-1) != 1 or x.data_ptr() % 8
+            or any(n > 1 and st % 4 for n, st in zip(x.shape[:-1], x.stride()[:-1]))):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def _square(x: torch.Tensor, ki: int) -> torch.Tensor:
+    """A (..., K, K) state padded by zero rows and columns to ``ki``: what
+    the kernels hold for the padded channels."""
+    kk = x.shape[-1]
+    return x if kk >= ki else torch.nn.functional.pad(x, (0, ki - kk, 0, ki - kk))
+
+
+def _channels(x: torch.Tensor, kk: int, dims: int = 1) -> torch.Tensor:
+    """The first ``kk`` channels of each of ``x``'s last ``dims`` dims,
+    contiguous: a padded call's own."""
+    if x.shape[-1] == kk:
+        return x
+    index = (Ellipsis,) + (slice(0, kk),) * dims
+    return x[index].contiguous()
+
+
+def _one_dtype(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``xs`` as they are when they share a dtype, else float32 copies of all."""
+    if len({x.dtype for x in xs}) == 1:
+        return xs
+    return tuple(x.float() for x in xs)
 
 
 @torch.library.custom_op("repro_torch::wkv_forward", mutates_args=(), device_types="cuda")
 def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
             u: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Both passes on the card; returns (out, final state, scratch), the
-    scratch starting with the chunk states."""
+    """Both passes on the card, r/k/v/log_w in one dtype; returns (out in
+    that dtype, final state, scratch), the scratch starting with the chunk
+    states at the instance's head size."""
     b, t, h, kk = r.shape
+    ki = instance(min(kk, HEAD_SIZES[-1]))
     c = min(chunk, t)
     n_chunks = -(-t // c)
     dev = r.device
-    u = u.contiguous()
-    out = torch.empty((b, t, h, kk), dtype=torch.float32, device=dev)
-    state = torch.empty((b, h, kk, kk), dtype=torch.float32, device=dev)
+    r, k, v, log_w = (_rows(x, ki) for x in (r, k, v, log_w))
+    u = _rows(u.float(), ki).contiguous()  # (H, K): read once a block
+    out = torch.empty((b, t, h, ki), dtype=r.dtype, device=dev)
+    state = torch.empty((b, h, ki, ki), dtype=torch.float32, device=dev)
     # The chunk states, then one int32 flag per chunk state (pass A -> pass B).
-    scratch = torch.empty(b * h * n_chunks * (kk * kk + 1), dtype=torch.float32, device=dev)
+    scratch = torch.empty(b * h * n_chunks * (ki * ki + 1), dtype=torch.float32, device=dev)
     args = _ENTRY_ARGS.pack(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
         out.data_ptr(), state.data_ptr(), scratch.data_ptr(),
         *r.stride(), *k.stride(), *v.stride(), *log_w.stride(), *out.stride(),
         _stream(dev),
-        b, t, h, kk, int(chunk), 0,
+        b, t, h, r.shape[-1], int(chunk), r.dtype == torch.bfloat16,
     )
     with torch.cuda.device(dev):
         rc = _kernel()(args)
@@ -167,17 +249,18 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tens
     if rc != 0:
         raise RuntimeError(f"wkv kernel launch failed: cudaError {rc}")
     wkv.launches += 1
-    wkv.launches_by_instance[(kk,)] += 1
-    return out, state, scratch
+    wkv.launches_by_instance[(_DTYPE_NAMES[r.dtype], ki)] += 1
+    return _channels(out, kk), _channels(state, kk, 2), scratch
 
 
 @_launch.register_fake
 def _(r, k, v, log_w, u, chunk):
     b, t, h, kk = r.shape
+    ki = instance(min(kk, HEAD_SIZES[-1]))
     n_chunks = -(-t // min(chunk, t))
-    return (r.new_empty((b, t, h, kk), dtype=torch.float32),
+    return (r.new_empty((b, t, h, kk)),
             r.new_empty((b, h, kk, kk), dtype=torch.float32),
-            r.new_empty((b * h * n_chunks * (kk * kk + 1),), dtype=torch.float32))
+            r.new_empty((b * h * n_chunks * (ki * ki + 1),), dtype=torch.float32))
 
 
 @register_flop_formula(torch.ops.repro_torch.wkv_forward)
@@ -191,9 +274,9 @@ def wkv(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
     *, chunk: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v/log_w: (B, T, H, K) float32; u: (H, K) float32.
-    Returns (out (B, T, H, K), final state (B, H, K, K) float32).
-    DTensors compute on each rank's shards."""
+    """r/k/v/log_w: (B, T, H, K); u: (H, K); float32 or bfloat16.
+    Returns (out (B, T, H, K) in r's dtype, final state (B, H, K, K)
+    float32).  DTensors compute on each rank's shards."""
     _check(r, k, v, log_w, u, chunk)
     if is_dtensor(r):
         return local_over_batch_heads(functools.partial(wkv, chunk=chunk), [r, k, v, log_w, u],
@@ -202,10 +285,24 @@ def wkv(
         return wkv_chunked(r, k, v, log_w, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv runs on cuda or cpu, not {r.device.type}")
+    _cuda_checks(r, chunk)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, log_w, u)):
         return _WKV.apply(r, k, v, log_w, u, chunk)
-    out, state, _ = _launch(r, k, v, log_w, u, chunk)
+    out, state, _ = _forward(r, k, v, log_w, u, chunk)
     return out, state
+
+
+def _cuda_checks(r, chunk) -> None:
+    why = reach_error(r.dtype, r.shape[-1], min(chunk, r.shape[1]))
+    if why:
+        raise ValueError(why)
+
+
+def _forward(r, k, v, log_w, u, chunk):
+    """:func:`_launch` with r/k/v/log_w in one dtype (float32 copies when
+    they are not, out cast once to r's)."""
+    out, state, scratch = _launch(*_one_dtype(r, k, v, log_w), u, chunk)
+    return out.to(r.dtype), state, scratch
 
 
 class _WKV(torch.autograd.Function):
@@ -216,7 +313,7 @@ class _WKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, log_w, u, chunk):
-        out, state, _ = _launch(r, k, v, log_w, u, chunk)
+        out, state, _ = _forward(r, k, v, log_w, u, chunk)
         ctx.save_for_backward(r, k, v, log_w, u, state)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
@@ -237,25 +334,34 @@ def _launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: t
                      d_state: Optional[torch.Tensor], chunk: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
-    """The backward kernel on ``r``'s device: (dr, dk, dv, dlog_w, du)."""
+    """The backward kernel on ``r``'s device, r/k/v/log_w/d_out in one
+    dtype: (dr, dk, dv, dlog_w) in that dtype, du in float32.  A head size
+    short of its instance runs padded by zero channels, as the forward,
+    the state and its gradient by zero rows and columns."""
     b, t, h, kk = r.shape
+    ki = instance(min(kk, HEAD_SIZES[-1]))
     dev = r.device
-    if d_out.stride(-1) != 1 or layout_error(d_out.shape, d_out.stride(), d_out.data_ptr() % 16):
+    if d_out.stride(-1) != 1 or (d_out.dtype == torch.float32 and layout_error(
+            d_out.shape, d_out.stride(), d_out.data_ptr() % 16)):
         d_out = d_out.contiguous()
-    u, state = u.contiguous(), state.contiguous()
-    if d_state is not None:
-        d_state = d_state.float().contiguous()
-    grads = [torch.empty((b, t, h, kk), dtype=torch.float32, device=dev) for _ in range(4)]
-    du = torch.empty((h, kk), dtype=torch.float32, device=dev)
-    partial = torch.empty((b, h, kk), dtype=torch.float32, device=dev)
+    r, k, v, log_w, d_out = (_rows(x, ki) for x in (r, k, v, log_w, d_out))
+    u = _rows(u.float(), ki).contiguous()
+    state, d_state = (None if x is None else _square(x.float(), ki).contiguous()
+                      for x in (state, d_state))
+    grads = [torch.empty((b, t, h, ki), dtype=r.dtype, device=dev) for _ in range(4)]
+    du = torch.empty((h, ki), dtype=torch.float32, device=dev)
+    partial = torch.empty((b, h, ki), dtype=torch.float32, device=dev)
+    # dr's state term, which the second kernel adds to: dr itself in float32.
+    dr_state = grads[0] if r.dtype == torch.float32 else torch.empty(
+        (b, t, h, ki), dtype=torch.float32, device=dev)
     inputs = (r, k, v, log_w, d_out)
     args = _BACKWARD_ARGS.pack(
         *(x.data_ptr() for x in inputs), u.data_ptr(), state.data_ptr(),
         0 if d_state is None else d_state.data_ptr(),
-        *(g.data_ptr() for g in grads), du.data_ptr(), partial.data_ptr(),
+        *(g.data_ptr() for g in grads), du.data_ptr(), partial.data_ptr(), dr_state.data_ptr(),
         *(st for x in inputs for st in x.stride()),
         _stream(dev),
-        b, t, h, kk, int(chunk), 0,
+        b, t, h, r.shape[-1], int(chunk), r.dtype == torch.bfloat16,
     )
     with torch.cuda.device(dev):
         rc = _backward_kernel()(args)
@@ -264,14 +370,14 @@ def _launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: t
     if rc != 0:
         raise RuntimeError(f"wkv backward kernel launch failed: cudaError {rc}")
     wkv_backward.launches += 1
-    wkv_backward.launches_by_instance[(kk,)] += 1
-    return (*grads, du)
+    wkv_backward.launches_by_instance[(_DTYPE_NAMES[r.dtype], ki)] += 1
+    return (*(_channels(g, kk) for g in grads), _channels(du, kk))
 
 
 @_launch_backward.register_fake
 def _(r, k, v, log_w, u, state, d_out, d_state, chunk):
     b, t, h, kk = r.shape
-    grads = [r.new_empty((b, t, h, kk), dtype=torch.float32) for _ in range(4)]
+    grads = [r.new_empty((b, t, h, kk)) for _ in range(4)]
     return (*grads, r.new_empty((h, kk), dtype=torch.float32))
 
 
@@ -291,18 +397,24 @@ def wkv_backward(
     """The gradient of :func:`wkv` (from a zero initial state) given the
     output's gradient ``d_out`` (B, T, H, K) and the final state's
     ``d_state`` (B, H, K, K; None is zero): (dr, dk, dv, dlog_w (B, T, H,
-    K), du (H, K)), float32.  ``state`` is the forward's final state.  CUDA
-    tensors go to the kernel in ``csrc/wkv_backward.cu`` (the forward's
-    limits: K in ``HEAD_SIZES``, chunk <= 64, 16-byte rows), CPU tensors to
+    K), du (H, K)), each in its input's dtype, rounded once from float32.
+    ``state`` is the forward's final state.  CUDA tensors go to the kernel
+    in ``csrc/wkv_backward.cu`` (the forward's reach and layout rule; r, k,
+    v, log_w and d_out in two dtypes run as float32 copies), CPU tensors to
     :func:`wkv_backward_ref`."""
     _check(r, k, v, log_w, u, chunk)
     if d_out.shape != r.shape:
         raise ValueError(f"d_out {tuple(d_out.shape)} != r {tuple(r.shape)}")
+    inputs = (r, k, v, log_w, u)
     if r.device.type == "cpu":
-        return wkv_backward_ref(r, k, v, log_w, u, d_out, d_state)
-    if r.device.type != "cuda":
+        grads = wkv_backward_ref(r, k, v, log_w, u, d_out, d_state)
+    elif r.device.type != "cuda":
         raise ValueError(f"wkv_backward runs on cuda or cpu, not {r.device.type}")
-    return _launch_backward(r, k, v, log_w, u, state, d_out.float(), d_state, chunk)
+    else:
+        _cuda_checks(r, chunk)
+        rr, kk, vv, ww, dd = _one_dtype(r, k, v, log_w, d_out)
+        grads = _launch_backward(rr, kk, vv, ww, u, state, dd, d_state, chunk)
+    return tuple(g.to(x.dtype) for g, x in zip(grads, inputs))
 
 
 def wkv_with_chunk_states(
@@ -316,10 +428,13 @@ def wkv_with_chunk_states(
     _check(r, k, v, log_w, u, chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv_with_chunk_states runs on cuda only, not {r.device.type}")
-    out, state, scratch = _launch(r, k, v, log_w, u, chunk)
+    _cuda_checks(r, chunk)
+    out, state, scratch = _forward(r, k, v, log_w, u, chunk)
     b, t, h, kk = r.shape
+    ki = instance(kk)
     n_chunks = -(-t // min(chunk, t))
-    return out, state, scratch[: b * h * n_chunks * kk * kk].view(b, h, n_chunks, kk, kk)
+    states = scratch[: b * h * n_chunks * ki * ki].view(b, h, n_chunks, ki, ki)
+    return out, state, states[..., :kk, :kk]
 
 
 wkv.launches = 0

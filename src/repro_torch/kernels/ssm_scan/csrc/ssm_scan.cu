@@ -8,17 +8,24 @@
 // with A = -exp(log_a) and a float32 state h:
 //   h_t[d, n] = exp(dt_t[d] A[d, n]) h_{t-1}[d, n] + (dt_t[d] u_t[d]) B_t[n]
 //   y_t[d]    = sum_n C_t[n] h_t[d, n]
-// u/dt (B,T,D), B/C (B,T,N) and log_a (D,N) are float32; y (B,T,D) and the
-// final state (B,D,N) are float32.  N is a template parameter,
-// instantiated at 8 (the reduced hymba-1.5b config) and 16 (the published
-// one); any B, D and T >= 1.
+// u/dt (B,T,D) and B/C (B,T,N) share one element type, float32 or bfloat16
+// (a template parameter); each value is widened to float32 in registers as
+// it is read, as _ssm_kernel widens each block it loads.  y (B,T,D) is in
+// that type, rounded once from the float32 sum; log_a (D,N), the final
+// state (B,D,N) and the backward's tile states are float32.  The state
+// size is a template parameter kN of 8, 16, 32 or 64 (the reduced
+// hymba-1.5b config's 8, the published one's 16); ops.py runs any N up to
+// kN on it with B, C and log_a padded by zero states (whose inject is 0,
+// so their h stays 0), and N over 64 as groups of 64 states.  Any B, D
+// and T >= 1; the reference's chunk does not change the function (padding
+// T leaves y[:T] and h as they are), and the kernel picks its own tiles.
 //
 // Bound on an H100 SXM (3.35 TB/s): at hymba-1.5b B=1, T=1024, D=3200,
 // N=16 the function must read u and dt and write y, about 39.3 MB, plus B,
-// C, log_a and the final state, about 0.6 MB: 39.9 MB, 11.9 us.  Its
-// 16 T D = 52.4 M decays take 12.5 us at the SFU's 16 exponentials per
-// clock and SM (132 SMs at 1.98 GHz), level with the bytes, so each decay
-// is computed exactly once here.
+// C, log_a and the final state, about 0.6 MB: 39.9 MB, 11.9 us (half of
+// the first term in bfloat16).  Its 16 T D = 52.4 M decays take 12.5 us at
+// the SFU's 16 exponentials per clock and SM (132 SMs at 1.98 GHz), level
+// with the bytes, so each decay is computed exactly once here.
 //
 // Structure.
 //   * The grid is sized to the card: a block takes `cb` channels of one
@@ -27,11 +34,12 @@
 //     one block per SM (v3: 400 blocks, 3 or 4 to an SM).
 //   * Time is split within the block: it walks T in tiles of sb * kSeg
 //     steps, and `sb` segments of kSeg = 8 steps each run side by side
-//     (sb = 7 at B=1: 7 x 25 x 2 = 350 threads, launched as 352).  Two
-//     threads share a (channel, segment), N / 2 states each (8 at N = 16,
-//     4 at N = 8), so y_t is a sum inside the thread plus one shuffle per
-//     two steps, with no per-step butterfly; dt u is formed once per thread
-//     and step, and B_t/C_t are 16-byte shared-memory broadcasts.
+//     (sb = 7 at B=1: 7 x 25 x 2 = 350 threads, launched as 352).  kLanes
+//     threads share a (channel, segment), kPer states each (2 x 4 at N = 8,
+//     2 x 8 at 16, 4 x 8 at 32, 8 x 8 at 64), so y_t is a sum inside the
+//     thread plus log2(kLanes) shuffles per kLanes steps, with no per-step
+//     butterfly; dt u is formed once per thread and step, and B_t/C_t are
+//     vector shared-memory broadcasts.
 //   * Pass 1 scans each segment from h = 0 and keeps its 64 decays in
 //     registers, with the local y; the segment's total decay P is
 //     exp2(A log2(e) * the sum of its dt), one more exponential per state
@@ -43,110 +51,133 @@
 //     to the local y.  No decay is computed twice and no intermediate
 //     leaves the SM; the state between tiles stays in shared memory.
 //   * Inputs are staged per tile by TMA (one thread issues a 2-D box each
-//     for u, dt, B and C, the last N floats wide: 32 bytes at N = 8, over
-//     TMA's 16-byte minimum; steps past T and channels past D come back as
-//     zeros) in a ring of three tiles on mbarriers, so no compute thread
+//     for u, dt, B and C in their own element type, the last N elements
+//     wide; steps past T and channels past D come back as zeros) in a
+//     ring of three tiles on mbarriers, so no compute thread
 //     spends instructions or queue slots on copies.  Where a base or stride
 //     breaks TMA's 16-byte rule the same ring is filled with 4-byte
-//     cp.async copies.  A zero step has dt = 0: its decay is exactly 1 (A is
-//     kept finite) and it leaves h unchanged.
+//     cp.async copies (float32) or plain loads (bfloat16, whose odd-D rows
+//     a 4-byte copy cannot read).  A zero step has dt = 0: its decay is
+//     exactly 1 (A is kept finite) and it leaves h unchanged.
 //   * The decay is exp2(dt * A log2(e)) on the SFU (ex2.approx), log2(e)
 //     folded into A once per thread.
 //   * Optionally (a call that carries gradients) the state entering every
-//     kBwdTile = 64 steps goes to a (B, T / 64, D, N) tensor, which the
-//     backward in ssm_scan_backward.cu starts its tiles from: the thread
-//     whose segment starts such a tile stores the state g it carried in.
+//     kBwdTile = 64 steps goes to a (B, T / 64, D, N) tensor, which
+//     the backward in ssm_scan_backward.cu starts its tiles from: the
+//     thread whose segment starts such a tile stores the state g it carried
+//     in.
 //
 // At N = 8 (reduced hymba-1.5b: D = 128, chunk 8) each thread keeps 4
 // states, one float4; a call at those shapes is launch-bound.
 //
-// Cost per state update, as compiled (the TMA instance's SASS at the main
-// case): about 1,080 warp instructions per thread and 64-update tile plus
-// about 22 per earlier segment in the carry, so 17-18 per update: 9.3
-// floating-point (1.125 of them exponentials, 59 M at the main case, 14.1
-// us at the SFU rate), 1.7 shared-memory loads, 3 integer and 1.6 control
-// (v3: about 19, over 400 unevenly placed blocks).  Device traffic is the
-// function's 39.9 MB plus B/C re-read from L2 once per block.  Measured on
-// the card it runs at about a quarter of the byte bound (PERF.md).
+// Cost per state update, as compiled (the float32 TMA instance's SASS at
+// the main case): about 1,080 warp instructions per thread and 64-update
+// tile plus about 22 per earlier segment in the carry, so 17-18 per update:
+// 9.3 floating-point (1.125 of them exponentials, 59 M at the main case,
+// 14.1 us at the SFU rate), 1.7 shared-memory loads, 3 integer and 1.6
+// control (v3: about 19, over 400 unevenly placed blocks).  Device traffic
+// is the function's 39.9 MB plus B/C re-read from L2 once per block.
+// Measured on the card it runs at about a quarter of the byte bound
+// (PERF.md).
 #include <cfloat>
 #include <cstdint>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kLanes = 2;          // threads per (channel, segment)
+typedef __nv_bfloat16 bf16;
+
 constexpr int kSeg = 8;            // steps per segment
-constexpr int kMaxGroups = 192;    // (channel, segment) groups per block
-constexpr int kMaxThreads = kLanes * kMaxGroups;
+constexpr int kMaxThreads = 384;   // threads per block
 constexpr int kMaxSegs = 16;       // segments per tile: tiles of at most 128 steps
 constexpr int kStages = 3;         // tiles in the ring
-constexpr int kMaxChunk = 128;     // the largest chunk the entry takes
 constexpr int kBwdTile = 64;       // steps per tile of the backward (kTile there)
+constexpr int kMaxSmem = 227 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  const float* u;
-  const float* dt;
-  const float* b;
-  const float* c;
+  const void* u;
+  const void* dt;
+  const void* b;
+  const void* c;
   const float* log_a;  // (D, N) contiguous
-  float* y;            // (B, T, D) contiguous
+  void* y;             // (B, T, D) contiguous, the inputs' element type
   float* h;            // (B, D, N) contiguous
   float* tiles;        // (B, ceil(T / kBwdTile), D, N) contiguous, or null
-  long long u_sb, u_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st;  // 4-byte path only
+  long long u_sb, u_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st;  // no-TMA path only
   int T, D;
   int cb, sb;          // channels per block, segments per tile
 };
 
-// Floats per staged row of u or dt.  A TMA box must start on a 16-byte
-// boundary, so a row holds columns [d0 & ~3, (d0 & ~3) + box_width): the
-// block's channels plus up to 3 to their left, rounded up to 16 bytes.
-__host__ __device__ inline int box_width(int cb) { return (cb + 3 + 3) / 4 * 4; }
-__host__ __device__ inline int round32(int floats) { return (floats + 31) / 32 * 32; }
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 
-// What follows the state size N (8 or 16): each of a (channel, segment)'s
-// kLanes threads keeps kPer states as kVec float4s.
+// A float32 value in T, rounded to nearest even.
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// Elements per staged row of u or dt.  A TMA box must start on a 16-byte
+// boundary, so a row holds columns [a0, a0 + box_width) with a0 the block's
+// first channel rounded down to 16 bytes: the block's channels plus up to
+// kAlign - 1 to their left, rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ inline int box_width(int cb) {
+  constexpr int kAlign = 16 / static_cast<int>(sizeof(T));
+  return (cb + 2 * (kAlign - 1)) / kAlign * kAlign;
+}
+
+// What follows the state size kN: each of a (channel, segment)'s kLanes
+// threads keeps kPer states, kVec float4s of them.
 template <int kN>
 struct Dims {
-  static_assert(kN == 8 || kN == 16, "state sizes 8 and 16");
-  static constexpr int kPer = kN / kLanes;  // states per thread
-  static constexpr int kVec = kPer / 4;     // float4s per thread's states
+  static_assert(kN == 8 || kN == 16 || kN == 32 || kN == 64, "state sizes 8, 16, 32 and 64");
+  static constexpr int kLanes = kN <= 16 ? 2 : kN / 8;   // threads per (channel, segment)
+  static constexpr int kPer = kN / kLanes;              // states per thread: 4 or 8
+  static constexpr int kVec = kPer / 4;                 // float4s per thread's states
+  static constexpr int kGroups = kMaxThreads / kLanes;  // (channel, segment) groups per block
 };
 
-// One ring stage, in floats: u and dt as (rows, box_width), then B and C as
-// (rows, N), each region starting on 128 bytes.
-template <int kN>
+// One ring stage, in elements of T: u and dt as (rows, box_width), then B
+// and C as (rows, kN), each region starting on 128 bytes.
+template <int kN, typename T>
 struct Stage {
-  int u, dt, b, c, floats;
+  int u, dt, b, c, elems;
   __host__ __device__ Stage(int cb, int rows) {
-    const int ud = round32(rows * box_width(cb));
-    const int bc = round32(rows * kN);
+    constexpr int kAlign = 128 / static_cast<int>(sizeof(T));
+    const int ud = (rows * box_width<T>(cb) + kAlign - 1) / kAlign * kAlign;
+    const int bc = (rows * kN + kAlign - 1) / kAlign * kAlign;
     u = 0;
     dt = ud;
     b = 2 * ud;
     c = 2 * ud + bc;
-    floats = 2 * ud + 2 * bc;
+    elems = 2 * ud + 2 * bc;
   }
 };
 
-// Threads per block: a pair per (channel, segment), rounded up to whole
+// Threads per block: kLanes per (channel, segment), rounded up to whole
 // warps (the spare threads compute nothing; TMA is issued from full warps).
+template <int kN>
 __host__ __device__ inline int block_threads(int cb, int sb) {
-  return (kLanes * cb * sb + 31) / 32 * 32;
+  return (Dims<kN>::kLanes * cb * sb + 31) / 32 * 32;
 }
 
 // Shared memory in bytes: the ring, the segments' (P, h) twice, the carry
 // twice, and one mbarrier per stage.
-template <int kN>
+template <int kN, typename T>
 __host__ __device__ inline int smem_bytes(int cb, int sb) {
-  constexpr int kVec = Dims<kN>::kVec;
-  const int threads = block_threads(cb, sb);
+  constexpr int kVec = Dims<kN>::kVec, kLanes = Dims<kN>::kLanes;
+  const int threads = block_threads<kN>(cb, sb);
   const int agg = 2 * 2 * kVec * 4 * threads;    // (P, h) per thread, two tiles
   const int carry = 2 * kVec * 4 * kLanes * cb;  // two tiles
-  const int floats = kStages * Stage<kN>(cb, sb * kSeg).floats + agg + carry;
-  return 4 * floats + 8 * kStages + 128;  // + 128: the base is aligned up to 128 bytes
+  const int ring = kStages * Stage<kN, T>(cb, sb * kSeg).elems * static_cast<int>(sizeof(T));
+  return ring + 4 * (agg + carry) + 8 * kStages + 128;  // + 128: the base is aligned up
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -208,6 +239,40 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// Two bfloat16 in a 32-bit word, widened: element 0 is the low half.
+__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+// kPer consecutive elements of a staged row of B or C, widened.
+template <int kPer>
+__device__ __forceinline__ void load_states(const float* src, float (&out)[kPer]) {
+#pragma unroll
+  for (int v = 0; v < kPer / 4; ++v) {
+    const float4 x = reinterpret_cast<const float4*>(src)[v];
+    out[4 * v] = x.x; out[4 * v + 1] = x.y; out[4 * v + 2] = x.z; out[4 * v + 3] = x.w;
+  }
+}
+
+template <int kPer>
+__device__ __forceinline__ void load_states(const bf16* src, float (&out)[kPer]) {
+  if constexpr (kPer == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    unpack2(x.x, out[0], out[1]);
+    unpack2(x.y, out[2], out[3]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kPer / 8; ++v) {
+      const uint4 x = reinterpret_cast<const uint4*>(src)[v];
+      unpack2(x.x, out[8 * v], out[8 * v + 1]);
+      unpack2(x.y, out[8 * v + 2], out[8 * v + 3]);
+      unpack2(x.z, out[8 * v + 4], out[8 * v + 5]);
+      unpack2(x.w, out[8 * v + 6], out[8 * v + 7]);
+    }
+  }
+}
+
 // The four tensor maps, by address: each must stay in the kernel's
 // parameter space (a __grid_constant__ parameter of its own).
 struct Maps {
@@ -216,56 +281,67 @@ struct Maps {
 
 // Stage time steps [t0, t0 + rows) of columns [a0, a0 + box_width) into `buf`.
 // TMA: one thread, completing on `bar`.  Otherwise every thread issues
-// 4-byte copies (zero-filled past T and D) as one cp.async group.
-template <int kN, bool kTma>
-__device__ __forceinline__ void load_tile(const Params& p, const Maps& maps, float* buf,
+// 4-byte copies (float32) or plain loads (bfloat16), zero past T and D, as
+// one cp.async group.
+template <int kN, bool kTma, typename T>
+__device__ __forceinline__ void load_tile(const Params& p, const Maps& maps, T* buf,
                                           uint32_t bar, int bidx, int a0, int t0) {
-  const int cb = p.cb, rows = p.sb * kSeg, W = box_width(cb);
-  const Stage<kN> st(cb, rows);
+  const int cb = p.cb, rows = p.sb * kSeg, W = box_width<T>(cb);
+  const Stage<kN, T> st(cb, rows);
   if constexpr (kTma) {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar, 4u * static_cast<uint32_t>(2 * rows * W + 2 * rows * kN));
+      mbar_expect_tx(bar, static_cast<uint32_t>(sizeof(T) * (2 * rows * W + 2 * rows * kN)));
       tma_load_3d(smem_u32(buf + st.u), maps.u, bar, a0, t0, bidx);
       tma_load_3d(smem_u32(buf + st.dt), maps.dt, bar, a0, t0, bidx);
       tma_load_3d(smem_u32(buf + st.b), maps.b, bar, 0, t0, bidx);
       tma_load_3d(smem_u32(buf + st.c), maps.c, bar, 0, t0, bidx);
     }
   } else {
-    const float* u = p.u + bidx * p.u_sb;
-    const float* dt = p.dt + bidx * p.dt_sb;
-    const float* b = p.b + bidx * p.b_sb;
-    const float* c = p.c + bidx * p.c_sb;
+    const T* u = static_cast<const T*>(p.u) + bidx * p.u_sb;
+    const T* dt = static_cast<const T*>(p.dt) + bidx * p.dt_sb;
+    const T* b = static_cast<const T*>(p.b) + bidx * p.b_sb;
+    const T* c = static_cast<const T*>(p.c) + bidx * p.c_sb;
     for (int idx = threadIdx.x; idx < rows * W; idx += blockDim.x) {
       const int r = idx / W, col = idx % W;
       const int t = t0 + r, d = a0 + col;
       const bool ok = t < p.T && d < p.D;
-      cp_async4(buf + st.u + idx, ok ? u + t * p.u_st + d : p.u, ok);
-      cp_async4(buf + st.dt + idx, ok ? dt + t * p.dt_st + d : p.dt, ok);
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(buf + st.u + idx, ok ? u + t * p.u_st + d : u, ok);
+        cp_async4(buf + st.dt + idx, ok ? dt + t * p.dt_st + d : dt, ok);
+      } else {
+        buf[st.u + idx] = ok ? u[t * p.u_st + d] : narrow<T>(0.f);
+        buf[st.dt + idx] = ok ? dt[t * p.dt_st + d] : narrow<T>(0.f);
+      }
     }
     for (int idx = threadIdx.x; idx < rows * kN; idx += blockDim.x) {
       const int r = idx / kN, n = idx % kN;
       const int t = t0 + r;
       const bool ok = t < p.T;
-      cp_async4(buf + st.b + idx, ok ? b + t * p.b_st + n : p.b, ok);
-      cp_async4(buf + st.c + idx, ok ? c + t * p.c_st + n : p.c, ok);
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(buf + st.b + idx, ok ? b + t * p.b_st + n : b, ok);
+        cp_async4(buf + st.c + idx, ok ? c + t * p.c_st + n : c, ok);
+      } else {
+        buf[st.b + idx] = ok ? b[t * p.b_st + n] : narrow<T>(0.f);
+        buf[st.c + idx] = ok ? c[t * p.c_st + n] : narrow<T>(0.f);
+      }
     }
     cp_async_commit();
   }
 }
 
-template <int kN, bool kTma>
+template <int kN, bool kTma, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ssm_scan_kernel(const __grid_constant__ CUtensorMap tu, const __grid_constant__ CUtensorMap tdt,
                     const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
                     const Params p) {
-  constexpr int kPer = Dims<kN>::kPer, kVec = Dims<kN>::kVec;
-  constexpr int kRowVecs = kN / 4;  // float4s per step of B or C
+  constexpr int kLanes = Dims<kN>::kLanes, kPer = Dims<kN>::kPer, kVec = Dims<kN>::kVec;
   extern __shared__ uint8_t smem_raw[];
   // TMA writes boxes to 128-byte aligned shared memory.
-  float* smem = reinterpret_cast<float*>(smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u));
+  uint8_t* smem = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
+  T* ring = reinterpret_cast<T*>(smem);
   const Maps maps{&tu, &tdt, &tb, &tc};
-  const int cb = p.cb, sb = p.sb, rows = sb * kSeg, W = box_width(cb);
-  const int nthreads = blockDim.x;  // block_threads(cb, sb)
+  const int cb = p.cb, sb = p.sb, rows = sb * kSeg, W = box_width<T>(cb);
+  const int nthreads = blockDim.x;  // block_threads<kN>(cb, sb)
   const int tid = threadIdx.x;
   const int lane = tid % kLanes;    // states kPer * lane .. kPer * lane + kPer - 1
   const int group = tid / kLanes;   // one (channel, segment)
@@ -273,15 +349,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int s = active ? group / cb : 0;   // segment within the tile
   const int ch = active ? group % cb : 0;  // channel within the block
   const int d0 = blockIdx.x * cb;
-  const int a0 = d0 & ~3;           // the first staged column
+  constexpr int kAlign = 16 / static_cast<int>(sizeof(T));
+  const int a0 = d0 / kAlign * kAlign;  // the first staged column
   const int col = d0 - a0 + ch;     // this channel's column in a staged row
   const int d = d0 + ch;
   const int bidx = blockIdx.y;
   const bool valid = active && d < p.D;
 
-  const Stage<kN> st(cb, rows);
+  const Stage<kN, T> st(cb, rows);
   // The segments' (P, h), [2][2 kVec][threads], and the carry, [2][kVec][kLanes cb].
-  float4* agg = reinterpret_cast<float4*>(smem + kStages * st.floats);
+  float4* agg = reinterpret_cast<float4*>(smem + kStages * st.elems * sizeof(T));
   float4* carry = agg + 2 * 2 * kVec * nthreads;
   const uint32_t bars = smem_u32(carry + 2 * kVec * kLanes * cb);
   const int slot = kLanes * ch + lane;  // this thread's place in a carry row
@@ -307,27 +384,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
   for (int k = 0; k < kStages - 1; ++k) {
     if (k < n_tiles)
-      load_tile<kN, kTma>(p, maps, smem + k * st.floats, bars + 8 * k, bidx, a0, k * rows);
+      load_tile<kN, kTma, T>(p, maps, ring + k * st.elems, bars + 8 * k, bidx, a0, k * rows);
     else if constexpr (!kTma)
       cp_async_commit();  // an empty group keeps the group count per tile
   }
-  float* y_out = p.y + (long long)bidx * p.T * p.D + d;
+  const long long y_base = (long long)bidx * p.T * p.D + d;
 
   for (int k = 0; k < n_tiles; ++k) {
     const int stage = k % kStages;
-    const float* buf = smem + stage * st.floats;
+    const T* buf = ring + stage * st.elems;
     if constexpr (kTma) {
       mbar_wait(bars + 8 * stage, (k / kStages) & 1);
     } else {
       cp_async_wait<kStages - 2>();
       __syncthreads();
     }
-    const float* us = buf + st.u + s * kSeg * W + col;
-    const float* dts = buf + st.dt + s * kSeg * W + col;
-    const float4* bs =
-        reinterpret_cast<const float4*>(buf + st.b) + s * kSeg * kRowVecs + kVec * lane;
-    const float4* cs =
-        reinterpret_cast<const float4*>(buf + st.c) + s * kSeg * kRowVecs + kVec * lane;
+    const T* us = buf + st.u + s * kSeg * W + col;
+    const T* dts = buf + st.dt + s * kSeg * W + col;
+    const T* bs = buf + st.b + s * kSeg * kN + kPer * lane;
+    const T* cs = buf + st.c + s * kSeg * kN + kPer * lane;
 
     // Pass 1: the segment from h = 0; its decays kept in registers.  The
     // segment's total decay P is exp2(A log2(e) * the sum of its dt): one
@@ -338,16 +413,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int i = 0; i < kPer; ++i) h[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) {
-      const float dtj = dts[j * W];
-      const float du = dtj * us[j * W];
+      const float dtj = widen(dts[j * W]);
+      const float du = dtj * widen(us[j * W]);
       dt_sum += dtj;
       float bv[kPer], cv[kPer];
-#pragma unroll
-      for (int v = 0; v < kVec; ++v) {
-        const float4 b4 = bs[j * kRowVecs + v], c4 = cs[j * kRowVecs + v];
-        bv[4 * v] = b4.x; bv[4 * v + 1] = b4.y; bv[4 * v + 2] = b4.z; bv[4 * v + 3] = b4.w;
-        cv[4 * v] = c4.x; cv[4 * v + 1] = c4.y; cv[4 * v + 2] = c4.z; cv[4 * v + 3] = c4.w;
-      }
+      load_states<kPer>(bs + j * kN, bv);
+      load_states<kPer>(cs + j * kN, cv);
       float acc[2] = {0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
@@ -372,8 +443,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     // finished: refill it with tile k + kStages - 1.
     if (k + kStages - 1 < n_tiles) {
       const int next = (k + kStages - 1) % kStages;
-      load_tile<kN, kTma>(p, maps, smem + next * st.floats, bars + 8 * next, bidx, a0,
-                          (k + kStages - 1) * rows);
+      load_tile<kN, kTma, T>(p, maps, ring + next * st.elems, bars + 8 * next, bidx, a0,
+                             (k + kStages - 1) * rows);
     } else if constexpr (!kTma) {
       cp_async_commit();
     }
@@ -424,11 +495,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) {
       float cv[kPer];
-#pragma unroll
-      for (int v = 0; v < kVec; ++v) {
-        const float4 c4 = cs[j * kRowVecs + v];
-        cv[4 * v] = c4.x; cv[4 * v + 1] = c4.y; cv[4 * v + 2] = c4.z; cv[4 * v + 3] = c4.w;
-      }
+      load_states<kPer>(cs + j * kN, cv);
       float acc[2] = {yl[j], 0.f};
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
@@ -451,7 +518,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
     for (int i = 0; i < kSeg / kLanes; ++i) {
       const int t = k * rows + s * kSeg + first + i;
-      if (valid && t < p.T) y_out[(long long)t * p.D] = yv[i];
+      if (valid && t < p.T) static_cast<T*>(p.y)[y_base + (long long)t * p.D] = narrow<T>(yv[i]);
     }
   }
   if constexpr (!kTma) cp_async_wait<0>();
@@ -494,30 +561,34 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A float32 (B, T, inner) tensor, strides in elements, as the 3-D map
-// {inner, T, B} with box {box_inner, rows, 1}.  A dimension of size 1 is
-// never stepped; it gets the extent of the dimensions inside it as its
-// stride, which TMA accepts whatever the tensor's own stride there is.
-// False where TMA refuses the layout (a base or stride off 16 bytes).
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int T, int inner,
+// A (B, T, inner) tensor of T, strides in elements, as the 3-D map {inner,
+// T, B} with box {box_inner, rows, 1}.  A dimension of size 1 is never
+// stepped; it gets the extent of the dimensions inside it as its stride,
+// which TMA accepts whatever the tensor's own stride there is.  False
+// where TMA refuses the layout (a base or stride off 16 bytes).
+template <typename T>
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int Tn, int inner,
               long long sb, long long st, int box_inner, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)T, (cuuint64_t)B};
+  constexpr cuuint64_t kSize = sizeof(T);
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)Tn, (cuuint64_t)B};
   const long long elem_strides[2] = {st, sb};
   cuuint64_t strides[2];
-  cuuint64_t extent = 4ull * inner;
+  cuuint64_t extent = kSize * inner;
   for (int i = 0; i < 2; ++i) {
-    strides[i] = dims[i + 1] == 1 ? extent : 4ull * (cuuint64_t)elem_strides[i];
+    strides[i] = dims[i + 1] == 1 ? extent : kSize * (cuuint64_t)elem_strides[i];
     if (strides[i] * dims[i + 1] > extent) extent = strides[i] * dims[i + 1];
   }
   const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)rows, 1};
   const cuuint32_t elem_step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem_step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+  const CUtensorMapDataType type =
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kN, bool kTma>
+template <int kN, bool kTma, typename T>
 cudaError_t launch_kernel(const CUtensorMap (&maps)[4], const Params& p, dim3 grid, int threads,
                           int bytes, cudaStream_t stream) {
   static bool configured[64] = {false};
@@ -526,35 +597,57 @@ cudaError_t launch_kernel(const CUtensorMap (&maps)[4], const Params& p, dim3 gr
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(ssm_scan_kernel<kN, kTma>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    err = cudaFuncSetAttribute(ssm_scan_kernel<kN, kTma, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
-  ssm_scan_kernel<kN, kTma><<<grid, threads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
-                                                              p);
+  ssm_scan_kernel<kN, kTma, T><<<grid, threads, bytes, stream>>>(maps[0], maps[1], maps[2],
+                                                                 maps[3], p);
   return cudaGetLastError();
 }
 
-// The scan at state size kN: TMA maps where the layout allows them, else
-// the 4-byte cp.async instance.
-template <int kN>
-cudaError_t launch(const void* const (&in)[4], const long long* st, int B, int T, int D,
-                   const Params& p, cudaStream_t stream) {
-  const int cb = p.cb, rows = p.sb * kSeg;
-  const dim3 grid((D + cb - 1) / cb, B);
-  const int threads = block_threads(cb, p.sb);
-  const int bytes = smem_bytes<kN>(cb, p.sb);
+// The scan at state size kN and element type T: TMA maps where the layout
+// allows them, else the instance that copies (float32) or loads (bfloat16)
+// each element.  The tiles: `sms` / B blocks a batch row, `cb` channels a
+// block, as many segments as the block's threads and shared memory hold.
+template <int kN, typename T>
+cudaError_t launch(const void* const (&in)[4], const long long* st, int B, int sms, Params p,
+                   cudaStream_t stream) {
+  constexpr int kGroups = Dims<kN>::kGroups;
+  const int per_row = sms / B > 1 ? sms / B : 1;
+  int cb = (p.D + per_row - 1) / per_row;
+  if (cb > kGroups) cb = kGroups;
+  int sb = kGroups / cb;
+  if (sb > kMaxSegs) sb = kMaxSegs;
+  while (sb > 1 && smem_bytes<kN, T>(cb, sb) > kMaxSmem) --sb;
+  p.cb = cb;
+  p.sb = sb;
+  const int rows = sb * kSeg;
+  const dim3 grid((p.D + cb - 1) / cb, B);
+  const int threads = block_threads<kN>(cb, sb);
+  const int bytes = smem_bytes<kN, T>(cb, sb);
   CUtensorMap maps[4];  // u, dt, b, c
   EncodeTiled encode = encode_tiled();
-  const int W = box_width(cb);
+  const int W = box_width<T>(cb);
   const bool tma = encode != nullptr &&
-                   make_map(encode, &maps[0], in[0], B, T, D, st[0], st[1], W, rows) &&
-                   make_map(encode, &maps[1], in[1], B, T, D, st[2], st[3], W, rows) &&
-                   make_map(encode, &maps[2], in[2], B, T, kN, st[4], st[5], kN, rows) &&
-                   make_map(encode, &maps[3], in[3], B, T, kN, st[6], st[7], kN, rows);
-  return tma ? launch_kernel<kN, true>(maps, p, grid, threads, bytes, stream)
-             : launch_kernel<kN, false>(maps, p, grid, threads, bytes, stream);
+                   make_map<T>(encode, &maps[0], in[0], B, p.T, p.D, st[0], st[1], W, rows) &&
+                   make_map<T>(encode, &maps[1], in[1], B, p.T, p.D, st[2], st[3], W, rows) &&
+                   make_map<T>(encode, &maps[2], in[2], B, p.T, kN, st[4], st[5], kN, rows) &&
+                   make_map<T>(encode, &maps[3], in[3], B, p.T, kN, st[6], st[7], kN, rows);
+  return tma ? launch_kernel<kN, true, T>(maps, p, grid, threads, bytes, stream)
+             : launch_kernel<kN, false, T>(maps, p, grid, threads, bytes, stream);
+}
+
+template <typename T>
+cudaError_t launch_n(int N, const void* const (&in)[4], const long long* st, int B, int sms,
+                     const Params& p, cudaStream_t stream) {
+  switch (N) {
+    case 8: return launch<8, T>(in, st, B, sms, p, stream);
+    case 16: return launch<16, T>(in, st, B, sms, p, stream);
+    case 32: return launch<32, T>(in, st, B, sms, p, stream);
+    default: return launch<64, T>(in, st, B, sms, p, stream);
+  }
 }
 
 }  // namespace
@@ -563,23 +656,24 @@ extern "C" {
 
 // The entry's argument block, packed by ops.py.
 struct EntryArgs {
-  const void* in[4];      // u, dt, b, c: last dim contiguous
-  const void* log_a;      // (D, N) contiguous
+  const void* in[4];      // u, dt, b, c: last dim contiguous, one element type
+  const void* log_a;      // (D, N) contiguous float32
   void* y;                // (B, T, D) contiguous
-  void* h;                // (B, D, N) contiguous
-  void* tiles;            // (B, ceil(T / 64), D, N) contiguous, or null
+  void* h;                // (B, D, N) contiguous float32
+  void* tiles;            // (B, ceil(T / 64), D, N) contiguous float32, or null
   long long strides[8];   // (batch, time) of u, dt, b, c, in elements
   void* stream;
-  int B, T, D, N, chunk, unused;
+  int B, T, D, N, chunk;
+  int in_bf16;            // 1: u, dt, b, c and y bfloat16, else float32
 };
 static_assert(sizeof(EntryArgs) == 160, "EntryArgs must match ops.py's packing");
 
 // Launches the scan; returns the first non-zero cudaError_t (0 on success),
-// cudaErrorInvalidValue for a state size other than 8 or 16 (ops.py's
-// STATE_SIZES) or a chunk over 128.
+// cudaErrorInvalidValue for a state size other than 8, 16, 32 and 64 (ops.py
+// pads the others, and runs more than 64 as groups).
 int ssm_scan_forward(const EntryArgs* a) {
-  if ((a->N != 8 && a->N != 16) || a->B <= 0 || a->T <= 0 || a->D <= 0 || a->chunk <= 0 ||
-      a->chunk > kMaxChunk)
+  if ((a->N != 8 && a->N != 16 && a->N != 32 && a->N != 64) || a->B <= 0 || a->T <= 0 ||
+      a->D <= 0 || a->chunk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -590,24 +684,24 @@ int ssm_scan_forward(const EntryArgs* a) {
     err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  // Blocks per batch row such that the grid fills the SMs once; the
-  // channels per block follow, and the segments fill the block.
-  const int per_row = sm_count[dev] / a->B > 1 ? sm_count[dev] / a->B : 1;
-  int cb = (a->D + per_row - 1) / per_row;
-  if (cb > kMaxGroups) cb = kMaxGroups;
-  int sb = kMaxGroups / cb;
-  if (sb > kMaxSegs) sb = kMaxSegs;
-
   const long long* st = a->strides;
-  const Params p{static_cast<const float*>(a->in[0]), static_cast<const float*>(a->in[1]),
-                 static_cast<const float*>(a->in[2]), static_cast<const float*>(a->in[3]),
-                 static_cast<const float*>(a->log_a), static_cast<float*>(a->y),
-                 static_cast<float*>(a->h), static_cast<float*>(a->tiles),
-                 st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-                 a->T, a->D, cb, sb};
+  Params p;
+  p.u = a->in[0];
+  p.dt = a->in[1];
+  p.b = a->in[2];
+  p.c = a->in[3];
+  p.log_a = static_cast<const float*>(a->log_a);
+  p.y = a->y;
+  p.h = static_cast<float*>(a->h);
+  p.tiles = static_cast<float*>(a->tiles);
+  p.u_sb = st[0]; p.u_st = st[1]; p.dt_sb = st[2]; p.dt_st = st[3];
+  p.b_sb = st[4]; p.b_st = st[5]; p.c_sb = st[6]; p.c_st = st[7];
+  p.T = a->T;
+  p.D = a->D;
+  p.cb = p.sb = 0;  // set by launch
   const cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  err = a->N == 8 ? launch<8>(a->in, st, a->B, a->T, a->D, p, stream)
-                  : launch<16>(a->in, st, a->B, a->T, a->D, p, stream);
+  err = a->in_bf16 ? launch_n<bf16>(a->N, a->in, st, a->B, sm_count[dev], p, stream)
+                   : launch_n<float>(a->N, a->in, st, a->B, sm_count[dev], p, stream);
   return static_cast<int>(err);
 }
 

@@ -13,10 +13,16 @@
 //   du_t[d]   = dt_t[d] sum_n Gh_t[d, n] B_t[n]
 //   ddt_t[d]  = u_t[d] sum_n Gh_t B_t + sum_n Gh_t h_{t-1} a_t A
 //   dlog_a    = A sum_{b,t} Gh_t h_{t-1} a_t dt_t
-// u/dt/dy (B,T,D) and B/C (B,T,N) are float32, read in place through their
-// (batch, time) strides with the last dim contiguous (any alignment);
-// log_a (D,N) and the final state's gradient (B,D,N) contiguous.  N is a
-// template parameter, instantiated at 8 and 16, as the forward.
+// u/dt/dy (B,T,D) and B/C (B,T,N) share one element type, float32 or
+// bfloat16, read in place through their (batch, time) strides with the
+// last dim contiguous (any alignment; 4-byte cp.async copies for float32,
+// plain loads widened in registers for bfloat16, the element type a
+// template parameter); log_a (D,N) and the final state's gradient (B,D,N)
+// float32, contiguous.  du, ddt, dB and dC go out in the inputs' element
+// type, each rounded once from its float32 sum; dlog_a in float32 (ops.py
+// rounds it to log_a's dtype).  The state size is a template parameter kN
+// of 8, 16, 32 or 64; ops.py runs any N up to kN on it with B, C, log_a
+// and the final state's gradient padded by zero states, as the forward.
 //
 // Bound on an H100 SXM at one node's training slice of hymba-1.5b (B=40,
 // T=512, D=3200, N=16): the function reads u, dt and dy and writes du and
@@ -31,9 +37,9 @@
 // (plain form: ref.py::ssm_scan_backward_segments):
 //   * A block is one batch row and kBlockChannels = 128 channels: 256
 //     threads, warp w = segment w of a tile of kSegs * kSeg = 64 steps,
-//     lane = kSub channels x kLanes threads of 4 states each: 8 x 4 at N =
-//     16, 16 x 2 at N = 8 (the lane count follows N, so every thread keeps
-//     one float4 of states at either size).  The block walks its
+//     lane = kSub channels x kLanes threads of 4 states each: 16 x 2 at N =
+//     8, 8 x 4 at 16, 4 x 8 at 32, 2 x 16 at 64 (the lane count follows N,
+//     so every thread keeps one float4 of states at any size).  The block walks its
 //     channels kSub at a time (a sub-block); every input of a sub-block's tile
 //     is staged in shared memory by 4-byte cp.async (zero past T and D,
 //     where dt = 0 makes the step an identity), the next one while this one
@@ -57,9 +63,10 @@
 //     tile's left-exit gradient for the tile before it.
 //   * du and ddt sum a step's N states over the kLanes threads of a
 //     channel (log2 kLanes shuffles each).  dB and dC sum over the kSub
-//     channels of a warp (a reduce-scatter a step over 8 of them, then at N
-//     = 8 one butterfly over the last two) and over the block's sub-blocks
-//     in registers,
+//     channels of a warp (a reduce-scatter a step over up to 8 of them,
+//     leaving 1 value a lane at N <= 16, 2 at 32, 4 at 64; then at N = 8
+//     one butterfly over the last two) and over the block's sub-blocks in
+//     registers,
 //     so each block writes one partial per (b, t) and slot; dlog_a's block
 //     part sums in shared memory; the reduce kernel sums the blocks'
 //     partials and dlog_a's batch rows, each in a fixed order.  No float
@@ -69,11 +76,15 @@
 //     GB), the tile states (0.07 GB) and the blocks' partials (0.13 GB);
 //     the right-hand carries stay in shared memory.
 #include <cfloat>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int kPer = 4;            // states per thread: one float4
 constexpr int kSeg = 8;            // steps per segment
@@ -81,35 +92,37 @@ constexpr int kSegs = 8;           // segments per tile: one per warp
 constexpr int kTile = kSeg * kSegs;
 constexpr int kThreads = 32 * kSegs;
 constexpr int kBlockChannels = 128;
-constexpr int kMaxChunk = 128;     // the forward's limit
 
-// What follows the state size N (8 or 16).
+// What follows the state size kN (8, 16, 32 or 64).
 template <int kN>
 struct Dims {
-  static_assert(kN == 8 || kN == 16, "state sizes 8 and 16");
-  static constexpr int kLanes = kN / kPer;   // threads per (channel, segment): 2 or 4
+  static_assert(kN == 8 || kN == 16 || kN == 32 || kN == 64, "state sizes 8, 16, 32 and 64");
+  static constexpr int kLanes = kN / kPer;   // threads per (channel, segment): 2 to 16
   static constexpr int kSub = 32 / kLanes;   // channels per sub-block: the lanes of a warp / kLanes
   static constexpr int kSlots = 2 * kN;      // dB then dC per (b, t)
+  // dB/dC values a lane keeps after the reduce-scatter over the warp's
+  // channels (lane bits kLanes .. 16, at most three rounds from 8 values).
+  static constexpr int kKeep = kN <= 16 ? 1 : kN / 16;
 };
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
-  const float* u;
-  const float* dt;
-  const float* b;
-  const float* c;
-  const float* dy;
+  const void* u;       // u, dt, b, c, dy: float32 or bfloat16 (kBf16)
+  const void* dt;
+  const void* b;
+  const void* c;
+  const void* dy;
   const float* log_a;  // (D, N)
   const float* dh;     // (B, D, N) or null
-  float* du;           // (B, T, D) contiguous, as is ddt
-  float* ddt;
-  float* db;           // (B, T, N) contiguous, as is dc
-  float* dc;
+  void* du;            // (B, T, D) contiguous, as is ddt: the inputs' element type
+  void* ddt;
+  void* db;            // (B, T, N) contiguous, as is dc: the inputs' element type
+  void* dc;
   float* dlog_a;       // (D, N)
   const float* tiles;  // (B, n_tiles, D, N): the state entering each tile
-  float* part_bc;      // (B, T, n_blocks, 2N): per block, dB then dC
-  float* part_a;       // (B, D, N): dlog_a per batch row
+  float* part_bc;      // (B, T, n_blocks, 2 kN): per block, dB then dC
+  float* part_a;       // (B, D, kN): dlog_a per batch row
   long long u_sb, u_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st, dy_sb, dy_st;
   int B, T, D, n_tiles, n_blocks;
 };
@@ -152,40 +165,111 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The element type of an instance's inputs and gradients.
+template <bool kBf16>
+using Elem = typename std::conditional<kBf16, bf16, float>::type;
+
+// The element at `src` into `dst`, zero where !ok (src is not read then):
+// a 4-byte cp.async copy (float32), or a load widened and stored
+// (bfloat16).
+__device__ __forceinline__ void stage_elem(float* dst, const float* src, bool ok) {
+  cp_async4(dst, src, ok);
+}
+
+__device__ __forceinline__ void stage_elem(float* dst, const bf16* src, bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.f;
+}
+
+// A gradient element, rounded once to its type.
+__device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void put(bf16* dst, float x) { *dst = __float2bfloat16_rn(x); }
+
 // Stage the sub-block of kSub channels from d0 of tile k (steps k * kTile
-// ..): dt, u and dy into uvd[stage], log_a's rows into la[stage].  Zero
-// past T and D.
-template <int kN>
+// ..): dt, u and dy into uvd[stage] (unless kUvd is false), log_a's rows
+// and the entering states into la[stage] and hin[stage].  Zero past T, D
+// and N.
+template <int kN, bool kBf16, bool kUvd = true>
 __device__ __forceinline__ void load_sub(const Params& p, Smem<kN>& sm, int stage, int bidx,
                                          int d0, int k) {
+  using T = Elem<kBf16>;
   constexpr int kSub = Dims<kN>::kSub;
-  for (int idx = threadIdx.x; idx < kTile * kSub; idx += kThreads) {
+  const T* u = static_cast<const T*>(p.u);
+  const T* dt = static_cast<const T*>(p.dt);
+  const T* dy = static_cast<const T*>(p.dy);
+  for (int idx = threadIdx.x; kUvd && idx < kTile * kSub; idx += kThreads) {
     const int j = idx / kSub, ch = idx % kSub;
     const int t = k * kTile + j, d = d0 + ch;
     const bool ok = t < p.T && d < p.D;
     float* dst = reinterpret_cast<float*>(&sm.uvd[stage][j][ch]);
-    cp_async4(dst, ok ? p.dt + bidx * p.dt_sb + t * p.dt_st + d : p.dt, ok);
-    cp_async4(dst + 1, ok ? p.u + bidx * p.u_sb + t * p.u_st + d : p.u, ok);
-    cp_async4(dst + 2, ok ? p.dy + bidx * p.dy_sb + t * p.dy_st + d : p.dy, ok);
+    stage_elem(dst, ok ? dt + bidx * p.dt_sb + t * p.dt_st + d : dt, ok);
+    stage_elem(dst + 1, ok ? u + bidx * p.u_sb + t * p.u_st + d : u, ok);
+    stage_elem(dst + 2, ok ? dy + bidx * p.dy_sb + t * p.dy_st + d : dy, ok);
   }
   if (threadIdx.x < kSub * kN) {
     const int ch = threadIdx.x / kN, n = threadIdx.x % kN, d = d0 + ch;
-    cp_async4(&sm.la[stage][ch][n], d < p.D ? p.log_a + d * kN + n : p.log_a, d < p.D);
+    const bool ok = d < p.D;
+    cp_async4(&sm.la[stage][ch][n], ok ? p.log_a + d * kN + n : p.log_a, ok);
     cp_async4(&sm.hin[stage][ch][n],
-              d < p.D ? p.tiles + (((long long)bidx * p.n_tiles + k) * p.D + d) * kN + n : p.log_a,
-              d < p.D);
+              ok ? p.tiles + (((long long)bidx * p.n_tiles + k) * p.D + d) * kN + n : p.log_a, ok);
   }
 }
 
 // Stage tile k's B and C into bc[k & 1].
-template <int kN>
+template <int kN, bool kBf16>
 __device__ __forceinline__ void load_bc(const Params& p, Smem<kN>& sm, int bidx, int k) {
+  using T = Elem<kBf16>;
+  const T* b = static_cast<const T*>(p.b);
+  const T* c = static_cast<const T*>(p.c);
   for (int idx = threadIdx.x; idx < kTile * kN; idx += kThreads) {
     const int j = idx / kN, n = idx % kN;
     const int t = k * kTile + j;
     const bool ok = t < p.T;
-    cp_async4(&sm.bc[k & 1][j][n], ok ? p.b + bidx * p.b_sb + t * p.b_st + n : p.b, ok);
-    cp_async4(&sm.bc[k & 1][j][kN + n], ok ? p.c + bidx * p.c_sb + t * p.c_st + n : p.c, ok);
+    stage_elem(&sm.bc[k & 1][j][n], ok ? b + bidx * p.b_sb + t * p.b_st + n : b, ok);
+    stage_elem(&sm.bc[k & 1][j][kN + n], ok ? c + bidx * p.c_sb + t * p.c_st + n : c, ok);
+  }
+}
+
+// The bfloat16 instance's dt, u and dy of a sub-block (as load_sub
+// stages them) in two halves, so that the loads fly while the sub-block
+// before computes: fetch_sub issues this thread's loads into registers
+// (raw bits, dt and u packed in one word), put_sub stores them, widened,
+// into uvd[stage] once the compute is done.
+template <int kN>
+struct Prefetch {
+  static constexpr int kPer = (kTile * Dims<kN>::kSub + kThreads - 1) / kThreads;
+  uint32_t dtu[kPer], dy[kPer];
+};
+
+__device__ __forceinline__ uint32_t bf16_bits(const void* src, long long at, bool ok) {
+  return ok ? static_cast<const unsigned short*>(src)[at] : 0u;
+}
+
+template <int kN>
+__device__ __forceinline__ void fetch_sub(const Params& p, Prefetch<kN>& pre, int bidx, int d0,
+                                          int k) {
+  constexpr int kSub = Dims<kN>::kSub;
+#pragma unroll
+  for (int r = 0; r < Prefetch<kN>::kPer; ++r) {
+    const int idx = threadIdx.x + r * kThreads;
+    const int j = idx / kSub, ch = idx % kSub;
+    const int t = k * kTile + j, d = d0 + ch;
+    const bool ok = idx < kTile * kSub && t < p.T && d < p.D;
+    pre.dtu[r] = bf16_bits(p.dt, bidx * p.dt_sb + t * p.dt_st + d, ok) |
+                 bf16_bits(p.u, bidx * p.u_sb + t * p.u_st + d, ok) << 16;
+    pre.dy[r] = bf16_bits(p.dy, bidx * p.dy_sb + t * p.dy_st + d, ok);
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void put_sub(Smem<kN>& sm, const Prefetch<kN>& pre, int stage) {
+  constexpr int kSub = Dims<kN>::kSub;
+#pragma unroll
+  for (int r = 0; r < Prefetch<kN>::kPer; ++r) {
+    const int idx = threadIdx.x + r * kThreads;
+    if (idx < kTile * kSub)
+      sm.uvd[stage][idx / kSub][idx % kSub] =
+          make_float4(__uint_as_float(pre.dtu[r] << 16), __uint_as_float(pre.dtu[r] & 0xffff0000u),
+                      __uint_as_float(pre.dy[r] << 16), 0.f);
   }
 }
 
@@ -208,9 +292,12 @@ __device__ __forceinline__ void fold(float (&x)[kPer], const float4 P, const flo
 }
 
 // One (b, kBlockChannels) block, tiles backward; see the note at the top.
-template <int kN>
-__global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
+// kBf16: u, dt, b, c and dy are bfloat16 (the next sub-block's dt, u and
+// dy prefetched into registers).
+template <int kN, bool kBf16>
+__global__ void __launch_bounds__(kThreads, kN <= 16 ? 2 : 1) ssm_bwd_kernel(Params p) {
   constexpr int kLanes = Dims<kN>::kLanes, kSub = Dims<kN>::kSub, kSlots = Dims<kN>::kSlots;
+  constexpr int kKeep = Dims<kN>::kKeep;
   extern __shared__ float4 smem4[];
   Smem<kN>& sm = *reinterpret_cast<Smem<kN>*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, s = tid >> 5;  // s: the segment
@@ -222,27 +309,31 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
 
   // The gradients, tiles backward.
   for (int idx = tid; idx < kBlockChannels * kN; idx += kThreads) {
-    const int d = c0 + idx / kN;
-    sm.carry[idx / kN][idx % kN] =
-        p.dh && d < p.D ? p.dh[((long long)bidx * p.D + d) * kN + idx % kN] : 0.f;
+    const int d = c0 + idx / kN, n = idx % kN;
+    sm.carry[idx / kN][n] =
+        p.dh && d < p.D ? p.dh[((long long)bidx * p.D + d) * kN + n] : 0.f;
   }
-  load_sub<kN>(p, sm, 0, bidx, c0, n_tiles - 1);
-  load_bc<kN>(p, sm, bidx, n_tiles - 1);
+  load_sub<kN, kBf16>(p, sm, 0, bidx, c0, n_tiles - 1);
+  load_bc<kN, kBf16>(p, sm, bidx, n_tiles - 1);
   cp_async_commit();
+  Prefetch<kN> pre;
   int it = 0;  // iterations so far: the stage is it & 1
-  // Lane `lane` of warp s keeps slot `slot` of dB/dC for the segment's 8
-  // steps, summed over the block's channels.  At N = 8 two lanes (lane bit
-  // 1 apart) hold each slot's sum; the one with bit 1 clear writes it.
-  int first = 0;  // after the reduce-scatter: the value index this lane holds
-  first += (lane & 16) ? 4 : 0;
-  first += (lane & 8) ? 2 : 0;
-  first += (lane & 4) ? 1 : 0;
+  // Lane `lane` of warp s keeps slots slot .. slot + kKeep - 1 of dB/dC
+  // for the segment's 8 steps, summed over the block's channels.  At N = 8
+  // two lanes (lane bit 1 apart) hold each slot's sum; the one with bit 1
+  // clear writes it.
+  int first = 0;  // after the reduce-scatter: the first value index this lane holds
+#pragma unroll
+  for (int mask = 16, nv = kPer; mask >= 4 && mask >= kLanes; mask /= 2, nv /= 2)
+    if (lane & mask) first += nv;
   const int slot = first < kPer ? n0 + first : kN + n0 + first - kPer;
   const bool writes_slot = (lane & 3 & ~(kLanes - 1)) == 0;
   for (int k = n_tiles - 1; k >= 0; --k) {
-    float acc[kSeg];
+    float acc[kSeg][kKeep];
 #pragma unroll
-    for (int j = 0; j < kSeg; ++j) acc[j] = 0.f;
+    for (int j = 0; j < kSeg; ++j)
+#pragma unroll
+      for (int e = 0; e < kKeep; ++e) acc[j][e] = 0.f;
     for (int sub = 0; sub < n_sub; ++sub, ++it) {
       cp_async_wait_all();
       __syncthreads();
@@ -250,8 +341,13 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
         const bool last = sub + 1 == n_sub;
         if (!(last && k == 0)) {
           const int nk = last ? k - 1 : k, ns = last ? 0 : sub + 1;
-          load_sub<kN>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
-          if (last) load_bc<kN>(p, sm, bidx, nk);
+          if constexpr (kBf16) {
+            fetch_sub<kN>(p, pre, bidx, c0 + ns * kSub, nk);
+            load_sub<kN, true, false>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
+          } else {
+            load_sub<kN, false>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
+          }
+          if (last) load_bc<kN, kBf16>(p, sm, bidx, nk);
         }
         cp_async_commit();
       }
@@ -353,15 +449,15 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
           const int t = k * kTile + s * kSeg + j;
           if (j % kLanes == q && valid && t < p.T) {
             const long long o = ((long long)bidx * p.T + t) * p.D + d;
-            p.du[o] = f.x * sb;
-            p.ddt[o] = fmaf(f.y, sb, qq * kLn2);
+            put(static_cast<Elem<kBf16>*>(p.du) + o, f.x * sb);
+            put(static_cast<Elem<kBf16>*>(p.ddt) + o, fmaf(f.y, sb, qq * kLn2));
           }
         }
-        // Sum the kSub channels of the warp: lane keeps value `first`
-        // (a reduce-scatter over lane bits 4-2, then at N = 8 a butterfly
-        // over bit 1).
+        // Sum the kSub channels of the warp: lane keeps values `first` ..
+        // `first + kKeep - 1` (a reduce-scatter over the channel bits of
+        // the lane, at most bits 4-2, then at N = 8 a butterfly over bit 1).
 #pragma unroll
-        for (int mask = 16, nv = kPer; mask >= 4; mask /= 2, nv /= 2) {
+        for (int mask = 16, nv = kPer; mask >= 4 && mask >= kLanes; mask /= 2, nv /= 2) {
           const bool upper = lane & mask;
 #pragma unroll
           for (int i = 0; i < nv; ++i) {
@@ -371,7 +467,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
         }
 #pragma unroll
         for (int mask = 2; mask >= kLanes; mask /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], mask);
-        acc[j] += v[0];
+#pragma unroll
+        for (int e2 = 0; e2 < kKeep; ++e2) acc[j][e2] += v[e2];
 #pragma unroll
         for (int i = 0; i < kPer; ++i) hj[i] = hp[i];
       }
@@ -392,12 +489,18 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
           pa = (k == n_tiles - 1 ? 0.f : pa) + av * sum;
         }
       }
+      if constexpr (kBf16) {
+        if (!(sub + 1 == n_sub && k == 0)) put_sub<kN>(sm, pre, (it + 1) & 1);
+      }
     }
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) {
       const int t = k * kTile + s * kSeg + j;
-      if (writes_slot && t < p.T)
-        p.part_bc[(((long long)bidx * p.T + t) * p.n_blocks + blockIdx.x) * kSlots + slot] = acc[j];
+      if (writes_slot && t < p.T) {
+        float* part = p.part_bc + (((long long)bidx * p.T + t) * p.n_blocks + blockIdx.x) * kSlots;
+#pragma unroll
+        for (int e2 = 0; e2 < kKeep; ++e2) part[slot + e2] = acc[j][e2];
+      }
     }
   }
   __syncthreads();  // dlog_a's block parts are in shared memory
@@ -407,9 +510,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssm_bwd_kernel(Params p) {
   }
 }
 
-// dB and dC (B * T * 2N sums over the blocks) and dlog_a (D * N sums over
-// the batch rows), one output per thread, each in a fixed order.
-template <int kN>
+// dB and dC (B * T * 2 kN sums over the blocks) and dlog_a (D * kN sums
+// over the batch rows), one output per thread, each in a fixed order; the
+// states past N are not written.
+template <int kN, bool kBf16>
 __global__ void ssm_bwd_reduce_kernel(Params p) {
   constexpr int kSlots = Dims<kN>::kSlots;
   const long long n_bc = (long long)p.B * p.T * kSlots;
@@ -422,8 +526,8 @@ __global__ void ssm_bwd_reduce_kernel(Params p) {
       const float* src = p.part_bc + bt * p.n_blocks * kSlots + slot;
       float sum = 0.f;
       for (int blk = 0; blk < p.n_blocks; ++blk) sum += src[blk * kSlots];
-      float* dst = slot < kN ? p.db : p.dc;
-      dst[bt * kN + slot % kN] = sum;
+      Elem<kBf16>* dst = static_cast<Elem<kBf16>*>(slot < kN ? p.db : p.dc);
+      put(&dst[bt * kN + slot % kN], sum);
     } else {
       const long long dn = idx - n_bc;
       float sum = 0.f;
@@ -434,19 +538,30 @@ __global__ void ssm_bwd_reduce_kernel(Params p) {
 }
 
 // Both kernels at state size kN on `stream`.
-template <int kN>
+template <int kN, bool kBf16>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_kernel<kN>,
+  static_assert(sizeof(Smem<kN>) <= 227 * 1024, "the backward's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_kernel<kN, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(sizeof(Smem<kN>)));
   if (err != cudaSuccess) return err;
-  ssm_bwd_kernel<kN><<<dim3(p.n_blocks, p.B), kThreads, sizeof(Smem<kN>), stream>>>(p);
+  ssm_bwd_kernel<kN, kBf16><<<dim3(p.n_blocks, p.B), kThreads, sizeof(Smem<kN>), stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long items = (long long)p.B * p.T * Dims<kN>::kSlots + (long long)p.D * kN;
   const unsigned blocks = static_cast<unsigned>(items / 256 < 4096 ? items / 256 + 1 : 4096);
-  ssm_bwd_reduce_kernel<kN><<<blocks, 256, 0, stream>>>(p);
+  ssm_bwd_reduce_kernel<kN, kBf16><<<blocks, 256, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_n(int kn, const Params& p, cudaStream_t stream) {
+  switch (kn) {
+    case 8: return launch<8, kBf16>(p, stream);
+    case 16: return launch<16, kBf16>(p, stream);
+    case 32: return launch<32, kBf16>(p, stream);
+    default: return launch<64, kBf16>(p, stream);
+  }
 }
 
 }  // namespace
@@ -455,44 +570,48 @@ extern "C" {
 
 // The entry's argument block, packed by ops.py (_BACKWARD_ARGS).
 struct EntryArgs {
-  const void* in[5];      // u, dt, b, c, dy: last dim contiguous
+  const void* in[5];      // u, dt, b, c, dy: last dim contiguous, one element type
   const void* log_a;      // (D, N) contiguous
-  const void* dh;         // (B, D, N) contiguous, or null
-  const void* tiles;      // (B, ceil(T / 64), D, N) contiguous: from the forward
+  const void* dh;         // (B, D, N) contiguous float32, or null
+  const void* tiles;      // (B, ceil(T / 64), D, N) contiguous float32: from the forward
   void* out[5];           // du, ddt (B, T, D); db, dc (B, T, N); dlog_a (D, N)
   void* scratch;          // float32: part_bc, part_a
   long long strides[10];  // (batch, time) of u, dt, b, c, dy, in elements
   void* stream;
-  int B, T, D, N, chunk, unused;
+  int B, T, D, N, chunk;
+  int in_bf16;            // 1: the inputs and their gradients bfloat16, else float32
 };
 static_assert(sizeof(EntryArgs) == 224, "EntryArgs must match ops.py's packing");
 
-// Floats of scratch the entry needs at state size N (ops.py sizes the
-// buffer with it): the blocks' dB/dC partials and dlog_a's batch rows.
+// Floats of scratch the entry needs at the instance's state size N (ops.py
+// sizes the buffer with it): the blocks' dB/dC partials and dlog_a's batch
+// rows.
 long long ssm_scan_backward_scratch(int B, int T, int D, int N) {
   const long long n_blocks = (D + kBlockChannels - 1) / kBlockChannels;
   return (long long)B * T * n_blocks * 2 * N + (long long)B * D * N;
 }
 
 // Launches the two kernels; returns the first non-zero cudaError_t (0 on
-// success), cudaErrorInvalidValue for a call outside the forward's limits
-// (N is 8 or 16, the chunk at most 128) or without the tile states.
+// success), cudaErrorInvalidValue for a state size other than 8, 16, 32
+// and 64 (ops.py pads the others, and runs more than 64 as groups), or a
+// call without the tile states.
 int ssm_scan_backward(const EntryArgs* a) {
-  if ((a->N != 8 && a->N != 16) || a->B <= 0 || a->T <= 0 || a->D <= 0 || a->chunk <= 0 || !a->tiles ||
-      (a->chunk < a->T ? a->chunk : a->T) > kMaxChunk)
+  if ((a->N != 8 && a->N != 16 && a->N != 32 && a->N != 64) || a->B <= 0 || a->T <= 0 ||
+      a->D <= 0 || a->chunk <= 0 || !a->tiles)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int kn = a->N;
   Params p;
-  p.u = static_cast<const float*>(a->in[0]);
-  p.dt = static_cast<const float*>(a->in[1]);
-  p.b = static_cast<const float*>(a->in[2]);
-  p.c = static_cast<const float*>(a->in[3]);
-  p.dy = static_cast<const float*>(a->in[4]);
+  p.u = a->in[0];
+  p.dt = a->in[1];
+  p.b = a->in[2];
+  p.c = a->in[3];
+  p.dy = a->in[4];
   p.log_a = static_cast<const float*>(a->log_a);
   p.dh = static_cast<const float*>(a->dh);
-  p.du = static_cast<float*>(a->out[0]);
-  p.ddt = static_cast<float*>(a->out[1]);
-  p.db = static_cast<float*>(a->out[2]);
-  p.dc = static_cast<float*>(a->out[3]);
+  p.du = a->out[0];
+  p.ddt = a->out[1];
+  p.db = a->out[2];
+  p.dc = a->out[3];
   p.dlog_a = static_cast<float*>(a->out[4]);
   const long long* st = a->strides;
   p.u_sb = st[0]; p.u_st = st[1]; p.dt_sb = st[2]; p.dt_st = st[3];
@@ -504,10 +623,11 @@ int ssm_scan_backward(const EntryArgs* a) {
   p.n_tiles = (a->T + kTile - 1) / kTile;
   p.n_blocks = (a->D + kBlockChannels - 1) / kBlockChannels;
   p.part_bc = static_cast<float*>(a->scratch);
-  p.part_a = p.part_bc + (long long)a->B * a->T * p.n_blocks * 2 * a->N;
+  p.part_a = p.part_bc + (long long)a->B * a->T * p.n_blocks * 2 * kn;
   p.tiles = static_cast<const float*>(a->tiles);
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  return static_cast<int>(a->N == 8 ? launch<8>(p, stream) : launch<16>(p, stream));
+  return static_cast<int>(a->in_bf16 ? launch_n<true>(kn, p, stream)
+                                      : launch_n<false>(kn, p, stream));
 }
 
 }  // extern "C"

@@ -340,8 +340,9 @@ def _ssm_branch(
     scan: Scan = ssm_scan,
 ):
     """Mamba heads.  Without ``h0`` (the full-sequence forward) the scan
-    goes to the kernel (``scan``) in float32; with it (decode) the plain
-    recurrence carries the state.  Returns (out, final state, conv tail)."""
+    goes to the kernel (``scan``) in the config's dtype, y in u's; with it
+    (decode) the plain recurrence carries the state.  Returns (out, final
+    state, conv tail)."""
     di, n = cfg.inner, cfg.ssm_state
     # Under a sharding context xz is gathered whole so that u and z each
     # split over the channels (a no-op otherwise).
@@ -357,11 +358,9 @@ def _ssm_branch(
     bc = common.constrain(u @ sp["w_bc"], ("batch", None, None))
     b_t, c_t = bc[..., :n], bc[..., n:]
     if h0 is None:
-        y, h = scan(
-            u.float(), dt.float(), b_t.float(), c_t.float(), sp["log_a"].float(),
-            chunk=cfg.ssm_chunk,
-        )
-        y = y.to(cfg.compute_dtype)
+        # Each input in its own dtype: the kernel widens it as it loads it
+        # and rounds y to u's dtype once, the bits of a float32 call cast.
+        y, h = scan(u, dt, b_t, c_t, sp["log_a"], chunk=cfg.ssm_chunk)
     else:
         y, h = selective_scan_ref(u, dt, sp["log_a"], b_t, c_t, h0=h0)
     y = (y + sp["d_skip"] * u) * F.silu(z)

@@ -287,7 +287,8 @@ def test_flash_fake_matches_plain(dtype, dims):
 @pytest.mark.parametrize("t", [32, 45])
 def test_wkv_fake_matches_plain(t):
     """rwkv6's layout at its head size 64 (4 heads here), chunk 32."""
-    b, h, k = 2, 4, max(wkv_ops.HEAD_SIZES)
+    b, h, k = 2, 4, 64
+    assert wkv_ops.reach_error(torch.float32, k, 32) is None
     gen = torch.Generator().manual_seed(1)
     r, kk, v = (torch.randn(b, t, h, k, generator=gen) * 0.1 for _ in range(3))
     log_w = -torch.rand(b, t, h, k, generator=gen)
@@ -306,7 +307,8 @@ def test_wkv_fake_matches_plain(t):
 @pytest.mark.parametrize("t", [64, 77])
 def test_ssm_scan_fake_matches_plain(t):
     """hymba's layout at N = 16 (48 channels here)."""
-    b, d, n = 2, 48, max(ssm_ops.STATE_SIZES)
+    b, d, n = 2, 48, 16
+    assert ssm_ops.reach_error(torch.float32, n, 64) is None
     gen = torch.Generator().manual_seed(2)
     u = torch.randn(b, t, d, generator=gen)
     dt = torch.rand(b, t, d, generator=gen) * 0.1

@@ -216,9 +216,11 @@ def test_wkv_kernel_reads_strided_inputs(cuda_device):
     _wkv_close(state, want_state)
 
 
-@pytest.mark.parametrize("k, dtype, chunk", [(48, torch.float32, 32), (64, torch.bfloat16, 32),
-                                             (64, torch.float32, 128)])
+@pytest.mark.parametrize("k, dtype, chunk", [(160, torch.float32, 32), (64, torch.float16, 32),
+                                             (64, torch.float32, 256), (128, torch.float32, 96)])
 def test_wkv_kernel_rejects_what_it_does_not_take(cuda_device, k, dtype, chunk):
+    """Past the reach: a head size over 128, float16, a chunk over 128, a
+    chunk over 64 at the 128 instance."""
     x = torch.zeros(1, 200, 2, k, device=cuda_device, dtype=dtype)
     u = torch.zeros(2, k, device=cuda_device, dtype=dtype)
     with pytest.raises(ValueError):
@@ -317,9 +319,9 @@ def test_ssm_kernel_reads_unaligned_inputs(cuda_device):
 
 
 @pytest.mark.parametrize("n, dtype, chunk, transpose", [
-    (4, torch.float32, 64, False),       # state size
-    (16, torch.bfloat16, 64, False),     # dtype
-    (16, torch.float32, 256, False),     # chunk above 128
+    (0, torch.float32, 64, False),       # no states
+    (16, torch.float16, 64, False),      # dtype
+    (16, torch.float32, 0, False),       # chunk 0
     (16, torch.float32, 64, True),       # channel dim not contiguous
 ])
 def test_ssm_kernel_rejects_what_it_does_not_take(cuda_device, n, dtype, chunk, transpose):
@@ -772,8 +774,10 @@ def test_wkv_backward_kernel_under_autograd_gives_the_same_bits_twice(cuda_devic
     _bwd_close(grads[0], wkv_backward_ref(*plain, d_out))
 
 
-@pytest.mark.parametrize("k, chunk", [(48, 32), (64, 128)])
+@pytest.mark.parametrize("k, chunk", [(160, 32), (128, 96)])
 def test_wkv_backward_kernel_rejects_what_it_does_not_take(cuda_device, k, chunk):
+    """Past the reach: a head size over 128, a chunk over 64 at the 128
+    instance."""
     x = torch.zeros(1, 200, 2, k, device=cuda_device)
     u = torch.zeros(2, k, device=cuda_device)
     state = torch.zeros(1, 2, k, k, device=cuda_device)
@@ -811,8 +815,9 @@ def test_ssm_backward_kernel_under_autograd_gives_the_same_bits_twice(cuda_devic
     _bwd_close(grads[0], ssm_scan_backward_ref(*plain, dy))
 
 
-@pytest.mark.parametrize("n, chunk", [(4, 64), (16, 256)])
+@pytest.mark.parametrize("n, chunk", [(0, 64), (16, 0)])
 def test_ssm_backward_kernel_rejects_what_it_does_not_take(cuda_device, n, chunk):
+    """Past the reach: no states, chunk 0."""
     u = torch.zeros(1, 300, 32, device=cuda_device)
     bt = torch.zeros(1, 300, n, device=cuda_device)
     log_a = torch.zeros(32, n, device=cuda_device)
@@ -1317,3 +1322,189 @@ def test_ssm_kernels_at_state_size_8(cuda_device, b, t, d, chunk, strong):
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     _bwd_close(got, ssm_scan_backward_ref(u, dt, bt, ct, log_a, dy, dh))
+
+
+# ---------------------------------------------------------------------------
+# The SSM kernels' reach: bf16 inputs, any state size, any chunk; WKV head
+# sizes up to 128 and chunks up to 128.  Forward and backward through the
+# public entries against the plain versions on the inputs widened to
+# float32 (float32 outputs within the float32 tolerance; a bf16 output or
+# gradient the plain value rounded or one bf16 step away); a bf16 call's
+# outputs and gradients equal the float32-copy call's rounded, bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _bf16_steps(got, want, tol):
+    """How many bf16 steps (ulps) ``got`` lies from ``want`` rounded, beyond ``tol``."""
+    r16 = want.to(torch.bfloat16).float()
+    _, e = torch.frexp(r16)
+    ulp = torch.where(r16 == 0, torch.zeros_like(r16), torch.ldexp(torch.ones_like(r16), e - 8))
+    excess = ((got.float() - r16).abs() - tol).clamp(min=0.0)
+    return (excess / ulp.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+
+
+def _reach_close(got, want, rel):
+    want = want.float()
+    tol = rel * max(1.0, want.abs().max().item())
+    assert got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        assert _bf16_steps(got, want, tol) <= 1.0
+    else:
+        assert (got - want).abs().max().item() <= tol
+
+
+def _reach_grads(fn, leaves, outs_grad):
+    outs = fn(*leaves)
+    return outs, torch.autograd.grad(outs, leaves, outs_grad)
+
+
+@pytest.mark.parametrize("b,t,d,n,chunk,dtypes", [
+    (2, 300, 64, 16, 64, ("bf16",) * 5),                      # TMA in bf16
+    (2, 300, 203, 16, 64, ("bf16",) * 5),                     # odd rows: plain loads
+    (1, 77, 48, 5, 64, ("f32",) * 5),                         # N = 5 on the 8 instance
+    (1, 77, 48, 24, 64, ("f32",) * 5),                        # the 32 instance
+    (1, 77, 48, 64, 64, ("f32",) * 5),                        # the 64 instance
+    (1, 77, 48, 72, 64, ("f32",) * 5),                        # two groups, 64 + 8
+    (1, 77, 48, 130, 64, ("bf16",) * 5),                      # three groups in bf16
+    (1, 300, 48, 16, 256, ("f32",) * 5),                      # chunk 256
+    (2, 100, 64, 16, 64, ("bf16", "f32", "bf16", "f32", "bf16")),  # mixed dtypes
+])
+def test_ssm_reach_matches_plain_version(cuda_device, b, t, d, n, chunk, dtypes):
+    kinds = {"f32": torch.float32, "bf16": torch.bfloat16}
+    u, dt, bt, ct, log_a = _ssm_inputs(b, t, d, cuda_device, n=n, seed=21)
+    x = [a.to(kinds[k]) for a, k in zip((u, dt, bt, ct, log_a), dtypes)]
+    dy = torch.randn(b, t, d, device=cuda_device).to(x[0].dtype)
+    dh = torch.randn(b, d, n, device=cuda_device)
+
+    def call(*leaves):
+        return ssm_scan(*leaves, chunk=chunk)
+
+    leaves = [a.clone().requires_grad_() for a in x]
+    before = dict(ssm_scan.launches_by_instance)
+    (y, h), grads = _reach_grads(call, leaves, (dy, dh))
+    (_, _), again = _reach_grads(call, leaves, (dy, dh))
+    torch.cuda.synchronize()
+    assert y.dtype == x[0].dtype and h.dtype == torch.float32
+    assert all(g.dtype == a.dtype for g, a in zip(grads, x))
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    # Two dtypes, or groups past 64 states: float32 copies.
+    common = "bf16" if set(dtypes[:4]) == {"bf16"} and n <= ssm_ops.GROUP else "f32"
+    for g, _ in ssm_ops._groups(n):
+        key = (common, ssm_ops.instance(g.stop - g.start))
+        assert ssm_scan.launches_by_instance[key] > before.get(key, 0), key
+    wide = [a.float() for a in x]
+    want_y, want_h = selective_scan_ref(wide[0], wide[1], wide[4], wide[2], wide[3])
+    _reach_close(y, want_y, SSM_REL)
+    _reach_close(h, want_h, SSM_REL)
+    want = ssm_scan_backward_ref(*wide, dy.float(), dh)
+    for g, w in zip(grads, want):
+        _reach_close(g, w, BWD_KERNEL_REL)
+    if set(dtypes) == {"bf16"}:
+        leaves32 = [a.float().requires_grad_() for a in x]
+        (y32, h32), grads32 = _reach_grads(call, leaves32, (dy.float(), dh))
+        assert torch.equal(y, y32.to(torch.bfloat16)) and torch.equal(h, h32)
+        assert all(torch.equal(g, g32.to(torch.bfloat16)) for g, g32 in zip(grads, grads32))
+
+
+@pytest.mark.parametrize("b,t,h,k,chunk,dtype", [
+    (2, 300, 4, 64, 64, torch.bfloat16),     # plain loads, widened
+    (2, 300, 4, 20, 32, torch.bfloat16),     # bf16 on the 32 instance, zero-padded
+    (2, 300, 4, 20, 32, torch.float32),      # the 32 instance, zero-padded
+    (1, 200, 2, 96, 64, torch.float32),      # the 128 instance, zero-padded
+    (1, 200, 2, 128, 48, torch.float32),     # the 128 instance
+    (1, 300, 2, 64, 128, torch.float32),     # 128-row tiles
+    (2, 300, 2, 32, 100, torch.float32),     # chunk 100 on 128-row tiles at K = 32
+])
+def test_wkv_reach_matches_plain_version(cuda_device, b, t, h, k, chunk, dtype):
+    r, kk, v, lw, u = _wkv_inputs(b, t, h, cuda_device, k=k, seed=22)
+    if chunk > 64:  # keep the mid-point factors exp(L_C / 2) inside float32
+        lw = lw * 0.1
+    x = [a.to(dtype) for a in (r, kk, v, lw, u)]
+    d_out = torch.randn(b, t, h, k, device=cuda_device).to(dtype)
+    d_state = torch.randn(b, h, k, k, device=cuda_device)
+
+    def call(*leaves):
+        return wkv(*leaves, chunk=chunk)
+
+    leaves = [a.clone().requires_grad_() for a in x]
+    (out, state), grads = _reach_grads(call, leaves, (d_out, d_state))
+    (_, _), again = _reach_grads(call, leaves, (d_out, d_state))
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and state.dtype == torch.float32
+    assert all(g.dtype == dtype for g in grads)
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    wide = [a.float() for a in x]
+    want_out, want_state = wkv_chunked(*wide, chunk=chunk)
+    _reach_close(out, want_out, WKV_REL)
+    _reach_close(state, want_state, WKV_REL)
+    for g, w in zip(grads, wkv_backward_ref(*wide, d_out.float(), d_state)):
+        _reach_close(g, w, BWD_KERNEL_REL)
+    if dtype == torch.bfloat16:
+        leaves32 = [a.float().requires_grad_() for a in x]
+        (o32, s32), grads32 = _reach_grads(call, leaves32, (d_out.float(), d_state))
+        assert torch.equal(out, o32.to(dtype)) and torch.equal(state, s32)
+        assert all(torch.equal(g, g32.to(dtype)) for g, g32 in zip(grads, grads32))
+
+
+def test_wkv_bf16_view_off_its_rows_runs_on_a_copy(cuda_device):
+    """bf16 r/k/v/log_w read as views 2 bytes off an 8-byte boundary (the
+    last 64 channels of 65) run the same kernel on contiguous copies: the
+    contiguous call's bits, forward and backward."""
+    r, kk, v, lw, u = _wkv_inputs(1, 100, 2, cuda_device, k=65, seed=24)
+    views = [a.to(torch.bfloat16)[..., 1:] for a in (r, kk, v, lw)]
+    assert all(a.data_ptr() % 8 for a in views)
+    uu = u[:, 1:].contiguous()
+    d_out = torch.randn(1, 100, 2, 64, device=cuda_device).to(torch.bfloat16)
+    results = []
+    for x in (views, [a.contiguous() for a in views]):
+        leaves = [a.detach().requires_grad_() for a in (*x, uu)]
+        d_state = torch.zeros(1, 2, 64, 64, device=cuda_device)
+        results.append(_reach_grads(lambda *a: wkv(*a, chunk=32), leaves, (d_out, d_state)))
+    ((out, state), grads), ((out_c, state_c), grads_c) = results
+    assert torch.equal(out, out_c) and torch.equal(state, state_c)
+    assert all(torch.equal(g, c) for g, c in zip(grads, grads_c))
+
+
+def test_reach_launches_count_by_dtype_and_instance(cuda_device):
+    """launches_by_instance keys are (dtype name, the instance's size)."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    u, dt, bt, ct, log_a = _ssm_inputs(1, 40, 32, cuda_device, n=24, seed=23)
+    before = dict(ssm_scan.launches_by_instance)
+    ssm_scan(*(a.bfloat16() for a in (u, dt, bt, ct, log_a)), chunk=64)
+    assert ssm_scan.launches_by_instance[("bf16", 32)] == before.get(("bf16", 32), 0) + 1
+    assert ssm_ops.instance(24) == 32
+    r, kk, v, lw, uu = _wkv_inputs(1, 40, 2, cuda_device, k=96, seed=23)
+    before = dict(wkv.launches_by_instance)
+    wkv(r, kk, v, lw, uu, chunk=32)
+    assert wkv.launches_by_instance[("f32", 128)] == before.get(("f32", 128), 0) + 1
+    assert wkv_ops.instance(96) == 128
+
+
+def test_hymba_bf16_call_site_on_the_card_matches_the_float32_copies(cuda_device):
+    """Reduced hymba-1.5b (bf16): the kernels handed the bf16 tensors give
+    the logits and gradients of the float32-copy call site, bit for bit."""
+    from repro_torch.configs import get_api
+
+    api = get_api("hymba-1.5b", reduced=True)
+    model = api.init(0, device="cuda")
+    tokens = torch.randint(0, api.cfg.vocab, (2, 32), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(3))
+    params = [p.requires_grad_() for p in model.parameters()]
+
+    def float_copies(u, dt, b_t, c_t, log_a, chunk):
+        y, h = ssm_scan(u.float(), dt.float(), b_t.float(), c_t.float(), log_a.float(),
+                        chunk=chunk)
+        return y.to(u.dtype), h
+
+    results = []
+    for seam in (None, float_copies):
+        logits = model.train_forward(tokens, scan=seam)
+        results.append((logits.detach(), torch.autograd.grad(logits.float().square().mean(),
+                                                             params)))
+    (a_logits, a_grads), (b_logits, b_grads) = results
+    assert torch.equal(a_logits, b_logits)
+    assert all(torch.equal(x, y) for x, y in zip(a_grads, b_grads))

@@ -3,12 +3,13 @@
 For each arch in ``ARCHS``, at its reduced config (what the training CLI,
 the examples and the dry run build by default) and at its published one,
 each call its full-sequence forward and ``train_forward`` make into a
-kernel must find its dtype and dims in the wrapper's table of CUDA
-instances: flash attention's ``HEAD_DIMS[dtype]`` holds (Dqk, Dv); the WKV
-kernel's ``HEAD_SIZES`` holds K and its chunk is at most ``MAX_CHUNK``; the
-selective scan's ``STATE_SIZES`` holds N and its chunk is at most
-``MAX_CHUNK``.  On the card a call outside the tables raises, so a config
-added with a shape no instance takes fails here, on the CPU, first.
+kernel must lie inside the wrapper's reach: flash attention's
+``HEAD_DIMS[dtype]`` holds (Dqk, Dv); the WKV kernel's and the selective
+scan's ``reach_error`` (their predicates: head sizes to 128 and chunks to
+``MAX_CHUNK``, ``MAX_CHUNK_K128`` past 64; any state size and chunk,
+float32 or bfloat16) has nothing against the call.  On the card a call
+outside the reach raises, so a config added with a shape no instance takes
+fails here, on the CPU, first.
 
 The reduced configs' entries are recorded through the models' ``attend``
 and ``scan`` seams on a CPU forward in the config's own dtype, and must
@@ -32,13 +33,15 @@ def kernel_entries(cfg):
     """The kernel entries a config's forward reaches, from its fields: a set
     of ``("flash", dtype, Dqk, Dv)`` (attention in the compute dtype; MLA's
     q/k are the latent and RoPE parts, v its own width), ``("wkv", K,
-    chunk)`` and ``("scan", N, chunk)`` (both float32 whatever the config's
-    dtype)."""
+    chunk)`` (float32 whatever the config's dtype: rwkv6 widens r, k and v
+    before the call, as the reference does) and ``("scan", dtype, N,
+    chunk)`` (in the compute dtype: hymba hands the kernel its tensors as
+    they are)."""
     if cfg.family == "ssm":
         return {("wkv", cfg.head_size, cfg.wkv_chunk)}
     entries = set()
     if cfg.family == "hybrid":
-        entries.add(("scan", cfg.ssm_state, cfg.ssm_chunk))
+        entries.add(("scan", cfg.compute_dtype, cfg.ssm_state, cfg.ssm_chunk))
     if hasattr(cfg, "qk_nope_dim"):
         dims = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
     else:
@@ -65,7 +68,7 @@ def recorded_entries(api):
             seen.add(("wkv", args[0].shape[-1], chunk))
             return wkv_chunked(*args, chunk=chunk)
         u, dt, b_t, c_t, log_a = args
-        seen.add(("scan", b_t.shape[-1], chunk))
+        seen.add(("scan", u.dtype, b_t.shape[-1], chunk))
         return selective_scan_ref(u, dt, log_a, b_t, c_t)
 
     cfg_window = getattr(cfg, "window", None) if cfg.family in ("dense", "moe") else None
@@ -89,7 +92,7 @@ def recorded_entries(api):
 
 
 def uncovered(entries):
-    """The entries no CUDA instance takes, each with the table it missed."""
+    """The entries no CUDA instance takes, each with the limit it passed."""
     missing = []
     for kind, *dims in sorted(entries, key=str):
         if kind == "flash":
@@ -98,14 +101,14 @@ def uncovered(entries):
                 missing.append(f"flash {dtype} {(dqk, dv)} not in HEAD_DIMS")
         elif kind == "wkv":
             k, chunk = dims
-            if k not in wkv_ops.HEAD_SIZES or chunk > wkv_ops.MAX_CHUNK:
-                missing.append(f"wkv K={k} chunk={chunk}: HEAD_SIZES {wkv_ops.HEAD_SIZES}, "
-                               f"MAX_CHUNK {wkv_ops.MAX_CHUNK}")
+            why = wkv_ops.reach_error(torch.float32, k, chunk)
+            if why:
+                missing.append(f"wkv K={k} chunk={chunk}: {why}")
         else:
-            n, chunk = dims
-            if n not in ssm_ops.STATE_SIZES or chunk > ssm_ops.MAX_CHUNK:
-                missing.append(f"scan N={n} chunk={chunk}: STATE_SIZES {ssm_ops.STATE_SIZES}, "
-                               f"MAX_CHUNK {ssm_ops.MAX_CHUNK}")
+            dtype, n, chunk = dims
+            why = ssm_ops.reach_error(dtype, n, chunk)
+            if why:
+                missing.append(f"scan {dtype} N={n} chunk={chunk}: {why}")
     return missing
 
 
@@ -131,13 +134,13 @@ def test_every_kernel_entry_has_a_cuda_instance(arch, width):
 @pytest.mark.parametrize("entry,table", [
     (("flash", torch.bfloat16, 24, 24), "HEAD_DIMS"),
     (("flash", torch.float16, 64, 64), "HEAD_DIMS"),
-    (("wkv", 48, 16), "HEAD_SIZES"),
-    (("wkv", 64, 128), "MAX_CHUNK"),
-    (("scan", 4, 8), "STATE_SIZES"),
-    (("scan", 16, 256), "MAX_CHUNK"),
+    (("wkv", 160, 16), "HEAD_SIZES"),
+    (("wkv", 64, 256), "MAX_CHUNK"),
+    (("wkv", 128, 96), "MAX_CHUNK_K128"),
+    (("scan", torch.float16, 16, 8), "DTYPES"),
 ])
 def test_an_uncovered_entry_is_named(entry, table):
-    """A shape outside the tables is reported with the table it missed."""
+    """A shape outside the reach is reported with the limit it passed."""
     (missing,) = uncovered({entry})
     assert table in missing
 
@@ -148,4 +151,5 @@ def test_kernel_entries_reads_the_mla_and_hybrid_fields():
     ds = get_api("deepseek-v2-236b").cfg
     assert kernel_entries(ds) == {("flash", ds.compute_dtype, 192, 128)}
     hy = get_api("hymba-1.5b").cfg
-    assert kernel_entries(hy) == {("flash", hy.compute_dtype, 64, 64), ("scan", 16, 128)}
+    assert kernel_entries(hy) == {("flash", hy.compute_dtype, 64, 64),
+                                  ("scan", hy.compute_dtype, 16, 128)}

@@ -124,10 +124,10 @@ def test_scan_keeps_bfloat16_output_dtype():
         (((1, 8, 4), (1, 8, 4), (1, 8, 16), (1, 8, 16), (4, 8)), torch.float32, {}),   # log_a
         (((8, 4),) * 2 + ((8, 16),) * 2 + ((4, 16),), torch.float32, {}),              # rank
         (((1, 0, 4),) * 2 + ((1, 0, 16),) * 2 + ((4, 16),), torch.float32, {}),        # T = 0
-        (((1, 8, 4),) * 2 + ((1, 8, 16),) * 2 + ((4, 16),), torch.bfloat16, {}),       # dtype
+        (((1, 8, 4),) * 2 + ((1, 8, 16),) * 2 + ((4, 16),), torch.float16, {}),        # dtype
         (((1, 8, 4),) * 2 + ((1, 8, 16),) * 2 + ((4, 16),), torch.float32, {"chunk": 0}),
     ],
-    ids=["dt-shape", "c_t-shape", "b_t-T", "log_a-shape", "rank", "empty-T", "bf16", "chunk-0"],
+    ids=["dt-shape", "c_t-shape", "b_t-T", "log_a-shape", "rank", "empty-T", "f16", "chunk-0"],
 )
 def test_wrapper_rejects_bad_calls(shapes, dtype, kwargs):
     u, dt, bt, ct, log_a = (torch.zeros(s, dtype=dtype) for s in shapes)
@@ -320,15 +320,18 @@ def test_backward_entry_and_constants_match_the_cuda_sources():
 @pytest.mark.parametrize("b,t,d", [(40, 512, 3200), (2, 301, 203), (1, 5, 16), (3, 64, 129)])
 def test_backward_scratch_formula_matches_its_layout(b, t, d):
     """``ssm_scan_backward_scratch`` (read from the source and evaluated)
-    sizes the layout the entry cuts the buffer into, at every state size
-    the kernel takes: the blocks' dB/dC partials (B, T, blocks, 2N) and
-    dlog_a's batch rows (B, D, N)."""
+    sizes the layout the entry cuts the buffer into, at the instance each
+    state size of a launch runs on (``instance``; every ``STATE_SIZES``
+    entry among them): the blocks' dB/dC partials (B, T, blocks, 2N) and
+    dlog_a's batch rows (B, D, N), N the instance's."""
     import re
 
     src = ssm_ops.BACKWARD_SOURCE.read_text()
     env = _constants(src)
     body = re.search(r"long long ssm_scan_backward_scratch\(([^)]*)\) \{(.*?)\n\}", src, re.S)
-    for n in ssm_ops.STATE_SIZES:
+    sizes = {ssm_ops.instance(n) for n in (1, 5, 8, 12, 16, 24, 40, 64)}
+    assert sizes == set(ssm_ops.STATE_SIZES)
+    for n in sorted(sizes):
         scope = dict(env, B=b, T=t, D=d, N=n)
         for stmt in body.group(2).split(";"):
             stmt = " ".join(stmt.replace("(long long)", "").replace("const long long ", "").split())

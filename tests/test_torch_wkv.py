@@ -121,10 +121,10 @@ def test_scan_keeps_bfloat16_output_dtype():
         (((1, 8, 2, 16),) * 4 + ((3, 16),), torch.float32, {}),                    # u shape
         (((8, 2, 16),) * 4 + ((2, 16),), torch.float32, {}),                       # rank
         (((1, 0, 2, 16),) * 4 + ((2, 16),), torch.float32, {}),                    # T = 0
-        (((1, 8, 2, 16),) * 4 + ((2, 16),), torch.bfloat16, {}),                   # dtype
+        (((1, 8, 2, 16),) * 4 + ((2, 16),), torch.float16, {}),                    # dtype
         (((1, 8, 2, 16),) * 4 + ((2, 16),), torch.float32, {"chunk": 0}),
     ],
-    ids=["log_w-shape", "u-shape", "rank", "empty-T", "bf16", "chunk-0"],
+    ids=["log_w-shape", "u-shape", "rank", "empty-T", "f16", "chunk-0"],
 )
 def test_wrapper_rejects_bad_calls(shapes, dtype, kwargs):
     r, k, v, lw, u = (torch.zeros(s, dtype=dtype) for s in shapes)

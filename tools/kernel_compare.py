@@ -3,6 +3,7 @@
 the model forwards that call it, on one CUDA card.
 
     python3 tools/kernel_compare.py --kernel KERNEL [--src DIR] [--label NAME] [--rows mma]
+                                    [--cases NAME,...]
 
 with KERNEL one of flash, flash_bwd, wkv, ssm, wkv_bwd, ssm_bwd.
 
@@ -23,7 +24,10 @@ by ``chip_smoke.node_step_row``, the training phase's own timing.
 
 ``--rows mma`` (flash and flash_bwd): only the rows the mma.sync kernels
 serve (float32 at every head dim, bf16 at (16, 16), (32, 32), (48, 32)),
-and no model forward or node step.
+and no model forward or node step.  ``--cases``: only the kernel rows of
+these case names, and no model forward or node step (a checkout that
+refuses a row's inputs, a bf16 row before the kernels took bf16, is
+compared on the rest).
 
 ``--kernel wkv``: each row of ``chip_smoke.WKV_CASES`` is timed by
 ``chip_smoke.wkv_case``, the WKV phase's own timing (errors included);
@@ -42,7 +46,9 @@ random weights) at b=34 of padded b=40, S=512, by
 ``chip_smoke.ssm_case``, the scan phase's own timing (errors, L2-cold
 device ms and the SM clock included); then full-width hymba-1.5b (bf16)
 runs a 1024-token forward, and the scan's inputs in its first layer
-(seeded random tokens) are timed by ``chip_smoke.ssm_row`` as one more row;
+(seeded random tokens, as the checkout's call site passes them: float32
+copies before the scan took bf16, the model's bf16 tensors since) are
+timed by ``chip_smoke.ssm_row`` as one more row;
 before the forward, the scan's device time over D = 1056 k channels.
 
 Every row is one JSON object.  A forward's row holds its wall ms per call
@@ -87,21 +93,27 @@ def mma_row(case) -> bool:
     return case[5] == "f32" or chip_smoke.head_dims(case[7]) in ((16, 16), (32, 32), (48, 32))
 
 
-def kernel_rows(torch, kernel: str, label: str, rows: str) -> None:
+def kernel_rows(torch, kernel: str, label: str, rows: str, only=None) -> None:
     dev = chip_smoke.DEVICE
+    if only is not None:
+        rows = "cases"
+
+    def chosen(case):
+        return only is None or case[0] in only
+
     if kernel == "flash":
         from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
         gen = torch.Generator(device=dev).manual_seed(0)
-        for case in chip_smoke.KERNEL_CASES:
-            if rows == "all" or mma_row(case):
+        for case in filter(chosen, chip_smoke.KERNEL_CASES):
+            if rows != "mma" or mma_row(case):
                 row = chip_smoke.flash_case(torch, flash_attention, attention_ref, case, gen)
                 print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
         return
     if kernel == "flash_bwd":
         gen = torch.Generator(device=dev).manual_seed(6)
-        for case in chip_smoke.BWD_CASES:
-            if rows == "all" or mma_row(case):
+        for case in filter(chosen, chip_smoke.BWD_CASES):
+            if rows != "mma" or mma_row(case):
                 row = chip_smoke.flash_bwd_case(torch, case, gen)
                 print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
         if rows == "all":
@@ -114,24 +126,26 @@ def kernel_rows(torch, kernel: str, label: str, rows: str) -> None:
             chip_smoke.BWD_KERNELS_PER_CALL[chip_smoke.SSM_BWD_PROFILE] = 3
         cases, case_fn, arch, layers = BACKWARDS[kernel]
         gen = torch.Generator(device=dev).manual_seed(8)
-        for case in cases:
+        for case in filter(chosen, cases):
             row = case_fn(torch, case, gen)
             print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
-        node_step(torch, label, arch=arch, n_layers=layers)
+        if rows == "all":
+            node_step(torch, label, arch=arch, n_layers=layers)
         return
     if kernel == "ssm":
         from repro_torch.kernels import ssm_scan
 
         gen = torch.Generator(device=dev).manual_seed(4)
-        for case in chip_smoke.SSM_CASES:
+        for case in filter(chosen, chip_smoke.SSM_CASES):
             row = chip_smoke.ssm_case(torch, ssm_scan, case, gen)
             print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
-        ssm_fill_rows(torch, ssm_scan, label, gen)
+        if rows == "all":
+            ssm_fill_rows(torch, ssm_scan, label, gen)
         return
     from repro_torch.kernels import rwkv6_wkv
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    for case in chip_smoke.WKV_CASES:
+    for case in filter(chosen, chip_smoke.WKV_CASES):
         row = chip_smoke.wkv_case(torch, rwkv6_wkv, case, gen)
         print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
 
@@ -250,7 +264,9 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--rows", choices=("all", "mma"), default="all")
+    ap.add_argument("--cases", default=None)
     args = ap.parse_args()
+    only = None if args.cases is None else set(args.cases.split(","))
     sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
@@ -262,8 +278,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    kernel_rows(torch, args.kernel, args.label, args.rows)
-    if args.rows == "all":
+    kernel_rows(torch, args.kernel, args.label, args.rows, only)
+    if args.rows == "all" and only is None:
         forward_rows(torch, args.kernel, args.label)
     return 0
 
