@@ -9,24 +9,28 @@ Phases, each of which fails the run:
 
 1. device        — the card's name and power limit (``nvidia-smi``).
 2. build         — compile every ``csrc/*.cu`` of the port for sm_90a into
-                   ``build/kernels/``, one ``nvcc`` per source, all started
-                   together; print the build seconds and ptxas report, and
-                   the flash library's tensor-core (HGMMA) and TMA-load
+                   ``build/kernels/``, one ``nvcc`` per library, all started
+                   together (the flash source once per element type, a
+                   library each: ``flash_ops.library_defines``); print the
+                   build seconds and ptxas report, and
+                   the flash libraries' tensor-core (HGMMA) and TMA-load
                    (UTMALDG) instruction counts, the WKV library's
                    tensor-core (HMMA) count and the scan library's
                    special-function (MUFU) and shuffle (SHFL) counts from
                    ``cuobjdump -sass`` (the named ones must be non-zero; a
-                   missing cuobjdump is printed); and, since the library's
-                   count holds the forward's, the HGMMA and UTMALDG counts
-                   of each bf16 backward kernel's own SASS (its three (Dqk,
-                   Dv) instances; each must be non-zero) beside its ptxas
+                   missing cuobjdump is printed); and, since the libraries'
+                   count holds the forwards', the HGMMA and UTMALDG counts
+                   of each 16-bit backward kernel's own SASS (three (Dqk,
+                   Dv) instances per element type, bf16 and float16; each
+                   must be non-zero) beside its ptxas
                    registers and spill bytes; the tensor-core (HMMA) and
                    cp.async (LDGSTS) counts of each mma.sync kernel's own
                    SASS (``MMA_KERNELS``: the forward, dQ and dK/dV at
-                   float32's six (Dqk, Dv) pairs and bf16's (16, 16),
-                   (32, 32), (48, 32); each must be non-zero); and the
-                   registers and spill bytes of every instance at (192,
-                   128), (48, 32), (32, 32) and (16, 16) and of the float32
+                   float32's seven (Dqk, Dv) pairs and bf16's and float16's
+                   (16, 16), (32, 32), (48, 32), (256, 256); each must be
+                   non-zero); and the registers and spill bytes of every
+                   instance at (192, 128), (48, 32), (32, 32), (16, 16) and
+                   (256, 256), of every float16 one and of the float32
                    ones at (64, 64) and (128, 128).
 3. kernel        — the flash-attention kernel against its plain PyTorch
                    version on the card at the serving path's shapes (bf16
@@ -420,6 +424,29 @@ Phases, each of which fails the run:
                    and phase 19 its node gradient, beside each route's
                    device ms and peak memory.  ``python3 chip_smoke.py
                    --only reach`` runs phases 1, 2 and 34.
+35. flash reach and float16 — at small shapes (B=2, S=300; reduced
+                   hymba-1.5b's and rwkv6-7b's node slices for the scan at
+                   N=8 and WKV at K=32): a driven path, every case once
+                   forward and backward through ``flash_attention``,
+                   ``ssm_scan`` and ``wkv`` under autograd, counted by
+                   instance, then each case's rows: flash
+                   (``FLASH_REACH_CASES``) in float16 at each of its seven
+                   instances, at (256, 256) in float32 and bf16, at head
+                   dims off the table (8, 40, 96 with GQA 4/2, 100, 160
+                   windowed, and (96, 64)), each run padded on the smallest
+                   instance that holds it, and with q, k, v in three
+                   dtypes, by ``flash_case`` and ``flash_bwd_case``
+                   (forward within ``TOL`` of q's dtype, float16 2e-3; each
+                   gradient within ``BWD_REL`` of its dtype, float16 2.5e-3
+                   x max(1, max |plain|); the backward the same bits twice;
+                   SDPA's time beside, none where SDPA refuses mixed
+                   dtypes; the bound at the caller's head dims); the scan
+                   in float16 at N = 8, 16, 32, 64 and D=203 and WKV at K
+                   = 32, 64, 128, and one mixed-dtype call each, by
+                   ``reach_row`` (float16 outputs the plain value rounded
+                   or one float16 step away, the float32-copy call's bits).
+                   ``python3 chip_smoke.py --only flash-reach`` runs phases
+                   1, 2 and 35.
 
 The launch counts are set to 0 just before each model's path (phases 5-6
 for olmo-1b, 7-8 for rwkv6-7b, 10-11 for hymba-1.5b, 13 and 14 for
@@ -428,8 +455,8 @@ each model of 20, each forward of 21, 22's serving run and forward, 23's
 training run, each forward of 24, 25's serving run and forward, 26's node
 steps, 27's forward, encode, stepped decode and each gradient, 28's encoder
 forward and decode loop, 29's training steps, 30's real step, each of 31's
-in-process calls, 33's whole run, 34's driven path) and read just after
-it.  Device ms of a named kernel are per launch the profiler recorded, with
+in-process calls, 33's whole run, 34's and 35's driven paths) and read
+just after it.  Device ms of a named kernel are per launch the profiler recorded, with
 the count of records beside them; a kernels-line entry's
 ``device_ms_from`` says ``cuda_events`` where every profile window lost
 them.  The last three lines of standard output are
@@ -462,11 +489,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_S = 3.35e12                  # H100 SXM device memory rate
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # f32 off the tensor cores
+PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "tf32": 495e12,
+              "f32": 67e12}  # f32 off the tensor cores
 # The float32 flash kernels' products run as 3xTF32 (three TF32 products
 # for each): their operations bound is a third of the TF32 rate.
 PEAK_FLOPS["3xtf32"] = PEAK_FLOPS["tf32"] / 3
-FLASH_RATE = {"bf16": "bf16", "f32": "3xtf32"}  # the flash bound's rate by dtype
+# The flash bound's rate by dtype; q, k, v in more than one dtype
+# ("mixed") run the float32 kernel on float32 copies.
+FLASH_RATE = {"bf16": "bf16", "f16": "f16", "f32": "3xtf32", "mixed": "3xtf32"}
+# Bytes per element, and the dtypes of (q, k, v) of a flash case's dtype
+# name: "mixed" is q float16, k float32, v bfloat16 (phase 35).
+ELEM = {"bf16": 2, "f16": 2, "f32": 4}
+MIXED_QKV = ("f16", "f32", "bf16")
+TORCH_DTYPES = {"bf16": "bfloat16", "f16": "float16", "f32": "float32"}
 REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:85"
 SOURCE_REL = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MAIN_CASE = "olmo-1b S=512"            # the kernel line's shape: a typical prompt
@@ -485,19 +520,24 @@ BWD_PROFILE_NAME = "flash_bwd_"        # the backward's kernels (``bwd_kernels``
 # Each of them by name: the wgmma instances' delta pre-pass, and dK/dV and
 # dQ of both bodies.
 BWD_KERNEL_NAMES = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
-BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  # bf16
-# The mma.sync kernels (float32 at every (Dqk, Dv), bf16 at (16, 16),
-# (32, 32), (48, 32)): phase 2 prints each instance's tensor-core (HMMA)
-# and cp.async (LDGSTS) counts, which must be non-zero.
+BWD_SM90_KERNELS = ("flash_bwd_dkdv_kernel_sm90", "flash_bwd_dq_kernel_sm90")  # bf16, f16
+# The element types of the wgmma kernels, by their mangled template argument.
+WGMMA_ELEMS = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
+MANGLED_ELEMS = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+# The mma.sync kernels (float32 at every (Dqk, Dv); bf16 and float16 at
+# (16, 16), (32, 32), (48, 32) and (256, 256)): phase 2 prints each
+# instance's tensor-core (HMMA) and cp.async (LDGSTS) counts, which must be
+# non-zero.
 MMA_KERNELS = ("flash_fwd_kernel_mma", "flash_bwd_dq_kernel_mma", "flash_bwd_dkdv_kernel_mma")
-MMA_INSTANCES = 9  # float32 at six pairs, bf16 at three
-# Mangled-name tags of the flash instances at (Dqk, Dv) = (192, 128), (48, 32)
-# and (32, 32), and of every mma.sync instance, whose ptxas registers and
-# spills phase 2 prints.
+MMA_INSTANCES = 15  # float32 at seven pairs, bf16 and float16 at four each
+# Mangled-name tags of the flash instances at (Dqk, Dv) = (192, 128), (48, 32),
+# (32, 32) and (256, 256), of every mma.sync instance and of every float16
+# one, whose ptxas registers and spills phase 2 prints.
 NEW_INSTANCE_TAGS = ("ILi192ELi128E", "ILi48ELi32E", "ILi32ELi32E", "IfLi192ELi128E",
                      "IfLi48ELi32E", "IfLi32ELi32E", "I13__nv_bfloat16Li32ELi32E",
                      "IfLi16ELi16E", "I13__nv_bfloat16Li16ELi16E",
-                     "I13__nv_bfloat16Li48ELi32E", "IfLi64ELi64E", "IfLi128ELi128E")
+                     "I13__nv_bfloat16Li48ELi32E", "IfLi64ELi64E", "IfLi128ELi128E",
+                     "Li256ELi256E", "6__half")
 BWD_MAIN_CASE = "olmo-1b train S=512 B=8"
 # Whisper-large-v3's non-causal attentions (20 heads of 64, MHA, bf16, B=8):
 # the encoder's self-attention over 1500 frames (23 tiles of 64 and 28
@@ -551,7 +591,7 @@ BWD_CASES = [
     (LLAMA_REDUCED_BWD_CASE, 16, 32, 8, 2, "bf16", None, 32),
     *REDUCED_FLASH_CASES,
 ]
-BWD_REL = {"bf16": 2e-2, "f32": 1e-4}
+BWD_REL = {"bf16": 2e-2, "f16": 2.5e-3, "f32": 1e-4}  # float16: bf16's over 8 (3 more bits)
 
 # name, B, S, H, KV, dtype, window, D or (Dqk, Dv)[, T, causal], as BWD_CASES
 KERNEL_CASES = [
@@ -576,7 +616,8 @@ KERNEL_CASES = [
 # The deepseek-v2-236b rows of phases 3 and 12 (the MLA instance, (192, 128)).
 DEEPSEEK_CASE = "deepseek-v2-236b S=1024"
 DEEPSEEK_BWD_CASE = "deepseek-v2-236b train B=8 S=512"
-TOL = {"bf16": 1e-2, "f32": 1e-5}
+# float16: one float16 step at |o| < 4 (tests/test_torch_flash_p_rounding.py).
+TOL = {"bf16": 1e-2, "f16": 2e-3, "f32": 1e-5}
 # name, B, T, H, chunk, strong decay[, K[, dtype]] (float32, K = 64 unless
 # given).  The training-slice rows time the WKV kernel on bf16 inputs
 # beside float32 at one node's slice (rwkv6-7b itself widens r, k, v).
@@ -857,16 +898,22 @@ def roofline(nbytes, flops, dtype):
     return t_ops * 1e3, "operations"
 
 
+def qkv_dtypes(dt):
+    """The dtype names of (q, k, v) of a flash case's dtype name."""
+    return MIXED_QKV if dt == "mixed" else (dt,) * 3
+
+
 def attention_bound(b, s, h, kv, d, dtype, window, t=None, causal=True):
-    """Least time for one attention call: q (Dqk) read and o (Dv) written
-    once over S, k (Dqk) and v (Dv) read once over T (default S), over the
-    memory rate; or the products over the valid (query, key) pairs of this
-    call (``attention_pairs``) over the kernel's peak rate for the dtype
-    (``FLASH_RATE``: float32 at the 3xTF32 rate)."""
+    """Least time for one attention call: q (Dqk) read and o (Dv, q's
+    dtype) written once over S, k (Dqk) and v (Dv) read once over T
+    (default S), over the memory rate; or the products over the valid
+    (query, key) pairs of this call (``attention_pairs``) over the kernel's
+    peak rate for the dtype (``FLASH_RATE``: float32 at the 3xTF32 rate).
+    The head dims are the caller's, whatever instance the call runs on."""
     t = s if t is None else t
     dqk, dv = head_dims(d)
-    elem = 2 if dtype == "bf16" else 4
-    nbytes = elem * b * (s * h * (dqk + dv) + t * kv * (dqk + dv))
+    eq, ek, ev = (ELEM[x] for x in qkv_dtypes(dtype))
+    nbytes = b * (s * h * eq * (dqk + dv) + t * kv * (ek * dqk + ev * dv))
     flops = 2 * (dqk + dv) * b * h * attention_pairs(s, t, window, causal)
     return roofline(nbytes, flops, FLASH_RATE[dtype])
 
@@ -894,33 +941,47 @@ def phase_build():
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
-    sources = [flash_ops.SOURCE, wkv_ops.SOURCE, ssm_ops.SOURCE, wkv_ops.BACKWARD_SOURCE,
-               ssm_ops.BACKWARD_SOURCE]
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        results = list(pool.map(build.build, sources))
-    for res in results:
-        log("build", f"{res.path.name}: {res.seconds:.2f} s")
+    # The flash source once per element type (a library each, side by
+    # side), then the WKV and scan sources.
+    jobs = [(flash_ops.SOURCE, flash_ops.library_defines(dtype)) for dtype in flash_ops.DTYPES]
+    jobs += [(src, ()) for src in (wkv_ops.SOURCE, ssm_ops.SOURCE, wkv_ops.BACKWARD_SOURCE,
+                                   ssm_ops.BACKWARD_SOURCE)]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(lambda job: build.build(*job), jobs))
+    n_flash = len(flash_ops.DTYPES)
+    flash, others = results[:n_flash], results[n_flash:]
+    for res, (_, defines) in zip(results, jobs):
+        log("build", f"{res.path.name} {' '.join(defines)}: {res.seconds:.2f} s")
         for line in res.log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "wgmma", "Function properties")):
                 log("build", line.strip())
-    for fn, regs, stores, loads in ptxas_summary(results[0].log, BWD_SM90_KERNELS):
-        log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
-    # The instances added for DeepSeek-V2's MLA (192, 128) and the float32
-    # ones at the reduced configs' head dims.
-    for fn, regs, stores, loads in ptxas_summary(results[0].log, NEW_INSTANCE_TAGS):
-        if not any(kernel in fn for kernel in BWD_SM90_KERNELS):  # printed above
+    for res in flash:
+        for fn, regs, stores, loads in ptxas_summary(res.log, BWD_SM90_KERNELS):
             log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
+        # The instances added for DeepSeek-V2's MLA (192, 128), the float32
+        # ones at the reduced configs' head dims, (256, 256) and float16's.
+        for fn, regs, stores, loads in ptxas_summary(res.log, NEW_INSTANCE_TAGS):
+            if not any(kernel in fn for kernel in BWD_SM90_KERNELS):  # printed above
+                log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} "
+                    f"spill_loads={loads}")
     # Every WKV and scan instance, forward (each (K, chunk tile) and (N,
     # TMA, element type)) and backward.
-    for res, names in ((results[1], ("wkv_",)), (results[2], ("ssm_scan_kernel",)),
-                       (results[3], ("_bwd_",)), (results[4], ("_bwd_",))):
+    for res, names in zip(others, (("wkv_",), ("ssm_scan_kernel",), ("_bwd_",), ("_bwd_",))):
         for fn, regs, stores, loads in ptxas_summary(res.log, names):
             log("build", f"ptxas {fn}: registers={regs} spill_stores={stores} spill_loads={loads}")
-    for res, need, why in ((results[0], ("HGMMA", "UTMALDG"), "run wgmma on TMA tiles"),
-                           (results[1], ("HMMA",), "run its products on the tensor cores"),
-                           (results[2], ("MUFU",), "compute its exponentials")):
-        source = res.path.name.split("-")[0] + ".cu"
+    flash_fns = {}
+    for res in flash:
         by_fn = sass_counts(build, res.path)
+        if by_fn is None:
+            flash_fns = None
+            break
+        flash_fns.update(by_fn)
+    for by_fn, source, need, why in (
+            (flash_fns, "flash_attention.cu", ("HGMMA", "UTMALDG"), "run wgmma on TMA tiles"),
+            (sass_counts(build, others[0].path), "wkv.cu", ("HMMA",),
+             "run its products on the tensor cores"),
+            (sass_counts(build, others[1].path), "ssm_scan.cu", ("MUFU",),
+             "compute its exponentials")):
         if by_fn is None:
             log("build", f"{source} SASS: cuobjdump is missing, {'/'.join(need)} not counted")
             continue
@@ -928,30 +989,35 @@ def phase_build():
         log("build", f"{source} SASS: " + " ".join(f"{k}={v}" for k, v in counts.items()))
         if not all(counts[op] for op in need):
             raise AssertionError(f"{source} must {why}: {counts}")
-        if res is not results[0]:
+        if source != "flash_attention.cu":
             continue
-        # The library-wide count holds the forward's wgmma and TMA loads:
-        # the bf16 backward kernels must show their own.
+        # The libraries' count holds the forwards' wgmma and TMA loads: the
+        # 16-bit backward kernels must show their own, three instances per
+        # element type.
         for kernel in BWD_SM90_KERNELS:
             own = {fn: c for fn, c in by_fn.items() if kernel in fn}
-            if len(own) != 3:  # head dims (64, 64), (128, 128), (192, 128)
-                raise AssertionError(f"{kernel}: expected three instances in the SASS, got {list(own)}")
-            for fn, c in sorted(own.items()):
-                dims = ",".join(re.search(r"ILi(\d+)ELi(\d+)E", fn).groups())
-                log("build", f"{source} SASS {kernel}<{dims}>: "
-                    + " ".join(f"{k}={c[k]}" for k in ("HGMMA", "UTMALDG")))
-                if not (c["HGMMA"] and c["UTMALDG"]):
-                    raise AssertionError(f"{fn} must run wgmma on TMA tiles: {c}")
-        # The mma.sync kernels (float32, and bf16 at the reduced head dims):
-        # tensor-core products on cp.async tiles in each instance.
+            for elem in WGMMA_ELEMS:
+                mine = {fn: c for fn, c in own.items() if WGMMA_ELEMS[elem] in fn}
+                if len(mine) != 3:  # head dims (64, 64), (128, 128), (192, 128)
+                    raise AssertionError(f"{kernel}: expected three {elem} instances in the "
+                                         f"SASS, got {list(mine)}")
+                for fn, c in sorted(mine.items()):
+                    dims = ",".join(re.search(r"ILi(\d+)ELi(\d+)E", fn).groups())
+                    log("build", f"{source} SASS {kernel}<{dims},{elem}>: "
+                        + " ".join(f"{k}={c[k]}" for k in ("HGMMA", "UTMALDG")))
+                    if not (c["HGMMA"] and c["UTMALDG"]):
+                        raise AssertionError(f"{fn} must run wgmma on TMA tiles: {c}")
+        # The mma.sync kernels (float32 at every pair; bf16 and float16 at
+        # the reduced head dims and (256, 256)): tensor-core products on
+        # cp.async tiles in each instance.
         for kernel in MMA_KERNELS:
             own = {fn: c for fn, c in by_fn.items() if kernel in fn}
             if len(own) != MMA_INSTANCES:
                 raise AssertionError(f"{kernel}: expected {MMA_INSTANCES} instances in the SASS, "
                                      f"got {list(own)}")
             for fn, c in sorted(own.items()):
-                m = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
-                inst = f"{'f32' if m.group(1) == 'f' else 'bf16'},{m.group(2)},{m.group(3)}"
+                m = re.search(r"I(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E", fn)
+                inst = f"{MANGLED_ELEMS[m.group(1)]},{m.group(2)},{m.group(3)}"
                 log("build", f"{source} SASS {kernel}<{inst}>: "
                     + " ".join(f"{k}={c[k]}" for k in ("HMMA", "LDGSTS")))
                 if not (c["HMMA"] and c["LDGSTS"]):
@@ -1048,9 +1114,10 @@ def flash_case(torch, flash_attention, attention_ref, case, gen):
 
     name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
     dqk, dv = head_dims(d)
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
-    q, k, v = (torch.randn((b, n_rows, n, dim), generator=gen, device=DEVICE).to(dtype)
-               for n_rows, n, dim in ((s, h, dqk), (t, kv, dqk), (t, kv, dv)))
+    q, k, v = (torch.randn((b, n_rows, n, dim), generator=gen, device=DEVICE)
+               .to(getattr(torch, TORCH_DTYPES[x]))
+               for (n_rows, n, dim), x in zip(((s, h, dqk), (t, kv, dqk), (t, kv, dv)),
+                                              qkv_dtypes(dt)))
 
     def kernel():
         return flash_attention(q, k, v, causal=causal, window=window)
@@ -1204,7 +1271,7 @@ def wkv_case(torch, mod, case, gen):
     pairs += [("out", out, ref_out), ("state", state, ref_state)]
     errs = {key: (got.float() - want).abs().max().item() for key, got, want in pairs}
     tols = {key: WKV_REL * max(1.0, want.abs().max().item()) for key, _, want in pairs}
-    steps = {key: bf16_steps(got, want, tols[key]) for key, got, want in pairs
+    steps = {key: steps16(got, want, tols[key]) for key, got, want in pairs
              if got.dtype == torch.bfloat16}
     del pairs, out, state, ref_out, ref_state
 
@@ -1901,8 +1968,9 @@ def attention_bwd_bound(b, s, h, kv, d, dtype, window, t=None, causal=True):
     dtype (``FLASH_RATE``)."""
     t = s if t is None else t
     dqk, dv = head_dims(d)
-    elem = 2 if dtype == "bf16" else 4
-    nbytes = elem * b * 2 * (dqk + dv) * (s * h + t * kv) + 4 * b * h * s
+    eq, ek, ev = (ELEM[x] for x in qkv_dtypes(dtype))
+    nbytes = (b * 2 * (eq * (dqk + dv) * s * h + (ek * dqk + ev * dv) * t * kv)
+              + 4 * b * h * s)
     flops = 2 * (3 * dqk + 2 * dv) * b * h * attention_pairs(s, t, window, causal)
     return roofline(nbytes, flops, FLASH_RATE[dtype])
 
@@ -1914,7 +1982,7 @@ def bwd_kernels(ops, dt, d):
     import torch
 
     count = getattr(ops, "backward_kernels", None)
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    dtype = getattr(torch, TORCH_DTYPES.get(dt, "float32"))  # mixed: float32 copies
     return 3 if count is None else count(dtype, *head_dims(d))
 
 
@@ -1932,11 +2000,15 @@ def flash_bwd_case(torch, case, gen):
 
     name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
     dqk, dv = head_dims(d)
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
-    q, k, v, do = (torch.randn((b, n_rows, n, dim), generator=gen, device=DEVICE).to(dtype)
-                   for n_rows, n, dim in ((s, h, dqk), (t, kv, dqk), (t, kv, dv), (s, h, dv)))
+    q, k, v, do = (torch.randn((b, n_rows, n, dim), generator=gen, device=DEVICE)
+                   .to(getattr(torch, TORCH_DTYPES[x]))
+                   for (n_rows, n, dim), x in zip(((s, h, dqk), (t, kv, dqk), (t, kv, dv),
+                                                   (s, h, dv)), qkv_dtypes(dt) + qkv_dtypes(dt)[:1]))
     scale = 1.0 / dqk ** 0.5
-    out, lse = ops._forward(q, k, v, causal, window, scale, None, with_lse=True)
+    # The forward's output and log-sum-exp (on float32 copies where q, k, v
+    # are in more than one dtype, as the wrapper's autograd runs such a call).
+    run = (q, k, v) if dt != "mixed" else (q.float(), k.float(), v.float())
+    out, lse = ops._forward(*run, causal, window, scale, None, with_lse=True)
 
     def kernel():
         return flash_attention_backward(q, k, v, out, lse, do, causal=causal, window=window)
@@ -1950,7 +2022,8 @@ def flash_bwd_case(torch, case, gen):
     want = torch.autograd.grad(attention_ref(*leaves, causal=causal, window=window), leaves, do)
     errs = {key: (g.float() - w.float()).abs().max().item()
             for key, g, w in zip(("dq", "dk", "dv"), got, want)}
-    tols = {key: BWD_REL[dt] * max(1.0, w.float().abs().max().item())
+    names = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+    tols = {key: BWD_REL[names[w.dtype]] * max(1.0, w.float().abs().max().item())
             for key, w in zip(("dq", "dk", "dv"), want)}
     del got, want, leaves
 
@@ -3199,7 +3272,7 @@ def bwd_row(torch, kernel, plain, keys, profile, bound, wide=None):
         errs[key] = (g.float() - w.float()).abs().max().item()
         tols[key] = KERNEL_BWD_REL * max(1.0, w.float().abs().max().item())
         if g.dtype == torch.bfloat16:
-            steps[key] = bf16_steps(g, w.float(), tols[key])
+            steps[key] = steps16(g, w.float(), tols[key])
     del got, want
     ms = cuda_ms(torch, kernel, 5, warmup=1)
     _, named, _, records = profile_device(torch, kernel, 5, (profile,),
@@ -3343,7 +3416,7 @@ REACH_WKV_CASES = [
     ("f32 K=128", 2, 300, 4, 128, 64, "f32"),           # the 128 instance
     ("f32 chunk=128", 2, 300, 4, 64, 128, "f32"),       # 128-row tiles
 ]
-REACH_DTYPES = {"bf16": "bfloat16", "f32": "float32"}
+REACH_DTYPES = TORCH_DTYPES
 # The reach rows in the kernels line: (entry name, family, case, the
 # instance key of launches_by_instance).
 REACH_KERNEL_ROWS = (
@@ -3358,33 +3431,37 @@ REACH_KERNEL_ROWS = (
 )
 
 
-def bf16_steps(got, want, tol):
-    """The bf16 rule: each element of ``got`` equal to ``want`` rounded to
-    bfloat16 or one bfloat16 step (its ulp) away, up to ``tol`` (the
-    float32 tolerance) besides; returns the largest |got - round(want)| -
-    tol over that step (<= 1 passes)."""
+def steps16(got, want, tol):
+    """The 16-bit rule, in ``got``'s dtype (bfloat16 or float16): each
+    element of ``got`` equal to ``want`` rounded to that dtype or one step
+    of it (its ulp, at least the smallest subnormal's) away, up to ``tol``
+    (the float32 tolerance) besides; returns the largest |got -
+    round(want)| - tol over that step (<= 1 passes)."""
     import torch
 
-    r16 = want.to(torch.bfloat16).float()
+    bits = {torch.bfloat16: 8, torch.float16: 11}[got.dtype]  # significand, the implicit one in
+    info = torch.finfo(got.dtype)
+    r16 = want.to(got.dtype).float()
     _, e = torch.frexp(r16)
-    ulp = torch.where(r16 == 0, torch.zeros_like(r16), torch.ldexp(torch.ones_like(r16), e - 8))
+    ulp = torch.where(r16 == 0, torch.zeros_like(r16),
+                      torch.ldexp(torch.ones_like(r16), e - bits))
     excess = ((got.float() - r16).abs() - tol).clamp(min=0.0)
-    return (excess / ulp.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+    return (excess / ulp.clamp(min=info.smallest_normal * info.eps)).max().item()
 
 
 def reach_check(label, key, got, want, rel):
-    """(max abs err, tolerance, bf16 steps or None) of one output; raises
-    where it breaks the float32 tolerance (float32 outputs) or the bf16
-    rule (bfloat16 outputs)."""
+    """(max abs err, tolerance, 16-bit steps or None) of one output; raises
+    where it breaks the float32 tolerance (float32 outputs) or the 16-bit
+    rule (bfloat16 and float16 outputs, ``steps16``)."""
     import torch
 
     err = (got.float() - want.float()).abs().max().item()
     tol = rel * max(1.0, want.float().abs().max().item())
-    if got.dtype == torch.bfloat16:
-        steps = bf16_steps(got, want.float(), tol)
+    if got.dtype in (torch.bfloat16, torch.float16):
+        steps = steps16(got, want.float(), tol)
         if not steps <= 1.0:
-            raise AssertionError(f"{label}: {key} is {steps:.2f} bf16 steps off the plain "
-                                 f"version rounded (max abs err {err:.3e})")
+            raise AssertionError(f"{label}: {key} is {steps:.2f} {got.dtype} steps off the "
+                                 f"plain version rounded (max abs err {err:.3e})")
         return err, tol, steps
     if not err <= tol:
         raise AssertionError(f"{label}: {key} max abs err {err:.3e} > {tol:.3e}")
@@ -3392,8 +3469,8 @@ def reach_check(label, key, got, want, rel):
 
 
 def reach_same_bits(label, got, want):
-    """The bf16 call's outputs equal the float32-copy call's rounded to
-    each output's dtype, bit for bit."""
+    """A 16-bit or mixed-dtype call's outputs equal the float32-copy call's
+    rounded to each output's dtype, bit for bit."""
     import torch
 
     for i, (g, w) in enumerate(zip(got, want)):
@@ -3402,37 +3479,51 @@ def reach_same_bits(label, got, want):
                                  "call rounded")
 
 
+# The inputs' dtypes of a "mixed" scan case (u, dt, B and C, log_a) and WKV
+# case (r, k, v, log_w, u): the call runs on float32 copies.
+MIXED_SSM = ("f16", "f32", "bf16", "f32")
+MIXED_WKV = ("f16", "f32", "f16", "bf16", "f32")
+
+
+def reach_dtypes(family, dt_name):
+    """The dtype names of a reach case's inputs (``reach_ssm_inputs`` and
+    ``reach_wkv_inputs`` order)."""
+    if dt_name == "mixed":
+        return MIXED_SSM if family == "ssm" else MIXED_WKV
+    return (dt_name,) * (4 if family == "ssm" else 5)
+
+
 def reach_ssm_inputs(torch, case, gen):
-    """A scan case's inputs in its dtype (B and C views of one (B, T, 2N)
-    tensor, as the model passes them), the output gradients and the final
-    state's (float32)."""
+    """A scan case's inputs in its dtypes (B and C views of one (B, T, 2N)
+    tensor, as the model passes them), the output gradients (in u's
+    dtype) and the final state's (float32)."""
     name, b, t, d, n, chunk, dt_name = case
-    dtype = getattr(torch, REACH_DTYPES[dt_name])
+    du, ddt, dbc, dla = (getattr(torch, REACH_DTYPES[x]) for x in reach_dtypes("ssm", dt_name))
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
 
-    u = rand(b, t, d).to(dtype)
-    dt = (torch.exp(rand(b, t, d) * 0.5) * 0.3).to(dtype)
-    bc = rand(b, t, 2 * n).to(dtype)
-    log_a = (rand(d, n) * 0.5).to(dtype)
-    dy, dh = rand(b, t, d).to(dtype), rand(b, d, n)
+    u = rand(b, t, d).to(du)
+    dt = (torch.exp(rand(b, t, d) * 0.5) * 0.3).to(ddt)
+    bc = rand(b, t, 2 * n).to(dbc)
+    log_a = (rand(d, n) * 0.5).to(dla)
+    dy, dh = rand(b, t, d).to(du), rand(b, d, n)
     return [u, dt, bc, log_a], dy, dh
 
 
 def reach_wkv_inputs(torch, case, gen):
     name, b, t, h, k, chunk, dt_name = case
-    dtype = getattr(torch, REACH_DTYPES[dt_name])
+    dr, dk, dv, dlw, du = (getattr(torch, REACH_DTYPES[x]) for x in reach_dtypes("wkv", dt_name))
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
 
-    r, kk, v = (rand(b, t, h, k).mul(0.5).to(dtype) for _ in range(3))
+    r, kk, v = (rand(b, t, h, k).mul(0.5).to(x) for x in (dr, dk, dv))
     # Past chunk 64 weaker decays: the chunked form's mid-point factors
     # exp(L_C / 2) stay inside float32 (the plain version's as the kernel's).
-    lw = (-torch.exp(rand(b, t, h, k)) * (0.1 if chunk > 64 else 1.0)).to(dtype)
-    u = rand(h, k).mul(0.2).to(dtype)
-    return [r, kk, v, lw, u], rand(b, t, h, k).to(dtype), rand(b, h, k, k)
+    lw = (-torch.exp(rand(b, t, h, k)) * (0.1 if chunk > 64 else 1.0)).to(dlw)
+    u = rand(h, k).mul(0.2).to(du)
+    return [r, kk, v, lw, u], rand(b, t, h, k).to(dr), rand(b, h, k, k)
 
 
 def reach_call(torch, family, case, leaves, outs_grad=None):
@@ -3475,20 +3566,25 @@ def reach_plain(torch, family, case, inputs, outs_grad=None):
 
 
 def reach_bounds(family, case):
-    """(forward (ms, by), backward (ms, by)) at the case's element size:
+    """(forward (ms, by), backward (ms, by)) at the case's element sizes:
     the forward's and backward's bytes (inputs read once, outputs written
-    once, states and u float32) and operations, as ``ssm_bound`` /
+    once, each in its input's dtype, y / out and their gradient in the
+    first input's, states float32) and operations, as ``ssm_bound`` /
     ``wkv_bound`` and their backward's count them."""
     name, b, t, w, n, chunk, dt_name = case
-    elem = 2 if dt_name == "bf16" else 4
+    el = [ELEM[x] for x in reach_dtypes(family, dt_name)]
     if family == "ssm":
-        fwd_bytes = elem * (3 * b * t * w + 2 * b * t * n + w * n) + 4 * b * w * n
-        bwd_bytes = elem * (5 * b * t * w + 4 * b * t * n + 2 * w * n) + 4 * b * w * n
+        eu, edt, ebc, ela = el
+        fwd_bytes = (2 * eu + edt) * b * t * w + 2 * ebc * b * t * n + ela * w * n + 4 * b * w * n
+        bwd_bytes = ((3 * eu + 2 * edt) * b * t * w + 4 * ebc * b * t * n + 2 * ela * w * n
+                     + 4 * b * w * n)
         fwd = roofline(fwd_bytes, 7 * b * t * w * n, "f32")
         bwd = roofline(bwd_bytes, 16 * b * t * w * n, "f32")
     else:
-        fwd_bytes = elem * (5 * b * t * w * n + w * n) + 4 * b * w * n * n
-        bwd_bytes = elem * (9 * b * t * w * n + 2 * w * n) + 4 * 2 * b * w * n * n
+        er, ek, ev, elw, eu = el
+        fwd_bytes = (2 * er + ek + ev + elw) * b * t * w * n + eu * w * n + 4 * b * w * n * n
+        bwd_bytes = ((3 * er + 2 * (ek + ev + elw)) * b * t * w * n + 2 * eu * w * n
+                     + 4 * 2 * b * w * n * n)
         fwd = roofline(fwd_bytes, 4 * n * n * b * t * w, "f32")
         bwd = roofline(bwd_bytes, 2 * (5 * n * n + 6 * WKV_BWD_CHUNK * n) * b * t * w, "tf32")
     return fwd, bwd
@@ -3522,7 +3618,7 @@ def reach_row(torch, family, case, gen):
               "state": reach_check(label, "state", outs[1], want_h, rel)}
     for key, g, w in zip(keys, grads, want_grads):
         checks["d" + key] = reach_check(label, "d" + key, g, w, KERNEL_BWD_REL)
-    if case[-1] == "bf16":
+    if case[-1] != "f32":  # 16-bit or mixed: the float32-copy call rounded
         wide = [x.detach().float().requires_grad_() for x in inputs]
         w_outs, w_grads = reach_call(torch, family, case, wide, (dy.float(), dh))
         reach_same_bits(label, outs, w_outs)
@@ -3594,6 +3690,25 @@ def reach_kernel_entries(rows, path, reduced_counts):
     return entries
 
 
+def log_reach_row(tag, family, case, row):
+    """One line a direction of a ``reach_row``."""
+    name, b, t, w, n, chunk, dt_name = case
+    dims = (f"B={b} T={t} D={w} N={n}" if family == "ssm" else f"B={b} T={t} H={w} K={n}")
+    if dt_name == "mixed":
+        dt_name = "mixed " + "/".join(reach_dtypes(family, dt_name))
+    for direction in ("forward", "backward"):
+        r = row[direction]
+        log(tag, f"{family} {direction} {name}: {dims} chunk={chunk} {dt_name}: max_abs_err "
+            + " ".join(f"{k}={e:.3e} (tol {r['tols'][k]:.3e}"
+                       + (f", 16-bit steps {r['steps'][k]:.2f}" if k in r["steps"] else "")
+                       + ")" for k, e in r["errs"].items())
+            + f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) device_ms={r['device_ms']:.4f} "
+            f"records={r['records']}/{r['calls']} device_ms_from="
+            f"{device_ms_from(r['records'])} bitwise_repeat={r['bitwise_repeat']}"
+            + (" same bits as the float32-copy call rounded" if dt_name != "f32" else ""))
+
+
 def phase_reach(torch):
     """Phase 34: the driven path (every case once forward and backward
     through the public entries, the counts set to 0 just before and read
@@ -3606,9 +3721,10 @@ def phase_reach(torch):
     cases = [("ssm", c) for c in REACH_SSM_CASES] + [("wkv", c) for c in REACH_WKV_CASES]
     for family, (name, b, t, w, n, chunk, dt_name) in cases:
         ops = ssm_ops if family == "ssm" else wkv_ops
-        why = ops.reach_error(getattr(torch, REACH_DTYPES[dt_name]), n, min(chunk, t))
-        if why:
-            raise AssertionError(f"reach {family} {name}: {why}")
+        for x in set(reach_dtypes(family, dt_name)):
+            why = ops.reach_error(getattr(torch, REACH_DTYPES[x]), n, min(chunk, t))
+            if why:
+                raise AssertionError(f"reach {family} {name}: {why}")
     inputs = {}
     for family, case in cases:
         make = reach_ssm_inputs if family == "ssm" else reach_wkv_inputs
@@ -3625,26 +3741,234 @@ def phase_reach(torch):
     del inputs
     rows = {}
     for family, case in cases:
-        rows[(family, case[0])] = row = reach_row(torch, family, case, gen)
-        name, b, t, w, n, chunk, dt_name = case
-        dims = (f"B={b} T={t} D={w} N={n}" if family == "ssm" else f"B={b} T={t} H={w} K={n}")
-        for direction in ("forward", "backward"):
-            r = row[direction]
-            log("reach", f"{family} {direction} {name}: {dims} chunk={chunk} {dt_name}: max_abs_err "
-                + " ".join(f"{k}={e:.3e} (tol {r['tols'][k]:.3e}"
-                           + (f", bf16 steps {r['steps'][k]:.2f}" if k in r["steps"] else "")
-                           + ")" for k, e in r["errs"].items())
-                + f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
-                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) device_ms={r['device_ms']:.4f} "
-                f"records={r['records']}/{r['calls']} device_ms_from="
-                f"{device_ms_from(r['records'])} bitwise_repeat={r['bitwise_repeat']}"
-                + (" same bits as the float32-copy call rounded" if dt_name == "bf16" else ""))
+        rows[(family, case[0])] = reach_row(torch, family, case, gen)
+        log_reach_row("reach", family, case, rows[(family, case[0])])
     for family, wrapper in (("ssm", "ssm_scan"), ("wkv", "rwkv6_wkv")):
         for _, fam, _, key in REACH_KERNEL_ROWS:
             if fam == family and not (path.get((wrapper, key)) and
                                       path.get((BACKWARD_OF[wrapper], key))):
                 raise AssertionError(f"reach: {wrapper}{key} or its backward did not launch")
     return rows, path
+
+
+# Phase 35: the flash reach and float16.  Flash cases (name, B, S, H, KV,
+# dtype, window, D or (Dqk, Dv), as KERNEL_CASES) at B=2, S=300: float16 at
+# each instance (the wgmma kernels at (64, 64), (128, 128), (192, 128), the
+# mma.sync ones at the others), (256, 256) in the three dtypes, head dims
+# off the table (run on the smallest instance that holds them, padded by
+# zero channels) and q, k, v in three dtypes ("mixed": float32 copies).
+FLASH_REACH_CASES = [
+    ("f16 D=16", 2, 300, 4, 4, "f16", None, 16),
+    ("f16 D=32", 2, 300, 4, 4, "f16", None, 32),
+    ("f16 (48, 32)", 2, 300, 4, 4, "f16", None, (48, 32)),
+    ("f16 D=64", 2, 300, 4, 4, "f16", None, 64),
+    ("f16 D=128", 2, 300, 4, 4, "f16", None, 128),
+    ("f16 (192, 128)", 2, 300, 4, 4, "f16", None, (192, 128)),
+    ("f16 D=256", 2, 300, 4, 4, "f16", None, 256),
+    ("bf16 D=256", 2, 300, 4, 4, "bf16", None, 256),
+    ("f32 D=256", 2, 300, 4, 4, "f32", None, 256),
+    ("f16 D=8 (on 16)", 2, 300, 4, 4, "f16", None, 8),
+    ("bf16 D=40 (on 64)", 2, 300, 4, 4, "bf16", None, 40),
+    ("f16 D=96 GQA 4/2 (on 128)", 2, 300, 4, 2, "f16", None, 96),
+    ("f32 D=100 (on 128)", 2, 300, 4, 4, "f32", None, 100),
+    ("bf16 D=160 window=64 (on 256)", 2, 300, 4, 4, "bf16", 64, 160),
+    ("bf16 (96, 64) (on 128)", 2, 300, 4, 4, "bf16", None, (96, 64)),
+    ("mixed D=64", 2, 300, 4, 4, "mixed", None, 64),
+]
+# The float16 SSM instances and one mixed-dtype call each (as
+# REACH_SSM_CASES and REACH_WKV_CASES).
+FLASH_REACH_SSM_CASES = [
+    ("f16 N=16", 2, 300, 64, 16, 64, "f16"),           # TMA in float16
+    ("f16 N=8", 4, 32, 128, 8, 8, "f16"),              # reduced hymba-1.5b's node slice
+    ("f16 N=32", 2, 300, 48, 32, 64, "f16"),           # the 32 instance
+    ("f16 N=64", 2, 300, 48, 64, 64, "f16"),           # the 64 instance
+    ("f16 D=203", 2, 300, 203, 16, 64, "f16"),         # rows off 16 bytes: plain loads
+    ("mixed N=16", 2, 300, 64, 16, 64, "mixed"),       # float32 copies
+]
+FLASH_REACH_WKV_CASES = [
+    ("f16 K=64", 2, 300, 4, 64, 64, "f16"),            # 8-byte loads, widened
+    ("f16 K=32", 4, 32, 4, 32, 16, "f16"),             # reduced rwkv6-7b's node slice
+    ("f16 K=128", 2, 300, 4, 128, 64, "f16"),          # the 128 instance
+    ("mixed K=64", 2, 300, 4, 64, 64, "mixed"),        # float32 copies
+]
+# Each case's entries in the kernels line: (label, case).  A flash entry's
+# launches are its instance's, a padded or mixed one's those of the
+# instance it runs on.
+FLASH_REACH_KERNEL_ROWS = (
+    ("[f16,16]", "f16 D=16"), ("[f16,32]", "f16 D=32"), ("[f16,48x32]", "f16 (48, 32)"),
+    ("[f16,64]", "f16 D=64"), ("[f16,128]", "f16 D=128"), ("[f16,192x128]", "f16 (192, 128)"),
+    ("[f16,256]", "f16 D=256"), ("[bf16,256]", "bf16 D=256"), ("[f32,256]", "f32 D=256"),
+    ("[f16,8,padded]", "f16 D=8 (on 16)"), ("[bf16,40,padded]", "bf16 D=40 (on 64)"),
+    ("[f16,96,padded]", "f16 D=96 GQA 4/2 (on 128)"), ("[f32,100,padded]", "f32 D=100 (on 128)"),
+    ("[bf16,160,padded]", "bf16 D=160 window=64 (on 256)"),
+    ("[bf16,96x64,padded]", "bf16 (96, 64) (on 128)"), ("[mixed,64]", "mixed D=64"),
+)
+FLASH_REACH_SSM_ROWS = (
+    ("ssm", "[f16,16]", "f16 N=16"), ("ssm", "[f16,8]", "f16 N=8"),
+    ("ssm", "[f16,32]", "f16 N=32"), ("ssm", "[f16,64]", "f16 N=64"),
+    ("ssm", "[mixed,16]", "mixed N=16"),
+    ("wkv", "[f16,64]", "f16 K=64"), ("wkv", "[f16,32]", "f16 K=32"),
+    ("wkv", "[f16,128]", "f16 K=128"), ("wkv", "[mixed,64]", "mixed K=64"),
+)
+
+
+def flash_reach_key(torch, case):
+    """The ``launches_by_instance`` key a flash case runs on: (the dtype it
+    runs in, the instance's Dqk, Dv)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    dt = case[5]
+    run = "f32" if dt == "mixed" else dt
+    return (run, *ops.instance(getattr(torch, TORCH_DTYPES[run]), *head_dims(case[7])))
+
+
+def ssm_reach_key(family, case):
+    """The ``launches_by_instance`` key of a scan or WKV reach case."""
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    dt = "f32" if case[6] == "mixed" else case[6]
+    return (dt, (ssm_ops if family == "ssm" else wkv_ops).instance(case[4]))
+
+
+def phase_flash_reach(torch):
+    """Phase 35: the driven path (every case once forward and backward
+    through the public entries under autograd, the counts set to 0 just
+    before and read just after, by instance), then each case's rows: flash
+    by ``flash_case`` and ``flash_bwd_case`` (within ``TOL`` / ``BWD_REL``
+    of q's and each gradient's dtype, the backward the same bits twice),
+    the scan and WKV by ``reach_row``.  Every case lies inside its
+    wrapper's reach (``reach_error``), and every instance it runs on
+    launched forward and backward."""
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention, ops as flash_ops)
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(35)
+    for case in FLASH_REACH_CASES:
+        run = "f32" if case[5] == "mixed" else case[5]
+        why = flash_ops.reach_error(getattr(torch, TORCH_DTYPES[run]), *head_dims(case[7]))
+        if why:
+            raise AssertionError(f"flash reach {case[0]}: {why}")
+    ssm_cases = ([("ssm", c) for c in FLASH_REACH_SSM_CASES]
+                 + [("wkv", c) for c in FLASH_REACH_WKV_CASES])
+    for family, (name, b, t, w, n, chunk, dt_name) in ssm_cases:
+        ops = ssm_ops if family == "ssm" else wkv_ops
+        for x in set(reach_dtypes(family, dt_name)):
+            why = ops.reach_error(getattr(torch, REACH_DTYPES[x]), n, min(chunk, t))
+            if why:
+                raise AssertionError(f"flash reach {family} {name}: {why}")
+    flash_inputs = {}
+    for case in FLASH_REACH_CASES:
+        name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
+        dqk, dv = head_dims(d)
+        flash_inputs[name] = [
+            torch.randn((b, rows, heads, dim), generator=gen, device=DEVICE)
+            .to(getattr(torch, TORCH_DTYPES[x]))
+            for (rows, heads, dim), x in zip(((s, h, dqk), (t, kv, dqk), (t, kv, dv), (s, h, dv)),
+                                             qkv_dtypes(dt) + qkv_dtypes(dt)[:1])]
+    ssm_inputs = {}
+    for family, case in ssm_cases:
+        make = reach_ssm_inputs if family == "ssm" else reach_wkv_inputs
+        ssm_inputs[(family, case[0])] = make(torch, case, gen)
+    reset_launches()
+    for case in FLASH_REACH_CASES:
+        *qkv, do = flash_inputs[case[0]]
+        leaves = [x.detach().requires_grad_() for x in qkv]
+        out = flash_attention(*leaves, causal=True, window=case[6])
+        torch.autograd.grad(out, leaves, do)
+    for family, case in ssm_cases:
+        x, dy, dh = ssm_inputs[(family, case[0])]
+        leaves = [a.detach().requires_grad_() for a in x]
+        reach_call(torch, family, case, leaves, (dy, dh))
+    torch.cuda.synchronize()
+    path = read_instance_launches()
+    log("flash reach", "path launches by instance " + ", ".join(
+        f"{name}{list(key)}={n}" for (name, key), n in sorted(path.items(), key=str)))
+    del flash_inputs, ssm_inputs
+    for case in FLASH_REACH_CASES:
+        key = flash_reach_key(torch, case)
+        if not (path.get(("flash_attention", key)) and path.get(("flash_attention_backward", key))):
+            raise AssertionError(f"flash reach {case[0]}: flash_attention{key} or its backward "
+                                 "did not launch")
+    for family, case in ssm_cases:
+        wrapper = "ssm_scan" if family == "ssm" else "rwkv6_wkv"
+        key = ssm_reach_key(family, case)
+        if not (path.get((wrapper, key)) and path.get((BACKWARD_OF[wrapper], key))):
+            raise AssertionError(f"flash reach {family} {case[0]}: {wrapper}{key} or its "
+                                 "backward did not launch")
+    rows = {}
+    for case in FLASH_REACH_CASES:
+        name, b, s, t, h, kv, dt, window, d, causal = flash_shape(case)
+        fwd = flash_case(torch, flash_attention, attention_ref, case, gen)
+        tol = TOL[qkv_dtypes(dt)[0]]
+        if not fwd["max_abs_err"] <= tol:
+            raise AssertionError(f"flash reach {name}: max abs err {fwd['max_abs_err']:.3e} > "
+                                 f"{tol:.0e}")
+        bwd = flash_bwd_case(torch, case, gen)
+        for k, err in bwd["errs"].items():
+            if not err <= bwd["tols"][k]:
+                raise AssertionError(f"flash reach bwd {name}: {k} max abs err {err:.3e} > "
+                                     f"{bwd['tols'][k]:.3e}")
+        if not bwd["bitwise_repeat"]:
+            raise AssertionError(f"flash reach bwd {name}: two calls gave different bits")
+        rows[("flash", name)] = {"forward": fwd, "backward": bwd}
+        inst = flash_reach_key(torch, case)
+        label = (f"{name} B={b} H={h} KV={kv} D={d} {'/'.join(qkv_dtypes(dt))} window={window} "
+                 f"on {inst}")
+        log("flash reach", f"flash forward {label}: max_abs_err={fwd['max_abs_err']:.3e} "
+            f"(tol {tol:.0e}) ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} "
+            f"library_ms={fmt_ms(fwd['library_ms'])} "
+            f"library_device_ms={fmt_ms(fwd['library_device_ms'])} "
+            f"library_kernel={fwd['library_kernel']!r} bound_ms={fwd['bound_ms']:.5f} "
+            f"({fwd['bound_by']}) device_ms={fwd['device_ms']:.4f} records={fwd['records']}/20 "
+            f"device_ms_from {device_ms_from(fwd['records'])}")
+        log("flash reach", f"flash backward {label}: max_abs_err "
+            + " ".join(f"{k}={e:.3e} (tol {bwd['tols'][k]:.3e})" for k, e in bwd["errs"].items())
+            + f" ms={bwd['ms']:.4f} plain_ms={bwd['plain_ms']:.4f} "
+            f"library_ms={fmt_ms(bwd['library_ms'])} "
+            f"library_device_ms={fmt_ms(bwd['library_device_ms'])} "
+            f"library_kernel={bwd['library_kernel']!r} bound_ms={bwd['bound_ms']:.5f} "
+            f"({bwd['bound_by']}) device_ms={bwd['device_ms']:.4f} "
+            f"records={bwd['records']}/{10 * bwd['kernels']} ("
+            + ", ".join(f"{k} {ms:.4f} ms {n}/10" for k, (ms, n) in bwd["by_kernel"].items())
+            + f"; device_ms_from {device_ms_from(bwd['records'])}) "
+            f"bitwise_repeat={bwd['bitwise_repeat']}")
+    for family, case in ssm_cases:
+        rows[(family, case[0])] = reach_row(torch, family, case, gen)
+        log_reach_row("flash reach", family, case, rows[(family, case[0])])
+    log("flash reach", f"phase 35 in {time.perf_counter() - t0:.1f} s")
+    return rows, path
+
+
+def flash_reach_kernel_entries(torch, rows, path):
+    """(name, source, replaces, row, launches) of each entry of
+    ``FLASH_REACH_KERNEL_ROWS`` and ``FLASH_REACH_SSM_ROWS``, forward and
+    backward, the launches phase 35's driven path made at the instance the
+    case runs on."""
+    cases = {c[0]: c for c in FLASH_REACH_CASES}
+    entries = []
+    for label, name in FLASH_REACH_KERNEL_ROWS:
+        key = flash_reach_key(torch, cases[name])
+        for direction, kernel in (("forward", "flash_attention"),
+                                  ("backward", "flash_attention_backward")):
+            entries.append((kernel + label, SOURCE_REL, REPLACES,
+                            rows[("flash", name)][direction], path.get((kernel, key), 0)))
+    ssm_cases = {("ssm", c[0]): c for c in FLASH_REACH_SSM_CASES}
+    ssm_cases.update({("wkv", c[0]): c for c in FLASH_REACH_WKV_CASES})
+    for family, label, name in FLASH_REACH_SSM_ROWS:
+        wrapper = "ssm_scan" if family == "ssm" else "rwkv6_wkv"
+        replaces = SSM_REPLACES if family == "ssm" else WKV_REPLACES
+        sources = ((SSM_SOURCE_REL, SSM_BWD_SOURCE_REL) if family == "ssm"
+                   else (WKV_SOURCE_REL, WKV_BWD_SOURCE_REL))
+        key = ssm_reach_key(family, ssm_cases[(family, name)])
+        for direction, source, kernel in (("forward", sources[0], wrapper),
+                                          ("backward", sources[1], BACKWARD_OF[wrapper])):
+            entries.append((kernel + label, source, replaces, rows[(family, name)][direction],
+                            path.get((kernel, key), 0)))
+    return entries
 
 
 # Layers of hymba-1.5b's float32 node-gradient check.  At all 32 layers the
@@ -5417,6 +5741,15 @@ def main() -> int:
                         starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
             print(card)
             return 0
+        if sys.argv[1:] == ["--only", "flash-reach"]:
+            enter("flash reach and float16")
+            phase_flash_reach(torch)
+            log("done", f"--only flash-reach passed in {time.perf_counter() - t_start:.1f} s; "
+                "seconds per phase: " + ", ".join(
+                    f"{name} {end - start:.1f}" for (name, start), end in zip(
+                        starts, [t for _, t in starts[1:]] + [time.perf_counter()])))
+            print(card)
+            return 0
         if sys.argv[1:] == ["--only", "train-ssm"]:
             enter("kernel (wkv and ssm bwd)")
             phase_kernel_backwards(torch)
@@ -5514,12 +5847,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         enter("kernel reach")
         reach_rows, reach_path = phase_reach(torch)
+        enter("flash reach and float16")
+        flash_reach_rows, flash_reach_path = phase_flash_reach(torch)
     except Exception:  # the run's boundary: report the phase and fail
         traceback.print_exc()
         print(f"chip_smoke: phase {starts[-1][0]} failed", file=sys.stderr)
         return 1
     t_end = time.perf_counter()
-    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-34); seconds per "
+    log("done", f"all phases passed in {t_end - t_start:.1f} s (phases 1-35); seconds per "
         "phase: " + ", ".join(f"{name} {end - start:.1f}" for (name, start), end in zip(
             starts, [t for _, t in starts[1:]] + [t_end])))
     kernels = []
@@ -5598,6 +5933,9 @@ def main() -> int:
          hymba_train_instances.get(("ssm_scan_backward", ("bf16", 16)), 0)),
         # The reach's other instances on phase 34's driven path.
         *reach_kernel_entries(reach_rows, reach_path, reduced_counts),
+        # float16 in the three kernels, flash's (256, 256) instances, its
+        # padded and mixed-dtype routes, on phase 35's driven path.
+        *flash_reach_kernel_entries(torch, flash_reach_rows, flash_reach_path),
     ):
         if not launches:
             print(f"chip_smoke: {name} was not launched on its path", file=sys.stderr)

@@ -2,8 +2,10 @@
 
 Each kernel is one ``.cu`` file with a plain C interface.  ``nvcc``
 compiles it for ``sm_90a`` into a shared library under ``build/kernels/``
-at the repository root, named by a hash of the source, and ``ctypes``
-loads it.  A missing ``nvcc`` or a failed compile raises; nothing here is
+at the repository root, named by a hash of the source and the flags, and
+``ctypes`` loads it.  A source may be built more than once with
+different ``-D`` defines (the flash source, once per element type), each
+into a library of its own.  A missing ``nvcc`` or a failed compile raises; nothing here is
 touched when a module is imported.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import List
+from typing import List, Sequence
 
 __all__ = ["BuildResult", "build", "load", "nvcc_path", "BUILD_DIR"]
 
@@ -51,16 +53,18 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
-def build(source: pathlib.Path) -> BuildResult:
-    """Compile ``source`` unless a library built from the same bytes exists."""
+def build(source: pathlib.Path, defines: Sequence[str] = ()) -> BuildResult:
+    """Compile ``source`` with ``defines`` (``-DNAME=VALUE`` flags) unless a
+    library built from the same bytes and flags exists."""
     source = pathlib.Path(source)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = [*NVCC_FLAGS, *defines]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd: List[str] = [nvcc_path(), *flags, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -72,6 +76,6 @@ def build(source: pathlib.Path) -> BuildResult:
     return BuildResult(out, seconds, log)
 
 
-def load(source: pathlib.Path) -> ctypes.CDLL:
-    """Build if needed and load ``source``'s library."""
-    return ctypes.CDLL(str(build(source).path))
+def load(source: pathlib.Path, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build if needed and load ``source``'s library built with ``defines``."""
+    return ctypes.CDLL(str(build(source, defines).path))

@@ -113,9 +113,15 @@
 // DeepSeek-V2's MLA attends at (192, 128): q and k are a 128-dim part from
 // the latent and a 64-dim RoPE part, v is 128 wide, and the scale is
 // 1/sqrt(192).  The instances (the C entries' forward_instance and
-// backward_instance): bf16 at (64, 64), (128, 128), (192, 128) on wgmma
-// and at (16, 16), (32, 32), (48, 32) on mma.sync; float32 at all six on
-// mma.sync.  At (192, 128)
+// backward_instance): bf16 and float16 at (64, 64), (128, 128), (192, 128)
+// on wgmma and at (16, 16), (32, 32), (48, 32), (256, 256) on mma.sync;
+// float32 at all seven on mma.sync.  ops.py runs any other pair up to 256
+// on the smallest instance that holds it, padded by zero channels.
+// float16 is bfloat16's code with the .f16 operand type (m16n8k16 and
+// wgmma alike), P in two float16 terms as in two bf16 ones
+// (tests/test_torch_flash_p_rounding.py).  (256, 256) on mma.sync is the
+// simple instance, not the fast one: its dK/dV kernel spills at the
+// 255-register cap (ptxas, in chip_smoke.py phase 2).  At (192, 128)
 // the bf16 forward's Q K^T runs over three 64-column swizzle chunks (12
 // k16 steps), its P V at N = 128; q, the K ring and the V ring take 24 +
 // 48 + 32 KB, so two blocks still share an SM, and the accumulators are
@@ -123,9 +129,20 @@
 // DkdvCfg and DqCfg.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+// The element types this library holds: FLASH_ELEM = 0 (float32), 1
+// (bfloat16) or 2 (float16) builds one (ops.py builds one library per
+// element type, side by side); left undefined, all three.
+#ifndef FLASH_ELEM
+#define FLASH_ELEM -1
+#endif
+#define FLASH_HAS(code) (FLASH_ELEM < 0 || FLASH_ELEM == (code))
 
 namespace {
 
@@ -164,6 +181,57 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+__device__ __forceinline__ uint32_t half2_bits(__half2 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The 16-bit element types (bfloat16 and float16) behind one interface:
+// two floats packed low element first (one term, or hi + lo), a packed
+// pair widened, a float rounded to the type and back.  The bfloat16
+// helpers are the expressions the bf16 kernels were written with.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x0, float x1) {
+  if constexpr (std::is_same<T, __half>::value) return half2_bits(__floats2half2_rn(x0, x1));
+  else return bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+}
+
+template <typename T>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    hi = half2_bits(h);
+    lo = half2_bits(__floats2half2_rn(x0 - __low2float(h), x1 - __high2float(h)));
+  } else {
+    split_bf16x2(x0, x1, hi, lo);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t bits) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&bits));
+  else return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+}
+
+template <typename T>
+__device__ __forceinline__ float round16(float x) {
+  if constexpr (std::is_same<T, __half>::value) return __half2float(__float2half_rn(x));
+  else return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Two floats as T's packed pair, rounded to nearest; the 16-bit kernels
+// store it as `*reinterpret_cast<Pair<T>*>(dst) = pair2<T>(x0, x1)`, which
+// computes the pair before its address, as their bf16 code always did.
+template <typename T>
+using Pair = typename std::conditional<std::is_same<T, __half>::value, __half2,
+                                       __nv_bfloat162>::type;
+
+template <typename T>
+__device__ __forceinline__ Pair<T> pair2(float x0, float x1) {
+  if constexpr (std::is_same<T, __half>::value) return __floats2half2_rn(x0, x1);
+  else return __floats2bfloat162_rn(x0, x1);
 }
 
 template <typename Kernel>
@@ -219,14 +287,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  return bf16x2_bits(__floats2bfloat162_rn(x0, x1));
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Fragments of one warp's mma.sync (g = lane / 4, qd = lane % 4).  Tiles
@@ -298,14 +358,15 @@ struct Ops<float> {
   }
 };
 
-// bfloat16: m16n8k16, float32 accumulators.  A pitch of the width plus 8
-// elements makes each row (2 D + 16) bytes, an odd number of 16-byte
-// chunks at D = 16, 32, 48: the 32-bit fragment loads and ldmatrix's eight
-// rows hit distinct banks.  The accumulator layout of two adjacent 8-key
-// blocks is the A fragment of one k16 step, so a_acc packs in place; b_cols
-// reads B across rows with ldmatrix.trans.
-template <>
-struct Ops<__nv_bfloat16> {
+// bfloat16 and float16: m16n8k16, float32 accumulators (``.bf16`` or
+// ``.f16`` operands, the same fragment layout).  A pitch of the width plus
+// 8 elements makes each row (2 D + 16) bytes, an odd number of 16-byte
+// chunks at D = 16, 32, 48 and 256: the 32-bit fragment loads and
+// ldmatrix's eight rows hit distinct banks.  The accumulator layout of two
+// adjacent 8-key blocks is the A fragment of one k16 step, so a_acc packs
+// in place; b_cols reads B across rows with ldmatrix.trans.
+template <typename T>
+struct Ops16 {
   static constexpr int kK = 16;
   static constexpr int kPad = 8;
   struct A {
@@ -314,48 +375,60 @@ struct Ops<__nv_bfloat16> {
   struct B {
     uint32_t x[2];
   };
-  static __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  static __device__ __forceinline__ uint32_t ld32(const T* p) {
     return *reinterpret_cast<const uint32_t*>(p);
   }
-  static __device__ __forceinline__ A a_rows(const __nv_bfloat16* t, int pitch, int r0, int k0,
-                                             int g, int qd) {
-    const __nv_bfloat16* p = t + (r0 + g) * pitch + k0 + 2 * qd;
+  static __device__ __forceinline__ A a_rows(const T* t, int pitch, int r0, int k0, int g,
+                                             int qd) {
+    const T* p = t + (r0 + g) * pitch + k0 + 2 * qd;
     return {{ld32(p), ld32(p + 8 * pitch), ld32(p + 8), ld32(p + 8 * pitch + 8)}};
   }
-  static __device__ __forceinline__ B b_rows(const __nv_bfloat16* t, int pitch, int n0, int k0,
-                                             int g, int qd) {
-    const __nv_bfloat16* p = t + (n0 + g) * pitch + k0 + 2 * qd;
+  static __device__ __forceinline__ B b_rows(const T* t, int pitch, int n0, int k0, int g,
+                                             int qd) {
+    const T* p = t + (n0 + g) * pitch + k0 + 2 * qd;
     return {{ld32(p), ld32(p + 8)}};
   }
   // ldmatrix.x2.trans: lanes 0-15 give the addresses of rows k0 .. k0 + 15
   // (8 columns from n0 each); lanes 16-31 repeat them.
-  static __device__ __forceinline__ B b_cols(const __nv_bfloat16* t, int pitch, int k0, int n0,
-                                             int, int) {
-    const __nv_bfloat16* row = t + (k0 + threadIdx.x % 16) * pitch + n0;
+  static __device__ __forceinline__ B b_cols(const T* t, int pitch, int k0, int n0, int, int) {
+    const T* row = t + (k0 + threadIdx.x % 16) * pitch + n0;
     B f;
     asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                  : "=r"(f.x[0]), "=r"(f.x[1])
                  : "r"(smem_u32(row)));
     return f;
   }
-  // c: the accumulator blocks of keys k0 .. k0 + 7 and k0 + 8 .. k0 + 15, one bf16 term.
+  // c: the accumulator blocks of keys k0 .. k0 + 7 and k0 + 8 .. k0 + 15, one term.
   static __device__ __forceinline__ A a_acc(const float* c) {
-    return {{pack_bf16(c[0], c[1]), pack_bf16(c[2], c[3]), pack_bf16(c[4], c[5]),
-             pack_bf16(c[6], c[7])}};
+    return {{pack2<T>(c[0], c[1]), pack2<T>(c[2], c[3]), pack2<T>(c[4], c[5]),
+             pack2<T>(c[6], c[7])}};
   }
-  // The same in two terms, hi = bf16(x) and lo = bf16(x - hi).
+  // The same in two terms, hi = T(x) and lo = T(x - hi).
   static __device__ __forceinline__ void a_acc2(const float* c, A& hi, A& lo) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_bf16x2(c[2 * i], c[2 * i + 1], hi.x[i], lo.x[i]);
+    for (int i = 0; i < 4; ++i) split2<T>(c[2 * i], c[2 * i + 1], hi.x[i], lo.x[i]);
   }
   static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]), "r"(b.x[1]));
+    if constexpr (std::is_same<T, __half>::value) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+          : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]), "r"(b.x[1]));
+    } else {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+          : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]), "r"(b.x[1]));
+    }
   }
 };
+
+template <>
+struct Ops<__nv_bfloat16> : Ops16<__nv_bfloat16> {};
+template <>
+struct Ops<__half> : Ops16<__half> {};
 
 template <typename T, int D>
 __host__ __device__ constexpr int pitch() {
@@ -434,17 +507,21 @@ __device__ __forceinline__ void store2(float* dst, float x0, float x1) {
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float x0, float x1) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
 }
+__device__ __forceinline__ void store2(__half* dst, float x0, float x1) {
+  *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(x0, x1);
+}
 
 // Warp pairs a block runs side by side.  Each pair owns the block's 32
 // rows and takes every G-th tile (or q step) of the block's loop; the
 // pairs' partial results are merged in a fixed order at the end (the same
 // bits every run).  At S = 300 a float32 call has about one block an SM,
 // and a lone pair of warps leaves the products' and loads' latencies bare.
-// float32 runs four pairs; bf16, whose instances serve the reduced
-// configs' rows of one tile, one.
-template <typename T>
+// float32 runs four pairs (two at (256, 256), whose tiles would not fit
+// shared memory four times); bf16 and f16, whose instances serve the
+// reduced configs' rows of one tile, one.
+template <typename T, int DQK, int DV>
 __host__ __device__ constexpr int groups() {
-  return sizeof(T) == 2 ? 1 : 4;
+  return sizeof(T) == 2 ? 1 : DQK + DV > 384 ? 2 : 4;
 }
 
 // Keys of a K/V tile (forward, dQ): 32, or 16 where four pairs' double
@@ -459,7 +536,7 @@ __host__ __device__ constexpr int tile_keys() {
 // leave each row's output, running max and sum there.
 template <typename T, int DQK, int DV>
 struct FwdCfg {
-  static constexpr int G = groups<T>();
+  static constexpr int G = groups<T, DQK, DV>();
   static constexpr int kThreads = kPair * G;
   static constexpr int kKeys = tile_keys<T, DQK, DV>();
   static constexpr int kQ = kRows * pitch<T, DQK>();  // elements of the q tile
@@ -797,92 +874,101 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
-// d (64 x N, f32) += A (64 x 16, registers) x B (16 x N, smem, MN-major).
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
-                                            uint64_t desc_b);
+// The 16-bit element type's name in wgmma's PTX (the A and B operands).
+#define FLASH_WGMMA_SS_N64(TY)                                                           \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define FLASH_WGMMA_RS_N64(TY)                                                          \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+#define FLASH_WGMMA_RS_N128(TY)                                                          \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+#define FLASH_WGMMA_RS_N192(TY)                                                          \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                                      \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " {"                          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, " \
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
 
-// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) x B (16 x 64, smem, K-major).
+// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) x B (16 x 64, smem,
+// K-major), A and B in T (bfloat16 or float16).
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value) FLASH_WGMMA_SS_N64("f16");
+  else FLASH_WGMMA_SS_N64("bf16");
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// The dK accumulator at DQK 192 (the dK/dV kernel's second warpgroup).
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<192>(float (&d)[96], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+// d (64 x N, f32) += A (64 x 16, registers) x B (16 x N, smem, MN-major),
+// A and B in T.  N = 192: the dK accumulator at DQK 192 (the dK/dV
+// kernel's second warpgroup).
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  static_assert(N == 64 || N == 128 || N == 192, "wgmma widths 64, 128 and 192");
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  if constexpr (N == 64) {
+    if constexpr (kHalf) FLASH_WGMMA_RS_N64("f16");
+    else FLASH_WGMMA_RS_N64("bf16");
+  } else if constexpr (N == 128) {
+    if constexpr (kHalf) FLASH_WGMMA_RS_N128("f16");
+    else FLASH_WGMMA_RS_N128("bf16");
+  } else {
+    if constexpr (kHalf) FLASH_WGMMA_RS_N192("f16");
+    else FLASH_WGMMA_RS_N192("bf16");
+  }
 }
 
 // Thread t of the consumer warpgroup (warp w = t / 32, lane l) owns q rows
@@ -897,12 +983,12 @@ struct Rows {
 };
 
 // sc (64 x kBN) = q (64 x D) K^T (kBN x D), issued and committed, not waited.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q_base, uint32_t k_base) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t koff = (kk % 4) * 32;  // 16 columns inside a 128-byte row chunk
-    wgmma_ss_n64(sc, desc_sw128(q_base + (kk / 4) * kBM * kRowBytes + koff, 16, 1024),
+    wgmma_ss_n64<T>(sc, desc_sw128(q_base + (kk / 4) * kBM * kRowBytes + koff, 16, 1024),
                  desc_sw128(k_base + (kk / 4) * kBN * kRowBytes + koff, 16, 1024), kk > 0);
   }
   wgmma_commit();
@@ -911,7 +997,7 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q_base, 
 // o (64 x D) += P (64 x kBN, registers, hi + lo) V (kBN x D), issued and
 // committed, not waited.  Keys 16*kk .. 16*kk + 15 are accumulator groups
 // 2*kk and 2*kk + 1, i.e. A fragments [4*kk, 4*kk + 4).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p_hi)[kBN / 4],
                                          const uint32_t (&p_lo)[kBN / 4], uint32_t v_base) {
 #pragma unroll
@@ -919,18 +1005,20 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p_h
     const uint32_t hi[4] = {p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3]};
     const uint32_t lo[4] = {p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3]};
     const uint64_t dv = desc_sw128(v_base + kk * 16 * kRowBytes, kBN * kRowBytes, 1024);
-    wgmma_rs_tb<D>(o, hi, dv);
-    wgmma_rs_tb<D>(o, lo, dv);
+    wgmma_rs_tb<T, D>(o, hi, dv);
+    wgmma_rs_tb<T, D>(o, lo, dv);
   }
   wgmma_commit();
 }
 
 // The probabilities as A fragments: (r, k), (r+8, k), (r, k+8), (r+8, k+8)
-// for each 16 keys, i.e. consecutive pairs of the accumulator.
+// for each 16 keys, i.e. consecutive pairs of the accumulator; two terms
+// in T, hi and lo.
+template <typename T>
 __device__ __forceinline__ void to_fragments(const float (&sc)[kBN / 2], uint32_t (&p_hi)[kBN / 4],
                                              uint32_t (&p_lo)[kBN / 4]) {
 #pragma unroll
-  for (int f = 0; f < kBN / 4; ++f) split_bf16x2(sc[2 * f], sc[2 * f + 1], p_hi[f], p_lo[f]);
+  for (int f = 0; f < kBN / 4; ++f) split2<T>(sc[2 * f], sc[2 * f + 1], p_hi[f], p_lo[f]);
 }
 
 // One tile's scores (keys n0 ..) become probabilities in place: scaled to
@@ -989,8 +1077,8 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBN / 2], const Param
 // consumer warpgroup of 64 q rows and one producer warp.  The consumer
 // overlaps tile i's P V product with tile i+1's Q K^T product and softmax:
 // a K stage is released as soon as its scores are in registers, a V stage
-// when its product is done.
-template <int DQK, int DV>
+// when its product is done.  T: bfloat16 or float16.
+template <int DQK, int DV, typename T>
 __global__ void __launch_bounds__(kBlockThreads, 2)
     flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -1077,12 +1165,12 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     float alpha[2];
     mbar_wait(bar_k, 0);
     wgmma_fence();
-    issue_qk<DQK>(sc, q_base, k_base(0));
+    issue_qk<T, DQK>(sc, q_base, k_base(0));
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(bar_k_free);
     online_softmax(sc, p, r, kv_start, n_valid, scale_log2, m_run, l_run, alpha);
-    to_fragments(sc, p_hi, p_lo);
+    to_fragments<T>(sc, p_hi, p_lo);
   }
   // Tile i's P V product runs under tile i+1's scores and softmax.  No
   // branch separates a wgmma from its wait, so ptxas keeps them asynchronous.
@@ -1091,10 +1179,10 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     const int s1 = (i + 1) % kStages;
     mbar_wait(bar_k + 8 * s1, ((i + 1) / kStages) & 1);
     wgmma_fence();
-    issue_qk<DQK>(sc, q_base, k_base(s1));
+    issue_qk<T, DQK>(sc, q_base, k_base(s1));
     mbar_wait(bar_v + 8 * s, (i / kStages) & 1);
     wgmma_fence();
-    issue_pv<DV>(o, p_hi, p_lo, v_base(s));
+    issue_pv<T, DV>(o, p_hi, p_lo, v_base(s));
     wgmma_wait<1>();  // the scores are in; the product may still run
     fence_regs(sc);
     mbar_arrive(bar_k_free + 8 * s1);
@@ -1111,18 +1199,18 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
         o[4 * j + 2 * ii] *= alpha[ii];
         o[4 * j + 2 * ii + 1] *= alpha[ii];
       }
-    to_fragments(sc, p_hi, p_lo);
+    to_fragments<T>(sc, p_hi, p_lo);
   }
   if (n_tiles > 0) {  // the last tile's product
     const int s = (n_tiles - 1) % kStages;
     mbar_wait(bar_v + 8 * s, ((n_tiles - 1) / kStages) & 1);
     wgmma_fence();
-    issue_pv<DV>(o, p_hi, p_lo, v_base(s));
+    issue_pv<T, DV>(o, p_hi, p_lo, v_base(s));
     wgmma_wait<0>();
     fence_regs(o);
   }
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  T* out = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int ii = 0; ii < 2; ++ii) {
     float l = l_run[ii];
@@ -1133,8 +1221,8 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     if (row < p.S) {
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + row * p.o_ss + 8 * j + r.col0) =
-            __floats2bfloat162_rn(o[4 * j + 2 * ii] / denom, o[4 * j + 2 * ii + 1] / denom);
+        *reinterpret_cast<Pair<T>*>(out + row * p.o_ss + 8 * j + r.col0) =
+            pair2<T>(o[4 * j + 2 * ii] / denom, o[4 * j + 2 * ii + 1] / denom);
       // m_run is in log2 units; -inf for a row with no valid key.
       if (p.lse != nullptr && r.col0 == 0)
         p.lse[((long long)b * p.H + h) * p.S + row] = m_run[ii] * 0.6931471805599453f + logf(l);
@@ -1172,13 +1260,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, L, heads, D) bf16 tensor, strides in elements, as the 4-D map
-// {D, heads, L, B} with box {64, 1, rows, 1} and the 128-byte swizzle.  A
-// dimension of size 1 is never stepped; it gets the extent of the
-// dimensions inside it as its stride, which TMA accepts whatever the
-// tensor's own stride there is.
+// A (B, L, heads, D) tensor of T (bfloat16 or float16), strides in
+// elements, as the 4-D map {D, heads, L, B} with box {64, 1, rows, 1} and
+// the 128-byte swizzle.  A dimension of size 1 is never stepped; it gets
+// the extent of the dimensions inside it as its stride, which TMA accepts
+// whatever the tensor's own stride there is.  The map's data type is
+// chosen by the type, not by its size.
+template <typename T>
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int L, int heads,
               int D, long long sb, long long sl, long long sh, int rows) {
+  static_assert(sizeof(T) == 2, "16-bit tiles");
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
   const long long elem_strides[3] = {sh, sl, sb};
   cuuint64_t strides[3];
@@ -1189,7 +1280,10 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
   }
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides,
                 box, elem_step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1198,26 +1292,27 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
 // Returns a cudaError_t, or kTensorMapRejected when q, k or v breaks TMA's
 // layout rule (cuTensorMapEncodeTiled checks it: a 16-byte aligned base and
 // 16-byte multiple strides).
-template <int DQK, int DV>
+template <int DQK, int DV, typename T>
 int launch(const Params& p, int B, cudaStream_t stream) {
   using C = Cfg<DQK, DV>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, p.q, B, p.S, p.H, DQK, p.q_sb, p.q_ss, p.q_sh, 64) ||
-      !make_map(encode, &tk, p.k, B, p.T, p.KV, DQK, p.k_sb, p.k_ss, p.k_sh, kBN) ||
-      !make_map(encode, &tv, p.v, B, p.T, p.KV, DV, p.v_sb, p.v_ss, p.v_sh, kBN))
+  if (!make_map<T>(encode, &tq, p.q, B, p.S, p.H, DQK, p.q_sb, p.q_ss, p.q_sh, 64) ||
+      !make_map<T>(encode, &tk, p.k, B, p.T, p.KV, DQK, p.k_sb, p.k_ss, p.k_sh, kBN) ||
+      !make_map<T>(encode, &tv, p.v, B, p.T, p.KV, DV, p.v_sb, p.v_ss, p.v_sh, kBN))
     return kTensorMapRejected;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<DQK, DV>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<DQK, DV, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)C::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid(p.H * B, (p.S + kBM - 1) / kBM);
-  flash_fwd_kernel_sm90<DQK, DV><<<grid, kBlockThreads, C::kSmemBytes, stream>>>(tq, tk, tv, p);
+  flash_fwd_kernel_sm90<DQK, DV, T><<<grid, kBlockThreads, C::kSmemBytes, stream>>>(tq, tk, tv,
+                                                                                    p);
   return (int)cudaGetLastError();
 }
 
@@ -1360,12 +1455,13 @@ namespace tc {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 // dQ: q and dO of the block's 32 rows, then two stages of a round's G K
 // tiles and G V tiles; after the loop the stages hold pairs 1 .. G-1's dQ.
 template <typename T, int DQK, int DV>
 struct DqCfg {
-  static constexpr int G = groups<T>();
+  static constexpr int G = groups<T, DQK, DV>();
   static constexpr int kThreads = kPair * G;
   static constexpr int kKeys = tile_keys<T, DQK, DV>();
   static constexpr int kQ = kRows * pitch<T, DQK>();
@@ -1385,7 +1481,7 @@ struct DqCfg {
 // the loop the stages hold pairs 1 .. G-1's dK and dV.
 template <typename T, int DQK, int DV>
 struct DkdvCfg {
-  static constexpr int G = groups<T>();
+  static constexpr int G = groups<T, DQK, DV>();
   static constexpr int kThreads = kPair * G;
   static constexpr int kStep = DQK + DV >= 256 ? 16 : 32;
   static constexpr int kK = kRows * pitch<T, DQK>();
@@ -1507,7 +1603,7 @@ __global__ void __launch_bounds__(DqCfg<T, DQK, DV>::kThreads, 1)
           float pr = exp2f(s[j][e] * scale_log2 - lse_r[rr]);
           if (masked && !visible(p, n_valid, m0 + row0 + g + 8 * rr, n0 + 8 * j + 2 * qd + (e & 1)))
             pr = 0.f;
-          if constexpr (sizeof(T) == 2) pr = bf16_round(pr);  // dS from the P a bf16 product sees
+          if constexpr (sizeof(T) == 2) pr = round16<T>(pr);  // dS from the P a 16-bit product sees
           s[j][e] = pr * (dp[j][e] - delta_r[rr]);            // dS
         }
       gemm_acc<T, NS, NQ, false>(dq, s, kt, g, qd);
@@ -1664,7 +1760,7 @@ __global__ void __launch_bounds__(DkdvCfg<T, DQK, DV>::kThreads, 1)
             const int e = 2 * rr + c;
             float pr = exp2f(s[j][e] * scale_log2 - lse);
             if (masked && !visible(p, n_valid, m0 + col, n0 + row0 + g + 8 * rr)) pr = 0.f;
-            if constexpr (sizeof(T) == 2) pr = bf16_round(pr);
+            if constexpr (sizeof(T) == 2) pr = round16<T>(pr);
             s[j][e] = pr;                        // P^T
             dp[j][e] = pr * (dp[j][e] - delta);  // dS^T
           }
@@ -1826,27 +1922,24 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-// An m64n64 accumulator as the A fragments of the next wgmma, one bf16
-// term: consecutive pairs, as to_fragments packs them.
-__device__ __forceinline__ void to_bf16_fragments(const float (&x)[32], uint32_t (&f)[16]) {
+// An m64n64 accumulator as the A fragments of the next wgmma, one term in
+// T: consecutive pairs, as to_fragments packs them.
+template <typename T>
+__device__ __forceinline__ void to_fragments1(const float (&x)[32], uint32_t (&f)[16]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) f[i] = bf16x2_bits(__floats2bfloat162_rn(x[2 * i], x[2 * i + 1]));
+  for (int i = 0; i < 16; ++i) f[i] = pack2<T>(x[2 * i], x[2 * i + 1]);
 }
 
-__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t bits) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
-}
-
-// d (64 x N) += A (64 x 64, registers, one bf16 term) B (64 x N, smem,
+// d (64 x N) += A (64 x 64, registers, one term in T) B (64 x N, smem,
 // MN-major: a 64-row tile read along its rows), issued and committed, not
 // waited.  A's columns 16*kk .. 16*kk + 15 are fragments [4*kk, 4*kk + 4).
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void issue_rs(float (&d)[N / 2], const uint32_t (&a)[16],
                                          uint32_t b_base) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
-    wgmma_rs_tb<N>(d, f, desc_sw128(b_base + kk * 16 * kRowBytes, 64 * kRowBytes, 1024));
+    wgmma_rs_tb<T, N>(d, f, desc_sw128(b_base + kk * 16 * kRowBytes, 64 * kRowBytes, 1024));
   }
   wgmma_commit();
 }
@@ -1873,8 +1966,8 @@ struct DkdvBlock {
 // V dO^T (a depth of DV), dS^T = P^T (dP^T - delta) and accumulates dK +=
 // dS^T Q (N = DQK).  WG = -1: the warpgroup is picked at run time, for DQK
 // = DV, where both run the same code and no branch separates a wgmma from
-// its wait.
-template <int DQK, int DV, int WG>
+// its wait.  T: bfloat16 or float16.
+template <int DQK, int DV, int WG, typename T>
 __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock& k) {
   using Tiles = BwdTiles<DQK, DV>;
   constexpr int kDepth = WG == 1 ? DV : DQK;  // of S^T (0) or dP^T (1)
@@ -1895,7 +1988,7 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock
   float x[32];                                             // S^T (0) or dP^T (1)
 #pragma unroll
   for (int e = 0; e < 32; ++e) x[e] = 0.f;
-  uint32_t frag[16];                                       // P^T (0) or dS^T (1), bf16
+  uint32_t frag[16];                                       // P^T (0) or dS^T (1), in T
   mbar_wait(k.base + DkdvCfg<DQK, DV>::kOffBar, 0);        // K and V landed
 
   for (int i = 0; i < k.n_iters; ++i) {
@@ -1907,7 +2000,7 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock
     mbar_wait(k.bar_full + 8 * s, (i / kDkdvStages) & 1);
     wgmma_fence();
     // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1).
-    issue_qk<kDepth>(x, k.base + wg * Tiles::kQk, q_base + wg * Tiles::kQk);
+    issue_qk<T, kDepth>(x, k.base + wg * Tiles::kQk, q_base + wg * Tiles::kQk);
     wgmma_wait<0>();
     fence_regs(x);
     if (wg == 0) {
@@ -1926,7 +2019,7 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock
             x[e] = pr;
           }
       }
-      to_bf16_fragments(x, frag);
+      to_fragments1<T>(x, frag);
 #pragma unroll
       for (int f = 0; f < 16; ++f) pslot[128 * f] = frag[f];
       mbar_arrive(k.bar_p + 8 * s);
@@ -1939,16 +2032,16 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock
         const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const float2 pp = bf16x2_to_float2(pslot[128 * (2 * j + r)]);
+          const float2 pp = unpack2<T>(pslot[128 * (2 * j + r)]);
           x[4 * j + 2 * r] = pp.x * (x[4 * j + 2 * r] - dl.x);
           x[4 * j + 2 * r + 1] = pp.y * (x[4 * j + 2 * r + 1] - dl.y);
         }
       }
-      to_bf16_fragments(x, frag);
+      to_fragments1<T>(x, frag);
     }
     // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1).
     wgmma_fence();
-    issue_rs<N>(acc, frag, q_base + (1 - wg) * Tiles::kQk);
+    issue_rs<T, N>(acc, frag, q_base + (1 - wg) * Tiles::kQk);
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(k.bar_free + 8 * s);
@@ -1956,9 +2049,8 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock
 
   // Warpgroup 0 stores dV, warpgroup 1 dK (scaled).
   const float out_scale = wg == 0 ? 1.f : p.scale;
-  __nv_bfloat16* dst = wg == 0
-      ? static_cast<__nv_bfloat16*>(p.dv) + k.b * p.dv_sb + k.kvh * p.dv_sh
-      : static_cast<__nv_bfloat16*>(p.dk) + k.b * p.dk_sb + k.kvh * p.dk_sh;
+  T* dst = wg == 0 ? static_cast<T*>(p.dv) + k.b * p.dv_sb + k.kvh * p.dv_sh
+                   : static_cast<T*>(p.dk) + k.b * p.dk_sb + k.kvh * p.dk_sh;
   const long long row_stride = wg == 0 ? p.dv_ss : p.dk_ss;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1967,8 +2059,8 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int e = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * row_stride + 8 * j + col0) =
-          __floats2bfloat162_rn(acc[e] * out_scale, acc[e + 1] * out_scale);
+      *reinterpret_cast<Pair<T>*>(dst + n * row_stride + 8 * j + col0) =
+          pair2<T>(acc[e] * out_scale, acc[e + 1] * out_scale);
     }
   }
 }
@@ -1978,8 +2070,9 @@ __device__ __forceinline__ void dkdv_consume(const BwdParams& p, const DkdvBlock
 // keys and split each q tile's work (dkdv_consume).  Each holds one
 // accumulator: 64 x D at DQK = DV = D, so both fit 168 registers; at DQK
 // 192, DV 128, dV (64 registers) in warpgroup 0 and dK (96) in warpgroup
-// 1, each in a branch of its own.  The producer warp comes last.
-template <int DQK, int DV>
+// 1, each in a branch of its own.  The producer warp comes last.  T:
+// bfloat16 or float16.
+template <int DQK, int DV, typename T>
 __global__ void __launch_bounds__(DkdvCfg<DQK, DV>::kThreads, 1)
     flash_bwd_dkdv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -2062,17 +2155,18 @@ __global__ void __launch_bounds__(DkdvCfg<DQK, DV>::kThreads, 1)
   const DkdvBlock blk{base, base + C::kOffRing, bar_full, bar_free, bar_p, stats, pbuf,
                       n0, kvh, b, n_valid, m_begin, q_tiles, n_iters};
   if constexpr (DQK == DV) {
-    dkdv_consume<DQK, DV, -1>(p, blk);
+    dkdv_consume<DQK, DV, -1, T>(p, blk);
   } else if (warp < 4) {
-    dkdv_consume<DQK, DV, 0>(p, blk);
+    dkdv_consume<DQK, DV, 0, T>(p, blk);
   } else {
-    dkdv_consume<DQK, DV, 1>(p, blk);
+    dkdv_consume<DQK, DV, 1, T>(p, blk);
   }
 }
 
 // Block (blockIdx.x = h + H*b, blockIdx.y = 64-row q tile from the last):
-// one consumer warpgroup owns the rows, the producer warp comes last.
-template <int DQK, int DV>
+// one consumer warpgroup owns the rows, the producer warp comes last.  T:
+// bfloat16 or float16.
+template <int DQK, int DV, typename T>
 __global__ void __launch_bounds__(DqCfg<DQK, DV>::kThreads, DqCfg<DQK, DV>::kMinBlocks)
     flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -2160,12 +2254,12 @@ __global__ void __launch_bounds__(DqCfg<DQK, DV>::kThreads, DqCfg<DQK, DV>::kMin
     const uint32_t k_stage = base + C::kOffRing + s * C::kStageBytes;
     mbar_wait(bar_full + 8 * s, (i / kDqStages) & 1);
     wgmma_fence();
-    issue_qk<DQK>(sc, base, k_stage);                      // S = Q K^T
-    issue_qk<DV>(dp, base + C::kQk, k_stage + C::kQk);     // dP = dO V^T
+    issue_qk<T, DQK>(sc, base, k_stage);                   // S = Q K^T
+    issue_qk<T, DV>(dp, base + C::kQk, k_stage + C::kQk);  // dP = dO V^T
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
-    // dS = P (dP - delta), P rounded to bf16 as the dK/dV kernel rounds it:
+    // dS = P (dP - delta), P rounded to T as the dK/dV kernel rounds it:
     // rows are q rows row0 + 8r, columns keys n0 + 8j + col0 + c.
     const bool masked = crosses_edge(p, n_valid, m0, n0);
 #pragma unroll
@@ -2177,34 +2271,34 @@ __global__ void __launch_bounds__(DqCfg<DQK, DV>::kThreads, DqCfg<DQK, DV>::kMin
           const int e = 4 * j + 2 * r + c;
           float pr = ex2_approx(fmaf(sc[e], scale_log2, -lse2[r]));
           if (masked && !visible(p, n_valid, row0 + 8 * r, n0 + 8 * j + col0 + c)) pr = 0.f;
-          pr = __bfloat162float(__float2bfloat16_rn(pr));
+          pr = round16<T>(pr);
           dp[e] = pr * (dp[e] - delta[r]);
         }
-    to_bf16_fragments(dp, dsf);
+    to_fragments1<T>(dp, dsf);
     wgmma_fence();
-    issue_rs<DQK>(dq, dsf, k_stage);                       // dQ += dS K
+    issue_rs<T, DQK>(dq, dsf, k_stage);                    // dQ += dS K
     wgmma_wait<0>();
     fence_regs(dq);
     mbar_arrive(bar_free + 8 * s);
   }
 
-  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int m = row0 + 8 * r;
     if (m >= p.S) continue;
 #pragma unroll
     for (int j = 0; j < DQK / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dqp + m * p.dq_ss + 8 * j + col0) =
-          __floats2bfloat162_rn(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+      *reinterpret_cast<Pair<T>*>(dqp + m * p.dq_ss + 8 * j + col0) =
+          pair2<T>(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
   }
 }
 
 // delta = rowsum(dO * O) in float32 for each (b, row, h): DV/8 lanes per
 // row, each reading 8 adjacent elements of both with one 16-byte load (the
 // rows are 16-byte aligned: TMA's rule holds for dO and, as the wrapper
-// sees to, for O); the grid strides over the rows.
-template <int DV>
+// sees to, for O); the grid strides over the rows.  T: bfloat16 or float16.
+template <int DV, typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_sm90(BwdParams p, long long rows) {
   constexpr int kLanes = DV / 8;
   const int lane = threadIdx.x % 32;
@@ -2221,14 +2315,14 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_sm90(BwdParams p, 
     float acc = 0.f;
     if (row < rows) {
       const uint4 ov = *reinterpret_cast<const uint4*>(
-          static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + m * p.o_ss + h * p.o_sh + 8 * sub);
-      const uint4 gv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) +
+          static_cast<const T*>(p.o) + b * p.o_sb + m * p.o_ss + h * p.o_sh + 8 * sub);
+      const uint4 gv = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) +
                                                        b * p.do_sb + m * p.do_ss + h * p.do_sh +
                                                        8 * sub);
       const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        const float2 a = bf16x2_to_float2(ow[w]), g = bf16x2_to_float2(gw[w]);
+        const float2 a = unpack2<T>(ow[w]), g = unpack2<T>(gw[w]);
         acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
       }
     }
@@ -2240,84 +2334,112 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_sm90(BwdParams p, 
 
 // The delta pre-pass, then the dK/dV and dQ kernels.  Returns a
 // cudaError_t, or kTensorMapRejected when q, k, v or dO breaks TMA's rule.
-template <int DQK, int DV>
+template <int DQK, int DV, typename T>
 int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
   using Dkdv = DkdvCfg<DQK, DV>;
   using Dq = DqCfg<DQK, DV>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(encode, &tq, p.q, B, p.S, p.H, DQK, p.q_sb, p.q_ss, p.q_sh, 64) ||
-      !make_map(encode, &tk, p.k, B, p.T, p.KV, DQK, p.k_sb, p.k_ss, p.k_sh, 64) ||
-      !make_map(encode, &tv, p.v, B, p.T, p.KV, DV, p.v_sb, p.v_ss, p.v_sh, 64) ||
-      !make_map(encode, &tdo, p.dout, B, p.S, p.H, DV, p.do_sb, p.do_ss, p.do_sh, 64))
+  if (!make_map<T>(encode, &tq, p.q, B, p.S, p.H, DQK, p.q_sb, p.q_ss, p.q_sh, 64) ||
+      !make_map<T>(encode, &tk, p.k, B, p.T, p.KV, DQK, p.k_sb, p.k_ss, p.k_sh, 64) ||
+      !make_map<T>(encode, &tv, p.v, B, p.T, p.KV, DV, p.v_sb, p.v_ss, p.v_sh, 64) ||
+      !make_map<T>(encode, &tdo, p.dout, B, p.S, p.H, DV, p.do_sb, p.do_ss, p.do_sh, 64))
     return kTensorMapRejected;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = allow_smem(flash_bwd_dkdv_kernel_sm90<DQK, DV>, Dkdv::kSmemBytes);
-    if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel_sm90<DQK, DV>, Dq::kSmemBytes);
+    cudaError_t err = allow_smem(flash_bwd_dkdv_kernel_sm90<DQK, DV, T>, Dkdv::kSmemBytes);
+    if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel_sm90<DQK, DV, T>, Dq::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const long long rows = (long long)B * p.S * p.H;
   const long long blocks = (rows * (DV / 8) + 255) / 256;  // at most 16 to an SM, striding
-  flash_bwd_delta_kernel_sm90<DV><<<(unsigned)(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(
-      p, rows);
+  flash_bwd_delta_kernel_sm90<DV, T>
+      <<<(unsigned)(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(p, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv(p.KV * B, (p.T + 63) / 64);
-  flash_bwd_dkdv_kernel_sm90<DQK, DV><<<grid_kv, Dkdv::kThreads, Dkdv::kSmemBytes, stream>>>(
+  flash_bwd_dkdv_kernel_sm90<DQK, DV, T><<<grid_kv, Dkdv::kThreads, Dkdv::kSmemBytes, stream>>>(
       tq, tk, tv, tdo, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q(p.H * B, (p.S + 63) / 64);
-  flash_bwd_dq_kernel_sm90<DQK, DV><<<grid_q, Dq::kThreads, Dq::kSmemBytes, stream>>>(
+  flash_bwd_dq_kernel_sm90<DQK, DV, T><<<grid_q, Dq::kThreads, Dq::kSmemBytes, stream>>>(
       tq, tk, tv, tdo, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace sm90
 
-// The (Dqk, Dv) instances, which ops.py's HEAD_DIMS lists: bf16 at (64, 64),
-// (128, 128) and (192, 128) (DeepSeek-V2's MLA) on the wgmma kernels; bf16
-// at the reduced configs' head dims, (16, 16) (hymba), (32, 32) (llama3-8b,
-// whisper) and (48, 32) (deepseek's MLA), and float32 at all six pairs on
-// the mma.sync kernels.
-int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStream_t s) {
-  if (dtype == 0) {
-    if (dqk == 16 && dv == 16) return tc::launch_fwd<float, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return tc::launch_fwd<float, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return tc::launch_fwd<float, 48, 32>(p, B, s);
-    if (dqk == 64 && dv == 64) return tc::launch_fwd<float, 64, 64>(p, B, s);
-    if (dqk == 128 && dv == 128) return tc::launch_fwd<float, 128, 128>(p, B, s);
-    if (dqk == 192 && dv == 128) return tc::launch_fwd<float, 192, 128>(p, B, s);
-  } else if (dtype == 1) {
-    if (dqk == 16 && dv == 16) return tc::launch_fwd<__nv_bfloat16, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return tc::launch_fwd<__nv_bfloat16, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return tc::launch_fwd<__nv_bfloat16, 48, 32>(p, B, s);
-    if (dqk == 64 && dv == 64) return sm90::launch<64, 64>(p, B, s);
-    if (dqk == 128 && dv == 128) return sm90::launch<128, 128>(p, B, s);
-    if (dqk == 192 && dv == 128) return sm90::launch<192, 128>(p, B, s);
+// The (Dqk, Dv) instances, which ops.py's HEAD_DIMS lists, in each element
+// type this library holds (FLASH_ELEM): bf16 and f16 at (64, 64), (128,
+// 128) and (192, 128) (DeepSeek-V2's MLA) on the wgmma kernels, and at the
+// reduced configs' head dims, (16, 16) (hymba), (32, 32) (llama3-8b,
+// whisper) and (48, 32) (deepseek's MLA), and at (256, 256) on the mma.sync
+// kernels; float32 at all seven pairs on the mma.sync kernels.  ops.py pads
+// a call's head dims up to the smallest pair that holds them.
+template <typename T>
+int forward_mma(int dqk, int dv, const Params& p, int B, cudaStream_t s) {
+  if (dqk == 16 && dv == 16) return tc::launch_fwd<T, 16, 16>(p, B, s);
+  if (dqk == 32 && dv == 32) return tc::launch_fwd<T, 32, 32>(p, B, s);
+  if (dqk == 48 && dv == 32) return tc::launch_fwd<T, 48, 32>(p, B, s);
+  if (dqk == 256 && dv == 256) return tc::launch_fwd<T, 256, 256>(p, B, s);
+  if constexpr (sizeof(T) == 4) {
+    if (dqk == 64 && dv == 64) return tc::launch_fwd<T, 64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return tc::launch_fwd<T, 128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return tc::launch_fwd<T, 192, 128>(p, B, s);
+  } else {
+    if (dqk == 64 && dv == 64) return sm90::launch<64, 64, T>(p, B, s);
+    if (dqk == 128 && dv == 128) return sm90::launch<128, 128, T>(p, B, s);
+    if (dqk == 192 && dv == 128) return sm90::launch<192, 128, T>(p, B, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int backward_instance(int dtype, int dqk, int dv, const BwdParams& p, int B, cudaStream_t s) {
-  if (dtype == 0) {
-    if (dqk == 16 && dv == 16) return tc::launch_bwd<float, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return tc::launch_bwd<float, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return tc::launch_bwd<float, 48, 32>(p, B, s);
-    if (dqk == 64 && dv == 64) return tc::launch_bwd<float, 64, 64>(p, B, s);
-    if (dqk == 128 && dv == 128) return tc::launch_bwd<float, 128, 128>(p, B, s);
-    if (dqk == 192 && dv == 128) return tc::launch_bwd<float, 192, 128>(p, B, s);
-  } else if (dtype == 1) {
-    if (dqk == 16 && dv == 16) return tc::launch_bwd<__nv_bfloat16, 16, 16>(p, B, s);
-    if (dqk == 32 && dv == 32) return tc::launch_bwd<__nv_bfloat16, 32, 32>(p, B, s);
-    if (dqk == 48 && dv == 32) return tc::launch_bwd<__nv_bfloat16, 48, 32>(p, B, s);
-    if (dqk == 64 && dv == 64) return sm90::launch_bwd<64, 64>(p, B, s);
-    if (dqk == 128 && dv == 128) return sm90::launch_bwd<128, 128>(p, B, s);
-    if (dqk == 192 && dv == 128) return sm90::launch_bwd<192, 128>(p, B, s);
+template <typename T>
+int backward_mma(int dqk, int dv, const BwdParams& p, int B, cudaStream_t s) {
+  if (dqk == 16 && dv == 16) return tc::launch_bwd<T, 16, 16>(p, B, s);
+  if (dqk == 32 && dv == 32) return tc::launch_bwd<T, 32, 32>(p, B, s);
+  if (dqk == 48 && dv == 32) return tc::launch_bwd<T, 48, 32>(p, B, s);
+  if (dqk == 256 && dv == 256) return tc::launch_bwd<T, 256, 256>(p, B, s);
+  if constexpr (sizeof(T) == 4) {
+    if (dqk == 64 && dv == 64) return tc::launch_bwd<T, 64, 64>(p, B, s);
+    if (dqk == 128 && dv == 128) return tc::launch_bwd<T, 128, 128>(p, B, s);
+    if (dqk == 192 && dv == 128) return tc::launch_bwd<T, 192, 128>(p, B, s);
+  } else {
+    if (dqk == 64 && dv == 64) return sm90::launch_bwd<64, 64, T>(p, B, s);
+    if (dqk == 128 && dv == 128) return sm90::launch_bwd<128, 128, T>(p, B, s);
+    if (dqk == 192 && dv == 128) return sm90::launch_bwd<192, 128, T>(p, B, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 float32, 1 bfloat16, 2 float16; a type this library does not
+// hold is cudaErrorInvalidValue.
+int forward_instance(int dtype, int dqk, int dv, const Params& p, int B, cudaStream_t s) {
+#if FLASH_HAS(0)
+  if (dtype == 0) return forward_mma<float>(dqk, dv, p, B, s);
+#endif
+#if FLASH_HAS(1)
+  if (dtype == 1) return forward_mma<__nv_bfloat16>(dqk, dv, p, B, s);
+#endif
+#if FLASH_HAS(2)
+  if (dtype == 2) return forward_mma<__half>(dqk, dv, p, B, s);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
+int backward_instance(int dtype, int dqk, int dv, const BwdParams& p, int B, cudaStream_t s) {
+#if FLASH_HAS(0)
+  if (dtype == 0) return backward_mma<float>(dqk, dv, p, B, s);
+#endif
+#if FLASH_HAS(1)
+  if (dtype == 1) return backward_mma<__nv_bfloat16>(dqk, dv, p, B, s);
+#endif
+#if FLASH_HAS(2)
+  if (dtype == 2) return backward_mma<__half>(dqk, dv, p, B, s);
+#endif
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2328,8 +2450,9 @@ extern "C" {
 // The entry point's arguments in one block, packed by ops.py as
 // struct.Struct("=5Q12qQ11if"): no padding, 192 bytes.  One pointer
 // argument keeps the host's cost of a ctypes call small.
-//   dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); D and Dv:
-//   q's and k's head dim and v's (and o's), one of the instances above.
+//   dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and o share
+//   it); D and Dv: q's and k's head dim and v's (and o's), one of the
+//   instances above.
 //   Strides are in elements, (batch, sequence, head) for q, k, v and o in
 //   that order; the head dim is contiguous.  q/k/v are taken at 16-byte
 //   aligned addresses with 16-byte multiple strides (TMA's rule for the

@@ -7,31 +7,44 @@ q's and k's, as in ``repro.models.common.full_attention`` (DeepSeek-V2's
 MLA: 192 and 128).  CUDA tensors go to the hand-written Hopper kernels in
 ``csrc/flash_attention.cu`` (the forward and, under autograd, the
 backward); CPU tensors go to the plain versions :func:`attention_ref` and
-:func:`attention_backward_ref`.  A CUDA call that the kernel does not
-take raises: there is no fallback.  Which body serves a call
-(:func:`uses_wgmma`): bfloat16 at (64, 64), (128, 128) and (192, 128)
-runs the wgmma kernels, which read q, k, v and dO through TMA tensor
-maps; the C entry point refuses a layout TMA cannot read, and
-:func:`tma_layout_error` (the same rule, in Python) then says why.
-float32 at every pair and bfloat16 at (16, 16), (32, 32) and (48, 32)
-run the mma.sync kernels, which read 16-byte rows with cp.async under the
-same rule; there the C entry's refusal is answered with contiguous copies
-(a copy, not a fallback: the same kernel runs).
+:func:`attention_backward_ref`, which compute in float32 whatever float
+dtypes q, k and v have, as the Pallas kernel does, and return q's dtype.
+
+The CUDA kernels take float32, bfloat16 and float16 at every (Dqk, Dv)
+up to ``MAX_HEAD_DIM``: :func:`reach_error` says whether a call is inside
+that, and a CUDA call outside it raises (there is no fallback).  They are
+instantiated at the pairs ``HEAD_DIMS``; a call runs on the smallest
+instance that holds its dims (:func:`instance`), on copies of q, k and v
+padded by zero channels (which add exact zeros to every product), and
+gets its own columns back.  q, k and v in two or three dtypes run on
+float32 copies, the output cast to q's dtype and each gradient to its
+input's (a copy, not a fallback: the float32 kernel runs).  Which body
+serves an instance (:func:`uses_wgmma`): bfloat16 and float16 at (64, 64),
+(128, 128) and (192, 128) run the wgmma kernels, which read q, k, v and dO
+through TMA tensor maps; the C entry point refuses a layout TMA cannot
+read, and :func:`tma_layout_error` (the same rule, in Python) then says
+why.  float32 at every pair and the 16-bit types at the others run the
+mma.sync kernels, which read 16-byte rows with cp.async under the same
+rule; there the C entry's refusal is answered with contiguous copies.
+The source is built into one library per element type
+(``library_defines``), so that the three build side by side.
 
 ``flash_attention.launches`` counts forward launches (a recomputed forward
 under ``torch.utils.checkpoint`` counts again);
 ``flash_attention_backward.launches`` counts backward launches.  Each also
 keeps ``launches_by_instance``, the same launches by the CUDA instance
-that ran them, ``(dtype name, Dqk, Dv)`` (e.g. ``("bf16", 16, 16)``).
+that ran them, ``(dtype name, Dqk, Dv)`` (e.g. ``("bf16", 16, 16)``; a
+padded call counts at its instance).
 
 Each launch is a ``torch.library`` custom op (``repro_torch::
 flash_attention_forward`` and ``repro_torch::flash_attention_backward``)
 with a fake implementation, which gives fake and meta tensors the
 outputs' shapes, dtypes and strides so that the dry run traces the
 kernel's route, and a FLOP formula (:func:`attention_pairs`), the
-operations the kernel's bound counts.  Only fake and meta tensors reach
-the fake implementations.  DTensors run the call on each rank's shards,
-split over batch and heads (:mod:`repro_torch.kernels.sharded`).
+operations the kernel's bound counts; both at the caller's head dims (the
+padding happens inside the op).  Only fake and meta tensors reach the
+fake implementations.  DTensors run the call on each rank's shards, split
+over batch and heads (:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
@@ -53,23 +66,26 @@ from repro_torch.kernels.sharded import local_over_batch_heads
 from repro_torch.sharding.context import is_dtensor
 
 __all__ = ["flash_attention", "flash_attention_backward", "tma_layout_error", "SOURCE",
-           "HEAD_DIMS", "attention_pairs", "uses_wgmma", "backward_kernels"]
+           "HEAD_DIMS", "MAX_HEAD_DIM", "DTYPES", "attention_pairs", "uses_wgmma",
+           "backward_kernels", "reach_error", "instance", "library_defines"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # The (Dqk, Dv) pairs the CUDA kernels are instantiated for, by dtype: the
-# bf16 wgmma kernels at (64, 64), (128, 128) and (192, 128), and the
-# mma.sync ones at every pair in float32 and at the reduced configs' head
-# dims in bf16 (so that training and serving them runs on the card):
-# (16, 16) (hymba-1.5b), (32, 32) (llama3-8b, whisper-large-v3) and
-# (48, 32) (deepseek-v2-236b's MLA).  tests/test_torch_kernel_coverage.py
-# holds every config in ARCHS, at both widths, to this table.
-HEAD_DIMS = {
-    torch.bfloat16: ((16, 16), (32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
-    torch.float32: ((16, 16), (32, 32), (48, 32), (64, 64), (128, 128), (192, 128)),
-}
-_WGMMA_DIMS = ((64, 64), (128, 128), (192, 128))  # bf16 on the wgmma kernels
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# 16-bit types' wgmma kernels at (64, 64), (128, 128) and (192, 128), and
+# the mma.sync ones at every other pair and at every pair in float32: the
+# reduced configs' head dims (16, 16) (hymba-1.5b), (32, 32) (llama3-8b,
+# whisper-large-v3) and (48, 32) (deepseek-v2-236b's MLA), and (256, 256)
+# (gemma-7b's head dim), the largest.  A call of other dims runs on the
+# smallest pair that holds them (``instance``), padded.
+# tests/test_torch_kernel_coverage.py holds every config in ARCHS, at both
+# widths, inside the reach (``reach_error``).
+_PAIRS = ((16, 16), (32, 32), (48, 32), (64, 64), (128, 128), (192, 128), (256, 256))
+HEAD_DIMS = {torch.bfloat16: _PAIRS, torch.float16: _PAIRS, torch.float32: _PAIRS}
+MAX_HEAD_DIM = 256
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_WGMMA_DIMS = ((64, 64), (128, 128), (192, 128))  # bf16 and f16 on the wgmma kernels
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _TENSOR_MAP_REJECTED = -1  # the C entry's code for a layout its kernels cannot read
 
 
@@ -84,17 +100,43 @@ _BWD_ARGS = struct.Struct("=10Q24qQ11if")
 assert (_ENTRY_ARGS.size, _BWD_ARGS.size) == (192, 328)
 
 
+def library_defines(dtype: torch.dtype) -> Tuple[str, ...]:
+    """The ``nvcc`` defines of the library that holds ``dtype``'s instances
+    (``FLASH_ELEM`` in the source: its dtype code)."""
+    return (f"-DFLASH_ELEM={_DTYPE_CODES[dtype]}",)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    fn = getattr(build.load(SOURCE), name)
+def _entry(name: str, dtype: torch.dtype):
+    fn = getattr(build.load(SOURCE, library_defines(dtype)), name)
     fn.argtypes = [ctypes.c_char_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def instance(dtype: torch.dtype, dqk: int, dv: int) -> Tuple[int, int]:
+    """The (Dqk, Dv) instance a CUDA call at (dtype, Dqk, Dv) runs on: the
+    smallest pair of ``HEAD_DIMS[dtype]`` that holds both dims (the call
+    inside ``reach_error``)."""
+    return min((p for p in HEAD_DIMS[dtype] if dqk <= p[0] and dv <= p[1]),
+               key=lambda p: (p[0] + p[1], p[0]))
+
+
+def reach_error(dtype: torch.dtype, dqk: int, dv: int) -> Optional[str]:
+    """Why the CUDA kernels do not take a call with an input (q, k or v) in
+    ``dtype`` at head dims (Dqk, Dv), naming the limit, or None when they
+    do."""
+    if dtype not in DTYPES:
+        return f"the CUDA kernels take DTYPES = (float32, bfloat16, float16), got {dtype}"
+    if not (1 <= dqk <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        return (f"the CUDA kernels take head dims from 1 to MAX_HEAD_DIM = {MAX_HEAD_DIM}, "
+                f"got (Dqk, Dv) = ({dqk}, {dv})")
+    return None
+
+
 def tma_layout_error(shape, strides, dtype: torch.dtype, ptr_mod_16: int) -> Optional[str]:
-    """Why a bf16 ``(B, L, heads, D)`` tensor cannot be read through a TMA
-    tensor map, or None if it can.  TMA needs a 16-byte aligned base, a
+    """Why a 16-bit ``(B, L, heads, D)`` tensor cannot be read through a
+    TMA tensor map, or None if it can.  TMA needs a 16-byte aligned base, a
     contiguous last dim and every other stride a multiple of 16 bytes; a
     dim of size 1 is never stepped, so its stride does not matter."""
     if strides[-1] != 1:
@@ -118,36 +160,33 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, window) ->
         raise ValueError("q heads must be a multiple of kv heads")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError("q, k, v must share a dtype")
     if kv_len is not None and not 0 <= kv_len <= k.shape[1]:
         raise ValueError(f"kv_len {kv_len} outside [0, {k.shape[1]}]")
     if window is not None and window < 1:
         raise ValueError("window must be a positive int or None")
 
 
-def _call(name: str, dev: torch.device, args: bytes) -> int:
+def _call(name: str, dtype: torch.dtype, dev: torch.device, args: bytes) -> int:
     if dev.index == torch.cuda.current_device():
-        return _entry(name)(args)
+        return _entry(name, dtype)(args)
     with torch.cuda.device(dev):
-        return _entry(name)(args)
+        return _entry(name, dtype)(args)
 
 
 def _cuda_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
-    dims = (q.shape[3], v.shape[3])
-    if dims not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"the {q.dtype} CUDA kernel takes the (Dqk, Dv) head dims in "
-                         f"HEAD_DIMS[{q.dtype}] = {HEAD_DIMS[q.dtype]}, got {dims}")
+    for x in (q, k, v):
+        why = reach_error(x.dtype, q.shape[3], v.shape[3])
+        if why:
+            raise ValueError(why)
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
 
 def uses_wgmma(dtype: torch.dtype, dqk: int, dv: int) -> bool:
-    """Whether a CUDA call at (dtype, Dqk, Dv) runs the wgmma kernels (bf16
-    at (64, 64), (128, 128), (192, 128)) rather than the mma.sync ones."""
-    return dtype == torch.bfloat16 and (dqk, dv) in _WGMMA_DIMS
+    """Whether a CUDA call at (dtype, Dqk, Dv) runs the wgmma kernels
+    (bf16 and f16 whose instance is (64, 64), (128, 128) or (192, 128))
+    rather than the mma.sync ones."""
+    return dtype in (torch.bfloat16, torch.float16) and instance(dtype, dqk, dv) in _WGMMA_DIMS
 
 
 def backward_kernels(dtype: torch.dtype, dqk: int, dv: int) -> int:
@@ -165,9 +204,15 @@ def _dense(*xs: torch.Tensor):
     return tuple(x.clone(memory_format=torch.contiguous_format) for x in xs)
 
 
-def _instance(q: torch.Tensor, v: torch.Tensor) -> Tuple[str, int, int]:
-    """The CUDA instance a call runs: (dtype name, Dqk, Dv)."""
-    return _DTYPE_NAMES[q.dtype], q.shape[3], v.shape[3]
+def _padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with its head dim padded by zero channels to ``width`` (a new
+    contiguous tensor), or ``x`` itself at that width."""
+    return x if x.shape[3] == width else torch.nn.functional.pad(x, (0, width - x.shape[3]))
+
+
+def _own(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The first ``width`` channels of a padded call's output, contiguous."""
+    return x if x.shape[3] == width else x[..., :width].contiguous()
 
 
 def _layout_error(x: torch.Tensor) -> Optional[str]:
@@ -177,8 +222,8 @@ def _layout_error(x: torch.Tensor) -> Optional[str]:
 def _raise_tma_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     why = [f"{name}: {err}" for name, x in (("q", q), ("k", k), ("v", v))
            if (err := _layout_error(x))]
-    raise ValueError(f"the bf16 kernel cannot read {'; '.join(why) or 'q, k or v'}: "
-                     "TMA refused the tensor map")
+    raise ValueError(f"the {_DTYPE_NAMES[q.dtype]} wgmma kernel cannot read "
+                     f"{'; '.join(why) or 'q, k or v'}: TMA refused the tensor map")
 
 
 def _scale(d: int, softmax_scale: Optional[float]) -> float:
@@ -203,27 +248,30 @@ def attention_pairs(s: int, t: int, causal: bool, window: Optional[int],
 def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                 window: Optional[int], scale: float, kv_len: Optional[int],
                 with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One forward launch: (out (B, S, H, Dv), lse (B, H, S) float32, or an
-    empty lse without ``with_lse``)."""
+    """One forward launch, q, k, v in one dtype: (out (B, S, H, Dv), lse
+    (B, H, S) float32, or an empty lse without ``with_lse``).  Head dims
+    short of their instance's run on copies padded by zero channels."""
     b, s, h, d = q.shape
     t, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    di, dvi = instance(q.dtype, d, dv)
     dev = q.device
-    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
+    q, k, v = _padded(q, di), _padded(k, di), _padded(v, dvi)
+    out = torch.empty((b, s, h, dvi), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s) if with_lse else (0,), dtype=torch.float32, device=dev)
 
     def launch(q, k, v):
-        return _call("flash_attention_forward", dev, _ENTRY_ARGS.pack(
+        return _call("flash_attention_forward", q.dtype, dev, _ENTRY_ARGS.pack(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else 0,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             torch._C._cuda_getCurrentRawStream(dev.index),
-            _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv, int(causal),
+            _DTYPE_CODES[q.dtype], b, s, t, h, kv, di, dvi, int(causal),
             0 if window is None else int(window), t if kv_len is None else int(kv_len),
             scale,
         ))
 
     rc = launch(q, k, v)
-    if rc == _TENSOR_MAP_REJECTED and not uses_wgmma(q.dtype, d, dv):
+    if rc == _TENSOR_MAP_REJECTED and not uses_wgmma(q.dtype, di, dvi):
         q, k, v = _dense(q, k, v)
         rc = launch(q, k, v)
     if rc == _TENSOR_MAP_REJECTED:
@@ -231,8 +279,8 @@ def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     flash_attention.launches += 1
-    flash_attention.launches_by_instance[_instance(q, v)] += 1
-    return out, lse
+    flash_attention.launches_by_instance[(_DTYPE_NAMES[q.dtype], di, dvi)] += 1
+    return _own(out, dv), lse
 
 
 @_forward_op.register_fake
@@ -324,13 +372,16 @@ def flash_attention(
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Blockwise online-softmax attention; output (B, S, H, Dv) in q's
-    dtype, scaled by ``softmax_scale`` (default ``1/sqrt(Dqk)``).
+    dtype, scaled by ``softmax_scale`` (default ``1/sqrt(Dqk)``, of the
+    caller's Dqk).
 
     A CUDA call whose q, k or v requires grad (with grad mode on) keeps each
     row's log-sum-exp and differentiates through
     :func:`flash_attention_backward`; any other CUDA call writes the output
-    only.  CPU tensors take :func:`attention_ref`, under autograd.
-    DTensors compute on each rank's shards (:func:`_sharded`)."""
+    only.  q, k and v in more than one dtype run on float32 copies (each
+    gradient comes back in its input's dtype).  CPU tensors take
+    :func:`attention_ref`, under autograd.  DTensors compute on each rank's
+    shards (:func:`_sharded`)."""
     _check(q, k, v, kv_len, window)
     if is_dtensor(q):
         return _sharded(q, k, v, causal=causal, window=window, softmax_scale=softmax_scale,
@@ -343,9 +394,14 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device.type}")
     _cuda_checks(q, k, v)
     scale = _scale(q.shape[3], softmax_scale)
+    out_dtype = q.dtype
+    if len({q.dtype, k.dtype, v.dtype}) > 1:  # float32 copies, under autograd
+        q, k, v = q.float(), k.float(), v.float()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window, scale, kv_len)
-    return _forward(q, k, v, causal, window, scale, kv_len, with_lse=False)[0]
+        out = _FlashAttention.apply(q, k, v, causal, window, scale, kv_len)
+    else:
+        out = _forward(q, k, v, causal, window, scale, kv_len, with_lse=False)[0]
+    return out.to(out_dtype)
 
 
 flash_attention.launches = 0
@@ -365,16 +421,19 @@ def flash_attention_backward(
     softmax_scale: Optional[float] = None,
     kv_len: Optional[int] = None,
 ):
-    """dq (B, S, H, Dqk), dk (B, T, KV, Dqk) and dv (B, T, KV, Dv), in q's
-    dtype, from the forward's inputs, its output ``out`` (B, S, H, Dv), its
-    log-sum-exp ``lse`` (B, H, S) float32 and the output's gradient
-    ``dout``.  dk and dv sum over each GQA group's q heads.  CUDA tensors
-    launch the backward kernels (:func:`backward_kernels` a call; one count
-    in ``launches``); CPU tensors take :func:`attention_backward_ref`.  On
-    the wgmma instances q, k, v and dO are read through TMA tensor maps: a
-    q, k or v that breaks the rule raises, as in the forward; a ``dout`` or
-    ``out`` that breaks it is copied first.  The mma.sync instances copy
-    q, k, v and dO when the C entry refuses their layout."""
+    """dq (B, S, H, Dqk), dk (B, T, KV, Dqk) and dv (B, T, KV, Dv), each in
+    its input's dtype, from the forward's inputs, its output ``out`` (B, S,
+    H, Dv), its log-sum-exp ``lse`` (B, H, S) float32 and the output's
+    gradient ``dout``.  dk and dv sum over each GQA group's q heads.  CUDA
+    tensors launch the backward kernels (:func:`backward_kernels` a call;
+    one count in ``launches``), on float32 copies where q, k and v do not
+    share a dtype, and on copies padded by zero channels where the head
+    dims are short of their instance's; CPU tensors take
+    :func:`attention_backward_ref`.  On the wgmma instances q, k, v and dO
+    are read through TMA tensor maps: a q, k or v that breaks the rule
+    raises, as in the forward; a ``dout`` or ``out`` that breaks it is
+    copied first.  The mma.sync instances copy q, k, v and dO when the C
+    entry refuses their layout."""
     _check(q, k, v, kv_len, window)
     b, s, h, d = q.shape
     t, kv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
@@ -388,10 +447,12 @@ def flash_attention_backward(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward runs on cuda or cpu, not {q.device.type}")
     _cuda_checks(q, k, v)
-    if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
-        raise ValueError("out and dout must have q's dtype, lse float32")
-    return tuple(_backward_op(q, k, v, out, lse, dout, causal, window,
-                              _scale(d, softmax_scale), kv_len))
+    if lse.dtype != torch.float32:
+        raise ValueError("lse must be float32")
+    run = q.dtype if q.dtype == k.dtype == v.dtype else torch.float32  # float32 copies
+    grads = _backward_op(*(x.to(run) for x in (q, k, v, out)), lse, dout.to(run), causal,
+                         window, _scale(d, softmax_scale), kv_len)
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
 @torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=(),
@@ -400,10 +461,16 @@ def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.T
                  lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: Optional[int],
                  scale: float, kv_len: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor,
                                                                torch.Tensor]:
-    """One backward launch (``backward_kernels`` kernels): (dq, dk, dv)."""
+    """One backward launch (``backward_kernels`` kernels), every tensor but
+    lse in one dtype: (dq, dk, dv).  Head dims short of their instance's
+    run on copies padded by zero channels (q, k to Dqk's; v, out and dout
+    to Dv's), and the padded columns of dq, dk and dv are dropped."""
     b, s, h, d = q.shape
     t, kv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
-    wgmma = uses_wgmma(q.dtype, d, dv_dim)
+    di, dvi = instance(q.dtype, d, dv_dim)
+    wgmma = uses_wgmma(q.dtype, di, dvi)
+    q, k = _padded(q, di), _padded(k, di)
+    v, out, dout = _padded(v, dvi), _padded(out, dvi), _padded(dout, dvi)
     if dout.stride(-1) != 1 or (wgmma and _layout_error(dout)):
         # dO is the one operand autograd shapes: a copy, not a fallback.
         dout = dout.clone(memory_format=torch.contiguous_format)
@@ -413,17 +480,17 @@ def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.T
         raise ValueError("out's head dim and lse must be contiguous")
     dev = q.device
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty((b, t, kv, d), dtype=q.dtype, device=dev)
-    dv = torch.empty((b, t, kv, dv_dim), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, t, kv, di), dtype=q.dtype, device=dev)
+    dv = torch.empty((b, t, kv, dvi), dtype=q.dtype, device=dev)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
 
     def launch(q, k, v, dout):
-        return _call("flash_attention_backward", dev, _BWD_ARGS.pack(
+        return _call("flash_attention_backward", q.dtype, dev, _BWD_ARGS.pack(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *(st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]),
             torch._C._cuda_getCurrentRawStream(dev.index),
-            _DTYPE_CODES[q.dtype], b, s, t, h, kv, d, dv_dim, int(causal),
+            _DTYPE_CODES[q.dtype], b, s, t, h, kv, di, dvi, int(causal),
             0 if window is None else int(window), t if kv_len is None else int(kv_len),
             scale,
         ))
@@ -437,8 +504,8 @@ def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.T
     if rc != 0:
         raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {rc}")
     flash_attention_backward.launches += 1
-    flash_attention_backward.launches_by_instance[_instance(q, v)] += 1
-    return dq, dk, dv
+    flash_attention_backward.launches_by_instance[(_DTYPE_NAMES[q.dtype], di, dvi)] += 1
+    return _own(dq, d), _own(dk, d), _own(dv, dv_dim)
 
 
 @_backward_op.register_fake

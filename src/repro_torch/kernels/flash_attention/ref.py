@@ -88,11 +88,11 @@ def attention_backward_ref(
     softmax_scale: Optional[float] = None,
     kv_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dq, dk, dv in q's dtype, with the backward kernel's formulas in
-    float32: P = exp(scores - lse) where the mask allows, delta = rowsum(dO
-    * O), dS = P (dO V^T - delta), dV = P^T dO, dK = scale dS^T Q, dQ =
-    scale dS K; dK and dV sum over each GQA group's q heads.  out and dout
-    are (B, S, H, Dv)."""
+    """dq, dk, dv, each in its input's dtype, with the backward kernel's
+    formulas in float32: P = exp(scores - lse) where the mask allows, delta
+    = rowsum(dO * O), dS = P (dO V^T - delta), dV = P^T dO, dK = scale dS^T
+    Q, dQ = scale dS K; dK and dV sum over each GQA group's q heads.  out
+    and dout are (B, S, H, Dv)."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     r = h // kv
@@ -108,4 +108,5 @@ def attention_backward_ref(
     dk = torch.einsum("bkrst,bskrd->btkd", ds, q.float().reshape(b, s, kv, r, d)) * scale
     dq = torch.einsum("bkrst,btkd->bskrd", ds, k.float()) * scale
     # Contiguous, as the backward kernel writes them.
-    return tuple(x.to(q.dtype).contiguous() for x in (dq.reshape(b, s, h, d), dk, dv))
+    return tuple(g.to(x.dtype).contiguous()
+                 for g, x in zip((dq.reshape(b, s, h, d), dk, dv), (q, k, v)))

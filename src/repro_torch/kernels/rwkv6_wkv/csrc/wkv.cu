@@ -13,10 +13,10 @@
 //   out_t        = scores v + (r_t . u . k_t) v_t + (r_t . exp(L_{t-1})) S_c
 //   S_{c+1}      = exp(L_C) . S_c + (k . exp(L_C - L))^T v
 // with S_c the state entering chunk c.  r/k/v/log_w (B,T,H,K) share one
-// element type T, float32 or bfloat16 (a template parameter), and are read
-// in place through their strides: float32 rows as 16-byte cp.async
-// copies, bfloat16 rows as 8-byte loads of 4 elements widened before the
-// 3xTF32 split and stored as float32 tiles.  out (B,T,H,K) is in T,
+// element type T, float32, bfloat16 or float16 (a template parameter),
+// and are read in place through their strides: float32 rows as 16-byte
+// cp.async copies, bfloat16 and float16 rows as 8-byte loads of 4
+// elements widened before the 3xTF32 split and stored as float32 tiles.  out (B,T,H,K) is in T,
 // rounded once; u (H,K), the final state (B,H,K,K) and the chunk states
 // are float32.  K is a template parameter, instantiated at 32 (the reduced
 // rwkv6-7b config), 64 (the published one) and 128; ops.py runs any head
@@ -84,6 +84,7 @@
 // traffic (60 us at the memory rate) where L2 keeps none of the chunk
 // states, against the function's 84.9 MB.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -91,6 +92,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr int kMaxChunk = 128;
 constexpr int kMaxChunkK128 = 64;  // pass B's tiles at K = 128 and 128 rows pass 227 KB
@@ -178,6 +180,10 @@ __device__ __forceinline__ void store_pair(bf16* o, float o0, float o1) {
   *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(o0, o1);
 }
 
+__device__ __forceinline__ void store_pair(f16* o, float o0, float o1) {
+  *reinterpret_cast<__half2*>(o) = __floats2half2_rn(o0, o1);
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int src_size = valid ? 16 : 0;  // 0: zero-fill, read nothing
@@ -187,7 +193,7 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 
 // Four elements of a row from `src` into the float32 tile at `dst`, zero
 // where !valid (src is not read then): a 16-byte cp.async copy (float32),
-// or an 8-byte load widened and stored (bfloat16).
+// or an 8-byte load widened and stored (bfloat16, float16).
 __device__ __forceinline__ void stage4(float* dst, const float* src, bool valid) {
   cp_async16(dst, src, valid);
 }
@@ -198,6 +204,17 @@ __device__ __forceinline__ void stage4(float* dst, const bf16* src, bool valid) 
     const uint2 w = *reinterpret_cast<const uint2*>(src);
     x = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  }
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+__device__ __forceinline__ void stage4(float* dst, const f16* src, bool valid) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src);
+    const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&w.x));
+    const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&w.y));
+    x = make_float4(lo.x, lo.y, hi.x, hi.y);
   }
   *reinterpret_cast<float4*>(dst) = x;
 }
@@ -772,7 +789,7 @@ struct EntryArgs {
   long long strides[20];     // (batch, time, head, channel) of r, k, v, log_w, out
   void* stream;
   int B, T, H, K, chunk;
-  int in_bf16;               // 1: r, k, v, log_w and out bfloat16, else float32
+  int dtype;                 // r, k, v, log_w and out: 0 float32, 1 bfloat16, 2 float16
 };
 static_assert(sizeof(EntryArgs) == 256, "EntryArgs must match ops.py's packing");
 
@@ -780,9 +797,10 @@ static_assert(sizeof(EntryArgs) == 256, "EntryArgs must match ops.py's packing")
 // launches (0 on success), or kLayoutRejected (-1) when K is not 32, 64 or
 // 128 (ops.py pads the others), the chunk is over 128 (over 64 at K =
 // 128), or an input is not read as rows of 4-element vectors (a 16-byte
-// aligned base for float32, 8-byte for bfloat16; channel stride 1; every
-// other stride of a dim longer than 1 a multiple of 4).  Nothing is
-// launched then.
+// aligned base for float32, 8-byte for bfloat16 and float16; channel
+// stride 1; every other stride of a dim longer than 1 a multiple of 4).
+// Nothing is launched then; an unknown dtype code is
+// cudaErrorInvalidValue.
 int wkv_forward(const EntryArgs* a) {
   if (a->B < 1 || a->T < 1 || a->H < 1 || a->chunk < 1) return (int)cudaErrorInvalidValue;
   const int C = a->chunk < a->T ? a->chunk : a->T;
@@ -790,7 +808,8 @@ int wkv_forward(const EntryArgs* a) {
       (a->K == 128 && C > kMaxChunkK128))
     return kLayoutRejected;
   const int sizes[3] = {a->B, a->T, a->H};
-  const uintptr_t align = a->in_bf16 ? 8 : 16;
+  if (a->dtype < 0 || a->dtype > 2) return (int)cudaErrorInvalidValue;
+  const uintptr_t align = a->dtype ? 8 : 16;
   for (int x = 0; x < 5; ++x) {
     const void* ptr = x < 4 ? a->in[x] : a->out;
     const long long* st = a->strides + 4 * x;
@@ -819,11 +838,18 @@ int wkv_forward(const EntryArgs* a) {
   }
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
   const int bh = a->B * a->H;
-  if (a->in_bf16) {
+  if (a->dtype == 1) {
     switch (a->K) {
       case 32: return launch<32, bf16>(p, bh, n_states, stream);
       case 64: return launch<64, bf16>(p, bh, n_states, stream);
       default: return launch<128, bf16>(p, bh, n_states, stream);
+    }
+  }
+  if (a->dtype == 2) {
+    switch (a->K) {
+      case 32: return launch<32, f16>(p, bh, n_states, stream);
+      case 64: return launch<64, f16>(p, bh, n_states, stream);
+      default: return launch<128, f16>(p, bh, n_states, stream);
     }
   }
   switch (a->K) {

@@ -16,15 +16,15 @@
 //   dlog_w_t[i] = sum_j dS_T[i, j] S_T[i, j]
 //               + sum_{t' > t} r_t'[i] (S_{t'-1} dout_t')[i]
 //               - sum_{t' >= t} k_t'[i] (G_t' v_t')[i].
-// Inputs r/k/v/log_w/dout (B,T,H,K) share one element type T, float32 or
-// bfloat16 (a template parameter), read in place through their strides
-// (rows of K elements as 16-byte cp.async copies in float32, as 8-byte
-// loads widened as they are staged in bfloat16: the forward's layout
-// rule); u (H,K) and the final state (B,H,K,K) float32, contiguous.  dr,
-// dk, dv and dlog_w go out in T, each rounded once from its float32 value
-// (in bfloat16 dr's state term, which the second kernel adds to, goes
-// through a float32 buffer); du in float32 (ops.py rounds it to u's
-// dtype).  K is a template parameter, instantiated at 32 (the reduced
+// Inputs r/k/v/log_w/dout (B,T,H,K) share one element type T, float32,
+// bfloat16 or float16 (a template parameter), read in place through their
+// strides (rows of K elements as 16-byte cp.async copies in float32, as
+// 8-byte loads widened as they are staged in the 16-bit types: the
+// forward's layout rule); u (H,K) and the final state (B,H,K,K)
+// float32, contiguous.  dr, dk, dv and dlog_w go out in T, each rounded
+// once from its float32 value (in the 16-bit types dr's state term, which
+// the second kernel adds to, goes through a float32 buffer); du in
+// float32 (ops.py rounds it to u's dtype).  K is a template parameter, instantiated at 32 (the reduced
 // rwkv6-7b config), 64 (the published one) and 128, as the forward, which
 // ops.py pads other head sizes to.  The forward's chunk does not enter:
 // this kernel runs its own chunk of kChunk steps.
@@ -75,6 +75,7 @@
 // with r, k, v, log_w and dout and writes dr, dk, dv and dlog_w: 15 x
 // 335.5 MB = 5.03 GB, 1.50 ms at the memory rate.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,6 +83,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr int kChunk = 32;        // steps per chunk here
 constexpr int kThreads = 256;
@@ -157,6 +159,7 @@ __device__ __forceinline__ float* dr_state(const Params& p) {
 // An output element, or elements i and i + 1 at `o` (an even offset), in T.
 __device__ __forceinline__ void put(float* o, float x) { *o = x; }
 __device__ __forceinline__ void put(bf16* o, float x) { *o = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void put(f16* o, float x) { *o = __float2half_rn(x); }
 
 __device__ __forceinline__ void put_pair(float* o, float a, float b) {
   *reinterpret_cast<float2*>(o) = make_float2(a, b);
@@ -164,6 +167,10 @@ __device__ __forceinline__ void put_pair(float* o, float a, float b) {
 
 __device__ __forceinline__ void put_pair(bf16* o, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void put_pair(f16* o, float a, float b) {
+  *reinterpret_cast<__half2*>(o) = __floats2half2_rn(a, b);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -180,7 +187,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Four elements of a row from `src` into the float32 tile at `dst`, zero
 // where !valid (src is not read then), as in wkv.cu: a 16-byte cp.async
-// copy (float32), or an 8-byte load widened and stored (bfloat16).
+// copy (float32), or an 8-byte load widened and stored (bfloat16, float16).
 __device__ __forceinline__ void stage4(float* dst, const float* src, bool valid) {
   cp_async16(dst, src, valid);
 }
@@ -191,6 +198,17 @@ __device__ __forceinline__ void stage4(float* dst, const bf16* src, bool valid) 
     const uint2 w = *reinterpret_cast<const uint2*>(src);
     x = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  }
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+__device__ __forceinline__ void stage4(float* dst, const f16* src, bool valid) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src);
+    const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&w.x));
+    const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&w.y));
+    x = make_float4(lo.x, lo.y, hi.x, hi.y);
   }
   *reinterpret_cast<float4*>(dst) = x;
 }
@@ -883,7 +901,8 @@ struct EntryArgs {
   long long strides[20];   // (batch, time, head, channel) of r, k, v, log_w, dout
   void* stream;
   int B, T, H, K, chunk;
-  int in_bf16;             // 1: the inputs and dr, dk, dv, dlog_w bfloat16, else float32
+  int dtype;               // the inputs and dr, dk, dv, dlog_w: 0 float32, 1 bfloat16,
+                           // 2 float16
 };
 static_assert(sizeof(EntryArgs) == 312, "EntryArgs must match ops.py's packing");
 
@@ -898,7 +917,8 @@ int wkv_backward(const EntryArgs* a) {
   if ((a->K != 32 && a->K != 64 && a->K != 128) || C > 128 || (a->K == 128 && C > 64))
     return kLayoutRejected;
   const int sizes[3] = {a->B, a->T, a->H};
-  const uintptr_t align = a->in_bf16 ? 8 : 16;
+  if (a->dtype < 0 || a->dtype > 2) return (int)cudaErrorInvalidValue;
+  const uintptr_t align = a->dtype ? 8 : 16;
   for (int x = 0; x < 5; ++x) {
     const long long* st = a->strides + 4 * x;
     if (reinterpret_cast<uintptr_t>(a->in[x]) % align || st[3] != 1) return kLayoutRejected;
@@ -928,11 +948,18 @@ int wkv_backward(const EntryArgs* a) {
   p.H = a->H;
   p.nc = (a->T + kChunk - 1) / kChunk;
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  if (a->in_bf16) {
+  if (a->dtype == 1) {
     switch (a->K) {
       case 32: return launch<32, bf16>(p, stream);
       case 64: return launch<64, bf16>(p, stream);
       default: return launch<128, bf16>(p, stream);
+    }
+  }
+  if (a->dtype == 2) {
+    switch (a->K) {
+      case 32: return launch<32, f16>(p, stream);
+      case 64: return launch<64, f16>(p, stream);
+      default: return launch<128, f16>(p, stream);
     }
   }
   switch (a->K) {

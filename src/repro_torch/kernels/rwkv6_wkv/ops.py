@@ -1,22 +1,22 @@
 """Public entry for the WKV kernel: model layout (B, T, H, K) + u (H, K),
-float32 or bfloat16.
+float32, bfloat16 or float16.
 
 The signature of ``repro/kernels/rwkv6_wkv/ops.py::wkv``.  CUDA tensors go
 to the hand-written Hopper kernel in ``csrc/wkv.cu`` (two passes: the
 states entering every chunk, then every chunk's output), which reads r/k/
-v/log_w in place through their strides in their own dtype, widens them to
-float32, and masks the ragged last chunk itself; out comes back in r's
-dtype, rounded once, the state float32.  The kernel is instantiated at
+v/log_w in place through their strides in their own dtype (``DTYPES``),
+widens them to float32, and masks the ragged last chunk itself; out comes
+back in r's dtype, rounded once, the state float32.  The kernel is instantiated at
 the head sizes ``HEAD_SIZES``; a call of another head size runs on the
 first that holds it, on copies padded by zero channels (whose state rows
 and columns stay 0), and gets its own channels back.  r, k, v and log_w
-in two dtypes run as float32 copies, a bfloat16 view the kernel cannot
-read as 8-byte rows as a contiguous copy; u is read in float32.  CPU
-tensors go to the plain version :func:`wkv_chunked`, which widens every
-input first.  :func:`reach_error` says whether the kernel takes a call
-(head sizes up to 128, chunks up to ``MAX_CHUNK``, ``MAX_CHUNK_K128``
-past head size 64); a CUDA call outside that raises: there is no
-fallback.  The C entry also refuses a float32 layout it cannot read as
+in two dtypes run as float32 copies, a 16-bit view the kernel cannot read
+as 8-byte rows as a contiguous copy; u is read in float32.  CPU tensors go
+to the plain version :func:`wkv_chunked`, which widens every input first,
+whatever its float dtype, as the Pallas kernel does.  :func:`reach_error`
+says whether the kernel takes a call (``DTYPES``, head sizes up to 128,
+chunks up to ``MAX_CHUNK``, ``MAX_CHUNK_K128`` past head size 64); a CUDA
+call outside that raises: there is no fallback.  The C entry also refuses a float32 layout it cannot read as
 16-byte rows, and :func:`layout_error` (the same rule, in Python) then
 says why.
 
@@ -72,23 +72,26 @@ HEAD_SIZES = (32, 64, 128)
 # 128-row tiles.
 MAX_CHUNK = 128
 MAX_CHUNK_K128 = 64
-# The element types the kernels read and write.
-DTYPES = (torch.float32, torch.bfloat16)
-_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# The element types the kernels read and write, and their codes in the C
+# entries' ``dtype`` field.
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 BACKWARD_CHUNK = 32  # the backward kernel's chunk (kChunk in wkv_backward.cu)
 _REJECTED = -1  # the C entry's code for a head size, chunk or layout it does not take
 
 # The C entry's argument block (``EntryArgs`` in the source): r, k, v,
 # log_w, u, out, state and chunk-state pointers; the (batch, time, head,
 # channel) strides of r, k, v, log_w and out; the stream; B, T, H, K,
-# chunk; whether the inputs and out are bfloat16.
+# chunk; the dtype code of the inputs and out.
 _ENTRY_ARGS = struct.Struct("=8Q20qQ6i")
 # The backward entry's block (``EntryArgs`` in wkv_backward.cu): r, k, v,
 # log_w, dout, u, final state, its gradient (0: none), dr, dk, dv, dlog_w,
 # du, du-scratch and dr-state-term pointers; the (batch, time, head,
 # channel) strides of r, k, v, log_w and dout; the stream; B, T, H, K,
-# chunk; whether the inputs and their gradients are bfloat16.
+# chunk; the dtype code of the inputs and their gradients.
 _BACKWARD_ARGS = struct.Struct("=15Q20qQ6i")
+assert (_ENTRY_ARGS.size, _BACKWARD_ARGS.size) == (256, 312)
 
 
 def _entry(source: pathlib.Path, name: str):
@@ -137,7 +140,7 @@ def reach_error(dtype: torch.dtype, k: int, chunk: int) -> Optional[str]:
     ``dtype`` at head size ``k`` and chunk ``chunk`` (the chunk a call
     runs, ``min(chunk, T)``), naming the limit, or None when they do."""
     if dtype not in DTYPES:
-        return f"the CUDA kernels take DTYPES = (float32, bfloat16), got {dtype}"
+        return f"the CUDA kernels take DTYPES = (float32, bfloat16, float16), got {dtype}"
     if not 1 <= k <= HEAD_SIZES[-1]:
         return f"the CUDA kernels take head sizes up to HEAD_SIZES[-1] = {HEAD_SIZES[-1]}, got {k}"
     if not 1 <= chunk <= MAX_CHUNK:
@@ -160,10 +163,6 @@ def _check(r, k, v, log_w, u, chunk) -> None:
         raise ValueError("T must be at least 1")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    tensors = (r, k, v, log_w, u)
-    if any(x.dtype not in DTYPES for x in tensors):
-        raise ValueError(f"wkv takes float32 or bfloat16, got "
-                         f"{sorted({str(x.dtype) for x in tensors})}")
     if not r.device == k.device == v.device == log_w.device == u.device:
         raise ValueError("r, k, v, log_w and u must be on one device")
 
@@ -182,13 +181,13 @@ def _rejected(r, k, v, log_w, c) -> ValueError:
 
 def _rows(x: torch.Tensor, ki: int) -> torch.Tensor:
     """``x`` (..., K) as the kernels read it at instance ``ki``: padded by
-    zero channels to ``ki`` where K is short of it, and a bfloat16 view off
+    zero channels to ``ki`` where K is short of it, and a 16-bit view off
     the 8-byte row rule (a base on 8 bytes, the channel dim contiguous,
     every other stride a multiple of 4) copied contiguous.  A copy, not a
     fallback: the same kernel runs."""
     if x.shape[-1] < ki:
         return torch.nn.functional.pad(x, (0, ki - x.shape[-1]))
-    if x.dtype == torch.bfloat16 and (
+    if x.dtype.itemsize == 2 and (
             x.stride(-1) != 1 or x.data_ptr() % 8
             or any(n > 1 and st % 4 for n, st in zip(x.shape[:-1], x.stride()[:-1]))):
         return x.clone(memory_format=torch.contiguous_format)
@@ -240,7 +239,7 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tens
         out.data_ptr(), state.data_ptr(), scratch.data_ptr(),
         *r.stride(), *k.stride(), *v.stride(), *log_w.stride(), *out.stride(),
         _stream(dev),
-        b, t, h, r.shape[-1], int(chunk), r.dtype == torch.bfloat16,
+        b, t, h, r.shape[-1], int(chunk), _DTYPE_CODES[r.dtype],
     )
     with torch.cuda.device(dev):
         rc = _kernel()(args)
@@ -274,7 +273,8 @@ def wkv(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
     *, chunk: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v/log_w: (B, T, H, K); u: (H, K); float32 or bfloat16.
+    """r/k/v/log_w: (B, T, H, K); u: (H, K); float32, bfloat16 or float16
+    on the card (``DTYPES``), any float dtype on the CPU.
     Returns (out (B, T, H, K) in r's dtype, final state (B, H, K, K)
     float32).  DTensors compute on each rank's shards."""
     _check(r, k, v, log_w, u, chunk)
@@ -285,17 +285,19 @@ def wkv(
         return wkv_chunked(r, k, v, log_w, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv runs on cuda or cpu, not {r.device.type}")
-    _cuda_checks(r, chunk)
+    _cuda_checks(r, k, v, log_w, u, chunk)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, log_w, u)):
         return _WKV.apply(r, k, v, log_w, u, chunk)
     out, state, _ = _forward(r, k, v, log_w, u, chunk)
     return out, state
 
 
-def _cuda_checks(r, chunk) -> None:
-    why = reach_error(r.dtype, r.shape[-1], min(chunk, r.shape[1]))
-    if why:
-        raise ValueError(why)
+def _cuda_checks(r, k, v, log_w, u, chunk) -> None:
+    """The CUDA route's reach (``reach_error`` for each input's dtype)."""
+    for x in (r, k, v, log_w, u):
+        why = reach_error(x.dtype, r.shape[-1], min(chunk, r.shape[1]))
+        if why:
+            raise ValueError(why)
 
 
 def _forward(r, k, v, log_w, u, chunk):
@@ -361,7 +363,7 @@ def _launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: t
         *(g.data_ptr() for g in grads), du.data_ptr(), partial.data_ptr(), dr_state.data_ptr(),
         *(st for x in inputs for st in x.stride()),
         _stream(dev),
-        b, t, h, r.shape[-1], int(chunk), r.dtype == torch.bfloat16,
+        b, t, h, r.shape[-1], int(chunk), _DTYPE_CODES[r.dtype],
     )
     with torch.cuda.device(dev):
         rc = _backward_kernel()(args)
@@ -411,7 +413,7 @@ def wkv_backward(
     elif r.device.type != "cuda":
         raise ValueError(f"wkv_backward runs on cuda or cpu, not {r.device.type}")
     else:
-        _cuda_checks(r, chunk)
+        _cuda_checks(r, k, v, log_w, u, chunk)
         rr, kk, vv, ww, dd = _one_dtype(r, k, v, log_w, d_out)
         grads = _launch_backward(rr, kk, vv, ww, u, state, dd, d_state, chunk)
     return tuple(g.to(x.dtype) for g, x in zip(grads, inputs))
@@ -428,7 +430,7 @@ def wkv_with_chunk_states(
     _check(r, k, v, log_w, u, chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv_with_chunk_states runs on cuda only, not {r.device.type}")
-    _cuda_checks(r, chunk)
+    _cuda_checks(r, k, v, log_w, u, chunk)
     out, state, scratch = _forward(r, k, v, log_w, u, chunk)
     b, t, h, kk = r.shape
     ki = instance(kk)

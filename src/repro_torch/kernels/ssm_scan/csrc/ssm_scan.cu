@@ -8,8 +8,8 @@
 // with A = -exp(log_a) and a float32 state h:
 //   h_t[d, n] = exp(dt_t[d] A[d, n]) h_{t-1}[d, n] + (dt_t[d] u_t[d]) B_t[n]
 //   y_t[d]    = sum_n C_t[n] h_t[d, n]
-// u/dt (B,T,D) and B/C (B,T,N) share one element type, float32 or bfloat16
-// (a template parameter); each value is widened to float32 in registers as
+// u/dt (B,T,D) and B/C (B,T,N) share one element type, float32, bfloat16
+// or float16 (a template parameter); each value is widened to float32 in registers as
 // it is read, as _ssm_kernel widens each block it loads.  y (B,T,D) is in
 // that type, rounded once from the float32 sum; log_a (D,N), the final
 // state (B,D,N) and the backward's tile states are float32.  The state
@@ -56,7 +56,7 @@
 //     ring of three tiles on mbarriers, so no compute thread
 //     spends instructions or queue slots on copies.  Where a base or stride
 //     breaks TMA's 16-byte rule the same ring is filled with 4-byte
-//     cp.async copies (float32) or plain loads (bfloat16, whose odd-D rows
+//     cp.async copies (float32) or plain loads (16-bit types, whose odd-D rows
 //     a 4-byte copy cannot read).  A zero step has dt = 0: its decay is
 //     exactly 1 (A is kept finite) and it leaves h unchanged.
 //   * The decay is exp2(dt * A log2(e)) on the SFU (ex2.approx), log2(e)
@@ -83,12 +83,16 @@
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr int kSeg = 8;            // steps per segment
 constexpr int kMaxThreads = 384;   // threads per block
@@ -114,6 +118,7 @@ struct Params {
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(f16 x) { return __half2float(x); }
 
 // A float32 value in T, rounded to nearest even.
 template <typename T>
@@ -122,6 +127,8 @@ template <>
 __device__ __forceinline__ float narrow<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 narrow<bf16>(float x) { return __float2bfloat16_rn(x); }
+template <>
+__device__ __forceinline__ f16 narrow<f16>(float x) { return __float2half_rn(x); }
 
 // Elements per staged row of u or dt.  A TMA box must start on a 16-byte
 // boundary, so a row holds columns [a0, a0 + box_width) with a0 the block's
@@ -273,6 +280,31 @@ __device__ __forceinline__ void load_states(const bf16* src, float (&out)[kPer])
   }
 }
 
+// Two float16 in a 32-bit word, widened: element 0 is the low half.
+__device__ __forceinline__ void unpack2_f16(uint32_t w, float& lo, float& hi) {
+  const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  lo = x.x;
+  hi = x.y;
+}
+
+template <int kPer>
+__device__ __forceinline__ void load_states(const f16* src, float (&out)[kPer]) {
+  if constexpr (kPer == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    unpack2_f16(x.x, out[0], out[1]);
+    unpack2_f16(x.y, out[2], out[3]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kPer / 8; ++v) {
+      const uint4 x = reinterpret_cast<const uint4*>(src)[v];
+      unpack2_f16(x.x, out[8 * v], out[8 * v + 1]);
+      unpack2_f16(x.y, out[8 * v + 2], out[8 * v + 3]);
+      unpack2_f16(x.z, out[8 * v + 4], out[8 * v + 5]);
+      unpack2_f16(x.w, out[8 * v + 6], out[8 * v + 7]);
+    }
+  }
+}
+
 // The four tensor maps, by address: each must stay in the kernel's
 // parameter space (a __grid_constant__ parameter of its own).
 struct Maps {
@@ -281,8 +313,8 @@ struct Maps {
 
 // Stage time steps [t0, t0 + rows) of columns [a0, a0 + box_width) into `buf`.
 // TMA: one thread, completing on `bar`.  Otherwise every thread issues
-// 4-byte copies (float32) or plain loads (bfloat16), zero past T and D, as
-// one cp.async group.
+// 4-byte copies (float32) or plain loads (bfloat16, float16), zero past T
+// and D, as one cp.async group.
 template <int kN, bool kTma, typename T>
 __device__ __forceinline__ void load_tile(const Params& p, const Maps& maps, T* buf,
                                           uint32_t bar, int bidx, int a0, int t0) {
@@ -580,8 +612,10 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
   }
   const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)rows, 1};
   const cuuint32_t elem_step[3] = {1, 1, 1};
-  const CUtensorMapDataType type =
-      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // By the type, not its size: float16 and bfloat16 are both 2 bytes.
+  const CUtensorMapDataType type = std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : std::is_same<T, f16>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -608,7 +642,7 @@ cudaError_t launch_kernel(const CUtensorMap (&maps)[4], const Params& p, dim3 gr
 }
 
 // The scan at state size kN and element type T: TMA maps where the layout
-// allows them, else the instance that copies (float32) or loads (bfloat16)
+// allows them, else the instance that copies (float32) or loads (16-bit)
 // each element.  The tiles: `sms` / B blocks a batch row, `cb` channels a
 // block, as many segments as the block's threads and shared memory hold.
 template <int kN, typename T>
@@ -664,13 +698,14 @@ struct EntryArgs {
   long long strides[8];   // (batch, time) of u, dt, b, c, in elements
   void* stream;
   int B, T, D, N, chunk;
-  int in_bf16;            // 1: u, dt, b, c and y bfloat16, else float32
+  int dtype;              // u, dt, b, c and y: 0 float32, 1 bfloat16, 2 float16
 };
 static_assert(sizeof(EntryArgs) == 160, "EntryArgs must match ops.py's packing");
 
 // Launches the scan; returns the first non-zero cudaError_t (0 on success),
-// cudaErrorInvalidValue for a state size other than 8, 16, 32 and 64 (ops.py
-// pads the others, and runs more than 64 as groups).
+// cudaErrorInvalidValue for a dtype code other than 0, 1 and 2 or a state
+// size other than 8, 16, 32 and 64 (ops.py pads the others, and runs more
+// than 64 as groups).
 int ssm_scan_forward(const EntryArgs* a) {
   if ((a->N != 8 && a->N != 16 && a->N != 32 && a->N != 64) || a->B <= 0 || a->T <= 0 ||
       a->D <= 0 || a->chunk <= 0)
@@ -700,8 +735,12 @@ int ssm_scan_forward(const EntryArgs* a) {
   p.D = a->D;
   p.cb = p.sb = 0;  // set by launch
   const cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  err = a->in_bf16 ? launch_n<bf16>(a->N, a->in, st, a->B, sm_count[dev], p, stream)
-                   : launch_n<float>(a->N, a->in, st, a->B, sm_count[dev], p, stream);
+  switch (a->dtype) {
+    case 0: err = launch_n<float>(a->N, a->in, st, a->B, sm_count[dev], p, stream); break;
+    case 1: err = launch_n<bf16>(a->N, a->in, st, a->B, sm_count[dev], p, stream); break;
+    case 2: err = launch_n<f16>(a->N, a->in, st, a->B, sm_count[dev], p, stream); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

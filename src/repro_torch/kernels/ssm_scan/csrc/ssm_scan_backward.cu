@@ -13,11 +13,11 @@
 //   du_t[d]   = dt_t[d] sum_n Gh_t[d, n] B_t[n]
 //   ddt_t[d]  = u_t[d] sum_n Gh_t B_t + sum_n Gh_t h_{t-1} a_t A
 //   dlog_a    = A sum_{b,t} Gh_t h_{t-1} a_t dt_t
-// u/dt/dy (B,T,D) and B/C (B,T,N) share one element type, float32 or
-// bfloat16, read in place through their (batch, time) strides with the
-// last dim contiguous (any alignment; 4-byte cp.async copies for float32,
-// plain loads widened in registers for bfloat16, the element type a
-// template parameter); log_a (D,N) and the final state's gradient (B,D,N)
+// u/dt/dy (B,T,D) and B/C (B,T,N) share one element type, float32,
+// bfloat16 or float16, read in place through their (batch, time) strides
+// with the last dim contiguous (any alignment; 4-byte cp.async copies for
+// float32, plain loads widened in registers for the 16-bit types, the
+// element type a template parameter); log_a (D,N) and the final state's gradient (B,D,N)
 // float32, contiguous.  du, ddt, dB and dC go out in the inputs' element
 // type, each rounded once from its float32 sum; dlog_a in float32 (ops.py
 // rounds it to log_a's dtype).  The state size is a template parameter kN
@@ -77,6 +77,7 @@
 //     the right-hand carries stay in shared memory.
 #include <cfloat>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -85,6 +86,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr int kPer = 4;            // states per thread: one float4
 constexpr int kSeg = 8;            // steps per segment
@@ -108,7 +110,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
-  const void* u;       // u, dt, b, c, dy: float32 or bfloat16 (kBf16)
+  const void* u;       // u, dt, b, c, dy: float32, bfloat16 or float16 (T)
   const void* dt;
   const void* b;
   const void* c;
@@ -165,13 +167,9 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// The element type of an instance's inputs and gradients.
-template <bool kBf16>
-using Elem = typename std::conditional<kBf16, bf16, float>::type;
-
 // The element at `src` into `dst`, zero where !ok (src is not read then):
 // a 4-byte cp.async copy (float32), or a load widened and stored
-// (bfloat16).
+// (bfloat16, float16).
 __device__ __forceinline__ void stage_elem(float* dst, const float* src, bool ok) {
   cp_async4(dst, src, ok);
 }
@@ -180,18 +178,22 @@ __device__ __forceinline__ void stage_elem(float* dst, const bf16* src, bool ok)
   *dst = ok ? __bfloat162float(*src) : 0.f;
 }
 
+__device__ __forceinline__ void stage_elem(float* dst, const f16* src, bool ok) {
+  *dst = ok ? __half2float(*src) : 0.f;
+}
+
 // A gradient element, rounded once to its type.
 __device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void put(bf16* dst, float x) { *dst = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void put(f16* dst, float x) { *dst = __float2half_rn(x); }
 
 // Stage the sub-block of kSub channels from d0 of tile k (steps k * kTile
 // ..): dt, u and dy into uvd[stage] (unless kUvd is false), log_a's rows
 // and the entering states into la[stage] and hin[stage].  Zero past T, D
 // and N.
-template <int kN, bool kBf16, bool kUvd = true>
+template <int kN, typename T, bool kUvd = true>
 __device__ __forceinline__ void load_sub(const Params& p, Smem<kN>& sm, int stage, int bidx,
                                          int d0, int k) {
-  using T = Elem<kBf16>;
   constexpr int kSub = Dims<kN>::kSub;
   const T* u = static_cast<const T*>(p.u);
   const T* dt = static_cast<const T*>(p.dt);
@@ -215,9 +217,8 @@ __device__ __forceinline__ void load_sub(const Params& p, Smem<kN>& sm, int stag
 }
 
 // Stage tile k's B and C into bc[k & 1].
-template <int kN, bool kBf16>
+template <int kN, typename T>
 __device__ __forceinline__ void load_bc(const Params& p, Smem<kN>& sm, int bidx, int k) {
-  using T = Elem<kBf16>;
   const T* b = static_cast<const T*>(p.b);
   const T* c = static_cast<const T*>(p.c);
   for (int idx = threadIdx.x; idx < kTile * kN; idx += kThreads) {
@@ -229,7 +230,7 @@ __device__ __forceinline__ void load_bc(const Params& p, Smem<kN>& sm, int bidx,
   }
 }
 
-// The bfloat16 instance's dt, u and dy of a sub-block (as load_sub
+// The 16-bit instances' dt, u and dy of a sub-block (as load_sub
 // stages them) in two halves, so that the loads fly while the sub-block
 // before computes: fetch_sub issues this thread's loads into registers
 // (raw bits, dt and u packed in one word), put_sub stores them, widened,
@@ -240,7 +241,7 @@ struct Prefetch {
   uint32_t dtu[kPer], dy[kPer];
 };
 
-__device__ __forceinline__ uint32_t bf16_bits(const void* src, long long at, bool ok) {
+__device__ __forceinline__ uint32_t bits16(const void* src, long long at, bool ok) {
   return ok ? static_cast<const unsigned short*>(src)[at] : 0u;
 }
 
@@ -254,22 +255,32 @@ __device__ __forceinline__ void fetch_sub(const Params& p, Prefetch<kN>& pre, in
     const int j = idx / kSub, ch = idx % kSub;
     const int t = k * kTile + j, d = d0 + ch;
     const bool ok = idx < kTile * kSub && t < p.T && d < p.D;
-    pre.dtu[r] = bf16_bits(p.dt, bidx * p.dt_sb + t * p.dt_st + d, ok) |
-                 bf16_bits(p.u, bidx * p.u_sb + t * p.u_st + d, ok) << 16;
-    pre.dy[r] = bf16_bits(p.dy, bidx * p.dy_sb + t * p.dy_st + d, ok);
+    pre.dtu[r] = bits16(p.dt, bidx * p.dt_sb + t * p.dt_st + d, ok) |
+                 bits16(p.u, bidx * p.u_sb + t * p.u_st + d, ok) << 16;
+    pre.dy[r] = bits16(p.dy, bidx * p.dy_sb + t * p.dy_st + d, ok);
   }
 }
 
-template <int kN>
+// The low half of `w` (lo) or its high half (hi), widened from T.
+__device__ __forceinline__ float lo16(bf16*, uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi16(bf16*, uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ float lo16(f16*, uint32_t w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w & 0xffffu)));
+}
+__device__ __forceinline__ float hi16(f16*, uint32_t w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
+}
+
+template <int kN, typename T>
 __device__ __forceinline__ void put_sub(Smem<kN>& sm, const Prefetch<kN>& pre, int stage) {
   constexpr int kSub = Dims<kN>::kSub;
+  T* const tag = nullptr;  // picks the widening of T
 #pragma unroll
   for (int r = 0; r < Prefetch<kN>::kPer; ++r) {
     const int idx = threadIdx.x + r * kThreads;
     if (idx < kTile * kSub)
       sm.uvd[stage][idx / kSub][idx % kSub] =
-          make_float4(__uint_as_float(pre.dtu[r] << 16), __uint_as_float(pre.dtu[r] & 0xffff0000u),
-                      __uint_as_float(pre.dy[r] << 16), 0.f);
+          make_float4(lo16(tag, pre.dtu[r]), hi16(tag, pre.dtu[r]), lo16(tag, pre.dy[r]), 0.f);
   }
 }
 
@@ -292,9 +303,9 @@ __device__ __forceinline__ void fold(float (&x)[kPer], const float4 P, const flo
 }
 
 // One (b, kBlockChannels) block, tiles backward; see the note at the top.
-// kBf16: u, dt, b, c and dy are bfloat16 (the next sub-block's dt, u and
-// dy prefetched into registers).
-template <int kN, bool kBf16>
+// T: the element type of u, dt, b, c and dy (in the 16-bit types the next
+// sub-block's dt, u and dy prefetched into registers).
+template <int kN, typename T>
 __global__ void __launch_bounds__(kThreads, kN <= 16 ? 2 : 1) ssm_bwd_kernel(Params p) {
   constexpr int kLanes = Dims<kN>::kLanes, kSub = Dims<kN>::kSub, kSlots = Dims<kN>::kSlots;
   constexpr int kKeep = Dims<kN>::kKeep;
@@ -313,8 +324,8 @@ __global__ void __launch_bounds__(kThreads, kN <= 16 ? 2 : 1) ssm_bwd_kernel(Par
     sm.carry[idx / kN][n] =
         p.dh && d < p.D ? p.dh[((long long)bidx * p.D + d) * kN + n] : 0.f;
   }
-  load_sub<kN, kBf16>(p, sm, 0, bidx, c0, n_tiles - 1);
-  load_bc<kN, kBf16>(p, sm, bidx, n_tiles - 1);
+  load_sub<kN, T>(p, sm, 0, bidx, c0, n_tiles - 1);
+  load_bc<kN, T>(p, sm, bidx, n_tiles - 1);
   cp_async_commit();
   Prefetch<kN> pre;
   int it = 0;  // iterations so far: the stage is it & 1
@@ -341,13 +352,13 @@ __global__ void __launch_bounds__(kThreads, kN <= 16 ? 2 : 1) ssm_bwd_kernel(Par
         const bool last = sub + 1 == n_sub;
         if (!(last && k == 0)) {
           const int nk = last ? k - 1 : k, ns = last ? 0 : sub + 1;
-          if constexpr (kBf16) {
+          if constexpr (sizeof(T) == 2) {
             fetch_sub<kN>(p, pre, bidx, c0 + ns * kSub, nk);
-            load_sub<kN, true, false>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
+            load_sub<kN, T, false>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
           } else {
-            load_sub<kN, false>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
+            load_sub<kN, T>(p, sm, (it + 1) & 1, bidx, c0 + ns * kSub, nk);
           }
-          if (last) load_bc<kN, kBf16>(p, sm, bidx, nk);
+          if (last) load_bc<kN, T>(p, sm, bidx, nk);
         }
         cp_async_commit();
       }
@@ -449,8 +460,8 @@ __global__ void __launch_bounds__(kThreads, kN <= 16 ? 2 : 1) ssm_bwd_kernel(Par
           const int t = k * kTile + s * kSeg + j;
           if (j % kLanes == q && valid && t < p.T) {
             const long long o = ((long long)bidx * p.T + t) * p.D + d;
-            put(static_cast<Elem<kBf16>*>(p.du) + o, f.x * sb);
-            put(static_cast<Elem<kBf16>*>(p.ddt) + o, fmaf(f.y, sb, qq * kLn2));
+            put(static_cast<T*>(p.du) + o, f.x * sb);
+            put(static_cast<T*>(p.ddt) + o, fmaf(f.y, sb, qq * kLn2));
           }
         }
         // Sum the kSub channels of the warp: lane keeps values `first` ..
@@ -489,8 +500,8 @@ __global__ void __launch_bounds__(kThreads, kN <= 16 ? 2 : 1) ssm_bwd_kernel(Par
           pa = (k == n_tiles - 1 ? 0.f : pa) + av * sum;
         }
       }
-      if constexpr (kBf16) {
-        if (!(sub + 1 == n_sub && k == 0)) put_sub<kN>(sm, pre, (it + 1) & 1);
+      if constexpr (sizeof(T) == 2) {
+        if (!(sub + 1 == n_sub && k == 0)) put_sub<kN, T>(sm, pre, (it + 1) & 1);
       }
     }
 #pragma unroll
@@ -513,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, kN <= 16 ? 2 : 1) ssm_bwd_kernel(Par
 // dB and dC (B * T * 2 kN sums over the blocks) and dlog_a (D * kN sums
 // over the batch rows), one output per thread, each in a fixed order; the
 // states past N are not written.
-template <int kN, bool kBf16>
+template <int kN, typename T>
 __global__ void ssm_bwd_reduce_kernel(Params p) {
   constexpr int kSlots = Dims<kN>::kSlots;
   const long long n_bc = (long long)p.B * p.T * kSlots;
@@ -526,7 +537,7 @@ __global__ void ssm_bwd_reduce_kernel(Params p) {
       const float* src = p.part_bc + bt * p.n_blocks * kSlots + slot;
       float sum = 0.f;
       for (int blk = 0; blk < p.n_blocks; ++blk) sum += src[blk * kSlots];
-      Elem<kBf16>* dst = static_cast<Elem<kBf16>*>(slot < kN ? p.db : p.dc);
+      T* dst = static_cast<T*>(slot < kN ? p.db : p.dc);
       put(&dst[bt * kN + slot % kN], sum);
     } else {
       const long long dn = idx - n_bc;
@@ -538,29 +549,29 @@ __global__ void ssm_bwd_reduce_kernel(Params p) {
 }
 
 // Both kernels at state size kN on `stream`.
-template <int kN, bool kBf16>
+template <int kN, typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   static_assert(sizeof(Smem<kN>) <= 227 * 1024, "the backward's shared memory");
-  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_kernel<kN, kBf16>,
+  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_kernel<kN, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(sizeof(Smem<kN>)));
   if (err != cudaSuccess) return err;
-  ssm_bwd_kernel<kN, kBf16><<<dim3(p.n_blocks, p.B), kThreads, sizeof(Smem<kN>), stream>>>(p);
+  ssm_bwd_kernel<kN, T><<<dim3(p.n_blocks, p.B), kThreads, sizeof(Smem<kN>), stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long items = (long long)p.B * p.T * Dims<kN>::kSlots + (long long)p.D * kN;
   const unsigned blocks = static_cast<unsigned>(items / 256 < 4096 ? items / 256 + 1 : 4096);
-  ssm_bwd_reduce_kernel<kN, kBf16><<<blocks, 256, 0, stream>>>(p);
+  ssm_bwd_reduce_kernel<kN, T><<<blocks, 256, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kBf16>
+template <typename T>
 cudaError_t launch_n(int kn, const Params& p, cudaStream_t stream) {
   switch (kn) {
-    case 8: return launch<8, kBf16>(p, stream);
-    case 16: return launch<16, kBf16>(p, stream);
-    case 32: return launch<32, kBf16>(p, stream);
-    default: return launch<64, kBf16>(p, stream);
+    case 8: return launch<8, T>(p, stream);
+    case 16: return launch<16, T>(p, stream);
+    case 32: return launch<32, T>(p, stream);
+    default: return launch<64, T>(p, stream);
   }
 }
 
@@ -579,7 +590,7 @@ struct EntryArgs {
   long long strides[10];  // (batch, time) of u, dt, b, c, dy, in elements
   void* stream;
   int B, T, D, N, chunk;
-  int in_bf16;            // 1: the inputs and their gradients bfloat16, else float32
+  int dtype;              // the inputs and their gradients: 0 float32, 1 bfloat16, 2 float16
 };
 static_assert(sizeof(EntryArgs) == 224, "EntryArgs must match ops.py's packing");
 
@@ -592,9 +603,9 @@ long long ssm_scan_backward_scratch(int B, int T, int D, int N) {
 }
 
 // Launches the two kernels; returns the first non-zero cudaError_t (0 on
-// success), cudaErrorInvalidValue for a state size other than 8, 16, 32
-// and 64 (ops.py pads the others, and runs more than 64 as groups), or a
-// call without the tile states.
+// success), cudaErrorInvalidValue for a dtype code other than 0, 1 and 2,
+// a state size other than 8, 16, 32 and 64 (ops.py pads the others, and
+// runs more than 64 as groups), or a call without the tile states.
 int ssm_scan_backward(const EntryArgs* a) {
   if ((a->N != 8 && a->N != 16 && a->N != 32 && a->N != 64) || a->B <= 0 || a->T <= 0 ||
       a->D <= 0 || a->chunk <= 0 || !a->tiles)
@@ -626,8 +637,12 @@ int ssm_scan_backward(const EntryArgs* a) {
   p.part_a = p.part_bc + (long long)a->B * a->T * p.n_blocks * 2 * kn;
   p.tiles = static_cast<const float*>(a->tiles);
   cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
-  return static_cast<int>(a->in_bf16 ? launch_n<true>(kn, p, stream)
-                                      : launch_n<false>(kn, p, stream));
+  switch (a->dtype) {
+    case 0: return static_cast<int>(launch_n<float>(kn, p, stream));
+    case 1: return static_cast<int>(launch_n<bf16>(kn, p, stream));
+    case 2: return static_cast<int>(launch_n<f16>(kn, p, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

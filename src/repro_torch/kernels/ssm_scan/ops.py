@@ -1,5 +1,5 @@
 """Public entry for the selective-scan kernel: u/dt (B, T, D), b_t/c_t
-(B, T, N), log_a (D, N), float32 or bfloat16.
+(B, T, N), log_a (D, N), float32, bfloat16 or float16.
 
 The signature of ``repro/kernels/ssm_scan/ops.py::ssm_scan`` without
 ``d_block`` and ``interpret``, with the Pallas kernel's reach: any state
@@ -16,9 +16,10 @@ in place), and N over ``GROUP`` runs as groups of ``GROUP`` states, one
 launch each (y summed in float32, the states side by side).  u, dt, b_t
 and c_t in two dtypes, or in groups, run as float32 copies, y cast once;
 log_a is read in float32.  CPU tensors go to the plain version
-:func:`selective_scan_ref` on float32 copies.  :func:`reach_error` says
-whether the kernel takes a call; a CUDA call outside that raises: there
-is no fallback.
+:func:`selective_scan_ref` on float32 copies, whatever their float dtype,
+as the Pallas kernel widens them.  :func:`reach_error` says whether the
+kernel takes a call (``DTYPES``, every N and chunk); a CUDA call outside
+that raises: there is no fallback.
 
 A CUDA call whose inputs require grad (with grad mode on) runs the same
 forward under :class:`_SSMScan`, which also keeps the state entering every
@@ -72,24 +73,27 @@ BACKWARD_SOURCE = SOURCE.with_name("ssm_scan_backward.cu")
 STATE_SIZES = (8, 16, 32, 64)
 # States per launch: N over GROUP runs as groups of GROUP, one launch each.
 GROUP = STATE_SIZES[-1]
-# The element types the kernels read and write.
-DTYPES = (torch.float32, torch.bfloat16)
-_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# The element types the kernels read and write, and their codes in the C
+# entries' ``dtype`` field.
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 # Steps per tile of the backward kernel (kTile in ssm_scan_backward.cu,
 # kBwdTile in ssm_scan.cu): it starts each tile from the state entering it.
 BACKWARD_TILE = 64
 
 # The C entry's argument block (``EntryArgs`` in the source): u, dt, b_t,
 # c_t, log_a, y, state and tile-state (0: none) pointers; the (batch, time)
-# strides of u, dt, b_t and c_t; the stream; B, T, D, N, chunk; whether
-# the inputs and y are bfloat16.
+# strides of u, dt, b_t and c_t; the stream; B, T, D, N, chunk; the dtype
+# code of the inputs and y.
 _ENTRY_ARGS = struct.Struct("=8Q8qQ6i")
 # The backward entry's block (``EntryArgs`` in ssm_scan_backward.cu): u, dt,
 # b_t, c_t, dy, log_a, dh (0: none) and tile-state pointers; du, ddt, db_t,
 # dc_t, dlog_a and scratch pointers; the (batch, time) strides of u, dt,
-# b_t, c_t and dy; the stream; B, T, D, N, chunk; whether the inputs and
-# their gradients are bfloat16.
+# b_t, c_t and dy; the stream; B, T, D, N, chunk; the dtype code of the
+# inputs and their gradients.
 _BACKWARD_ARGS = struct.Struct("=14Q10qQ6i")
+assert (_ENTRY_ARGS.size, _BACKWARD_ARGS.size) == (160, 224)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,7 +130,7 @@ def reach_error(dtype: torch.dtype, n: int, chunk: int) -> Optional[str]:
     with ``n`` states at chunk ``chunk``, naming the limit, or None when
     they do: every N >= 1 and every chunk >= 1 in ``DTYPES``."""
     if dtype not in DTYPES:
-        return f"the CUDA kernels take DTYPES = (float32, bfloat16), got {dtype}"
+        return f"the CUDA kernels take DTYPES = (float32, bfloat16, float16), got {dtype}"
     if n < 1:
         return f"the state size must be at least 1, got {n}"
     if chunk < 1:
@@ -147,12 +151,9 @@ def _check(u, dt, b_t, c_t, log_a, chunk) -> None:
         raise ValueError(f"log_a {tuple(log_a.shape)} must be (D, N) = {(d, b_t.shape[2])}")
     if t < 1:
         raise ValueError("T must be at least 1")
-    tensors = (u, dt, b_t, c_t, log_a)
-    for x in tensors:
-        why = reach_error(x.dtype, b_t.shape[2], chunk)
-        if why:
-            raise ValueError(why)
-    if len({x.device for x in tensors}) != 1:
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if len({x.device for x in (u, dt, b_t, c_t, log_a)}) != 1:
         raise ValueError("u, dt, b_t, c_t and log_a must be on one device")
 
 
@@ -204,13 +205,19 @@ def ssm_scan(
         return y.to(u.dtype), h
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {u.device.type}")
-    _cuda_checks(u, dt, b_t, c_t)
+    _cuda_checks(u, dt, b_t, c_t, log_a, chunk)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (u, dt, b_t, c_t, log_a)):
         return _SSMScan.apply(u, dt, b_t, c_t, log_a, chunk)
     return _forward(u, dt, b_t, c_t, log_a, chunk, False)[:2]
 
 
-def _cuda_checks(u, dt, b_t, c_t) -> None:
+def _cuda_checks(u, dt, b_t, c_t, log_a, chunk) -> None:
+    """The CUDA route's reach (``reach_error`` for each input's dtype) and
+    layout: the last dims contiguous."""
+    for x in (u, dt, b_t, c_t, log_a):
+        why = reach_error(x.dtype, b_t.shape[2], chunk)
+        if why:
+            raise ValueError(why)
     if any(x.stride(-1) != 1 for x in (u, dt, b_t, c_t)):
         raise ValueError("the last dim of u, dt, b_t and c_t must be contiguous")
 
@@ -267,7 +274,7 @@ def _launch(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: torch.Ten
         y.data_ptr(), h.data_ptr(), tiles.data_ptr() if with_tiles else 0,
         *u.stride()[:2], *dt.stride()[:2], *b_t.stride()[:2], *c_t.stride()[:2],
         _stream(dev),
-        bsz, t, d, kn, int(chunk), u.dtype == torch.bfloat16,
+        bsz, t, d, kn, int(chunk), _DTYPE_CODES[u.dtype],
     )
     if dev.index == torch.cuda.current_device():
         rc = _kernel()(args)
@@ -334,7 +341,7 @@ def ssm_scan_tile_states(
     _check(u, dt, b_t, c_t, log_a, chunk)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_tile_states runs on cuda only, not {u.device.type}")
-    _cuda_checks(u, dt, b_t, c_t)
+    _cuda_checks(u, dt, b_t, c_t, log_a, chunk)
     return _forward(u, dt, b_t, c_t, log_a, chunk, True)
 
 
@@ -372,7 +379,7 @@ def _launch_backward(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor, c_t: 
         *(o.data_ptr() for o in outs), scratch.data_ptr(),
         *(st for x in inputs for st in x.stride()[:2]),
         _stream(dev),
-        bsz, t, d, kn, int(chunk), u.dtype == torch.bfloat16,
+        bsz, t, d, kn, int(chunk), _DTYPE_CODES[u.dtype],
     )
     with torch.cuda.device(dev):
         rc = fn(args)
@@ -424,7 +431,7 @@ def ssm_scan_backward(
         return tuple(g.to(x.dtype) for g, x in zip(grads, inputs))
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_backward runs on cuda or cpu, not {u.device.type}")
-    _cuda_checks(u, dt, b_t, c_t)
+    _cuda_checks(u, dt, b_t, c_t, log_a, chunk)
     n = b_t.shape[2]
     if tiles is None:
         _, _, tiles = ssm_scan_tile_states(u, dt, b_t, c_t, log_a, chunk=chunk)

@@ -21,8 +21,9 @@ from repro_torch.kernels.ssm_scan import (  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 # Tolerances: float32 differs from the plain version by sum order only;
-# bfloat16 adds one rounding of the output (2^-8 relative).
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# bfloat16 adds one rounding of the output (2^-8 relative); float16's 2e-3
+# is one float16 step at |o| < 4 (tests/test_torch_flash_p_rounding.py).
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 CASES = [
     # b, s, t, h, kv, causal, window, kv_len
@@ -139,12 +140,16 @@ def test_kernel_matches_plain_version_at_head_dim_64(cuda_device, dtype, b, s, h
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
-@pytest.mark.parametrize("d, dtype", [(96, torch.float32), (128, torch.float16),
-                                      (24, torch.bfloat16)])
-def test_kernel_rejects_what_it_does_not_take(cuda_device, d, dtype):
+@pytest.mark.parametrize("d, dtype, limit", [(257, torch.float32, "MAX_HEAD_DIM"),
+                                             (320, torch.float16, "MAX_HEAD_DIM"),
+                                             (64, torch.float64, "DTYPES")])
+def test_kernel_rejects_what_it_does_not_take(cuda_device, d, dtype, limit):
+    """Past the reach (``reach_error``): a head dim over 256, float64."""
     q = torch.zeros(1, 8, 2, d, device=cuda_device, dtype=dtype)
-    with pytest.raises(ValueError):
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match=limit):
         flash_attention(q, q, q)
+    assert flash_attention.launches == before
 
 
 # WKV: float32 through decay factors up to exp(chunk * 4.6 / 2) and sums in
@@ -216,10 +221,10 @@ def test_wkv_kernel_reads_strided_inputs(cuda_device):
     _wkv_close(state, want_state)
 
 
-@pytest.mark.parametrize("k, dtype, chunk", [(160, torch.float32, 32), (64, torch.float16, 32),
+@pytest.mark.parametrize("k, dtype, chunk", [(160, torch.float32, 32), (64, torch.float64, 32),
                                              (64, torch.float32, 256), (128, torch.float32, 96)])
 def test_wkv_kernel_rejects_what_it_does_not_take(cuda_device, k, dtype, chunk):
-    """Past the reach: a head size over 128, float16, a chunk over 128, a
+    """Past the reach: a head size over 128, float64, a chunk over 128, a
     chunk over 64 at the 128 instance."""
     x = torch.zeros(1, 200, 2, k, device=cuda_device, dtype=dtype)
     u = torch.zeros(2, k, device=cuda_device, dtype=dtype)
@@ -320,7 +325,7 @@ def test_ssm_kernel_reads_unaligned_inputs(cuda_device):
 
 @pytest.mark.parametrize("n, dtype, chunk, transpose", [
     (0, torch.float32, 64, False),       # no states
-    (16, torch.float16, 64, False),      # dtype
+    (16, torch.float64, 64, False),      # dtype
     (16, torch.float32, 0, False),       # chunk 0
     (16, torch.float32, 64, True),       # channel dim not contiguous
 ])
@@ -339,8 +344,9 @@ def test_ssm_kernel_rejects_what_it_does_not_take(cuda_device, n, dtype, chunk, 
 # ---------------------------------------------------------------------------
 
 # Relative to max(1, max |plain|): float32 differs by sum order; bfloat16
-# gradients carry the forward's bf16 output (delta) and one output rounding.
-BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# gradients carry the forward's bf16 output (delta) and one output
+# rounding; float16, with 3 more bits than bfloat16, bf16's bound over 8.
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
 
 
 def _bwd_inputs(device, dtype, b, s, t, h, kv, d, seed=0):
@@ -1188,11 +1194,12 @@ def test_reduced_flash_instances_match_plain(cuda_device, dtype, b, s, t, h, kv,
 
 # ---------------------------------------------------------------------------
 # The mma.sync kernels (csrc/flash_attention.cu, tc::): float32 at every
-# (Dqk, Dv) pair and bf16 at (16, 16), (32, 32), (48, 32), forward and
-# backward, across their 32-row tiles' edges.
+# (Dqk, Dv) pair and bf16 and float16 at (16, 16), (32, 32), (48, 32) and
+# (256, 256), forward and backward, across their 32-row tiles' edges.
 # ---------------------------------------------------------------------------
-MMA_INSTANCES = ([(torch.float32, d) for d in (16, 32, (48, 32), 64, 128, (192, 128))]
-                 + [(torch.bfloat16, d) for d in (16, 32, (48, 32))])
+MMA_INSTANCES = ([(torch.float32, d) for d in (16, 32, (48, 32), 64, 128, (192, 128), 256)]
+                 + [(torch.bfloat16, d) for d in (16, 32, (48, 32), 256)]
+                 + [(torch.float16, d) for d in (16, 32, (48, 32), 256)])
 MMA_CASES = [
     # b, s, t, h, kv, causal, window, kv_len
     (1, 300, 300, 4, 2, True, None, None),      # ragged S=300, GQA 2/1
@@ -1265,7 +1272,8 @@ def test_launches_by_instance_counts_one_entry_a_call(cuda_device):
 
     for dtype, d in MMA_INSTANCES:
         dqk, dv = _dims(d)
-        key = ({torch.float32: "f32", torch.bfloat16: "bf16"}[dtype], dqk, dv)
+        key = ({torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}[dtype],
+               dqk, dv)
         q, k, v, do = _bwd_inputs(cuda_device, dtype, 1, 40, 40, 4, 4, d)
         before = (dict(flash_attention.launches_by_instance),
                   dict(flash_attention_backward.launches_by_instance))
@@ -1334,21 +1342,28 @@ def test_ssm_kernels_at_state_size_8(cuda_device, b, t, d, chunk, strong):
 # ---------------------------------------------------------------------------
 
 
-def _bf16_steps(got, want, tol):
-    """How many bf16 steps (ulps) ``got`` lies from ``want`` rounded, beyond ``tol``."""
-    r16 = want.to(torch.bfloat16).float()
+def _steps16(got, want, tol):
+    """How many steps (ulps) of ``got``'s 16-bit dtype ``got`` lies from
+    ``want`` rounded to it, beyond ``tol``."""
+    bits = {torch.bfloat16: 8, torch.float16: 11}[got.dtype]  # the implicit one in
+    info = torch.finfo(got.dtype)
+    r16 = want.to(got.dtype).float()
     _, e = torch.frexp(r16)
-    ulp = torch.where(r16 == 0, torch.zeros_like(r16), torch.ldexp(torch.ones_like(r16), e - 8))
+    ulp = torch.where(r16 == 0, torch.zeros_like(r16),
+                      torch.ldexp(torch.ones_like(r16), e - bits))
+    ulp = ulp.clamp(min=info.smallest_normal * info.eps)  # the smallest subnormal
     excess = ((got.float() - r16).abs() - tol).clamp(min=0.0)
-    return (excess / ulp.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+    return (excess / ulp).max().item()
 
 
 def _reach_close(got, want, rel):
+    """The float32 tolerance for float32 ``got``; for bfloat16 or float16
+    ``got`` the plain value rounded, or one step of that dtype away."""
     want = want.float()
     tol = rel * max(1.0, want.abs().max().item())
     assert got.shape == want.shape
-    if got.dtype == torch.bfloat16:
-        assert _bf16_steps(got, want, tol) <= 1.0
+    if got.dtype in (torch.bfloat16, torch.float16):
+        assert _steps16(got, want, tol) <= 1.0
     else:
         assert (got - want).abs().max().item() <= tol
 
@@ -1508,3 +1523,215 @@ def test_hymba_bf16_call_site_on_the_card_matches_the_float32_copies(cuda_device
     (a_logits, a_grads), (b_logits, b_grads) = results
     assert torch.equal(a_logits, b_logits)
     assert all(torch.equal(x, y) for x, y in zip(a_grads, b_grads))
+
+
+# ---------------------------------------------------------------------------
+# The flash reach and float16: float16 in the three kernels, forward and
+# backward (flash on the wgmma kernels at (64, 64), (128, 128), (192, 128)
+# and on the mma.sync ones at the other pairs); flash at every (Dqk, Dv) up
+# to 256, run on the smallest instance that holds it with zero channels;
+# q, k, v (and the SSM inputs) in more than one dtype on float32 copies.
+# ---------------------------------------------------------------------------
+F16_EDGE_CASES = BF16_EDGE_CASES + [
+    (1, 300, 300, 8, 2, (192, 128), True, None, None),   # the MLA instance
+]
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window,kv_len", F16_EDGE_CASES)
+def test_f16_kernel_at_tile_edges(cuda_device, b, s, t, h, kv, d, causal, window, kv_len):
+    _check_against_plain(cuda_device, torch.float16, b, s, t, h, kv, d, causal, window, kv_len)
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window,kv_len", BWD_BF16_EDGE_CASES)
+def test_f16_backward_at_tile_edges(cuda_device, b, s, t, h, kv, d, causal, window, kv_len):
+    _check_backward(cuda_device, torch.float16, d, b, s, t, h, kv, causal, window, kv_len)
+
+
+@pytest.mark.parametrize("d", [64, 128, (192, 128), 32, 256, 100])
+def test_f16_backward_gives_the_same_bits_on_two_calls(cuda_device, d):
+    """No atomics, on the wgmma and the mma.sync instances and a padded call."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward, ops
+
+    q, k, v, do = _bwd_inputs(cuda_device, torch.float16, 2, 333, 333, 8, 2, d, seed=3)
+    out, lse = ops._forward(q, k, v, True, None, 1.0 / _dims(d)[0] ** 0.5, None, with_lse=True)
+    first = flash_attention_backward(q, k, v, out, lse, do)
+    second = flash_attention_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("offset", ["base", "stride"])
+def test_f16_kernel_rejects_misaligned_views(cuda_device, offset):
+    """The float16 wgmma kernels read through TMA tensor maps: a view off
+    16-byte rows raises with TMA's reason and is never launched."""
+    if offset == "base":
+        x = torch.zeros(8 * 4 * 128 + 1, device=cuda_device, dtype=torch.float16)
+        x = x[1:].view(1, 8, 4, 128)
+    else:
+        x = torch.zeros(1, 8, 4, 129, device=cuda_device, dtype=torch.float16)[..., 1:]
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="f16 wgmma kernel cannot read .*TMA refused"):
+        flash_attention(x, x, x)
+    assert flash_attention.launches == before
+
+
+PADDED_DIMS = [8, 40, 96, 100, 160, 256, (96, 64), (200, 100)]
+PADDED_CASES = [
+    # b, s, t, h, kv, causal, window, kv_len
+    (2, 300, 300, 4, 2, True, None, None),      # GQA 2/1, ragged S
+    (1, 130, 130, 4, 4, True, 40, None),        # windowed
+    (1, 96, 250, 4, 4, False, None, 233),       # non-causal, S != T, kv_len
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda x: str(x).replace("torch.", ""))
+@pytest.mark.parametrize("d", PADDED_DIMS, ids=_mma_id)
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,kv_len", PADDED_CASES)
+def test_every_head_dim_up_to_256_matches_plain(cuda_device, dtype, d, b, s, t, h, kv, causal,
+                                                window, kv_len):
+    """A call off the instance table runs on the smallest instance that
+    holds it (``ops.instance``), q/k and v padded by zero channels, with the
+    caller's scale; (256, 256) is an instance of its own."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward, ops
+
+    names = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+    key = (names[dtype], *ops.instance(dtype, *_dims(d)))
+    before = (flash_attention.launches_by_instance[key],
+              flash_attention_backward.launches_by_instance[key])
+    _check_against_plain(cuda_device, dtype, b, s, t, h, kv, d, causal, window, kv_len)
+    _check_backward(cuda_device, dtype, d, b, s, t, h, kv, causal, window, kv_len)
+    assert flash_attention.launches_by_instance[key] == before[0] + 2
+    assert flash_attention_backward.launches_by_instance[key] == before[1] + 1
+
+
+def test_flash_mixed_dtypes_run_on_float32_copies(cuda_device):
+    """q float16, k float32, v bfloat16: the float32 kernel on copies, the
+    output in q's dtype and each gradient in its input's, equal to the
+    float32 call on the same values cast."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    q, k, v, do = _bwd_inputs(cuda_device, torch.float32, 2, 300, 300, 4, 2, 96, seed=4)
+    x = [q.half(), k, v.bfloat16()]
+    before = (flash_attention.launches_by_instance[("f32", 128, 128)],
+              flash_attention_backward.launches_by_instance[("f32", 128, 128)])
+    leaves = [a.clone().requires_grad_() for a in x]
+    out = flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do.half())
+    wide = [a.float().requires_grad_() for a in x]
+    want = flash_attention(*wide)
+    want_grads = torch.autograd.grad(want, wide, do.half().float())
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_instance[("f32", 128, 128)] == before[0] + 2
+    assert flash_attention_backward.launches_by_instance[("f32", 128, 128)] == before[1] + 2
+    assert out.dtype == torch.float16 and torch.equal(out, want.half())
+    for g, w, a in zip(grads, want_grads, x):
+        assert g.dtype == a.dtype and torch.equal(g, w.to(a.dtype))
+    plain = attention_ref(*[a.float() for a in x])
+    assert (out.float() - plain).abs().max().item() <= ATOL[torch.float16]
+
+
+@pytest.mark.parametrize("b,t,d,n,chunk,dtypes", [
+    (2, 300, 64, 16, 64, ("f16",) * 5),                       # TMA in float16
+    (2, 300, 203, 16, 64, ("f16",) * 5),                      # odd rows: plain loads
+    (4, 32, 128, 8, 8, ("f16",) * 5),                         # reduced hymba's node slice
+    (1, 77, 48, 5, 64, ("f16",) * 5),                         # N = 5 on the 8 instance
+    (1, 77, 48, 32, 64, ("f16",) * 5),                        # the 32 instance
+    (1, 77, 48, 64, 64, ("f16",) * 5),                        # the 64 instance
+    (2, 100, 64, 16, 64, ("f16", "f32", "bf16", "f16", "f32")),  # mixed dtypes
+])
+def test_ssm_f16_matches_plain_version(cuda_device, b, t, d, n, chunk, dtypes):
+    """float16 (and float16 among mixed dtypes) forward and backward through
+    ``ssm_scan``: the plain version on the inputs widened under the float16
+    rule, two backward calls the same bits, and a float16 call's outputs
+    and gradients the float32-copy call's rounded, bit for bit."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    kinds = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    u, dt, bt, ct, log_a = _ssm_inputs(b, t, d, cuda_device, n=n, seed=31)
+    x = [a.to(kinds[k]) for a, k in zip((u, dt, bt, ct, log_a), dtypes)]
+    dy = torch.randn(b, t, d, device=cuda_device).to(x[0].dtype)
+    dh = torch.randn(b, d, n, device=cuda_device)
+
+    def call(*leaves):
+        return ssm_scan(*leaves, chunk=chunk)
+
+    leaves = [a.clone().requires_grad_() for a in x]
+    before = dict(ssm_scan.launches_by_instance)
+    (y, h), grads = _reach_grads(call, leaves, (dy, dh))
+    (_, _), again = _reach_grads(call, leaves, (dy, dh))
+    torch.cuda.synchronize()
+    assert y.dtype == x[0].dtype and h.dtype == torch.float32
+    assert all(g.dtype == a.dtype for g, a in zip(grads, x))
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    common = "f16" if set(dtypes[:4]) == {"f16"} else "f32"
+    key = (common, ssm_ops.instance(n))
+    assert ssm_scan.launches_by_instance[key] > before.get(key, 0), key
+    wide = [a.float() for a in x]
+    want_y, want_h = selective_scan_ref(wide[0], wide[1], wide[4], wide[2], wide[3])
+    _reach_close(y, want_y, SSM_REL)
+    _reach_close(h, want_h, SSM_REL)
+    for g, w in zip(grads, ssm_scan_backward_ref(*wide, dy.float(), dh)):
+        _reach_close(g, w, BWD_KERNEL_REL)
+    if common == "f16":
+        leaves32 = [a.float().requires_grad_() for a in x]
+        (y32, h32), grads32 = _reach_grads(call, leaves32, (dy.float(), dh))
+        assert torch.equal(y, y32.half()) and torch.equal(h, h32)
+        assert all(torch.equal(g, g32.to(a.dtype)) for g, g32, a in zip(grads, grads32, x))
+
+
+@pytest.mark.parametrize("b,t,h,k,chunk,dtypes", [
+    (2, 300, 4, 64, 64, ("f16",) * 5),                   # 8-byte loads, widened
+    (4, 32, 4, 32, 16, ("f16",) * 5),                    # reduced rwkv6's node slice
+    (2, 300, 4, 20, 32, ("f16",) * 5),                   # the 32 instance, zero-padded
+    (1, 200, 2, 128, 48, ("f16",) * 5),                  # the 128 instance
+    (2, 100, 2, 64, 32, ("f16", "f32", "f16", "bf16", "f32")),  # mixed dtypes
+])
+def test_wkv_f16_matches_plain_version(cuda_device, b, t, h, k, chunk, dtypes):
+    kinds = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    args = _wkv_inputs(b, t, h, cuda_device, k=k, seed=32)
+    x = [a.to(kinds[kd]) for a, kd in zip(args, dtypes)]
+    d_out = torch.randn(b, t, h, k, device=cuda_device).to(x[0].dtype)
+    d_state = torch.randn(b, h, k, k, device=cuda_device)
+
+    def call(*leaves):
+        return wkv(*leaves, chunk=chunk)
+
+    leaves = [a.clone().requires_grad_() for a in x]
+    (out, state), grads = _reach_grads(call, leaves, (d_out, d_state))
+    (_, _), again = _reach_grads(call, leaves, (d_out, d_state))
+    torch.cuda.synchronize()
+    assert out.dtype == x[0].dtype and state.dtype == torch.float32
+    assert all(g.dtype == a.dtype for g, a in zip(grads, x))
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    wide = [a.float() for a in x]
+    want_out, want_state = wkv_chunked(*wide, chunk=chunk)
+    _reach_close(out, want_out, WKV_REL)
+    _reach_close(state, want_state, WKV_REL)
+    for g, w in zip(grads, wkv_backward_ref(*wide, d_out.float(), d_state)):
+        _reach_close(g, w, BWD_KERNEL_REL)
+    if set(dtypes) == {"f16"}:
+        leaves32 = [a.float().requires_grad_() for a in x]
+        (o32, s32), grads32 = _reach_grads(call, leaves32, (d_out.float(), d_state))
+        assert torch.equal(out, o32.half()) and torch.equal(state, s32)
+        assert all(torch.equal(g, g32.half()) for g, g32 in zip(grads, grads32))
+
+
+def test_f16_launches_count_by_dtype_and_instance(cuda_device):
+    """launches_by_instance keys read ("f16", ...) for float16 calls."""
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v, do = _bwd_inputs(cuda_device, torch.float16, 1, 40, 40, 4, 4, 40)
+    before = flash_attention.launches_by_instance[("f16", 64, 64)]
+    flash_attention(q, k, v)
+    assert flash_attention.launches_by_instance[("f16", 64, 64)] == before + 1
+    assert ops.uses_wgmma(torch.float16, 40, 40)
+    u, dt, bt, ct, log_a = _ssm_inputs(1, 40, 32, cuda_device, n=16, seed=33)
+    before = ssm_scan.launches_by_instance[("f16", 16)]
+    ssm_scan(*(a.half() for a in (u, dt, bt, ct, log_a)), chunk=64)
+    assert ssm_scan.launches_by_instance[("f16", 16)] == before + 1
+    r, kk, vv, lw, uu = _wkv_inputs(1, 40, 2, cuda_device, k=64, seed=33)
+    before = wkv.launches_by_instance[("f16", 64)]
+    wkv(*(a.half() for a in (r, kk, vv, lw, uu)), chunk=32)
+    assert wkv.launches_by_instance[("f16", 64)] == before + 1

@@ -3,11 +3,12 @@
 For each arch in ``ARCHS``, at its reduced config (what the training CLI,
 the examples and the dry run build by default) and at its published one,
 each call its full-sequence forward and ``train_forward`` make into a
-kernel must lie inside the wrapper's reach: flash attention's
-``HEAD_DIMS[dtype]`` holds (Dqk, Dv); the WKV kernel's and the selective
-scan's ``reach_error`` (their predicates: head sizes to 128 and chunks to
-``MAX_CHUNK``, ``MAX_CHUNK_K128`` past 64; any state size and chunk,
-float32 or bfloat16) has nothing against the call.  On the card a call
+kernel must lie inside the wrapper's reach: the ``reach_error`` of flash
+attention (its predicate: head dims to ``MAX_HEAD_DIM``, float32,
+bfloat16 or float16; a pair off ``HEAD_DIMS[dtype]`` runs on the smallest
+instance that holds it), of the WKV kernel (head sizes to 128 and chunks
+to ``MAX_CHUNK``, ``MAX_CHUNK_K128`` past 64) and of the selective scan
+(any state size and chunk) has nothing against the call.  On the card a call
 outside the reach raises, so a config added with a shape no instance takes
 fails here, on the CPU, first.
 
@@ -97,8 +98,9 @@ def uncovered(entries):
     for kind, *dims in sorted(entries, key=str):
         if kind == "flash":
             dtype, dqk, dv = dims
-            if (dqk, dv) not in flash_ops.HEAD_DIMS.get(dtype, ()):
-                missing.append(f"flash {dtype} {(dqk, dv)} not in HEAD_DIMS")
+            why = flash_ops.reach_error(dtype, dqk, dv)
+            if why:
+                missing.append(f"flash {dtype} {(dqk, dv)}: {why}")
         elif kind == "wkv":
             k, chunk = dims
             why = wkv_ops.reach_error(torch.float32, k, chunk)
@@ -132,12 +134,12 @@ def test_every_kernel_entry_has_a_cuda_instance(arch, width):
 
 
 @pytest.mark.parametrize("entry,table", [
-    (("flash", torch.bfloat16, 24, 24), "HEAD_DIMS"),
-    (("flash", torch.float16, 64, 64), "HEAD_DIMS"),
+    (("flash", torch.bfloat16, 320, 320), "MAX_HEAD_DIM"),
+    (("flash", torch.float64, 64, 64), "DTYPES"),
     (("wkv", 160, 16), "HEAD_SIZES"),
     (("wkv", 64, 256), "MAX_CHUNK"),
     (("wkv", 128, 96), "MAX_CHUNK_K128"),
-    (("scan", torch.float16, 16, 8), "DTYPES"),
+    (("scan", torch.float64, 16, 8), "DTYPES"),
 ])
 def test_an_uncovered_entry_is_named(entry, table):
     """A shape outside the reach is reported with the limit it passed."""

@@ -3,11 +3,11 @@ the Pallas kernels take, the port's ``ssm_scan`` and ``wkv`` take too.
 
 Each port entry on CPU tensors (its plain version on inputs widened to
 float32 first) is held against the JAX package's Pallas kernel in
-interpret mode on the same inputs: bfloat16 inputs (y or out in the
-input's dtype, the state float32), state sizes from 1 to past the 64 of
-one launch, a chunk of 256 over a padded T, mixed dtypes; head sizes from
-8 to 96, chunks of 100 and 128.  Their gradients on bfloat16 inputs are
-held against ``jax.grad`` of the reference's plain forms
+interpret mode on the same inputs: bfloat16 and float16 inputs (y or out
+in the input's dtype, the state float32), state sizes from 1 to past the
+64 of one launch, a chunk of 256 over a padded T, mixed dtypes; head sizes
+from 8 to 96, chunks of 100 and 128.  Their gradients on bfloat16 and
+float16 inputs are held against ``jax.grad`` of the reference's plain forms
 (``repro.models.hymba.selective_scan``, ``repro.models.rwkv6.wkv_chunked``)
 on the same values widened.  hymba-1.5b's scan call site, which hands the
 kernel the config's bf16 tensors, gives the logits and parameter gradients
@@ -15,9 +15,9 @@ of the float32-copy call site before it, bit for bit.
 
 Tolerances: float32 outputs and every state max abs err <= REL * max(1,
 max |ref|) (REL = 1e-5 for the forwards, the kernel files' own; 1e-4 for
-the gradients, the backward files'); a bfloat16 output or gradient must
-equal the reference rounded to bfloat16 or lie one bfloat16 step (its
-ulp) away, beyond that same float32 tolerance.  The CUDA kernels are held
+the gradients, the backward files'); a bfloat16 or float16 output or
+gradient must equal the reference rounded to its dtype or lie one step of
+that dtype (its ulp) away, beyond that same float32 tolerance.  The CUDA kernels are held
 against the plain versions on the card by ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``.
 """
@@ -42,9 +42,11 @@ REL = 1e-5
 GRAD_REL = 1e-4
 
 # b, t, d, n, chunk, dtypes of (u, dt, b_t, c_t, log_a)
-F32, BF16 = "float32", "bfloat16"
+F32, BF16, F16 = "float32", "bfloat16", "float16"
 SCAN_CASES = {
     "bf16-n16-d37": (2, 40, 37, 16, 16, (BF16,) * 5),
+    "f16-n16-d37": (2, 40, 37, 16, 16, (F16,) * 5),
+    "f16-n5": (1, 30, 8, 5, 16, (F16,) * 5),
     "f32-n1": (1, 30, 8, 1, 16, (F32,) * 5),
     "f32-n5": (1, 30, 8, 5, 16, (F32,) * 5),
     "f32-n12": (1, 30, 8, 12, 16, (F32,) * 5),
@@ -53,6 +55,7 @@ SCAN_CASES = {
     "f32-n72": (1, 30, 8, 72, 16, (F32,) * 5),
     "f32-chunk256-t300": (1, 300, 8, 16, 256, (F32,) * 5),
     "mixed": (2, 40, 16, 16, 16, (BF16, F32, BF16, F32, F32)),
+    "mixed-f16": (2, 40, 16, 16, 16, (F16, F32, BF16, F16, F32)),
 }
 # b, t, h, k, chunk, dtype.  Past chunk 64 the log-decays are drawn weaker
 # (``_wkv_inputs``): the chunked form's mid-point factors exp(L_C / 2) at
@@ -60,6 +63,8 @@ SCAN_CASES = {
 # the reference's form as in the port's.
 WKV_CASES = {
     "bf16-k64": (1, 40, 2, 64, 16, BF16),
+    "f16-k64": (1, 40, 2, 64, 16, F16),
+    "f16-k20": (1, 40, 2, 20, 16, F16),
     "f32-k8": (1, 40, 2, 8, 16, F32),
     "f32-k20": (1, 40, 2, 20, 16, F32),
     "f32-k48": (1, 40, 2, 48, 16, F32),
@@ -93,20 +98,27 @@ def _np(x):
     return np.array(jnp.asarray(x).astype(jnp.float32))
 
 
+# Significand bits of each 16-bit dtype (the implicit one included).
+BITS16 = {torch.bfloat16: 8, torch.float16: 11}
+
+
 def _close(got, want, rel=REL):
-    """The float32 rule for float32 ``got``; for bfloat16 ``got`` each
-    element equal to ``want`` rounded to bfloat16 or one bfloat16 step
-    away, beyond the float32 tolerance."""
+    """The float32 rule for float32 ``got``; for bfloat16 or float16 ``got``
+    each element equal to ``want`` rounded to that dtype or one step of it
+    (its ulp, at least the smallest subnormal's) away, beyond the float32
+    tolerance."""
     g, w = _np(got), _np(want)
     assert g.shape == w.shape
     tol = rel * max(1.0, float(np.abs(w).max()))
-    if isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16:
-        r16 = torch.from_numpy(w).to(torch.bfloat16).float()
+    if isinstance(got, torch.Tensor) and got.dtype in BITS16:
+        r16 = torch.from_numpy(w).to(got.dtype).float()
         _, e = torch.frexp(r16)
-        ulp = torch.where(r16 == 0, torch.zeros_like(r16), torch.ldexp(torch.ones_like(r16), e - 8))
+        ulp = torch.where(r16 == 0, torch.zeros_like(r16),
+                          torch.ldexp(torch.ones_like(r16), e - BITS16[got.dtype]))
+        ulp = ulp.clamp(min=torch.finfo(got.dtype).smallest_normal * torch.finfo(got.dtype).eps)
         excess = ((torch.from_numpy(g) - r16).abs() - tol).clamp(min=0.0)
-        steps = float((excess / ulp.clamp(min=torch.finfo(torch.float32).tiny)).max())
-        assert steps <= 1.0, f"{steps:.2f} bf16 steps off the reference rounded"
+        steps = float((excess / ulp).max())
+        assert steps <= 1.0, f"{steps:.2f} {got.dtype} steps off the reference rounded"
         return
     err = float(np.abs(g - w).max())
     assert err <= tol, f"max abs err {err:.3e} > {tol:.3e}"
@@ -181,14 +193,14 @@ def test_wkv_matches_pallas_interpret(wkv_refs, name):
     _close(state, want_state)
 
 
-def test_scan_gradients_on_bf16_inputs_match_jax_grad():
-    """Every gradient of ``ssm_scan`` on bf16 inputs (each in its input's
-    dtype) against ``jax.grad`` of the reference's plain chunked scan on
-    the same values widened."""
-    case = SCAN_CASES["bf16-n16-d37"]
+def _scan_gradients_match_jax_grad(name, dtype):
+    """Every gradient of ``ssm_scan`` on the case's inputs (each in its
+    input's dtype) against ``jax.grad`` of the reference's plain chunked
+    scan on the same values widened."""
+    case = SCAN_CASES[name]
     x, dtypes, dy, dh = _scan_inputs(case)
     leaves = [_to_torch(a, dt).requires_grad_() for a, dt in zip(x, dtypes)]
-    dy_t = _to_torch(dy, BF16)
+    dy_t = _to_torch(dy, dtype)
     y, h = ssm_scan(*leaves, chunk=case[4])
     grads = torch.autograd.grad((y, h), leaves, (dy_t, torch.from_numpy(dh)))
 
@@ -199,14 +211,14 @@ def test_scan_gradients_on_bf16_inputs_match_jax_grad():
     wide = [jnp.asarray(_np(leaf)) for leaf in leaves]
     want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*wide)
     for g, w in zip(grads, want):
-        assert g.dtype == torch.bfloat16
+        assert g.dtype == getattr(torch, dtype)
         _close(g, w, GRAD_REL)
 
 
-def test_wkv_gradients_on_bf16_inputs_match_jax_grad():
-    """Every gradient of ``wkv`` on bf16 inputs against ``jax.grad`` of the
-    reference's ``wkv_chunked`` on the same values widened."""
-    case = WKV_CASES["bf16-k64"]
+def _wkv_gradients_match_jax_grad(name):
+    """Every gradient of ``wkv`` on the case's inputs against ``jax.grad``
+    of the reference's ``wkv_chunked`` on the same values widened."""
+    case = WKV_CASES[name]
     x, dtype, dout, ds = _wkv_inputs(case)
     leaves = [_to_torch(a, dtype).requires_grad_() for a in x]
     dout_t = _to_torch(dout, dtype)
@@ -220,17 +232,35 @@ def test_wkv_gradients_on_bf16_inputs_match_jax_grad():
     wide = [jnp.asarray(_np(leaf)) for leaf in leaves]
     want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*wide)
     for g, w in zip(grads, want):
-        assert g.dtype == torch.bfloat16
+        assert g.dtype == getattr(torch, dtype)
         _close(g, w, GRAD_REL)
+
+
+def test_scan_gradients_on_bf16_inputs_match_jax_grad():
+    _scan_gradients_match_jax_grad("bf16-n16-d37", BF16)
+
+
+def test_wkv_gradients_on_bf16_inputs_match_jax_grad():
+    _wkv_gradients_match_jax_grad("bf16-k64")
+
+
+def test_scan_gradients_on_f16_inputs_match_jax_grad():
+    """float16, which the parent's wrapper refused on every device."""
+    _scan_gradients_match_jax_grad("f16-n16-d37", F16)
+
+
+def test_wkv_gradients_on_f16_inputs_match_jax_grad():
+    _wkv_gradients_match_jax_grad("f16-k64")
 
 
 @pytest.mark.parametrize("n", [1, 5, 8, 12, 16, 24, 40, 64, 72, 130])
 def test_every_state_size_is_inside_the_reach(n):
-    """Any N runs on an instance (past 64 as groups of 64), in float32 and
-    bfloat16; float16 stays outside, named."""
+    """Any N runs on an instance (past 64 as groups of 64), in float32,
+    bfloat16 and float16; float64 stays outside, named."""
     assert ssm_ops.reach_error(torch.float32, n, 256) is None
     assert ssm_ops.reach_error(torch.bfloat16, n, 1) is None
-    assert "DTYPES" in ssm_ops.reach_error(torch.float16, n, 64)
+    assert ssm_ops.reach_error(torch.float16, n, 64) is None
+    assert "DTYPES" in ssm_ops.reach_error(torch.float64, n, 64)
     groups = ssm_ops._groups(n)
     assert [g.stop - g.start for g, _ in groups] == [min(64, n - s) for s in range(0, n, 64)]
     assert all(cols.stop - cols.start == ssm_ops.instance(g.stop - g.start) for g, cols in groups)
@@ -244,7 +274,8 @@ def test_wkv_reach_names_its_limits(k, chunk, why):
     got = wkv_ops.reach_error(torch.float32, k, chunk)
     assert (got is None) if why is None else (why in got)
     assert wkv_ops.reach_error(torch.bfloat16, k, chunk) == got
-    assert "DTYPES" in wkv_ops.reach_error(torch.float16, k, chunk)
+    assert wkv_ops.reach_error(torch.float16, k, chunk) == got
+    assert "DTYPES" in wkv_ops.reach_error(torch.float64, k, chunk)
 
 
 def test_hymba_bf16_call_site_matches_the_float32_copies_bit_for_bit():
@@ -306,3 +337,22 @@ def test_wkv_zero_channel_padding_keeps_each_channel(k):
                                    wkv_ops._square(d_state, ki))
     for g, w in zip(got, want):
         _close(wkv_ops._channels(g, k), w, GRAD_REL)
+
+
+@pytest.mark.parametrize("entry", ["wkv", "ssm_scan"])
+def test_cuda_route_names_a_dtype_it_does_not_take(entry):
+    """The dtype check lives in the CUDA route's ``reach_error``: float64
+    is refused there, named, while the CPU route takes it as the reference
+    does (the plain version widens every input)."""
+    if entry == "wkv":
+        ops, args = wkv_ops, (torch.float64, 64, 16)
+    else:
+        ops, args = ssm_ops, (torch.float64, 16, 16)
+    assert "DTYPES" in ops.reach_error(*args)
+    if entry == "wkv":
+        x, _, _, _ = _wkv_inputs(WKV_CASES["f32-k8"])
+        out, state = wkv(*[torch.from_numpy(a).double() for a in x], chunk=16)
+    else:
+        x, _, _, _ = _scan_inputs(SCAN_CASES["f32-n5"])
+        out, state = ssm_scan(*[torch.from_numpy(a).double() for a in x], chunk=16)
+    assert out.dtype == torch.float64 and state.dtype == torch.float32

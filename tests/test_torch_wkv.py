@@ -114,6 +114,17 @@ def test_scan_keeps_bfloat16_output_dtype():
     assert out.dtype == torch.bfloat16 and state.dtype == torch.float32
 
 
+def test_wrapper_takes_float16_as_the_reference_does():
+    """float16, which the Pallas kernel widens, runs on the CPU route: out
+    in r's dtype, the state float32, the values of the float32 call."""
+    r, kk, v, lw, u, _ = _inputs(1, 20, 2, 16, seed=3)
+    half = [torch.from_numpy(x).half() for x in (r, kk, v, lw, u)]
+    out, state = wkv(*half, chunk=8)
+    want_out, want_state = wkv(*[x.float() for x in half], chunk=8)
+    assert out.dtype == torch.float16 and state.dtype == torch.float32
+    assert torch.equal(out, want_out.half()) and torch.equal(state, want_state)
+
+
 @pytest.mark.parametrize(
     "shapes, dtype, kwargs",
     [
@@ -121,10 +132,9 @@ def test_scan_keeps_bfloat16_output_dtype():
         (((1, 8, 2, 16),) * 4 + ((3, 16),), torch.float32, {}),                    # u shape
         (((8, 2, 16),) * 4 + ((2, 16),), torch.float32, {}),                       # rank
         (((1, 0, 2, 16),) * 4 + ((2, 16),), torch.float32, {}),                    # T = 0
-        (((1, 8, 2, 16),) * 4 + ((2, 16),), torch.float16, {}),                    # dtype
         (((1, 8, 2, 16),) * 4 + ((2, 16),), torch.float32, {"chunk": 0}),
     ],
-    ids=["log_w-shape", "u-shape", "rank", "empty-T", "f16", "chunk-0"],
+    ids=["log_w-shape", "u-shape", "rank", "empty-T", "chunk-0"],
 )
 def test_wrapper_rejects_bad_calls(shapes, dtype, kwargs):
     r, k, v, lw, u = (torch.zeros(s, dtype=dtype) for s in shapes)

@@ -5,7 +5,7 @@ the model forwards that call it, on one CUDA card.
     python3 tools/kernel_compare.py --kernel KERNEL [--src DIR] [--label NAME] [--rows mma]
                                     [--cases NAME,...]
 
-with KERNEL one of flash, flash_bwd, wkv, ssm, wkv_bwd, ssm_bwd.
+with KERNEL one of flash, flash_bwd, wkv, ssm, wkv_bwd, ssm_bwd, reach.
 
 ``--src`` is the ``src/`` directory whose ``repro_torch`` is timed (default
 this checkout's); its kernels build into that checkout's ``build/kernels/``.
@@ -41,6 +41,15 @@ and no forward tile states is counted so); then one node step of
 full-width rwkv6-7b at 12 layers or hymba-1.5b (bf16, remat on, seeded
 random weights) at b=34 of padded b=40, S=512, by
 ``chip_smoke.node_step_row``, with each kernel's part.
+
+``--kernel reach``: each case of phases 34 and 35 is timed in a process
+of its own, away from the whole run's lost profile windows: the scan and
+WKV cases (``chip_smoke.REACH_SSM_CASES``, ``REACH_WKV_CASES``,
+``FLASH_REACH_SSM_CASES``, ``FLASH_REACH_WKV_CASES``) forward and
+backward by ``chip_smoke.reach_row``, the flash cases
+(``FLASH_REACH_CASES``) by ``flash_case`` and ``flash_bwd_case``, each
+float16 one beside its bf16 twin (the same shape in bf16), those phases'
+own timing with their errors.
 
 ``--kernel ssm``: each row of ``chip_smoke.SSM_CASES`` is timed by
 ``chip_smoke.ssm_case``, the scan phase's own timing (errors, L2-cold
@@ -78,6 +87,7 @@ FORWARDS = {
     "ssm": (("hymba-1.5b", 1024, chip_smoke.SSM_PROFILE_PREFIX),),
     "wkv_bwd": (),
     "ssm_bwd": (),
+    "reach": (),
 }
 # backward kernel -> (cases, case function, the node step's arch and layers)
 BACKWARDS = {
@@ -118,6 +128,28 @@ def kernel_rows(torch, kernel: str, label: str, rows: str, only=None) -> None:
                 print(json.dumps({"label": label, "case": case[0], **row}), flush=True)
         if rows == "all":
             node_step(torch, label)
+        return
+    if kernel == "reach":
+        from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+        gen = torch.Generator(device=dev).manual_seed(35)
+        for case in filter(chosen, chip_smoke.FLASH_REACH_CASES):
+            twins = [case] + ([(case[0] + " (bf16 twin)", *case[1:5], "bf16", *case[6:])]
+                              if case[5] == "f16" else [])
+            for c in twins:
+                row = {"forward": chip_smoke.flash_case(torch, flash_attention, attention_ref,
+                                                        c, gen),
+                       "backward": chip_smoke.flash_bwd_case(torch, c, gen)}
+                print(json.dumps({"label": label, "case": f"flash {c[0]}", **row}), flush=True)
+        gen = torch.Generator(device=dev).manual_seed(34)
+        cases = ([("ssm", c) for c in chip_smoke.REACH_SSM_CASES + chip_smoke.FLASH_REACH_SSM_CASES]
+                 + [("wkv", c) for c in chip_smoke.REACH_WKV_CASES
+                    + chip_smoke.FLASH_REACH_WKV_CASES])
+        for family, case in cases:
+            if chosen(case):
+                row = chip_smoke.reach_row(torch, family, case, gen)
+                print(json.dumps({"label": label, "case": f"{family} {case[0]}", **row}),
+                      flush=True)
         return
     if kernel in BACKWARDS:
         from repro_torch.kernels import ssm_scan

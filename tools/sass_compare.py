@@ -2,14 +2,19 @@
 """Compare the machine code (SASS) of two versions of one kernel source,
 kernel by kernel, on a machine with the CUDA toolkit.
 
-    python3 tools/sass_compare.py OLD.cu NEW.cu [--out DIR]
+    python3 tools/sass_compare.py OLD.cu NEW.cu [--out DIR] [--new-defines "-DNAME=VALUE ..."]
 
 Each source is compiled with the port's own flags (``build.NVCC_FLAGS``,
-``-cubin`` in place of ``-shared``) for sm_90a.  Every kernel of OLD is
-paired with the kernel of NEW of the same name and template arguments,
-or, where NEW added template arguments at the end, with the instance
-whose added arguments are ``float`` or ``false`` (the float32 instance
-of a kernel that gained an element type).  For each pair one JSON line:
+``-cubin`` in place of ``-shared``; NEW with ``--new-defines``, by default
+none, so that the flash source builds every element type; with
+``-DFLASH_ELEM=<code>`` one library's, as the port loads it) for sm_90a.  Every kernel of OLD is paired
+with the kernel of NEW of the same name and template arguments; where NEW
+added template arguments at the end, with the instance whose added
+arguments are ``float`` or ``false`` (the float32 instance of a kernel
+that gained an element type), or else ``__nv_bfloat16`` (a bfloat16-only
+kernel that gained one); where a ``bool`` bfloat16 flag became the
+element type, with the instance whose flag ``true`` / ``false`` reads
+``__nv_bfloat16`` / ``float``.  For each pair one JSON line:
 registers, stack frame and spill bytes as ptxas reports them, the count
 of SASS instructions of each, and how many instruction lines differ
 (addresses and encodings left out; 0: the same code); then one line for
@@ -33,6 +38,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PREFERRED = ("float", "false", "(bool)0")  # the added template arguments of a float32 instance
+BF16_ONLY = ("__nv_bfloat16",)  # ... of a kernel whose old instances were bfloat16 only
+# A bfloat16 flag that became the element type: its old value -> the type.
+FLAG_TO_TYPE = {"true": "__nv_bfloat16", "(bool)1": "__nv_bfloat16", "false": "float",
+                "(bool)0": "float"}
 
 
 def tool(nvcc: str, name: str) -> str:
@@ -120,10 +129,15 @@ def pair(old_names, new_names):
     for old in old_names:
         base, args = split(old)
         same = [n for n, (b, a) in new_split.items() if b == base and a == args]
-        longer = [n for n, (b, a) in new_split.items()
-                  if b == base and a[:len(args)] == args and len(a) > len(args)
-                  and all(x in PREFERRED for x in a[len(args):])]
-        found = same or longer
+
+        def longer(added):
+            return [n for n, (b, a) in new_split.items()
+                    if b == base and a[:len(args)] == args and len(a) > len(args)
+                    and all(x in added for x in a[len(args):])]
+
+        typed = [FLAG_TO_TYPE.get(x, x) for x in args]
+        renamed = [n for n, (b, a) in new_split.items() if b == base and a == typed != args]
+        found = same or longer(PREFERRED) or longer(BF16_ONLY) or renamed
         pairs.append((old, found[0] if len(found) == 1 else None))
     return pairs
 
@@ -133,6 +147,9 @@ def main() -> int:
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--new-defines", default="",
+                    help="nvcc -D flags for NEW, space-separated (e.g. -DFLASH_ELEM=1: the "
+                         "flash library of one element type, as ops.py builds it)")
     args = ap.parse_args()
     from repro_torch.kernels import build
 
@@ -143,9 +160,10 @@ def main() -> int:
         return 1
     versions = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, source in (("old", args.old), ("new", args.new)):
+        for label, source, defines in (("old", args.old, []),
+                                       ("new", args.new, args.new_defines.split())):
             cubin = os.path.join(tmp, f"{label}.cubin")
-            report = compile_cubin(nvcc, build.NVCC_FLAGS, source, cubin)
+            report = compile_cubin(nvcc, [*build.NVCC_FLAGS, *defines], source, cubin)
             res, code = resources(report), sass(nvcc, cubin)
             names = demangle(nvcc, sorted(code))
             versions[label] = {names[m]: (res.get(m, {}), code[m]) for m in code}
